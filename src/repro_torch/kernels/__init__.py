@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels for the MTTKRP hot spots, with plain versions.
+
+- fused_mttkrp: MTTKRP with the KRP tile formed in shared memory, never in HBM
+- matrix_free:  streaming MTTKRP -- no matricization, no KRP at all
+
+ops.py holds the wrappers (partial-KRP split, views, mode dispatch); ref.py
+the plain-torch oracles the tests compare against.  A CUDA tensor launches a
+kernel, a CPU tensor takes its plain version.
+"""
+
+from . import ops, ref
+from .fused_mttkrp import fused_mttkrp_bilinear, fused_mttkrp_bilinear_plain
+from .matrix_free import matrix_free_kernel, matrix_free_kernel_plain, matrix_free_mttkrp
+
+__all__ = [
+    "ops",
+    "ref",
+    "fused_mttkrp_bilinear",
+    "fused_mttkrp_bilinear_plain",
+    "matrix_free_kernel",
+    "matrix_free_kernel_plain",
+    "matrix_free_mttkrp",
+]

@@ -1,0 +1,89 @@
+"""Shared dispatch and tiling helpers for the kernel wrappers.
+
+Port of ``repro.kernels._tiling``.  The reference's interpret-mode switch
+has no counterpart; the rule here is :func:`use_kernel`: a tensor on the
+card launches the CUDA kernel, a tensor on the CPU takes the kernel's plain
+PyTorch version, and anything else raises.  Nothing falls back.
+
+The CUDA kernels mask ragged tile edges themselves, so the wrappers never
+pad the tensor (a padded copy of the fMRI tensor would cost 2.12 GB);
+:func:`pad_axis` stays for small operands and the tests.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+# Thread blocks to aim for per SM when a reduction is split across blocks:
+# enough blocks in flight to keep every SM streaming from HBM.
+BLOCKS_PER_SM = 4
+# Target-mode rows per thread block of both CUDA kernels (BI in
+# csrc/mttkrp_common.cuh) and the rank paddings they are compiled for
+# (padded_rank there); a larger rank is refused.
+BLOCK_ROWS = 32
+PADDED_RANKS = (4, 8, 12, 16, 24, 32, 48, 64)
+MAX_RANK = PADDED_RANKS[-1]
+
+
+def use_kernel(*tensors: Tensor) -> bool:
+    """True when every tensor lies on one CUDA device (launch the kernel),
+    False when every tensor lies on the CPU (take the plain version)."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cuda":
+        return True
+    if dev.type == "cpu":
+        return False
+    raise ValueError(f"no kernel and no plain version for device {dev}")
+
+
+def check_rank(rank: int) -> None:
+    """Raise unless the CUDA kernels are compiled for ``rank``."""
+    if not 1 <= rank <= MAX_RANK:
+        raise ValueError(f"the CUDA kernels take rank 1..{MAX_RANK}, got {rank}")
+
+
+def check_kernel_operand(name: str, t: Tensor) -> None:
+    """Raise unless ``t`` is a contiguous float32 CUDA tensor."""
+    if not t.is_cuda:
+        raise ValueError(f"{name} must lie on the card, got {t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def split_reduction(rows: int, reduce_extent: int, device) -> tuple[int, int]:
+    """``(per_split, splits)`` for a kernel whose grid is ``ceil(rows /
+    BLOCK_ROWS)`` row blocks times ``splits`` slices of an outer reduction
+    of ``reduce_extent`` steps: enough blocks for ``BLOCKS_PER_SM`` per SM,
+    no empty slice, at most 65535 slices (the grid's y limit).  Depends only
+    on the shape and the card, so a result is bitwise repeatable."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    row_blocks = math.ceil(rows / BLOCK_ROWS)
+    want = max(1, min(reduce_extent, 65535, math.ceil(BLOCKS_PER_SM * sms / row_blocks)))
+    per_split = math.ceil(reduce_extent / want)
+    return per_split, math.ceil(reduce_extent / per_split)
+
+
+def pad_axis(x: Tensor, axis: int, mult: int) -> Tensor:
+    """Zero-pad ``axis`` up to a multiple of ``mult`` (a copy when it pads)."""
+    size = x.shape[axis]
+    pad = (-size) % mult
+    if pad == 0:
+        return x
+    widths = [0, 0] * x.ndim
+    widths[2 * (x.ndim - 1 - axis) + 1] = pad  # F.pad lists the last axis first
+    return F.pad(x, widths)
+
+
+def block(dim: int, target: int) -> int:
+    """Largest block <= target; dims smaller than target use the dim itself."""
+    return min(dim, target)

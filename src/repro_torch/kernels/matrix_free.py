@@ -1,0 +1,159 @@
+"""Matrix-free MTTKRP: stream the tensor once, no KRP anywhere.
+
+Port of ``repro.kernels.matrix_free`` (``matrix_free_kernel``,
+``_fold_tile``, ``_reduction_blocks``, ``matrix_free_mttkrp``).  The tensor
+stays in its natural N-D layout -- no matricization, no view, no KRP of any
+size -- and is folded against the raw non-target factors: one contraction
+over the highest non-target mode, then one broadcast-multiply-reduce per
+remaining non-target mode.  On the card :func:`matrix_free_kernel` launches
+the CUDA kernel of ``csrc/matrix_free.cu`` (design notes there); on the CPU
+it takes :func:`matrix_free_kernel_plain`, the same fold in torch ops.
+
+Supported: every mode of order-3..6 tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence
+
+import torch
+
+from ._build import CudaKernel
+from ._tiling import (
+    BLOCK_ROWS,
+    PADDED_RANKS,
+    block,
+    check_kernel_operand,
+    check_rank,
+    split_reduction,
+    use_kernel,
+)
+
+Tensor = torch.Tensor
+
+# Indices of the contracted (highest non-target) mode per step of the CUDA
+# kernel (BR in mttkrp_common.cuh).
+BLOCK_R = 64
+# Shared memory one thread block may use on Hopper (227 KB).
+SMEM_BYTES = 232448
+
+_c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+KERNEL = CudaKernel(
+    "matrix_free.cu",
+    "matrix_free_mttkrp_f32",
+    [_ptr, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64), _int, _int,
+     _int, _c64, _int, _ptr, _ptr, _ptr],
+)
+
+
+def _fold_tile(t: Tensor, us_by_mode: dict[int, Tensor], n: int) -> Tensor:
+    """Contract every non-target mode out of ``t`` (all modes present).
+
+    The highest non-target mode goes first as one contraction, producing a
+    trailing rank axis; every remaining non-target mode is then a
+    broadcast-multiply-reduce, in descending mode order (removing an axis
+    only shifts larger ids, which are already gone).
+    """
+    live = list(range(t.ndim))
+    desc = sorted((k for k in live if k != n), reverse=True)
+    first = desc[0]
+    t = torch.tensordot(t, us_by_mode[first], dims=([live.index(first)], [0]))
+    live.remove(first)
+    for a in desc[1:]:
+        u = us_by_mode[a]
+        pos = live.index(a)
+        shape = [1] * t.ndim
+        shape[pos] = u.shape[0]
+        shape[-1] = u.shape[1]
+        t = (t * u.reshape(shape)).sum(dim=pos)
+        live.remove(a)
+    return t
+
+
+def matrix_free_kernel_plain(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
+    """The plain PyTorch version: :func:`_fold_tile` over the whole tensor."""
+    others = [k for k in range(x.ndim) if k != n]
+    return _fold_tile(x, dict(zip(others, us)), n)
+
+
+def _reduction_blocks(mode_shape: Sequence[int], n: int, rank: int) -> dict[int, int]:
+    """Per-non-target-mode block sizes of one step of the CUDA kernel.
+
+    The highest non-target mode is contracted ``BLOCK_R`` indices at a time
+    (the shared-memory tile); every other non-target mode advances one index
+    per step (its factor row scales the contracted tile).  Raises when the
+    step's shared memory -- tensor tile, factor tile, outer weights and the
+    cross-warp reduction buffer -- exceeds what a Hopper block may use.
+    Tile sizes change only the order of summation, never the result beyond
+    rounding.
+    """
+    rb = {k: 1 for k in range(len(mode_shape)) if k != n}
+    q = max(rb)
+    rb[q] = block(mode_shape[q], BLOCK_R)
+    cp = next((p for p in PADDED_RANKS if rank <= p), 4 * -(-rank // 4))
+    smem = 4 * (BLOCK_R * (BLOCK_ROWS + 1) + BLOCK_R * cp + cp + cp * BLOCK_ROWS)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"rank {rank} tile needs {smem} B of shared memory (> {SMEM_BYTES})")
+    return rb
+
+
+def matrix_free_kernel(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
+    """Matrix-free MTTKRP ``M = X_(n) . KRP(us)`` with no KRP.
+
+    ``x`` is the natural N-D tensor (order 3..6) and ``us`` the non-target
+    factors ``(I_k, C)`` in ascending mode order.  CUDA tensors launch the
+    kernel (contiguous float32 operands, rank up to 64, else it raises); CPU
+    tensors take the plain version.  Any extent is accepted: the kernel
+    masks ragged tiles, so nothing is padded.
+    """
+    big_n = x.ndim
+    others = [k for k in range(big_n) if k != n]
+    if not 3 <= big_n <= 6:
+        raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
+    if not 0 <= n < big_n:
+        raise ValueError(f"mode {n} out of range for order-{big_n} tensor")
+    if len(us) != len(others):
+        raise ValueError("need one factor per non-target mode")
+    c = us[0].shape[1]
+    for k, u in zip(others, us):
+        if u.ndim != 2 or u.shape[0] != x.shape[k] or u.shape[1] != c:
+            raise ValueError(f"mode {k}: factor {tuple(u.shape)} does not match the tensor")
+    if not use_kernel(x, *us):
+        return matrix_free_kernel_plain(x, us, n)
+    check_kernel_operand("x", x)
+    for k, u in zip(others, us):
+        check_kernel_operand(f"factor {k}", u)
+    check_rank(c)
+    _reduction_blocks(x.shape, n, c)
+    outer = math.prod(x.shape[k] for k in others[:-1])  # all but the contracted mode
+    rows = x.shape[n]
+    o_per_split, splits = split_reduction(rows, outer, x.device)
+    ws = torch.empty((splits, rows, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+    ptrs = [0] * big_n
+    for k, u in zip(others, us):
+        ptrs[k] = u.data_ptr()
+    KERNEL.launch(
+        x.data_ptr(),
+        (ctypes.c_void_p * big_n)(*ptrs),
+        (ctypes.c_int64 * big_n)(*[int(d) for d in x.shape]),
+        big_n, n, c, o_per_split, splits, ws.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return out
+
+
+def matrix_free_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+    """Matrix-free MTTKRP for any mode of an order-3..6 tensor: hands the
+    tensor in its natural layout and the raw non-target factors to
+    :func:`matrix_free_kernel`."""
+    factors = list(factors)
+    big_n = len(factors)
+    if x.ndim != big_n:
+        raise ValueError(f"x.ndim {x.ndim} != {big_n} factors")
+    if not 3 <= big_n <= 6:
+        raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
+    us = [factors[k] for k in range(big_n) if k != n]
+    return matrix_free_kernel(x, us, n).to(x.dtype)

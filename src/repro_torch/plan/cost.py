@@ -1,0 +1,310 @@
+"""Analytic per-mode / per-node cost model behind ``plan_sweep``.
+
+Port of the single-device part of ``repro.plan.cost``: :class:`ModeCost`,
+:func:`mode_cost`, :func:`node_cost`, :func:`executor_mode_cost` and
+:func:`dimtree_mode_cost` for the ``"local"`` executor, and
+:func:`validate_executor`.  The flop/byte terms are the reference's,
+term for term; seconds come from the H100 constants of
+:mod:`repro_torch.analysis.roofline` (``predicted_s = flops / PEAK_FLOPS +
+bytes / HBM_BW``).  With H100 constants a plan may legitimately choose
+other algorithms than the JAX package chooses for the same problem.
+
+Collective pricing (sharded executors, two-level meshes, compression) and
+the pairwise-perturbation prices come with the distribution and PP slices;
+the JSON rows keep their collective keys, at zero, so ``describe()`` output
+has the reference's layout.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+from repro_torch.core.mttkrp import mttkrp_flops
+from repro_torch.core.tensor_ops import dims_split
+
+from .problem import Problem
+from .schedule import ContractionNode, binary_schedule
+
+ALGORITHMS = (
+    "1step",
+    "2step",
+    "2step-left",
+    "2step-right",
+    "dimtree",
+    "fused",
+    "matrix_free",
+    "einsum",
+    "baseline",
+)
+
+# Executor kinds of the reference; only "local" exists in this slice.
+EXECUTORS = ("local", "sharded", "overlapping", "compressed")
+
+
+def validate_executor(problem: Problem, executor: str) -> None:
+    """The validity predicate for (problem, executor) pairings.
+
+    ``"local"`` runs unsharded problems; the sharded kinds belong to the
+    distribution slice of the port and raise ``NotImplementedError``.
+    """
+    if executor not in EXECUTORS:
+        raise ValueError(f"unknown executor {executor!r} (choose from {EXECUTORS})")
+    if executor != "local":
+        raise NotImplementedError(
+            f"executor {executor!r} comes with the distribution slice of the port"
+        )
+    if problem.sharded:
+        raise ValueError(
+            "executor 'local' cannot run this problem: it runs on one device "
+            "but the problem maps modes/batch to mesh axes"
+        )
+
+
+def _check_local(problem: Problem) -> None:
+    if problem.sharded or problem.batched:
+        raise NotImplementedError(
+            "sharded and batched problems are priced by the distribution and "
+            "batched slices of the port"
+        )
+
+
+@dataclass(frozen=True)
+class ModeCost:
+    """Cost terms for one contraction (a mode's MTTKRP or a schedule node).
+
+    ``gemm_flops`` / ``krp_flops`` / ``second_step_flops`` are the terms of
+    ``mttkrp_flops``; ``bytes`` is total HBM traffic including
+    intermediates.  ``measured_s`` is a hardware-measured time from the
+    tuning cache (``None`` when never measured); ``predicted_s`` stays
+    model-only and ``expected_s`` prefers the measurement.
+    """
+
+    gemm_flops: float
+    krp_flops: float
+    second_step_flops: float
+    bytes: float
+    measured_s: float | None = None
+
+    @property
+    def flops(self) -> float:
+        """Total floating-point operations across all three terms."""
+        return self.gemm_flops + self.krp_flops + self.second_step_flops
+
+    @property
+    def compute_s(self) -> float:
+        """Roofline time: flops at peak plus HBM traffic at full rate."""
+        return self.flops / PEAK_FLOPS + self.bytes / HBM_BW
+
+    @property
+    def predicted_s(self) -> float:
+        """Analytic seconds (one device: no collective to overlap)."""
+        return self.compute_s
+
+    @property
+    def expected_s(self) -> float:
+        """The measurement when one exists, the prediction otherwise."""
+        return self.predicted_s if self.measured_s is None else self.measured_s
+
+    def as_dict(self) -> dict:
+        """JSON-ready projection of all terms plus the derived predictions
+        (the reference's keys; the collective terms are zero on one device)."""
+        return {
+            "gemm_flops": self.gemm_flops,
+            "krp_flops": self.krp_flops,
+            "second_step_flops": self.second_step_flops,
+            "flops": self.flops,
+            "bytes": self.bytes,
+            "collective_bytes": 0.0,
+            "intra_bytes": 0.0,
+            "inter_bytes": 0.0,
+            "serial_fraction": 1.0,
+            "compute_s": self.compute_s,
+            "collective_s": 0.0,
+            "predicted_overlap_efficiency": 0.0,
+            "predicted_s": self.predicted_s,
+            "measured_s": self.measured_s,
+            "expected_s": self.expected_s,
+        }
+
+
+def _fused_krp_dims(local_shape, n: int) -> tuple[int, int]:
+    """Row counts of the two partial KRPs the fused kernel streams
+    (internal modes: the L/R sides; external modes: the log-balanced split
+    of :func:`repro_torch.kernels.ops.fused_mttkrp`)."""
+    L, _, R = dims_split(local_shape, n)
+    if 0 < n < len(local_shape) - 1:
+        return L, R
+    from repro_torch.kernels.ops import balanced_split
+
+    dims = [d for k, d in enumerate(local_shape) if k != n]
+    if len(dims) < 2:
+        return dims[0] if dims else 1, 1
+    s = balanced_split(dims)
+    return math.prod(dims[:s]), math.prod(dims[s:])
+
+
+def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
+    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on one device.
+
+    ``"dimtree"`` prices the mode's share of the balanced binary schedule
+    via :func:`dimtree_mode_cost`.
+    """
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r} (choose from {ALGORITHMS})")
+    _check_local(problem)
+    if algorithm == "dimtree":
+        return dimtree_mode_cost(problem, n, (problem.ndim + 1) // 2)
+    shape = problem.shape
+    c = problem.rank
+    s = problem.itemsize
+    base = mttkrp_flops(shape, c, n, itemsize=s)
+    L, In, R = dims_split(shape, n)
+    out_bytes = In * c * s
+
+    if algorithm == "2step" and not problem.external_mode(n):
+        # forced 2-step resolves its order by cost, like the Alg. 4 line-4 rule
+        left = mode_cost(problem, n, "2step-left")
+        right = mode_cost(problem, n, "2step-right")
+        return left if left.predicted_s < right.predicted_s else right
+
+    if algorithm == "1step" or (
+        problem.external_mode(n) and algorithm in ("2step", "2step-left", "2step-right")
+    ):
+        # explicit KRP: L*R*C materialized (written once, read once by the GEMM)
+        return ModeCost(
+            gemm_flops=base["gemm_flops"],
+            krp_flops=base["krp_flops"],
+            second_step_flops=0.0,
+            bytes=base["tensor_bytes"] + 2.0 * base["krp_bytes"] + out_bytes,
+        )
+    if algorithm in ("2step-left", "2step-right"):
+        second_side = R if algorithm == "2step-left" else L
+        intermediate = In * second_side * c * s
+        return ModeCost(
+            gemm_flops=base["gemm_flops"],
+            krp_flops=float((L + R) * c),
+            second_step_flops=2.0 * In * second_side * c,
+            bytes=base["tensor_bytes"] + 2.0 * intermediate + (L + R) * c * s + out_bytes,
+        )
+    if algorithm == "fused":
+        da, db = _fused_krp_dims(shape, n)
+        return ModeCost(
+            gemm_flops=base["gemm_flops"],
+            krp_flops=float((da + db) * c),
+            second_step_flops=0.0,
+            # the full KRP never hits HBM -- only the two partials stream in
+            bytes=base["tensor_bytes"] + (da + db) * c * s + out_bytes,
+        )
+    if algorithm == "matrix_free":
+        # bytes-read-once: the tensor streams through exactly once, the raw
+        # non-target factors ride along, nothing of KRP shape is written
+        others = [k for k in range(len(shape)) if k != n]
+        spatial = float(math.prod(shape)) / shape[others[-1]]
+        fold = 0.0
+        for k in reversed(others[:-1]):
+            fold += 2.0 * spatial * c
+            spatial /= shape[k]
+        factor_bytes = float(sum(shape[k] for k in others)) * c * s
+        return ModeCost(
+            gemm_flops=base["gemm_flops"],
+            krp_flops=0.0,
+            second_step_flops=fold,
+            bytes=base["tensor_bytes"] + factor_bytes + out_bytes,
+        )
+    if algorithm == "einsum":
+        return ModeCost(
+            gemm_flops=base["gemm_flops"],
+            krp_flops=0.0,
+            second_step_flops=0.0,
+            bytes=base["tensor_bytes"] + (L + In + R) * c * s + out_bytes,
+        )
+    # baseline: reorder (transpose copy: read + write) then one GEMM over the copy
+    return ModeCost(
+        gemm_flops=base["gemm_flops"],
+        krp_flops=base["krp_flops"],
+        second_step_flops=0.0,
+        bytes=3.0 * base["tensor_bytes"] + 2.0 * base["krp_bytes"] + out_bytes,
+    )
+
+
+def executor_mode_cost(
+    problem: Problem, n: int, algorithm: str, executor: str = "local"
+) -> ModeCost:
+    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on ``executor``
+    (``"local"``: the per-algorithm terms unchanged)."""
+    validate_executor(problem, executor)
+    return mode_cost(problem, n, algorithm)
+
+
+def node_cost(
+    problem: Problem,
+    node: ContractionNode,
+    executor: str | None = None,
+    *,
+    algorithm: str = "1step",
+) -> ModeCost:
+    """Cost of one schedule node's contraction on ``executor`` (default
+    ``"local"``).
+
+    * leaf off the root -- a full mode MTTKRP under ``algorithm``;
+    * internal node off the root -- one X-sized GEMM against the KRP of the
+      contracted modes, writing the partial tensor;
+    * any node off a partial -- a multi-TTV: one pass over the parent's
+      partial per contracted mode, shrinking as it goes.
+    """
+    executor = "local" if executor is None else executor
+    validate_executor(problem, executor)
+    if node.is_root:
+        raise ValueError("the schedule root is the raw tensor, not a contraction")
+    if node.from_root and node.is_leaf:
+        return executor_mode_cost(problem, node.lo, algorithm, executor)
+    _check_local(problem)
+    c = problem.rank
+    s = problem.itemsize
+    t_bytes = math.prod(node.local_shape) * s
+    if node.from_root:
+        total = math.prod(problem.shape)
+        krp_elems = (
+            math.prod(problem.shape[m] for m in node.contracted) * c
+            if node.contracted
+            else 0
+        )
+        return ModeCost(
+            gemm_flops=2.0 * total * c,
+            krp_flops=float(krp_elems),
+            second_step_flops=0.0,
+            bytes=total * s + 2.0 * krp_elems * s + t_bytes,
+        )
+    parent_elems = math.prod(problem.shape[node.parent_lo : node.parent_hi]) * c
+    ttv = 0.0
+    elems = float(parent_elems)
+    for m in node.contracted:
+        ttv += 2.0 * elems
+        elems /= problem.shape[m]
+    return ModeCost(
+        gemm_flops=0.0,
+        krp_flops=0.0,
+        second_step_flops=ttv,
+        bytes=parent_elems * s + t_bytes,
+    )
+
+
+def dimtree_mode_cost(problem: Problem, n: int, split: int) -> ModeCost:
+    """Dimension-tree cost of mode ``n`` given the half split at ``split``:
+    the mode's leaf, plus its half's partial contraction for the first mode
+    of each multi-mode half (summing over modes equals summing
+    :func:`node_cost` over the binary schedule's nodes)."""
+    sched = binary_schedule(problem, split)
+    leaf = sched.leaf_for_mode(n)
+    total = node_cost(problem, leaf, algorithm="1step")
+    if not leaf.from_root and n == leaf.parent_lo:
+        head = node_cost(problem, sched.nodes[leaf.parent])
+        total = ModeCost(
+            gemm_flops=total.gemm_flops + head.gemm_flops,
+            krp_flops=total.krp_flops + head.krp_flops,
+            second_step_flops=total.second_step_flops + head.second_step_flops,
+            bytes=total.bytes + head.bytes,
+        )
+    return total

@@ -1,0 +1,79 @@
+"""Executors: where a planned contraction actually runs.
+
+Port of the single-device part of ``repro.plan.executor``: the
+:class:`Executor` protocol, :class:`LocalExecutor` and
+:func:`make_executor`.  The sharded, overlapping and compressed executors
+come with the distribution slice of the port.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Protocol, Sequence, runtime_checkable
+
+import torch
+
+from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
+from repro_torch.core.mttkrp import mttkrp
+
+from .cost import EXECUTORS
+from .schedule import ContractionNode
+
+Tensor = torch.Tensor
+
+
+@runtime_checkable
+class Executor(Protocol):
+    """The contractions an ALS sweep needs, placement included.
+
+    The schedule walker drives everything through :meth:`contract` -- one
+    entry point per :class:`repro_torch.plan.schedule.ContractionNode`,
+    whether the node is a full mode MTTKRP, a root-level partial GEMM, or a
+    partial-to-partial multi-TTV.
+    """
+
+    def prepare(self, problem, x: Tensor, factors: Sequence[Tensor]):
+        """Place tensor + factors for this executor (identity when local)."""
+        ...
+
+    def contract(
+        self, node: ContractionNode, src: Tensor, factors: Sequence[Tensor],
+        algorithm: str = "auto", tiles: Mapping[str, int] | None = None,
+    ) -> Tensor:
+        """Run one schedule node's contraction of ``src`` (the parent's
+        output; the raw tensor for children of the root)."""
+        ...
+
+
+class LocalExecutor:
+    """Single-device execution of the paper's shared-memory algorithms on
+    whatever device the tensor lies on."""
+
+    def prepare(self, problem, x: Tensor, factors: Sequence[Tensor]):
+        """No placement needed on one device: returns inputs unchanged."""
+        return x, list(factors)
+
+    def contract(
+        self, node: ContractionNode, src: Tensor, factors: Sequence[Tensor],
+        algorithm: str = "auto", tiles: Mapping[str, int] | None = None,
+    ) -> Tensor:
+        """One schedule node: the planned MTTKRP for leaves off the root,
+        the range GEMM for internal nodes off the root, a multi-TTV einsum
+        for anything contracted from a partial."""
+        if node.from_root:
+            if node.is_leaf:
+                return mttkrp(src, list(factors), node.mode, method=algorithm, tiles=tiles)
+            return partial_mttkrp_range(src, list(factors), node.lo, node.hi)
+        sibs = {m: factors[m] for m in node.contracted}
+        return contract_from_partial(src, sibs, node.lo, node.hi, node.parent_lo)
+
+
+def make_executor(kind: str, mesh=None, mode_axes=None) -> Executor:
+    """Instantiate the executor for a planner-chosen kind (``"local"``; the
+    sharded kinds come with the distribution slice of the port)."""
+    if kind not in EXECUTORS:
+        raise ValueError(f"unknown executor kind {kind!r} (choose from {EXECUTORS})")
+    if kind != "local":
+        raise NotImplementedError(
+            f"executor {kind!r} comes with the distribution slice of the port"
+        )
+    return LocalExecutor()

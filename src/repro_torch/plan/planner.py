@@ -1,0 +1,381 @@
+"""``plan_sweep``: the single front door for ALS algorithm choice.
+
+Port of ``repro.plan.planner`` for unsharded, unbatched problems on the
+``"local"`` executor, with every strategy except ``"pp"``.  ``auto``
+cost-argmins jointly over the contraction-tree shapes of
+:func:`repro_torch.plan.schedule.enumerate_schedules` and each root leaf's
+MTTKRP algorithm (1-step / 2-step-left / 2-step-right), breaking near-ties
+(within 10%) toward the paper's Sec. 5.3.3 recommendation and the flat
+per-mode sweep; ``autotune`` argmins on hardware measurements read from the
+tuning cache wherever a comparison set is fully measured; any other
+strategy forces that algorithm on every mode of the flat schedule.
+
+Sharded, batched and pairwise-perturbation problems raise
+``NotImplementedError``: they come with the distribution, batched and PP
+slices of the port.  ``describe()`` keeps the reference's JSON layout (the
+placement, mapping and PP rows are empty or disabled here).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Mapping
+
+from .cost import ModeCost, executor_mode_cost, node_cost, validate_executor
+from .problem import Problem
+from .schedule import (
+    ContractionNode,
+    Schedule,
+    binary_schedule,
+    chain_schedule,
+    enumerate_schedules,
+    flat_schedule,
+)
+
+STRATEGIES = (
+    "auto",
+    "autotune",
+    "pp",
+    "1step",
+    "2step",
+    "2step-left",
+    "2step-right",
+    "dimtree",
+    "fused",
+    "matrix_free",
+    "einsum",
+    "baseline",
+)
+
+# Named schedule shapes accepted by ``plan_sweep(schedule=...)``.
+SCHEDULE_NAMES = ("flat", "binary", "chain")
+
+# auto prefers 2-step on internal modes unless 1-step is predicted >10%
+# cheaper, and a tree must beat the flat sweep by >10% to win: the model
+# alone decides only clear wins.
+_NEAR_TIE = 0.9
+
+
+@dataclass(frozen=True)
+class ModePlan:
+    """Algorithm choice + predicted cost for one mode's MTTKRP (leaf view)."""
+
+    mode: int
+    algorithm: str
+    cost: ModeCost
+
+    def as_dict(self) -> dict:
+        """JSON-ready row: mode, algorithm, and every cost term."""
+        return {"mode": self.mode, "algorithm": self.algorithm, **self.cost.as_dict()}
+
+
+@dataclass(frozen=True)
+class NodePlan:
+    """One schedule node's planned contraction: algorithm + predicted cost.
+
+    ``algorithm`` is a per-mode MTTKRP method for leaves off the root,
+    ``"partial-krp"`` for root-level partial GEMMs, and ``"partial-ttv"``
+    for contractions of an already-computed partial.  ``tiles`` carries a
+    tuned tile config read from the tuning cache for kernel-backed leaves.
+    """
+
+    node: ContractionNode
+    algorithm: str
+    cost: ModeCost
+    tiles: Mapping[str, int] | None = None
+
+    @property
+    def collective(self) -> str:
+        """The completing collective: ``"flat"`` (one device has none)."""
+        return "flat"
+
+    def as_dict(self) -> dict:
+        """JSON-ready row: node topology metadata + every cost term."""
+        return {
+            **self.node.as_dict(),
+            "algorithm": self.algorithm,
+            "tiles": dict(self.tiles) if self.tiles else None,
+            "collective": self.collective,
+            "lower_bound_bytes": None,
+            **self.cost.as_dict(),
+        }
+
+
+@dataclass(frozen=True)
+class SweepPlan:
+    """Planned contraction schedule for one full ALS sweep.
+
+    ``schedule`` is the contraction tree the engine walks and ``nodes`` its
+    per-node plans in evaluation order; ``modes`` is the per-mode leaf view.
+    ``split`` is the binary half boundary when the tree is the classic
+    two-partial split; ``normalize`` is part of the sweep recipe.
+    ``describe()`` is the JSON-ready prediction surface.
+    """
+
+    problem: Problem
+    strategy: str
+    modes: tuple[ModePlan, ...]
+    split: int | None = None
+    normalize: bool = True
+    executor: str = "local"
+    schedule: Schedule | None = None
+    nodes: tuple[NodePlan, ...] = ()
+
+    @property
+    def kind(self) -> str:
+        """``"dimtree"`` for tree schedules, ``"permode"`` for the flat one."""
+        if self.schedule is not None:
+            return "permode" if self.schedule.is_flat else "dimtree"
+        return "dimtree" if self.split is not None else "permode"
+
+    @property
+    def resolved_schedule(self) -> Schedule:
+        """The plan's schedule, deriving the degenerate tree for plans built
+        without one (flat, or the binary split when ``split`` is set)."""
+        if self.schedule is not None:
+            return self.schedule
+        if self.split is not None:
+            return binary_schedule(self.problem, self.split)
+        return flat_schedule(self.problem)
+
+    def node_plan(self, node_id: int) -> NodePlan:
+        """The :class:`NodePlan` of one schedule node."""
+        for np_ in self.nodes:
+            if np_.node.id == node_id:
+                return np_
+        raise ValueError(f"no plan for node {node_id}")
+
+    def total_cost(self) -> dict:
+        """Sweep-level sums of the per-contraction cost terms."""
+        rows = self.nodes if self.nodes else self.modes
+        return {
+            "flops": sum(r.cost.flops for r in rows),
+            "bytes": sum(r.cost.bytes for r in rows),
+            "collective_bytes": 0.0,
+            "intra_bytes": 0.0,
+            "inter_bytes": 0.0,
+            "predicted_s": sum(r.cost.predicted_s for r in rows),
+        }
+
+    def describe(self) -> dict:
+        """Predicted flops / HBM bytes per mode and per schedule node, plus
+        totals, in the reference's layout."""
+        return {
+            "shape": list(self.problem.shape),
+            "rank": self.problem.rank,
+            "dtype": self.problem.dtype_str,
+            "strategy": self.strategy,
+            "kind": self.kind,
+            "executor": self.executor,
+            "split": self.split,
+            "sharded": False,
+            "mode_axes": {},
+            "batch": 1,
+            "batch_axes": [],
+            "local_batch": 1,
+            "placement": "unsharded",
+            "placements": [],
+            "local_shape": list(self.problem.shape),
+            "schedule": self.resolved_schedule.name,
+            "modes": [m.as_dict() for m in self.modes],
+            "nodes": [n.as_dict() for n in self.nodes],
+            "serial_fractions": {},
+            "pp": {"enabled": False},
+            "mappings": [],
+            "lower_bound_bytes": None,
+            "certified": False,
+            "totals": self.total_cost(),
+        }
+
+
+def _auto_mode(
+    problem: Problem, n: int, node: ContractionNode, measured=None
+) -> ModePlan:
+    """Cost-model dispatch for one mode (reproduces paper Sec. 5.3.3).
+
+    With ``measured`` (``strategy='autotune'``) every candidate's hardware
+    time is stamped on its cost; when the whole candidate set is measured
+    the choice is a strict argmin over measured seconds and the kernels
+    (``fused``, ``matrix_free``) join the candidates.  A partially measured
+    set falls back to the analytic near-tie rule.
+    """
+
+    def cost(alg: str) -> ModeCost:
+        c = executor_mode_cost(problem, n, alg, "local")
+        if measured is not None:
+            m = measured.node_time(node, alg, "local")
+            if m is not None:
+                c = replace(c, measured_s=m)
+        return c
+
+    cands: dict[str, ModeCost] = {"1step": cost("1step")}
+    if not problem.external_mode(n):
+        cands["2step-left"] = cost("2step-left")
+        cands["2step-right"] = cost("2step-right")
+    for kernel_alg in ("fused", "matrix_free"):
+        if measured is not None and measured.node_time(node, kernel_alg, "local") is not None:
+            cands[kernel_alg] = cost(kernel_alg)
+    if len(cands) > 1 and all(c.measured_s is not None for c in cands.values()):
+        alg = min(cands, key=lambda a: cands[a].measured_s)
+        return ModePlan(n, alg, cands[alg])
+
+    if problem.external_mode(n):
+        return ModePlan(n, "1step", cands["1step"])
+    left, right = cands["2step-left"], cands["2step-right"]
+    # strict < keeps the Alg. 4 tie convention (L == R resolves right-first)
+    two_alg, two = (
+        ("2step-left", left) if left.predicted_s < right.predicted_s else ("2step-right", right)
+    )
+    one = cands["1step"]
+    if one.predicted_s < _NEAR_TIE * two.predicted_s:
+        return ModePlan(n, "1step", one)
+    return ModePlan(n, two_alg, two)
+
+
+def _plan_nodes(
+    problem: Problem, sched: Schedule, strategy: str, measured=None
+) -> tuple[NodePlan, ...]:
+    """NodePlans in evaluation order for one schedule."""
+    plans = []
+    for node in sched.walk():
+        if node.from_root and node.is_leaf:
+            if strategy in ("auto", "autotune"):
+                mp = _auto_mode(problem, node.mode, node, measured)
+                alg, cost = mp.algorithm, mp.cost
+            else:
+                # forced strategies pin the leaf algorithm; tree strategies
+                # route root leaves through the 1-step GEMM
+                alg = "1step" if strategy == "dimtree" else strategy
+                cost = executor_mode_cost(problem, node.mode, alg, "local")
+            tiles = None
+            if measured is not None and alg in ("fused", "matrix_free"):
+                tiles = measured.kernel_tiles("fused_mttkrp" if alg == "fused" else alg)
+            plans.append(NodePlan(node, alg, cost, tiles=tiles))
+        else:
+            alg = "partial-krp" if node.from_root else "partial-ttv"
+            cost = node_cost(problem, node, "local")
+            if measured is not None:
+                m = measured.node_time(node, alg, "local")
+                if m is not None:
+                    cost = replace(cost, measured_s=m)
+            plans.append(NodePlan(node, alg, cost))
+    return tuple(plans)
+
+
+def _resolve_schedules(
+    problem: Problem, strategy: str, split: int | None, schedule
+) -> list[Schedule]:
+    """Candidate schedules for one plan_sweep call."""
+    if isinstance(schedule, Schedule):
+        if schedule.problem != problem:
+            raise ValueError("schedule was built for a different Problem")
+        return [schedule]
+    if isinstance(schedule, str):
+        if schedule not in SCHEDULE_NAMES:
+            raise ValueError(f"unknown schedule {schedule!r} (choose from {SCHEDULE_NAMES})")
+        if schedule == "flat":
+            return [flat_schedule(problem)]
+        if schedule == "binary":
+            return [binary_schedule(problem, split)]
+        return [chain_schedule(problem)]
+    if schedule is not None:
+        raise TypeError(f"schedule must be a Schedule, a name or None, got {schedule!r}")
+    if strategy == "dimtree":
+        return [binary_schedule(problem, split)]
+    if strategy in ("auto", "autotune"):
+        return enumerate_schedules(problem)
+    return [flat_schedule(problem)]
+
+
+def plan_sweep(
+    problem: Problem,
+    strategy: str = "auto",
+    *,
+    split: int | None = None,
+    normalize: bool = True,
+    executor: str = "auto",
+    schedule: Schedule | str | None = None,
+    tuning_cache=None,
+) -> SweepPlan:
+    """Plan one full ALS sweep for an unsharded, unbatched ``problem``.
+
+    ``strategy='auto'`` cost-argmins jointly over contraction-tree shapes
+    (flat, the binary split at every boundary, the chain for order >= 4)
+    and each root leaf's algorithm; near-ties (within 10%) break toward the
+    flat per-mode sweep.  ``'autotune'`` does the same on hardware seconds
+    read from ``tuning_cache`` (the process default when ``None``) wherever
+    a comparison set is fully measured; an empty cache gives exactly
+    ``'auto'``.  ``'dimtree'`` forces the binary tree (``split`` defaults to
+    the balanced half); any other strategy forces that algorithm on every
+    mode of the flat schedule.  ``schedule`` pins the tree shape.
+    ``executor`` is ``'auto'`` or ``'local'``: the sharded kinds come with
+    the distribution slice.
+    """
+    if strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {strategy!r} (choose from {STRATEGIES})")
+    if problem.sharded or problem.batched:
+        raise NotImplementedError(
+            "sharded and batched problems come with the distribution and "
+            "batched slices of the port"
+        )
+    if strategy == "pp" or problem.pp_tol > 0.0:
+        raise NotImplementedError(
+            "pairwise-perturbation sweeps come with the PP slice of the port"
+        )
+    validate_executor(problem, "local" if executor == "auto" else executor)
+    if split is not None:
+        if strategy != "dimtree" and schedule != "binary":
+            raise ValueError(
+                "split is only meaningful for strategy='dimtree' (or schedule='binary')"
+            )
+        if not 0 < split < problem.ndim:
+            raise ValueError(f"split {split} out of range for order-{problem.ndim} tensor")
+    measured = None
+    if strategy in ("autotune", "fused", "matrix_free"):
+        # forced kernel strategies reuse tuned tile stamps; only autotune
+        # argmins on the measurements
+        from .autotune import lookup_measurements
+
+        measured = lookup_measurements(problem, cache=tuning_cache)
+
+    rows = []  # (schedule, node plans, analytic total, measured total or None)
+    for sched in _resolve_schedules(problem, strategy, split, schedule):
+        plans = _plan_nodes(problem, sched, strategy, measured)
+        pred = sum(np_.cost.predicted_s for np_ in plans)
+        meas = None
+        if measured is not None and all(np_.cost.measured_s is not None for np_ in plans):
+            meas = sum(np_.cost.measured_s for np_ in plans)
+        rows.append((sched, plans, pred, meas))
+    if measured is not None and all(r[3] is not None for r in rows):
+        best = min(rows, key=lambda r: r[3])
+    else:
+        best = rows[0]
+        for r in rows[1:]:
+            if r[2] < best[2]:
+                best = r
+        # near-tie preference: a tree must beat the flat sweep by >10% to win
+        flat_row = next((r for r in rows if r[0].is_flat), None)
+        if flat_row is not None and best[0] is not flat_row[0]:
+            if best[2] >= _NEAR_TIE * flat_row[2]:
+                best = flat_row
+    sched, node_plans = best[0], best[1]
+    modes = tuple(
+        sorted(
+            (
+                ModePlan(np_.node.mode, np_.algorithm, np_.cost)
+                for np_ in node_plans
+                if np_.node.is_leaf
+            ),
+            key=lambda mp: mp.mode,
+        )
+    )
+    return SweepPlan(
+        problem,
+        strategy,
+        modes,
+        split=sched.split,
+        normalize=normalize,
+        executor="local",
+        schedule=sched,
+        nodes=node_plans,
+    )

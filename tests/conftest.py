@@ -58,3 +58,11 @@ except ImportError:
             return stub
 
         return deco
+
+
+def pytest_configure(config):
+    """Register the one marker for tests that need an NVIDIA card (they skip,
+    with a reason, where none is attached)."""
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason where none is attached"
+    )
