@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
-Drives the port's main path -- ``Problem.from_tensor -> plan_sweep -> cp_als``
--- on the card at the size of the paper's fMRI application (225 time points x
-59 subjects x 200 x 200 regions, 2.12 GB in float32, synthetic data made from
-``--seed``), and holds both CUDA kernels against their plain PyTorch versions.
+Drives the port's two user-facing paths on the card at the size of the
+paper's fMRI application (225 time points x 59 subjects x 200 x 200 regions,
+2.12 GB in float32, synthetic data made from ``--seed``): one big tensor
+through ``Problem.from_tensor -> plan_sweep -> cp_als``, and the fleet of its
+59 per-subject tensors (225 x 200 x 200) served by ``CPService`` through
+``Problem(batch=8) -> plan_sweep -> batched cp_als``.  Holds all four CUDA
+kernels (fused and matrix-free MTTKRP, unbatched and batched) against their
+plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0] [--rank 10] [--sweeps 5]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 0. device: name, count, power limit; TF32 switched off for matmuls and cuDNN.
-1. build: both kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per source, in parallel); registers, shared memory and spills per kernel.
+1. build: all four kernel entries from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, in parallel); registers, shared memory and spills.
 2. kernels vs plain versions on the card: the fused kernel on every mode of
    the 4-way tensor (pos 0, 1 and 2); the matrix-free kernel on every mode
    of the 4-way tensor, its 3-way linearization (225 x 59 x 20100) and small
@@ -25,6 +29,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 4. timing of each kernel per mode at the main path's shapes with CUDA
    events, beside its plain version, one PyTorch einsum call and the bound
    ``max(bytes / 3.35e12, flops / 67e12)``.
+5. batched kernels vs plain versions on the card, same bound: both on every
+   mode of an 8-subject batch (8 x 225 x 200 x 200, cut from the tensor by
+   subject) and of an odd 5-subject batch, the matrix-free one also on small
+   order-4, 5 and 6 batches; slab 0's output bitwise unchanged when the other
+   slabs hold other data.
+6. serving path: ``CPService(batch_size=8, n_iters=sweeps, tol=0)`` under
+   strategies autotune (empty tuning cache: the model plans), fused and
+   matrix_free serves the 59 subjects at rank ``--rank`` plus subjects 0-7
+   again at rank 16 (a second signature), one seeded init per request shared
+   by every strategy.  Checks the serving counters (67 completed, 2
+   signatures, 2 compiles, 9 batches, 5 padded slots), the batched launch
+   counts read off each plan (3 modes x sweeps x 9 batches under the kernel
+   strategies, no unbatched launch), finite results, fits agreeing across
+   strategies within ``FIT_AGREE`` and subject 0 against the unbatched
+   ``cp_als`` on that subject alone; then ``batch_size=1`` under fused and
+   matrix_free on the 8 rank-16 requests (only the unbatched kernel, 8 x
+   sweeps x 3 launches).  Prints problems/s and ms per batch (host clock
+   over a second flush of the same fleet) and peak memory.
+7. timing of both batched kernels per mode at ``(8, 225, 200, 200)``, as in
+   phase 4, and the batched sweep's time outside the kernels.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
@@ -61,6 +85,13 @@ FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_mttkrp.cu"
 MF_SOURCE = "src/repro_torch/kernels/csrc/matrix_free.cu"
 FUSED_REPLACES = "src/repro/kernels/fused_mttkrp.py:182"
 MF_REPLACES = "src/repro/kernels/matrix_free.py:84"
+FUSED_BATCHED_REPLACES = "src/repro/kernels/fused_mttkrp.py:111"
+MF_BATCHED_REPLACES = "src/repro/kernels/matrix_free.py:157"
+# The serving fleet: one tensor per subject, served in batches of 8; a second
+# signature at rank 16 serves subjects 0-7 again.
+SERVE_BATCH = 8
+SECOND_RANK = 16
+SECOND_SUBJECTS = 8
 
 
 def _log(msg: str) -> None:
@@ -120,6 +151,131 @@ def _einsum_spec(order: int, n: int) -> str:
     return ",".join(terms) + f"->{letters[n]}c"
 
 
+def _kernel_leaves(plan, algorithm: str) -> int:
+    """Root leaves of ``plan`` that run ``algorithm`` (one launch a sweep)."""
+    return sum(1 for np_ in plan.nodes
+               if np_.node.from_root and np_.node.is_leaf and np_.algorithm == algorithm)
+
+
+def _serve_phase(torch, args, dev, smi, subjects, gen):
+    """Phase 6: serve the fleet under each strategy.  Returns the batched
+    kernels' launches under the kernel strategies and the batched sweep's
+    seconds (mean of sweeps 2.., host clock) under each of them."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
+    from repro_torch.serve import CPService
+
+    rank, sweeps = args.rank, args.sweeps
+    shape = tuple(subjects[0].shape)
+    requests = [(i, rank) for i in range(len(subjects))]
+    requests += [(i, SECOND_RANK) for i in range(SECOND_SUBJECTS)]
+    inits = {(i, r): [torch.randn((d, r), generator=gen, device=dev) for d in shape]
+             for i, r in requests}
+    n_batches = {rank: -(-len(subjects) // SERVE_BATCH), SECOND_RANK: 1}
+    padded = SERVE_BATCH * n_batches[rank] - len(subjects)
+    want_stats = {"completed": len(requests), "signatures": 2, "compiles": 2,
+                  "batches": sum(n_batches.values()), "padded_slots": padded}
+    counters = (fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL)
+
+    def submit_all(svc, reqs):
+        return [svc.submit(subjects[i], r, init_factors=inits[(i, r)]) for i, r in reqs]
+
+    fits, served_launches = {}, {}
+    for strategy in ("autotune", "fused", "matrix_free"):
+        svc = CPService(batch_size=SERVE_BATCH, n_iters=sweeps, tol=0.0, strategy=strategy,
+                        tuning_cache=TuningCache(), device=dev)
+        futs = submit_all(svc, requests)
+        torch.cuda.synchronize()
+        for k in counters:
+            k.launches = 0
+        svc.flush()
+        torch.cuda.synchronize()
+        got = tuple(k.launches for k in counters)
+        plans = {r: plan_sweep(Problem(shape, r, batch=SERVE_BATCH), strategy,
+                               tuning_cache=TuningCache()) for r in n_batches}
+        want = [0, 0, 0, 0]
+        for r, plan in plans.items():
+            want[1] += _kernel_leaves(plan, "fused") * sweeps * n_batches[r]
+            want[3] += _kernel_leaves(plan, "matrix_free") * sweeps * n_batches[r]
+            _log(f"[6] {strategy} rank {r}: schedule {plan.resolved_schedule.name} "
+                 f"nodes {[np_.algorithm for np_ in plan.nodes]}")
+        stats = svc.stats()
+        _log(f"[6] {strategy}: stats {json.dumps({k: stats[k] for k in sorted(stats)})}")
+        _log(f"[6] {strategy}: launches fused {got[0]} fused_batched {got[1]} "
+             f"matrix_free {got[2]} matrix_free_batched {got[3]} (want {want})")
+        if {k: stats[k] for k in want_stats} != want_stats:
+            raise SystemExit(f"{strategy}: serving counters {stats} != {want_stats}")
+        if list(got) != want:
+            raise SystemExit(f"{strategy}: launch counts {got} != {want}")
+        if strategy != "autotune" and max(got) != 3 * sweeps * want_stats["batches"]:
+            raise SystemExit(f"{strategy}: not every mode of every batch sweep ran the kernel")
+        served_launches[strategy] = max(got)
+        res = [f.result() for f in futs]
+        if not all(math.isfinite(r.fit) and r.sweeps == sweeps for r in res) or not all(
+            bool(torch.isfinite(u).all()) for r in res for u in r.factors
+        ):
+            raise SystemExit(f"{strategy}: non-finite served result or wrong sweep count")
+        fits[strategy] = [r.fit for r in res]
+        # subject 0 against the unbatched cp_als on that subject alone
+        one = cp_als(subjects[0], plan_sweep(Problem(shape, rank), strategy,
+                                             tuning_cache=TuningCache()),
+                     n_iters=sweeps, tol=0.0, init_factors=inits[(0, rank)])
+        d0 = abs(float(one.fit) - res[0].fit)
+        _log(f"[6] {strategy}: subject 0 served fit {res[0].fit:.7f} vs unbatched "
+             f"{float(one.fit):.7f}: |diff| {d0:.3e} (bound {FIT_AGREE:g})")
+        if d0 > FIT_AGREE:
+            raise SystemExit(f"{strategy}: served subject 0 disagrees with its unbatched run")
+        # the same fleet again, timed: the warm service (plans made)
+        submit_all(svc, requests)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        svc.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _log(f"[6] {strategy}: {len(requests) / dt:.2f} problems/s, "
+             f"{1e3 * dt / want_stats['batches']:.3f} ms per batch of {SERVE_BATCH} x {sweeps} "
+             f"sweeps (host clock, second flush of {len(requests)} requests); peak memory "
+             f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {smi}")
+    gap = max(abs(a - b) for s in ("fused", "matrix_free")
+              for a, b in zip(fits[s], fits["autotune"]))
+    _log(f"[6] per-request fit agreement across strategies: max |diff| {gap:.3e} "
+         f"(bound {FIT_AGREE:g})")
+    if gap > FIT_AGREE:
+        raise SystemExit("strategies disagree on the served fits")
+
+    # batch_size=1: every dispatch is an unbatched problem -> unbatched kernels only
+    second = [(i, SECOND_RANK) for i in range(SECOND_SUBJECTS)]
+    for strategy, own in (("fused", 0), ("matrix_free", 2)):
+        svc = CPService(batch_size=1, n_iters=sweeps, tol=0.0, strategy=strategy,
+                        tuning_cache=TuningCache(), device=dev)
+        submit_all(svc, second)
+        for k in counters:
+            k.launches = 0
+        svc.flush()
+        torch.cuda.synchronize()
+        got = [k.launches for k in counters]
+        want = [0, 0, 0, 0]
+        want[own] = len(second) * sweeps * 3
+        _log(f"[6] {strategy} batch_size=1: launches {got} (want {want})")
+        if got != want:
+            raise SystemExit(f"{strategy} batch_size=1: launch counts {got} != {want}")
+
+    # the batched sweep under each kernel strategy, for the time outside the kernels
+    xb = torch.stack(subjects[:SERVE_BATCH])
+    init = [torch.stack([inits[(i, rank)][m] for i in range(SERVE_BATCH)]) for m in range(3)]
+    sweep_s = {}
+    for strategy in ("fused", "matrix_free"):
+        secs = []
+        cp_als(xb, plan_sweep(Problem(shape, rank, batch=SERVE_BATCH), strategy,
+                              tuning_cache=TuningCache()),
+               n_iters=sweeps, tol=0.0, init_factors=init,
+               callback=lambda it, f, dt: secs.append(dt))
+        sweep_s[strategy] = sum(secs[1:]) / max(1, len(secs) - 1)
+    return served_launches, sweep_s
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -154,8 +310,9 @@ def main(argv=None) -> int:
 
     # ---- phase 1: build
     t0 = time.perf_counter()
-    _build.build_all([fm.KERNEL, mf.KERNEL])
-    _log(f"[1] built both kernels in {time.perf_counter() - t0:.1f} s")
+    kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL]
+    _build.build_all(kernels)
+    _log(f"[1] built {', '.join(k.symbol for k in kernels)} in {time.perf_counter() - t0:.1f} s")
     for k in (fm.KERNEL, mf.KERNEL):
         for line in k.ptxas_log.splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
@@ -170,13 +327,13 @@ def main(argv=None) -> int:
          f"x3 {tuple(x3.shape)} ({x3.numel() * 4 / 1e9:.2f} GB), seed {args.seed}")
 
     # ---- phase 2: kernels vs plain versions
-    err = {"fused": 0.0, "mf": 0.0}
+    err = {"fused": 0.0, "mf": 0.0, "fused_b": 0.0, "mf_b": 0.0}
 
-    def check(label, key, kern, plain):
+    def check(label, key, kern, plain, phase=2):
         rel, mabs = _rel(torch, kern, plain)
         err[key] = max(err[key], mabs)
         ok = math.isfinite(rel) and rel <= REL_ERR_BOUND
-        _log(f"[2] {label}: rel err {rel:.3e} max abs {mabs:.3e} "
+        _log(f"[{phase}] {label}: rel err {rel:.3e} max abs {mabs:.3e} "
              f"(bound {REL_ERR_BOUND:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"{label}: kernel disagrees with its plain version")
@@ -284,6 +441,92 @@ def main(argv=None) -> int:
                  f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); "
                  f"card {smi}")
 
+    # ---- phase 5: batched kernels vs plain versions (the fleet is made here, after
+    # phases 3-4, so their peak memory stays that of the single-tensor path)
+    subjects = [x4[:, s].contiguous() for s in range(FMRI[1])]  # the serving fleet
+    xb = torch.stack(subjects[:SERVE_BATCH])
+    _log(f"[5] fleet: {len(subjects)} subjects {tuple(subjects[0].shape)}; batch "
+         f"{tuple(xb.shape)} ({xb.numel() * 4 / 1e6:.0f} MB)")
+    fb = [torch.randn((SERVE_BATCH, d, rank), generator=gen, device=dev) for d in xb.shape[1:]]
+
+    def check_batched(label, x, fs, n, also_fused=True):
+        if also_fused:
+            t, a, b, pos = ops.bilinear_operands_batched(x, fs, n)
+            check(f"fused batched {label} mode {n} pos {pos} T{tuple(t.shape)}", "fused_b",
+                  fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos),
+                  fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos), 5)
+        us = [fs[k] for k in range(x.ndim - 1) if k != n]
+        check(f"matrix_free batched {label} mode {n}", "mf_b",
+              mf.matrix_free_batched_kernel(x, us, n), mf.matrix_free_batched_kernel_plain(x, us, n),
+              5)
+
+    for n in range(3):
+        check_batched(f"S={SERVE_BATCH}", xb, fb, n)
+        check_batched("S=5 (odd)", xb[:5], [f[:5] for f in fb], n)
+    for shape in ((3, 20, 15, 12, 10), (3, 12, 10, 8, 9, 11), (3, 6, 7, 5, 8, 6, 7)):
+        xs_ = torch.randn(shape, generator=gen, device=dev)
+        fs_ = [torch.randn((shape[0], d, rank), generator=gen, device=dev) for d in shape[1:]]
+        for n in range(len(shape) - 1):
+            check_batched(f"order-{len(shape) - 1} S={shape[0]}", xs_, fs_, n, also_fused=False)
+    # slab independence: slabs 1.. hold other subjects and factors
+    yb = torch.stack([subjects[0]] + [subjects[(SERVE_BATCH + k) % len(subjects)]
+                                      for k in range(SERVE_BATCH - 1)])
+    gb = [torch.cat([f[:1], torch.randn(f[1:].shape, generator=gen, device=dev)]) for f in fb]
+    for n in range(3):
+        for label, run in (("fused", ops.fused_mttkrp_batched),
+                           ("matrix_free", ops.matrix_free_mttkrp_batched)):
+            same = torch.equal(run(xb, fb, n)[0], run(yb, gb, n)[0])
+            _log(f"[5] slab 0 of {label} mode {n} bitwise unchanged by slabs 1..: "
+                 f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"{label}: slab 0 depends on the other slabs")
+    del yb, gb
+    torch.cuda.synchronize()
+
+    # ---- phase 6: the serving path
+    serve_launches, sweep_s = _serve_phase(torch, args, dev, smi, subjects, gen)
+
+    # ---- phase 7: batched kernel timing at the serving shapes
+    for n in range(3):
+        t, a, b, pos = ops.bilinear_operands_batched(xb, fb, n)
+        c = a.shape[-1]
+        spec = {0: "siab,sac,sbc->sic", 1: "saib,sac,sbc->sic", 2: "sabi,sac,sbc->sic"}[pos]
+        r = {
+            "ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos), 50),
+            "plain_ms": _time_ms(
+                torch, lambda: fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos), 10),
+            "library_ms": _time_ms(torch, lambda: torch.einsum(spec, t, a, b), 10),
+            "bytes_ms": 4 * (t.numel() + a.numel() + b.numel() + SERVE_BATCH * t.shape[1 + pos]
+                             * c) / HBM_BW * 1e3,
+            "flops_ms": 2 * t.numel() * c / PEAK_FLOPS * 1e3,
+        }
+        rows.setdefault("fused_b", []).append(r)
+        us = [fb[k] for k in range(3) if k != n]
+        letters = "abd"
+        lib_spec = ",".join(["s" + letters] + ["s" + letters[k] + "c" for k in range(3) if k != n])
+        lib_spec += f"->s{letters[n]}c"
+        r2 = {
+            "ms": _time_ms(torch, lambda: mf.matrix_free_batched_kernel(xb, us, n), 50),
+            "plain_ms": _time_ms(torch, lambda: mf.matrix_free_batched_kernel_plain(xb, us, n), 10),
+            "library_ms": _time_ms(torch, lambda: torch.einsum(lib_spec, xb, *us), 10),
+            "bytes_ms": 4 * (xb.numel() + sum(u.numel() for u in us) + SERVE_BATCH
+                             * xb.shape[1 + n] * c) / HBM_BW * 1e3,
+            "flops_ms": 2 * xb.numel() * c / PEAK_FLOPS * 1e3,
+        }
+        rows.setdefault("mf_b", []).append(r2)
+        for label, row in (("fused_mttkrp_bilinear_batched", r), ("matrix_free_batched_kernel", r2)):
+            bound = max(row["bytes_ms"], row["flops_ms"])
+            _log(f"[7] {label} S={SERVE_BATCH} mode {n}: kernel {row['ms']:.4f} ms, "
+                 f"plain {row['plain_ms']:.4f} ms, einsum {row['library_ms']:.4f} ms, "
+                 f"bound {bound:.4f} ms "
+                 f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); card {smi}")
+    for key, strategy in (("fused_b", "fused"), ("mf_b", "matrix_free")):
+        kern = sum(r["ms"] for r in rows[key])
+        sweep = 1e3 * sweep_s[strategy]
+        _log(f"[7] batched {strategy} sweep (S={SERVE_BATCH}, rank {rank}): {sweep:.3f} ms, "
+             f"of which kernels {kern:.3f} ms, outside the kernels {sweep - kern:.3f} ms; "
+             f"card {smi}")
+
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]
         b_bytes = sum(r["bytes_ms"] for r in rs)
@@ -298,11 +541,18 @@ def main(argv=None) -> int:
 
     _log(f"[4] times per sweep (one launch per mode, 4 modes), card {smi}; "
          f"whole smoke {time.perf_counter() - t_start:.1f} s")
-    _log("kernels: fused_mttkrp_bilinear, matrix_free_kernel")
+    _log(f"[7] batched times per batch sweep (one launch per mode, 3 modes, S={SERVE_BATCH}); "
+         f"whole smoke {time.perf_counter() - t_start:.1f} s")
+    _log("kernels: fused_mttkrp_bilinear, matrix_free_kernel, fused_mttkrp_bilinear_batched, "
+         "matrix_free_batched_kernel")
     print(json.dumps({"kernels": [
         summary("fused_mttkrp_bilinear", FUSED_SOURCE, FUSED_REPLACES, "fused",
                 launches["fused"][0]),
         summary("matrix_free_kernel", MF_SOURCE, MF_REPLACES, "mf", launches["matrix_free"][1]),
+        summary("fused_mttkrp_bilinear_batched", FUSED_SOURCE, FUSED_BATCHED_REPLACES, "fused_b",
+                serve_launches["fused"]),
+        summary("matrix_free_batched_kernel", MF_SOURCE, MF_BATCHED_REPLACES, "mf_b",
+                serve_launches["matrix_free"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -23,9 +23,9 @@ Tensor = torch.Tensor
 
 @dataclass
 class CPState:
-    factors: list[Tensor]
-    weights: Tensor  # lambda, shape (C,)
-    fit: Tensor  # 0-d tensor
+    factors: list[Tensor]  # (I_k, C) -- or (B, I_k, C) for batched problems
+    weights: Tensor  # lambda, shape (C,) -- or (B, C)
+    fit: Tensor  # 0-d tensor -- or shape (B,)
     it: int = 0
 
 

@@ -14,6 +14,8 @@ factor slowest).
 * :func:`krp_rowwise_scan` -- a literal port of Alg. 1's row loop.
 * :func:`krp_row_block` -- an arbitrary contiguous row block, computed
   independently (the parallel decomposition of Sec. 4.1.2).
+* :func:`krp_batched` / :func:`krp_or_ones_batched` -- :func:`krp` per entry
+  of a leading batch axis.
 """
 
 from __future__ import annotations
@@ -71,6 +73,34 @@ def krp_or_ones(
     if len(mats) == 0:
         return torch.ones((1, cols), dtype=dtype, device=device)
     return krp(mats)
+
+
+def krp_batched(mats: Sequence[Tensor]) -> Tensor:
+    """Reuse-based KRP over a leading batch axis.
+
+    Each ``mats[z]`` is ``(S, J_z, C)``; the result is ``(S, prod J_z, C)``
+    with the same row-major linearization as :func:`krp`, per batch entry
+    (each entry has its own factors, so nothing is shared across the batch).
+    """
+    if len(mats) == 0:
+        raise ValueError("KRP of zero matrices is undefined here; see krp_or_ones_batched")
+    out = mats[0]
+    for u in mats[1:]:
+        out = (out[:, :, None, :] * u[:, None, :, :]).reshape(out.shape[0], -1, u.shape[2])
+    return out
+
+
+def krp_or_ones_batched(
+    mats: Sequence[Tensor],
+    batch: int,
+    cols: int,
+    dtype: torch.dtype = torch.float32,
+    device: str | torch.device | None = None,
+) -> Tensor:
+    """Batched :func:`krp_or_ones`: ``(S, 1, C)`` ones for an empty set."""
+    if len(mats) == 0:
+        return torch.ones((batch, 1, cols), dtype=dtype, device=device)
+    return krp_batched(mats)
 
 
 def krp_row_block(mats: Sequence[Tensor], start: int, length: int) -> Tensor:

@@ -161,6 +161,43 @@ def mttkrp(
     raise ValueError(f"unknown method {method!r}")
 
 
+def mttkrp_batched(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    *,
+    method: Method = "auto",
+    tiles: Mapping[str, int] | None = None,
+) -> Tensor:
+    """MTTKRP over a leading batch axis: one call for B stacked problems.
+
+    ``x`` is ``(B, *shape)`` and each factor is ``(B, I_k, C)``; the result
+    is ``(B, I_n, C)``.  ``'fused'`` and ``'matrix_free'`` launch the batched
+    CUDA kernels (one launch for all B problems, a slab per block along the
+    grid's z axis; their plain versions for a tensor on the CPU).  The other
+    methods are ``torch.func.vmap`` of the unbatched algorithms, whose GEMMs
+    become batched GEMMs.  A kernel wrapper is never vmapped: its launch
+    takes ``data_ptr()``, which a vmapped tensor does not have.  ``tiles``
+    may carry ``block_batch`` beside the unbatched tile names; as there, it
+    is accepted and not read.
+    """
+    if method == "auto":
+        method = "1step" if n in (0, len(factors) - 1) else "2step"
+    if method == "fused":
+        from repro_torch.kernels import ops as kops
+
+        return kops.fused_mttkrp_batched(x, list(factors), n)
+    if method == "matrix_free":
+        from repro_torch.kernels import ops as kops
+
+        return kops.matrix_free_mttkrp_batched(x, list(factors), n)
+
+    def one(xb, *fb):
+        return mttkrp(xb, list(fb), n, method=method, tiles=tiles)
+
+    return torch.func.vmap(one)(x, *factors)
+
+
 def mttkrp_flops(
     shape: Sequence[int],
     rank: int,

@@ -1,9 +1,13 @@
-"""Carry CP-ALS state between the JAX package and the port, as numpy arrays.
+"""Carry CP-ALS state and served results between the JAX package and the
+port, as numpy arrays.
 
 The two packages share no array type, so a state crosses as plain numpy:
 :func:`cpstate_to_numpy` on one side, :func:`cpstate_from_numpy` on the
-other.  The reference's ``CPState`` fields (``factors``, ``weights``,
-``fit``, ``it``) convert with ``np.asarray``.
+other.  A batched state (leading ``B`` axis on every factor, ``(B, C)``
+weights, ``(B,)`` fits) crosses the same way.  :func:`cpresult_to_numpy`
+reads a served result (``CPResult``) of either package, since the
+reference's fields convert with ``np.asarray``; :func:`cpresult_from_numpy`
+builds the port's.
 """
 
 from __future__ import annotations
@@ -14,6 +18,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.cpals import CPState
+from repro_torch.serve.cp_service import CPResult
+
+
+def _numpy(a) -> np.ndarray:
+    """A port tensor or a reference array as a numpy array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def cpstate_from_numpy(
@@ -25,19 +37,51 @@ def cpstate_from_numpy(
     device: str | torch.device,
 ) -> CPState:
     """The port's :class:`CPState` from numpy factors/weights (copied onto
-    ``device``); ``fit`` defaults to 0."""
+    ``device``); ``fit`` defaults to 0 per problem (a 0-d tensor, or
+    ``(B,)`` for batched ``(B, C)`` weights)."""
     fs = [torch.tensor(np.asarray(f), device=device) for f in factors]
     w = torch.tensor(np.asarray(weights), device=device)
-    fit_t = torch.tensor(0.0 if fit is None else np.asarray(fit), dtype=w.dtype, device=device)
+    if fit is None:
+        fit_t = torch.zeros(tuple(w.shape[:-1]), dtype=w.dtype, device=device)
+    else:
+        fit_t = torch.tensor(np.asarray(fit), dtype=w.dtype, device=device)
     return CPState(factors=fs, weights=w, fit=fit_t, it=int(it))
 
 
-def cpstate_to_numpy(state: CPState) -> dict:
-    """``{"factors", "weights", "fit", "it"}`` of a port state, as numpy
-    arrays (fit a 0-d array) and an int."""
+def cpstate_to_numpy(state) -> dict:
+    """``{"factors", "weights", "fit", "it"}`` of a state of either package,
+    as numpy arrays (fit a 0-d or ``(B,)`` array) and an int."""
     return {
-        "factors": [f.detach().cpu().numpy() for f in state.factors],
-        "weights": state.weights.detach().cpu().numpy(),
-        "fit": np.asarray(state.fit.detach().cpu().numpy()),
+        "factors": [_numpy(f) for f in state.factors],
+        "weights": _numpy(state.weights),
+        "fit": np.asarray(_numpy(state.fit)),
         "it": int(state.it),
     }
+
+
+def cpresult_to_numpy(result) -> dict:
+    """The fields of a served ``CPResult`` of either package: factors and
+    weights as numpy arrays, the rest as Python scalars and strings."""
+    return {
+        "rid": int(result.rid),
+        "factors": [_numpy(f) for f in result.factors],
+        "weights": _numpy(result.weights),
+        "fit": float(result.fit),
+        "sweeps": int(result.sweeps),
+        "signature": str(result.signature),
+        "latency_s": float(result.latency_s),
+    }
+
+
+def cpresult_from_numpy(fields: dict, *, device: str | torch.device):
+    """The port's ``CPResult`` from :func:`cpresult_to_numpy` fields
+    (factors and weights copied onto ``device``)."""
+    return CPResult(
+        rid=int(fields["rid"]),
+        factors=[torch.tensor(np.asarray(f), device=device) for f in fields["factors"]],
+        weights=torch.tensor(np.asarray(fields["weights"]), device=device),
+        fit=float(fields["fit"]),
+        sweeps=int(fields["sweeps"]),
+        signature=str(fields["signature"]),
+        latency_s=float(fields["latency_s"]),
+    )

@@ -3,21 +3,40 @@
 - fused_mttkrp: MTTKRP with the KRP tile formed in shared memory, never in HBM
 - matrix_free:  streaming MTTKRP -- no matricization, no KRP at all
 
-ops.py holds the wrappers (partial-KRP split, views, mode dispatch); ref.py
-the plain-torch oracles the tests compare against.  A CUDA tensor launches a
-kernel, a CPU tensor takes its plain version.
+Each has an unbatched and a batched form (a leading slab axis: one slab per
+thread block along the grid's z axis).  ops.py holds the wrappers
+(partial-KRP split, views, mode dispatch); ref.py the plain-torch oracles
+the tests compare against.  A CUDA tensor launches a kernel, a CPU tensor
+takes its plain version.
 """
 
 from . import ops, ref
-from .fused_mttkrp import fused_mttkrp_bilinear, fused_mttkrp_bilinear_plain
-from .matrix_free import matrix_free_kernel, matrix_free_kernel_plain, matrix_free_mttkrp
+from .fused_mttkrp import (
+    fused_mttkrp_bilinear,
+    fused_mttkrp_bilinear_batched,
+    fused_mttkrp_bilinear_batched_plain,
+    fused_mttkrp_bilinear_plain,
+)
+from .matrix_free import (
+    matrix_free_batched_kernel,
+    matrix_free_batched_kernel_plain,
+    matrix_free_kernel,
+    matrix_free_kernel_plain,
+    matrix_free_mttkrp,
+    matrix_free_mttkrp_batched,
+)
 
 __all__ = [
     "ops",
     "ref",
     "fused_mttkrp_bilinear",
+    "fused_mttkrp_bilinear_batched",
+    "fused_mttkrp_bilinear_batched_plain",
     "fused_mttkrp_bilinear_plain",
+    "matrix_free_batched_kernel",
+    "matrix_free_batched_kernel_plain",
     "matrix_free_kernel",
     "matrix_free_kernel_plain",
     "matrix_free_mttkrp",
+    "matrix_free_mttkrp_batched",
 ]

@@ -38,7 +38,7 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One ``.cu`` source: its library, its C entry point, its launch count.
+    """One C entry point of a ``.cu`` source: its library, its launch count.
 
     ``launches`` counts successful launches through :meth:`launch` (a plain
     integer; callers reset it to 0 to count one run).  ``ptxas_log`` holds
@@ -115,7 +115,9 @@ class CudaKernel:
 
 
 def build_all(kernels: Sequence[CudaKernel]) -> None:
-    """Build every kernel's library in parallel: one ``nvcc`` per source."""
-    procs = [(k, k.start_build()) for k in kernels]
+    """Build every kernel's library in parallel: one ``nvcc`` per source
+    (entry points that share a source share its build)."""
+    by_source = {k.source: k for k in kernels}
+    procs = [(k, k.start_build()) for k in by_source.values()]
     for k, proc in procs:
         k.finish_build(proc)

@@ -28,6 +28,8 @@ BLOCKS_PER_SM = 4
 BLOCK_ROWS = 32
 PADDED_RANKS = (4, 8, 12, 16, 24, 32, 48, 64)
 MAX_RANK = PADDED_RANKS[-1]
+# Slabs of a batched launch: one per block along the grid's z axis.
+MAX_SLABS = 65535
 
 
 def use_kernel(*tensors: Tensor) -> bool:
@@ -60,17 +62,26 @@ def check_kernel_operand(name: str, t: Tensor) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def split_reduction(rows: int, reduce_extent: int, device) -> tuple[int, int]:
-    """``(per_split, splits)`` for a kernel whose grid is ``ceil(rows /
-    BLOCK_ROWS)`` row blocks times ``splits`` slices of an outer reduction
-    of ``reduce_extent`` steps: enough blocks for ``BLOCKS_PER_SM`` per SM,
-    no empty slice, at most 65535 slices (the grid's y limit).  Depends only
-    on the shape and the card, so a result is bitwise repeatable."""
+def split_reduction(
+    rows: int, reduce_extent: int, device, slabs: int = 1
+) -> tuple[int, int]:
+    """``(per_split, splits)`` for a kernel whose grid is ``slabs`` times
+    ``ceil(rows / BLOCK_ROWS)`` row blocks times ``splits`` slices of an
+    outer reduction of ``reduce_extent`` steps: enough blocks for
+    ``BLOCKS_PER_SM`` per SM counting every slab's row blocks, no empty
+    slice, at most 65535 slices (the grid's y limit).  Depends only on the
+    shape, the slab count and the card, so a result is bitwise repeatable."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = math.ceil(rows / BLOCK_ROWS)
+    row_blocks = slabs * math.ceil(rows / BLOCK_ROWS)
     want = max(1, min(reduce_extent, 65535, math.ceil(BLOCKS_PER_SM * sms / row_blocks)))
     per_split = math.ceil(reduce_extent / want)
     return per_split, math.ceil(reduce_extent / per_split)
+
+
+def check_slabs(slabs: int) -> None:
+    """Raise unless the CUDA kernels' slab grid axis (z) takes ``slabs``."""
+    if not 1 <= slabs <= MAX_SLABS:
+        raise ValueError(f"the CUDA kernels take 1..{MAX_SLABS} slabs, got {slabs}")
 
 
 def pad_axis(x: Tensor, axis: int, mult: int) -> Tensor:

@@ -5,8 +5,15 @@
 // with T a contiguous 3-D view of the tensor whose i-axis sits at POS:
 // POS 0 -> T[i, a, b], POS 1 -> T[a, i, b], POS 2 -> T[a, b, i].
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/fused_mttkrp.py::
-// fused_mttkrp_bilinear (body _kernel).  As there, the KRP tile
+// Replaces the Pallas TPU kernels src/repro/kernels/fused_mttkrp.py::
+// fused_mttkrp_bilinear (body _kernel) and fused_mttkrp_bilinear_batched
+// (body _kernel_batched).  The batched form computes the same per slab s of
+// a stack of S tensors, M[s, i, c] with T[s], A[s], B[s]: the slab is a grid
+// axis (blockIdx.z), each block offsets T, A, B and its workspace by the
+// slab's strides, and slabs never share a block, a partial or a sum -- a
+// slab's result depends only on its own data and on S (through the split
+// count).  The reference pads S to its block_batch; here nothing is padded.
+// As in the TPU kernels, the KRP tile
 // A[a, :] * B[b-tile, :] is formed on chip (here: in shared memory, ks below)
 // and consumed at once; the L*R x C KRP never exists in global memory.
 //
@@ -28,12 +35,19 @@
 //     repeatable results.
 //   * Ragged edges are masked in the kernel, so the tensor is never padded or
 //     copied.
+// Batched, the bound is the same per byte: a serving batch of 8 fMRI subjects
+// (8 x 225 x 200 x 200, 288 MB) must be read once per call, about 0.086 ms.
+// The split count is sized from S x row blocks, so a batch gets fewer splits
+// than a single tensor of the same size.
 // Accumulation is ordinary fp32 FMA (no TF32), as Precision.HIGHEST asks.
 #include "mttkrp_common.cuh"
 
 namespace mttkrp {
 
-template <int POS, int CP>
+// BATCHED instances read the slab from blockIdx.z; the unbatched ones are
+// compiled without any slab arithmetic (z is the constant 0), so adding the
+// batched entry leaves the unbatched kernel's code as it was.
+template <int POS, int CP, bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
     fused_bilinear_kernel(const float* __restrict__ t, const float* __restrict__ A,
                           const float* __restrict__ B, float* __restrict__ ws,
@@ -53,6 +67,10 @@ __global__ void __launch_bounds__(THREADS)
   __shared__ float ts[STAGES][BR][BI + 1];  // ring of tensor tiles; reused by the final reduction
   __shared__ __align__(16) float ks[BR][CP];
 
+  const int64_t z = BATCHED ? static_cast<int64_t>(blockIdx.z) : 0;  // slab: operands offset
+  t += z * d0 * d1 * d2;
+  A += z * da * C;
+  B += z * db * C;
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
   const int ni = static_cast<int>(imin(BI, rows - i0));
   const int64_t a0 = static_cast<int64_t>(blockIdx.y) * a_per_split;
@@ -121,32 +139,68 @@ __global__ void __launch_bounds__(THREADS)
     __syncthreads();  // ts[stage] and ks free for reuse
   }
   cp_async_wait<0>();
-  reduce_and_store<CP>(acc, &ts[0][0][0], ws + static_cast<int64_t>(blockIdx.y) * rows * C, i0,
-                       rows, C);
+  const int64_t split = z * gridDim.y + blockIdx.y;  // this slab's split
+  reduce_and_store<CP>(acc, &ts[0][0][0], ws + split * rows * C, i0, rows, C);
 }
 
-template <int POS, int CP>
-void launch(const float* t, const float* a, const float* b, float* ws, int64_t d0,
+template <int POS, int CP, bool BATCHED>
+void launch(const float* t, const float* a, const float* b, float* ws, int slabs, int64_t d0,
             int64_t d1, int64_t d2, int c, int64_t a_per_split, int splits,
             cudaStream_t stream) {
   const int64_t rows = POS == 0 ? d0 : (POS == 1 ? d1 : d2);
-  dim3 grid(static_cast<unsigned>((rows + BI - 1) / BI), static_cast<unsigned>(splits));
-  fused_bilinear_kernel<POS, CP>
+  dim3 grid(static_cast<unsigned>((rows + BI - 1) / BI), static_cast<unsigned>(splits),
+            static_cast<unsigned>(slabs));
+  fused_bilinear_kernel<POS, CP, BATCHED>
       <<<grid, THREADS, 0, stream>>>(t, a, b, ws, d0, d1, d2, c, a_per_split);
 }
 
-template <int POS>
+template <int POS, bool BATCHED>
 bool dispatch_rank(int cp, const float* t, const float* a, const float* b, float* ws,
-                   int64_t d0, int64_t d1, int64_t d2, int c, int64_t aps, int splits,
-                   cudaStream_t s) {
+                   int slabs, int64_t d0, int64_t d1, int64_t d2, int c, int64_t aps,
+                   int splits, cudaStream_t s) {
   switch (cp) {
-#define MTTKRP_CASE(CP) \
-  case CP: launch<POS, CP>(t, a, b, ws, d0, d1, d2, c, aps, splits, s); return true;
+#define MTTKRP_CASE(CP)                                                          \
+  case CP:                                                                       \
+    launch<POS, CP, BATCHED>(t, a, b, ws, slabs, d0, d1, d2, c, aps, splits, s); \
+    return true;
     MTTKRP_CASE(4) MTTKRP_CASE(8) MTTKRP_CASE(12) MTTKRP_CASE(16)
     MTTKRP_CASE(24) MTTKRP_CASE(32) MTTKRP_CASE(48) MTTKRP_CASE(64)
 #undef MTTKRP_CASE
   }
   return false;
+}
+
+// Both launches for `slabs` stacked problems; cudaGetLastError() after them.
+template <bool BATCHED>
+bool dispatch_pos(int pos, int cp, const float* t, const float* a, const float* b, float* ws,
+                  int slabs, int64_t d0, int64_t d1, int64_t d2, int c, int64_t aps,
+                  int splits, cudaStream_t s) {
+  switch (pos) {
+    case 0: return dispatch_rank<0, BATCHED>(cp, t, a, b, ws, slabs, d0, d1, d2, c, aps, splits, s);
+    case 1: return dispatch_rank<1, BATCHED>(cp, t, a, b, ws, slabs, d0, d1, d2, c, aps, splits, s);
+    case 2: return dispatch_rank<2, BATCHED>(cp, t, a, b, ws, slabs, d0, d1, d2, c, aps, splits, s);
+  }
+  return false;
+}
+
+int run(const float* t, const float* a, const float* b, float* ws, float* out, int pos,
+        bool batched, int slabs, int64_t d0, int64_t d1, int64_t d2, int c,
+        int64_t a_per_split, int splits, cudaStream_t s) {
+  const int cp = padded_rank(c);
+  if (cp == 0 || c < 1 || slabs < 1 || slabs > 65535 || (!batched && slabs != 1) ||
+      splits < 1 || splits > 65535 || a_per_split < 1 || pos < 0 || pos > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool ok = batched ? dispatch_pos<true>(pos, cp, t, a, b, ws, slabs, d0, d1, d2, c,
+                                               a_per_split, splits, s)
+                          : dispatch_pos<false>(pos, cp, t, a, b, ws, slabs, d0, d1, d2, c,
+                                                a_per_split, splits, s);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t rows = pos == 0 ? d0 : (pos == 1 ? d1 : d2);
+  launch_sum_splits(ws, out, rows * c, splits, slabs, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace mttkrp
@@ -158,21 +212,18 @@ extern "C" int fused_mttkrp_bilinear_f32(const float* t, const float* a, const f
                                          float* ws, float* out, int pos, int64_t d0,
                                          int64_t d1, int64_t d2, int c,
                                          int64_t a_per_split, int splits, void* stream) {
-  using namespace mttkrp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int cp = padded_rank(c);
-  if (cp == 0 || c < 1 || splits < 1 || splits > 65535 || a_per_split < 1 || pos < 0 ||
-      pos > 2) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  bool ok = false;
-  if (pos == 0) ok = dispatch_rank<0>(cp, t, a, b, ws, d0, d1, d2, c, a_per_split, splits, s);
-  if (pos == 1) ok = dispatch_rank<1>(cp, t, a, b, ws, d0, d1, d2, c, a_per_split, splits, s);
-  if (pos == 2) ok = dispatch_rank<2>(cp, t, a, b, ws, d0, d1, d2, c, a_per_split, splits, s);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t rows = pos == 0 ? d0 : (pos == 1 ? d1 : d2);
-  launch_sum_splits(ws, out, rows * c, splits, s);
-  return static_cast<int>(cudaGetLastError());
+  return mttkrp::run(t, a, b, ws, out, pos, false, 1, d0, d1, d2, c, a_per_split, splits,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same for `slabs` stacked problems: t: contiguous (slabs, d0, d1, d2);
+// a: (slabs, da, c); b: (slabs, db, c); ws: (slabs, splits, I, c) scratch;
+// out: (slabs, I, c).  Every slab uses the same split of its a range.
+extern "C" int fused_mttkrp_bilinear_batched_f32(const float* t, const float* a,
+                                                 const float* b, float* ws, float* out,
+                                                 int pos, int slabs, int64_t d0, int64_t d1,
+                                                 int64_t d2, int c, int64_t a_per_split,
+                                                 int splits, void* stream) {
+  return mttkrp::run(t, a, b, ws, out, pos, true, slabs, d0, d1, d2, c, a_per_split, splits,
+                     static_cast<cudaStream_t>(stream));
 }

@@ -3,8 +3,14 @@
 //
 //     M[i, c] = sum over every non-target index of x[...] * prod_k U_k[i_k, c]
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/matrix_free.py::
-// matrix_free_kernel (fold: _fold_tile).  As there, nothing of KRP shape
+// Replaces the Pallas TPU kernels src/repro/kernels/matrix_free.py::
+// matrix_free_kernel and matrix_free_batched_kernel (fold: _fold_tile).  The
+// batched form folds each slab z of a stack of S tensors against that slab's
+// own factors: the slab is a grid axis (blockIdx.z), each block offsets x,
+// every factor and its workspace by the slab's strides, and slabs never share
+// a block, a partial or a sum -- a slab's result depends only on its own data
+// and on S (through the split count).  Nothing is padded (the reference pads
+// S to its block_batch).  As in the TPU kernels, nothing of KRP shape
 // exists anywhere -- no full KRP, no partial KRP, no KRP tile: the tensor is
 // folded one non-target mode at a time.  The innermost non-target mode q
 // (the highest mode id other than the target) is contracted first, as a
@@ -28,6 +34,7 @@
 //     blocks are in flight on 132 SMs even for a short target mode.  Each
 //     split writes an (I, C) partial to a workspace and a second kernel sums
 //     the splits in a fixed order: no atomics, bitwise repeatable results.
+//     Batched, the split count is sized from S x row blocks.
 // Accumulation is ordinary fp32 FMA (no TF32), as Precision.HIGHEST asks.
 #include "mttkrp_common.cuh"
 
@@ -50,13 +57,14 @@ struct MFArgs {
 constexpr int MAX_OUTER = MAX_ORDER - 2;
 
 // Outer multi-index o (the outer modes enumerated row-major) and its offset
-// in x, advanced one step at a time without division.
+// in x (from `base`, the start of the block's slab), advanced one step at a
+// time without division.
 struct Odometer {
   int64_t idx[MAX_OUTER];
   int64_t off;
 
-  __device__ __forceinline__ void reset(const MFArgs& p, int64_t o) {
-    off = 0;
+  __device__ __forceinline__ void reset(const MFArgs& p, int64_t o, int64_t base) {
+    off = base;
 #pragma unroll
     for (int k = MAX_OUTER - 1; k >= 0; --k) {
       if (k < p.n_outer) {
@@ -82,15 +90,21 @@ struct Odometer {
   }
 };
 
-template <bool I_CONTIG, int CP>
-__global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* __restrict__ ws) {
+// The body of both kernels below.  BATCHED reads the slab from blockIdx.z;
+// unbatched it is compiled without any slab arithmetic (z is the constant 0).
+template <bool I_CONTIG, int CP, bool BATCHED>
+__device__ __forceinline__ void matrix_free_body(const MFArgs& p, float* __restrict__ ws) {
   constexpr int KPT = BR * CP / THREADS;  // factor-tile entries loaded per thread
   const int64_t rows = p.ext[p.n];
   const int64_t si = p.stride[p.n];
   const int64_t sq = p.stride[p.q];
   const int64_t eq = p.ext[p.q];
-  const float* __restrict__ uq = p.u[p.q];
   const int C = p.C;
+  // Slab z: x, every factor and the workspace are offset by their slab
+  // strides (folded into the odometer's tensor offset and U_q's pointer).
+  const int64_t z = BATCHED ? static_cast<int64_t>(blockIdx.z) : 0;
+  const int64_t x_base = z * p.stride[0] * p.ext[0];
+  const float* __restrict__ uq = p.u[p.q] + z * eq * C;
 
   int64_t o_total = 1;
   for (int k = 0; k < p.n_outer; ++k) o_total *= p.ext[p.outer[k]];
@@ -119,7 +133,7 @@ __global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* _
   // odometers: no division in the loop.
   Odometer io;  // outer index of the next tile to issue
   int64_t io_n = 0, ij = 0;
-  io.reset(p, o0);
+  io.reset(p, o0, x_base);
   int issue_stage = 0;
   auto issue = [&]() {
     const int nr = static_cast<int>(imin(BR, eq - ij * BR));
@@ -127,7 +141,7 @@ __global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* _
     if (++io_n == n_o) {
       io_n = 0;
       ++ij;
-      io.reset(p, o0);
+      io.reset(p, o0, x_base);
     } else {
       io.step(p);
     }
@@ -135,13 +149,14 @@ __global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* _
   };
   Odometer co;  // outer index of the step wraw/ureg hold
   int64_t co_n = 0, cj = 0;
-  co.reset(p, o0);
+  co.reset(p, o0, 0);
   auto load_factors = [&](bool new_j) {
     if (threadIdx.x < CP) {
 #pragma unroll
       for (int k = 0; k < MAX_OUTER; ++k) {
         wraw[k] = (k < p.n_outer && static_cast<int>(threadIdx.x) < C)
-                      ? __ldg(p.u[p.outer[k]] + co.idx[k] * C + threadIdx.x)
+                      ? __ldg(p.u[p.outer[k]] + (z * p.ext[p.outer[k]] + co.idx[k]) * C +
+                              threadIdx.x)
                       : 1.0f;
       }
     }
@@ -186,7 +201,7 @@ __global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* _
       if (++co_n == n_o) {
         co_n = 0;
         ++cj;
-        co.reset(p, o0);
+        co.reset(p, o0, 0);
         new_j = true;
       } else {
         co.step(p);
@@ -202,37 +217,53 @@ __global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* _
     __syncthreads();  // ts[stage], us and wo free for reuse
   }
   cp_async_wait<0>();
-  reduce_and_store<CP>(acc, &ts[0][0][0], ws + static_cast<int64_t>(blockIdx.y) * rows * C, i0,
-                       rows, C);
+  const int64_t split = z * gridDim.y + blockIdx.y;
+  reduce_and_store<CP>(acc, &ts[0][0][0], ws + split * rows * C, i0, rows, C);
 }
 
-template <int CP>
-void launch(const MFArgs& p, int splits, float* ws, cudaStream_t s) {
+// The unbatched kernel keeps the launch bounds (and so the register
+// allocation) it had before the batched entry existed: at rank <= 12 ptxas
+// fits it in 128 registers, two blocks per SM.  The batched kernel's slab
+// arithmetic would push it past 128 under the same bounds (one block per SM,
+// about 1.4x slower), so at rank <= 12 it asks for two blocks per SM.
+template <bool I_CONTIG, int CP>
+__global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* __restrict__ ws) {
+  matrix_free_body<I_CONTIG, CP, false>(p, ws);
+}
+
+template <bool I_CONTIG, int CP>
+__global__ void __launch_bounds__(THREADS, CP <= 12 ? 2 : 1)
+    matrix_free_batched_kernel(MFArgs p, float* __restrict__ ws) {
+  matrix_free_body<I_CONTIG, CP, true>(p, ws);
+}
+
+template <int CP, bool BATCHED>
+void launch(const MFArgs& p, int slabs, int splits, float* ws, cudaStream_t s) {
   const int64_t rows = p.ext[p.n];
-  dim3 grid(static_cast<unsigned>((rows + BI - 1) / BI), static_cast<unsigned>(splits));
-  if (p.n == p.order - 1) {
+  dim3 grid(static_cast<unsigned>((rows + BI - 1) / BI), static_cast<unsigned>(splits),
+            static_cast<unsigned>(slabs));
+  const bool i_contig = p.n == p.order - 1;
+  if (BATCHED) {
+    if (i_contig) {
+      matrix_free_batched_kernel<true, CP><<<grid, THREADS, 0, s>>>(p, ws);
+    } else {
+      matrix_free_batched_kernel<false, CP><<<grid, THREADS, 0, s>>>(p, ws);
+    }
+  } else if (i_contig) {
     matrix_free_kernel<true, CP><<<grid, THREADS, 0, s>>>(p, ws);
   } else {
     matrix_free_kernel<false, CP><<<grid, THREADS, 0, s>>>(p, ws);
   }
 }
 
-}  // namespace mttkrp
-
-// x: contiguous, shape[0..order); factors: host array of `order` device
-// pointers to the (shape[k], c) factors (entry n unused); ws: (splits, I, c)
-// scratch; out: (I, c).  Split s covers outer indices
-// [s * o_per_split, (s+1) * o_per_split).  Returns cudaGetLastError() after
-// both launches (0 on success).
-extern "C" int matrix_free_mttkrp_f32(const float* x, const void* const* factors,
-                                      const int64_t* shape, int order, int n, int c,
-                                      int64_t o_per_split, int splits, float* ws, float* out,
-                                      void* stream) {
-  using namespace mttkrp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Both launches for `slabs` stacked problems; cudaGetLastError() after them.
+int run(const float* x, const void* const* factors, const int64_t* shape, int order, int n,
+        int c, bool batched, int slabs, int64_t o_per_split, int splits, float* ws, float* out,
+        cudaStream_t s) {
   const int cp = padded_rank(c);
   if (cp == 0 || c < 1 || order < 3 || order > MAX_ORDER || n < 0 || n >= order ||
-      splits < 1 || splits > 65535 || o_per_split < 1) {
+      slabs < 1 || slabs > 65535 || (!batched && slabs != 1) || splits < 1 || splits > 65535 ||
+      o_per_split < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MFArgs p{};
@@ -255,13 +286,45 @@ extern "C" int matrix_free_mttkrp_f32(const float* x, const void* const* factors
   }
   switch (cp) {
 #define MTTKRP_CASE(CP) \
-  case CP: launch<CP>(p, splits, ws, s); break;
+  case CP:                                                  \
+    if (batched) {                                          \
+      launch<CP, true>(p, slabs, splits, ws, s);            \
+    } else {                                                \
+      launch<CP, false>(p, slabs, splits, ws, s);           \
+    }                                                       \
+    break;
     MTTKRP_CASE(4) MTTKRP_CASE(8) MTTKRP_CASE(12) MTTKRP_CASE(16)
     MTTKRP_CASE(24) MTTKRP_CASE(32) MTTKRP_CASE(48) MTTKRP_CASE(64)
 #undef MTTKRP_CASE
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  launch_sum_splits(ws, out, shape[n] * c, splits, s);
+  launch_sum_splits(ws, out, shape[n] * c, splits, slabs, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace mttkrp
+
+// x: contiguous, shape[0..order); factors: host array of `order` device
+// pointers to the (shape[k], c) factors (entry n unused); ws: (splits, I, c)
+// scratch; out: (I, c).  Split s covers outer indices
+// [s * o_per_split, (s+1) * o_per_split).  Returns cudaGetLastError() after
+// both launches (0 on success).
+extern "C" int matrix_free_mttkrp_f32(const float* x, const void* const* factors,
+                                      const int64_t* shape, int order, int n, int c,
+                                      int64_t o_per_split, int splits, float* ws, float* out,
+                                      void* stream) {
+  return mttkrp::run(x, factors, shape, order, n, c, false, 1, o_per_split, splits, ws, out,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The same for `slabs` stacked problems: x: contiguous (slabs, shape[0..order));
+// factors: device pointers to the (slabs, shape[k], c) factors; ws:
+// (slabs, splits, I, c) scratch; out: (slabs, I, c).  `shape` is one slab's.
+extern "C" int matrix_free_mttkrp_batched_f32(const float* x, const void* const* factors,
+                                              const int64_t* shape, int order, int n, int c,
+                                              int slabs, int64_t o_per_split, int splits,
+                                              float* ws, float* out, void* stream) {
+  return mttkrp::run(x, factors, shape, order, n, c, true, slabs, o_per_split, splits, ws,
+                     out, static_cast<cudaStream_t>(stream));
 }

@@ -1,6 +1,7 @@
 // Tile machinery shared by the two MTTKRP kernels (fused_mttkrp.cu,
-// matrix_free.cu): one thread block owns BI rows of the target mode and
-// streams the tensor through shared memory in BI x BR tiles.
+// matrix_free.cu): one thread block owns BI rows of the target mode of one
+// slab (blockIdx.z; a single tensor is one slab) and streams that slab's
+// tensor through shared memory in BI x BR tiles.
 //
 // Layout of a block: BI lanes x WARPS warps.  Lane = target row i of the
 // tile, warp = a slice of RPW reduction indices of the tile.  Every lane keeps
@@ -126,23 +127,27 @@ __device__ __forceinline__ void reduce_and_store(float (&acc)[CP], float* red,
   }
 }
 
-// out[e] = sum_{s < S} ws[s * n + e], summed in split order: the second pass
-// of the split reduction (deterministic; no atomics anywhere).
+// out[z * n + e] = sum_{k < splits} ws[(z * splits + k) * n + e], summed in
+// split order: the second pass of the split reduction, one slab z after the
+// other (deterministic; no atomics anywhere).  n = I * C elements per slab.
 __global__ void sum_splits_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                                  int64_t n, int splits) {
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (e >= n) return;
+                                  int64_t n, int splits, int64_t total) {
+  const int64_t g = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (g >= total) return;
+  const int64_t z = g / n;
+  const float* __restrict__ w = ws + z * splits * n + (g - z * n);
   float s = 0.0f;
-  for (int k = 0; k < splits; ++k) s += ws[k * n + e];
-  out[e] = s;
+  for (int k = 0; k < splits; ++k) s += w[k * n];
+  out[g] = s;
 }
 
-inline void launch_sum_splits(const float* ws, float* out, int64_t n, int splits,
+inline void launch_sum_splits(const float* ws, float* out, int64_t n, int splits, int slabs,
                               cudaStream_t stream) {
   const int threads = 256;
-  const int64_t blocks = (n + threads - 1) / threads;
-  sum_splits_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(ws, out, n,
-                                                                           splits);
+  const int64_t total = n * slabs;
+  const int64_t blocks = (total + threads - 1) / threads;
+  sum_splits_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(ws, out, n, splits,
+                                                                           total);
 }
 
 // Rank padded to what the register accumulator needs; 0 when unsupported.

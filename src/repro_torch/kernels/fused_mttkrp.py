@@ -1,17 +1,20 @@
 """Fused bilinear MTTKRP: the KRP tile is formed on chip, never in HBM.
 
-Port of ``repro.kernels.fused_mttkrp.fused_mttkrp_bilinear``.  Computes
+Port of ``repro.kernels.fused_mttkrp.fused_mttkrp_bilinear`` and
+``fused_mttkrp_bilinear_batched``.  Computes
 
     pos=0:  M[i,c] = sum_{a,b} T[i,a,b] * A[a,c] * B[b,c]
     pos=1:  M[i,c] = sum_{a,b} T[a,i,b] * A[a,c] * B[b,c]
     pos=2:  M[i,c] = sum_{a,b} T[a,b,i] * A[a,c] * B[b,c]
 
 where ``T`` is a free 3-D view of the tensor and ``A``/``B`` are the two
-partial KRPs :func:`repro_torch.kernels.ops.fused_mttkrp` builds.  On the
-card the wrapper launches the CUDA kernel of ``csrc/fused_mttkrp.cu``: each
-thread block forms the tile ``A[a, :] * B[b-tile, :]`` in shared memory and
-contracts the streamed tensor tile against it; the design notes are in that
-file.  On the CPU it takes :func:`fused_mttkrp_bilinear_plain`.
+partial KRPs :func:`repro_torch.kernels.ops.fused_mttkrp` builds; the
+batched form computes the same per slab ``s`` of a stack, ``M[s,i,c]`` from
+``T[s]``, ``A[s]``, ``B[s]``.  On the card the wrappers launch the CUDA
+kernel of ``csrc/fused_mttkrp.cu``: each thread block forms the tile
+``A[a, :] * B[b-tile, :]`` in shared memory and contracts the streamed
+tensor tile against it; the design notes are in that file.  On the CPU
+they take the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -21,7 +24,13 @@ import ctypes
 import torch
 
 from ._build import CudaKernel
-from ._tiling import check_kernel_operand, check_rank, split_reduction, use_kernel
+from ._tiling import (
+    check_kernel_operand,
+    check_rank,
+    check_slabs,
+    split_reduction,
+    use_kernel,
+)
 
 Tensor = torch.Tensor
 
@@ -31,8 +40,14 @@ KERNEL = CudaKernel(
     "fused_mttkrp_bilinear_f32",
     [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _c64, _c64, _c64, _int, _c64, _int, _ptr],
 )
+BATCHED_KERNEL = CudaKernel(
+    "fused_mttkrp.cu",
+    "fused_mttkrp_bilinear_batched_f32",
+    [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _c64, _c64, _c64, _int, _c64, _int, _ptr],
+)
 
 _SPECS = {0: "iab,ac,bc->ic", 1: "aib,ac,bc->ic", 2: "abi,ac,bc->ic"}
+_BATCHED_SPECS = {0: "siab,sac,sbc->sic", 1: "saib,sac,sbc->sic", 2: "sabi,sac,sbc->sic"}
 
 
 def fused_mttkrp_bilinear_plain(t: Tensor, a: Tensor, b: Tensor, *, pos: int) -> Tensor:
@@ -40,21 +55,57 @@ def fused_mttkrp_bilinear_plain(t: Tensor, a: Tensor, b: Tensor, *, pos: int) ->
     return torch.einsum(_SPECS[pos], t, a, b)
 
 
-def _dims(t: Tensor, a: Tensor, b: Tensor, pos: int) -> int:
-    """Validate the bilinear operands; return the output row count."""
-    if t.ndim != 3:
-        raise ValueError("t must be a 3-D view")
+def fused_mttkrp_bilinear_batched_plain(
+    t: Tensor, a: Tensor, b: Tensor, *, pos: int
+) -> Tensor:
+    """The plain PyTorch version of the batched kernel: the bilinear einsum
+    with a leading slab axis on every operand."""
+    return torch.einsum(_BATCHED_SPECS[pos], t, a, b)
+
+
+def _dims(t: Tensor, a: Tensor, b: Tensor, pos: int, lead: int) -> int:
+    """Validate the bilinear operands (``lead`` slab axes in front of each);
+    return the output row count."""
+    if t.ndim != 3 + lead:
+        raise ValueError("t must be a 3-D view" + (" with a leading slab axis" if lead else ""))
     if pos not in _SPECS:
         raise ValueError(f"pos must be 0, 1 or 2, got {pos}")
-    if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[1]:
-        raise ValueError(f"A {tuple(a.shape)} and B {tuple(b.shape)} must be (dim, C)")
-    shape = list(t.shape)
+    if a.ndim != 2 + lead or b.ndim != 2 + lead or a.shape[-1] != b.shape[-1]:
+        want = "(S, dim, C)" if lead else "(dim, C)"
+        raise ValueError(f"A {tuple(a.shape)} and B {tuple(b.shape)} must be {want}")
+    if lead and not t.shape[0] == a.shape[0] == b.shape[0]:
+        raise ValueError(f"slab mismatch: t {tuple(t.shape)}, A {tuple(a.shape)}, B {tuple(b.shape)}")
+    shape = list(t.shape[lead:])
     dim_i = shape.pop(pos)
-    if shape != [a.shape[0], b.shape[0]]:
+    if shape != [a.shape[-2], b.shape[-2]]:
         raise ValueError(
             f"t shape {tuple(t.shape)} inconsistent with A/B {tuple(a.shape)}/{tuple(b.shape)}"
         )
     return dim_i
+
+
+def _launch(kernel: CudaKernel, t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i: int,
+            slabs: int | None) -> Tensor:
+    """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
+    the unbatched entry point.  Returns ``(I, C)`` or ``(S, I, C)``."""
+    c = a.shape[-1]
+    check_kernel_operand("t", t)
+    check_kernel_operand("A", a)
+    check_kernel_operand("B", b)
+    check_rank(c)
+    lead = () if slabs is None else (slabs,)
+    if slabs is not None:
+        check_slabs(slabs)
+    a_per_split, splits = split_reduction(dim_i, a.shape[-2], t.device, slabs or 1)
+    ws = torch.empty(lead + (splits, dim_i, c), dtype=torch.float32, device=t.device)
+    out = torch.empty(lead + (dim_i, c), dtype=torch.float32, device=t.device)
+    d0, d1, d2 = (int(d) for d in t.shape[-3:])
+    kernel.launch(
+        t.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        pos, *lead, d0, d1, d2, c, a_per_split, splits,
+        torch.cuda.current_stream(t.device).cuda_stream,
+    )
+    return out
 
 
 def fused_mttkrp_bilinear(t: Tensor, a: Tensor, b: Tensor, *, pos: int) -> Tensor:
@@ -64,21 +115,23 @@ def fused_mttkrp_bilinear(t: Tensor, a: Tensor, b: Tensor, *, pos: int) -> Tenso
     64, else it raises); CPU tensors take the plain version.  Any extent is
     accepted: the kernel masks ragged tiles, so nothing is padded.
     """
-    dim_i = _dims(t, a, b, pos)
+    dim_i = _dims(t, a, b, pos, 0)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_plain(t, a, b, pos=pos)
-    c = a.shape[1]
-    check_kernel_operand("t", t)
-    check_kernel_operand("A", a)
-    check_kernel_operand("B", b)
-    check_rank(c)
-    a_per_split, splits = split_reduction(dim_i, a.shape[0], t.device)
-    ws = torch.empty((splits, dim_i, c), dtype=torch.float32, device=t.device)
-    out = torch.empty((dim_i, c), dtype=torch.float32, device=t.device)
-    d0, d1, d2 = (int(d) for d in t.shape)
-    KERNEL.launch(
-        t.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        pos, d0, d1, d2, c, a_per_split, splits,
-        torch.cuda.current_stream(t.device).cuda_stream,
-    )
-    return out
+    return _launch(KERNEL, t, a, b, pos, dim_i, None)
+
+
+def fused_mttkrp_bilinear_batched(t: Tensor, a: Tensor, b: Tensor, *, pos: int) -> Tensor:
+    """Batched bilinear MTTKRP ``M[s,i,c] = sum_{a,b} T[s,...] A[s,a,c] B[s,b,c]``.
+
+    ``t`` is ``(S, *3-D view)`` with the i-axis of each slab's view at
+    ``pos``; ``a``/``b`` are the per-slab partial KRPs ``(S, dim, C)``.
+    CUDA tensors launch the kernel, one slab per block along the grid's z
+    axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
+    it raises); CPU tensors take the plain version.  Nothing is padded: not
+    the slabs, not any extent.
+    """
+    dim_i = _dims(t, a, b, pos, 1)
+    if not use_kernel(t, a, b):
+        return fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos)
+    return _launch(BATCHED_KERNEL, t, a, b, pos, dim_i, int(t.shape[0]))

@@ -1,15 +1,18 @@
 """Matrix-free MTTKRP: stream the tensor once, no KRP anywhere.
 
 Port of ``repro.kernels.matrix_free`` (``matrix_free_kernel``,
-``_fold_tile``, ``_reduction_blocks``, ``matrix_free_mttkrp``).  The tensor
+``matrix_free_batched_kernel``, ``_fold_tile``, ``_reduction_blocks``,
+``matrix_free_mttkrp``, ``matrix_free_mttkrp_batched``).  The tensor
 stays in its natural N-D layout -- no matricization, no view, no KRP of any
 size -- and is folded against the raw non-target factors: one contraction
 over the highest non-target mode, then one broadcast-multiply-reduce per
 remaining non-target mode.  On the card :func:`matrix_free_kernel` launches
 the CUDA kernel of ``csrc/matrix_free.cu`` (design notes there); on the CPU
 it takes :func:`matrix_free_kernel_plain`, the same fold in torch ops.
+The batched forms fold each slab of a stack ``(S, *shape)`` against that
+slab's own factors ``(S, I_k, C)``.
 
-Supported: every mode of order-3..6 tensors.
+Supported: every mode of order-3..6 tensors, plus a leading batch axis.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ._tiling import (
     block,
     check_kernel_operand,
     check_rank,
+    check_slabs,
     split_reduction,
     use_kernel,
 )
@@ -40,33 +44,50 @@ BLOCK_R = 64
 SMEM_BYTES = 232448
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+_FACTORS, _SHAPE = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
 KERNEL = CudaKernel(
     "matrix_free.cu",
     "matrix_free_mttkrp_f32",
-    [_ptr, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64), _int, _int,
-     _int, _c64, _int, _ptr, _ptr, _ptr],
+    [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _c64, _int, _ptr, _ptr, _ptr],
+)
+BATCHED_KERNEL = CudaKernel(
+    "matrix_free.cu",
+    "matrix_free_mttkrp_batched_f32",
+    [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _c64, _int, _ptr, _ptr, _ptr],
 )
 
 
-def _fold_tile(t: Tensor, us_by_mode: dict[int, Tensor], n: int) -> Tensor:
-    """Contract every non-target mode out of ``t`` (all modes present).
+def _fold_tile(t: Tensor, us_by_mode: dict[int, Tensor], n: int, batched: bool = False) -> Tensor:
+    """Contract every non-target mode out of ``t`` (all modes present;
+    with ``batched`` a leading slab axis on ``t`` and on every factor).
 
     The highest non-target mode goes first as one contraction, producing a
-    trailing rank axis; every remaining non-target mode is then a
-    broadcast-multiply-reduce, in descending mode order (removing an axis
-    only shifts larger ids, which are already gone).
+    trailing rank axis (batched: one batched GEMM over that mode); every
+    remaining non-target mode is then a broadcast-multiply-reduce, in
+    descending mode order (removing an axis only shifts larger ids, which
+    are already gone).
     """
-    live = list(range(t.ndim))
+    off = 1 if batched else 0
+    live = list(range(t.ndim - off))
     desc = sorted((k for k in live if k != n), reverse=True)
     first = desc[0]
-    t = torch.tensordot(t, us_by_mode[first], dims=([live.index(first)], [0]))
+    u = us_by_mode[first]
+    pos = live.index(first) + off
+    if batched:
+        tm = t.movedim(pos, -1)
+        t = torch.bmm(tm.reshape(tm.shape[0], -1, tm.shape[-1]), u)
+        t = t.reshape(tuple(tm.shape[:-1]) + (u.shape[-1],))
+    else:
+        t = torch.tensordot(t, u, dims=([pos], [0]))
     live.remove(first)
     for a in desc[1:]:
         u = us_by_mode[a]
-        pos = live.index(a)
+        pos = live.index(a) + off
         shape = [1] * t.ndim
-        shape[pos] = u.shape[0]
-        shape[-1] = u.shape[1]
+        if batched:
+            shape[0] = u.shape[0]
+        shape[pos] = u.shape[-2]
+        shape[-1] = u.shape[-1]
         t = (t * u.reshape(shape)).sum(dim=pos)
         live.remove(a)
     return t
@@ -76,6 +97,14 @@ def matrix_free_kernel_plain(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
     """The plain PyTorch version: :func:`_fold_tile` over the whole tensor."""
     others = [k for k in range(x.ndim) if k != n]
     return _fold_tile(x, dict(zip(others, us)), n)
+
+
+def matrix_free_batched_kernel_plain(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
+    """The plain PyTorch version of the batched kernel: the batched
+    :func:`_fold_tile` (one batched GEMM over the contracted mode, then
+    broadcast reductions) over the whole stack."""
+    others = [k for k in range(x.ndim - 1) if k != n]
+    return _fold_tile(x, dict(zip(others, us)), n, batched=True)
 
 
 def _reduction_blocks(mode_shape: Sequence[int], n: int, rank: int) -> dict[int, int]:
@@ -99,6 +128,57 @@ def _reduction_blocks(mode_shape: Sequence[int], n: int, rank: int) -> dict[int,
     return rb
 
 
+def _check_operands(mode_shape: Sequence[int], us: Sequence[Tensor], n: int, lead: int) -> list[int]:
+    """Validate order, mode and factor shapes (``lead`` slab axes in front
+    of each factor); return the non-target modes."""
+    big_n = len(mode_shape)
+    others = [k for k in range(big_n) if k != n]
+    if not 3 <= big_n <= 6:
+        raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
+    if not 0 <= n < big_n:
+        raise ValueError(f"mode {n} out of range for order-{big_n} tensor")
+    if len(us) != len(others):
+        raise ValueError("need one factor per non-target mode")
+    c = us[0].shape[-1]
+    for k, u in zip(others, us):
+        if u.ndim != 2 + lead or u.shape[lead] != mode_shape[k] or u.shape[-1] != c:
+            raise ValueError(f"mode {k}: factor {tuple(u.shape)} does not match the tensor")
+    return others
+
+
+def _launch(kernel: CudaKernel, x: Tensor, us: Sequence[Tensor], n: int,
+            others: list[int], slabs: int | None) -> Tensor:
+    """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
+    the unbatched entry point.  Returns ``(I_n, C)`` or ``(S, I_n, C)``."""
+    mode_shape = x.shape if slabs is None else x.shape[1:]
+    big_n = len(mode_shape)
+    c = us[0].shape[-1]
+    check_kernel_operand("x", x)
+    for k, u in zip(others, us):
+        check_kernel_operand(f"factor {k}", u)
+    check_rank(c)
+    lead = () if slabs is None else (slabs,)
+    if slabs is not None:
+        check_slabs(slabs)
+    _reduction_blocks(mode_shape, n, c)
+    outer = math.prod(mode_shape[k] for k in others[:-1])  # all but the contracted mode
+    rows = mode_shape[n]
+    o_per_split, splits = split_reduction(rows, outer, x.device, slabs or 1)
+    ws = torch.empty(lead + (splits, rows, c), dtype=torch.float32, device=x.device)
+    out = torch.empty(lead + (rows, c), dtype=torch.float32, device=x.device)
+    ptrs = [0] * big_n
+    for k, u in zip(others, us):
+        ptrs[k] = u.data_ptr()
+    kernel.launch(
+        x.data_ptr(),
+        (ctypes.c_void_p * big_n)(*ptrs),
+        (ctypes.c_int64 * big_n)(*[int(d) for d in mode_shape]),
+        big_n, n, c, *lead, o_per_split, splits, ws.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return out
+
+
 def matrix_free_kernel(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
     """Matrix-free MTTKRP ``M = X_(n) . KRP(us)`` with no KRP.
 
@@ -108,41 +188,27 @@ def matrix_free_kernel(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
     tensors take the plain version.  Any extent is accepted: the kernel
     masks ragged tiles, so nothing is padded.
     """
-    big_n = x.ndim
-    others = [k for k in range(big_n) if k != n]
-    if not 3 <= big_n <= 6:
-        raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
-    if not 0 <= n < big_n:
-        raise ValueError(f"mode {n} out of range for order-{big_n} tensor")
-    if len(us) != len(others):
-        raise ValueError("need one factor per non-target mode")
-    c = us[0].shape[1]
-    for k, u in zip(others, us):
-        if u.ndim != 2 or u.shape[0] != x.shape[k] or u.shape[1] != c:
-            raise ValueError(f"mode {k}: factor {tuple(u.shape)} does not match the tensor")
+    others = _check_operands(x.shape, us, n, 0)
     if not use_kernel(x, *us):
         return matrix_free_kernel_plain(x, us, n)
-    check_kernel_operand("x", x)
-    for k, u in zip(others, us):
-        check_kernel_operand(f"factor {k}", u)
-    check_rank(c)
-    _reduction_blocks(x.shape, n, c)
-    outer = math.prod(x.shape[k] for k in others[:-1])  # all but the contracted mode
-    rows = x.shape[n]
-    o_per_split, splits = split_reduction(rows, outer, x.device)
-    ws = torch.empty((splits, rows, c), dtype=torch.float32, device=x.device)
-    out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
-    ptrs = [0] * big_n
-    for k, u in zip(others, us):
-        ptrs[k] = u.data_ptr()
-    KERNEL.launch(
-        x.data_ptr(),
-        (ctypes.c_void_p * big_n)(*ptrs),
-        (ctypes.c_int64 * big_n)(*[int(d) for d in x.shape]),
-        big_n, n, c, o_per_split, splits, ws.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    return out
+    return _launch(KERNEL, x, us, n, others, None)
+
+
+def matrix_free_batched_kernel(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
+    """Batched matrix-free MTTKRP: ``x`` is ``(S, *shape)`` and ``us`` the
+    per-slab non-target factors ``(S, I_k, C)``; returns ``(S, I_n, C)``.
+
+    CUDA tensors launch the kernel, one slab per block along the grid's z
+    axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
+    it raises); CPU tensors take the plain version.  Nothing is padded: not
+    the slabs, not any extent.
+    """
+    if any(u.ndim != 3 or u.shape[0] != x.shape[0] for u in us):
+        raise ValueError("x and every factor need the same leading slab axis")
+    others = _check_operands(x.shape[1:], us, n, 1)
+    if not use_kernel(x, *us):
+        return matrix_free_batched_kernel_plain(x, us, n)
+    return _launch(BATCHED_KERNEL, x, us, n, others, int(x.shape[0]))
 
 
 def matrix_free_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
@@ -152,8 +218,28 @@ def matrix_free_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
     factors = list(factors)
     big_n = len(factors)
     if x.ndim != big_n:
-        raise ValueError(f"x.ndim {x.ndim} != {big_n} factors")
+        raise ValueError(
+            f"x.ndim {x.ndim} != {big_n} factors -- for a leading batch axis "
+            "use matrix_free_mttkrp_batched"
+        )
     if not 3 <= big_n <= 6:
         raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
     us = [factors[k] for k in range(big_n) if k != n]
     return matrix_free_kernel(x, us, n).to(x.dtype)
+
+
+def matrix_free_mttkrp_batched(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+    """Batched matrix-free MTTKRP: ``x`` is ``(S, *shape)``, factors
+    ``(S, I_k, C)``; hands the stack and the raw non-target factors to
+    :func:`matrix_free_batched_kernel`."""
+    factors = list(factors)
+    big_n = len(factors)
+    if x.ndim != big_n + 1:
+        raise ValueError(
+            f"x.ndim {x.ndim} != {big_n} factors + batch axis -- for an "
+            "unbatched tensor use matrix_free_mttkrp"
+        )
+    if not 3 <= big_n <= 6:
+        raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
+    us = [factors[k] for k in range(big_n) if k != n]
+    return matrix_free_batched_kernel(x, us, n).to(x.dtype)

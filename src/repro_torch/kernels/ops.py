@@ -1,7 +1,9 @@
 """Kernel wrappers: partial-KRP split, views and mode dispatch.
 
-Port of ``balanced_split``, ``fused_mttkrp`` and the ``matrix_free_mttkrp``
-alias of ``repro.kernels.ops``.  The reference pads every tiled axis to its
+Port of ``balanced_split``, ``fused_mttkrp``, ``fused_mttkrp_batched`` and
+the ``matrix_free_mttkrp``/``matrix_free_mttkrp_batched`` aliases of
+``repro.kernels.ops``, plus the operand builders ``bilinear_operands`` and
+``bilinear_operands_batched``.  The reference pads every tiled axis to its
 block multiple and the rank to the TPU's 128 lanes; the CUDA kernels mask
 ragged tiles and pad the rank only in their own registers, so nothing here
 pads or copies the tensor.
@@ -14,11 +16,11 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.krp import krp_or_ones
+from repro_torch.core.krp import krp_or_ones, krp_or_ones_batched
 from repro_torch.core.tensor_ops import dims_split
 
-from .fused_mttkrp import fused_mttkrp_bilinear
-from .matrix_free import matrix_free_mttkrp  # noqa: F401  (re-exported alias)
+from .fused_mttkrp import fused_mttkrp_bilinear, fused_mttkrp_bilinear_batched
+from .matrix_free import matrix_free_mttkrp, matrix_free_mttkrp_batched  # noqa: F401  (re-exported)
 
 Tensor = torch.Tensor
 
@@ -41,6 +43,50 @@ def balanced_split(dims: Sequence[int]) -> int:
     return best
 
 
+def _operands(x: Tensor, factors: Sequence[Tensor], n: int, lead: int):
+    """``(T, A, B, pos)`` of mode ``n``'s fused MTTKRP, with ``lead``
+    (0 or 1) slab axes in front of ``x`` and of every factor."""
+    factors = list(factors)
+    big_n = len(factors)
+    if x.ndim != big_n + lead:
+        raise ValueError(f"x.ndim {x.ndim} != {big_n} factors" + (" + batch axis" if lead else ""))
+    mode_shape = x.shape[lead:]
+    rows = [f.shape[lead] for f in factors]
+    c = factors[0].shape[-1]
+    left = factors[:n]
+    right = factors[n + 1 :]
+    in_dim = mode_shape[n]
+    slab = tuple(x.shape[:lead])
+
+    if 0 < n < big_n - 1:
+        pos = 1
+        a_mats, b_mats = left, right
+        big_l, _, big_r = dims_split(mode_shape, n)
+        t = x.view(slab + (big_l, in_dim, big_r))
+    elif n == 0:
+        pos = 0
+        split = balanced_split(rows[1:]) if len(right) > 1 else 0
+        a_mats, b_mats = right[:split], right[split:]
+        da = math.prod(rows[1 : 1 + split])
+        db = math.prod(rows[1 + split :])
+        t = x.view(slab + (in_dim, da, db))
+    else:  # n == N-1
+        pos = 2
+        split = balanced_split(rows[:-1]) if len(left) > 1 else 1
+        a_mats, b_mats = left[:split], left[split:]
+        da = math.prod(rows[:split])
+        db = math.prod(rows[split:-1])
+        t = x.view(slab + (da, db, in_dim))
+
+    if lead:
+        a = krp_or_ones_batched(a_mats, slab[0], c, x.dtype, x.device)
+        b = krp_or_ones_batched(b_mats, slab[0], c, x.dtype, x.device)
+    else:
+        a = krp_or_ones(a_mats, c, x.dtype, x.device)
+        b = krp_or_ones(b_mats, c, x.dtype, x.device)
+    return t, a, b, pos
+
+
 def bilinear_operands(
     x: Tensor, factors: Sequence[Tensor], n: int
 ) -> tuple[Tensor, Tensor, Tensor, int]:
@@ -52,38 +98,17 @@ def bilinear_operands(
     so both partial KRPs stay near the square root of the full KRP size.
     ``T`` is a free view of ``x``.
     """
-    factors = list(factors)
-    big_n = len(factors)
-    if x.ndim != big_n:
-        raise ValueError(f"x.ndim {x.ndim} != {big_n} factors")
-    c = factors[0].shape[1]
-    left = factors[:n]
-    right = factors[n + 1 :]
-    in_dim = x.shape[n]
+    return _operands(x, factors, n, 0)
 
-    if 0 < n < big_n - 1:
-        pos = 1
-        a_mats, b_mats = left, right
-        big_l, _, big_r = dims_split(x.shape, n)
-        t = x.view(big_l, in_dim, big_r)
-    elif n == 0:
-        pos = 0
-        split = balanced_split([f.shape[0] for f in right]) if len(right) > 1 else 0
-        a_mats, b_mats = right[:split], right[split:]
-        da = math.prod(f.shape[0] for f in a_mats) if a_mats else 1
-        db = math.prod(f.shape[0] for f in b_mats)
-        t = x.view(in_dim, da, db)
-    else:  # n == N-1
-        pos = 2
-        split = balanced_split([f.shape[0] for f in left]) if len(left) > 1 else 1
-        a_mats, b_mats = left[:split], left[split:]
-        da = math.prod(f.shape[0] for f in a_mats)
-        db = math.prod(f.shape[0] for f in b_mats) if b_mats else 1
-        t = x.view(da, db, in_dim)
 
-    a = krp_or_ones(a_mats, c, x.dtype, x.device)
-    b = krp_or_ones(b_mats, c, x.dtype, x.device)
-    return t, a, b, pos
+def bilinear_operands_batched(
+    x: Tensor, factors: Sequence[Tensor], n: int
+) -> tuple[Tensor, Tensor, Tensor, int]:
+    """Batched :func:`bilinear_operands`: ``x`` is ``(S, *shape)`` and each
+    factor ``(S, I_k, C)``; ``T`` is a free ``(S, 3-D view)`` of ``x`` and
+    ``A``/``B`` the per-slab partial KRPs ``(S, dim, C)``.  The split keys
+    on the mode dims only, never on the batch."""
+    return _operands(x, factors, n, 1)
 
 
 def fused_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
@@ -95,3 +120,14 @@ def fused_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
     """
     t, a, b, pos = bilinear_operands(x, factors, n)
     return fused_mttkrp_bilinear(t, a, b, pos=pos).to(x.dtype)
+
+
+def fused_mttkrp_batched(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+    """Batched fused MTTKRP: ``x`` is ``(S, *shape)``, factors ``(S, I_k, C)``.
+
+    One launch covers all S stacked problems through the kernel's slab grid
+    axis; each slab forms its own KRP tiles on chip, so no per-problem KRP
+    exists in HBM.
+    """
+    t, a, b, pos = bilinear_operands_batched(x, factors, n)
+    return fused_mttkrp_bilinear_batched(t, a, b, pos=pos).to(x.dtype)

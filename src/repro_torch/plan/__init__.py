@@ -1,6 +1,7 @@
 """``repro_torch.plan`` -- one front door: Problem -> SweepPlan -> Executor.
 
-Port of ``repro.plan`` for single-device CP-ALS:
+Port of ``repro.plan`` for single-device CP-ALS, one tensor or a batch of
+same-shaped tensors (``Problem(batch=B)``):
 
 * :class:`Problem` -- immutable descriptor (shape, rank, dtype); its
   :meth:`~Problem.signature` string equals the reference's.
@@ -14,7 +15,9 @@ Port of ``repro.plan`` for single-device CP-ALS:
 * :class:`TuningCache` / :func:`lookup_measurements` -- the read side of
   hardware autotuning.
 
-Sharded, batched and pairwise-perturbation problems come with later slices.
+Sharded problems (mapped modes or a sharded batch axis) and
+pairwise-perturbation problems raise ``NotImplementedError``: they come
+with the distribution and PP slices.
 """
 
 from .autotune import Measurements, TuningCache, default_tuning_cache, lookup_measurements

@@ -4,7 +4,8 @@ Port of the single-device part of ``repro.plan.cost``: :class:`ModeCost`,
 :func:`mode_cost`, :func:`node_cost`, :func:`executor_mode_cost` and
 :func:`dimtree_mode_cost` for the ``"local"`` executor, and
 :func:`validate_executor`.  The flop/byte terms are the reference's,
-term for term; seconds come from the H100 constants of
+term for term; a batched problem scales every term by its
+``local_batch`` (nothing is shared across the batch); seconds come from the H100 constants of
 :mod:`repro_torch.analysis.roofline` (``predicted_s = flops / PEAK_FLOPS +
 bytes / HBM_BW``).  With H100 constants a plan may legitimately choose
 other algorithms than the JAX package chooses for the same problem.
@@ -63,10 +64,9 @@ def validate_executor(problem: Problem, executor: str) -> None:
 
 
 def _check_local(problem: Problem) -> None:
-    if problem.sharded or problem.batched:
+    if problem.sharded:
         raise NotImplementedError(
-            "sharded and batched problems are priced by the distribution and "
-            "batched slices of the port"
+            "sharded problems are priced by the distribution slice of the port"
         )
 
 
@@ -159,9 +159,10 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
     shape = problem.shape
     c = problem.rank
     s = problem.itemsize
-    base = mttkrp_flops(shape, c, n, itemsize=s)
+    lb = problem.local_batch
+    base = mttkrp_flops(shape, c, n, itemsize=s, batch=lb)
     L, In, R = dims_split(shape, n)
-    out_bytes = In * c * s
+    out_bytes = In * c * s * lb
 
     if algorithm == "2step" and not problem.external_mode(n):
         # forced 2-step resolves its order by cost, like the Alg. 4 line-4 rule
@@ -181,21 +182,21 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
         )
     if algorithm in ("2step-left", "2step-right"):
         second_side = R if algorithm == "2step-left" else L
-        intermediate = In * second_side * c * s
+        intermediate = In * second_side * c * s * lb
         return ModeCost(
             gemm_flops=base["gemm_flops"],
-            krp_flops=float((L + R) * c),
-            second_step_flops=2.0 * In * second_side * c,
-            bytes=base["tensor_bytes"] + 2.0 * intermediate + (L + R) * c * s + out_bytes,
+            krp_flops=float((L + R) * c * lb),
+            second_step_flops=2.0 * In * second_side * c * lb,
+            bytes=base["tensor_bytes"] + 2.0 * intermediate + (L + R) * c * s * lb + out_bytes,
         )
     if algorithm == "fused":
         da, db = _fused_krp_dims(shape, n)
         return ModeCost(
             gemm_flops=base["gemm_flops"],
-            krp_flops=float((da + db) * c),
+            krp_flops=float((da + db) * c * lb),
             second_step_flops=0.0,
             # the full KRP never hits HBM -- only the two partials stream in
-            bytes=base["tensor_bytes"] + (da + db) * c * s + out_bytes,
+            bytes=base["tensor_bytes"] + (da + db) * c * s * lb + out_bytes,
         )
     if algorithm == "matrix_free":
         # bytes-read-once: the tensor streams through exactly once, the raw
@@ -204,9 +205,9 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
         spatial = float(math.prod(shape)) / shape[others[-1]]
         fold = 0.0
         for k in reversed(others[:-1]):
-            fold += 2.0 * spatial * c
+            fold += 2.0 * spatial * c * lb
             spatial /= shape[k]
-        factor_bytes = float(sum(shape[k] for k in others)) * c * s
+        factor_bytes = float(sum(shape[k] for k in others)) * c * s * lb
         return ModeCost(
             gemm_flops=base["gemm_flops"],
             krp_flops=0.0,
@@ -218,7 +219,7 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
             gemm_flops=base["gemm_flops"],
             krp_flops=0.0,
             second_step_flops=0.0,
-            bytes=base["tensor_bytes"] + (L + In + R) * c * s + out_bytes,
+            bytes=base["tensor_bytes"] + (L + In + R) * c * s * lb + out_bytes,
         )
     # baseline: reorder (transpose copy: read + write) then one GEMM over the copy
     return ModeCost(
@@ -263,11 +264,12 @@ def node_cost(
     _check_local(problem)
     c = problem.rank
     s = problem.itemsize
-    t_bytes = math.prod(node.local_shape) * s
+    lb = problem.local_batch
+    t_bytes = math.prod(node.local_shape) * lb * s  # kept dims * rank (x batch)
     if node.from_root:
-        total = math.prod(problem.shape)
+        total = math.prod(problem.shape) * lb
         krp_elems = (
-            math.prod(problem.shape[m] for m in node.contracted) * c
+            math.prod(problem.shape[m] for m in node.contracted) * c * lb
             if node.contracted
             else 0
         )
@@ -277,7 +279,7 @@ def node_cost(
             second_step_flops=0.0,
             bytes=total * s + 2.0 * krp_elems * s + t_bytes,
         )
-    parent_elems = math.prod(problem.shape[node.parent_lo : node.parent_hi]) * c
+    parent_elems = math.prod(problem.shape[node.parent_lo : node.parent_hi]) * c * lb
     ttv = 0.0
     elems = float(parent_elems)
     for m in node.contracted:

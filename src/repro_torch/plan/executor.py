@@ -13,12 +13,23 @@ from typing import Mapping, Protocol, Sequence, runtime_checkable
 import torch
 
 from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
-from repro_torch.core.mttkrp import mttkrp
+from repro_torch.core.mttkrp import mttkrp, mttkrp_batched
 
 from .cost import EXECUTORS
 from .schedule import ContractionNode
 
 Tensor = torch.Tensor
+
+
+def _node_is_batched(node: ContractionNode, src: Tensor) -> bool:
+    """True when ``src`` carries a leading batch axis over the node's shape.
+
+    The unbatched source of a node has a known rank from the topology alone:
+    the raw tensor's order for root contractions, the parent's kept modes
+    plus the rank axis for partial-to-partial ones.  One extra axis = batch.
+    """
+    expected = (node.parent_hi - node.parent_lo) + (0 if node.from_root else 1)
+    return src.ndim == expected + 1
 
 
 @runtime_checkable
@@ -58,11 +69,26 @@ class LocalExecutor:
     ) -> Tensor:
         """One schedule node: the planned MTTKRP for leaves off the root,
         the range GEMM for internal nodes off the root, a multi-TTV einsum
-        for anything contracted from a partial."""
+        for anything contracted from a partial.  A leading batch axis on
+        ``src`` (and every factor) runs the batched MTTKRP for leaves (the
+        batched kernels under ``fused``/``matrix_free``) and a
+        ``torch.func.vmap`` of the same contraction otherwise."""
+        batched = _node_is_batched(node, src)
         if node.from_root:
             if node.is_leaf:
-                return mttkrp(src, list(factors), node.mode, method=algorithm, tiles=tiles)
+                run = mttkrp_batched if batched else mttkrp
+                return run(src, list(factors), node.mode, method=algorithm, tiles=tiles)
+            if batched:
+                return torch.func.vmap(
+                    lambda t, *fs: partial_mttkrp_range(t, list(fs), node.lo, node.hi)
+                )(src, *factors)
             return partial_mttkrp_range(src, list(factors), node.lo, node.hi)
+        if batched:
+            return torch.func.vmap(
+                lambda t, *fs: contract_from_partial(
+                    t, dict(zip(node.contracted, fs)), node.lo, node.hi, node.parent_lo
+                )
+            )(src, *[factors[m] for m in node.contracted])
         sibs = {m: factors[m] for m in node.contracted}
         return contract_from_partial(src, sibs, node.lo, node.hi, node.parent_lo)
 

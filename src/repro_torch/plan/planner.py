@@ -1,7 +1,8 @@
 """``plan_sweep``: the single front door for ALS algorithm choice.
 
-Port of ``repro.plan.planner`` for unsharded, unbatched problems on the
-``"local"`` executor, with every strategy except ``"pp"``.  ``auto``
+Port of ``repro.plan.planner`` for unsharded problems on the ``"local"``
+executor, batched (``Problem(batch=B)``, every cost term scaled by the
+batch) or not, with every strategy except ``"pp"``.  ``auto``
 cost-argmins jointly over the contraction-tree shapes of
 :func:`repro_torch.plan.schedule.enumerate_schedules` and each root leaf's
 MTTKRP algorithm (1-step / 2-step-left / 2-step-right), breaking near-ties
@@ -10,10 +11,12 @@ per-mode sweep; ``autotune`` argmins on hardware measurements read from the
 tuning cache wherever a comparison set is fully measured; any other
 strategy forces that algorithm on every mode of the flat schedule.
 
-Sharded, batched and pairwise-perturbation problems raise
-``NotImplementedError``: they come with the distribution, batched and PP
-slices of the port.  ``describe()`` keeps the reference's JSON layout (the
-placement, mapping and PP rows are empty or disabled here).
+Sharded problems (mapped modes or a sharded batch axis) and
+pairwise-perturbation problems raise ``NotImplementedError``: they come
+with the distribution and PP slices of the port, as do the batch-parallel
+and mode-parallel placements the reference argmins over for sharded
+batched problems.  ``describe()`` keeps the reference's JSON layout (the
+placement candidates, mapping and PP rows are empty or disabled here).
 """
 
 from __future__ import annotations
@@ -170,9 +173,9 @@ class SweepPlan:
             "split": self.split,
             "sharded": False,
             "mode_axes": {},
-            "batch": 1,
-            "batch_axes": [],
-            "local_batch": 1,
+            "batch": self.problem.batch,
+            "batch_axes": list(self.problem.batch_axes),
+            "local_batch": self.problem.local_batch,
             "placement": "unsharded",
             "placements": [],
             "local_shape": list(self.problem.shape),
@@ -297,7 +300,7 @@ def plan_sweep(
     schedule: Schedule | str | None = None,
     tuning_cache=None,
 ) -> SweepPlan:
-    """Plan one full ALS sweep for an unsharded, unbatched ``problem``.
+    """Plan one full ALS sweep for an unsharded ``problem`` (batched or not).
 
     ``strategy='auto'`` cost-argmins jointly over contraction-tree shapes
     (flat, the binary split at every boundary, the chain for order >= 4)
@@ -313,10 +316,10 @@ def plan_sweep(
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (choose from {STRATEGIES})")
-    if problem.sharded or problem.batched:
+    if problem.sharded:
         raise NotImplementedError(
-            "sharded and batched problems come with the distribution and "
-            "batched slices of the port"
+            "sharded problems (mapped modes, or a batch sharded over mesh "
+            "axes) come with the distribution slice of the port"
         )
     if strategy == "pp" or problem.pp_tol > 0.0:
         raise NotImplementedError(

@@ -15,6 +15,7 @@ syncs with the host once per chunk of ``sweeps_per_sync`` sweeps.
 
 from __future__ import annotations
 
+import functools
 import math
 import time
 from dataclasses import dataclass
@@ -39,7 +40,7 @@ from .schedule import ROOT
 Tensor = torch.Tensor
 
 
-def _host_fits(fits: Sequence[Tensor]) -> list[float]:
+def _host_fits(fits: Sequence[Tensor]) -> list:
     """THE host-synchronization point of the cp_als driver: one call per
     chunk of sweeps.  Module-level so tests can count syncs."""
     return torch.stack(list(fits)).tolist()
@@ -153,9 +154,19 @@ def cp_als(
     the first converged one; ``callback(it, fit, seconds)`` fires once per
     executed sweep with the chunk's mean per-sweep seconds.
 
-    ``dispatch_cache`` and ``dispatch_key`` are accepted for the serving
-    engine's calling convention and have nothing to cache: PyTorch runs
-    eagerly, so there is no compiled sweep to reuse.
+    Batched problems (``plan.problem.batched``) expect ``x`` of shape
+    ``(batch, *problem.shape)`` and run all problems through the same
+    launches: factors, weights and Grams gain a leading batch axis, the fit
+    is per problem (``CPState.fit`` has shape ``(batch,)``), the callback
+    receives the batch-mean fit, and the run stops when every problem's fit
+    delta is below ``tol`` (the shared stop of one batched dispatch).
+
+    ``dispatch_cache`` (with ``dispatch_key``) lets a caller that drives
+    many same-signature runs -- the serving engine of
+    :mod:`repro_torch.serve.cp_service` -- reuse one sweep callable bound
+    to ``(problem, plan, executor)``: a miss builds and stores it, a hit
+    runs the stored one.  PyTorch runs eagerly, so nothing is compiled; the
+    caller must key the cache so that one key never maps two plans.
     """
     problem = plan.problem
     if executor is None:
@@ -165,20 +176,31 @@ def cp_als(
     k = int(sweeps_per_sync)
     if k < 1:
         raise ValueError(f"sweeps_per_sync must be >= 1, got {sweeps_per_sync}")
-    if tuple(x.shape) != problem.shape:
-        raise ValueError(f"problem expects x.shape {problem.shape}, got {tuple(x.shape)}")
+    lead = (problem.batch,) if problem.batched else ()
+    if tuple(x.shape) != lead + problem.shape:
+        raise ValueError(
+            f"problem expects x.shape {lead + problem.shape}, got {tuple(x.shape)}"
+        )
     if init_factors is None:
         gen = torch.Generator(device=x.device).manual_seed(seed)
-        factors = random_factors(gen, x.shape, problem.rank, x.dtype, device=x.device)
+        factors = random_factors(
+            gen, problem.shape, problem.rank, x.dtype, batch=problem.batch, device=x.device
+        )
     else:
         factors = list(init_factors)
     x, factors = executor.prepare(problem, x, factors)
-    weights = torch.ones((problem.rank,), dtype=x.dtype, device=x.device)
-    norm_x = tensor_norm(x).to(x.dtype)
+    weights = torch.ones(lead + (problem.rank,), dtype=x.dtype, device=x.device)
+    norm_x = tensor_norm(x, batched=problem.batched).to(x.dtype)
     gs = grams(factors)
+    if dispatch_cache is not None and dispatch_key in dispatch_cache:
+        sweep = dispatch_cache[dispatch_key]
+    else:
+        sweep = functools.partial(als_sweep, problem, plan, executor)
+        if dispatch_cache is not None:
+            dispatch_cache[dispatch_key] = sweep
 
-    fit_prev = -math.inf
-    fit = torch.zeros((), dtype=x.dtype, device=x.device)
+    fit_prev = [-math.inf] * problem.batch if problem.batched else -math.inf
+    fit = torch.zeros(lead, dtype=x.dtype, device=x.device)
     it = 0
     done = False
     while it < n_iters and not done:
@@ -186,8 +208,7 @@ def cp_als(
         t0 = time.perf_counter()
         fits = []
         for j in range(length):
-            state = als_sweep(
-                problem, plan, executor,
+            state = sweep(
                 SweepState(x=x, factors=factors, weights=weights, norm_x=norm_x,
                            it=it + j, grams=gs),
             )
@@ -196,10 +217,18 @@ def cp_als(
         host = _host_fits(fits)  # the chunk's single host sync
         dt = time.perf_counter() - t0
         for j, f in enumerate(host):
-            if callback is not None:
-                callback(it + j, f, dt / length)
-            if track_fit and abs(f - fit_prev) < tol:
-                done = True
+            if problem.batched:
+                # per-problem fits (B,); stop only when every problem's fit
+                # delta clears tol (one batched dispatch, shared stop)
+                if callback is not None:
+                    callback(it + j, sum(f) / len(f), dt / length)
+                if track_fit and max(abs(a - b) for a, b in zip(f, fit_prev)) < tol:
+                    done = True
+            else:
+                if callback is not None:
+                    callback(it + j, f, dt / length)
+                if track_fit and abs(f - fit_prev) < tol:
+                    done = True
             fit_prev = f
         it += length
         fit = fits[-1]

@@ -111,8 +111,10 @@ def test_later_slices_raise_not_implemented():
     p = tplan.Problem((4, 6), 2)
     with pytest.raises(NotImplementedError):
         tplan.plan_sweep(tplan.Problem((4, 6), 2, mode_axes={0: "x"}, axis_sizes={"x": 2}))
-    with pytest.raises(NotImplementedError):
-        tplan.plan_sweep(tplan.Problem((4, 6), 2, batch=2))
+    with pytest.raises(NotImplementedError):  # batch-parallel placement: distribution slice
+        tplan.plan_sweep(
+            tplan.Problem((4, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
+        )
     with pytest.raises(NotImplementedError):
         tplan.plan_sweep(tplan.Problem((4, 6), 2, pp_tol=0.1))
     with pytest.raises(NotImplementedError):
