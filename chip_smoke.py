@@ -32,8 +32,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 5. batched kernels vs plain versions on the card, same bound: both on every
    mode of an 8-subject batch (8 x 225 x 200 x 200, cut from the tensor by
    subject) and of an odd 5-subject batch, the matrix-free one also on small
-   order-4, 5 and 6 batches; slab 0's output bitwise unchanged when the other
-   slabs hold other data.
+   order-4, 5 and 6 batches; both at rank 16 (the serving path's second
+   signature) on the 8-subject batch and, unbatched, on subject 0; slab 0's
+   output bitwise unchanged when the other slabs hold other data.
 6. serving path: ``CPService(batch_size=8, n_iters=sweeps, tol=0)`` under
    strategies autotune (empty tuning cache: the model plans), fused and
    matrix_free serves the 59 subjects at rank ``--rank`` plus subjects 0-7
@@ -45,10 +46,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    strategies within ``FIT_AGREE`` and subject 0 against the unbatched
    ``cp_als`` on that subject alone; then ``batch_size=1`` under fused and
    matrix_free on the 8 rank-16 requests (only the unbatched kernel, 8 x
-   sweeps x 3 launches).  Prints problems/s and ms per batch (host clock
+   sweeps x 3 launches; finite results whose fits agree with the
+   ``batch_size=8`` ones within ``FIT_AGREE``).  Prints problems/s and ms per batch (host clock
    over a second flush of the same fleet) and peak memory.
 7. timing of both batched kernels per mode at ``(8, 225, 200, 200)``, as in
-   phase 4, and the batched sweep's time outside the kernels.
+   phase 4, and the batched sweep's time outside the kernels: the host-clock
+   time of a batched ``cp_als`` run as a dispatch runs it (one sync) less
+   the kernels' CUDA-event times from the separate timing loop.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
@@ -160,7 +164,7 @@ def _kernel_leaves(plan, algorithm: str) -> int:
 def _serve_phase(torch, args, dev, smi, subjects, gen):
     """Phase 6: serve the fleet under each strategy.  Returns the batched
     kernels' launches under the kernel strategies and the batched sweep's
-    seconds (mean of sweeps 2.., host clock) under each of them."""
+    seconds (host clock, one dispatch's cp_als over its sweeps) under each."""
     from repro_torch.kernels import fused_mttkrp as fm
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
@@ -181,7 +185,7 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
     def submit_all(svc, reqs):
         return [svc.submit(subjects[i], r, init_factors=inits[(i, r)]) for i, r in reqs]
 
-    fits, served_launches = {}, {}
+    fits, served_launches, second_fits = {}, {}, {}
     for strategy in ("autotune", "fused", "matrix_free"):
         svc = CPService(batch_size=SERVE_BATCH, n_iters=sweeps, tol=0.0, strategy=strategy,
                         tuning_cache=TuningCache(), device=dev)
@@ -217,6 +221,7 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
         ):
             raise SystemExit(f"{strategy}: non-finite served result or wrong sweep count")
         fits[strategy] = [r.fit for r in res]
+        second_fits[strategy] = [r.fit for (_, r_), r in zip(requests, res) if r_ == SECOND_RANK]
         # subject 0 against the unbatched cp_als on that subject alone
         one = cp_als(subjects[0], plan_sweep(Problem(shape, rank), strategy,
                                              tuning_cache=TuningCache()),
@@ -250,7 +255,7 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
     for strategy, own in (("fused", 0), ("matrix_free", 2)):
         svc = CPService(batch_size=1, n_iters=sweeps, tol=0.0, strategy=strategy,
                         tuning_cache=TuningCache(), device=dev)
-        submit_all(svc, second)
+        futs = submit_all(svc, second)
         for k in counters:
             k.launches = 0
         svc.flush()
@@ -261,18 +266,33 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
         _log(f"[6] {strategy} batch_size=1: launches {got} (want {want})")
         if got != want:
             raise SystemExit(f"{strategy} batch_size=1: launch counts {got} != {want}")
+        res = [f.result() for f in futs]
+        if not all(math.isfinite(r.fit) and r.sweeps == sweeps for r in res) or not all(
+            bool(torch.isfinite(u).all()) for r in res for u in r.factors
+        ):
+            raise SystemExit(f"{strategy} batch_size=1: non-finite served result or wrong sweep count")
+        d1 = max(abs(r.fit - f) for r, f in zip(res, second_fits[strategy]))
+        _log(f"[6] {strategy} batch_size=1 vs batch_size={SERVE_BATCH} rank {SECOND_RANK} fits "
+             f"from the same inits: max |diff| {d1:.3e} (bound {FIT_AGREE:g})")
+        if d1 > FIT_AGREE:
+            raise SystemExit(f"{strategy} batch_size=1: served fits disagree with the batched ones")
 
-    # the batched sweep under each kernel strategy, for the time outside the kernels
+    # the batched sweep under each kernel strategy as a dispatch runs it (all
+    # sweeps in one chunk, one host sync), for the time outside the kernels;
+    # the second of two calls, host clock, the call's set-up included
     xb = torch.stack(subjects[:SERVE_BATCH])
     init = [torch.stack([inits[(i, rank)][m] for i in range(SERVE_BATCH)]) for m in range(3)]
     sweep_s = {}
     for strategy in ("fused", "matrix_free"):
-        secs = []
-        cp_als(xb, plan_sweep(Problem(shape, rank, batch=SERVE_BATCH), strategy,
-                              tuning_cache=TuningCache()),
-               n_iters=sweeps, tol=0.0, init_factors=init,
-               callback=lambda it, f, dt: secs.append(dt))
-        sweep_s[strategy] = sum(secs[1:]) / max(1, len(secs) - 1)
+        plan = plan_sweep(Problem(shape, rank, batch=SERVE_BATCH), strategy,
+                          tuning_cache=TuningCache())
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cp_als(xb, plan, n_iters=sweeps, tol=0.0, init_factors=init,
+                   sweeps_per_sync=sweeps)
+            torch.cuda.synchronize()
+            sweep_s[strategy] = (time.perf_counter() - t0) / sweeps
     return served_launches, sweep_s
 
 
@@ -460,9 +480,24 @@ def main(argv=None) -> int:
               mf.matrix_free_batched_kernel(x, us, n), mf.matrix_free_batched_kernel_plain(x, us, n),
               5)
 
+    # rank 16, the serving path's second signature: batched at (8, 225, 200, 200)
+    # and, for batch_size=1, unbatched on one subject
+    fb16 = [torch.randn((SERVE_BATCH, d, SECOND_RANK), generator=gen, device=dev)
+            for d in xb.shape[1:]]
+    f16 = [f[0] for f in fb16]
     for n in range(3):
         check_batched(f"S={SERVE_BATCH}", xb, fb, n)
         check_batched("S=5 (odd)", xb[:5], [f[:5] for f in fb], n)
+        check_batched(f"S={SERVE_BATCH} rank {SECOND_RANK}", xb, fb16, n)
+        t, a, b, pos = ops.bilinear_operands(subjects[0], f16, n)
+        check(f"fused subject 0 rank {SECOND_RANK} mode {n} pos {pos} T{tuple(t.shape)}", "fused",
+              fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+              fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos), 5)
+        us = [f16[k] for k in range(3) if k != n]
+        check(f"matrix_free subject 0 rank {SECOND_RANK} mode {n}", "mf",
+              mf.matrix_free_kernel(subjects[0], us, n),
+              mf.matrix_free_kernel_plain(subjects[0], us, n), 5)
+    del fb16, f16
     for shape in ((3, 20, 15, 12, 10), (3, 12, 10, 8, 9, 11), (3, 6, 7, 5, 8, 6, 7)):
         xs_ = torch.randn(shape, generator=gen, device=dev)
         fs_ = [torch.randn((shape[0], d, rank), generator=gen, device=dev) for d in shape[1:]]
@@ -523,9 +558,10 @@ def main(argv=None) -> int:
     for key, strategy in (("fused_b", "fused"), ("mf_b", "matrix_free")):
         kern = sum(r["ms"] for r in rows[key])
         sweep = 1e3 * sweep_s[strategy]
-        _log(f"[7] batched {strategy} sweep (S={SERVE_BATCH}, rank {rank}): {sweep:.3f} ms, "
-             f"of which kernels {kern:.3f} ms, outside the kernels {sweep - kern:.3f} ms; "
-             f"card {smi}")
+        _log(f"[7] batched {strategy} sweep (S={SERVE_BATCH}, rank {rank}): {sweep:.3f} ms "
+             f"(host clock, cp_als with sweeps_per_sync={args.sweeps} as a served dispatch, "
+             f"its set-up included); kernels {kern:.3f} ms (CUDA events, separate loop); "
+             f"difference, the time outside the kernels: {sweep - kern:.3f} ms; card {smi}")
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -18,7 +18,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.cpals import CPState
-from repro_torch.serve.cp_service import CPResult
 
 
 def _numpy(a) -> np.ndarray:
@@ -76,6 +75,8 @@ def cpresult_to_numpy(result) -> dict:
 def cpresult_from_numpy(fields: dict, *, device: str | torch.device):
     """The port's ``CPResult`` from :func:`cpresult_to_numpy` fields
     (factors and weights copied onto ``device``)."""
+    from repro_torch.serve.cp_service import CPResult  # the serving layer, only here
+
     return CPResult(
         rid=int(fields["rid"]),
         factors=[torch.tensor(np.asarray(f), device=device) for f in fields["factors"]],

@@ -15,7 +15,6 @@ syncs with the host once per chunk of ``sweeps_per_sync`` sweeps.
 
 from __future__ import annotations
 
-import functools
 import math
 import time
 from dataclasses import dataclass
@@ -161,12 +160,9 @@ def cp_als(
     receives the batch-mean fit, and the run stops when every problem's fit
     delta is below ``tol`` (the shared stop of one batched dispatch).
 
-    ``dispatch_cache`` (with ``dispatch_key``) lets a caller that drives
-    many same-signature runs -- the serving engine of
-    :mod:`repro_torch.serve.cp_service` -- reuse one sweep callable bound
-    to ``(problem, plan, executor)``: a miss builds and stores it, a hit
-    runs the stored one.  PyTorch runs eagerly, so nothing is compiled; the
-    caller must key the cache so that one key never maps two plans.
+    ``dispatch_cache`` and ``dispatch_key`` are accepted for the serving
+    engine's calling convention and have nothing to cache: PyTorch runs
+    eagerly, so there is no compiled sweep to reuse.
     """
     problem = plan.problem
     if executor is None:
@@ -192,12 +188,6 @@ def cp_als(
     weights = torch.ones(lead + (problem.rank,), dtype=x.dtype, device=x.device)
     norm_x = tensor_norm(x, batched=problem.batched).to(x.dtype)
     gs = grams(factors)
-    if dispatch_cache is not None and dispatch_key in dispatch_cache:
-        sweep = dispatch_cache[dispatch_key]
-    else:
-        sweep = functools.partial(als_sweep, problem, plan, executor)
-        if dispatch_cache is not None:
-            dispatch_cache[dispatch_key] = sweep
 
     fit_prev = [-math.inf] * problem.batch if problem.batched else -math.inf
     fit = torch.zeros(lead, dtype=x.dtype, device=x.device)
@@ -208,7 +198,8 @@ def cp_als(
         t0 = time.perf_counter()
         fits = []
         for j in range(length):
-            state = sweep(
+            state = als_sweep(
+                problem, plan, executor,
                 SweepState(x=x, factors=factors, weights=weights, norm_x=norm_x,
                            it=it + j, grams=gs),
             )

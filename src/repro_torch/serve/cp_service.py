@@ -22,10 +22,10 @@ give each slab its own blocks), so a dummy cannot perturb a real problem --
 and because each dummy duplicates a real problem, the shared convergence
 stop (batch-max fit delta) behaves as if the padding were absent.
 
-One dispatch state per signature: the plan is made once, and a
-per-signature dispatch cache goes into ``cp_als(dispatch_cache=...)``; its
-misses are the ``compiles`` counter, one per signature as in the
-reference (PyTorch runs eagerly, so nothing is compiled).  The persistent
+One dispatch state per signature: the plan is made once, on the
+signature's first dispatch.  Those misses are the ``compiles`` counter, one
+per signature as in the reference (PyTorch runs eagerly, so nothing is
+compiled).  The persistent
 :class:`repro_torch.plan.autotune.TuningCache` is the warm-plan store under
 the same signature: with ``strategy="autotune"`` (the default) a signature
 with measurements plans from them (``stats()["warm_plan_hits"]``); other
@@ -40,7 +40,7 @@ pairwise-perturbation requests (``pp_tol > 0``) raise
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Sequence
 
 import torch
@@ -117,11 +117,10 @@ class _CPRequest:
 
 @dataclass
 class _SignatureState:
-    """Per-signature state: planned once, dispatched through its cache."""
+    """Per-signature state: planned once, on the signature's first dispatch."""
 
     problem: Problem
     plan: Any
-    dispatch: dict = field(default_factory=dict)
 
 
 def _no_pp(pp_tol: float) -> None:
@@ -272,7 +271,8 @@ class CPService:
 
     # ------------------------------------------------------------- execution
     def _state_for(self, sig: str, payload: _CPRequest) -> _SignatureState:
-        """Memoized per-signature plan (the warm-plan lookup)."""
+        """Memoized per-signature plan (the warm-plan lookup); a miss is a
+        ``compiles`` count."""
         state = self._states.get(sig)
         if state is not None:
             return state
@@ -283,6 +283,7 @@ class CPService:
         )
         plan = plan_sweep(problem, strategy=self.strategy, tuning_cache=self.tuning_cache)
         state = _SignatureState(problem=plan.problem, plan=plan)
+        self._counters["compiles"] += 1
         if warm:
             self._counters["warm_plan_hits"] += 1
         self._states[sig] = state
@@ -328,8 +329,6 @@ class CPService:
         else:
             x = slots[0].tensor
             init = inits[0]
-        if 0 not in state.dispatch:
-            self._counters["compiles"] += 1  # the dispatch-cache miss
         t0 = time.monotonic()
         st = cp_als(
             x,
@@ -338,8 +337,6 @@ class CPService:
             tol=tol,
             init_factors=init,
             sweeps_per_sync=self.sweeps_per_sync or n_iters,
-            dispatch_cache=state.dispatch,
-            dispatch_key=0,
         )
         fits = st.fit.reshape(-1).tolist()  # the dispatch's host sync
         now = time.monotonic()
@@ -384,7 +381,7 @@ class CPService:
         ``rejected`` (QueueFull backpressure events), ``batches`` and
         ``padded_slots``, ``batch_occupancy`` (mean real-slot fraction over
         executed batches), ``signatures`` (distinct buckets seen),
-        ``compiles`` (dispatch-cache misses -- one per signature),
+        ``compiles`` (plans made -- one per signature),
         ``warm_plan_hits`` (signatures planned from tuning-cache
         measurements), ``execute_s`` and ``problems_per_s`` (completed real
         problems over in-dispatch seconds, host clock; each dispatch ends in
