@@ -6,16 +6,19 @@ paper's fMRI application (225 time points x 59 subjects x 200 x 200 regions,
 2.12 GB in float32, synthetic data made from ``--seed``): one big tensor
 through ``Problem.from_tensor -> plan_sweep -> cp_als``, and the fleet of its
 59 per-subject tensors (225 x 200 x 200) served by ``CPService`` through
-``Problem(batch=8) -> plan_sweep -> batched cp_als``.  Holds all four CUDA
-kernels (fused and matrix-free MTTKRP, unbatched and batched) against their
-plain PyTorch versions.
+``Problem(batch=8) -> plan_sweep -> batched cp_als``; the kernelized 2-step
+MTTKRP and the explicit KRP (``ops.mttkrp_2step_kernel``,
+``ops.krp_materialize``); and the measured-autotuning path ``tune() ->
+plan_sweep("autotune") -> cp_als`` and ``-> CPService``.  Holds all seven
+CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
+and batched, and the KRP pair) against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0] [--rank 10] [--sweeps 5]
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 0. device: name, count, power limit; TF32 switched off for matmuls and cuDNN.
-1. build: all four kernel entries from ``src/repro_torch/kernels/csrc`` (one
+1. build: all seven kernel entries from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel); registers, shared memory and spills.
 2. kernels vs plain versions on the card: the fused kernel on every mode of
    the 4-way tensor (pos 0, 1 and 2); the matrix-free kernel on every mode
@@ -53,6 +56,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    phase 4, and the batched sweep's time outside the kernels: the host-clock
    time of a batched ``cp_als`` run as a dispatch runs it (one sync) less
    the kernels' CUDA-event times from the separate timing loop.
+8. new kernels vs plain versions on the card, same bound: multi-TTV at the
+   fMRI tensor's 2-step second steps (mode 1 right-first, T 225 x 59 x 10;
+   mode 2 left-first, T 200 x 200 x 10) for every ``block_i`` candidate and
+   at rank 16; batched multi-TTV at the 8-subject batch's mode-1 left-first
+   partial (8 x 200 x 200 x 10) and at an odd S = 5, slab 0 bitwise
+   unchanged by the other slabs; the KRP pair and ``krp_materialize`` on
+   the factors of modes 1-3 (2.36 M rows, 94 MB) and of modes 0-1; the
+   fused and matrix-free kernels on every mode at each ``blocks_per_sm``
+   candidate (the default bitwise equal to a call without the knob); every
+   new kernel bitwise repeatable.
+9. the kernelized 2-step MTTKRP on every mode of the 4-way tensor against
+   the einsum oracle (multi-TTV on modes 1-2, the fused fallback on modes 0
+   and 3), ``krp_materialize`` of the factors of modes 1-3 and
+   ``ops.multi_ttv_batched`` on the batch, each with its launch counts.
+10. the tuning path: ``tune()`` on the 4-way tensor (no budget cap; tile
+   rows, node rows, elapsed), ``plan_sweep("autotune")`` on that cache
+   (every node carries ``measured_s``), ``cp_als`` under the tuned plan
+   (fits within ``FIT_AGREE`` of phase 3's ``auto`` fits, kernel launches
+   = the plan's kernel leaves x sweeps, per-sweep time, peak memory); then
+   ``tune()`` on subject 0 and ``CPService(batch_size=1,
+   strategy="autotune")`` serving subjects 0-7 from phase 6's inits (one
+   warm-plan hit, fits within ``FIT_AGREE`` of phase 6's, launches read off
+   the plan).
+11. timing, as in phase 4, of multi-TTV (both shapes), batched multi-TTV and
+   the KRP pair (the 94 MB KRP's last fold), each beside its plain version,
+   one PyTorch call and the bound; and the fused and matrix-free sweep at
+   each ``blocks_per_sm`` candidate.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
@@ -91,6 +121,11 @@ FUSED_REPLACES = "src/repro/kernels/fused_mttkrp.py:182"
 MF_REPLACES = "src/repro/kernels/matrix_free.py:84"
 FUSED_BATCHED_REPLACES = "src/repro/kernels/fused_mttkrp.py:111"
 MF_BATCHED_REPLACES = "src/repro/kernels/matrix_free.py:157"
+MT_SOURCE = "src/repro_torch/kernels/csrc/multi_ttv.cu"
+KRP_SOURCE = "src/repro_torch/kernels/csrc/krp_pair.cu"
+MT_REPLACES = "src/repro/kernels/multi_ttv.py:46"
+MT_BATCHED_REPLACES = "src/repro/kernels/multi_ttv.py:82"
+KRP_REPLACES = "src/repro/kernels/krp_kernel.py:32"
 # The serving fleet: one tensor per subject, served in batches of 8; a second
 # signature at rank 16 serves subjects 0-7 again.
 SERVE_BATCH = 8
@@ -163,8 +198,10 @@ def _kernel_leaves(plan, algorithm: str) -> int:
 
 def _serve_phase(torch, args, dev, smi, subjects, gen):
     """Phase 6: serve the fleet under each strategy.  Returns the batched
-    kernels' launches under the kernel strategies and the batched sweep's
-    seconds (host clock, one dispatch's cp_als over its sweeps) under each."""
+    kernels' launches under the kernel strategies, the batched sweep's
+    seconds (host clock, one dispatch's cp_als over its sweeps) under each,
+    the per-request inits and the served fits of the rank-``--rank``
+    requests under ``autotune`` (subject order)."""
     from repro_torch.kernels import fused_mttkrp as fm
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
@@ -293,7 +330,281 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
                    sweeps_per_sync=sweeps)
             torch.cuda.synchronize()
             sweep_s[strategy] = (time.perf_counter() - t0) / sweeps
-    return served_launches, sweep_s
+    return served_launches, sweep_s, inits, fits["autotune"][: len(subjects)]
+
+
+def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, check, rows,
+                        auto_fits, auto_secs, serve_inits, serve_fits):
+    """Phases 8-11 (see the module docstring).  ``check`` and ``rows`` are
+    main()'s error check and timing table; returns the launches of each new
+    kernel's path (phase 9)."""
+    from repro_torch.kernels import _tiling, ops, ref
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+    from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep, tune
+    from repro_torch.plan.autotune import (
+        FUSED_TILE_CANDIDATES,
+        MATRIX_FREE_TILE_CANDIDATES,
+        TTV_TILE_CANDIDATES,
+    )
+    from repro_torch.serve import CPService
+
+    rank, sweeps = args.rank, args.sweeps
+
+    def same_twice(label, run):
+        a, b = run(), run()
+        ok = torch.equal(a, b)
+        _log(f"[8] {label} run twice bitwise equal: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: not bitwise repeatable")
+        return a
+
+    # ---- phase 8: the new kernels against their plain versions; the split knob
+    ttv_ops = {n: ops.multi_ttv_operands(x4, init, n) for n in (1, 2)}  # the 2-step 2nd steps
+    f16 = [torch.randn((d, SECOND_RANK), generator=gen, device=dev) for d in FMRI]
+    for n, (t, w) in ttv_ops.items():
+        plain = mt.multi_ttv_plain(t, w)
+        for bi in TTV_TILE_CANDIDATES:
+            check(f"multi_ttv mode {n} T{tuple(t.shape)} block_i {bi} "
+                  f"({mt.block_threads(t.shape[1], bi)} threads)", "mt",
+                  mt.multi_ttv(t, w, block_i=bi), plain, 8)
+        same_twice(f"multi_ttv mode {n}", lambda: mt.multi_ttv(t, w))
+        t16, w16 = ops.multi_ttv_operands(x4, f16, n)
+        check(f"multi_ttv mode {n} rank {SECOND_RANK} T{tuple(t16.shape)}", "mt",
+              mt.multi_ttv(t16, w16), mt.multi_ttv_plain(t16, w16), 8)
+    del f16, t16, w16
+
+    def batch_ttv_operands(idx, fs):  # mode 1 of each subject: L = 225 > R = 200, left-first
+        pairs = [ops.multi_ttv_operands(subjects[i], [f[j] for f in fs], 1)
+                 for j, i in enumerate(idx)]
+        return torch.stack([t for t, _ in pairs]), torch.stack([w for _, w in pairs])
+
+    tb, wb = batch_ttv_operands(range(SERVE_BATCH), fb)
+    check(f"multi_ttv_batched S={SERVE_BATCH} T{tuple(tb.shape)}", "mt_b",
+          mt.multi_ttv_batched(tb, wb), mt.multi_ttv_batched_plain(tb, wb), 8)
+    check("multi_ttv_batched S=5 (odd)", "mt_b", mt.multi_ttv_batched(tb[:5], wb[:5]),
+          mt.multi_ttv_batched_plain(tb[:5], wb[:5]), 8)
+    same_twice("multi_ttv_batched", lambda: mt.multi_ttv_batched(tb, wb))
+    other = [torch.randn(f.shape, generator=gen, device=dev) for f in fb]
+    ub, vb = batch_ttv_operands([(SERVE_BATCH + k) % len(subjects) for k in range(SERVE_BATCH)],
+                                other)
+    ub, vb = torch.cat([tb[:1], ub[1:]]), torch.cat([wb[:1], vb[1:]])
+    same = torch.equal(mt.multi_ttv_batched(tb, wb)[0], mt.multi_ttv_batched(ub, vb)[0])
+    _log(f"[8] slab 0 of multi_ttv_batched bitwise unchanged by slabs 1..: {'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("multi_ttv_batched: slab 0 depends on the other slabs")
+    del other, ub, vb
+
+    u0, u1, u2, u3 = init
+    k_full = same_twice("krp_materialize [U1, U2, U3]", lambda: ops.krp_materialize([u1, u2, u3]))
+    check(f"krp_materialize [U1, U2, U3] {tuple(k_full.shape)} ({k_full.numel() * 4 / 1e6:.0f} MB)",
+          "krp", k_full, ref.krp_ref([u1, u2, u3]), 8)
+    del k_full
+    k12 = kk.krp_pair(u1, u2, block_b=512)
+    check("krp_pair (U1 (.) U2) (.) U3, the last fold", "krp", kk.krp_pair(k12, u3, block_b=512),
+          kk.krp_pair_plain(k12, u3), 8)
+    same_twice("krp_pair last fold", lambda: kk.krp_pair(k12, u3, block_b=512))
+    check("krp_pair U0 (.) U1", "krp", kk.krp_pair(u0, u1, block_b=512), kk.krp_pair_plain(u0, u1), 8)
+    check("krp_materialize [U0, U1]", "krp", ops.krp_materialize([u0, u1]), ref.krp_ref([u0, u1]), 8)
+
+    default_bps = _tiling.BLOCKS_PER_SM
+    for n in range(4):
+        t, a, b, pos = ops.bilinear_operands(x4, f4, n)
+        us = [f4[k] for k in range(4) if k != n]
+        for label, key, run, plain, cands in (
+            ("fused", "fused", lambda **kw: fm.fused_mttkrp_bilinear(t, a, b, pos=pos, **kw),
+             fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos), FUSED_TILE_CANDIDATES),
+            ("matrix_free", "mf", lambda **kw: mf.matrix_free_kernel(x4, us, n, **kw),
+             mf.matrix_free_kernel_plain(x4, us, n), MATRIX_FREE_TILE_CANDIDATES),
+        ):
+            default = run()
+            for bps in cands:
+                out = run(blocks_per_sm=bps)
+                check(f"{label} mode {n} blocks_per_sm {bps}", key, out, plain, 8)
+                if bps == default_bps and not torch.equal(out, default):
+                    raise SystemExit(f"{label} mode {n}: blocks_per_sm={bps} differs from the default")
+            _log(f"[8] {label} mode {n} blocks_per_sm={default_bps} bitwise equal to the call "
+                 "without the knob: ok")
+    torch.cuda.synchronize()
+
+    # ---- phase 9: the paths of the new kernels, with their launch counts
+    path = {}
+    for k in (mt.KERNEL, fm.KERNEL, mf.KERNEL):
+        k.launches = 0
+    two_step = [ops.mttkrp_2step_kernel(x4, init, n) for n in range(4)]
+    torch.cuda.synchronize()
+    got = (mt.KERNEL.launches, fm.KERNEL.launches, mf.KERNEL.launches)
+    _log(f"[9] mttkrp_2step_kernel on every mode: launches multi_ttv {got[0]} fused {got[1]} "
+         f"matrix_free {got[2]} (want 2, 2, 0)")
+    if got != (2, 2, 0):
+        raise SystemExit(f"mttkrp_2step_kernel launch counts {got} != (2, 2, 0)")
+    path["mt"] = got[0]
+    for n, out in enumerate(two_step):
+        check(f"mttkrp_2step_kernel mode {n} vs the einsum oracle", "2step", out,
+              ref.fused_mttkrp_ref(x4, init, n), 9)
+    del two_step
+    kk.KERNEL.launches = 0
+    ops.krp_materialize([u1, u2, u3])
+    mt.BATCHED_KERNEL.launches = 0
+    ops.multi_ttv_batched(tb, wb)
+    torch.cuda.synchronize()
+    path["krp"], path["mt_b"] = kk.KERNEL.launches, mt.BATCHED_KERNEL.launches
+    _log(f"[9] krp_materialize [U1, U2, U3]: krp_pair launches {path['krp']} (want 2); "
+         f"ops.multi_ttv_batched S={SERVE_BATCH}: launches {path['mt_b']} (want 1)")
+    if (path["krp"], path["mt_b"]) != (2, 1):
+        raise SystemExit("krp_materialize / multi_ttv_batched launch counts are off")
+
+    # ---- phase 10: the tuning path
+    kernels = (fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
+               mt.BATCHED_KERNEL, kk.KERNEL)
+
+    def run_tune(x, factors, label):
+        cache = TuningCache(None)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        entry = tune(x, rank, factors=factors, cache=cache, budget_ms=None, reps=3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for name_, summ in entry["tiles"].items():
+            for r in summ["rows"]:
+                _log(f"[10] tune {label} tile {name_} mode {summ['mode']} candidate "
+                     f"{r['candidate']} launch {r['effective']}: {1e3 * r['measured_s']:.4f} ms "
+                     f"(CUDA events, median of 3); card {smi}")
+            chosen = {k_: v for k_, v in summ.items() if k_ not in
+                      ("mode", "default_s", "tuned_s", "speedup_vs_default", "rows")}
+            _log(f"[10] tune {label} tile {name_}: chosen {chosen}, default "
+                 f"{1e3 * summ['default_s']:.4f} ms, tuned {1e3 * summ['tuned_s']:.4f} ms, "
+                 f"speedup {summ['speedup_vs_default']:.3f}")
+        for r in entry["nodes"]:
+            _log(f"[10] tune {label} node {r['key']} ({r['schedule']}): "
+                 f"{1e3 * r['measured_s']:.4f} ms")
+        launched = {k.symbol: k.launches for k in kernels if k.launches}
+        _log(f"[10] tune {label}: {len(entry['nodes'])} node rows, elapsed_ms "
+             f"{entry['elapsed_ms']:.1f} (its budget clock, after the build), {wall:.1f} s wall; "
+             f"launches {launched}; card {smi}")
+        if not all(summ["rows"] for summ in entry["tiles"].values()):
+            raise SystemExit(f"tune {label}: a tile table is empty")
+        return cache
+
+    cache = run_tune(x4, init, "x4")
+    problem = Problem.from_tensor(x4, rank)
+    plan = plan_sweep(problem, strategy="autotune", tuning_cache=cache)
+    desc = plan.describe()
+    _log(f"[10] autotune plan describe(): {json.dumps(desc)}")
+    if any(nd["measured_s"] is None for nd in desc["nodes"]):
+        raise SystemExit("autotune plan: a node carries no measured_s")
+    _log(f"[10] autotune plan: schedule {plan.resolved_schedule.name} nodes "
+         f"{[(np_.algorithm, np_.tiles) for np_ in plan.nodes]}")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tuned_fits, secs = [], []
+    st = cp_als(x4, plan, n_iters=sweeps, tol=0.0, init_factors=init,
+                callback=lambda it, f, dt: (tuned_fits.append(f), secs.append(dt)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = (fm.KERNEL.launches, mf.KERNEL.launches)
+    want = (_kernel_leaves(plan, "fused") * sweeps, _kernel_leaves(plan, "matrix_free") * sweeps)
+    gap = max(abs(a - b) for a, b in zip(tuned_fits, auto_fits))
+    _log(f"[10] cp_als under the tuned plan: fits {tuned_fits}; per-sweep s {secs} (host clock, "
+         f"one device sync per sweep; phase 3 auto {auto_secs}); peak memory {peak:.3f} GB; "
+         f"launches fused {got[0]} matrix_free {got[1]} (want {want}); fits vs phase 3 auto: "
+         f"max |diff| {gap:.3e} (bound {FIT_AGREE:g}); card {smi}")
+    if got != want or any(k.launches for k in kernels if k not in (fm.KERNEL, mf.KERNEL)):
+        raise SystemExit(f"tuned cp_als launch counts {got} != {want}")
+    if st.it != sweeps or not all(math.isfinite(f) for f in tuned_fits) or gap > FIT_AGREE:
+        raise SystemExit("tuned cp_als: wrong sweep count, non-finite fit or fits off phase 3's")
+
+    shape = tuple(subjects[0].shape)
+    cache2 = run_tune(subjects[0], serve_inits[(0, rank)], "subject 0")
+    plan2 = plan_sweep(Problem(shape, rank), "autotune", tuning_cache=cache2)
+    _log(f"[10] subject plan: schedule {plan2.resolved_schedule.name} nodes "
+         f"{[(np_.algorithm, np_.tiles) for np_ in plan2.nodes]}")
+    svc = CPService(batch_size=1, n_iters=sweeps, tol=0.0, strategy="autotune",
+                    tuning_cache=cache2, device=dev)
+    futs = [svc.submit(subjects[i], rank, init_factors=serve_inits[(i, rank)])
+            for i in range(SECOND_SUBJECTS)]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    svc.flush()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = [k.launches for k in kernels]
+    want = [0] * len(kernels)
+    want[0] = _kernel_leaves(plan2, "fused") * sweeps * SECOND_SUBJECTS
+    want[2] = _kernel_leaves(plan2, "matrix_free") * sweeps * SECOND_SUBJECTS
+    stats = svc.stats()
+    res = [f.result() for f in futs]
+    d = max(abs(r.fit - serve_fits[i]) for i, r in enumerate(res))
+    _log(f"[10] CPService(batch_size=1, autotune, tuned cache) subjects 0-{SECOND_SUBJECTS - 1}: "
+         f"warm_plan_hits {stats['warm_plan_hits']} (want 1), compiles {stats['compiles']}; "
+         f"launches {got} (want {want}); fits vs phase 6: max |diff| {d:.3e} "
+         f"(bound {FIT_AGREE:g}); {SECOND_SUBJECTS / dt:.2f} problems/s (host clock, first "
+         f"flush, plan made in it); card {smi}")
+    if stats["warm_plan_hits"] != 1 or got != want:
+        raise SystemExit("tuned service: warm-plan hits or launch counts are off")
+    if not all(math.isfinite(r.fit) and r.sweeps == sweeps for r in res) or d > FIT_AGREE:
+        raise SystemExit("tuned service: non-finite result, wrong sweep count or fits off")
+
+    # ---- phase 11: timing of the new kernels, and of the knob
+    def bound(byts, flops):
+        return {"bytes_ms": byts / HBM_BW * 1e3, "flops_ms": flops / PEAK_FLOPS * 1e3}
+
+    def log_row(label, row):
+        b = max(row["bytes_ms"], row["flops_ms"])
+        _log(f"[11] {label}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+             f"library {row['library_ms']:.4f} ms, bound {b:.4f} ms "
+             f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); card {smi}")
+
+    for n, (t, w) in ttv_ops.items():
+        r = {"ms": _time_ms(torch, lambda: mt.multi_ttv(t, w), 200),
+             "plain_ms": _time_ms(torch, lambda: mt.multi_ttv_plain(t, w), 200),
+             "library_ms": _time_ms(torch, lambda: torch.einsum("lic,lc->ic", t, w), 200),
+             **bound(4 * (t.numel() + w.numel() + t.shape[1] * t.shape[2]), 2 * t.numel())}
+        rows.setdefault("mt", []).append(r)
+        log_row(f"multi_ttv mode {n} T{tuple(t.shape)}", r)
+    r = {"ms": _time_ms(torch, lambda: mt.multi_ttv_batched(tb, wb), 100),
+         "plain_ms": _time_ms(torch, lambda: mt.multi_ttv_batched_plain(tb, wb), 100),
+         "library_ms": _time_ms(torch, lambda: torch.einsum("slic,slc->sic", tb, wb), 100),
+         **bound(4 * (tb.numel() + wb.numel() + SERVE_BATCH * tb.shape[2] * tb.shape[3]),
+                 2 * tb.numel())}
+    rows["mt_b"] = [r]
+    log_row(f"multi_ttv_batched T{tuple(tb.shape)}", r)
+    n_out = k12.shape[0] * u3.shape[0] * rank
+    r = {"ms": _time_ms(torch, lambda: kk.krp_pair(k12, u3, block_b=512), 50),
+         "plain_ms": _time_ms(torch, lambda: kk.krp_pair_plain(k12, u3), 50),
+         "library_ms": _time_ms(torch, lambda: torch.einsum("ac,bc->abc", k12, u3), 50),
+         **bound(4 * (k12.numel() + u3.numel() + n_out), n_out)}
+    rows["krp"] = [r]
+    log_row(f"krp_pair {tuple(k12.shape)} (.) {tuple(u3.shape)} -> ({n_out // rank}, {rank})", r)
+
+    tuner_ms = {}
+    for name_, summ in cache.get(cache.keys()[0])["tiles"].items():
+        tuner_ms[name_] = {r_["candidate"][0]: 1e3 * r_["measured_s"] for r_ in summ["rows"]}
+    for label, cands, tiles_key in (("fused", FUSED_TILE_CANDIDATES, "fused_mttkrp"),
+                                    ("matrix_free", MATRIX_FREE_TILE_CANDIDATES, "matrix_free")):
+        for bps in cands:
+            total = 0.0
+            for n in range(4):
+                if label == "fused":
+                    t, a, b, pos = ops.bilinear_operands(x4, init, n)
+                    total += _time_ms(torch, lambda: fm.fused_mttkrp_bilinear(
+                        t, a, b, pos=pos, blocks_per_sm=bps), 20)
+                else:
+                    us = [init[k] for k in range(4) if k != n]
+                    total += _time_ms(torch, lambda: mf.matrix_free_kernel(
+                        x4, us, n, blocks_per_sm=bps), 20)
+            tuner = tuner_ms[tiles_key].get(bps)
+            _log(f"[11] {label} kernel sweep at blocks_per_sm {bps}: {total:.4f} ms (4 launches, "
+                 f"CUDA events); tuner's row, ops wrapper at mode 2: "
+                 f"{'deduped' if tuner is None else f'{tuner:.4f} ms'}; card {smi}")
+    return path
 
 
 def main(argv=None) -> int:
@@ -311,7 +622,9 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
     from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
     from repro_torch.plan import Problem, cp_als, plan_sweep
 
     t_start = time.perf_counter()
@@ -330,10 +643,11 @@ def main(argv=None) -> int:
 
     # ---- phase 1: build
     t0 = time.perf_counter()
-    kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL]
+    kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
+               mt.BATCHED_KERNEL, kk.KERNEL]
     _build.build_all(kernels)
     _log(f"[1] built {', '.join(k.symbol for k in kernels)} in {time.perf_counter() - t0:.1f} s")
-    for k in (fm.KERNEL, mf.KERNEL):
+    for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL, kk.KERNEL):
         for line in k.ptxas_log.splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
                 _log(f"[1] {k.source.name}: {line.strip()}")
@@ -347,7 +661,8 @@ def main(argv=None) -> int:
          f"x3 {tuple(x3.shape)} ({x3.numel() * 4 / 1e9:.2f} GB), seed {args.seed}")
 
     # ---- phase 2: kernels vs plain versions
-    err = {"fused": 0.0, "mf": 0.0, "fused_b": 0.0, "mf_b": 0.0}
+    err = {"fused": 0.0, "mf": 0.0, "fused_b": 0.0, "mf_b": 0.0, "mt": 0.0, "mt_b": 0.0,
+           "krp": 0.0, "2step": 0.0}
 
     def check(label, key, kern, plain, phase=2):
         rel, mabs = _rel(torch, kern, plain)
@@ -377,7 +692,7 @@ def main(argv=None) -> int:
 
     # ---- phase 3: the main path
     init = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
-    fits, launches = {}, {}
+    fits, launches, sweep_secs = {}, {}, {}
     for strategy in ("auto", "fused", "matrix_free"):
         problem = Problem.from_tensor(x4, rank)
         plan = plan_sweep(problem, strategy=strategy)
@@ -392,6 +707,7 @@ def main(argv=None) -> int:
                                                 secs.append(dt)))
         torch.cuda.synchronize()
         launches[strategy] = (fm.KERNEL.launches, mf.KERNEL.launches)
+        sweep_secs[strategy] = secs
         peak = torch.cuda.max_memory_allocated() / 1e9
         _log(f"[3] {strategy}: schedule {plan.resolved_schedule.name} nodes {algs}")
         _log(f"[3] {strategy}: fits {fits[strategy]}")
@@ -519,7 +835,9 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     # ---- phase 6: the serving path
-    serve_launches, sweep_s = _serve_phase(torch, args, dev, smi, subjects, gen)
+    serve_launches, sweep_s, serve_inits, serve_fits = _serve_phase(
+        torch, args, dev, smi, subjects, gen
+    )
 
     # ---- phase 7: batched kernel timing at the serving shapes
     for n in range(3):
@@ -563,6 +881,12 @@ def main(argv=None) -> int:
              f"its set-up included); kernels {kern:.3f} ms (CUDA events, separate loop); "
              f"difference, the time outside the kernels: {sweep - kern:.3f} ms; card {smi}")
 
+    # ---- phases 8-11: the new kernels, the 2-step and KRP entry points, tuning
+    new_launches = _new_kernels_phases(
+        torch, args, dev, smi, x4, init, f4, subjects, fb, gen, check, rows, fits["auto"],
+        sweep_secs["auto"], serve_inits, serve_fits,
+    )
+
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]
         b_bytes = sum(r["bytes_ms"] for r in rs)
@@ -575,12 +899,15 @@ def main(argv=None) -> int:
             "library_ms": sum(r["library_ms"] for r in rs),
         }
 
-    _log(f"[4] times per sweep (one launch per mode, 4 modes), card {smi}; "
-         f"whole smoke {time.perf_counter() - t_start:.1f} s")
-    _log(f"[7] batched times per batch sweep (one launch per mode, 3 modes, S={SERVE_BATCH}); "
-         f"whole smoke {time.perf_counter() - t_start:.1f} s")
+    _log(f"[4] kernel times per sweep (one launch per mode, 4 modes); card {smi}")
+    _log(f"[7] batched kernel times per batch sweep (one launch per mode, 3 modes, "
+         f"S={SERVE_BATCH}); card {smi}")
+    _log(f"[11] multi_ttv times per 2-step sweep (modes 1 and 2, one launch each); "
+         f"multi_ttv_batched one launch at S={SERVE_BATCH}; krp_pair the 94 MB KRP's last fold; "
+         f"card {smi}")
+    _log(f"whole smoke {time.perf_counter() - t_start:.1f} s")
     _log("kernels: fused_mttkrp_bilinear, matrix_free_kernel, fused_mttkrp_bilinear_batched, "
-         "matrix_free_batched_kernel")
+         "matrix_free_batched_kernel, multi_ttv, multi_ttv_batched, krp_pair")
     print(json.dumps({"kernels": [
         summary("fused_mttkrp_bilinear", FUSED_SOURCE, FUSED_REPLACES, "fused",
                 launches["fused"][0]),
@@ -589,6 +916,9 @@ def main(argv=None) -> int:
                 serve_launches["fused"]),
         summary("matrix_free_batched_kernel", MF_SOURCE, MF_BATCHED_REPLACES, "mf_b",
                 serve_launches["matrix_free"]),
+        summary("multi_ttv", MT_SOURCE, MT_REPLACES, "mt", new_launches["mt"]),
+        summary("multi_ttv_batched", MT_SOURCE, MT_BATCHED_REPLACES, "mt_b", new_launches["mt_b"]),
+        summary("krp_pair", KRP_SOURCE, KRP_REPLACES, "krp", new_launches["krp"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

@@ -119,6 +119,13 @@ def mttkrp_baseline(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
     return xn @ k
 
 
+def _kernel_knobs(tiles: Mapping[str, int] | None) -> dict[str, int]:
+    """The run-time knob a tuned tile config holds for the MTTKRP kernels."""
+    if tiles and "blocks_per_sm" in tiles:
+        return {"blocks_per_sm": int(tiles["blocks_per_sm"])}
+    return {}
+
+
 def mttkrp(
     x: Tensor,
     factors: Sequence[Tensor],
@@ -132,9 +139,11 @@ def mttkrp(
     ``method='auto'`` is the paper's recommended configuration (Sec. 5.3.3):
     1-step for external modes, 2-step for internal ones.  ``'fused'`` and
     ``'matrix_free'`` run the port's CUDA kernels (their plain versions for
-    a tensor on the CPU).  ``tiles`` is accepted for the planner's
-    ``NodePlan.tiles``; the CUDA kernels' tiles are fixed when they are
-    compiled, so tuned Pallas tiles do not apply and are not read.
+    a tensor on the CPU).  ``tiles`` is the planner's ``NodePlan.tiles``:
+    for ``'fused'`` and ``'matrix_free'`` its ``blocks_per_sm`` (the
+    kernels' split knob, tuned by ``repro_torch.plan.tune``) is passed to
+    the kernel; every other key, and every other method, ignores it (the
+    kernels' row and reduction tiles are fixed when they are compiled).
     """
     if method == "auto":
         method = "1step" if n in (0, len(factors) - 1) else "2step"
@@ -153,11 +162,11 @@ def mttkrp(
     if method == "fused":
         from repro_torch.kernels import ops as kops
 
-        return kops.fused_mttkrp(x, list(factors), n)
+        return kops.fused_mttkrp(x, list(factors), n, **_kernel_knobs(tiles))
     if method == "matrix_free":
         from repro_torch.kernels import ops as kops
 
-        return kops.matrix_free_mttkrp(x, list(factors), n)
+        return kops.matrix_free_mttkrp(x, list(factors), n, **_kernel_knobs(tiles))
     raise ValueError(f"unknown method {method!r}")
 
 
@@ -178,19 +187,19 @@ def mttkrp_batched(
     methods are ``torch.func.vmap`` of the unbatched algorithms, whose GEMMs
     become batched GEMMs.  A kernel wrapper is never vmapped: its launch
     takes ``data_ptr()``, which a vmapped tensor does not have.  ``tiles``
-    may carry ``block_batch`` beside the unbatched tile names; as there, it
-    is accepted and not read.
+    is read as by :func:`mttkrp`: its ``blocks_per_sm`` reaches the batched
+    kernels, every other key is ignored.
     """
     if method == "auto":
         method = "1step" if n in (0, len(factors) - 1) else "2step"
     if method == "fused":
         from repro_torch.kernels import ops as kops
 
-        return kops.fused_mttkrp_batched(x, list(factors), n)
+        return kops.fused_mttkrp_batched(x, list(factors), n, **_kernel_knobs(tiles))
     if method == "matrix_free":
         from repro_torch.kernels import ops as kops
 
-        return kops.matrix_free_mttkrp_batched(x, list(factors), n)
+        return kops.matrix_free_mttkrp_batched(x, list(factors), n, **_kernel_knobs(tiles))
 
     def one(xb, *fb):
         return mttkrp(xb, list(fb), n, method=method, tiles=tiles)

@@ -2,12 +2,17 @@
 
 - fused_mttkrp: MTTKRP with the KRP tile formed in shared memory, never in HBM
 - matrix_free:  streaming MTTKRP -- no matricization, no KRP at all
+- multi_ttv:    the 2nd step of the 2-step MTTKRP (Alg. 4)
+- krp_kernel:   the explicit KRP of two matrices (Alg. 1), ``krp_pair``
 
-Each has an unbatched and a batched form (a leading slab axis: one slab per
-thread block along the grid's z axis).  ops.py holds the wrappers
-(partial-KRP split, views, mode dispatch); ref.py the plain-torch oracles
-the tests compare against.  A CUDA tensor launches a kernel, a CPU tensor
-takes its plain version.
+The first three have an unbatched and a batched form (a leading slab axis:
+one slab per thread block along the grid's z axis).  ops.py holds the
+wrappers (partial-KRP split, views, mode dispatch, the KRP fold and the
+kernelized 2-step MTTKRP); ref.py the plain-torch oracles the tests compare
+against.  The multi-TTV wrappers are reached as ``ops.multi_ttv`` /
+``ops.multi_ttv_batched`` (a package-level ``multi_ttv`` would hide the
+module of that name).  A CUDA tensor launches a kernel, a CPU tensor takes
+its plain version.
 """
 
 from . import ops, ref
@@ -17,6 +22,7 @@ from .fused_mttkrp import (
     fused_mttkrp_bilinear_batched_plain,
     fused_mttkrp_bilinear_plain,
 )
+from .krp_kernel import krp_pair, krp_pair_plain
 from .matrix_free import (
     matrix_free_batched_kernel,
     matrix_free_batched_kernel_plain,
@@ -33,6 +39,8 @@ __all__ = [
     "fused_mttkrp_bilinear_batched",
     "fused_mttkrp_bilinear_batched_plain",
     "fused_mttkrp_bilinear_plain",
+    "krp_pair",
+    "krp_pair_plain",
     "matrix_free_batched_kernel",
     "matrix_free_batched_kernel_plain",
     "matrix_free_kernel",

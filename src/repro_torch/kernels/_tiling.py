@@ -63,17 +63,28 @@ def check_kernel_operand(name: str, t: Tensor) -> None:
 
 
 def split_reduction(
-    rows: int, reduce_extent: int, device, slabs: int = 1
+    rows: int,
+    reduce_extent: int,
+    device,
+    slabs: int = 1,
+    *,
+    blocks_per_sm: int = BLOCKS_PER_SM,
+    block_rows: int = BLOCK_ROWS,
 ) -> tuple[int, int]:
     """``(per_split, splits)`` for a kernel whose grid is ``slabs`` times
-    ``ceil(rows / BLOCK_ROWS)`` row blocks times ``splits`` slices of an
+    ``ceil(rows / block_rows)`` row blocks times ``splits`` slices of an
     outer reduction of ``reduce_extent`` steps: enough blocks for
-    ``BLOCKS_PER_SM`` per SM counting every slab's row blocks, no empty
+    ``blocks_per_sm`` per SM counting every slab's row blocks, no empty
     slice, at most 65535 slices (the grid's y limit).  Depends only on the
-    shape, the slab count and the card, so a result is bitwise repeatable."""
+    shape, the slab count, the knob and the card, so a result is bitwise
+    repeatable.  ``blocks_per_sm`` is the one tile knob the autotuner
+    times for the fused and matrix-free kernels (their row and reduction
+    tiles are compile-time); the default keeps every earlier launch."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = slabs * math.ceil(rows / BLOCK_ROWS)
-    want = max(1, min(reduce_extent, 65535, math.ceil(BLOCKS_PER_SM * sms / row_blocks)))
+    row_blocks = slabs * math.ceil(rows / block_rows)
+    want = max(1, min(reduce_extent, 65535, math.ceil(blocks_per_sm * sms / row_blocks)))
     per_split = math.ceil(reduce_extent / want)
     return per_split, math.ceil(reduce_extent / per_split)
 

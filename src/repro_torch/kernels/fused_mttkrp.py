@@ -25,6 +25,7 @@ import torch
 
 from ._build import CudaKernel
 from ._tiling import (
+    BLOCKS_PER_SM,
     check_kernel_operand,
     check_rank,
     check_slabs,
@@ -84,8 +85,17 @@ def _dims(t: Tensor, a: Tensor, b: Tensor, pos: int, lead: int) -> int:
     return dim_i
 
 
+def launch_split(
+    dim_i: int, dim_a: int, device, slabs: int | None = None, *,
+    blocks_per_sm: int = BLOCKS_PER_SM,
+) -> tuple[int, int]:
+    """``(a per split, splits)`` of a launch with ``dim_i`` output rows and
+    ``dim_a`` rows of ``A`` (the split reduction), per slab when batched."""
+    return split_reduction(dim_i, dim_a, device, slabs or 1, blocks_per_sm=blocks_per_sm)
+
+
 def _launch(kernel: CudaKernel, t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i: int,
-            slabs: int | None) -> Tensor:
+            slabs: int | None, blocks_per_sm: int) -> Tensor:
     """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
     the unbatched entry point.  Returns ``(I, C)`` or ``(S, I, C)``."""
     c = a.shape[-1]
@@ -96,7 +106,9 @@ def _launch(kernel: CudaKernel, t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i
     lead = () if slabs is None else (slabs,)
     if slabs is not None:
         check_slabs(slabs)
-    a_per_split, splits = split_reduction(dim_i, a.shape[-2], t.device, slabs or 1)
+    a_per_split, splits = launch_split(
+        dim_i, a.shape[-2], t.device, slabs, blocks_per_sm=blocks_per_sm
+    )
     ws = torch.empty(lead + (splits, dim_i, c), dtype=torch.float32, device=t.device)
     out = torch.empty(lead + (dim_i, c), dtype=torch.float32, device=t.device)
     d0, d1, d2 = (int(d) for d in t.shape[-3:])
@@ -108,20 +120,27 @@ def _launch(kernel: CudaKernel, t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i
     return out
 
 
-def fused_mttkrp_bilinear(t: Tensor, a: Tensor, b: Tensor, *, pos: int) -> Tensor:
+def fused_mttkrp_bilinear(
+    t: Tensor, a: Tensor, b: Tensor, *, pos: int, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """``M[i,c] = sum_{a,b} T * A[a,c] * B[b,c]`` with T's i-axis at ``pos``.
 
     CUDA tensors launch the kernel (contiguous float32 operands, rank up to
     64, else it raises); CPU tensors take the plain version.  Any extent is
     accepted: the kernel masks ragged tiles, so nothing is padded.
+    ``blocks_per_sm`` sizes the split of the ``a`` reduction
+    (:func:`~repro_torch.kernels._tiling.split_reduction`); the plain
+    version ignores it.
     """
     dim_i = _dims(t, a, b, pos, 0)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_plain(t, a, b, pos=pos)
-    return _launch(KERNEL, t, a, b, pos, dim_i, None)
+    return _launch(KERNEL, t, a, b, pos, dim_i, None, blocks_per_sm)
 
 
-def fused_mttkrp_bilinear_batched(t: Tensor, a: Tensor, b: Tensor, *, pos: int) -> Tensor:
+def fused_mttkrp_bilinear_batched(
+    t: Tensor, a: Tensor, b: Tensor, *, pos: int, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """Batched bilinear MTTKRP ``M[s,i,c] = sum_{a,b} T[s,...] A[s,a,c] B[s,b,c]``.
 
     ``t`` is ``(S, *3-D view)`` with the i-axis of each slab's view at
@@ -129,9 +148,10 @@ def fused_mttkrp_bilinear_batched(t: Tensor, a: Tensor, b: Tensor, *, pos: int) 
     CUDA tensors launch the kernel, one slab per block along the grid's z
     axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
     it raises); CPU tensors take the plain version.  Nothing is padded: not
-    the slabs, not any extent.
+    the slabs, not any extent.  ``blocks_per_sm`` as in
+    :func:`fused_mttkrp_bilinear`.
     """
     dim_i = _dims(t, a, b, pos, 1)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos)
-    return _launch(BATCHED_KERNEL, t, a, b, pos, dim_i, int(t.shape[0]))
+    return _launch(BATCHED_KERNEL, t, a, b, pos, dim_i, int(t.shape[0]), blocks_per_sm)

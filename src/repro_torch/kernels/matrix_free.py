@@ -26,6 +26,7 @@ import torch
 from ._build import CudaKernel
 from ._tiling import (
     BLOCK_ROWS,
+    BLOCKS_PER_SM,
     PADDED_RANKS,
     block,
     check_kernel_operand,
@@ -146,8 +147,22 @@ def _check_operands(mode_shape: Sequence[int], us: Sequence[Tensor], n: int, lea
     return others
 
 
+def launch_split(
+    mode_shape: Sequence[int], n: int, device, slabs: int | None = None, *,
+    blocks_per_sm: int = BLOCKS_PER_SM,
+) -> tuple[int, int]:
+    """``(outer steps per split, splits)`` of a launch for mode ``n``: the
+    split reduction runs over every non-target mode but the contracted
+    (highest) one, per slab when batched."""
+    others = [k for k in range(len(mode_shape)) if k != n]
+    outer = math.prod(mode_shape[k] for k in others[:-1])
+    return split_reduction(
+        mode_shape[n], outer, device, slabs or 1, blocks_per_sm=blocks_per_sm
+    )
+
+
 def _launch(kernel: CudaKernel, x: Tensor, us: Sequence[Tensor], n: int,
-            others: list[int], slabs: int | None) -> Tensor:
+            others: list[int], slabs: int | None, blocks_per_sm: int) -> Tensor:
     """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
     the unbatched entry point.  Returns ``(I_n, C)`` or ``(S, I_n, C)``."""
     mode_shape = x.shape if slabs is None else x.shape[1:]
@@ -161,9 +176,10 @@ def _launch(kernel: CudaKernel, x: Tensor, us: Sequence[Tensor], n: int,
     if slabs is not None:
         check_slabs(slabs)
     _reduction_blocks(mode_shape, n, c)
-    outer = math.prod(mode_shape[k] for k in others[:-1])  # all but the contracted mode
     rows = mode_shape[n]
-    o_per_split, splits = split_reduction(rows, outer, x.device, slabs or 1)
+    o_per_split, splits = launch_split(
+        mode_shape, n, x.device, slabs, blocks_per_sm=blocks_per_sm
+    )
     ws = torch.empty(lead + (splits, rows, c), dtype=torch.float32, device=x.device)
     out = torch.empty(lead + (rows, c), dtype=torch.float32, device=x.device)
     ptrs = [0] * big_n
@@ -179,42 +195,52 @@ def _launch(kernel: CudaKernel, x: Tensor, us: Sequence[Tensor], n: int,
     return out
 
 
-def matrix_free_kernel(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
+def matrix_free_kernel(
+    x: Tensor, us: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """Matrix-free MTTKRP ``M = X_(n) . KRP(us)`` with no KRP.
 
     ``x`` is the natural N-D tensor (order 3..6) and ``us`` the non-target
     factors ``(I_k, C)`` in ascending mode order.  CUDA tensors launch the
     kernel (contiguous float32 operands, rank up to 64, else it raises); CPU
     tensors take the plain version.  Any extent is accepted: the kernel
-    masks ragged tiles, so nothing is padded.
+    masks ragged tiles, so nothing is padded.  ``blocks_per_sm`` sizes the
+    split of the outer reduction
+    (:func:`~repro_torch.kernels._tiling.split_reduction`); the plain
+    version ignores it.
     """
     others = _check_operands(x.shape, us, n, 0)
     if not use_kernel(x, *us):
         return matrix_free_kernel_plain(x, us, n)
-    return _launch(KERNEL, x, us, n, others, None)
+    return _launch(KERNEL, x, us, n, others, None, blocks_per_sm)
 
 
-def matrix_free_batched_kernel(x: Tensor, us: Sequence[Tensor], n: int) -> Tensor:
+def matrix_free_batched_kernel(
+    x: Tensor, us: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """Batched matrix-free MTTKRP: ``x`` is ``(S, *shape)`` and ``us`` the
     per-slab non-target factors ``(S, I_k, C)``; returns ``(S, I_n, C)``.
 
     CUDA tensors launch the kernel, one slab per block along the grid's z
     axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
     it raises); CPU tensors take the plain version.  Nothing is padded: not
-    the slabs, not any extent.
+    the slabs, not any extent.  ``blocks_per_sm`` as in
+    :func:`matrix_free_kernel`.
     """
     if any(u.ndim != 3 or u.shape[0] != x.shape[0] for u in us):
         raise ValueError("x and every factor need the same leading slab axis")
     others = _check_operands(x.shape[1:], us, n, 1)
     if not use_kernel(x, *us):
         return matrix_free_batched_kernel_plain(x, us, n)
-    return _launch(BATCHED_KERNEL, x, us, n, others, int(x.shape[0]))
+    return _launch(BATCHED_KERNEL, x, us, n, others, int(x.shape[0]), blocks_per_sm)
 
 
-def matrix_free_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+def matrix_free_mttkrp(
+    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """Matrix-free MTTKRP for any mode of an order-3..6 tensor: hands the
     tensor in its natural layout and the raw non-target factors to
-    :func:`matrix_free_kernel`."""
+    :func:`matrix_free_kernel` (with ``blocks_per_sm``)."""
     factors = list(factors)
     big_n = len(factors)
     if x.ndim != big_n:
@@ -225,13 +251,15 @@ def matrix_free_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
     if not 3 <= big_n <= 6:
         raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
     us = [factors[k] for k in range(big_n) if k != n]
-    return matrix_free_kernel(x, us, n).to(x.dtype)
+    return matrix_free_kernel(x, us, n, blocks_per_sm=blocks_per_sm).to(x.dtype)
 
 
-def matrix_free_mttkrp_batched(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+def matrix_free_mttkrp_batched(
+    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """Batched matrix-free MTTKRP: ``x`` is ``(S, *shape)``, factors
     ``(S, I_k, C)``; hands the stack and the raw non-target factors to
-    :func:`matrix_free_batched_kernel`."""
+    :func:`matrix_free_batched_kernel` (with ``blocks_per_sm``)."""
     factors = list(factors)
     big_n = len(factors)
     if x.ndim != big_n + 1:
@@ -242,4 +270,4 @@ def matrix_free_mttkrp_batched(x: Tensor, factors: Sequence[Tensor], n: int) -> 
     if not 3 <= big_n <= 6:
         raise ValueError(f"matrix-free kernel covers order-3..6, got {big_n}")
     us = [factors[k] for k in range(big_n) if k != n]
-    return matrix_free_batched_kernel(x, us, n).to(x.dtype)
+    return matrix_free_batched_kernel(x, us, n, blocks_per_sm=blocks_per_sm).to(x.dtype)

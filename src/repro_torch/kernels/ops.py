@@ -1,12 +1,15 @@
 """Kernel wrappers: partial-KRP split, views and mode dispatch.
 
-Port of ``balanced_split``, ``fused_mttkrp``, ``fused_mttkrp_batched`` and
-the ``matrix_free_mttkrp``/``matrix_free_mttkrp_batched`` aliases of
-``repro.kernels.ops``, plus the operand builders ``bilinear_operands`` and
-``bilinear_operands_batched``.  The reference pads every tiled axis to its
-block multiple and the rank to the TPU's 128 lanes; the CUDA kernels mask
-ragged tiles and pad the rank only in their own registers, so nothing here
-pads or copies the tensor.
+Port of ``repro.kernels.ops``: ``balanced_split``, ``fused_mttkrp``,
+``fused_mttkrp_batched``, ``krp_materialize``, ``mttkrp_2step_kernel`` and
+the aliases ``matrix_free_mttkrp``/``matrix_free_mttkrp_batched`` and
+``multi_ttv``/``multi_ttv_batched``, plus the operand builders
+``bilinear_operands``, ``bilinear_operands_batched`` and
+``multi_ttv_operands``.  The reference pads every tiled axis to its block
+multiple and the rank to the TPU's 128 lanes; the CUDA kernels mask ragged
+tiles and pad the rank only in their own registers, so nothing here pads
+or copies the tensor (the left-first 2-step partial is the one copy; see
+:func:`multi_ttv_operands`).
 """
 
 from __future__ import annotations
@@ -19,8 +22,11 @@ import torch
 from repro_torch.core.krp import krp_or_ones, krp_or_ones_batched
 from repro_torch.core.tensor_ops import dims_split
 
+from ._tiling import BLOCKS_PER_SM
 from .fused_mttkrp import fused_mttkrp_bilinear, fused_mttkrp_bilinear_batched
+from .krp_kernel import krp_pair
 from .matrix_free import matrix_free_mttkrp, matrix_free_mttkrp_batched  # noqa: F401  (re-exported)
+from .multi_ttv import multi_ttv, multi_ttv_batched  # noqa: F401  (re-exported)
 
 Tensor = torch.Tensor
 
@@ -111,18 +117,23 @@ def bilinear_operands_batched(
     return _operands(x, factors, n, 1)
 
 
-def fused_mttkrp(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+def fused_mttkrp(
+    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """MTTKRP via the fused kernel.  ``M = X_(n) . KRP(factors != n)``.
 
     The two partial KRPs fed to the kernel (:func:`bilinear_operands`) are
     built with the reuse fold (Alg. 1); the full ``L*R x C`` KRP never
-    exists.
+    exists.  ``blocks_per_sm`` is the kernel's split knob (the autotuner's
+    tile for this kernel).
     """
     t, a, b, pos = bilinear_operands(x, factors, n)
-    return fused_mttkrp_bilinear(t, a, b, pos=pos).to(x.dtype)
+    return fused_mttkrp_bilinear(t, a, b, pos=pos, blocks_per_sm=blocks_per_sm).to(x.dtype)
 
 
-def fused_mttkrp_batched(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor:
+def fused_mttkrp_batched(
+    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+) -> Tensor:
     """Batched fused MTTKRP: ``x`` is ``(S, *shape)``, factors ``(S, I_k, C)``.
 
     One launch covers all S stacked problems through the kernel's slab grid
@@ -130,4 +141,59 @@ def fused_mttkrp_batched(x: Tensor, factors: Sequence[Tensor], n: int) -> Tensor
     exists in HBM.
     """
     t, a, b, pos = bilinear_operands_batched(x, factors, n)
-    return fused_mttkrp_bilinear_batched(t, a, b, pos=pos).to(x.dtype)
+    return fused_mttkrp_bilinear_batched(
+        t, a, b, pos=pos, blocks_per_sm=blocks_per_sm
+    ).to(x.dtype)
+
+
+def krp_materialize(mats: Sequence[Tensor], *, block_b: int = 512) -> Tensor:
+    """Explicit KRP via the tiled kernel, left-folded for Z > 2 (Alg. 1
+    reuse: each fold intermediate is a cached partial Hadamard product).
+    The kernel masks the ragged last tile, so no fold is padded or sliced."""
+    mats = list(mats)
+    out = mats[0]
+    for u in mats[1:]:
+        out = krp_pair(out, u, block_b=block_b)
+    return out
+
+
+def multi_ttv_operands(
+    x: Tensor, factors: Sequence[Tensor], n: int
+) -> tuple[Tensor, Tensor]:
+    """``(T, W)`` of mode ``n``'s 2-step second step (Alg. 4), so that
+    ``multi_ttv(T, W)`` is the MTTKRP.  Needs an internal mode (``L > 1``
+    and ``R > 1``).
+
+    ``L <= R`` is right-first: ``T = (x.view(L*I_n, R) @ K_R).view(L, I_n,
+    C)`` and ``W = K_L``.  Otherwise left-first: ``K_L^T @ x.view(L,
+    I_n*R)`` is ``(C, I_n, R)`` and is copied to the contiguous ``(R, I_n,
+    C)`` the kernel reads (``R * I_n * C`` floats, 1.6 MB at the fMRI
+    tensor's mode 2), with ``W = K_R``.  The GEMM is a plain ``torch.matmul``.
+    """
+    factors = list(factors)
+    c = factors[0].shape[1]
+    big_l, in_dim, big_r = dims_split(x.shape, n)
+    if big_l == 1 or big_r == 1:
+        raise ValueError(f"mode {n} is external: the 2-step algorithm needs L > 1 and R > 1")
+    k_l = krp_or_ones(factors[:n], c, x.dtype, x.device)
+    k_r = krp_or_ones(factors[n + 1 :], c, x.dtype, x.device)
+    if big_l <= big_r:  # right-first: the 2nd step contracts the smaller L
+        r_t = (x.reshape(big_l * in_dim, big_r) @ k_r).reshape(big_l, in_dim, c)
+        return r_t, k_l
+    l_t = (k_l.T @ x.reshape(big_l, in_dim * big_r)).reshape(c, in_dim, big_r)
+    # (C, I, R) -> (R, I, C): the same multi-TTV form over r
+    return l_t.permute(2, 1, 0).contiguous(), k_r
+
+
+def mttkrp_2step_kernel(
+    x: Tensor, factors: Sequence[Tensor], n: int, *, block_i: int = 256
+) -> Tensor:
+    """Alg. 4 with the partial MTTKRP as a plain GEMM and the 2nd-step
+    multi-TTV in the kernel (:func:`multi_ttv_operands`, then
+    :func:`multi_ttv` with its row tile ``block_i``).  External modes
+    (``L == 1`` or ``R == 1``) take :func:`fused_mttkrp`."""
+    big_l, _, big_r = dims_split(x.shape, n)
+    if big_l == 1 or big_r == 1:
+        return fused_mttkrp(x, factors, n)
+    t, w = multi_ttv_operands(x, factors, n)
+    return multi_ttv(t, w, block_i=block_i)

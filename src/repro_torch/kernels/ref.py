@@ -34,3 +34,8 @@ def krp_ref(mats: Sequence[Tensor]) -> Tensor:
 def multi_ttv_ref(t: Tensor, w: Tensor) -> Tensor:
     """Oracle for multi-TTV:  M[i,c] = sum_l t[l,i,c] w[l,c]."""
     return torch.einsum("lic,lc->ic", t, w)
+
+
+def multi_ttv_batched_ref(t: Tensor, w: Tensor) -> Tensor:
+    """Oracle for batched multi-TTV:  M[s,i,c] = sum_l t[s,l,i,c] w[s,l,c]."""
+    return torch.einsum("slic,slc->sic", t, w)

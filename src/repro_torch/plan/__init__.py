@@ -12,15 +12,23 @@ same-shaped tensors (``Problem(batch=B)``):
 * :class:`LocalExecutor` -- where contractions run; ``"fused"`` and
   ``"matrix_free"`` leaves launch the port's CUDA kernels on the card.
 * :func:`cp_als` / :func:`als_sweep` -- the one sweep engine and driver.
-* :class:`TuningCache` / :func:`lookup_measurements` -- the read side of
-  hardware autotuning.
+* :func:`tune` -- hardware autotuning: times kernel tiles and every
+  candidate plan's contractions on the tensor's device into a
+  :class:`TuningCache`, which ``plan_sweep(strategy="autotune")`` reads
+  through :func:`lookup_measurements`.
 
 Sharded problems (mapped modes or a sharded batch axis) and
 pairwise-perturbation problems raise ``NotImplementedError``: they come
 with the distribution and PP slices.
 """
 
-from .autotune import Measurements, TuningCache, default_tuning_cache, lookup_measurements
+from .autotune import (
+    Measurements,
+    TuningCache,
+    default_tuning_cache,
+    lookup_measurements,
+    tune,
+)
 from .cost import (
     ALGORITHMS,
     EXECUTORS,
@@ -79,5 +87,6 @@ __all__ = [
     "node_cost",
     "plan_sweep",
     "ring_allreduce_bytes",
+    "tune",
     "validate_executor",
 ]

@@ -1,33 +1,66 @@
-"""Hardware-measured autotuning, read side: the tuning cache and its keys.
+"""Hardware-measured autotuning: the tuning cache, its keys and ``tune()``.
 
-Port of the part of ``repro.plan.autotune`` that ``plan_sweep`` reads:
-:func:`backend_name`, :func:`problem_key`, :func:`node_key`,
-:class:`Measurements`, :class:`TuningCache`, :func:`default_tuning_cache`
-and :func:`lookup_measurements`.  Planning only ever reads the cache; the
-measuring side (``tune()`` and the tile tuners) comes with the autotuning
-slice of the port.
+Port of ``repro.plan.autotune`` for single-device problems.  The read side
+(:func:`backend_name`, :func:`problem_key`, :func:`node_key`,
+:class:`Measurements`, :class:`TuningCache`, :func:`default_tuning_cache`,
+:func:`lookup_measurements`) is what ``plan_sweep`` consults; the measuring
+side is :func:`tune`: it times the kernels' tile candidates and every
+contraction node of every candidate schedule on the device the tensor lies
+on, and stores the winners.  Planning only ever reads the cache; only an
+explicit :func:`tune` call runs kernels.
 
 Keys start with :func:`backend_name`, which names the CUDA device
 (``cuda:NVIDIA H100 80GB HBM3``), so entries of the port never mix with the
 JAX package's (``cpu``/``gpu``/``tpu``) even in one shared cache file.
+
+The tile tables differ from the reference's, because the CUDA kernels'
+row and reduction tiles are compile-time: the fused and matrix-free
+kernels take one tile knob at run time, ``blocks_per_sm`` (how finely
+their outer reduction is split over the grid), and the multi-TTV kernel
+takes ``block_i`` (rows per thread block).  A candidate whose launch is
+the same as an earlier one's (same split, same block) is timed once; on
+the CPU the plain versions take no knob, so each table times its default
+alone.  Sharded, pairwise-perturbation and two-level problems come with
+the distribution and PP slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Mapping
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from repro_torch.core.tensor_ops import dims_split, random_factors
+
 from .problem import Problem
-from .schedule import ContractionNode
+from .schedule import ROOT, ContractionNode
+
+Tensor = torch.Tensor
 
 # Environment variable naming the on-disk cache file of the process-default
 # cache (see default_tuning_cache); unset/empty means in-memory only.
 CACHE_ENV = "REPRO_TUNING_CACHE"
+
+# Candidate blocks_per_sm values of the fused and matrix-free kernels (the
+# default first): how many thread blocks a launch aims for per SM when it
+# splits its outer reduction over the grid's y axis.  More splits mean more
+# bytes in flight and a longer fixed-order second pass.
+FUSED_TILE_CANDIDATES = (4, 2, 8, 16)
+MATRIX_FREE_TILE_CANDIDATES = (4, 2, 8, 16)
+
+# Candidate block_i values (rows, i.e. threads, per block) of the multi-TTV
+# kernel, default 256 first.
+TTV_TILE_CANDIDATES = (256, 64, 128, 512)
+
+# Leaf algorithms the tuner measures head-to-head for a full mode-n MTTKRP
+# (the kernels too: every problem tuned here runs on the local executor).
+_LEAF_ALGORITHMS = ("1step", "2step-left", "2step-right", "fused", "matrix_free")
+_EXTERNAL_LEAF_ALGORITHMS = ("1step", "fused", "matrix_free")
 
 
 def backend_name() -> str:
@@ -148,9 +181,380 @@ def lookup_measurements(
         k: {
             kk: int(vv)
             for kk, vv in v.items()
-            if kk in ("block_i", "block_b", "block_r", "block_batch")
+            if kk in ("block_i", "block_b", "block_r", "block_batch", "blocks_per_sm")
         }
         for k, v in entry.get("tiles", {}).items()
         if v
     }
     return Measurements(node_s=node_s, tiles=tiles)
+
+
+# ------------------------------------------------------------ measurement
+class _Budget:
+    """Wall-clock budget for one tune() call.  It starts after the kernels
+    are built (see :func:`tune`), so a first ``nvcc`` build does not use it
+    up; everything timed after that counts."""
+
+    def __init__(self, budget_ms: float | None):
+        self.budget_ms = budget_ms
+        self.t0 = time.perf_counter()
+
+    def exhausted(self) -> bool:
+        if self.budget_ms is None:
+            return False
+        return (time.perf_counter() - self.t0) * 1e3 >= self.budget_ms
+
+
+def _time(fn: Callable[[], Any], reps: int, device: torch.device) -> float:
+    """Median seconds of ``fn()`` over ``reps`` calls after one warm call:
+    CUDA events around each call on the card, the host clock on the CPU."""
+    fn()
+    times = []
+    for _ in range(max(1, reps)):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def _tile_rows(
+    candidates: Sequence[tuple[int, ...]],
+    effective: Callable[[tuple[int, ...]], tuple],
+    run: Callable[[tuple[int, ...]], Any],
+    reps: int,
+    budget: _Budget,
+    device: torch.device,
+) -> list[dict]:
+    """Time deduped tile candidates; the default candidate is always first.
+    ``effective`` maps a candidate to the launch it makes (``()`` where the
+    plain version runs), so two labels of one launch are timed once."""
+    rows: list[dict] = []
+    seen: set[tuple] = set()
+    for i, cand in enumerate(candidates):
+        eff = effective(cand)
+        if eff in seen:
+            continue
+        if i > 0 and budget.exhausted():
+            break
+        seen.add(eff)
+        rows.append(
+            {
+                "candidate": list(cand),
+                "effective": list(eff),
+                "is_default": i == 0,
+                "measured_s": _time(lambda c=cand: run(c), reps, device),
+            }
+        )
+    return rows
+
+
+def _summarize_tiles(rows: list[dict], names: tuple[str, ...], mode: int) -> dict:
+    """Best/default summary of one kernel's measured tile rows."""
+    best = min(rows, key=lambda r: r["measured_s"])
+    default = rows[0]  # the default candidate is always measured first
+    out = {nm: best["candidate"][k] for k, nm in enumerate(names)}
+    out.update(
+        {
+            "mode": mode,
+            "default_s": default["measured_s"],
+            "tuned_s": best["measured_s"],
+            "speedup_vs_default": (
+                default["measured_s"] / best["measured_s"] if best["measured_s"] > 0 else 1.0
+            ),
+            "rows": rows,
+        }
+    )
+    return out
+
+
+def _tune_fused_tiles(x: Tensor, factors: Sequence[Tensor], *, reps: int, budget: _Budget) -> dict:
+    """Measure the fused kernel's ``blocks_per_sm`` candidates on a
+    representative internal mode; the winner feeds both ``NodePlan.tiles``
+    and the tuner's own ``fused`` node measurements (so the argmin times
+    what will execute)."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops as kops
+
+    n = x.ndim // 2  # internal mode: the kernel's primary bilinear layout
+    t, a, _, pos = kops.bilinear_operands(x, factors, n)
+
+    def effective(cand):  # the kernel's (a per split, splits)
+        if not x.is_cuda:
+            return ()
+        return fm.launch_split(t.shape[pos], a.shape[0], x.device, blocks_per_sm=cand[0])
+
+    rows = _tile_rows(
+        tuple((b,) for b in FUSED_TILE_CANDIDATES),
+        effective,
+        lambda cand: kops.fused_mttkrp(x, factors, n, blocks_per_sm=cand[0]),
+        reps,
+        budget,
+        x.device,
+    )
+    return _summarize_tiles(rows, ("blocks_per_sm",), n)
+
+
+def _tune_matrix_free_tiles(
+    x: Tensor, factors: Sequence[Tensor], *, reps: int, budget: _Budget
+) -> dict:
+    """Measure the matrix-free kernel's ``blocks_per_sm`` candidates on the
+    same representative internal mode as the fused tuner; the winner feeds
+    ``NodePlan.tiles`` and the tuner's ``matrix_free`` node measurements."""
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import ops as kops
+
+    n = x.ndim // 2
+
+    def effective(cand):  # the kernel's (outer steps per split, splits)
+        if not x.is_cuda:
+            return ()
+        return mf.launch_split(x.shape, n, x.device, blocks_per_sm=cand[0])
+
+    rows = _tile_rows(
+        tuple((b,) for b in MATRIX_FREE_TILE_CANDIDATES),
+        effective,
+        lambda cand: kops.matrix_free_mttkrp(x, factors, n, blocks_per_sm=cand[0]),
+        reps,
+        budget,
+        x.device,
+    )
+    return _summarize_tiles(rows, ("blocks_per_sm",), n)
+
+
+def _tune_ttv_tiles(
+    x: Tensor, factors: Sequence[Tensor], *, reps: int, budget: _Budget, seed: int
+) -> dict:
+    """Measure the multi-TTV kernel's ``block_i`` candidates (the 2nd step
+    of Alg. 4).
+
+    The winner parameterizes the public kernelized entry point
+    ``repro_torch.kernels.ops.mttkrp_2step_kernel(block_i=...)`` -- the
+    planner's ``2step-*`` algorithms use the einsum second step, so this
+    runs *after* node timing in :func:`tune` and only spends leftover
+    budget.  The operands have the representative mode's 2-step shapes,
+    ``(min(L, R), I_n, C)`` and ``(min(L, R), C)``, with random payloads
+    from a seeded generator on the tensor's device (timing depends on
+    shapes, not values).
+    """
+    from repro_torch.kernels import multi_ttv as mt
+
+    n = x.ndim // 2
+    c = factors[0].shape[1]
+    big_l, in_dim, big_r = dims_split(x.shape, n)
+    small = min(big_l, big_r)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    t3 = torch.randn((small, in_dim, c), generator=gen, device=x.device)
+    w2 = torch.randn((small, c), generator=gen, device=x.device)
+
+    def effective(cand):  # the kernel's (threads, l per split, splits)
+        return mt.launch_shape(in_dim, small, x.device, cand[0]) if x.is_cuda else ()
+
+    rows = _tile_rows(
+        tuple((b,) for b in TTV_TILE_CANDIDATES),
+        effective,
+        lambda cand: mt.multi_ttv(t3, w2, block_i=cand[0]),
+        reps,
+        budget,
+        x.device,
+    )
+    return _summarize_tiles(rows, ("block_i",), n)
+
+
+def _leaf_algorithms(problem: Problem, node: ContractionNode) -> tuple[str, ...]:
+    """Algorithm candidates the tuner measures for one root-leaf MTTKRP on
+    the local executor (the reference's ``kind="local"`` set)."""
+    return _EXTERNAL_LEAF_ALGORITHMS if problem.external_mode(node.mode) else _LEAF_ALGORITHMS
+
+
+def _tune_nodes(
+    problem: Problem,
+    x: Tensor,
+    factors: Sequence[Tensor],
+    *,
+    reps: int,
+    budget: _Budget,
+    fused_tiles: Mapping[str, int] | None = None,
+    matrix_free_tiles: Mapping[str, int] | None = None,
+) -> list[dict]:
+    """Measure every node of every candidate schedule on the local executor.
+
+    Walks each candidate schedule exactly like the sweep engine (parents'
+    outputs cached for their children), timing each deduped
+    :func:`node_key` once.  Root leaves are measured under every competing
+    algorithm -- ``fused`` with ``fused_tiles`` and ``matrix_free`` with
+    ``matrix_free_tiles`` (the already-tuned knobs), so the argmin times
+    exactly the configuration the resulting plan will execute.  Stops
+    cleanly when ``budget`` runs out: unmeasured nodes keep their analytic
+    costs at plan time.  ``LocalExecutor.contract`` runs eagerly; there is
+    nothing to compile.
+    """
+    from .executor import LocalExecutor
+    from .planner import plan_sweep
+    from .schedule import enumerate_schedules
+
+    kind = "local"
+    ex = LocalExecutor()
+    xs, fs = ex.prepare(problem, x, list(factors))
+    # flat first: its leaves are the full per-mode MTTKRPs every tree shares,
+    # so a tight budget still measures the comparisons that matter most
+    schedules = sorted(enumerate_schedules(problem), key=lambda s: not s.is_flat)
+    rows: list[dict] = []
+    seen: set[str] = set()
+    for sched in schedules:
+        plan = plan_sweep(problem, schedule=sched, executor=kind)
+        cache: dict[int, Tensor] = {ROOT: xs}
+        for node in sched.walk():
+            src = cache[node.parent]
+            planned = plan.node_plan(node.id).algorithm
+            leaf = node.from_root and node.is_leaf
+            algs = _leaf_algorithms(problem, node) if leaf else (planned,)
+            out = None
+            for alg in algs:
+                tl = {"fused": fused_tiles, "matrix_free": matrix_free_tiles}.get(alg)
+
+                def fn(node=node, src=src, alg=alg, tl=tl):
+                    return ex.contract(node, src, fs, alg, tiles=tl)
+
+                key = node_key(node, alg, kind)
+                if key not in seen and not budget.exhausted():
+                    seen.add(key)
+                    rows.append(
+                        {
+                            "key": key,
+                            "executor": kind,
+                            "algorithm": alg,
+                            "collective": "flat",
+                            "schedule": sched.name,
+                            "node": node.id,
+                            "measured_s": _time(fn, reps, x.device),
+                        }
+                    )
+                if alg == planned and not node.is_leaf:
+                    out = fn()
+            if not node.is_leaf:
+                cache[node.id] = out
+    return rows
+
+
+def _recalibrate_serial_fractions(
+    problem: Problem, rows: Sequence[Mapping[str, Any]]
+) -> dict[str, float]:
+    """The overlapping executor's unhidable fraction, fitted from measured
+    sharded/overlapping node pairs; ``{}`` for an unsharded problem (no
+    pair exists), as in the reference.  Sharded problems raise: their
+    executors come with the distribution slice of the port."""
+    if not problem.sharded:
+        return {}
+    raise NotImplementedError(
+        "serial fractions are fitted from sharded executors, which come with "
+        "the distribution slice of the port"
+    )
+
+
+def node_key_from(key: str) -> str:
+    """Normalize a measurement key to its executor/algorithm-free signature
+    (the node topology part), for pairing measurements across executors."""
+    _, _, rest = key.split("|", 2)
+    return f"x|x|{rest}"
+
+
+def tune(
+    x: Tensor,
+    rank: int,
+    *,
+    factors: Sequence[Tensor] | None = None,
+    mesh=None,
+    mode_axes: Mapping[int, str] | None = None,
+    cache: TuningCache | None = None,
+    budget_ms: float | None = 2000.0,
+    reps: int = 3,
+    seed: int = 0,
+    pp_tol: float = 0.0,
+    intra_axes: Sequence[str] = (),
+) -> dict:
+    """Measure tiles + candidate plans for ``x``'s problem; persist winners.
+
+    The one measuring entry point (nothing else runs kernels for timing),
+    on the device ``x`` lies on.  In budget priority order it times the
+    fused kernel's ``blocks_per_sm`` candidates
+    (:data:`FUSED_TILE_CANDIDATES`) and the matrix-free kernel's
+    (:data:`MATRIX_FREE_TILE_CANDIDATES`), then every contraction node of
+    every candidate schedule on the local executor -- ``fused`` /
+    ``matrix_free`` leaves under the just-tuned knobs, so the argmin times
+    what will execute -- then the multi-TTV kernel's ``block_i``
+    candidates (:data:`TTV_TILE_CANDIDATES`; consumed by the public
+    ``mttkrp_2step_kernel``, so it only spends leftover budget).  Each time
+    is the median of ``reps`` calls after a warm one, by CUDA events on the
+    card and the host clock on the CPU.
+
+    On the card the kernels it may launch are built first (one ``nvcc`` per
+    source, in parallel), and only then does the ``budget_ms`` clock start
+    (``None`` = no cap): a first build takes tens of seconds, which would
+    exhaust any budget after the default candidate, and it is paid once per
+    checkout, not per tuned problem.  ``factors`` default to random ones
+    from a generator seeded with ``seed`` on ``x``'s device (timing depends
+    on shapes, not values).  The entry is stored in ``cache`` (the process
+    default when ``None``) under :func:`problem_key` and returned; its
+    layout is the reference's (``backend``, ``n_devices``, ``budget_ms``,
+    ``reps``, ``elapsed_ms``, ``tiles``, ``nodes``, ``serial_fractions``,
+    ``pp``).  ``mesh``/``mode_axes``, ``pp_tol > 0`` and ``intra_axes``
+    raise ``NotImplementedError``: they come with the distribution and PP
+    slices.
+    """
+    if mesh is not None or mode_axes or intra_axes:
+        raise NotImplementedError(
+            "tuning sharded or two-level problems comes with the distribution slice of the port"
+        )
+    if pp_tol > 0.0:
+        raise NotImplementedError(
+            "tuning pairwise-perturbation sweeps comes with the PP slice of the port"
+        )
+    cache = cache or default_tuning_cache()
+    problem = Problem.from_tensor(x, rank)
+    if factors is None:
+        gen = torch.Generator(device=x.device).manual_seed(seed)
+        factors = random_factors(gen, x.shape, rank, x.dtype, device=x.device)
+    factors = list(factors)
+    if x.is_cuda:
+        from repro_torch.kernels import _build
+        from repro_torch.kernels import fused_mttkrp as fm
+        from repro_torch.kernels import matrix_free as mf
+        from repro_torch.kernels import multi_ttv as mt
+
+        _build.build_all([fm.KERNEL, mf.KERNEL, mt.KERNEL])
+    budget = _Budget(budget_ms)
+    fused = _tune_fused_tiles(x, factors, reps=reps, budget=budget)
+    mfree = _tune_matrix_free_tiles(x, factors, reps=reps, budget=budget)
+    rows = _tune_nodes(
+        problem, x, factors, reps=reps, budget=budget,
+        fused_tiles={"blocks_per_sm": fused["blocks_per_sm"]},
+        matrix_free_tiles={"blocks_per_sm": mfree["blocks_per_sm"]},
+    )
+    tiles = {
+        "fused_mttkrp": fused,
+        "matrix_free": mfree,
+        "multi_ttv": _tune_ttv_tiles(x, factors, reps=reps, budget=budget, seed=seed),
+    }
+    entry = {
+        "backend": backend_name(),
+        "n_devices": 1,
+        "budget_ms": budget_ms,
+        "reps": reps,
+        "elapsed_ms": (time.perf_counter() - budget.t0) * 1e3,
+        "tiles": tiles,
+        "nodes": rows,
+        "serial_fractions": _recalibrate_serial_fractions(problem, rows),
+        "pp": {},
+    }
+    cache.put(problem_key(problem), entry)
+    return entry

@@ -13,9 +13,16 @@ import pytest
 import torch
 
 from repro_torch.kernels import fused_mttkrp as fm
+from repro_torch.kernels import krp_kernel as kk
 from repro_torch.kernels import matrix_free as mf
-from repro_torch.kernels import ops
-from repro_torch.plan import Problem, cp_als, plan_sweep
+from repro_torch.kernels import multi_ttv as mt
+from repro_torch.kernels import ops, ref
+from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep, tune
+from repro_torch.plan.autotune import (
+    FUSED_TILE_CANDIDATES,
+    MATRIX_FREE_TILE_CANDIDATES,
+    TTV_TILE_CANDIDATES,
+)
 
 pytestmark = pytest.mark.gpu
 REL = 1e-4
@@ -185,3 +192,149 @@ def test_cp_service_on_the_card_matches_cpu(cuda, strategy):
         assert kernel.launches - before == (3 * 4 * 2 if dev == cuda else 0)
         assert svc.stats()["padded_slots"] == 3
     assert max(abs(a - b) for a, b in zip(fits["cpu"], fits[str(cuda)])) < 1e-4
+
+
+# ---- the split knob of the fused and matrix-free kernels (blocks_per_sm)
+
+# Another split count only reorders fp32 sums of up to a few thousand terms.
+KNOB_REL = 1e-5
+
+
+@pytest.mark.parametrize("shape", [(33, 70, 129), (65, 3, 40, 7), (3, 4, 2, 3, 2)])
+def test_blocks_per_sm_candidates_agree_with_the_default(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(shape, generator=g, device=cuda)
+    fs = [torch.randn((d, 10), generator=g, device=cuda) for d in shape]
+    for n in range(len(shape)):
+        for run, cands in ((ops.fused_mttkrp, FUSED_TILE_CANDIDATES),
+                           (ops.matrix_free_mttkrp, MATRIX_FREE_TILE_CANDIDATES)):
+            default = run(x, fs, n)
+            assert torch.equal(default, run(x, fs, n, blocks_per_sm=cands[0]))  # 4: today's call
+            for b in cands[1:]:
+                assert _rel(run(x, fs, n, blocks_per_sm=b), default) < KNOB_REL
+
+
+def test_blocks_per_sm_reaches_the_batched_kernels(cuda):
+    x, fs = _batched_inputs(cuda, 3, (37, 41, 29), 10, seed=11)
+    for run in (ops.fused_mttkrp_batched, ops.matrix_free_mttkrp_batched):
+        for n in range(3):
+            default = run(x, fs, n)
+            assert torch.equal(default, run(x, fs, n, blocks_per_sm=4))
+            assert _rel(run(x, fs, n, blocks_per_sm=16), default) < KNOB_REL
+    with pytest.raises(ValueError):
+        ops.fused_mttkrp(x[0], [f[0] for f in fs], 0, blocks_per_sm=0)
+
+
+# ---- multi-TTV and the KRP pair
+
+
+@pytest.mark.parametrize("rank", [1, 3, 10, 16, 64])
+@pytest.mark.parametrize("shape", [(1, 5), (6, 37), (225, 59), (200, 200), (3000, 40), (7, 1100)])
+def test_multi_ttv_kernel_matches_plain(cuda, shape, rank):
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    t = torch.randn(shape + (rank,), generator=g, device=cuda)
+    w = torch.randn((shape[0], rank), generator=g, device=cuda)
+    plain = mt.multi_ttv_plain(t, w)
+    default = mt.multi_ttv(t, w)
+    for block_i in TTV_TILE_CANDIDATES + (32, 1024):
+        if rank >= 48 and block_i == 1024:
+            continue  # more registers than an SM has: the launch raises
+        before = mt.KERNEL.launches
+        out = mt.multi_ttv(t, w, block_i=block_i)
+        assert mt.KERNEL.launches == before + 1
+        assert _rel(out, plain) < REL
+        assert _rel(out, default) < KNOB_REL
+        assert torch.equal(out, mt.multi_ttv(t, w, block_i=block_i))  # no atomics
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 64])
+@pytest.mark.parametrize("slabs", [1, 3, 5, 8])
+def test_multi_ttv_batched_kernel_matches_plain(cuda, slabs, rank):
+    g = torch.Generator(device=cuda).manual_seed(slabs * 10 + rank)
+    t = torch.randn((slabs, 45, 70, rank), generator=g, device=cuda)
+    w = torch.randn((slabs, 45, rank), generator=g, device=cuda)
+    before = (mt.KERNEL.launches, mt.BATCHED_KERNEL.launches)
+    out = mt.multi_ttv_batched(t, w)
+    assert (mt.KERNEL.launches, mt.BATCHED_KERNEL.launches) == (before[0], before[1] + 1)
+    assert tuple(out.shape) == (slabs, 70, rank)
+    assert _rel(out, mt.multi_ttv_batched_plain(t, w)) < REL
+    assert torch.equal(out, mt.multi_ttv_batched(t, w))
+    for block_i in TTV_TILE_CANDIDATES:
+        assert _rel(mt.multi_ttv_batched(t, w, block_i=block_i), out) < KNOB_REL
+
+
+def test_multi_ttv_batched_slab_is_bitwise_independent_of_other_slabs(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    t = torch.randn((5, 60, 90, 10), generator=g, device=cuda)
+    w = torch.randn((5, 60, 10), generator=g, device=cuda)
+    u, v = torch.randn_like(t), torch.randn_like(w)
+    u[0], v[0] = t[0], w[0]
+    assert torch.equal(mt.multi_ttv_batched(t, w)[0], mt.multi_ttv_batched(u, v)[0])
+
+
+@pytest.mark.parametrize("block_b", [1, 7, 64, 512])
+@pytest.mark.parametrize("dims,rank", [((3, 5), 1), ((59, 200), 10), ((130, 17), 16), ((4, 1000), 64)])
+def test_krp_pair_kernel_matches_plain(cuda, dims, rank, block_b):
+    g = torch.Generator(device=cuda).manual_seed(rank + block_b)
+    a = torch.randn((dims[0], rank), generator=g, device=cuda)
+    b = torch.randn((dims[1], rank), generator=g, device=cuda)
+    before = kk.KERNEL.launches
+    out = kk.krp_pair(a, b, block_b=block_b)
+    assert kk.KERNEL.launches == before + 1
+    assert torch.equal(out, kk.krp_pair_plain(a, b))  # one fp32 multiply per entry: exact
+    assert torch.equal(out, kk.krp_pair(a, b, block_b=block_b))
+
+
+def test_krp_materialize_and_2step_kernel_on_the_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    shape = (13, 6, 9, 11)
+    x = torch.randn(shape, generator=g, device=cuda)
+    fs = [torch.randn((d, 10), generator=g, device=cuda) for d in shape]
+    before = kk.KERNEL.launches
+    assert torch.equal(ops.krp_materialize(fs[1:]), ref.krp_ref(fs[1:]))
+    assert kk.KERNEL.launches == before + 2
+    before = (mt.KERNEL.launches, fm.KERNEL.launches)
+    for n in range(4):
+        assert _rel(ops.mttkrp_2step_kernel(x, fs, n), ref.fused_mttkrp_ref(x, fs, n)) < REL
+    assert (mt.KERNEL.launches, fm.KERNEL.launches) == (before[0] + 2, before[1] + 2)
+
+
+def test_new_kernels_refuse_what_they_do_not_take(cuda):
+    t, w = torch.randn(4, 5, 3, device=cuda), torch.randn(4, 3, device=cuda)
+    with pytest.raises(TypeError):
+        mt.multi_ttv(t.double(), w.double())
+    with pytest.raises(ValueError):
+        mt.multi_ttv(t, w.cpu())
+    with pytest.raises(ValueError):
+        mt.multi_ttv(t.transpose(0, 1).contiguous().transpose(0, 1), w)  # not contiguous
+    with pytest.raises(ValueError):
+        mt.multi_ttv(torch.randn(4, 5, 65, device=cuda), torch.randn(4, 65, device=cuda))
+    with pytest.raises(RuntimeError):  # rank 64: 96 registers x 1024 threads > an SM's 65536
+        mt.multi_ttv(torch.randn(4, 1100, 64, device=cuda), torch.randn(4, 64, device=cuda),
+                     block_i=1024)
+    with pytest.raises(ValueError):
+        kk.krp_pair(w, torch.randn(70000, 3, device=cuda), block_b=1)  # > 65535 tiles
+    with pytest.raises(TypeError):
+        kk.krp_pair(w.double(), w.double(), block_b=4)
+
+
+# ---- tune() on the card
+
+
+def test_tune_on_the_card_times_distinct_launches(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((30, 17, 40, 25), generator=g, device=cuda)
+    cache = TuningCache()
+    entry = tune(x, 10, cache=cache, budget_ms=None, reps=2)
+    assert entry["backend"] == f"cuda:{torch.cuda.get_device_name(0)}"
+    for summary in entry["tiles"].values():
+        effective = [tuple(r["effective"]) for r in summary["rows"]]
+        assert effective and len(effective) == len(set(effective)) and all(effective)
+        assert summary["rows"][0]["is_default"]
+    plan = plan_sweep(Problem.from_tensor(x, 10), "autotune", tuning_cache=cache)
+    assert all(np_.cost.measured_s is not None for np_ in plan.nodes)
+    init = [torch.randn((d, 10), generator=g, device=cuda) for d in x.shape]
+    tuned = cp_als(x, plan, n_iters=3, tol=0.0, init_factors=init)
+    flat = cp_als(x, plan_sweep(Problem.from_tensor(x, 10), "auto", schedule="flat"),
+                  n_iters=3, tol=0.0, init_factors=init)
+    assert abs(float(tuned.fit) - float(flat.fit)) < 1e-4
