@@ -58,10 +58,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the kernels' CUDA-event times from the separate timing loop.
 8. new kernels vs plain versions on the card, same bound: multi-TTV at the
    fMRI tensor's 2-step second steps (mode 1 right-first, T 225 x 59 x 10;
-   mode 2 left-first, T 200 x 200 x 10) for every ``block_i`` candidate and
-   at rank 16; batched multi-TTV at the 8-subject batch's mode-1 left-first
-   partial (8 x 200 x 200 x 10) and at an odd S = 5, slab 0 bitwise
-   unchanged by the other slabs; the KRP pair and ``krp_materialize`` on
+   mode 2 left-first, T 200 x 200 x 10) at ranks 10, 16 and 64; batched
+   multi-TTV at the 8-subject batch's mode-1 left-first partial (8 x 200 x
+   200 x 10) at ranks 10, 16 and 64 and at an odd S = 5, slab 0 bitwise
+   unchanged by the other slabs; both on a ragged shape (T 3 x 59 x 7:
+   I * C % 4 != 0, L shorter than a cluster); each at every ``block_i``
+   candidate and 32 and 1024, with its launch geometry; the KRP pair and
+   ``krp_materialize`` on
    the factors of modes 1-3 (2.36 M rows, 94 MB) and of modes 0-1; the
    fused and matrix-free kernels on every mode at each ``blocks_per_sm``
    candidate (the default bitwise equal to a call without the knob); every
@@ -81,8 +84,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the plan).
 11. timing, as in phase 4, of multi-TTV (both shapes), batched multi-TTV and
    the KRP pair (the 94 MB KRP's last fold), each beside its plain version,
-   one PyTorch call and the bound; and the fused and matrix-free sweep at
-   each ``blocks_per_sm`` candidate.
+   one PyTorch call and the bound; for the multi-TTV rows also the host
+   time a call (host clock over 200 calls, no sync inside) and the device
+   time a call (``torch.profiler``, every CUDA kernel a call launches),
+   for the kernel and for the library call; the fused and matrix-free
+   sweep at each ``blocks_per_sm`` candidate; and the CUDA kernels one
+   multi-TTV call launches, from the profiler (must be 1).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
@@ -182,6 +189,33 @@ def _time_ms(torch, fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _host_device_us(torch, fn, reps: int):
+    """One call of ``fn`` split into host and device time, in µs.
+
+    Host: the host clock over ``reps`` back-to-back calls with no sync inside
+    the loop (what the caller's thread spends a call).  Device: the summed
+    durations of every CUDA kernel the ``reps`` calls launched, from
+    ``torch.profiler`` (CUDA activity), over ``reps``.  Also returns the
+    kernels one call launches and their names."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in kern) / reps
+    return host, device, len(kern) / reps, sorted({e.name for e in kern})
 
 
 def _einsum_spec(order: int, n: int) -> str:
@@ -362,19 +396,37 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
         return a
 
     # ---- phase 8: the new kernels against their plain versions; the split knob
+    ttv_blocks = TTV_TILE_CANDIDATES + (32, 1024)
+
+    def geometry(t, bi, slabs):
+        g = mt.launch_shape(t.shape[-2], t.shape[-3], t.shape[-1], bi, slabs)
+        return (f"grid ({g.tiles}, {g.cluster}, {g.slabs}), clusters of {g.cluster}, "
+                f"{g.threads_x}x{g.groups} threads, {'float4' if g.vec else 'scalar'}")
+
+    def ttv_checks(label, key, t, w, run, plain):
+        want = plain(t, w)
+        slabs = len(t) if key == "mt_b" else 1
+        for bi in ttv_blocks:
+            check(f"{label} T{tuple(t.shape)} block_i {bi} ({geometry(t, bi, slabs)})", key,
+                  run(t, w, block_i=bi), want, 8)
+        same_twice(f"{label} T{tuple(t.shape)}", lambda: run(t, w))
+
     ttv_ops = {n: ops.multi_ttv_operands(x4, init, n) for n in (1, 2)}  # the 2-step 2nd steps
-    f16 = [torch.randn((d, SECOND_RANK), generator=gen, device=dev) for d in FMRI]
     for n, (t, w) in ttv_ops.items():
-        plain = mt.multi_ttv_plain(t, w)
-        for bi in TTV_TILE_CANDIDATES:
-            check(f"multi_ttv mode {n} T{tuple(t.shape)} block_i {bi} "
-                  f"({mt.block_threads(t.shape[1], bi)} threads)", "mt",
-                  mt.multi_ttv(t, w, block_i=bi), plain, 8)
-        same_twice(f"multi_ttv mode {n}", lambda: mt.multi_ttv(t, w))
-        t16, w16 = ops.multi_ttv_operands(x4, f16, n)
-        check(f"multi_ttv mode {n} rank {SECOND_RANK} T{tuple(t16.shape)}", "mt",
-              mt.multi_ttv(t16, w16), mt.multi_ttv_plain(t16, w16), 8)
-    del f16, t16, w16
+        ttv_checks(f"multi_ttv mode {n}", "mt", t, w, mt.multi_ttv, mt.multi_ttv_plain)
+    for r_ in (SECOND_RANK, 64):
+        f_r = [torch.randn((d, r_), generator=gen, device=dev) for d in FMRI]
+        for n in (1, 2):
+            t, w = ops.multi_ttv_operands(x4, f_r, n)
+            ttv_checks(f"multi_ttv mode {n} rank {r_}", "mt", t, w, mt.multi_ttv,
+                       mt.multi_ttv_plain)
+    # ragged: I * C % 4 != 0 (the scalar path's masked tail) and L = 3 < a cluster
+    t = torch.randn((3, 59, 7), generator=gen, device=dev)
+    w = torch.randn((3, 7), generator=gen, device=dev)
+    ttv_checks("multi_ttv ragged", "mt", t, w, mt.multi_ttv, mt.multi_ttv_plain)
+    ttv_checks("multi_ttv_batched ragged", "mt_b", torch.stack([t, t.flip(0)]),
+               torch.stack([w, w.flip(0)]), mt.multi_ttv_batched, mt.multi_ttv_batched_plain)
+    del f_r, t, w
 
     def batch_ttv_operands(idx, fs):  # mode 1 of each subject: L = 225 > R = 200, left-first
         pairs = [ops.multi_ttv_operands(subjects[i], [f[j] for f in fs], 1)
@@ -382,11 +434,17 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
         return torch.stack([t for t, _ in pairs]), torch.stack([w for _, w in pairs])
 
     tb, wb = batch_ttv_operands(range(SERVE_BATCH), fb)
-    check(f"multi_ttv_batched S={SERVE_BATCH} T{tuple(tb.shape)}", "mt_b",
-          mt.multi_ttv_batched(tb, wb), mt.multi_ttv_batched_plain(tb, wb), 8)
-    check("multi_ttv_batched S=5 (odd)", "mt_b", mt.multi_ttv_batched(tb[:5], wb[:5]),
-          mt.multi_ttv_batched_plain(tb[:5], wb[:5]), 8)
-    same_twice("multi_ttv_batched", lambda: mt.multi_ttv_batched(tb, wb))
+    ttv_checks(f"multi_ttv_batched S={SERVE_BATCH}", "mt_b", tb, wb, mt.multi_ttv_batched,
+               mt.multi_ttv_batched_plain)
+    ttv_checks("multi_ttv_batched S=5 (odd)", "mt_b", tb[:5], wb[:5], mt.multi_ttv_batched,
+               mt.multi_ttv_batched_plain)
+    for r_ in (SECOND_RANK, 64):
+        fb_r = [torch.randn((SERVE_BATCH, d, r_), generator=gen, device=dev)
+                for d in subjects[0].shape]
+        t, w = batch_ttv_operands(range(SERVE_BATCH), fb_r)
+        ttv_checks(f"multi_ttv_batched S={SERVE_BATCH} rank {r_}", "mt_b", t, w,
+                   mt.multi_ttv_batched, mt.multi_ttv_batched_plain)
+    del fb_r, t, w
     other = [torch.randn(f.shape, generator=gen, device=dev) for f in fb]
     ub, vb = batch_ttv_operands([(SERVE_BATCH + k) % len(subjects) for k in range(SERVE_BATCH)],
                                 other)
@@ -562,6 +620,17 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
              f"library {row['library_ms']:.4f} ms, bound {b:.4f} ms "
              f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); card {smi}")
 
+    per_call = {}  # CUDA kernels one call launches, from the profiler
+
+    def split_row(label, key, kernel, library):
+        """The host/device split of one kernel call and of its library call."""
+        kh, kd, per_call[key], names = _host_device_us(torch, kernel, 200)
+        lh, ld, lk, _ = _host_device_us(torch, library, 200)
+        _log(f"[11] {label}: kernel host {kh:.2f} us a call (host clock, 200 calls, no sync), "
+             f"device {kd:.2f} us a call (torch.profiler, {per_call[key]:g} CUDA kernels a "
+             f"call: {names}); library host {lh:.2f} us, device {ld:.2f} us ({lk:g} CUDA "
+             f"kernels a call); card {smi}")
+
     for n, (t, w) in ttv_ops.items():
         r = {"ms": _time_ms(torch, lambda: mt.multi_ttv(t, w), 200),
              "plain_ms": _time_ms(torch, lambda: mt.multi_ttv_plain(t, w), 200),
@@ -569,6 +638,8 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
              **bound(4 * (t.numel() + w.numel() + t.shape[1] * t.shape[2]), 2 * t.numel())}
         rows.setdefault("mt", []).append(r)
         log_row(f"multi_ttv mode {n} T{tuple(t.shape)}", r)
+        split_row(f"multi_ttv mode {n} T{tuple(t.shape)}", f"mt{n}", lambda: mt.multi_ttv(t, w),
+                  lambda: torch.einsum("lic,lc->ic", t, w))
     r = {"ms": _time_ms(torch, lambda: mt.multi_ttv_batched(tb, wb), 100),
          "plain_ms": _time_ms(torch, lambda: mt.multi_ttv_batched_plain(tb, wb), 100),
          "library_ms": _time_ms(torch, lambda: torch.einsum("slic,slc->sic", tb, wb), 100),
@@ -576,6 +647,17 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
                  2 * tb.numel())}
     rows["mt_b"] = [r]
     log_row(f"multi_ttv_batched T{tuple(tb.shape)}", r)
+    split_row(f"multi_ttv_batched T{tuple(tb.shape)}", "mt_b",
+              lambda: mt.multi_ttv_batched(tb, wb), lambda: torch.einsum("slic,slc->sic", tb, wb))
+    def device_by_block(label, run, t, w):
+        us = {bi: round(_host_device_us(torch, lambda: run(t, w, block_i=bi), 50)[1], 2)
+              for bi in ttv_blocks}
+        _log(f"[11] {label} T{tuple(t.shape)} device us a call by block_i (torch.profiler): "
+             f"{us}; card {smi}")
+
+    for n, (t, w) in ttv_ops.items():
+        device_by_block(f"multi_ttv mode {n}", mt.multi_ttv, t, w)
+    device_by_block("multi_ttv_batched", mt.multi_ttv_batched, tb, wb)
     n_out = k12.shape[0] * u3.shape[0] * rank
     r = {"ms": _time_ms(torch, lambda: kk.krp_pair(k12, u3, block_b=512), 50),
          "plain_ms": _time_ms(torch, lambda: kk.krp_pair_plain(k12, u3), 50),
@@ -604,6 +686,10 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
             _log(f"[11] {label} kernel sweep at blocks_per_sm {bps}: {total:.4f} ms (4 launches, "
                  f"CUDA events); tuner's row, ops wrapper at mode 2: "
                  f"{'deduped' if tuner is None else f'{tuner:.4f} ms'}; card {smi}")
+    _log(f"[11] CUDA kernels one call launches (profiler): multi_ttv {per_call['mt1']:g} and "
+         f"{per_call['mt2']:g}, multi_ttv_batched {per_call['mt_b']:g} (want 1 each)")
+    if set(per_call.values()) != {1}:
+        raise SystemExit(f"a multi-TTV call launches other than one CUDA kernel: {per_call}")
     return path
 
 

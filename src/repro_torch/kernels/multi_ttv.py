@@ -9,44 +9,49 @@ Computes
 where ``T`` is the partial MTTKRP output ``(L, I_n, C)`` and ``W`` the
 complementary partial KRP ``(L, C)``; the batched form computes the same
 per slab ``s`` of a stack, ``M[s,i,c]`` from ``T[s]`` and ``W[s]``.  On the
-card the wrappers launch the CUDA kernel of ``csrc/multi_ttv.cu``: one
-thread per output row with its ``C`` sums in registers, ``block_i`` rows a
-block, ``L`` split over the grid's y axis and the splits summed in a fixed
-order; the design notes are in that file.  On the CPU they take the
-``*_plain`` versions.
+card the wrappers make one launch of the CUDA kernel of ``csrc/multi_ttv.cu``:
+the flat ``(I * C)`` output plane in tiles of ``block_i`` rows, one tile a
+CTA, and the ``L`` reduction split over the warp groups of a CTA and the
+CTAs of a thread-block cluster, summed on chip in a fixed order; the design
+notes are in that file, the geometry comes from :func:`launch_shape`.  On
+the CPU they take the ``*_plain`` versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from ._build import CudaKernel
-from ._tiling import (
-    check_kernel_operand,
-    check_rank,
-    check_slabs,
-    split_reduction,
-    use_kernel,
-)
+from ._tiling import check_kernel_operand, check_rank, check_slabs, use_kernel
 
 Tensor = torch.Tensor
 
-# A block is a whole number of warps, at most the card's 1024 threads.
+# block_i: a whole number of warps' rows, at most 1024.
 MAX_BLOCK_I = 1024
+WARP = 32
+MAX_THREADS = 1024
+# CTAs of a cluster along L (portable cluster sizes are 1..8; powers of two).
+MAX_CLUSTER = 8
+# l steps a thread aims to sum: a few loads in flight a thread, and a short
+# plane still spreads over a cluster of SMs.
+L_PER_THREAD = 8
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
+_GEOMETRY = [_c64, _int, _int, _int, _int]  # tile_rows, threads_x, groups, cluster, vec
 KERNEL = CudaKernel(
     "multi_ttv.cu",
     "multi_ttv_f32",
-    [_ptr, _ptr, _ptr, _ptr, _c64, _c64, _int, _int, _c64, _int, _ptr],
+    [_ptr, _ptr, _ptr, _c64, _c64, _int, *_GEOMETRY, _ptr],
 )
 BATCHED_KERNEL = CudaKernel(
     "multi_ttv.cu",
     "multi_ttv_batched_f32",
-    [_ptr, _ptr, _ptr, _ptr, _int, _c64, _c64, _int, _int, _c64, _int, _ptr],
+    [_ptr, _ptr, _ptr, _int, _c64, _c64, _int, *_GEOMETRY, _ptr],
 )
 
 
@@ -61,22 +66,47 @@ def multi_ttv_batched_plain(t: Tensor, w: Tensor) -> Tensor:
     return torch.einsum("slic,slc->sic", t, w)
 
 
-def block_threads(dim_i: int, block_i: int) -> int:
-    """Threads (rows) per block of a launch: ``block_i`` clamped to the rows
-    there are, rounded up to a whole warp.  Raises unless ``block_i`` is a
-    multiple of 32 in ``[32, 1024]``."""
-    if block_i % 32 or not 32 <= block_i <= MAX_BLOCK_I:
+class Launch(NamedTuple):
+    """One launch: a grid of ``(tiles, cluster, slabs)`` CTAs of
+    ``threads_x * groups`` threads, in clusters of ``(1, cluster, 1)``."""
+
+    tiles: int  # CTAs along the output plane (grid x), tile_rows * C outputs each
+    cluster: int  # CTAs of a cluster along L (grid y): 1, 2, 4 or 8
+    slabs: int  # grid z
+    tile_rows: int  # output rows of a tile: block_i clamped to I
+    threads_x: int  # threads across a tile, 4 outputs each per chunk
+    groups: int  # warp groups of threads_x threads along L in a CTA
+    vec: bool  # float4 reads of T (I * C % 4 == 0)
+
+
+def tile_rows(dim_i: int, block_i: int) -> int:
+    """Output rows one CTA's tile covers: ``block_i`` clamped to the rows
+    there are.  Raises unless ``block_i`` is a multiple of 32 in
+    ``[32, 1024]``."""
+    if block_i % WARP or not WARP <= block_i <= MAX_BLOCK_I:
         raise ValueError(f"block_i must be a multiple of 32 in [32, {MAX_BLOCK_I}], got {block_i}")
-    return min(block_i, 32 * math.ceil(dim_i / 32))
+    return min(block_i, dim_i)
 
 
-def launch_shape(
-    dim_i: int, big_l: int, device, block_i: int, slabs: int | None = None
-) -> tuple[int, int, int]:
-    """``(threads, l per split, splits)`` of a launch with ``dim_i`` output
-    rows and an ``L`` reduction of ``big_l`` steps, per slab when batched."""
-    threads = block_threads(dim_i, block_i)
-    return (threads,) + split_reduction(dim_i, big_l, device, slabs or 1, block_rows=threads)
+@functools.lru_cache(maxsize=256)
+def launch_shape(dim_i: int, big_l: int, rank: int, block_i: int, slabs: int = 1) -> Launch:
+    """The launch for ``slabs`` planes of ``dim_i`` rows by ``rank`` and an
+    ``L`` reduction of ``big_l`` steps, from the shape alone.
+
+    A tile is ``block_i`` rows (clamped); ``threads_x`` threads cover it 4
+    outputs at a time (at most 1024, looping over chunks beyond that).  The
+    ``L`` reduction is cut into about ``big_l / 8`` slices: first over a
+    cluster of up to 8 CTAs (the largest power of two that fits), then over
+    warp groups inside each CTA, as many as fit in 1024 threads.  Neither
+    exceeds the ``l`` there are, so no slice is empty."""
+    rows = tile_rows(dim_i, block_i)
+    threads_x = min(MAX_THREADS, WARP * math.ceil(rows * rank / 4 / WARP))
+    slices = math.ceil(big_l / L_PER_THREAD)
+    cluster = min(MAX_CLUSTER, 1 << (slices.bit_length() - 1))
+    groups = min(MAX_THREADS // threads_x, math.ceil(slices / cluster))
+    return Launch(
+        math.ceil(dim_i / rows), cluster, slabs, rows, threads_x, groups, dim_i * rank % 4 == 0
+    )
 
 
 def _dims(t: Tensor, w: Tensor, lead: int) -> None:
@@ -90,22 +120,28 @@ def _dims(t: Tensor, w: Tensor, lead: int) -> None:
 
 
 def _launch(kernel: CudaKernel, t: Tensor, w: Tensor, block_i: int, slabs: int | None) -> Tensor:
-    """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
-    the unbatched entry point.  Returns ``(I, C)`` or ``(S, I, C)``."""
-    big_l, dim_i, c = (int(d) for d in t.shape[-3:])
+    """Check the operands and launch ``kernel`` once: one allocation (the
+    output) and one ctypes call, on a path kept short because a call's host
+    time, not its device time, sets how fast calls follow each other.
+    ``slabs`` is ``None`` for the unbatched entry point.  Returns a float32
+    ``(I, C)`` or ``(S, I, C)``."""
     check_kernel_operand("t", t)
     check_kernel_operand("w", w)
+    big_l, dim_i, c = t.shape[-3:]
     check_rank(c)
     lead = () if slabs is None else (slabs,)
     if slabs is not None:
         check_slabs(slabs)
-    threads, l_per_split, splits = launch_shape(dim_i, big_l, t.device, block_i, slabs)
-    ws = torch.empty(lead + (splits, dim_i, c), dtype=torch.float32, device=t.device)
-    out = torch.empty(lead + (dim_i, c), dtype=torch.float32, device=t.device)
+    g = launch_shape(dim_i, big_l, c, block_i, slabs or 1)
+    out = t.new_empty(t.shape[:-3] + (dim_i, c))
+    t_ptr = t.data_ptr()
     kernel.launch(
-        t.data_ptr(), w.data_ptr(), ws.data_ptr(), out.data_ptr(), *lead,
-        big_l, dim_i, c, threads, l_per_split, splits,
-        torch.cuda.current_stream(t.device).cuda_stream,
+        t_ptr, w.data_ptr(), out.data_ptr(), *lead, big_l, dim_i, c,
+        g.tile_rows, g.threads_x, g.groups, g.cluster,
+        int(g.vec and t_ptr % 16 == 0),  # a contiguous view may start off a 16-byte line
+        # the raw handle of the current stream, without building a Stream
+        # object (which costs more than the launch itself)
+        torch._C._cuda_getCurrentRawStream(t.device.index),
     )
     return out
 
@@ -113,18 +149,17 @@ def _launch(kernel: CudaKernel, t: Tensor, w: Tensor, block_i: int, slabs: int |
 def multi_ttv(t: Tensor, w: Tensor, *, block_i: int = 256) -> Tensor:
     """Kernelized multi-TTV:  ``M[i,c] = sum_l t[l,i,c] * w[l,c]``.
 
-    ``t`` is ``(L, I, C)`` and ``w`` ``(L, C)``.  CUDA tensors launch the
-    kernel with ``block_i`` rows per thread block (a multiple of 32 up to
-    1024, clamped to the rows there are; contiguous float32 operands, rank
-    up to 64, else it raises; at rank 48 or more a 1024-row block asks for
-    more registers than an SM has and the launch raises); CPU tensors take
-    the plain version.  Nothing is padded.  Returns ``t.dtype``.
+    ``t`` is ``(L, I, C)`` and ``w`` ``(L, C)``.  CUDA tensors make one
+    launch of the kernel with ``block_i`` output rows a CTA (a multiple of
+    32 up to 1024, clamped to the rows there are; contiguous float32
+    operands, rank up to 64, else it raises); CPU tensors take the plain
+    version.  Nothing is padded.  Returns ``t.dtype``.
     """
     _dims(t, w, 0)
-    block_threads(int(t.shape[1]), block_i)
+    tile_rows(int(t.shape[1]), block_i)
     if not use_kernel(t, w):
         return multi_ttv_plain(t, w).to(t.dtype)
-    return _launch(KERNEL, t, w, block_i, None).to(t.dtype)
+    return _launch(KERNEL, t, w, block_i, None)  # float32, as t must be
 
 
 def multi_ttv_batched(
@@ -132,17 +167,17 @@ def multi_ttv_batched(
 ) -> Tensor:
     """Batched multi-TTV: ``M[s,i,c] = sum_l t[s,l,i,c] * w[s,l,c]``.
 
-    ``t`` is ``(S, L, I, C)`` and ``w`` ``(S, L, C)``.  CUDA tensors launch
-    the kernel, one slab per block along the grid's z axis (1..65535 slabs;
-    otherwise as :func:`multi_ttv`); CPU tensors take the plain version.
-    ``block_batch`` is the reference's slab tile, accepted for its
+    ``t`` is ``(S, L, I, C)`` and ``w`` ``(S, L, C)``.  CUDA tensors make
+    one launch of the kernel, the slabs along the grid's z axis (1..65535
+    slabs; otherwise as :func:`multi_ttv`); CPU tensors take the plain
+    version.  ``block_batch`` is the reference's slab tile, accepted for its
     signature: here every slab is its own z block, so it changes nothing.
     Nothing is padded: not the slabs, not any extent.
     """
     if block_batch < 1:
         raise ValueError(f"block_batch must be >= 1, got {block_batch}")
     _dims(t, w, 1)
-    block_threads(int(t.shape[2]), block_i)
+    tile_rows(int(t.shape[2]), block_i)
     if not use_kernel(t, w):
         return multi_ttv_batched_plain(t, w).to(t.dtype)
-    return _launch(BATCHED_KERNEL, t, w, block_i, int(t.shape[0])).to(t.dtype)
+    return _launch(BATCHED_KERNEL, t, w, block_i, t.shape[0])  # float32, as t must be

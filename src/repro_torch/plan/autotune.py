@@ -356,8 +356,8 @@ def _tune_ttv_tiles(
     t3 = torch.randn((small, in_dim, c), generator=gen, device=x.device)
     w2 = torch.randn((small, c), generator=gen, device=x.device)
 
-    def effective(cand):  # the kernel's (threads, l per split, splits)
-        return mt.launch_shape(in_dim, small, x.device, cand[0]) if x.is_cuda else ()
+    def effective(cand):  # the kernel's launch geometry
+        return mt.launch_shape(in_dim, small, c, cand[0]) if x.is_cuda else ()
 
     rows = _tile_rows(
         tuple((b,) for b in TTV_TILE_CANDIDATES),

@@ -228,17 +228,17 @@ def test_blocks_per_sm_reaches_the_batched_kernels(cuda):
 # ---- multi-TTV and the KRP pair
 
 
-@pytest.mark.parametrize("rank", [1, 3, 10, 16, 64])
-@pytest.mark.parametrize("shape", [(1, 5), (6, 37), (225, 59), (200, 200), (3000, 40), (7, 1100)])
+@pytest.mark.parametrize("rank", [1, 3, 7, 10, 16, 48, 64])
+@pytest.mark.parametrize(
+    "shape", [(1, 5), (3, 59), (6, 37), (225, 59), (200, 200), (3000, 40), (7, 1100)]
+)
 def test_multi_ttv_kernel_matches_plain(cuda, shape, rank):
     g = torch.Generator(device=cuda).manual_seed(rank)
     t = torch.randn(shape + (rank,), generator=g, device=cuda)
     w = torch.randn((shape[0], rank), generator=g, device=cuda)
     plain = mt.multi_ttv_plain(t, w)
     default = mt.multi_ttv(t, w)
-    for block_i in TTV_TILE_CANDIDATES + (32, 1024):
-        if rank >= 48 and block_i == 1024:
-            continue  # more registers than an SM has: the launch raises
+    for block_i in TTV_TILE_CANDIDATES + (32, 1024):  # 1024 rows at rank 48 and 64 too
         before = mt.KERNEL.launches
         out = mt.multi_ttv(t, w, block_i=block_i)
         assert mt.KERNEL.launches == before + 1
@@ -261,6 +261,45 @@ def test_multi_ttv_batched_kernel_matches_plain(cuda, slabs, rank):
     assert torch.equal(out, mt.multi_ttv_batched(t, w))
     for block_i in TTV_TILE_CANDIDATES:
         assert _rel(mt.multi_ttv_batched(t, w, block_i=block_i), out) < KNOB_REL
+
+
+@pytest.mark.parametrize("shape", [(3, 59, 7), (1, 59, 7), (225, 59, 10), (40, 33, 64)])
+def test_multi_ttv_batched_kernel_ragged_and_short_l(cuda, shape):
+    # I * C % 4 != 0 (the scalar path and its masked tail), L shorter than a cluster
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    t = torch.randn((5,) + shape, generator=g, device=cuda)
+    w = torch.randn((5, shape[0], shape[2]), generator=g, device=cuda)
+    plain = mt.multi_ttv_batched_plain(t, w)
+    for block_i in TTV_TILE_CANDIDATES + (32, 1024):
+        out = mt.multi_ttv_batched(t, w, block_i=block_i)
+        assert _rel(out, plain) < REL
+        assert torch.equal(out, mt.multi_ttv_batched(t, w, block_i=block_i))
+        assert torch.equal(out[1], mt.multi_ttv(t[1], w[1], block_i=block_i))  # same sum order
+
+
+def test_multi_ttv_kernel_takes_any_geometry(cuda):
+    # The kernel masks what the wrapper's geometry never makes: a cluster of 8
+    # over L = 3 (five empty ranks), more warp groups than l, a tile of rows
+    # that is not a multiple of 4 outputs on the scalar path, a misaligned T.
+    g = torch.Generator(device=cuda).manual_seed(0)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for big_l, dim_i, c, rows, tx, groups, cl in ((3, 59, 7, 59, 128, 4, 8),
+                                                  (3, 200, 10, 33, 96, 8, 8),
+                                                  (17, 64, 3, 64, 64, 16, 4)):
+        t = torch.randn((big_l, dim_i, c), generator=g, device=cuda)
+        w = torch.randn((big_l, c), generator=g, device=cuda)
+        out = torch.full((dim_i, c), float("nan"), device=cuda)
+        mt.KERNEL.launch(t.data_ptr(), w.data_ptr(), out.data_ptr(), big_l, dim_i, c, rows, tx,
+                         groups, cl, 0, stream)
+        assert _rel(out, mt.multi_ttv_plain(t, w)) < REL
+    base = torch.randn(1 + 8 * 50 * 12, generator=g, device=cuda)
+    t = base[1:].view(8, 50, 12)  # contiguous, 4 bytes past a 16-byte line
+    w = torch.randn((8, 12), generator=g, device=cuda)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
+    assert _rel(mt.multi_ttv(t, w), mt.multi_ttv_plain(t, w)) < REL
+    with pytest.raises(RuntimeError):  # vec on a misaligned T is refused, not run
+        mt.KERNEL.launch(t.data_ptr(), w.data_ptr(), torch.empty(50, 12, device=cuda).data_ptr(),
+                         8, 50, 12, 50, 160, 1, 1, 1, stream)
 
 
 def test_multi_ttv_batched_slab_is_bitwise_independent_of_other_slabs(cuda):
@@ -309,9 +348,11 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         mt.multi_ttv(t.transpose(0, 1).contiguous().transpose(0, 1), w)  # not contiguous
     with pytest.raises(ValueError):
         mt.multi_ttv(torch.randn(4, 5, 65, device=cuda), torch.randn(4, 65, device=cuda))
-    with pytest.raises(RuntimeError):  # rank 64: 96 registers x 1024 threads > an SM's 65536
-        mt.multi_ttv(torch.randn(4, 1100, 64, device=cuda), torch.randn(4, 64, device=cuda),
-                     block_i=1024)
+    t64, w64 = torch.randn(4, 1100, 64, device=cuda), torch.randn(4, 64, device=cuda)
+    # rank 64 at 1024 rows a CTA: one launch that matches the plain version
+    before = mt.KERNEL.launches
+    assert _rel(mt.multi_ttv(t64, w64, block_i=1024), mt.multi_ttv_plain(t64, w64)) < REL
+    assert mt.KERNEL.launches == before + 1
     with pytest.raises(ValueError):
         kk.krp_pair(w, torch.randn(70000, 3, device=cuda), block_b=1)  # > 65535 tiles
     with pytest.raises(TypeError):

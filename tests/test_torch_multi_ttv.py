@@ -79,7 +79,101 @@ def test_multi_ttv_refuses_bad_operands():
         tops.multi_ttv_batched(t[None], w)  # w lacks the slab axis
     with pytest.raises(ValueError):
         tops.multi_ttv_batched(t[None], w[None], block_batch=0)
-    assert tmt.block_threads(37, 256) == 64 and tmt.block_threads(500, 256) == 256
+    assert tmt.tile_rows(37, 256) == 37 and tmt.tile_rows(500, 256) == 256
+
+
+# ---- the CUDA launch's geometry (pure Python: checked here, run on the card)
+
+_BLOCK_IS = sorted(set(TTV_TILE_CANDIDATES) | {32, 1024})
+
+
+def _tile_outputs(g, n, rank, tile):
+    """Outputs of one tile as the kernel walks them (multi_ttv.cu): chunks of
+    4 * threads_x, thread tx owning e0 + 4 tx + k (vec) or e0 + tx + k tx."""
+    lo, hi = tile * g.tile_rows * rank, min(n, (tile + 1) * g.tile_rows * rank)
+    tx_n = g.threads_x
+    owned = []
+    for e0 in range(lo, hi, 4 * tx_n):
+        for tx in range(tx_n):
+            es = [e0 + 4 * tx + k if g.vec else e0 + tx + k * tx_n for k in range(4)]
+            owned += [e for e in es if e < hi]
+    return lo, hi, owned
+
+
+def _l_slice(big_l, parts, k, lo=0):
+    """Part ``k`` of ``parts`` balanced parts of ``[lo, lo + big_l)``, as the
+    kernel cuts a cluster's L over its ranks and a rank's slice over its
+    warp groups."""
+    return lo + big_l * k // parts, lo + big_l * (k + 1) // parts
+
+
+def _check_launch(dim_i, big_l, rank, slabs, block_i):
+    g = tmt.launch_shape(dim_i, big_l, rank, block_i, slabs)
+    assert g == tmt.launch_shape(dim_i, big_l, rank, block_i, slabs)  # the shape alone
+    # grid and block limits; one cluster covers L along grid y
+    assert g.cluster in (1, 2, 4, 8) and g.cluster <= big_l
+    assert 1 <= g.tiles < 2**31 and 1 <= g.slabs == slabs <= 65535
+    threads = g.threads_x * g.groups
+    assert g.threads_x % 32 == 0 and threads % 32 == 0 and threads <= 1024
+    assert g.tile_rows == min(block_i, dim_i) and g.vec == (dim_i * rank % 4 == 0)
+    # every output element lies in exactly one tile and one thread's quad
+    n = dim_i * rank
+    seen = []
+    for tile in range(g.tiles):
+        lo, hi, owned = _tile_outputs(g, n, rank, tile)
+        assert lo < hi  # no empty tile
+        assert sorted(owned) == list(range(lo, hi))
+        if g.vec:  # float4 reads: every quad starts on a 16-byte boundary
+            assert lo % 4 == 0 and hi % 4 == 0
+        seen += owned
+    assert sorted(seen) == list(range(n))
+    # every l lies in exactly one rank's slice, and in one warp group of it
+    ls = []
+    for r in range(g.cluster):
+        r0, r1 = _l_slice(big_l, g.cluster, r)
+        assert r1 - r0 >= g.groups  # no empty rank, no empty group
+        for k in range(g.groups):
+            ls += range(*_l_slice(r1 - r0, g.groups, k, r0))
+    assert ls == list(range(big_l))
+
+
+@pytest.mark.parametrize("rank", [1, 7, 10, 64])
+@pytest.mark.parametrize("big_l", [1, 3, 225])
+@pytest.mark.parametrize("dim_i", [1, 59, 200])
+def test_launch_shape_tiles_every_output_and_every_l_once(dim_i, big_l, rank):
+    for slabs in (1, 5):
+        for block_i in _BLOCK_IS:
+            _check_launch(dim_i, big_l, rank, slabs, block_i)
+
+
+@pytest.mark.parametrize(
+    "shape", [(1, 225, 59, 10), (1, 200, 200, 10), (8, 200, 200, 10), (8, 225, 200, 16)],
+    ids=["mode1", "mode2", "batched", "batched-r16"],
+)
+def test_launch_shape_at_the_fmri_shapes(shape):
+    slabs, big_l, dim_i, rank = shape
+    for block_i in _BLOCK_IS:
+        _check_launch(dim_i, big_l, rank, slabs, block_i)
+    for block_i in _BLOCK_IS:  # a short plane spreads its L over a cluster of 8 SMs
+        assert tmt.launch_shape(dim_i, big_l, rank, block_i, slabs).cluster == 8
+
+
+def test_launch_shape_sizes_the_cta_to_the_tile():
+    # rank 64 at block_i 1024: 16384 quads, 16 chunks of 1024 threads, one group
+    g = tmt.launch_shape(1100, 4, 64, 1024)
+    assert (g.tiles, g.tile_rows, g.threads_x, g.groups, g.cluster) == (2, 1024, 1024, 1, 1)
+    # mode 1 of the fMRI tensor: 590 outputs, 148 quads, 5 warps a group
+    g = tmt.launch_shape(59, 225, 10, 256)
+    assert (g.tiles, g.threads_x, g.groups, g.cluster, g.vec) == (1, 160, 4, 8, False)
+    # mode 2: 2000 outputs in one tile at block_i 256, four tiles at 64
+    g = tmt.launch_shape(200, 200, 10, 256)
+    assert (g.tiles, g.threads_x, g.groups, g.cluster, g.vec) == (1, 512, 2, 8, True)
+    g = tmt.launch_shape(200, 200, 10, 64)
+    assert (g.tiles, g.threads_x, g.groups, g.cluster) == (4, 160, 4, 8)
+    # L = 3: no cluster, one group; L = 1 likewise
+    assert tmt.launch_shape(59, 3, 7, 256)[1:] == (1, 1, 59, 128, 1, False)
+    with pytest.raises(ValueError):
+        tmt.launch_shape(59, 225, 10, 48)
 
 
 @pytest.mark.parametrize("dims", [(5, 7), (4, 3, 6)], ids=["two", "three"])
