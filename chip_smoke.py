@@ -178,6 +178,23 @@ def _rel(torch, k, p) -> tuple[float, float]:
     return float(d.norm() / p.double().norm()), float(d.abs().max())
 
 
+def _checker(torch, err):
+    """``check(label, key, kern, plain, phase)``: the norm-wise relative error
+    of a kernel's output against its plain version must stay under
+    ``REL_ERR_BOUND``; ``err[key]`` keeps the largest absolute error."""
+
+    def check(label, key, kern, plain, phase=2):
+        rel, mabs = _rel(torch, kern, plain)
+        err[key] = max(err[key], mabs)
+        ok = math.isfinite(rel) and rel <= REL_ERR_BOUND
+        _log(f"[{phase}] {label}: rel err {rel:.3e} max abs {mabs:.3e} "
+             f"(bound {REL_ERR_BOUND:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: kernel disagrees with its plain version")
+
+    return check
+
+
 def _time_ms(torch, fn, reps: int) -> float:
     fn()
     fn()
@@ -198,7 +215,11 @@ def _host_device_us(torch, fn, reps: int):
     the loop (what the caller's thread spends a call).  Device: the summed
     durations of every CUDA kernel the ``reps`` calls launched, from
     ``torch.profiler`` (CUDA activity), over ``reps``.  Also returns the
-    kernels one call launches and their names."""
+    kernels one call launches and their names.  The profiler now and then
+    drops one kernel event of a window (seen on the H100: 199 of 200), so a
+    window whose event count is not a whole number of events a call is
+    profiled again, up to three windows, each drop logged; a call's kernel
+    count is read only from a whole window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -208,14 +229,166 @@ def _host_device_us(torch, fn, reps: int):
     for _ in range(reps):
         fn()
     host = (time.perf_counter() - t0) / reps * 1e6
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(kern) % reps == 0:
+            break
+        _log(f"(torch.profiler recorded {len(kern)} kernel events for {reps} calls, not a "
+             "whole number a call: the window is profiled again)")
     device = sum(e.time_range.elapsed_us() for e in kern) / reps
     return host, device, len(kern) / reps, sorted({e.name for e in kern})
+
+
+def _trace(torch, fn):
+    """One call of ``fn`` (after a warm one) under ``torch.profiler`` (CPU and
+    CUDA activity): the host-clock µs of the call, its sync included, and
+    every device event ``(start µs, end µs, name)`` in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    evs = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+    return wall, evs
+
+
+def _log_trace(label: str, wall: float, evs, per: int, smi: str) -> None:
+    """Print a trace's device busy share, its longest idle gaps and its ten
+    longest device operations (by summed time), per ``per`` repeats."""
+    merged = []
+    for a, b, _ in evs:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    busy = sum(b - a for a, b in merged)
+    window = merged[-1][1] - merged[0][0]
+    gaps = sorted((b[0] - a[1] for a, b in zip(merged, merged[1:])), reverse=True)
+    by_name = {}
+    for a, b, name in evs:
+        t, k = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + b - a, k + 1)
+    _log(f"{label}: {len(evs) / per:g} device operations a sweep; device busy {busy / per:.1f} us "
+         f"a sweep of a {window / per:.1f} us device window ({100 * busy / window:.1f}% busy) and "
+         f"of {wall / per:.1f} us host clock ({100 * busy / wall:.1f}%); longest idle gaps (us) "
+         f"{[round(g, 1) for g in gaps[:5]]}, {sum(gaps) / per:.1f} us idle a sweep in "
+         f"{len(gaps)} gaps; card {smi}")
+    for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        _log(f"{label}:   {t / per:9.1f} us a sweep, {k / per:g} a sweep: {name[:110]}")
+
+
+def _row4_checks(torch, gen, dev, check, xb, fb, phase):
+    """The batched matrix-free kernel beyond phase 5's shared checks: rank 64
+    on every mode of the batch, run-twice bitwise, a misaligned view of
+    x (scalar copies) and a ragged order-4 stack, each against its plain
+    version; with the launch geometry where the port computes one."""
+    from repro_torch.kernels import matrix_free as mf
+
+    def geometry(x, n, c):
+        if not hasattr(mf, "launch_shape"):
+            return ""
+        g = mf.launch_shape(tuple(x.shape[1:]), n, c, x.shape[0])
+        vec = g.vec and x.data_ptr() % 16 == 0  # as the wrapper decides
+        return (f" [grid ({g.row_blocks}, {g.splits}, {g.slabs}), clusters of {g.splits}, "
+                f"q chunk {g.q_chunk} x {g.chunks}, {'16' if vec else '4'}-byte copies, "
+                f"{g.smem} B shared, {g.residency} CTAs an SM]")
+
+    def one(label, x, fs, n):
+        us = [fs[k] for k in range(x.ndim - 1) if k != n]
+        out = mf.matrix_free_batched_kernel(x, us, n)
+        check(f"matrix_free batched {label} mode {n}{geometry(x, n, fs[0].shape[-1])}", "mf_b",
+              out, mf.matrix_free_batched_kernel_plain(x, us, n), phase)
+        return out, us
+
+    fb64 = [torch.randn((xb.shape[0], d, 64), generator=gen, device=dev) for d in xb.shape[1:]]
+    for n in range(3):
+        one(f"S={xb.shape[0]} rank 64", xb, fb64, n)
+        out, us = one(f"S={xb.shape[0]} rank {fb[0].shape[-1]} (run twice)", xb, fb, n)
+        same = torch.equal(out, mf.matrix_free_batched_kernel(xb, us, n))
+        _log(f"[{phase}] matrix_free batched mode {n} run twice bitwise equal: "
+             f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("matrix_free batched: not bitwise repeatable")
+    del fb64
+    # a contiguous view 4 bytes off a 16-byte line: the wrapper takes 4-byte copies
+    buf = torch.empty(3 * xb[0].numel() + 1, device=dev)
+    xm = buf[1:].view((3,) + tuple(xb.shape[1:]))
+    xm.copy_(xb[:3])
+    for n in range(3):
+        one(f"S=3 misaligned x (data_ptr % 16 = {xm.data_ptr() % 16})", xm,
+            [f[:3] for f in fb], n)
+    del buf, xm
+    for shape in ((5, 37, 23, 41, 30), (5, 37, 23, 41, 28)):  # 4- and 16-byte copies
+        xr = torch.randn(shape, generator=gen, device=dev)
+        fr = [torch.randn((5, d, 7), generator=gen, device=dev) for d in shape[1:]]
+        for n in range(4):
+            one(f"ragged order-4 {shape} rank 7", xr, fr, n)
+
+
+def _row4_device(torch, xb, fb, smi, phase):
+    """Device time a launch and CUDA kernels a call of the batched
+    matrix-free kernel on every mode of the batch (``torch.profiler``);
+    returns the kernels a call."""
+    from repro_torch.kernels import matrix_free as mf
+
+    per_call = []
+    for n in range(3):
+        us = [fb[k] for k in range(3) if k != n]
+        host, dev_us, k, names = _host_device_us(
+            torch, lambda: mf.matrix_free_batched_kernel(xb, us, n), 50)
+        per_call.append(k)
+        _log(f"[{phase}] matrix_free_batched_kernel S={xb.shape[0]} mode {n}: device "
+             f"{dev_us / 1e3:.4f} ms a launch (torch.profiler, {k:g} CUDA kernels a call: "
+             f"{names}), host {host:.2f} us a call (host clock, 50 calls, no sync); card {smi}")
+    return per_call
+
+
+def _row4_occupancy(torch, xb, smi, phase):
+    """The batched matrix-free kernel's residency and waves at the batch's
+    launches (ranks 10, 16, 64), from the CUDA occupancy queries, against
+    the constants its geometry assumes."""
+    from repro_torch.kernels import matrix_free as mf
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _log(f"[{phase}] SMs {sms} (launch_shape assumes {mf.SMS}); card {smi}")
+    for rank in (10, SECOND_RANK, 64):
+        for n in range(3):
+            g = mf.launch_shape(tuple(xb.shape[1:]), n, rank, xb.shape[0])
+            per_sm, clusters = mf.batched_occupancy(g, rank)
+            ctas = g.row_blocks * g.splits * g.slabs
+            waves = -(-ctas // (clusters * g.splits))
+            _log(f"[{phase}] matrix_free batched rank {rank} mode {n}: {ctas} CTAs in clusters "
+                 f"of {g.splits}, {g.smem} B shared each; occupancy {per_sm} CTAs an SM "
+                 f"(residency constant {g.residency}), {clusters} clusters on the card: "
+                 f"{waves} wave(s)")
+            if per_sm < g.residency:
+                raise SystemExit(f"matrix_free batched rank {rank} mode {n}: {per_sm} CTAs an SM "
+                                 f"< the residency {g.residency} its geometry assumes")
+
+
+def _trace_served_sweep(torch, args, xb, init, smi, phase):
+    """A batch dispatch as ``CPService`` runs it under ``matrix_free`` (its
+    sweeps in one chunk, one host sync), traced by ``torch.profiler``."""
+    from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
+
+    plan = plan_sweep(Problem(tuple(xb.shape[1:]), args.rank, batch=xb.shape[0]), "matrix_free",
+                      tuning_cache=TuningCache())
+    wall, evs = _trace(torch, lambda: cp_als(xb, plan, n_iters=args.sweeps, tol=0.0,
+                                              init_factors=init, sweeps_per_sync=args.sweeps))
+    _log_trace(f"[{phase}] trace of one matrix_free batch dispatch (S={xb.shape[0]}, rank "
+               f"{args.rank}, {args.sweeps} sweeps, one sync), per sweep", wall, evs,
+               args.sweeps, smi)
 
 
 def _einsum_spec(order: int, n: int) -> str:
@@ -693,11 +866,61 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
     return path
 
 
+def _only_batched_matrix_free(torch, args, dev, smi) -> None:
+    """``--only batched_matrix_free``: build ``matrix_free.cu``, check the
+    batched kernel on the 8-subject batch (ranks 10, 16 and 64, S = 8 and
+    5, every mode) and on phase 5's extra inputs, time it as phase 7 does
+    (CUDA events, device time and kernels a call by the profiler), and
+    trace one served batch dispatch under ``matrix_free``."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import matrix_free as mf
+
+    t0 = time.perf_counter()
+    _build.build_all([mf.KERNEL, mf.BATCHED_KERNEL])
+    _log(f"[1] built {mf.KERNEL.source.name} in {time.perf_counter() - t0:.1f} s")
+    for line in mf.KERNEL.ptxas_log.splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            _log(f"[1] {mf.KERNEL.source.name}: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x4 = synth_fmri(torch, gen, args.rank, dev)
+    xb = torch.stack([x4[:, s].contiguous() for s in range(SERVE_BATCH)])
+    del x4
+    fb = [torch.randn((SERVE_BATCH, d, args.rank), generator=gen, device=dev) for d in xb.shape[1:]]
+    fb16 = [torch.randn((SERVE_BATCH, d, SECOND_RANK), generator=gen, device=dev)
+            for d in xb.shape[1:]]
+    err = {"mf_b": 0.0}
+    check = _checker(torch, err)
+    for n in range(3):
+        for label, x, fs in ((f"S={SERVE_BATCH}", xb, fb), ("S=5 (odd)", xb[:5], [f[:5] for f in fb]),
+                             (f"S={SERVE_BATCH} rank {SECOND_RANK}", xb, fb16)):
+            us = [fs[k] for k in range(3) if k != n]
+            check(f"matrix_free batched {label} mode {n}", "mf_b",
+                  mf.matrix_free_batched_kernel(x, us, n),
+                  mf.matrix_free_batched_kernel_plain(x, us, n), 5)
+    del fb16
+    _row4_checks(torch, gen, dev, check, xb, fb, 5)
+    for n in range(3):
+        us = [fb[k] for k in range(3) if k != n]
+        c = fb[0].shape[-1]
+        ms = _time_ms(torch, lambda: mf.matrix_free_batched_kernel(xb, us, n), 50)
+        byts = 4 * (xb.numel() + sum(u.numel() for u in us) + SERVE_BATCH * xb.shape[1 + n] * c)
+        _log(f"[7] matrix_free_batched_kernel S={SERVE_BATCH} mode {n}: kernel {ms:.4f} ms "
+             f"(CUDA events, 50 launches), bound {byts / HBM_BW * 1e3:.4f} ms (bytes); card {smi}")
+    _row4_device(torch, xb, fb, smi, 7)
+    if hasattr(mf, "launch_shape"):
+        _row4_occupancy(torch, xb, smi, 7)
+    _trace_served_sweep(torch, args, xb, [f.clone() for f in fb], smi, 7)
+    _log(f"[5] max abs err of the batched matrix-free kernel: {err['mf_b']:.3e}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
+    ap.add_argument("--only", choices=["batched_matrix_free"],
+                    help="run only the batched matrix-free kernel's checks, timing and trace "
+                         "(phases 0, 1, 5 and 7 for that kernel); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -726,6 +949,11 @@ def main(argv=None) -> int:
     _log(smi)
     _log(f"[0] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if args.only:
+        _only_batched_matrix_free(torch, args, dev, smi)
+        _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
+             "no result line")
+        return 0
 
     # ---- phase 1: build
     t0 = time.perf_counter()
@@ -749,15 +977,7 @@ def main(argv=None) -> int:
     # ---- phase 2: kernels vs plain versions
     err = {"fused": 0.0, "mf": 0.0, "fused_b": 0.0, "mf_b": 0.0, "mt": 0.0, "mt_b": 0.0,
            "krp": 0.0, "2step": 0.0}
-
-    def check(label, key, kern, plain, phase=2):
-        rel, mabs = _rel(torch, kern, plain)
-        err[key] = max(err[key], mabs)
-        ok = math.isfinite(rel) and rel <= REL_ERR_BOUND
-        _log(f"[{phase}] {label}: rel err {rel:.3e} max abs {mabs:.3e} "
-             f"(bound {REL_ERR_BOUND:g}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"{label}: kernel disagrees with its plain version")
+    check = _checker(torch, err)
 
     f4 = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
     for n in range(4):
@@ -918,6 +1138,7 @@ def main(argv=None) -> int:
             if not same:
                 raise SystemExit(f"{label}: slab 0 depends on the other slabs")
     del yb, gb
+    _row4_checks(torch, gen, dev, check, xb, fb, 5)
     torch.cuda.synchronize()
 
     # ---- phase 6: the serving path
@@ -959,6 +1180,12 @@ def main(argv=None) -> int:
                  f"plain {row['plain_ms']:.4f} ms, einsum {row['library_ms']:.4f} ms, "
                  f"bound {bound:.4f} ms "
                  f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); card {smi}")
+    row4_kernels = _row4_device(torch, xb, fb, smi, 7)
+    if set(row4_kernels) != {1}:
+        raise SystemExit(f"a matrix_free_batched_kernel call launches other than one CUDA "
+                         f"kernel: {row4_kernels}")
+    _row4_occupancy(torch, xb, smi, 7)
+    _trace_served_sweep(torch, args, xb, [f.clone() for f in fb], smi, 7)
     for key, strategy in (("fused_b", "fused"), ("mf_b", "matrix_free")):
         kern = sum(r["ms"] for r in rows[key])
         sweep = 1e3 * sweep_s[strategy]

@@ -107,14 +107,15 @@ def multi_ttv(t: Tensor, factors: Sequence[Tensor], cols_last: bool = True) -> T
 
 
 def tensor_norm(x: Tensor, *, batched: bool = False) -> Tensor:
-    """Frobenius norm of a dense tensor (float32 accumulation, no squared
-    copy of the tensor).
+    """Frobenius norm of a dense tensor, as float32 (float32 accumulation,
+    float64 for a float64 tensor; no squared copy of the tensor).
 
     With ``batched=True`` the leading axis is a batch of tensors and the
     result is the per-tensor norm vector of shape ``(B,)``.
     """
     dims = tuple(range(1, x.ndim)) if batched else None
-    return torch.linalg.vector_norm(x, dim=dims, dtype=torch.float32)
+    acc = torch.promote_types(x.dtype, torch.float32)  # vector_norm refuses to narrow
+    return torch.linalg.vector_norm(x, dim=dims, dtype=acc).to(torch.float32)
 
 
 def random_tensor(

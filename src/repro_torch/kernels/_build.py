@@ -104,13 +104,18 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
-        """Call the C entry point; raise on a non-zero CUDA error code."""
-        fn = self._entry()
-        code = fn(*args)
+    def query(self, *args) -> None:
+        """Call the C entry point without counting a launch (an entry that
+        launches nothing, such as an occupancy query); raise on a non-zero
+        CUDA error code."""
+        code = self._entry()(*args)
         if code != 0:
             msg = self._lib.mttkrp_error_string(code).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {code} ({msg})")
+
+    def launch(self, *args) -> None:
+        """Call the C entry point; raise on a non-zero CUDA error code."""
+        self.query(*args)
         self.launches += 1
 
 

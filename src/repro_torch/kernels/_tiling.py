@@ -46,10 +46,24 @@ def use_kernel(*tensors: Tensor) -> bool:
     raise ValueError(f"no kernel and no plain version for device {dev}")
 
 
+def kernels_take(device, dtype: torch.dtype, rank: int) -> bool:
+    """Whether the MTTKRP kernel paths take a problem of ``dtype`` at
+    ``rank`` on ``device``.  On the CPU the plain versions take any rank and
+    dtype; on the card the CUDA kernels take float32 at rank 1..64 only
+    (their rank is a compile-time register tile).  The tuner asks this
+    before it times a kernel; a forced kernel strategy raises instead."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return True
+    return dev.type == "cuda" and dtype == torch.float32 and 1 <= rank <= MAX_RANK
+
+
 def check_rank(rank: int) -> None:
     """Raise unless the CUDA kernels are compiled for ``rank``."""
     if not 1 <= rank <= MAX_RANK:
-        raise ValueError(f"the CUDA kernels take rank 1..{MAX_RANK}, got {rank}")
+        raise ValueError(
+            f"the CUDA kernels take float32 at rank 1..{MAX_RANK}, got rank {rank}"
+        )
 
 
 def check_kernel_operand(name: str, t: Tensor) -> None:
@@ -57,7 +71,10 @@ def check_kernel_operand(name: str, t: Tensor) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on the card, got {t.device}")
     if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+        raise TypeError(
+            f"{name} must be float32 (the CUDA kernels take float32 at rank "
+            f"1..{MAX_RANK}), got {t.dtype}"
+        )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
@@ -104,6 +121,19 @@ def pad_axis(x: Tensor, axis: int, mult: int) -> Tensor:
     widths = [0, 0] * x.ndim
     widths[2 * (x.ndim - 1 - axis) + 1] = pad  # F.pad lists the last axis first
     return F.pad(x, widths)
+
+
+def reference_tiles(**tiles) -> None:
+    """Check the reference's tile keywords a wrapper accepts for its
+    signature (``block_i``, ``block_b``, ``block_r``, ``block_batch``,
+    ``blocks``): each given size must be >= 1.  They change nothing here:
+    the CUDA kernels' tiles are fixed at compile time and the kernels mask
+    ragged edges, so no tile sets a pad (nor does ``pad_rank_to``: the rank
+    is padded only in the kernels' registers)."""
+    for name, size in tiles.items():
+        sizes = size if isinstance(size, (list, tuple)) else [size]
+        if any(v is not None and int(v) < 1 for v in sizes):
+            raise ValueError(f"{name} must be >= 1, got {size}")
 
 
 def block(dim: int, target: int) -> int:

@@ -29,6 +29,7 @@ from ._tiling import (
     check_kernel_operand,
     check_rank,
     check_slabs,
+    reference_tiles,
     split_reduction,
     use_kernel,
 )
@@ -121,7 +122,15 @@ def _launch(kernel: CudaKernel, t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i
 
 
 def fused_mttkrp_bilinear(
-    t: Tensor, a: Tensor, b: Tensor, *, pos: int, blocks_per_sm: int = BLOCKS_PER_SM
+    t: Tensor,
+    a: Tensor,
+    b: Tensor,
+    *,
+    pos: int,
+    block_i: int | None = None,
+    block_b: int | None = None,
+    interpret: bool = False,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """``M[i,c] = sum_{a,b} T * A[a,c] * B[b,c]`` with T's i-axis at ``pos``.
 
@@ -130,8 +139,13 @@ def fused_mttkrp_bilinear(
     accepted: the kernel masks ragged tiles, so nothing is padded.
     ``blocks_per_sm`` sizes the split of the ``a`` reduction
     (:func:`~repro_torch.kernels._tiling.split_reduction`); the plain
-    version ignores it.
+    version ignores it.  ``block_i``, ``block_b`` and ``interpret`` are the
+    reference's keywords, taken for its signature: the CUDA tiles are fixed
+    at compile time, so the tile sizes change nothing, and ``interpret``
+    never decides the device (a CUDA tensor launches the kernel even with
+    ``interpret=True``).
     """
+    reference_tiles(block_i=block_i, block_b=block_b)
     dim_i = _dims(t, a, b, pos, 0)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_plain(t, a, b, pos=pos)
@@ -139,7 +153,16 @@ def fused_mttkrp_bilinear(
 
 
 def fused_mttkrp_bilinear_batched(
-    t: Tensor, a: Tensor, b: Tensor, *, pos: int, blocks_per_sm: int = BLOCKS_PER_SM
+    t: Tensor,
+    a: Tensor,
+    b: Tensor,
+    *,
+    pos: int,
+    block_i: int | None = None,
+    block_b: int | None = None,
+    block_batch: int | None = None,
+    interpret: bool = False,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """Batched bilinear MTTKRP ``M[s,i,c] = sum_{a,b} T[s,...] A[s,a,c] B[s,b,c]``.
 
@@ -148,9 +171,12 @@ def fused_mttkrp_bilinear_batched(
     CUDA tensors launch the kernel, one slab per block along the grid's z
     axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
     it raises); CPU tensors take the plain version.  Nothing is padded: not
-    the slabs, not any extent.  ``blocks_per_sm`` as in
-    :func:`fused_mttkrp_bilinear`.
+    the slabs, not any extent.  ``blocks_per_sm``, ``block_i``, ``block_b``
+    and ``interpret`` as in :func:`fused_mttkrp_bilinear`; ``block_batch``,
+    the reference's slab tile, changes nothing either (every slab is its
+    own z block).
     """
+    reference_tiles(block_i=block_i, block_b=block_b, block_batch=block_batch)
     dim_i = _dims(t, a, b, pos, 1)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos)

@@ -38,14 +38,16 @@ def krp_pair_plain(a: Tensor, b: Tensor) -> Tensor:
     return (a[:, None, :] * b[None, :, :]).reshape(a.shape[0] * b.shape[0], a.shape[1])
 
 
-def krp_pair(a: Tensor, b: Tensor, *, block_b: int) -> Tensor:
+def krp_pair(a: Tensor, b: Tensor, *, block_b: int, interpret: bool = False) -> Tensor:
     """KRP of two matrices: ``out[(ja, jb), c] = a[ja, c] * b[jb, c]``.
 
     ``a`` is ``(J_A, C)`` and ``b`` ``(J_B, C)``.  CUDA tensors launch the
     kernel with ``block_b`` output rows per thread block (contiguous
     float32 operands, at most 65535 tiles of ``b``, else it raises); the
     last tile is masked, so nothing is padded.  CPU tensors take the plain
-    version.
+    version.  ``interpret`` is the reference's keyword; it never decides
+    the device (a CUDA tensor launches the kernel even with
+    ``interpret=True``).
     """
     if a.ndim != 2 or b.ndim != 2:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} must be matrices")

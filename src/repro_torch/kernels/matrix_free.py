@@ -10,7 +10,9 @@ remaining non-target mode.  On the card :func:`matrix_free_kernel` launches
 the CUDA kernel of ``csrc/matrix_free.cu`` (design notes there); on the CPU
 it takes :func:`matrix_free_kernel_plain`, the same fold in torch ops.
 The batched forms fold each slab of a stack ``(S, *shape)`` against that
-slab's own factors ``(S, I_k, C)``.
+slab's own factors ``(S, I_k, C)``; their CUDA launch is one kernel whose
+outer reduction is split over a thread-block cluster and summed on chip,
+with the geometry from :func:`launch_shape`.
 
 Supported: every mode of order-3..6 tensors, plus a leading batch axis.
 """
@@ -18,8 +20,9 @@ Supported: every mode of order-3..6 tensors, plus a leading batch axis.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
@@ -32,6 +35,7 @@ from ._tiling import (
     check_kernel_operand,
     check_rank,
     check_slabs,
+    reference_tiles,
     split_reduction,
     use_kernel,
 )
@@ -41,8 +45,31 @@ Tensor = torch.Tensor
 # Indices of the contracted (highest non-target) mode per step of the CUDA
 # kernel (BR in mttkrp_common.cuh).
 BLOCK_R = 64
-# Shared memory one thread block may use on Hopper (227 KB).
+# Shared memory one thread block may use on Hopper (227 KB), and one SM's
+# (228 KB; each resident block also holds 1 KB of it for the system).
 SMEM_BYTES = 232448
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+# The batched kernel (csrc/matrix_free.cu, matrix_free_batched_cluster_kernel):
+# warps of a CTA (THREADS = 32 rows x 8 warps), tiles in flight, outer modes
+# whose factor rows a stage carries.
+WARPS = 8
+STAGES = 3
+MAX_OUTER = 4
+# CTAs of a cluster along grid y, each a part of the outer reduction.
+SPLITS = (1, 2, 4, 8)
+# SMs of an H100 SXM: the split fills this many SMs in whole waves (a card
+# test checks it against the device).
+SMS = 132
+
+
+def residency(padded_rank: int) -> int:
+    """CTAs of the batched kernel resident on one SM at ``padded_rank``:
+    its launch bounds hold it to 128 registers a thread at rank <= 32 (two
+    CTAs of 256 threads fill the 65,536 registers), and :func:`launch_shape`
+    sizes its shared memory to let two in; above rank 32 one CTA an SM.
+    A card test checks this against ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    return 2 if padded_rank <= 32 else 1
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 _FACTORS, _SHAPE = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
@@ -54,7 +81,13 @@ KERNEL = CudaKernel(
 BATCHED_KERNEL = CudaKernel(
     "matrix_free.cu",
     "matrix_free_mttkrp_batched_f32",
-    [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _c64, _int, _ptr, _ptr, _ptr],
+    [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _int, _c64, _int, _ptr, _ptr],
+)
+# The batched kernel's occupancy at one launch geometry (a query: no launch).
+BATCHED_OCCUPANCY = CudaKernel(
+    "matrix_free.cu",
+    "matrix_free_batched_occupancy_f32",
+    [_int, _int, _c64, _int, ctypes.POINTER(_int), ctypes.POINTER(_int)],
 )
 
 
@@ -148,55 +181,197 @@ def _check_operands(mode_shape: Sequence[int], us: Sequence[Tensor], n: int, lea
 
 
 def launch_split(
-    mode_shape: Sequence[int], n: int, device, slabs: int | None = None, *,
-    blocks_per_sm: int = BLOCKS_PER_SM,
+    mode_shape: Sequence[int], n: int, device, *, blocks_per_sm: int = BLOCKS_PER_SM
 ) -> tuple[int, int]:
-    """``(outer steps per split, splits)`` of a launch for mode ``n``: the
-    split reduction runs over every non-target mode but the contracted
-    (highest) one, per slab when batched."""
+    """``(outer steps per split, splits)`` of an unbatched launch for mode
+    ``n``: the split reduction runs over every non-target mode but the
+    contracted (highest) one, summed by a second pass.  (The batched
+    launch takes :func:`launch_shape`.)"""
     others = [k for k in range(len(mode_shape)) if k != n]
     outer = math.prod(mode_shape[k] for k in others[:-1])
-    return split_reduction(
-        mode_shape[n], outer, device, slabs or 1, blocks_per_sm=blocks_per_sm
+    return split_reduction(mode_shape[n], outer, device, blocks_per_sm=blocks_per_sm)
+
+
+class BatchedLaunch(NamedTuple):
+    """One launch of the batched kernel: a grid of ``(row_blocks, splits,
+    slabs)`` CTAs of 256 threads in clusters of ``(1, splits, 1)``, each
+    streaming ``chunks`` passes of ``q_chunk`` indices of the contracted
+    mode ``q`` over its part of the outer range."""
+
+    row_blocks: int  # grid x: BLOCK_ROWS target rows a CTA
+    splits: int  # grid y = the cluster: parts of the outer range, summed on chip
+    slabs: int  # grid z
+    outer: int  # outer multi-indices of a (slab, row block), split over the cluster
+    q_chunk: int  # indices of mode q a stage holds (a multiple of 4)
+    chunks: int  # passes over q: ceil(I_q / q_chunk)
+    i_contig: bool  # the target mode is the last, contiguous one
+    vec: bool  # 16-byte copies: the contiguous axis' extent is a multiple of 4
+    smem: int  # dynamic shared memory, bytes
+    residency: int  # CTAs an SM holds
+
+
+def contracted_mode(order: int, n: int) -> int:
+    """The mode the kernel contracts first: the highest one that is not ``n``."""
+    return order - 2 if n == order - 1 else order - 1
+
+
+def batched_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
+    """Dynamic shared memory of one CTA of the batched kernel, in bytes (as
+    ``mfb_smem_bytes`` in csrc/matrix_free.cu): a ring of ``STAGES`` tensor
+    tiles of ``BLOCK_ROWS`` x ``q_chunk`` (rows padded to 4 mod 32 floats
+    unless ``i_contig``, so each lane's float4 reads miss each other's
+    banks), each stage's outer factor rows, and ``U_q``'s chunk; the
+    cross-warp sum reuses it and needs ``WARPS`` x rank x ``BLOCK_ROWS``."""
+    qs = q_chunk if i_contig else q_chunk + (36 - q_chunk % 32) % 32
+    main = STAGES * BLOCK_ROWS * qs + STAGES * MAX_OUTER * padded_rank + q_chunk * padded_rank
+    return 4 * max(main, WARPS * padded_rank * BLOCK_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def launch_shape(
+    shape: tuple[int, ...], n: int, rank: int, slabs: int, blocks_per_sm: int = BLOCKS_PER_SM
+) -> BatchedLaunch:
+    """The batched kernel's launch for ``slabs`` stacked tensors of
+    ``shape`` at mode ``n`` and ``rank``, from the shape alone.
+
+    A stage holds the whole extent of the contracted mode ``q`` where it
+    fits in the shared memory that lets ``residency`` CTAs share an SM,
+    else the largest equal chunk of it that fits (a multiple of 4).  The
+    outer range is split over a cluster of ``splits`` in {1, 2, 4, 8} CTAs
+    (never more than there are outer indices), chosen to fill the card in
+    whole waves: the split whose ``row_blocks * splits * slabs`` CTAs use
+    the largest share of the waves they take, ``SMS * min(blocks_per_sm,
+    residency)`` CTAs a wave, the smaller split on a tie.  So
+    ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at and above
+    the residency it changes nothing.  16-byte copies where the contiguous
+    axis' extent is a multiple of 4 (the wrapper also checks ``x``'s
+    alignment).
+    """
+    if blocks_per_sm < 1:
+        raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
+    order = len(shape)
+    q = contracted_mode(order, n)
+    i_contig = n == order - 1
+    cp = next(p for p in PADDED_RANKS if rank <= p)
+    res = residency(cp)
+    budget = min(SMEM_BYTES, SM_SMEM_BYTES // res - BLOCK_RESERVED_SMEM)
+    eq = shape[q]
+    chunks = 1
+    while True:  # the fewest equal chunks of q whose stages fit
+        per_chunk = -(-eq // chunks)
+        q_chunk = 4 * -(-per_chunk // 4)  # up to a multiple of 4
+        if batched_smem(q_chunk, cp, i_contig) <= budget:
+            break
+        chunks += 1
+    chunks = -(-eq // q_chunk)
+    outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
+    row_blocks = -(-shape[n] // BLOCK_ROWS)
+    slots = SMS * min(blocks_per_sm, res)
+    best, best_use = 1, 0.0
+    for s in SPLITS:
+        if s > outer:
+            break
+        ctas = row_blocks * s * slabs
+        use = ctas / (-(-ctas // slots) * slots)
+        if use > best_use:
+            best, best_use = s, use
+    return BatchedLaunch(
+        row_blocks, best, slabs, outer, q_chunk, chunks, i_contig,
+        shape[-1] % 4 == 0, batched_smem(q_chunk, cp, i_contig), res,
     )
 
 
-def _launch(kernel: CudaKernel, x: Tensor, us: Sequence[Tensor], n: int,
-            others: list[int], slabs: int | None, blocks_per_sm: int) -> Tensor:
-    """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
-    the unbatched entry point.  Returns ``(I_n, C)`` or ``(S, I_n, C)``."""
-    mode_shape = x.shape if slabs is None else x.shape[1:]
-    big_n = len(mode_shape)
-    c = us[0].shape[-1]
-    check_kernel_operand("x", x)
-    for k, u in zip(others, us):
-        check_kernel_operand(f"factor {k}", u)
-    check_rank(c)
-    lead = () if slabs is None else (slabs,)
-    if slabs is not None:
-        check_slabs(slabs)
-    _reduction_blocks(mode_shape, n, c)
-    rows = mode_shape[n]
-    o_per_split, splits = launch_split(
-        mode_shape, n, x.device, slabs, blocks_per_sm=blocks_per_sm
+def batched_occupancy(g: BatchedLaunch, rank: int) -> tuple[int, int]:
+    """``(CTAs an SM holds, clusters the card holds)`` of the batched kernel
+    at launch ``g``, from the CUDA occupancy queries (on the card only)."""
+    per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    BATCHED_OCCUPANCY.query(
+        rank, int(g.i_contig), g.q_chunk, g.splits, ctypes.byref(per_sm), ctypes.byref(clusters)
     )
-    ws = torch.empty(lead + (splits, rows, c), dtype=torch.float32, device=x.device)
-    out = torch.empty(lead + (rows, c), dtype=torch.float32, device=x.device)
+    return per_sm.value, clusters.value
+
+
+def _factor_pointers(us: Sequence[Tensor], others: list[int], big_n: int):
     ptrs = [0] * big_n
     for k, u in zip(others, us):
         ptrs[k] = u.data_ptr()
-    kernel.launch(
+    return (ctypes.c_void_p * big_n)(*ptrs)
+
+
+def _check_kernel_operands(x: Tensor, us: Sequence[Tensor], others: list[int]) -> int:
+    """Raise unless the CUDA kernels take ``x`` and ``us``; return the rank."""
+    check_kernel_operand("x", x)
+    for k, u in zip(others, us):
+        check_kernel_operand(f"factor {k}", u)
+    c = us[0].shape[-1]
+    check_rank(c)
+    return c
+
+
+def _launch(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
+            blocks_per_sm: int) -> Tensor:
+    """Check the operands and launch the unbatched kernel and its split-sum
+    pass.  Returns ``(I_n, C)``."""
+    mode_shape = x.shape
+    big_n = len(mode_shape)
+    c = _check_kernel_operands(x, us, others)
+    _reduction_blocks(mode_shape, n, c)
+    rows = mode_shape[n]
+    o_per_split, splits = launch_split(mode_shape, n, x.device, blocks_per_sm=blocks_per_sm)
+    ws = torch.empty((splits, rows, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+    KERNEL.launch(
         x.data_ptr(),
-        (ctypes.c_void_p * big_n)(*ptrs),
+        _factor_pointers(us, others, big_n),
         (ctypes.c_int64 * big_n)(*[int(d) for d in mode_shape]),
-        big_n, n, c, *lead, o_per_split, splits, ws.data_ptr(), out.data_ptr(),
+        big_n, n, c, o_per_split, splits, ws.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     return out
 
 
+def _launch_batched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
+                    blocks_per_sm: int) -> Tensor:
+    """Check the operands and make the batched kernel's one launch: one
+    allocation (the output, no workspace) and one ctypes call.  Returns
+    ``(S, I_n, C)``."""
+    slabs = int(x.shape[0])
+    mode_shape = tuple(int(d) for d in x.shape[1:])
+    big_n = len(mode_shape)
+    c = _check_kernel_operands(x, us, others)
+    check_slabs(slabs)
+    g = launch_shape(mode_shape, n, c, slabs, blocks_per_sm)
+    out = x.new_empty((slabs, mode_shape[n], c))
+    x_ptr = x.data_ptr()
+    BATCHED_KERNEL.launch(
+        x_ptr,
+        _factor_pointers(us, others, big_n),
+        (ctypes.c_int64 * big_n)(*mode_shape),
+        big_n, n, c, slabs, g.splits, g.q_chunk,
+        int(g.vec and x_ptr % 16 == 0),  # a contiguous view may start off a 16-byte line
+        out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(x.device.index),
+    )
+    return out
+
+
+def _reference_blocks(others: list[int], block_i, blocks, block_batch=None) -> None:
+    """Check the reference's raw-grid tile keywords (one block per
+    non-target mode in ``blocks``); they change nothing here."""
+    if blocks is not None and len(blocks) != len(others):
+        raise ValueError("need one block per non-target mode")
+    reference_tiles(block_i=block_i, blocks=blocks, block_batch=block_batch)
+
+
 def matrix_free_kernel(
-    x: Tensor, us: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+    x: Tensor,
+    us: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int | None = None,
+    blocks: Sequence[int] | None = None,
+    interpret: bool = False,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """Matrix-free MTTKRP ``M = X_(n) . KRP(us)`` with no KRP.
 
@@ -207,40 +382,71 @@ def matrix_free_kernel(
     masks ragged tiles, so nothing is padded.  ``blocks_per_sm`` sizes the
     split of the outer reduction
     (:func:`~repro_torch.kernels._tiling.split_reduction`); the plain
-    version ignores it.
+    version ignores it.  ``block_i``, ``blocks`` and ``interpret`` are the
+    reference's keywords, taken for its signature: the CUDA tiles are
+    fixed at compile time and nothing is padded to a block, so they change
+    nothing, and ``interpret`` never decides the device.
     """
     others = _check_operands(x.shape, us, n, 0)
+    _reference_blocks(others, block_i, blocks)
     if not use_kernel(x, *us):
         return matrix_free_kernel_plain(x, us, n)
-    return _launch(KERNEL, x, us, n, others, None, blocks_per_sm)
+    return _launch(x, us, n, others, blocks_per_sm)
 
 
 def matrix_free_batched_kernel(
-    x: Tensor, us: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+    x: Tensor,
+    us: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int | None = None,
+    blocks: Sequence[int] | None = None,
+    block_batch: int | None = None,
+    interpret: bool = False,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """Batched matrix-free MTTKRP: ``x`` is ``(S, *shape)`` and ``us`` the
     per-slab non-target factors ``(S, I_k, C)``; returns ``(S, I_n, C)``.
 
-    CUDA tensors launch the kernel, one slab per block along the grid's z
-    axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
-    it raises); CPU tensors take the plain version.  Nothing is padded: not
-    the slabs, not any extent.  ``blocks_per_sm`` as in
-    :func:`matrix_free_kernel`.
+    CUDA tensors make one launch of the batched kernel, one slab per grid
+    z (contiguous float32 operands, rank up to 64, 1..65535 slabs, else it
+    raises): no workspace, the outer reduction split over a thread-block
+    cluster and summed on chip, the geometry from :func:`launch_shape`.
+    CPU tensors take the plain version.  Nothing is padded: not the slabs,
+    not any extent.  ``blocks_per_sm`` caps the CTAs an SM is counted to
+    hold when :func:`launch_shape` sizes the split (at or above the
+    kernel's residency, 2 at rank <= 32, it changes nothing); the
+    reference's keywords as in :func:`matrix_free_kernel`, ``block_batch``
+    included.
     """
     if any(u.ndim != 3 or u.shape[0] != x.shape[0] for u in us):
         raise ValueError("x and every factor need the same leading slab axis")
     others = _check_operands(x.shape[1:], us, n, 1)
+    _reference_blocks(others, block_i, blocks, block_batch)
     if not use_kernel(x, *us):
         return matrix_free_batched_kernel_plain(x, us, n)
-    return _launch(BATCHED_KERNEL, x, us, n, others, int(x.shape[0]), blocks_per_sm)
+    return _launch_batched(x, us, n, others, blocks_per_sm)
 
 
 def matrix_free_mttkrp(
-    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int = 128,
+    block_r: int = 8,
+    interpret: bool | None = None,
+    pad_rank_to: int | None = None,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """Matrix-free MTTKRP for any mode of an order-3..6 tensor: hands the
     tensor in its natural layout and the raw non-target factors to
-    :func:`matrix_free_kernel` (with ``blocks_per_sm``)."""
+    :func:`matrix_free_kernel` (with ``blocks_per_sm``).  ``block_i``,
+    ``block_r``, ``interpret`` and ``pad_rank_to`` are the reference's
+    keywords, with its defaults, taken for its signature: they change
+    nothing (compile-time tiles, no padding; ``interpret`` never decides
+    the device)."""
+    reference_tiles(block_i=block_i, block_r=block_r)
     factors = list(factors)
     big_n = len(factors)
     if x.ndim != big_n:
@@ -255,11 +461,23 @@ def matrix_free_mttkrp(
 
 
 def matrix_free_mttkrp_batched(
-    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int = 128,
+    block_r: int = 8,
+    block_batch: int = 8,
+    interpret: bool | None = None,
+    pad_rank_to: int | None = None,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """Batched matrix-free MTTKRP: ``x`` is ``(S, *shape)``, factors
     ``(S, I_k, C)``; hands the stack and the raw non-target factors to
-    :func:`matrix_free_batched_kernel` (with ``blocks_per_sm``)."""
+    :func:`matrix_free_batched_kernel` (with ``blocks_per_sm``).  The
+    reference's keywords as in :func:`matrix_free_mttkrp`, ``block_batch``
+    included: they change nothing."""
+    reference_tiles(block_i=block_i, block_r=block_r, block_batch=block_batch)
     factors = list(factors)
     big_n = len(factors)
     if x.ndim != big_n + 1:

@@ -31,7 +31,8 @@ from ._tiling import check_kernel_operand, check_rank, check_slabs, use_kernel
 
 Tensor = torch.Tensor
 
-# block_i: a whole number of warps' rows, at most 1024.
+# Legal row tiles: a whole number of warps' rows, at most 1024 (tile_rows maps
+# any other block_i to the nearest one).
 MAX_BLOCK_I = 1024
 WARP = 32
 MAX_THREADS = 1024
@@ -80,12 +81,15 @@ class Launch(NamedTuple):
 
 
 def tile_rows(dim_i: int, block_i: int) -> int:
-    """Output rows one CTA's tile covers: ``block_i`` clamped to the rows
-    there are.  Raises unless ``block_i`` is a multiple of 32 in
-    ``[32, 1024]``."""
-    if block_i % WARP or not WARP <= block_i <= MAX_BLOCK_I:
-        raise ValueError(f"block_i must be a multiple of 32 in [32, {MAX_BLOCK_I}], got {block_i}")
-    return min(block_i, dim_i)
+    """Output rows one CTA's tile covers: ``block_i`` mapped to the nearest
+    legal tile, a multiple of 32 in ``[32, 1024]`` (a tie goes up), then
+    clamped to the rows there are.  Any ``block_i >= 1`` is taken, as the
+    reference clamps any; a legal ``block_i`` keeps its own tile.  Raises
+    for ``block_i < 1``."""
+    if block_i < 1:
+        raise ValueError(f"block_i must be >= 1, got {block_i}")
+    legal = min(MAX_BLOCK_I, max(WARP, WARP * ((block_i + WARP // 2) // WARP)))
+    return min(legal, dim_i)
 
 
 @functools.lru_cache(maxsize=256)
@@ -146,14 +150,18 @@ def _launch(kernel: CudaKernel, t: Tensor, w: Tensor, block_i: int, slabs: int |
     return out
 
 
-def multi_ttv(t: Tensor, w: Tensor, *, block_i: int = 256) -> Tensor:
+def multi_ttv(
+    t: Tensor, w: Tensor, *, block_i: int = 256, interpret: bool | None = None
+) -> Tensor:
     """Kernelized multi-TTV:  ``M[i,c] = sum_l t[l,i,c] * w[l,c]``.
 
     ``t`` is ``(L, I, C)`` and ``w`` ``(L, C)``.  CUDA tensors make one
-    launch of the kernel with ``block_i`` output rows a CTA (a multiple of
-    32 up to 1024, clamped to the rows there are; contiguous float32
-    operands, rank up to 64, else it raises); CPU tensors take the plain
-    version.  Nothing is padded.  Returns ``t.dtype``.
+    launch of the kernel with about ``block_i`` output rows a CTA (any
+    ``block_i >= 1``, mapped to a legal tile by :func:`tile_rows`;
+    contiguous float32 operands, rank up to 64, else it raises); CPU
+    tensors take the plain version.  Nothing is padded.  ``interpret`` is
+    the reference's keyword; it never decides the device.  Returns
+    ``t.dtype``.
     """
     _dims(t, w, 0)
     tile_rows(int(t.shape[1]), block_i)
@@ -163,7 +171,12 @@ def multi_ttv(t: Tensor, w: Tensor, *, block_i: int = 256) -> Tensor:
 
 
 def multi_ttv_batched(
-    t: Tensor, w: Tensor, *, block_i: int = 256, block_batch: int = 8
+    t: Tensor,
+    w: Tensor,
+    *,
+    block_i: int = 256,
+    block_batch: int = 8,
+    interpret: bool | None = None,
 ) -> Tensor:
     """Batched multi-TTV: ``M[s,i,c] = sum_l t[s,l,i,c] * w[s,l,c]``.
 
@@ -171,8 +184,9 @@ def multi_ttv_batched(
     one launch of the kernel, the slabs along the grid's z axis (1..65535
     slabs; otherwise as :func:`multi_ttv`); CPU tensors take the plain
     version.  ``block_batch`` is the reference's slab tile, accepted for its
-    signature: here every slab is its own z block, so it changes nothing.
-    Nothing is padded: not the slabs, not any extent.
+    signature: here every slab is its own z block, so it changes nothing;
+    ``interpret`` as in :func:`multi_ttv`.  Nothing is padded: not the
+    slabs, not any extent.
     """
     if block_batch < 1:
         raise ValueError(f"block_batch must be >= 1, got {block_batch}")

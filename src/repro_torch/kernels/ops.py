@@ -22,7 +22,7 @@ import torch
 from repro_torch.core.krp import krp_or_ones, krp_or_ones_batched
 from repro_torch.core.tensor_ops import dims_split
 
-from ._tiling import BLOCKS_PER_SM
+from ._tiling import BLOCKS_PER_SM, reference_tiles
 from .fused_mttkrp import fused_mttkrp_bilinear, fused_mttkrp_bilinear_batched
 from .krp_kernel import krp_pair
 from .matrix_free import matrix_free_mttkrp, matrix_free_mttkrp_batched  # noqa: F401  (re-exported)
@@ -118,38 +118,65 @@ def bilinear_operands_batched(
 
 
 def fused_mttkrp(
-    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int = 128,
+    block_b: int = 256,
+    interpret: bool | None = None,
+    pad_rank_to: int | None = None,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """MTTKRP via the fused kernel.  ``M = X_(n) . KRP(factors != n)``.
 
     The two partial KRPs fed to the kernel (:func:`bilinear_operands`) are
     built with the reuse fold (Alg. 1); the full ``L*R x C`` KRP never
     exists.  ``blocks_per_sm`` is the kernel's split knob (the autotuner's
-    tile for this kernel).
+    tile for this kernel).  ``block_i``, ``block_b``, ``interpret`` and
+    ``pad_rank_to`` are the reference's keywords, with its defaults, taken
+    for its signature: the CUDA tiles are compile-time, nothing is padded
+    (the rank only in the kernel's registers), and ``interpret`` never
+    decides the device.
     """
+    reference_tiles(block_i=block_i, block_b=block_b)
     t, a, b, pos = bilinear_operands(x, factors, n)
     return fused_mttkrp_bilinear(t, a, b, pos=pos, blocks_per_sm=blocks_per_sm).to(x.dtype)
 
 
 def fused_mttkrp_batched(
-    x: Tensor, factors: Sequence[Tensor], n: int, *, blocks_per_sm: int = BLOCKS_PER_SM
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int = 128,
+    block_b: int = 256,
+    block_batch: int = 8,
+    interpret: bool | None = None,
+    pad_rank_to: int | None = None,
+    blocks_per_sm: int = BLOCKS_PER_SM,
 ) -> Tensor:
     """Batched fused MTTKRP: ``x`` is ``(S, *shape)``, factors ``(S, I_k, C)``.
 
     One launch covers all S stacked problems through the kernel's slab grid
     axis; each slab forms its own KRP tiles on chip, so no per-problem KRP
-    exists in HBM.
+    exists in HBM.  The reference's keywords as in :func:`fused_mttkrp`;
+    ``block_batch`` changes nothing either (every slab is its own z block).
     """
+    reference_tiles(block_i=block_i, block_b=block_b, block_batch=block_batch)
     t, a, b, pos = bilinear_operands_batched(x, factors, n)
     return fused_mttkrp_bilinear_batched(
         t, a, b, pos=pos, blocks_per_sm=blocks_per_sm
     ).to(x.dtype)
 
 
-def krp_materialize(mats: Sequence[Tensor], *, block_b: int = 512) -> Tensor:
+def krp_materialize(
+    mats: Sequence[Tensor], *, block_b: int = 512, interpret: bool | None = None
+) -> Tensor:
     """Explicit KRP via the tiled kernel, left-folded for Z > 2 (Alg. 1
     reuse: each fold intermediate is a cached partial Hadamard product).
-    The kernel masks the ragged last tile, so no fold is padded or sliced."""
+    The kernel masks the ragged last tile, so no fold is padded or sliced.
+    ``interpret`` is the reference's keyword; it never decides the device."""
     mats = list(mats)
     out = mats[0]
     for u in mats[1:]:
@@ -186,12 +213,18 @@ def multi_ttv_operands(
 
 
 def mttkrp_2step_kernel(
-    x: Tensor, factors: Sequence[Tensor], n: int, *, block_i: int = 256
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    *,
+    block_i: int = 256,
+    interpret: bool | None = None,
 ) -> Tensor:
     """Alg. 4 with the partial MTTKRP as a plain GEMM and the 2nd-step
     multi-TTV in the kernel (:func:`multi_ttv_operands`, then
     :func:`multi_ttv` with its row tile ``block_i``).  External modes
-    (``L == 1`` or ``R == 1``) take :func:`fused_mttkrp`."""
+    (``L == 1`` or ``R == 1``) take :func:`fused_mttkrp`.  ``interpret`` is
+    the reference's keyword; it never decides the device."""
     big_l, _, big_r = dims_split(x.shape, n)
     if big_l == 1 or big_r == 1:
         return fused_mttkrp(x, factors, n)

@@ -36,6 +36,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from repro_torch.core.tensor_ops import dims_split, random_factors
+from repro_torch.kernels._tiling import kernels_take
 
 from .problem import Problem
 from .schedule import ROOT, ContractionNode
@@ -370,10 +371,30 @@ def _tune_ttv_tiles(
     return _summarize_tiles(rows, ("block_i",), n)
 
 
-def _leaf_algorithms(problem: Problem, node: ContractionNode) -> tuple[str, ...]:
+def _leaf_algorithms(
+    problem: Problem, node: ContractionNode, *, kernels: bool = True
+) -> tuple[str, ...]:
     """Algorithm candidates the tuner measures for one root-leaf MTTKRP on
-    the local executor (the reference's ``kind="local"`` set)."""
-    return _EXTERNAL_LEAF_ALGORITHMS if problem.external_mode(node.mode) else _LEAF_ALGORITHMS
+    the local executor (the reference's ``kind="local"`` set), without the
+    ``fused`` and ``matrix_free`` kernels when ``kernels`` is False (the
+    tensor's device, dtype and rank are not theirs:
+    :func:`~repro_torch.kernels._tiling.kernels_take`)."""
+    algs = _EXTERNAL_LEAF_ALGORITHMS if problem.external_mode(node.mode) else _LEAF_ALGORITHMS
+    return algs if kernels else tuple(a for a in algs if a not in ("fused", "matrix_free"))
+
+
+def _untuned_tiles(name: str, default: int, mode: int) -> dict:
+    """The summary of a kernel's tile table that was not timed (the kernel
+    does not take the problem): its default knob, no rows, so the entry
+    keeps the reference's layout."""
+    return {
+        name: default,
+        "mode": mode,
+        "default_s": None,
+        "tuned_s": None,
+        "speedup_vs_default": 1.0,
+        "rows": [],
+    }
 
 
 def _tune_nodes(
@@ -385,6 +406,7 @@ def _tune_nodes(
     budget: _Budget,
     fused_tiles: Mapping[str, int] | None = None,
     matrix_free_tiles: Mapping[str, int] | None = None,
+    kernels: bool = True,
 ) -> list[dict]:
     """Measure every node of every candidate schedule on the local executor.
 
@@ -393,9 +415,10 @@ def _tune_nodes(
     :func:`node_key` once.  Root leaves are measured under every competing
     algorithm -- ``fused`` with ``fused_tiles`` and ``matrix_free`` with
     ``matrix_free_tiles`` (the already-tuned knobs), so the argmin times
-    exactly the configuration the resulting plan will execute.  Stops
-    cleanly when ``budget`` runs out: unmeasured nodes keep their analytic
-    costs at plan time.  ``LocalExecutor.contract`` runs eagerly; there is
+    exactly the configuration the resulting plan will execute; with
+    ``kernels`` False those two are left out.  Stops cleanly when
+    ``budget`` runs out: unmeasured nodes keep their analytic costs at plan
+    time.  ``LocalExecutor.contract`` runs eagerly; there is
     nothing to compile.
     """
     from .executor import LocalExecutor
@@ -417,7 +440,7 @@ def _tune_nodes(
             src = cache[node.parent]
             planned = plan.node_plan(node.id).algorithm
             leaf = node.from_root and node.is_leaf
-            algs = _leaf_algorithms(problem, node) if leaf else (planned,)
+            algs = _leaf_algorithms(problem, node, kernels=kernels) if leaf else (planned,)
             out = None
             for alg in algs:
                 tl = {"fused": fused_tiles, "matrix_free": matrix_free_tiles}.get(alg)
@@ -507,7 +530,12 @@ def tune(
     default when ``None``) under :func:`problem_key` and returned; its
     layout is the reference's (``backend``, ``n_devices``, ``budget_ms``,
     ``reps``, ``elapsed_ms``, ``tiles``, ``nodes``, ``serial_fractions``,
-    ``pp``).  ``mesh``/``mode_axes``, ``pp_tol > 0`` and ``intra_axes``
+    ``pp``).  Where the CUDA kernels do not take the problem (a CUDA tensor
+    not in float32, or a rank above 64:
+    :func:`~repro_torch.kernels._tiling.kernels_take`), no kernel is timed:
+    each tile table keeps its default knob and no rows, and no ``fused`` or
+    ``matrix_free`` leaf is measured, so the plan falls back to the GEMM
+    algorithms (the planner takes a kernel leaf only when it was measured).  ``mesh``/``mode_axes``, ``pp_tol > 0`` and ``intra_axes``
     raise ``NotImplementedError``: they come with the distribution and PP
     slices.
     """
@@ -525,7 +553,8 @@ def tune(
         gen = torch.Generator(device=x.device).manual_seed(seed)
         factors = random_factors(gen, x.shape, rank, x.dtype, device=x.device)
     factors = list(factors)
-    if x.is_cuda:
+    kernels = kernels_take(x.device, x.dtype, rank)
+    if x.is_cuda and kernels:
         from repro_torch.kernels import _build
         from repro_torch.kernels import fused_mttkrp as fm
         from repro_torch.kernels import matrix_free as mf
@@ -533,17 +562,26 @@ def tune(
 
         _build.build_all([fm.KERNEL, mf.KERNEL, mt.KERNEL])
     budget = _Budget(budget_ms)
-    fused = _tune_fused_tiles(x, factors, reps=reps, budget=budget)
-    mfree = _tune_matrix_free_tiles(x, factors, reps=reps, budget=budget)
+    mode = x.ndim // 2
+    if kernels:
+        fused = _tune_fused_tiles(x, factors, reps=reps, budget=budget)
+        mfree = _tune_matrix_free_tiles(x, factors, reps=reps, budget=budget)
+    else:
+        fused = _untuned_tiles("blocks_per_sm", FUSED_TILE_CANDIDATES[0], mode)
+        mfree = _untuned_tiles("blocks_per_sm", MATRIX_FREE_TILE_CANDIDATES[0], mode)
     rows = _tune_nodes(
         problem, x, factors, reps=reps, budget=budget,
         fused_tiles={"blocks_per_sm": fused["blocks_per_sm"]},
         matrix_free_tiles={"blocks_per_sm": mfree["blocks_per_sm"]},
+        kernels=kernels,
     )
     tiles = {
         "fused_mttkrp": fused,
         "matrix_free": mfree,
-        "multi_ttv": _tune_ttv_tiles(x, factors, reps=reps, budget=budget, seed=seed),
+        "multi_ttv": (
+            _tune_ttv_tiles(x, factors, reps=reps, budget=budget, seed=seed) if kernels
+            else _untuned_tiles("block_i", TTV_TILE_CANDIDATES[0], mode)
+        ),
     }
     entry = {
         "backend": backend_name(),

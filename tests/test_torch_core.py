@@ -85,6 +85,30 @@ def test_multi_ttv_and_batched_norm_match_reference():
         tcore.mode_letters(13)
 
 
+def test_tensor_norm_and_cp_als_take_float64():
+    """The reference's norm casts any tensor to float32; the port's takes a
+    float64 tensor too (it may not narrow inside the reduction), so
+    cp_als runs in float64, with the float32 run's fits."""
+    from repro_torch.plan import Problem, cp_als, plan_sweep
+
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((6, 5, 4, 3))
+    for batched in (False, True):
+        got = tcore.tensor_norm(torch.from_numpy(x), batched=batched)
+        assert got.dtype == torch.float32
+        _close(jcore.tensor_norm(jnp.asarray(x.astype(np.float32)), batched=batched), got)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    init = [torch.from_numpy(rng.standard_normal((d, 3)).astype(np.float32)) for d in x.shape]
+    plan = plan_sweep(Problem.from_tensor(x32, 3), "auto")
+    fits = {}
+    for dtype in (torch.float32, torch.float64):
+        st = cp_als(x32.to(dtype), plan, n_iters=3, tol=0.0,
+                    init_factors=[u.to(dtype) for u in init])
+        assert all(u.dtype == dtype for u in st.factors)
+        fits[dtype] = float(st.fit)
+    assert abs(fits[torch.float32] - fits[torch.float64]) < 1e-4
+
+
 def test_random_draws_live_where_asked():
     g = torch.Generator().manual_seed(3)
     x = tcore.random_tensor(g, (2, 3), device="cpu")

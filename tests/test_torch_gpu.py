@@ -379,3 +379,130 @@ def test_tune_on_the_card_times_distinct_launches(cuda):
     flat = cp_als(x, plan_sweep(Problem.from_tensor(x, 10), "auto", schedule="flat"),
                   n_iters=3, tol=0.0, init_factors=init)
     assert abs(float(tuned.fit) - float(flat.fit)) < 1e-4
+
+
+# ---- the batched matrix-free kernel: one launch, the split summed in a cluster
+
+MFB_SHAPES = [(5, 6, 7), (33, 70, 129), (37, 23, 41, 30), (65, 3, 40, 8), (3, 4, 2, 3, 2),
+              (2, 3, 2, 3, 2, 3)]
+
+
+@pytest.mark.parametrize("rank", [1, 7, 10, 48, 64])
+@pytest.mark.parametrize("slabs", [1, 5, 8])
+@pytest.mark.parametrize("shape", MFB_SHAPES)
+def test_matrix_free_batched_cluster_kernel_matches_plain(cuda, shape, slabs, rank):
+    """Ragged shapes of orders 3-6, every mode: one launch a call, within
+    1e-4 of the plain version, bitwise repeatable."""
+    x, fs = _batched_inputs(cuda, slabs, shape, rank, seed=slabs * 1000 + rank)
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        before = mf.BATCHED_KERNEL.launches
+        out = mf.matrix_free_batched_kernel(x, us, n)
+        assert mf.BATCHED_KERNEL.launches == before + 1
+        assert tuple(out.shape) == (slabs, shape[n], rank)
+        assert _rel(out, mf.matrix_free_batched_kernel_plain(x, us, n)) < REL
+        assert torch.equal(out, mf.matrix_free_batched_kernel(x, us, n))
+
+
+@pytest.mark.parametrize("shape", [(225, 200, 200), (37, 23, 41, 28), (33, 70, 128)])
+def test_matrix_free_batched_kernel_on_a_misaligned_view(cuda, shape):
+    """A contiguous view 4 bytes off a 16-byte line takes 4-byte copies: the
+    same sums as the aligned call's 16-byte copies, bit for bit."""
+    slabs = 3
+    x, fs = _batched_inputs(cuda, slabs, shape, 10, seed=21)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 4
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        out = mf.matrix_free_batched_kernel(xm, us, n)
+        assert _rel(out, mf.matrix_free_batched_kernel_plain(xm, us, n)) < REL
+        assert torch.equal(out, mf.matrix_free_batched_kernel(x, us, n))
+
+
+def test_matrix_free_batched_kernel_refuses_16_byte_copies_of_a_misaligned_x(cuda):
+    import ctypes
+
+    x, fs = _batched_inputs(cuda, 2, (8, 6, 12), 4, seed=3)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xm = buf[1:].view(x.shape)
+    out = torch.empty((2, 8, 4), device=cuda)
+    ptrs = (ctypes.c_void_p * 3)(0, fs[1].data_ptr(), fs[2].data_ptr())
+    shape = (ctypes.c_int64 * 3)(8, 6, 12)
+    args = [ptrs, shape, 3, 0, 4, 2, 2, 12]
+    before = mf.BATCHED_KERNEL.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        mf.BATCHED_KERNEL.launch(xm.data_ptr(), *args, 1, out.data_ptr(), 0)
+    mf.BATCHED_KERNEL.launch(xm.data_ptr(), *args, 0, out.data_ptr(), 0)  # 4-byte copies run
+    assert mf.BATCHED_KERNEL.launches == before + 1
+
+
+def test_matrix_free_batched_kernel_is_one_cuda_kernel_and_no_workspace(cuda):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, fs = _batched_inputs(cuda, 8, (45, 40, 44), 10, seed=5)
+    for n in range(3):
+        us = [fs[k] for k in range(3) if k != n]
+        mf.matrix_free_batched_kernel(x, us, n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = mf.matrix_free_batched_kernel(x, us, n)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        assert [e.name for e in kernels] == [kernels[0].name]
+        assert "matrix_free_batched_cluster_kernel" in kernels[0].name
+        del out
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = mf.matrix_free_batched_kernel(x, us, n)
+        grew = torch.cuda.max_memory_allocated() - base
+        assert grew <= 512 * -(-out.numel() * 4 // 512)  # the output alone
+
+
+def test_matrix_free_batched_slab_is_independent_on_a_ragged_order_4_stack(cuda):
+    x, fs = _batched_inputs(cuda, 5, (37, 23, 41, 28), 7, seed=9)
+    y, gs = _batched_inputs(cuda, 5, (37, 23, 41, 28), 7, seed=10)
+    y[0], gs = x[0], [torch.cat([f[:1], g[1:]]) for f, g in zip(fs, gs)]
+    for n in range(4):
+        assert torch.equal(ops.matrix_free_mttkrp_batched(x, fs, n)[0],
+                           ops.matrix_free_mttkrp_batched(y, gs, n)[0])
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 32, 48, 64])
+@pytest.mark.parametrize("shape,slabs", [((225, 200, 200), 8), ((37, 23, 41, 30), 5),
+                                         ((5, 6, 7), 1)])
+def test_matrix_free_batched_residency_matches_the_occupancy_query(cuda, shape, slabs, rank):
+    """The residency launch_shape sizes the split by (CTAs an SM) is what the
+    CUDA occupancy query gives; its SM count is the card's."""
+    assert torch.cuda.get_device_properties(0).multi_processor_count == mf.SMS
+    for n in range(len(shape)):
+        g = mf.launch_shape(shape, n, rank, slabs)
+        per_sm, clusters = mf.batched_occupancy(g, rank)
+        assert per_sm >= g.residency and clusters >= 1
+        if shape == (225, 200, 200):  # the serving shapes: exactly the constant
+            assert per_sm == g.residency
+
+
+@pytest.mark.parametrize("rank,dtype", [(80, torch.float32), (10, torch.float64)])
+def test_tune_on_the_card_falls_back_to_the_gemms_where_the_kernels_do_not_go(cuda, rank, dtype):
+    """At rank 80 or in float64 the CUDA kernels do not take the problem:
+    tune() times no kernel, the plan has no kernel leaf, cp_als under it
+    runs, and a forced kernel strategy raises naming the limit."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((20, 17, 12, 9), generator=g, device=cuda, dtype=dtype)
+    cache = TuningCache()
+    launches = [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)]
+    entry = tune(x, rank, cache=cache, budget_ms=None, reps=1)
+    assert [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)] == launches
+    assert all(summary["rows"] == [] for summary in entry["tiles"].values())
+    problem = Problem.from_tensor(x, rank)
+    plan = plan_sweep(problem, "autotune", tuning_cache=cache)
+    assert not {np_.algorithm for np_ in plan.nodes} & {"fused", "matrix_free"}
+    st = cp_als(x, plan, n_iters=2, tol=0.0)
+    assert all(bool(torch.isfinite(u).all()) and u.dtype == dtype for u in st.factors)
+    for strategy in ("fused", "matrix_free"):
+        with pytest.raises((ValueError, TypeError), match="float32 at rank 1..64"):
+            cp_als(x, plan_sweep(problem, strategy), n_iters=1, tol=0.0)

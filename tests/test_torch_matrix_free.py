@@ -1,0 +1,182 @@
+"""The batched matrix-free CUDA kernel's launch geometry, on the CPU.
+
+``repro_torch.kernels.matrix_free.launch_shape`` is pure Python: it sizes
+the one launch of ``matrix_free_batched_cluster_kernel`` (csrc/matrix_free.cu)
+from the shape alone.  The kernel runs only on the card
+(``tests/test_torch_gpu.py`` holds it against its plain version there); here
+the geometry is checked to cover the work exactly once and to stay inside the
+card's limits, and the kernel's per-thread copy loop is replayed to show that
+it copies every element of a tile exactly once.
+"""
+
+import collections
+import math
+
+import pytest
+
+from repro_torch.kernels import matrix_free as tmf
+
+THREADS = 256
+BLOCK_ROWS = 32
+GRID_X, GRID_YZ = 2**31 - 1, 65535
+
+# Ragged shapes of orders 3..6 (extents that are and are not multiples of 4
+# and of 32), and the serving fleet's subject tensor.
+SHAPES = [
+    (5, 6, 7),
+    (33, 70, 129),
+    (65, 3, 40, 8),
+    (37, 23, 41, 30),
+    (3, 4, 2, 3, 2),
+    (12, 10, 8, 9, 11),
+    (2, 3, 2, 3, 2, 3),
+    (6, 7, 5, 8, 6, 7),
+]
+FLEET = (225, 200, 200)
+
+
+def _cover(outer, splits):
+    """Each outer index's cluster ranks, by the kernel's balanced cut
+    ([O r / splits, O (r + 1) / splits) for rank r)."""
+    seen = collections.Counter()
+    for r in range(splits):
+        lo, hi = outer * r // splits, outer * (r + 1) // splits
+        assert lo < hi, "an empty rank"
+        seen.update(range(lo, hi))
+    return seen
+
+
+def _check(shape, n, rank, slabs):
+    g = tmf.launch_shape(shape, n, rank, slabs)
+    order = len(shape)
+    q = tmf.contracted_mode(order, n)
+    outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
+    # every (slab, row) in exactly one CTA: slab = grid z, BLOCK_ROWS rows a row block
+    assert g.slabs == slabs and g.outer == outer
+    assert (g.row_blocks - 1) * BLOCK_ROWS < shape[n] <= g.row_blocks * BLOCK_ROWS
+    # every outer index in exactly one rank of its cluster; the cluster is grid y
+    assert g.splits in tmf.SPLITS and g.splits <= outer
+    assert _cover(outer, g.splits) == collections.Counter(range(outer))
+    # every index of q in exactly one chunk of a multiple of 4
+    assert g.q_chunk % 4 == 0 and g.q_chunk >= 4
+    assert (g.chunks - 1) * g.q_chunk < shape[q] <= g.chunks * g.q_chunk
+    # shared memory and grid limits
+    assert g.smem == tmf.batched_smem(g.q_chunk, _padded(rank), g.i_contig)
+    assert g.smem <= tmf.SMEM_BYTES
+    assert g.residency * (g.smem + tmf.BLOCK_RESERVED_SMEM) <= tmf.SM_SMEM_BYTES
+    assert g.row_blocks <= GRID_X and g.splits <= GRID_YZ and g.slabs <= GRID_YZ
+    # 16-byte copies follow the contiguous axis' extent; the target is contiguous when last
+    assert g.i_contig == (n == order - 1)
+    assert g.vec == (shape[-1] % 4 == 0)
+    return g
+
+
+def _padded(rank):
+    return next(p for p in (4, 8, 12, 16, 24, 32, 48, 64) if rank <= p)
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 64])
+@pytest.mark.parametrize("slabs", [1, 5, 8])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_launch_shape_covers_the_work_once_within_the_limits(shape, slabs, rank):
+    for n in range(len(shape)):
+        _check(shape, n, rank, slabs)
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 64])
+@pytest.mark.parametrize("slabs", [1, 5, 8])
+def test_launch_shape_of_the_fleet(slabs, rank):
+    for n in range(3):
+        _check(FLEET, n, rank, slabs)
+
+
+def test_the_fleet_batch_fits_the_cards_slots_with_whole_q_tiles():
+    """8 subjects, rank 10: clusters of 4, 256 / 224 / 224 CTAs within the
+    264 CTA slots of 132 SMs at 2 CTAs each, the whole q extent of 200 in
+    every stage.  (Clusters of 4 fill 248 of the slots on an H100: mode 0's
+    256 CTAs take a second wave of 8.)"""
+    for n, row_blocks in ((0, 8), (1, 7), (2, 7)):
+        g = tmf.launch_shape(FLEET, n, 10, 8)
+        assert (g.row_blocks, g.splits, g.slabs, g.q_chunk, g.chunks) == (row_blocks, 4, 8, 200, 1)
+        assert g.residency == 2 and g.vec
+        assert g.row_blocks * g.splits * g.slabs <= tmf.SMS * g.residency
+
+
+@pytest.mark.parametrize("rank", [1, 10, 64])
+@pytest.mark.parametrize("slabs", [1, 5, 8, 59])
+@pytest.mark.parametrize("shape", SHAPES + [FLEET], ids=lambda s: "x".join(map(str, s)))
+def test_splits_fill_whole_waves(shape, slabs, rank):
+    """No other split in {1, 2, 4, 8} uses the waves it takes better; on a
+    tie the smaller one wins; blocks_per_sm caps the CTAs an SM counts."""
+    for bps in (1, 2, 4, 16):
+        for n in range(len(shape)):
+            g = tmf.launch_shape(shape, n, rank, slabs, bps)
+            slots = tmf.SMS * min(bps, g.residency)
+
+            def use(s):
+                ctas = g.row_blocks * s * slabs
+                return ctas / (math.ceil(ctas / slots) * slots)
+
+            legal = [s for s in tmf.SPLITS if s <= g.outer]
+            assert use(g.splits) == max(use(s) for s in legal)
+            assert all(use(s) < use(g.splits) for s in legal if s < g.splits)
+    # at and above the residency the knob changes nothing
+    assert tmf.launch_shape(FLEET, 0, 10, 8, 2) == tmf.launch_shape(FLEET, 0, 10, 8, 16)
+    with pytest.raises(ValueError):
+        tmf.launch_shape(FLEET, 0, 10, 8, 0)
+
+
+def test_long_contracted_modes_are_cut_into_equal_chunks():
+    # the 3-way linearization's q (20100) does not fit a stage: equal chunks that do
+    g = tmf.launch_shape((225, 59, 20100), 1, 10, 3)
+    assert g.chunks > 1 and g.q_chunk * g.chunks - 20100 < 4 * g.chunks
+    smem_budget = tmf.SM_SMEM_BYTES // g.residency - tmf.BLOCK_RESERVED_SMEM
+    assert tmf.batched_smem(g.q_chunk, 12, False) <= smem_budget
+    assert tmf.batched_smem(g.q_chunk + 4, 12, False) > smem_budget or g.chunks == 1
+    # rank 64 keeps one CTA an SM and the whole fleet q extent
+    g = tmf.launch_shape(FLEET, 0, 64, 8)
+    assert (g.residency, g.chunks, g.q_chunk) == (1, 1, 200)
+
+
+def _copies(g, ni):
+    """Replay the kernel's copy loop (``issue`` in csrc/matrix_free.cu) for
+    all 256 threads of one tile with ``ni`` rows: the count of each tile
+    element copied, as ``(row, index of q)``."""
+    width = 4 if g.vec else 1
+    upr = BLOCK_ROWS // width if g.i_contig else g.q_chunk // width
+    n_r = g.q_chunk if g.i_contig else ni
+    c_step, u_step = divmod(THREADS, upr)
+    seen = collections.Counter()
+    for t in range(THREADS):
+        r, u = divmod(t, upr)
+        while r < n_r:
+            if u >= upr:
+                u -= upr
+                r += 1
+                if r >= n_r:
+                    break
+            i = u * width if g.i_contig else r
+            j = r if g.i_contig else u * width
+            if not (g.i_contig and i >= ni):
+                for k in range(width):
+                    seen[(i + k, j) if g.i_contig else (i, j + k)] += 1
+            r += c_step
+            u += u_step
+    return seen
+
+
+@pytest.mark.parametrize("rank", [10, 64])
+@pytest.mark.parametrize(
+    "shape", [FLEET, (225, 59, 20100)] + SHAPES, ids=lambda s: "x".join(map(str, s))
+)
+def test_the_copy_loop_copies_every_tile_element_once(shape, rank):
+    for n in range(len(shape)):
+        g = tmf.launch_shape(shape, n, rank, 1)
+        tails = {BLOCK_ROWS, shape[n] - (g.row_blocks - 1) * BLOCK_ROWS}
+        for ni in tails:
+            if g.vec and g.i_contig:
+                assert ni % 4 == 0  # a quad of rows is all in or all out
+            want = collections.Counter(
+                (i, j) for i in range(ni) for j in range(g.q_chunk)
+            )
+            assert _copies(g, ni) == want

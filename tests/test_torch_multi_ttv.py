@@ -70,7 +70,7 @@ def test_multi_ttv_batched_matches_pallas_ragged_slabs():
 
 def test_multi_ttv_refuses_bad_operands():
     t, w = torch.zeros(3, 5, 2), torch.zeros(3, 2)
-    for bad in (0, 48, 1056):
+    for bad in (0, -32):
         with pytest.raises(ValueError):
             tops.multi_ttv(t, w, block_i=bad)
     with pytest.raises(ValueError):
@@ -172,8 +172,10 @@ def test_launch_shape_sizes_the_cta_to_the_tile():
     assert (g.tiles, g.threads_x, g.groups, g.cluster) == (4, 160, 4, 8)
     # L = 3: no cluster, one group; L = 1 likewise
     assert tmt.launch_shape(59, 3, 7, 256)[1:] == (1, 1, 59, 128, 1, False)
+    # any other block_i maps to the nearest legal tile (a tie goes up); below 1 raises
+    assert tmt.launch_shape(59, 225, 10, 48) == tmt.launch_shape(59, 225, 10, 64)
     with pytest.raises(ValueError):
-        tmt.launch_shape(59, 225, 10, 48)
+        tmt.launch_shape(59, 225, 10, 0)
 
 
 @pytest.mark.parametrize("dims", [(5, 7), (4, 3, 6)], ids=["two", "three"])
