@@ -14,6 +14,8 @@ CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0] [--rank 10] [--sweeps 5]
+    python3 chip_smoke.py --only matrix_free          # phases 0-4 of row 2 only
+    python3 chip_smoke.py --only batched_matrix_free  # phases 0, 1, 5, 7 of row 4 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -23,15 +25,23 @@ Phases (any failure ends the run with a non-zero exit and no result line):
 2. kernels vs plain versions on the card: the fused kernel on every mode of
    the 4-way tensor (pos 0, 1 and 2); the matrix-free kernel on every mode
    of the 4-way tensor, its 3-way linearization (225 x 59 x 20100) and small
-   order-5 and order-6 tensors.  Norm-wise relative error ``|K-P|/|P|`` must
-   stay under ``REL_ERR_BOUND``.
+   order-5 and order-6 tensors, each with its launch geometry, and on the
+   4-way tensor also at rank 64, at ``blocks_per_sm`` 1, run twice bitwise
+   and on a misaligned view of 8 subjects bitwise equal to the aligned call.
+   Norm-wise relative error ``|K-P|/|P|`` must stay under ``REL_ERR_BOUND``.
 3. main path: ``cp_als`` for strategies auto, fused and matrix_free from one
    seeded init; kernel launch counts, per-sweep fits (finite, agreeing within
-   ``FIT_AGREE``), per-sweep time and peak memory; plus a small tensor whose
+   ``FIT_AGREE``), per-sweep time and peak memory; a ``torch.profiler``
+   trace of the ``matrix_free`` sweeps (device operations a sweep, busy
+   share, idle gaps, the ten longest operations); plus a small tensor whose
    card run must agree with the port's CPU run.
 4. timing of each kernel per mode at the main path's shapes with CUDA
    events, beside its plain version, one PyTorch einsum call and the bound
-   ``max(bytes / 3.35e12, flops / 67e12)``.
+   ``max(bytes / 3.35e12, flops / 67e12)``; for the matrix-free kernel
+   also device ms a launch (``torch.profiler``) and the CUDA kernels a call
+   (counted exactly in a CUDA graph of one call: 1 with one group, 2 with
+   more, as its launch states) and its residency
+   and cluster slots against the CUDA occupancy queries.
 5. batched kernels vs plain versions on the card, same bound: both on every
    mode of an 8-subject batch (8 x 225 x 200 x 200, cut from the tensor by
    subject) and of an odd 5-subject batch, the matrix-free one also on small
@@ -89,7 +99,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    time a call (``torch.profiler``, every CUDA kernel a call launches),
    for the kernel and for the library call; the fused and matrix-free
    sweep at each ``blocks_per_sm`` candidate; and the CUDA kernels one
-   multi-TTV call launches, from the profiler (must be 1).
+   multi-TTV call launches, counted in a CUDA graph of the call (must be 1).
+
+The kernels-a-call gates (phases 4, 7 and 11) count the nodes of a CUDA
+graph captured from one call, not the profiler's events: the profiler drops
+a few kernel events of a window now and then.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 per-kernel JSON summary.
@@ -122,6 +136,7 @@ PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
 
 FMRI = (225, 59, 200, 200)
+X3_SHAPE = FMRI[:2] + (FMRI[2] * (FMRI[2] + 1) // 2,)  # its 3-way linearization (upper triangles)
 FUSED_SOURCE = "src/repro_torch/kernels/csrc/fused_mttkrp.cu"
 MF_SOURCE = "src/repro_torch/kernels/csrc/matrix_free.cu"
 FUSED_REPLACES = "src/repro/kernels/fused_mttkrp.py:182"
@@ -212,14 +227,14 @@ def _host_device_us(torch, fn, reps: int):
     """One call of ``fn`` split into host and device time, in µs.
 
     Host: the host clock over ``reps`` back-to-back calls with no sync inside
-    the loop (what the caller's thread spends a call).  Device: the summed
-    durations of every CUDA kernel the ``reps`` calls launched, from
-    ``torch.profiler`` (CUDA activity), over ``reps``.  Also returns the
-    kernels one call launches and their names.  The profiler now and then
-    drops one kernel event of a window (seen on the H100: 199 of 200), so a
-    window whose event count is not a whole number of events a call is
-    profiled again, up to three windows, each drop logged; a call's kernel
-    count is read only from a whole window."""
+    the loop (what the caller's thread spends a call).  Device: from
+    ``torch.profiler`` (CUDA activity) over ``reps`` more calls, each kernel
+    name's mean duration times its events a call (rounded).  The profiler now
+    and then drops a few kernel events of a window (seen on the H100: 47 of
+    50, three windows in a row), so its event count is no exact count of
+    launches: a short window is logged, and the kernels a call that a gate
+    reads come from :func:`_graph_ops`.  Also returns the kernels a call the
+    profiler shows (per name, rounded) and their names."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,19 +244,61 @@ def _host_device_us(torch, fn, reps: int):
     for _ in range(reps):
         fn()
     host = (time.perf_counter() - t0) / reps * 1e6
-    for _ in range(3):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if len(kern) % reps == 0:
-            break
-        _log(f"(torch.profiler recorded {len(kern)} kernel events for {reps} calls, not a "
-             "whole number a call: the window is profiled again)")
-    device = sum(e.time_range.elapsed_us() for e in kern) / reps
-    return host, device, len(kern) / reps, sorted({e.name for e in kern})
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us(), k + 1)
+    per_name = {name: max(1, round(k / reps)) for name, (_, k) in by_name.items()}
+    events = sum(k for _, k in by_name.values())
+    if events != reps * sum(per_name.values()):
+        _log(f"(torch.profiler recorded {events} kernel events for {reps} calls of "
+             f"{sum(per_name.values())} kernels: events dropped; device time from each "
+             "name's mean)")
+    device = sum(t / k * per_name[name] for name, (t, k) in by_name.items())
+    return host, device, sum(per_name.values()), sorted(by_name)
+
+
+_CU_GRAPH_NODE_TYPE_KERNEL = 0  # CUgraphNodeType
+
+
+def _graph_ops(torch, fn) -> tuple[int, int]:
+    """The device operations one call of ``fn`` puts on its stream, counted
+    exactly: the call is captured into a CUDA graph (captured, never
+    replayed) and the graph's nodes are read through the driver
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``).  Returns (operations,
+    kernels among them).  Call ``fn`` once before, so that nothing it does
+    once (a build, a function attribute) falls in the capture."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(code):
+        if code != 0:
+            raise SystemExit(f"CUDA driver error {code} reading a captured graph")
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(count)))
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)))
+    kinds = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)))
+        kinds.append(kind.value)
+    del graph
+    torch.cuda.synchronize()
+    return len(kinds), kinds.count(_CU_GRAPH_NODE_TYPE_KERNEL)
 
 
 def _trace(torch, fn):
@@ -337,9 +394,9 @@ def _row4_checks(torch, gen, dev, check, xb, fb, phase):
 
 
 def _row4_device(torch, xb, fb, smi, phase):
-    """Device time a launch and CUDA kernels a call of the batched
-    matrix-free kernel on every mode of the batch (``torch.profiler``);
-    returns the kernels a call."""
+    """Device time a launch (``torch.profiler``) and CUDA kernels a call
+    (:func:`_graph_ops`) of the batched matrix-free kernel on every mode of
+    the batch; returns the kernels a call."""
     from repro_torch.kernels import matrix_free as mf
 
     per_call = []
@@ -347,10 +404,12 @@ def _row4_device(torch, xb, fb, smi, phase):
         us = [fb[k] for k in range(3) if k != n]
         host, dev_us, k, names = _host_device_us(
             torch, lambda: mf.matrix_free_batched_kernel(xb, us, n), 50)
-        per_call.append(k)
+        ops, kern = _graph_ops(torch, lambda: mf.matrix_free_batched_kernel(xb, us, n))
+        per_call.append(ops if ops == kern else (ops, kern))
         _log(f"[{phase}] matrix_free_batched_kernel S={xb.shape[0]} mode {n}: device "
-             f"{dev_us / 1e3:.4f} ms a launch (torch.profiler, {k:g} CUDA kernels a call: "
-             f"{names}), host {host:.2f} us a call (host clock, 50 calls, no sync); card {smi}")
+             f"{dev_us / 1e3:.4f} ms a launch (torch.profiler: {k:g} kernels a call, {names}); "
+             f"{ops} device operations a call, {kern} of them kernels (CUDA graph of one call); "
+             f"host {host:.2f} us a call (host clock, 50 calls, no sync); card {smi}")
     return per_call
 
 
@@ -365,7 +424,8 @@ def _row4_occupancy(torch, xb, smi, phase):
     for rank in (10, SECOND_RANK, 64):
         for n in range(3):
             g = mf.launch_shape(tuple(xb.shape[1:]), n, rank, xb.shape[0])
-            per_sm, clusters = mf.batched_occupancy(g, rank)
+            # the shared kernel's query, under its older name in older trees
+            per_sm, clusters = (getattr(mf, "occupancy", None) or mf.batched_occupancy)(g, rank)
             ctas = g.row_blocks * g.splits * g.slabs
             waves = -(-ctas // (clusters * g.splits))
             _log(f"[{phase}] matrix_free batched rank {rank} mode {n}: {ctas} CTAs in clusters "
@@ -389,6 +449,214 @@ def _trace_served_sweep(torch, args, xb, init, smi, phase):
     _log_trace(f"[{phase}] trace of one matrix_free batch dispatch (S={xb.shape[0]}, rank "
                f"{args.rank}, {args.sweeps} sweeps, one sync), per sweep", wall, evs,
                args.sweeps, smi)
+
+
+def _row2_geometry(x, n, c, bps=None) -> str:
+    """The unbatched matrix-free launch at mode ``n``, where the port
+    computes one."""
+    from repro_torch.kernels import matrix_free as mf
+
+    if not hasattr(mf, "unbatched_launch_shape"):
+        return ""
+    g = mf.unbatched_launch_shape(tuple(x.shape), n, c, bps or mf.BLOCKS_PER_SM)
+    vec = g.vec and x.data_ptr() % 16 == 0  # as the wrapper decides
+    return (f" [grid ({g.row_blocks}, {g.groups} x {g.splits}), clusters of {g.splits}, "
+            f"{g.groups} group(s), q chunk {g.q_chunk} x {g.chunks}, "
+            f"{'16' if vec else '4'}-byte copies, {g.smem} B shared]")
+
+
+def _row2_checks(torch, gen, dev, check, x4, phase):
+    """The unbatched matrix-free kernel beyond phase 2's shared checks, on
+    the 4-way tensor: every mode at rank 64 and at ``blocks_per_sm`` 1 (a
+    launch of other groups), run twice bitwise at rank 10, and a misaligned
+    view of 8 subjects (4-byte copies) bitwise equal to the aligned call."""
+    from repro_torch.kernels import matrix_free as mf
+
+    def one(label, x, fs, n, **kw):
+        us = [fs[k] for k in range(x.ndim) if k != n]
+        out = mf.matrix_free_kernel(x, us, n, **kw)
+        check(f"matrix_free {label} mode {n}"
+              f"{_row2_geometry(x, n, fs[0].shape[-1], kw.get('blocks_per_sm'))}", "mf",
+              out, mf.matrix_free_kernel_plain(x, us, n), phase)
+        return out, us
+
+    f10 = [torch.randn((d, 10), generator=gen, device=dev) for d in x4.shape]
+    f64 = [torch.randn((d, 64), generator=gen, device=dev) for d in x4.shape]
+    for n in range(x4.ndim):
+        one("4-way rank 64", x4, f64, n)
+        one("4-way rank 10 blocks_per_sm 1", x4, f10, n, blocks_per_sm=1)
+        out, us = one("4-way rank 10 (run twice)", x4, f10, n)
+        same = torch.equal(out, mf.matrix_free_kernel(x4, us, n))
+        _log(f"[{phase}] matrix_free mode {n} run twice bitwise equal: {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("matrix_free: not bitwise repeatable")
+    del f64
+    xa = x4[:, :8].contiguous()
+    buf = torch.empty(xa.numel() + 1, device=dev)
+    xm = buf[1:].view(xa.shape)  # a contiguous view 4 bytes off a 16-byte line
+    xm.copy_(xa)
+    for n in range(xa.ndim):
+        out, us = one(f"8 subjects misaligned x (data_ptr % 16 = {xm.data_ptr() % 16})", xm,
+                      f10[:1] + [f10[1][:8]] + f10[2:], n)
+        same = torch.equal(out, mf.matrix_free_kernel(xa, us, n))
+        _log(f"[{phase}] matrix_free misaligned mode {n} bitwise equal to the aligned call: "
+             f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("matrix_free: a misaligned view differs from the aligned call")
+
+
+def _row2_device(torch, x4, init, smi, phase):
+    """Device time a launch (``torch.profiler``) and CUDA kernels a call
+    (:func:`_graph_ops`) of the unbatched matrix-free kernel on every mode
+    of the 4-way tensor; returns each mode's kernels a call."""
+    from repro_torch.kernels import matrix_free as mf
+
+    per_call = []
+    for n in range(x4.ndim):
+        us = [init[k] for k in range(x4.ndim) if k != n]
+        host, dev_us, k, names = _host_device_us(
+            torch, lambda: mf.matrix_free_kernel(x4, us, n), 20)
+        ops, kern = _graph_ops(torch, lambda: mf.matrix_free_kernel(x4, us, n))
+        per_call.append(ops if ops == kern else (ops, kern))
+        _log(f"[{phase}] matrix_free_kernel mode {n}: device {dev_us / 1e3:.4f} ms a launch "
+             f"(torch.profiler: {k:g} kernels a call, {names}); {ops} device operations a "
+             f"call, {kern} of them kernels (CUDA graph of one call); host {host:.2f} us a "
+             f"call (host clock, 20 calls, no sync); card {smi}")
+    return per_call
+
+
+def _row2_occupancy(torch, smi, phase):
+    """The unbatched matrix-free kernel's residency and cluster slots at the
+    4-way tensor's launches (ranks 10, 16, 64) and its 3-way linearization's
+    (rank 10), from the CUDA occupancy queries, against the constants its
+    geometry counts; returns the CUDA kernels each rank-10 4-way call should
+    launch (1 with one group, else 2)."""
+    from repro_torch.kernels import matrix_free as mf
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _log(f"[{phase}] SMs {sms} (unbatched_launch_shape assumes {mf.SMS}); card {smi}")
+    want = []
+    for shape, rank in ((FMRI, 10), (FMRI, SECOND_RANK), (FMRI, 64), (X3_SHAPE, 10)):
+        for n in range(len(shape)):
+            g = mf.unbatched_launch_shape(shape, n, rank)
+            per_sm, clusters = mf.occupancy(g, rank)
+            counted = mf.CLUSTER_SLOTS[g.residency][g.splits]
+            waves = -(-g.row_blocks * g.groups // clusters)
+            _log(f"[{phase}] matrix_free {shape} rank {rank} mode {n}: "
+                 f"{g.row_blocks * g.groups * g.splits} CTAs, {g.row_blocks} row blocks x "
+                 f"{g.groups} groups of clusters of {g.splits}, {g.smem} B shared each; "
+                 f"occupancy {per_sm} CTAs an SM (residency constant {g.residency}), {clusters} "
+                 f"clusters on the card (counted {counted}): {waves} wave(s)")
+            if per_sm < g.residency or clusters != counted:
+                raise SystemExit(f"matrix_free {shape} rank {rank} mode {n}: the occupancy "
+                                 f"query disagrees with the geometry's residency or cluster slots")
+            if shape == FMRI and rank == 10:
+                want.append(1 if g.groups == 1 else 2)
+    return want
+
+
+def _trace_big_sweep(torch, args, x4, init, smi, phase):
+    """Sweeps of the big tensor under ``matrix_free`` (all in one chunk,
+    one host sync), traced by ``torch.profiler``, per sweep."""
+    from repro_torch.plan import Problem, cp_als, plan_sweep
+
+    plan = plan_sweep(Problem.from_tensor(x4, args.rank), strategy="matrix_free")
+    wall, evs = _trace(torch, lambda: cp_als(x4, plan, n_iters=args.sweeps, tol=0.0,
+                                              init_factors=init, sweeps_per_sync=args.sweeps))
+    _log_trace(f"[{phase}] trace of the big tensor under matrix_free ({tuple(x4.shape)}, rank "
+               f"{args.rank}, {args.sweeps} sweeps, one sync), per sweep", wall, evs,
+               args.sweeps, smi)
+
+
+def _row2_times(torch, x4, init, smi, phase, reps=20):
+    """Phase 4's row-2 timing: each mode's kernel, plain version and one
+    einsum call (CUDA events) beside the bound; returns the rows."""
+    from repro_torch.kernels import matrix_free as mf
+
+    rows = []
+    c = init[0].shape[-1]
+    for n in range(x4.ndim):
+        us = [init[k] for k in range(x4.ndim) if k != n]
+        byts = 4 * (x4.numel() + sum(u.numel() for u in us) + x4.shape[n] * c)
+        r = {
+            "ms": _time_ms(torch, lambda: mf.matrix_free_kernel(x4, us, n), reps),
+            "plain_ms": _time_ms(torch, lambda: mf.matrix_free_kernel_plain(x4, us, n), 5),
+            "library_ms": _time_ms(
+                torch, lambda: torch.einsum(_einsum_spec(x4.ndim, n), x4, *us), 5),
+            "bytes_ms": byts / HBM_BW * 1e3, "flops_ms": 2 * x4.numel() * c / PEAK_FLOPS * 1e3,
+        }
+        rows.append(r)
+        bound = max(r["bytes_ms"], r["flops_ms"])
+        _log(f"[{phase}] matrix_free_kernel mode {n}: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, einsum {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
+             f"({'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}){_row2_geometry(x4, n, c)}; "
+             f"card {smi}")
+    _log(f"[{phase}] matrix_free_kernel sweep (4 launches): kernel "
+         f"{sum(r['ms'] for r in rows):.4f} ms, bound "
+         f"{sum(max(r['bytes_ms'], r['flops_ms']) for r in rows):.4f} ms; card {smi}")
+    return rows
+
+
+def _mf_checks(torch, gen, dev, check, x4, rank, phase=2):
+    """Phase 2's unbatched matrix-free checks: every mode of the 4-way
+    tensor, its 3-way linearization (225 x 59 x 20100) and small order-5 and
+    order-6 tensors, each against its plain version, with the launch."""
+    from repro_torch.kernels import matrix_free as mf
+
+    iu = torch.triu_indices(FMRI[2], FMRI[3], device=dev)
+    x3 = x4[:, :, iu[0], iu[1]].contiguous()
+    _log(f"[{phase}] data: x4 {tuple(x4.shape)} ({x4.numel() * 4 / 1e9:.2f} GB), "
+         f"x3 {tuple(x3.shape)} ({x3.numel() * 4 / 1e9:.2f} GB)")
+    small5 = torch.randn((12, 10, 8, 9, 11), generator=gen, device=dev)
+    small6 = torch.randn((6, 7, 5, 8, 6, 7), generator=gen, device=dev)
+    for label, x in (("4-way", x4), ("3-way", x3), ("order-5", small5), ("order-6", small6)):
+        fs = [torch.randn((d, rank), generator=gen, device=dev) for d in x.shape]
+        for n in range(x.ndim):
+            us = [fs[k] for k in range(x.ndim) if k != n]
+            check(f"matrix_free {label} mode {n}{_row2_geometry(x, n, rank)}", "mf",
+                  mf.matrix_free_kernel(x, us, n), mf.matrix_free_kernel_plain(x, us, n), phase)
+
+
+def _only_matrix_free(torch, args, dev, smi) -> None:
+    """``--only matrix_free``: build ``matrix_free.cu``, run phase 2's
+    unbatched matrix-free checks and the row-2 checks, time the kernel per
+    mode as phase 4 does (CUDA events; device time by the profiler and CUDA
+    kernels a call from a CUDA graph of one call; occupancy against the residency and cluster slots its
+    geometry counts), and time and trace the big tensor's ``matrix_free``
+    sweeps as phase 3 does."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import Problem, cp_als, plan_sweep
+
+    t0 = time.perf_counter()
+    _build.build_all([mf.KERNEL, mf.BATCHED_KERNEL])
+    _log(f"[1] built {mf.KERNEL.source.name} in {time.perf_counter() - t0:.1f} s")
+    for line in mf.KERNEL.ptxas_log.splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            _log(f"[1] {mf.KERNEL.source.name}: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x4 = synth_fmri(torch, gen, args.rank, dev)
+    err = {"mf": 0.0}
+    check = _checker(torch, err)
+    _mf_checks(torch, gen, dev, check, x4, args.rank)
+    _row2_checks(torch, gen, dev, check, x4, 2)
+    torch.cuda.synchronize()
+    init = [torch.randn((d, args.rank), generator=gen, device=dev) for d in FMRI]
+    _row2_times(torch, x4, init, smi, 4)
+    _row2_device(torch, x4, init, smi, 4)
+    if hasattr(mf, "unbatched_launch_shape"):
+        _row2_occupancy(torch, smi, 4)
+    plan = plan_sweep(Problem.from_tensor(x4, args.rank), strategy="matrix_free")
+    for _ in range(2):  # the second run's sweeps
+        mf.KERNEL.launches = 0
+        secs = []
+        cp_als(x4, plan, n_iters=args.sweeps, tol=0.0, init_factors=init,
+               callback=lambda it, f, dt: secs.append(dt))
+        torch.cuda.synchronize()
+    _log(f"[3] matrix_free: per-sweep s {secs} (host clock, one device sync per sweep); "
+         f"launches matrix_free {mf.KERNEL.launches}; card {smi}")
+    _trace_big_sweep(torch, args, x4, init, smi, 3)
+    _log(f"[2] max abs err of the matrix-free kernel: {err['mf']:.3e}")
 
 
 def _einsum_spec(order: int, n: int) -> str:
@@ -793,16 +1061,19 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
              f"library {row['library_ms']:.4f} ms, bound {b:.4f} ms "
              f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); card {smi}")
 
-    per_call = {}  # CUDA kernels one call launches, from the profiler
+    per_call = {}  # CUDA kernels one call launches, from a CUDA graph of the call
 
     def split_row(label, key, kernel, library):
         """The host/device split of one kernel call and of its library call."""
-        kh, kd, per_call[key], names = _host_device_us(torch, kernel, 200)
+        kh, kd, k, names = _host_device_us(torch, kernel, 200)
+        ops, kern = _graph_ops(torch, kernel)
+        per_call[key] = ops if ops == kern else (ops, kern)
         lh, ld, lk, _ = _host_device_us(torch, library, 200)
         _log(f"[11] {label}: kernel host {kh:.2f} us a call (host clock, 200 calls, no sync), "
-             f"device {kd:.2f} us a call (torch.profiler, {per_call[key]:g} CUDA kernels a "
-             f"call: {names}); library host {lh:.2f} us, device {ld:.2f} us ({lk:g} CUDA "
-             f"kernels a call); card {smi}")
+             f"device {kd:.2f} us a call (torch.profiler: {k:g} kernels a call, {names}), "
+             f"{ops} device operations a call, {kern} of them kernels (CUDA graph of one "
+             f"call); library host {lh:.2f} us, device {ld:.2f} us ({lk:g} CUDA kernels a "
+             f"call, torch.profiler); card {smi}")
 
     for n, (t, w) in ttv_ops.items():
         r = {"ms": _time_ms(torch, lambda: mt.multi_ttv(t, w), 200),
@@ -859,7 +1130,7 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
             _log(f"[11] {label} kernel sweep at blocks_per_sm {bps}: {total:.4f} ms (4 launches, "
                  f"CUDA events); tuner's row, ops wrapper at mode 2: "
                  f"{'deduped' if tuner is None else f'{tuner:.4f} ms'}; card {smi}")
-    _log(f"[11] CUDA kernels one call launches (profiler): multi_ttv {per_call['mt1']:g} and "
+    _log(f"[11] CUDA kernels one call launches (CUDA graph): multi_ttv {per_call['mt1']:g} and "
          f"{per_call['mt2']:g}, multi_ttv_batched {per_call['mt_b']:g} (want 1 each)")
     if set(per_call.values()) != {1}:
         raise SystemExit(f"a multi-TTV call launches other than one CUDA kernel: {per_call}")
@@ -870,7 +1141,8 @@ def _only_batched_matrix_free(torch, args, dev, smi) -> None:
     """``--only batched_matrix_free``: build ``matrix_free.cu``, check the
     batched kernel on the 8-subject batch (ranks 10, 16 and 64, S = 8 and
     5, every mode) and on phase 5's extra inputs, time it as phase 7 does
-    (CUDA events, device time and kernels a call by the profiler), and
+    (CUDA events, device time by the profiler, kernels a call from a CUDA
+    graph of one call), and
     trace one served batch dispatch under ``matrix_free``."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import matrix_free as mf
@@ -918,9 +1190,10 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
-    ap.add_argument("--only", choices=["batched_matrix_free"],
-                    help="run only the batched matrix-free kernel's checks, timing and trace "
-                         "(phases 0, 1, 5 and 7 for that kernel); prints no result line")
+    ap.add_argument("--only", choices=["matrix_free", "batched_matrix_free"],
+                    help="run only the unbatched (phases 0-4 for that kernel) or the batched "
+                         "(phases 0, 1, 5 and 7) matrix-free kernel's checks, timing and "
+                         "trace; prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -950,7 +1223,9 @@ def main(argv=None) -> int:
     _log(f"[0] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
          f"cudnn={torch.backends.cudnn.allow_tf32}")
     if args.only:
-        _only_batched_matrix_free(torch, args, dev, smi)
+        only = {"matrix_free": _only_matrix_free,
+                "batched_matrix_free": _only_batched_matrix_free}[args.only]
+        only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
         return 0
@@ -969,10 +1244,7 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rank = args.rank
     x4 = synth_fmri(torch, gen, rank, dev)
-    iu = torch.triu_indices(FMRI[2], FMRI[3], device=dev)
-    x3 = x4[:, :, iu[0], iu[1]].contiguous()
-    _log(f"[2] data: x4 {tuple(x4.shape)} ({x4.numel() * 4 / 1e9:.2f} GB), "
-         f"x3 {tuple(x3.shape)} ({x3.numel() * 4 / 1e9:.2f} GB), seed {args.seed}")
+    _log(f"[2] data: synthetic fMRI tensor from seed {args.seed}")
 
     # ---- phase 2: kernels vs plain versions
     err = {"fused": 0.0, "mf": 0.0, "fused_b": 0.0, "mf_b": 0.0, "mt": 0.0, "mt_b": 0.0,
@@ -985,15 +1257,8 @@ def main(argv=None) -> int:
         kern = fm.fused_mttkrp_bilinear(t, a, b, pos=pos)
         check(f"fused 4-way mode {n} pos {pos} T{tuple(t.shape)}", "fused", kern,
               fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos))
-    small5 = torch.randn((12, 10, 8, 9, 11), generator=gen, device=dev)
-    small6 = torch.randn((6, 7, 5, 8, 6, 7), generator=gen, device=dev)
-    for label, x in (("4-way", x4), ("3-way", x3), ("order-5", small5), ("order-6", small6)):
-        fs = [torch.randn((d, rank), generator=gen, device=dev) for d in x.shape]
-        for n in range(x.ndim):
-            us = [fs[k] for k in range(x.ndim) if k != n]
-            check(f"matrix_free {label} mode {n}", "mf",
-                  mf.matrix_free_kernel(x, us, n), mf.matrix_free_kernel_plain(x, us, n))
-    del small5, small6
+    _mf_checks(torch, gen, dev, check, x4, rank)
+    _row2_checks(torch, gen, dev, check, x4, 2)
     torch.cuda.synchronize()
 
     # ---- phase 3: the main path
@@ -1033,6 +1298,7 @@ def main(argv=None) -> int:
     _log(f"[3] fit agreement across strategies: max |diff| {gap:.3e} (bound {FIT_AGREE:g})")
     if gap > FIT_AGREE:
         raise SystemExit("strategies disagree on the fits")
+    _trace_big_sweep(torch, args, x4, init, smi, 3)
 
     # small input: the card's run against the port's CPU run (plain versions)
     cpu_gen = torch.Generator().manual_seed(args.seed)
@@ -1052,7 +1318,7 @@ def main(argv=None) -> int:
             raise SystemExit("card and CPU runs disagree on a small input")
 
     # ---- phase 4: timing at the main path's shapes
-    rows = {"fused": [], "mf": []}
+    rows = {"fused": []}
     for n in range(4):
         t, a, b, pos = ops.bilinear_operands(x4, init, n)
         c = a.shape[1]
@@ -1066,22 +1332,16 @@ def main(argv=None) -> int:
             "bytes_ms": byts / HBM_BW * 1e3, "flops_ms": flops / PEAK_FLOPS * 1e3,
         }
         rows["fused"].append(r)
-        us = [init[k] for k in range(4) if k != n]
-        byts = 4 * (x4.numel() + sum(u.numel() for u in us) + FMRI[n] * c)
-        flops = 2 * x4.numel() * c
-        r2 = {
-            "ms": _time_ms(torch, lambda: mf.matrix_free_kernel(x4, us, n), 20),
-            "plain_ms": _time_ms(torch, lambda: mf.matrix_free_kernel_plain(x4, us, n), 5),
-            "library_ms": _time_ms(torch, lambda: torch.einsum(_einsum_spec(4, n), x4, *us), 5),
-            "bytes_ms": byts / HBM_BW * 1e3, "flops_ms": flops / PEAK_FLOPS * 1e3,
-        }
-        rows["mf"].append(r2)
-        for label, row in (("fused_mttkrp_bilinear", r), ("matrix_free_kernel", r2)):
-            bound = max(row["bytes_ms"], row["flops_ms"])
-            _log(f"[4] {label} mode {n}: kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-                 f"einsum {row['library_ms']:.4f} ms, bound {bound:.4f} ms "
-                 f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); "
-                 f"card {smi}")
+        bound = max(r["bytes_ms"], r["flops_ms"])
+        _log(f"[4] fused_mttkrp_bilinear mode {n}: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, einsum {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
+             f"({'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}); card {smi}")
+    rows["mf"] = _row2_times(torch, x4, init, smi, 4)
+    row2_kernels = _row2_device(torch, x4, init, smi, 4)
+    want_kernels = _row2_occupancy(torch, smi, 4)
+    if row2_kernels != want_kernels:
+        raise SystemExit(f"matrix_free_kernel calls launch {row2_kernels} CUDA kernels, not the "
+                         f"{want_kernels} its design states")
 
     # ---- phase 5: batched kernels vs plain versions (the fleet is made here, after
     # phases 3-4, so their peak memory stays that of the single-tensor path)

@@ -95,8 +95,9 @@ def split_reduction(
     slice, at most 65535 slices (the grid's y limit).  Depends only on the
     shape, the slab count, the knob and the card, so a result is bitwise
     repeatable.  ``blocks_per_sm`` is the one tile knob the autotuner
-    times for the fused and matrix-free kernels (their row and reduction
-    tiles are compile-time); the default keeps every earlier launch."""
+    times for the fused kernels (their row and reduction tiles are
+    compile-time; the matrix-free kernels size their launches in
+    ``matrix_free.py``); the default keeps every earlier launch."""
     if blocks_per_sm < 1:
         raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
     sms = torch.cuda.get_device_properties(device).multi_processor_count

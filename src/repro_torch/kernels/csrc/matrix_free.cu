@@ -17,26 +17,57 @@
 // the streamed tensor tile with U_q's rows; the result is then scaled by the
 // product of the remaining ("outer") factor rows of the current outer
 // multi-index o and added to the output row.  That is the same fold as
-// _fold_tile, one (outer index, q tile) pair per step.  The unbatched kernel
-// is described here; the batched one, a design of its own, below
-// (matrix_free_batched_cluster_kernel).
+// _fold_tile, one (outer index, q chunk) pair per step.
 //
-// Bound at the main path's shapes (fMRI tensor 225 x 59 x 200 x 200, C = 10):
-// HBM bytes.  Each call must read the 2.12 GB tensor once, about 0.63 ms at
-// 3.35 TB/s, against about 0.16 ms for its 2 |x| C fp32 FLOPs at 67 TFLOP/s.
-// The design streams x once at full width:
-//   * x is read exactly once, in BI x BR tiles (BI target rows x BR indices of
-//     mode q), coalesced along x's contiguous axis (mode q, or the target mode
-//     when it is the last one), streamed with cp.async through a ring of
-//     STAGES shared-memory tiles, STAGES - 1 steps ahead.  Steps run
-//     q-tile outer and outer index inner, so U_q's tile is loaded once per
-//     pass and the outer index advances as an odometer.  The kernel
-//     computes its own offsets from x's shape, so no view or copy is needed.
-//   * The outer multi-index range is split over gridDim.y so that enough
-//     blocks are in flight on 132 SMs even for a short target mode.  Each
-//     split writes an (I, C) partial to a workspace and a second kernel sums
-//     the splits in a fixed order: no atomics, bitwise repeatable results.
+// Bound: HBM bytes.  Each call must read x once: the fMRI tensor 225 x 59 x
+// 200 x 200 (the unbatched entry's main path, C = 10) is 2.12 GB, 0.634 ms at
+// 3.35 TB/s, against 0.16 ms for its 2 |x| C fp32 FLOPs at 67 TFLOP/s; the
+// serving batch 8 x 225 x 200 x 200 (the batched entry's) is 288 MB, 86 us,
+// against 25 us of FLOPs.  Both entries launch one kernel body,
+// matrix_free_cluster_kernel, which streams x once at full width:
+//   * Grid (row blocks, groups x splits, S), cluster (1, splits, 1).  A CTA
+//     owns BI rows of the target mode of one slab and one of groups x splits
+//     balanced parts of the outer range, part p = blockIdx.y covering
+//     [O p / P, O (p + 1) / P).  The wrapper (matrix_free.py: launch_shape,
+//     unbatched_launch_shape) picks splits in {1, 2, 4, 8} and groups from
+//     the shape alone, to fill the card's CTA slots in the fewest whole
+//     waves.  The batched entry runs one group (its slabs fill the card);
+//     the unbatched one runs as many groups as one wave holds (2-8 row
+//     blocks of one tensor fill far fewer slots than 264).
+//   * Whole q extents.  A stage holds BI rows x q_chunk indices of q, the
+//     whole extent where it fits (200 at the fMRI shapes, 25.6 KB), else
+//     the largest equal chunk that fits; steps run q chunk outer, outer index
+//     inner, and U_q's chunk is loaded into shared memory once per chunk
+//     (once per CTA when q fits).  A ring of STAGES such tiles streams with
+//     cp.async, STAGES - 1 steps ahead, one barrier a step; each stage also
+//     carries its step's outer factor rows (cp.async, 4 bytes), so a thread
+//     forms the step's weights from shared memory.
+//   * 16-byte copies (cp.async.cg, zero-fill) where the contiguous axis'
+//     extent is a multiple of 4 and x is 16-byte aligned (`vec`; the C
+//     entries refuse vec on a misaligned x), else 4-byte ones.  Rows past the
+//     tensor are not copied (their lanes' sums are never stored); indices of
+//     q past the tensor are zero-filled, and U_q's rows there are zeros.
+//   * Layouts without bank conflicts.  With the target mode not last
+//     (!I_CONTIG, q contiguous), a tile is [row][j] with a row stride of
+//     4 mod 32 floats: lane = row reads 4 consecutive j as a float4, and the
+//     8 lanes of a quarter warp hit 8 distinct 16-byte bank groups.  With
+//     the target mode last (I_CONTIG), a tile is [j][row]: lane = row reads
+//     one float per j, 32 consecutive words.  Warp w takes the quads of j
+//     w, w + 8, ...; U_q's 4 rows of a quad are broadcast as float4.
+//   * The split is summed on chip, in a fixed order.  After its last step a
+//     CTA sums its warps' (BI, C) accumulators into shared memory (each of
+//     BI x CP sums in warp order), then cluster rank 0 adds ranks 1.. in
+//     rank order through distributed shared memory (map_shared_rank) and
+//     writes its group's sum; a second cluster.sync() keeps every rank's
+//     shared memory alive while rank 0 reads it.  With one group that is the
+//     output.  With more (unbatched only), each group writes an (I, C)
+//     partial to a workspace and sum_splits_kernel adds the groups in group
+//     order: under 0.3 MB at the fMRI shapes, a few us.  No atomics:
+//     bitwise repeatable.
 // Accumulation is ordinary fp32 FMA (no TF32), as Precision.HIGHEST asks.
+// A ragged last row block (mode 0's 225 rows end in one block of 1 row)
+// runs every step of its range, with 1/32 of a full block's copies, in the
+// same wave.
 #include <cooperative_groups.h>
 
 #include "mttkrp_common.cuh"
@@ -46,6 +77,10 @@ namespace mttkrp {
 namespace cg = cooperative_groups;
 
 constexpr int MAX_ORDER = 6;
+constexpr int MAX_OUTER = MAX_ORDER - 2;
+constexpr int MFC_STAGES = 3;
+constexpr int MFC_BLOCK_SMEM = 232448;  // most dynamic shared memory a CTA may use
+constexpr int64_t MAX_GRID_Y = 65535;
 
 struct MFArgs {
   const float* x;
@@ -56,10 +91,7 @@ struct MFArgs {
   int n_outer;
   int outer[MAX_ORDER];  // outer modes, ascending (row-major decode order)
   int C;
-  int64_t o_per_split;
 };
-
-constexpr int MAX_OUTER = MAX_ORDER - 2;
 
 // Outer multi-index o (the outer modes enumerated row-major) and its offset
 // in x (from `base`, the start of the block's slab), advanced one step at a
@@ -95,157 +127,6 @@ struct Odometer {
   }
 };
 
-// The body of the unbatched kernel below, which compiles it with BATCHED
-// false: without any slab arithmetic (z is the constant 0).  BATCHED true
-// would read the slab from blockIdx.z; the batched entry has its own kernel.
-template <bool I_CONTIG, int CP, bool BATCHED>
-__device__ __forceinline__ void matrix_free_body(const MFArgs& p, float* __restrict__ ws) {
-  constexpr int KPT = BR * CP / THREADS;  // factor-tile entries loaded per thread
-  const int64_t rows = p.ext[p.n];
-  const int64_t si = p.stride[p.n];
-  const int64_t sq = p.stride[p.q];
-  const int64_t eq = p.ext[p.q];
-  const int C = p.C;
-  // Slab z: x, every factor and the workspace are offset by their slab
-  // strides (folded into the odometer's tensor offset and U_q's pointer).
-  const int64_t z = BATCHED ? static_cast<int64_t>(blockIdx.z) : 0;
-  const int64_t x_base = z * p.stride[0] * p.ext[0];
-  const float* __restrict__ uq = p.u[p.q] + z * eq * C;
-
-  int64_t o_total = 1;
-  for (int k = 0; k < p.n_outer; ++k) o_total *= p.ext[p.outer[k]];
-
-  __shared__ float ts[STAGES][BR][BI + 1];  // ring of tensor tiles; reused by the final reduction
-  __shared__ __align__(16) float us[BR][CP];
-  __shared__ float wo[CP];
-
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
-  const int ni = static_cast<int>(imin(BI, rows - i0));
-  const int64_t o0 = static_cast<int64_t>(blockIdx.y) * p.o_per_split;
-  const int64_t n_o = imin(o_total, o0 + p.o_per_split) - o0;
-  const int64_t n_jt = (eq + BR - 1) / BR;
-  const int64_t total = n_o > 0 ? n_o * n_jt : 0;
-
-  float acc[CP], part[CP];
-#pragma unroll
-  for (int c = 0; c < CP; ++c) acc[c] = 0.0f;
-  float ureg[KPT];        // U_q rows of the next step (this thread's entries)
-  float wraw[MAX_OUTER];  // outer factor entries U_m[o_m, threadIdx.x] of the next step
-
-  // Steps run q-tile outer, outer index o inner: the U_q tile is loaded once
-  // per pass over the split's o range.  Tensor tiles stream through a ring of
-  // STAGES shared-memory buffers with cp.async, STAGES - 1 steps ahead; the
-  // factor rows are loaded one step ahead.  Positions advance as counters and
-  // odometers: no division in the loop.
-  Odometer io;  // outer index of the next tile to issue
-  int64_t io_n = 0, ij = 0;
-  io.reset(p, o0, x_base);
-  int issue_stage = 0;
-  auto issue = [&]() {
-    const int nr = static_cast<int>(imin(BR, eq - ij * BR));
-    issue_tile<I_CONTIG>(ts[issue_stage], p.x + io.off + ij * BR * sq + i0 * si, si, sq, ni, nr);
-    if (++io_n == n_o) {
-      io_n = 0;
-      ++ij;
-      io.reset(p, o0, x_base);
-    } else {
-      io.step(p);
-    }
-    issue_stage = issue_stage + 1 == STAGES ? 0 : issue_stage + 1;
-  };
-  Odometer co;  // outer index of the step wraw/ureg hold
-  int64_t co_n = 0, cj = 0;
-  co.reset(p, o0, 0);
-  auto load_factors = [&](bool new_j) {
-    if (threadIdx.x < CP) {
-#pragma unroll
-      for (int k = 0; k < MAX_OUTER; ++k) {
-        wraw[k] = (k < p.n_outer && static_cast<int>(threadIdx.x) < C)
-                      ? __ldg(p.u[p.outer[k]] + (z * p.ext[p.outer[k]] + co.idx[k]) * C +
-                              threadIdx.x)
-                      : 1.0f;
-      }
-    }
-    if (new_j) {
-#pragma unroll
-      for (int k = 0; k < KPT; ++k) {
-        const int e = threadIdx.x + k * THREADS;
-        const int64_t j = cj * BR + e / CP;
-        ureg[k] = (e % CP < C && j < eq) ? __ldg(uq + j * C + e % CP) : 0.0f;
-      }
-    }
-  };
-
-  int64_t issued = 0;
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (issued < total) { issue(); ++issued; }
-    cp_async_commit();
-  }
-  bool new_j = true;
-  if (total > 0) load_factors(true);
-  int stage = 0;
-  for (int64_t it = 0; it < total; ++it) {
-    if (issued < total) { issue(); ++issued; }
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();  // this thread's copies of step `it` have landed
-    if (new_j) {
-#pragma unroll
-      for (int k = 0; k < KPT; ++k) {
-        const int e = threadIdx.x + k * THREADS;
-        us[e / CP][e % CP] = ureg[k];
-      }
-    }
-    if (threadIdx.x < CP) {  // product of the outer modes' rows at this o
-      float w = static_cast<int>(threadIdx.x) < C ? 1.0f : 0.0f;
-#pragma unroll
-      for (int k = 0; k < MAX_OUTER; ++k) w *= wraw[k];
-      wo[threadIdx.x] = w;
-    }
-    __syncthreads();  // every thread's copies, U_q rows and weights visible
-    if (it + 1 < total) {
-      new_j = false;
-      if (++co_n == n_o) {
-        co_n = 0;
-        ++cj;
-        co.reset(p, o0, 0);
-        new_j = true;
-      } else {
-        co.step(p);
-      }
-      load_factors(new_j);
-    }
-#pragma unroll
-    for (int c = 0; c < CP; ++c) part[c] = 0.0f;
-    mac_tile<CP>(part, ts[stage], us);  // contract mode q: part = x_tile . U_q tile
-#pragma unroll
-    for (int c = 0; c < CP; ++c) acc[c] = fmaf(wo[c], part[c], acc[c]);  // fold outer rows
-    stage = stage + 1 == STAGES ? 0 : stage + 1;
-    __syncthreads();  // ts[stage], us and wo free for reuse
-  }
-  cp_async_wait<0>();
-  const int64_t split = z * gridDim.y + blockIdx.y;
-  reduce_and_store<CP>(acc, &ts[0][0][0], ws + split * rows * C, i0, rows, C);
-}
-
-// The unbatched kernel keeps the launch bounds (and so the register
-// allocation) it had before the batched entry existed: at rank <= 12 ptxas
-// fits it in 128 registers, two blocks per SM.
-template <bool I_CONTIG, int CP>
-__global__ void __launch_bounds__(THREADS) matrix_free_kernel(MFArgs p, float* __restrict__ ws) {
-  matrix_free_body<I_CONTIG, CP, false>(p, ws);
-}
-
-template <int CP>
-void launch(const MFArgs& p, int splits, float* ws, cudaStream_t s) {
-  const int64_t rows = p.ext[p.n];
-  dim3 grid(static_cast<unsigned>((rows + BI - 1) / BI), static_cast<unsigned>(splits), 1);
-  if (p.n == p.order - 1) {
-    matrix_free_kernel<true, CP><<<grid, THREADS, 0, s>>>(p, ws);
-  } else {
-    matrix_free_kernel<false, CP><<<grid, THREADS, 0, s>>>(p, ws);
-  }
-}
-
 // Mode bookkeeping of one (slab's) tensor: extents, row-major strides, the
 // factor pointers, the contracted mode q and the outer modes.
 void fill_modes(MFArgs& p, const float* x, const void* const* factors, const int64_t* shape,
@@ -268,84 +149,9 @@ void fill_modes(MFArgs& p, const float* x, const void* const* factors, const int
   }
 }
 
-// Both launches of the unbatched entry; cudaGetLastError() after them.
-int run(const float* x, const void* const* factors, const int64_t* shape, int order, int n,
-        int c, int64_t o_per_split, int splits, float* ws, float* out, cudaStream_t s) {
-  const int cp = padded_rank(c);
-  if (cp == 0 || c < 1 || order < 3 || order > MAX_ORDER || n < 0 || n >= order ||
-      splits < 1 || splits > 65535 || o_per_split < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  MFArgs p{};
-  fill_modes(p, x, factors, shape, order, n, c);
-  p.o_per_split = o_per_split;
-  switch (cp) {
-#define MTTKRP_CASE(CP) \
-  case CP:                           \
-    launch<CP>(p, splits, ws, s);    \
-    break;
-    MTTKRP_CASE(4) MTTKRP_CASE(8) MTTKRP_CASE(12) MTTKRP_CASE(16)
-    MTTKRP_CASE(24) MTTKRP_CASE(32) MTTKRP_CASE(48) MTTKRP_CASE(64)
-#undef MTTKRP_CASE
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  launch_sum_splits(ws, out, shape[n] * c, splits, 1, s);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// The batched kernel: one launch, no workspace, the split reduced on chip.
-//
-// Computes, for each slab z of a contiguous (S, *shape) stack, the fold
-// above with that slab's factors (S, I_k, C).  The unbatched kernel's launch
-// wasted most of a batched launch at the serving shapes (8 slabs of
-// 225 x 200 x 200, rank 10): a third wave of 32-48 CTAs, mostly empty 64-wide
-// q tiles, 8 KB steps behind two barriers, and a second pass over a
-// workspace.  This design:
-//   * Grid (row blocks, splits, S), cluster (1, splits, 1).  A CTA owns BI
-//     rows of the target mode of one slab and one of `splits` balanced parts
-//     of the outer range, [O r / splits, O (r + 1) / splits).  The wrapper
-//     (matrix_free.py: launch_shape) picks splits in {1, 2, 4, 8} so that the
-//     grid fills the card in whole waves at the kernel's residency (2 CTAs an
-//     SM at rank <= 32): 4 at the serving shapes, one wave of 224-256 CTAs.
-//   * Whole q extents.  A stage holds BI rows x q_chunk indices of q, the
-//     whole extent where it fits (200 at the serving shapes, 25.6 KB), else
-//     the largest equal chunk that fits; steps run q chunk outer, outer index
-//     inner, and U_q's chunk is loaded into shared memory once per chunk
-//     (once per CTA when q fits).  A ring of STAGES such tiles streams with
-//     cp.async, STAGES - 1 steps ahead, one barrier a step; each stage also
-//     carries its step's outer factor rows (cp.async, 4 bytes), so a thread
-//     forms the step's weights from shared memory.
-//   * 16-byte copies (cp.async.cg, zero-fill) where the contiguous axis'
-//     extent is a multiple of 4 and x is 16-byte aligned (`vec`; the C
-//     entry refuses vec on a misaligned x), else 4-byte ones.  Rows past the
-//     tensor are not copied (their lanes' sums are never stored); indices of
-//     q past the tensor are zero-filled, and U_q's rows there are zeros.
-//   * Layouts without bank conflicts.  With the target mode not last
-//     (!I_CONTIG, q contiguous), a tile is [row][j] with a row stride of
-//     4 mod 32 floats: lane = row reads 4 consecutive j as a float4, and the
-//     8 lanes of a quarter warp hit 8 distinct 16-byte bank groups.  With
-//     the target mode last (I_CONTIG), a tile is [j][row]: lane = row reads
-//     one float per j, 32 consecutive words.  Warp w takes the quads of j
-//     w, w + 8, ...; U_q's 4 rows of a quad are broadcast as float4.
-//   * The split is summed on chip, in a fixed order.  After its last step a
-//     CTA sums its warps' (BI, C) accumulators into shared memory (each of
-//     BI x CP sums in warp order), then cluster rank 0 adds ranks 1.. in
-//     rank order through distributed shared memory (map_shared_rank) and
-//     writes the output; a second cluster.sync() keeps every rank's shared
-//     memory alive while rank 0 reads it.  No atomics: bitwise repeatable.
-// Bound: HBM bytes, the stack read once (288 MB at 8 x 225 x 200 x 200,
-// 86 us at 3.35 TB/s) against 2 |x| C fp32 FLOPs (25 us at 67 TFLOP/s).
-// The mode-0 row blocks of 225 rows end in one block of 1 row; it runs every
-// step of its range (its copies are 1/32 of a full block's) in the same wave.
-
-constexpr int MFB_STAGES = 3;
-constexpr int MFB_BLOCK_SMEM = 232448;  // most dynamic shared memory a CTA may use
-
-struct MFBArgs {
-  MFArgs p;  // one slab's modes and the factors' bases (o_per_split unused)
-  float* out;
+struct MFCArgs {
+  MFArgs p;  // one slab's modes and the factors' bases
+  float* out;  // (S, groups, I, C): the output with one group, else the workspace
   int64_t o_total;  // outer multi-indices of a (slab, row block)
   int qc;           // indices of q a stage holds (a multiple of 4)
   int qs;           // floats between tile rows (!I_CONTIG)
@@ -354,12 +160,12 @@ struct MFBArgs {
 };
 
 // Row stride of a !I_CONTIG tile: >= qc and 4 mod 32 floats.
-inline int mfb_row_stride(int qc) { return qc + (36 - qc % 32) % 32; }
+inline int mfc_row_stride(int qc) { return qc + (36 - qc % 32) % 32; }
 
-// Dynamic shared memory of one CTA (matrix_free.py: batched_smem).
-inline int64_t mfb_smem_bytes(int64_t qc, int cp, bool i_contig) {
-  const int64_t qs = i_contig ? qc : mfb_row_stride(static_cast<int>(qc));
-  const int64_t main = MFB_STAGES * BI * qs + MFB_STAGES * MAX_OUTER * cp + qc * cp;
+// Dynamic shared memory of one CTA (matrix_free.py: cluster_smem).
+inline int64_t mfc_smem_bytes(int64_t qc, int cp, bool i_contig) {
+  const int64_t qs = i_contig ? qc : mfc_row_stride(static_cast<int>(qc));
+  const int64_t main = MFC_STAGES * BI * qs + MFC_STAGES * MAX_OUTER * cp + qc * cp;
   const int64_t red = static_cast<int64_t>(WARPS) * cp * BI;
   return 4 * (main > red ? main : red);
 }
@@ -373,7 +179,7 @@ __device__ __forceinline__ void cp_async_16(float* dst, const float* src, bool v
 // part[c] += sum over the quad's 4 indices j of t_j * U_q[j, c] (u: the
 // quad's first row of the U_q chunk, rows CP floats apart).
 template <int CP>
-__device__ __forceinline__ void mfb_mac_quad(float (&part)[CP], float t0, float t1, float t2,
+__device__ __forceinline__ void mfc_mac_quad(float (&part)[CP], float t0, float t1, float t2,
                                              float t3, const float* u) {
 #pragma unroll
   for (int c = 0; c < CP; c += 4) {
@@ -393,7 +199,7 @@ __device__ __forceinline__ void mfb_mac_quad(float (&part)[CP], float t0, float 
 // (matrix_free.py: residency).
 template <bool I_CONTIG, int CP>
 __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
-    matrix_free_batched_cluster_kernel(MFBArgs a) {
+    matrix_free_cluster_kernel(MFCArgs a) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const MFArgs& p = a.p;
@@ -413,13 +219,15 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
   const float* __restrict__ uq = p.u[p.q] + z * eq * C;
   const int stage_floats = I_CONTIG ? qc * BI : BI * a.qs;
   float* ring = smem;                                   // [STAGES][tile]
-  float* wring = ring + MFB_STAGES * stage_floats;      // [STAGES][MAX_OUTER][CP]
-  float* us = wring + MFB_STAGES * MAX_OUTER * CP;      // [qc][CP]
+  float* wring = ring + MFC_STAGES * stage_floats;      // [STAGES][MAX_OUTER][CP]
+  float* us = wring + MFC_STAGES * MAX_OUTER * CP;      // [qc][CP]
 
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
   const int ni = static_cast<int>(imin(BI, rows - i0));
-  const int64_t o_lo = a.o_total * rank / splits;
-  const int64_t n_o = a.o_total * (rank + 1) / splits - o_lo;
+  // Part blockIdx.y = group * splits + rank of the groups x splits parts.
+  const int64_t part = blockIdx.y, parts = gridDim.y;
+  const int64_t o_lo = a.o_total * part / parts;
+  const int64_t n_o = a.o_total * (part + 1) / parts - o_lo;
   const int64_t total = n_o * a.nq;
 
   // This thread's first copy of a tile and its stride, as (row, unit)
@@ -474,11 +282,11 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
 
   int64_t issued = 0;
   int istage = 0;
-  for (int st = 0; st < MFB_STAGES - 1; ++st) {
+  for (int st = 0; st < MFC_STAGES - 1; ++st) {
     if (issued < total) {
       issue(istage);
       ++issued;
-      istage = istage + 1 == MFB_STAGES ? 0 : istage + 1;
+      istage = istage + 1 == MFC_STAGES ? 0 : istage + 1;
     }
     cp_async_commit();
   }
@@ -489,12 +297,12 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
   int64_t co_n = 0, cch = 0;  // the computed step: position in the outer range, q chunk
   int cstage = 0;
   for (int64_t it = 0; it < total; ++it) {
-    cp_async_wait<MFB_STAGES - 2>();  // this thread's copies of step `it` have landed
+    cp_async_wait<MFC_STAGES - 2>();  // this thread's copies of step `it` have landed
     __syncthreads();  // everyone's copies visible; step it - 1 read by every thread
     if (issued < total) {
       issue(istage);  // into step it - 1's stage
       ++issued;
-      istage = istage + 1 == MFB_STAGES ? 0 : istage + 1;
+      istage = istage + 1 == MFC_STAGES ? 0 : istage + 1;
     }
     cp_async_commit();
     if (co_n == 0) {  // the first step of a q chunk: its rows of U_q
@@ -513,13 +321,13 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
     if (I_CONTIG) {
       for (int qd = warp; qd < nquad; qd += WARPS) {
         const float* tq = ts + 4 * qd * BI + lane;
-        mfb_mac_quad<CP>(part, tq[0], tq[BI], tq[2 * BI], tq[3 * BI], us + 4 * qd * CP);
+        mfc_mac_quad<CP>(part, tq[0], tq[BI], tq[2 * BI], tq[3 * BI], us + 4 * qd * CP);
       }
     } else {
       const float* trow = ts + lane * a.qs;
       for (int qd = warp; qd < nquad; qd += WARPS) {
         const float4 t = *reinterpret_cast<const float4*>(trow + 4 * qd);
-        mfb_mac_quad<CP>(part, t.x, t.y, t.z, t.w, us + 4 * qd * CP);
+        mfc_mac_quad<CP>(part, t.x, t.y, t.z, t.w, us + 4 * qd * CP);
       }
     }
     // fold the outer rows: acc += (prod_k U_k[o_k, :]) * part
@@ -546,7 +354,7 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
       co_n = 0;
       ++cch;
     }
-    cstage = cstage + 1 == MFB_STAGES ? 0 : cstage + 1;
+    cstage = cstage + 1 == MFC_STAGES ? 0 : cstage + 1;
   }
   cp_async_wait<0>();
   __syncthreads();  // every step read: the ring becomes the reduction buffer
@@ -561,8 +369,10 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
     for (int w = 1; w < WARPS; ++w) v += red[w * CP * BI + e];
     red[e] = v;  // only this thread reads or writes index e of warp 0's slot
   }
-  // The ranks' sums, in rank order, by cluster rank 0; rows i, columns c < C.
-  float* __restrict__ out = a.out + (z * rows + i0) * C;
+  // The ranks' sums, in rank order, by cluster rank 0, into this (slab,
+  // group)'s rows i, columns c < C.
+  const int64_t groups = parts / splits, group = part / splits;
+  float* __restrict__ out = a.out + ((z * groups + group) * rows + i0) * C;
   if (splits > 1) {
     cluster.sync();
     if (rank == 0) {
@@ -580,43 +390,43 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
   }
 }
 
-using MFBKernel = void (*)(MFBArgs);
+using MFCKernel = void (*)(MFCArgs);
 
 // Raises an instance's dynamic-shared-memory limit to the most a CTA may use
 // (a launch asks for what it needs), once per instance.
 template <bool I_CONTIG, int CP>
-cudaError_t mfb_prepare() {
+cudaError_t mfc_prepare() {
   static const cudaError_t err =
-      cudaFuncSetAttribute(matrix_free_batched_cluster_kernel<I_CONTIG, CP>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, MFB_BLOCK_SMEM);
+      cudaFuncSetAttribute(matrix_free_cluster_kernel<I_CONTIG, CP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, MFC_BLOCK_SMEM);
   return err;
 }
 
 // The kernel instance for padded rank cp (kernel nullptr for none), prepared.
-struct MFBInstance {
-  MFBKernel kernel;
+struct MFCInstance {
+  MFCKernel kernel;
   cudaError_t err;
 };
 
-MFBInstance mfb_instance(int cp, bool i_contig) {
+MFCInstance mfc_instance(int cp, bool i_contig) {
   switch (cp) {
-#define MFB_CASE(CP)                                                                     \
+#define MFC_CASE(CP)                                                                     \
   case CP:                                                                               \
-    return i_contig ? MFBInstance{matrix_free_batched_cluster_kernel<true, CP>,          \
-                                  mfb_prepare<true, CP>()}                               \
-                    : MFBInstance{matrix_free_batched_cluster_kernel<false, CP>,         \
-                                  mfb_prepare<false, CP>()};
-    MFB_CASE(4) MFB_CASE(8) MFB_CASE(12) MFB_CASE(16)
-    MFB_CASE(24) MFB_CASE(32) MFB_CASE(48) MFB_CASE(64)
-#undef MFB_CASE
+    return i_contig ? MFCInstance{matrix_free_cluster_kernel<true, CP>,                  \
+                                  mfc_prepare<true, CP>()}                               \
+                    : MFCInstance{matrix_free_cluster_kernel<false, CP>,                 \
+                                  mfc_prepare<false, CP>()};
+    MFC_CASE(4) MFC_CASE(8) MFC_CASE(12) MFC_CASE(16)
+    MFC_CASE(24) MFC_CASE(32) MFC_CASE(48) MFC_CASE(64)
+#undef MFC_CASE
   }
-  return MFBInstance{nullptr, cudaErrorInvalidValue};
+  return MFCInstance{nullptr, cudaErrorInvalidValue};
 }
 
-cudaLaunchConfig_t mfb_config(unsigned row_blocks, int splits, int slabs, int64_t smem,
-                              cudaStream_t s, cudaLaunchAttribute* attr) {
+cudaLaunchConfig_t mfc_config(unsigned row_blocks, int64_t parts, int splits, int slabs,
+                              int64_t smem, cudaStream_t s, cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(row_blocks, static_cast<unsigned>(splits), static_cast<unsigned>(slabs));
+  cfg.gridDim = dim3(row_blocks, static_cast<unsigned>(parts), static_cast<unsigned>(slabs));
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = s;
@@ -629,20 +439,22 @@ cudaLaunchConfig_t mfb_config(unsigned row_blocks, int splits, int slabs, int64_
   return cfg;
 }
 
-bool mfb_split_ok(int splits) { return splits == 1 || splits == 2 || splits == 4 || splits == 8; }
+bool mfc_split_ok(int splits) { return splits == 1 || splits == 2 || splits == 4 || splits == 8; }
 
-int run_batched(const float* x, const void* const* factors, const int64_t* shape, int order,
-                int n, int c, int slabs, int splits, int64_t qc, int vec, float* out,
+// One launch of the kernel; out is (slabs, groups, I, c).
+int run_cluster(const float* x, const void* const* factors, const int64_t* shape, int order,
+                int n, int c, int slabs, int groups, int splits, int64_t qc, int vec, float* out,
                 cudaStream_t s) {
   const int cp = padded_rank(c);
   if (cp == 0 || c < 1 || order < 3 || order > MAX_ORDER || n < 0 || n >= order ||
-      slabs < 1 || slabs > 65535 || !mfb_split_ok(splits) || qc < 4 || qc % 4 != 0) {
+      slabs < 1 || slabs > 65535 || groups < 1 || !mfc_split_ok(splits) || qc < 4 ||
+      qc % 4 != 0 || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int k = 0; k < order; ++k) {
     if (shape[k] < 1) return static_cast<int>(cudaErrorInvalidValue);
   }
-  MFBArgs a{};
+  MFCArgs a{};
   fill_modes(a.p, x, factors, shape, order, n, c);
   const bool i_contig = n == order - 1;
   const int64_t eq = a.p.ext[a.p.q];
@@ -650,23 +462,24 @@ int run_batched(const float* x, const void* const* factors, const int64_t* shape
   const int64_t contig = shape[order - 1];
   a.o_total = 1;
   for (int k = 0; k < a.p.n_outer; ++k) a.o_total *= a.p.ext[a.p.outer[k]];
-  const int64_t smem = mfb_smem_bytes(qc, cp, i_contig);
+  const int64_t parts = static_cast<int64_t>(groups) * splits;
+  const int64_t smem = mfc_smem_bytes(qc, cp, i_contig);
   const int64_t row_blocks = (rows + BI - 1) / BI;
-  if (splits > a.o_total || qc > 4 * ((eq + 3) / 4) || smem > MFB_BLOCK_SMEM ||
-      row_blocks > 0x7fffffff ||
+  if (parts > a.o_total || parts > MAX_GRID_Y || qc > 4 * ((eq + 3) / 4) ||
+      smem > MFC_BLOCK_SMEM || row_blocks > 0x7fffffff ||
       (vec && (contig % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   a.out = out;
   a.qc = static_cast<int>(qc);
-  a.qs = mfb_row_stride(a.qc);
+  a.qs = mfc_row_stride(a.qc);
   a.nq = (eq + qc - 1) / qc;
   a.vec = vec;
-  const MFBInstance k = mfb_instance(cp, i_contig);
+  const MFCInstance k = mfc_instance(cp, i_contig);
   if (k.err != cudaSuccess) return static_cast<int>(k.err);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
-      mfb_config(static_cast<unsigned>(row_blocks), splits, slabs, smem, s, attr);
+      mfc_config(static_cast<unsigned>(row_blocks), parts, splits, slabs, smem, s, attr);
   cfg.numAttrs = splits > 1 ? 1 : 0;  // a launch without the attribute is a cluster of one
   const cudaError_t err = cudaLaunchKernelEx(&cfg, k.kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -676,16 +489,26 @@ int run_batched(const float* x, const void* const* factors, const int64_t* shape
 }  // namespace mttkrp
 
 // x: contiguous, shape[0..order); factors: host array of `order` device
-// pointers to the (shape[k], c) factors (entry n unused); ws: (splits, I, c)
-// scratch; out: (I, c).  Split s covers outer indices
-// [s * o_per_split, (s+1) * o_per_split).  Returns cudaGetLastError() after
-// both launches (0 on success).
+// pointers to the (shape[k], c) factors (entry n unused); out: (I, c).  The
+// grid is (ceil(I / 32), groups * splits) in clusters of (1, splits, 1):
+// splits in {1, 2, 4, 8}, groups * splits at most the outer indices there
+// are and 65535.  With groups > 1 the clusters write (groups, I, c)
+// partials to ws and a second kernel sums them in group order (ws unused,
+// and may be null, with one group).  q_chunk and vec as for the batched
+// entry below.  Returns cudaGetLastError() after the launches (0 on
+// success); a geometry it cannot run returns cudaErrorInvalidValue.
 extern "C" int matrix_free_mttkrp_f32(const float* x, const void* const* factors,
-                                      const int64_t* shape, int order, int n, int c,
-                                      int64_t o_per_split, int splits, float* ws, float* out,
+                                      const int64_t* shape, int order, int n, int c, int groups,
+                                      int splits, int64_t q_chunk, int vec, float* ws, float* out,
                                       void* stream) {
-  return mttkrp::run(x, factors, shape, order, n, c, o_per_split, splits, ws, out,
-                     static_cast<cudaStream_t>(stream));
+  using namespace mttkrp;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (groups > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = run_cluster(x, factors, shape, order, n, c, 1, groups, splits, q_chunk, vec,
+                              groups > 1 ? ws : out, s);
+  if (err != 0 || groups == 1) return err;
+  launch_sum_splits(ws, out, shape[n] * c, groups, 1, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The same for `slabs` stacked problems, in one launch: x: contiguous
@@ -700,31 +523,30 @@ extern "C" int matrix_free_mttkrp_batched_f32(const float* x, const void* const*
                                               const int64_t* shape, int order, int n, int c,
                                               int slabs, int splits, int64_t q_chunk, int vec,
                                               float* out, void* stream) {
-  return mttkrp::run_batched(x, factors, shape, order, n, c, slabs, splits, q_chunk, vec, out,
+  return mttkrp::run_cluster(x, factors, shape, order, n, c, slabs, 1, splits, q_chunk, vec, out,
                              static_cast<cudaStream_t>(stream));
 }
 
-// The batched kernel's occupancy at rank c, target mode last or not, a
-// stage of q_chunk indices and clusters of `splits`: CTAs an SM holds
+// The kernel's occupancy at rank c, target mode last or not, a stage of
+// q_chunk indices and clusters of `splits`: CTAs an SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and clusters the card
 // holds (cudaOccupancyMaxActiveClusters).  Launches nothing.
-extern "C" int matrix_free_batched_occupancy_f32(int c, int i_contig, int64_t q_chunk,
-                                                 int splits, int* blocks_per_sm,
-                                                 int* clusters) {
+extern "C" int matrix_free_occupancy_f32(int c, int i_contig, int64_t q_chunk, int splits,
+                                         int* blocks_per_sm, int* clusters) {
   using namespace mttkrp;
   const int cp = padded_rank(c);
-  if (cp == 0 || c < 1 || !mfb_split_ok(splits) || q_chunk < 4 || q_chunk % 4 != 0) {
+  if (cp == 0 || c < 1 || !mfc_split_ok(splits) || q_chunk < 4 || q_chunk % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t smem = mfb_smem_bytes(q_chunk, cp, i_contig != 0);
-  if (smem > MFB_BLOCK_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const MFBInstance k = mfb_instance(cp, i_contig != 0);
+  const int64_t smem = mfc_smem_bytes(q_chunk, cp, i_contig != 0);
+  if (smem > MFC_BLOCK_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  const MFCInstance k = mfc_instance(cp, i_contig != 0);
   if (k.err != cudaSuccess) return static_cast<int>(k.err);
   cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, k.kernel, THREADS, static_cast<size_t>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr[1];  // the query needs the cluster size even for one
-  const cudaLaunchConfig_t cfg = mfb_config(1, splits, 1, smem, nullptr, attr);
+  const cudaLaunchConfig_t cfg = mfc_config(1, splits, splits, 1, smem, nullptr, attr);
   err = cudaOccupancyMaxActiveClusters(clusters, k.kernel, &cfg);
   return static_cast<int>(err);
 }

@@ -1,7 +1,10 @@
-// Tile machinery shared by the two MTTKRP kernels (fused_mttkrp.cu,
+// Tile machinery of the two MTTKRP kernels (fused_mttkrp.cu,
 // matrix_free.cu): one thread block owns BI rows of the target mode of one
-// slab (blockIdx.z; a single tensor is one slab) and streams that slab's
-// tensor through shared memory in BI x BR tiles.
+// slab (blockIdx.z; a single tensor is one slab).  The fused kernel streams
+// that slab's tensor through shared memory in BI x BR tiles (issue_tile,
+// mac_tile, reduce_and_store); the matrix-free kernel, whose stages hold
+// whole q extents, shares the block shape, the cp.async helpers, the rank
+// padding and the split-sum pass.
 //
 // Layout of a block: BI lanes x WARPS warps.  Lane = target row i of the
 // tile, warp = a slice of RPW reduction indices of the tile.  Every lane keeps

@@ -10,9 +10,12 @@ remaining non-target mode.  On the card :func:`matrix_free_kernel` launches
 the CUDA kernel of ``csrc/matrix_free.cu`` (design notes there); on the CPU
 it takes :func:`matrix_free_kernel_plain`, the same fold in torch ops.
 The batched forms fold each slab of a stack ``(S, *shape)`` against that
-slab's own factors ``(S, I_k, C)``; their CUDA launch is one kernel whose
-outer reduction is split over a thread-block cluster and summed on chip,
-with the geometry from :func:`launch_shape`.
+slab's own factors ``(S, I_k, C)``.  Both forms launch one kernel body
+whose outer reduction is split over thread-block clusters and summed on
+chip, with the geometry from the shape alone: :func:`launch_shape` for a
+stack (one launch), :func:`unbatched_launch_shape` for one tensor (one
+launch, plus a pass that adds the clusters' partials in a fixed order
+where a row block has more than one cluster).
 
 Supported: every mode of order-3..6 tensors, plus a leading batch axis.
 """
@@ -22,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple, Sequence
+from typing import Callable, NamedTuple, Sequence
 
 import torch
 
@@ -36,39 +39,48 @@ from ._tiling import (
     check_rank,
     check_slabs,
     reference_tiles,
-    split_reduction,
     use_kernel,
 )
 
 Tensor = torch.Tensor
 
-# Indices of the contracted (highest non-target) mode per step of the CUDA
-# kernel (BR in mttkrp_common.cuh).
+# Indices of the contracted (highest non-target) mode a step of the first
+# CUDA kernel took (BR in mttkrp_common.cuh); :func:`_reduction_blocks` only.
 BLOCK_R = 64
 # Shared memory one thread block may use on Hopper (227 KB), and one SM's
 # (228 KB; each resident block also holds 1 KB of it for the system).
 SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
-# The batched kernel (csrc/matrix_free.cu, matrix_free_batched_cluster_kernel):
-# warps of a CTA (THREADS = 32 rows x 8 warps), tiles in flight, outer modes
-# whose factor rows a stage carries.
+# The kernel (csrc/matrix_free.cu, matrix_free_cluster_kernel): warps of a
+# CTA (THREADS = 32 rows x 8 warps), tiles in flight, outer modes whose
+# factor rows a stage carries.
 WARPS = 8
 STAGES = 3
 MAX_OUTER = 4
 # CTAs of a cluster along grid y, each a part of the outer reduction.
 SPLITS = (1, 2, 4, 8)
+# Grid y: groups x splits parts of the outer reduction.
+MAX_GRID_Y = 65535
 # SMs of an H100 SXM: the split fills this many SMs in whole waves (a card
 # test checks it against the device).
 SMS = 132
+# Clusters of each size in SPLITS that an H100 SXM holds at once when each
+# SM holds 1 or 2 of the kernel's CTAs (cudaOccupancyMaxActiveClusters; a
+# card test checks it).  A cluster's CTAs share a GPC, so clusters of 4 and
+# 8 leave slots empty: 62 x 4 = 248 and 30 x 8 = 240 of 264.
+CLUSTER_SLOTS = {
+    1: {1: 132, 2: 66, 4: 30, 8: 15},
+    2: {1: 264, 2: 132, 4: 62, 8: 30},
+}
 
 
 def residency(padded_rank: int) -> int:
-    """CTAs of the batched kernel resident on one SM at ``padded_rank``:
-    its launch bounds hold it to 128 registers a thread at rank <= 32 (two
-    CTAs of 256 threads fill the 65,536 registers), and :func:`launch_shape`
-    sizes its shared memory to let two in; above rank 32 one CTA an SM.
-    A card test checks this against ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    """CTAs of the kernel resident on one SM at ``padded_rank``: its launch
+    bounds hold it to 128 registers a thread at rank <= 32 (two CTAs of 256
+    threads fill the 65,536 registers), and the geometry sizes its shared
+    memory to let two in; above rank 32 one CTA an SM.  A card test checks
+    this against ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     return 2 if padded_rank <= 32 else 1
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
@@ -76,17 +88,17 @@ _FACTORS, _SHAPE = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int6
 KERNEL = CudaKernel(
     "matrix_free.cu",
     "matrix_free_mttkrp_f32",
-    [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _c64, _int, _ptr, _ptr, _ptr],
+    [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _int, _c64, _int, _ptr, _ptr, _ptr],
 )
 BATCHED_KERNEL = CudaKernel(
     "matrix_free.cu",
     "matrix_free_mttkrp_batched_f32",
     [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _int, _c64, _int, _ptr, _ptr],
 )
-# The batched kernel's occupancy at one launch geometry (a query: no launch).
-BATCHED_OCCUPANCY = CudaKernel(
+# The kernel's occupancy at one launch geometry (a query: no launch).
+OCCUPANCY = CudaKernel(
     "matrix_free.cu",
-    "matrix_free_batched_occupancy_f32",
+    "matrix_free_occupancy_f32",
     [_int, _int, _c64, _int, ctypes.POINTER(_int), ctypes.POINTER(_int)],
 )
 
@@ -142,15 +154,17 @@ def matrix_free_batched_kernel_plain(x: Tensor, us: Sequence[Tensor], n: int) ->
 
 
 def _reduction_blocks(mode_shape: Sequence[int], n: int, rank: int) -> dict[int, int]:
-    """Per-non-target-mode block sizes of one step of the CUDA kernel.
+    """Per-non-target-mode block sizes of one step at a fixed tile of
+    ``BLOCK_R`` indices of the contracted mode: the port's counterpart of
+    the reference's ``_reduction_blocks``.  (The CUDA kernel stages whole q
+    extents instead, sized by :func:`cluster_smem`.)
 
-    The highest non-target mode is contracted ``BLOCK_R`` indices at a time
-    (the shared-memory tile); every other non-target mode advances one index
-    per step (its factor row scales the contracted tile).  Raises when the
-    step's shared memory -- tensor tile, factor tile, outer weights and the
-    cross-warp reduction buffer -- exceeds what a Hopper block may use.
-    Tile sizes change only the order of summation, never the result beyond
-    rounding.
+    The highest non-target mode is contracted ``BLOCK_R`` indices at a time;
+    every other non-target mode advances one index per step (its factor row
+    scales the contracted tile).  Raises when the step's shared memory --
+    tensor tile, factor tile, outer weights and the cross-warp reduction
+    buffer -- exceeds what a Hopper block may use.  Tile sizes change only
+    the order of summation, never the result beyond rounding.
     """
     rb = {k: 1 for k in range(len(mode_shape)) if k != n}
     q = max(rb)
@@ -180,28 +194,19 @@ def _check_operands(mode_shape: Sequence[int], us: Sequence[Tensor], n: int, lea
     return others
 
 
-def launch_split(
-    mode_shape: Sequence[int], n: int, device, *, blocks_per_sm: int = BLOCKS_PER_SM
-) -> tuple[int, int]:
-    """``(outer steps per split, splits)`` of an unbatched launch for mode
-    ``n``: the split reduction runs over every non-target mode but the
-    contracted (highest) one, summed by a second pass.  (The batched
-    launch takes :func:`launch_shape`.)"""
-    others = [k for k in range(len(mode_shape)) if k != n]
-    outer = math.prod(mode_shape[k] for k in others[:-1])
-    return split_reduction(mode_shape[n], outer, device, blocks_per_sm=blocks_per_sm)
-
-
-class BatchedLaunch(NamedTuple):
-    """One launch of the batched kernel: a grid of ``(row_blocks, splits,
+class ClusterLaunch(NamedTuple):
+    """One launch of the kernel: a grid of ``(row_blocks, groups * splits,
     slabs)`` CTAs of 256 threads in clusters of ``(1, splits, 1)``, each
     streaming ``chunks`` passes of ``q_chunk`` indices of the contracted
-    mode ``q`` over its part of the outer range."""
+    mode ``q`` over one of ``groups * splits`` balanced parts of the outer
+    range.  A cluster sums its parts on chip; with ``groups > 1`` (one
+    tensor) a second pass adds the groups' partials in group order."""
 
     row_blocks: int  # grid x: BLOCK_ROWS target rows a CTA
-    splits: int  # grid y = the cluster: parts of the outer range, summed on chip
+    groups: int  # clusters a row block along grid y (1 for a stack)
+    splits: int  # CTAs of a cluster along grid y: parts of the outer range, summed on chip
     slabs: int  # grid z
-    outer: int  # outer multi-indices of a (slab, row block), split over the cluster
+    outer: int  # outer multi-indices of a (slab, row block), split over groups x splits
     q_chunk: int  # indices of mode q a stage holds (a multiple of 4)
     chunks: int  # passes over q: ceil(I_q / q_chunk)
     i_contig: bool  # the target mode is the last, contiguous one
@@ -215,9 +220,9 @@ def contracted_mode(order: int, n: int) -> int:
     return order - 2 if n == order - 1 else order - 1
 
 
-def batched_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
-    """Dynamic shared memory of one CTA of the batched kernel, in bytes (as
-    ``mfb_smem_bytes`` in csrc/matrix_free.cu): a ring of ``STAGES`` tensor
+def cluster_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
+    """Dynamic shared memory of one CTA of the kernel, in bytes (as
+    ``mfc_smem_bytes`` in csrc/matrix_free.cu): a ring of ``STAGES`` tensor
     tiles of ``BLOCK_ROWS`` x ``q_chunk`` (rows padded to 4 mod 32 floats
     unless ``i_contig``, so each lane's float4 reads miss each other's
     banks), each stage's outer factor rows, and ``U_q``'s chunk; the
@@ -227,26 +232,16 @@ def batched_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
     return 4 * max(main, WARPS * padded_rank * BLOCK_ROWS)
 
 
-@functools.lru_cache(maxsize=256)
-def launch_shape(
-    shape: tuple[int, ...], n: int, rank: int, slabs: int, blocks_per_sm: int = BLOCKS_PER_SM
-) -> BatchedLaunch:
-    """The batched kernel's launch for ``slabs`` stacked tensors of
-    ``shape`` at mode ``n`` and ``rank``, from the shape alone.
-
-    A stage holds the whole extent of the contracted mode ``q`` where it
-    fits in the shared memory that lets ``residency`` CTAs share an SM,
-    else the largest equal chunk of it that fits (a multiple of 4).  The
-    outer range is split over a cluster of ``splits`` in {1, 2, 4, 8} CTAs
-    (never more than there are outer indices), chosen to fill the card in
-    whole waves: the split whose ``row_blocks * splits * slabs`` CTAs use
-    the largest share of the waves they take, ``SMS * min(blocks_per_sm,
-    residency)`` CTAs a wave, the smaller split on a tie.  So
-    ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at and above
-    the residency it changes nothing.  16-byte copies where the contiguous
-    axis' extent is a multiple of 4 (the wrapper also checks ``x``'s
-    alignment).
-    """
+def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int,
+                    split: Callable[[int, int, int], tuple[int, int, int]]) -> ClusterLaunch:
+    """A launch at mode ``n`` and ``rank`` whose grid comes from
+    ``split(row_blocks, outer, CTAs an SM counted) -> (groups, splits,
+    slabs)``, the CTAs an SM counted being ``min(blocks_per_sm,
+    residency)``.  A stage holds the whole extent of the contracted mode
+    ``q`` where it fits in the shared memory that lets ``residency`` CTAs
+    share an SM, else the largest equal chunk of it that fits (a multiple
+    of 4).  16-byte copies where the contiguous axis' extent is a multiple
+    of 4 (the wrapper also checks ``x``'s alignment)."""
     if blocks_per_sm < 1:
         raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
     order = len(shape)
@@ -260,32 +255,97 @@ def launch_shape(
     while True:  # the fewest equal chunks of q whose stages fit
         per_chunk = -(-eq // chunks)
         q_chunk = 4 * -(-per_chunk // 4)  # up to a multiple of 4
-        if batched_smem(q_chunk, cp, i_contig) <= budget:
+        if cluster_smem(q_chunk, cp, i_contig) <= budget:
             break
         chunks += 1
     chunks = -(-eq // q_chunk)
     outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
     row_blocks = -(-shape[n] // BLOCK_ROWS)
-    slots = SMS * min(blocks_per_sm, res)
-    best, best_use = 1, 0.0
-    for s in SPLITS:
-        if s > outer:
-            break
-        ctas = row_blocks * s * slabs
-        use = ctas / (-(-ctas // slots) * slots)
-        if use > best_use:
-            best, best_use = s, use
-    return BatchedLaunch(
-        row_blocks, best, slabs, outer, q_chunk, chunks, i_contig,
-        shape[-1] % 4 == 0, batched_smem(q_chunk, cp, i_contig), res,
+    groups, splits, slabs = split(row_blocks, outer, min(blocks_per_sm, res))
+    return ClusterLaunch(
+        row_blocks, groups, splits, slabs, outer, q_chunk, chunks, i_contig,
+        shape[-1] % 4 == 0, cluster_smem(q_chunk, cp, i_contig), res,
     )
 
 
-def batched_occupancy(g: BatchedLaunch, rank: int) -> tuple[int, int]:
-    """``(CTAs an SM holds, clusters the card holds)`` of the batched kernel
-    at launch ``g``, from the CUDA occupancy queries (on the card only)."""
+@functools.lru_cache(maxsize=256)
+def launch_shape(
+    shape: tuple[int, ...], n: int, rank: int, slabs: int, blocks_per_sm: int = BLOCKS_PER_SM
+) -> ClusterLaunch:
+    """The batched kernel's launch for ``slabs`` stacked tensors of
+    ``shape`` at mode ``n`` and ``rank``, from the shape alone (the stage
+    as :func:`_cluster_launch` sizes it; one group).
+
+    The outer range is split over a cluster of ``splits`` in {1, 2, 4, 8}
+    CTAs (never more than there are outer indices), chosen to fill the card
+    in whole waves: the split whose ``row_blocks * splits * slabs`` CTAs use
+    the largest share of the waves they take, ``SMS * min(blocks_per_sm,
+    residency)`` CTAs a wave, the smaller split on a tie.  So
+    ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at and above
+    the residency it changes nothing.
+    """
+
+    def split(row_blocks, outer, per_sm):
+        slots = SMS * per_sm
+        best, best_use = 1, 0.0
+        for s in SPLITS:
+            if s > outer:
+                break
+            ctas = row_blocks * s * slabs
+            use = ctas / (-(-ctas // slots) * slots)
+            if use > best_use:
+                best, best_use = s, use
+        return 1, best, slabs
+
+    return _cluster_launch(shape, n, rank, blocks_per_sm, split)
+
+
+@functools.lru_cache(maxsize=256)
+def unbatched_launch_shape(
+    shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int = BLOCKS_PER_SM
+) -> ClusterLaunch:
+    """The unbatched kernel's launch for one tensor of ``shape`` at mode
+    ``n`` and ``rank``, from the shape alone (the stage as
+    :func:`_cluster_launch` sizes it; one slab).
+
+    One tensor's row blocks (2-8 at the fMRI modes) fill few of the card's
+    CTA slots, so each row block's outer range is cut into ``groups``
+    clusters of ``splits`` in {1, 2, 4, 8} CTAs.  Wave slots are counted by
+    cluster, ``CLUSTER_SLOTS`` at ``min(blocks_per_sm, residency)`` CTAs an
+    SM (the card holds fewer clusters of 4 and 8 than its CTA slots
+    suggest).  The launch takes the fewest waves its row blocks need (one,
+    unless they outnumber the clusters of one a wave holds) and, within
+    them, the most CTAs; on a tie the larger split (fewer groups for the
+    second pass to add).  Every part holds at least one outer index, and
+    groups x splits stays within the grid's y limit.  So ``blocks_per_sm``
+    caps the CTAs an SM is counted to hold; at and above the residency it
+    changes nothing.
+    """
+
+    def split(row_blocks, outer, per_sm):
+        slots = CLUSTER_SLOTS[per_sm]
+        waves = -(-row_blocks // slots[1])  # clusters of one: the most a wave holds
+        best = (0, 0, 0)  # (CTAs, splits, groups)
+        for s in SPLITS:
+            groups = min(waves * slots[s] // row_blocks, outer // s, MAX_GRID_Y // s)
+            if groups >= 1:
+                best = max(best, (row_blocks * groups * s, s, groups))
+        return best[2], best[1], 1
+
+    return _cluster_launch(shape, n, rank, blocks_per_sm, split)
+
+
+def workspace_shape(g: ClusterLaunch, rows: int, rank: int) -> tuple[int, int, int] | None:
+    """The unbatched launch's workspace: the groups' ``(groups, rows, rank)``
+    partials, or None with one group (its clusters write the output)."""
+    return (g.groups, rows, rank) if g.groups > 1 else None
+
+
+def occupancy(g: ClusterLaunch, rank: int) -> tuple[int, int]:
+    """``(CTAs an SM holds, clusters the card holds)`` of the kernel at
+    launch ``g``, from the CUDA occupancy queries (on the card only)."""
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
-    BATCHED_OCCUPANCY.query(
+    OCCUPANCY.query(
         rank, int(g.i_contig), g.q_chunk, g.splits, ctypes.byref(per_sm), ctypes.byref(clusters)
     )
     return per_sm.value, clusters.value
@@ -308,24 +368,27 @@ def _check_kernel_operands(x: Tensor, us: Sequence[Tensor], others: list[int]) -
     return c
 
 
-def _launch(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
-            blocks_per_sm: int) -> Tensor:
-    """Check the operands and launch the unbatched kernel and its split-sum
-    pass.  Returns ``(I_n, C)``."""
-    mode_shape = x.shape
+def _launch_unbatched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
+                      blocks_per_sm: int) -> Tensor:
+    """Check the operands and launch the unbatched kernel (and, with more
+    than one group, its pass over the workspace).  Returns ``(I_n, C)``."""
+    mode_shape = tuple(int(d) for d in x.shape)
     big_n = len(mode_shape)
     c = _check_kernel_operands(x, us, others)
-    _reduction_blocks(mode_shape, n, c)
+    g = unbatched_launch_shape(mode_shape, n, c, blocks_per_sm)
     rows = mode_shape[n]
-    o_per_split, splits = launch_split(mode_shape, n, x.device, blocks_per_sm=blocks_per_sm)
-    ws = torch.empty((splits, rows, c), dtype=torch.float32, device=x.device)
-    out = torch.empty((rows, c), dtype=torch.float32, device=x.device)
+    out = x.new_empty((rows, c))
+    ws_shape = workspace_shape(g, rows, c)
+    ws = None if ws_shape is None else x.new_empty(ws_shape)
+    x_ptr = x.data_ptr()
     KERNEL.launch(
-        x.data_ptr(),
+        x_ptr,
         _factor_pointers(us, others, big_n),
-        (ctypes.c_int64 * big_n)(*[int(d) for d in mode_shape]),
-        big_n, n, c, o_per_split, splits, ws.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        (ctypes.c_int64 * big_n)(*mode_shape),
+        big_n, n, c, g.groups, g.splits, g.q_chunk,
+        int(g.vec and x_ptr % 16 == 0),  # a contiguous view may start off a 16-byte line
+        None if ws is None else ws.data_ptr(), out.data_ptr(),
+        torch._C._cuda_getCurrentRawStream(x.device.index),
     )
     return out
 
@@ -379,10 +442,11 @@ def matrix_free_kernel(
     factors ``(I_k, C)`` in ascending mode order.  CUDA tensors launch the
     kernel (contiguous float32 operands, rank up to 64, else it raises); CPU
     tensors take the plain version.  Any extent is accepted: the kernel
-    masks ragged tiles, so nothing is padded.  ``blocks_per_sm`` sizes the
-    split of the outer reduction
-    (:func:`~repro_torch.kernels._tiling.split_reduction`); the plain
-    version ignores it.  ``block_i``, ``blocks`` and ``interpret`` are the
+    masks ragged tiles, so nothing is padded.  The launch comes
+    from :func:`unbatched_launch_shape`, whose split of the outer reduction
+    counts at most ``blocks_per_sm`` CTAs an SM (at or above the kernel's
+    residency, 2 at rank <= 32, it changes nothing); the plain version
+    ignores it.  ``block_i``, ``blocks`` and ``interpret`` are the
     reference's keywords, taken for its signature: the CUDA tiles are
     fixed at compile time and nothing is padded to a block, so they change
     nothing, and ``interpret`` never decides the device.
@@ -391,7 +455,7 @@ def matrix_free_kernel(
     _reference_blocks(others, block_i, blocks)
     if not use_kernel(x, *us):
         return matrix_free_kernel_plain(x, us, n)
-    return _launch(x, us, n, others, blocks_per_sm)
+    return _launch_unbatched(x, us, n, others, blocks_per_sm)
 
 
 def matrix_free_batched_kernel(

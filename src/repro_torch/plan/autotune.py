@@ -48,9 +48,11 @@ Tensor = torch.Tensor
 CACHE_ENV = "REPRO_TUNING_CACHE"
 
 # Candidate blocks_per_sm values of the fused and matrix-free kernels (the
-# default first): how many thread blocks a launch aims for per SM when it
-# splits its outer reduction over the grid's y axis.  More splits mean more
-# bytes in flight and a longer fixed-order second pass.
+# default first): how many thread blocks a fused launch aims for per SM when
+# it splits its outer reduction over the grid's y axis (more splits mean
+# more bytes in flight and a longer fixed-order second pass), and the most
+# CTAs an SM is counted to hold when a matrix-free launch fills its waves
+# (at or above the kernel's residency, 2 at rank <= 32, one launch).
 FUSED_TILE_CANDIDATES = (4, 2, 8, 16)
 MATRIX_FREE_TILE_CANDIDATES = (4, 2, 8, 16)
 
@@ -315,11 +317,13 @@ def _tune_matrix_free_tiles(
     from repro_torch.kernels import ops as kops
 
     n = x.ndim // 2
+    rank = factors[0].shape[-1]
 
-    def effective(cand):  # the kernel's (outer steps per split, splits)
+    def effective(cand):  # the kernel's (groups, splits)
         if not x.is_cuda:
             return ()
-        return mf.launch_split(x.shape, n, x.device, blocks_per_sm=cand[0])
+        g = mf.unbatched_launch_shape(tuple(x.shape), n, rank, cand[0])
+        return g.groups, g.splits
 
     rows = _tile_rows(
         tuple((b,) for b in MATRIX_FREE_TILE_CANDIDATES),

@@ -452,7 +452,7 @@ def test_matrix_free_batched_kernel_is_one_cuda_kernel_and_no_workspace(cuda):
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         assert [e.name for e in kernels] == [kernels[0].name]
-        assert "matrix_free_batched_cluster_kernel" in kernels[0].name
+        assert "matrix_free_cluster_kernel" in kernels[0].name
         del out
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -480,10 +480,129 @@ def test_matrix_free_batched_residency_matches_the_occupancy_query(cuda, shape, 
     assert torch.cuda.get_device_properties(0).multi_processor_count == mf.SMS
     for n in range(len(shape)):
         g = mf.launch_shape(shape, n, rank, slabs)
-        per_sm, clusters = mf.batched_occupancy(g, rank)
+        per_sm, clusters = mf.occupancy(g, rank)
         assert per_sm >= g.residency and clusters >= 1
         if shape == (225, 200, 200):  # the serving shapes: exactly the constant
             assert per_sm == g.residency
+
+
+# ---- the unbatched matrix-free kernel: groups x splits parts, clusters summed on chip
+
+# Orders 3-6, every mode: groups of 1 and more, clusters of 1, 2, 4 and 8,
+# a single group of 8 (one launch), a target mode of 282 row blocks (two
+# waves of clusters of one), 4- and 16-byte copies.
+MF_SHAPES = [(5, 6, 7), (33, 70, 129), (33, 8, 12), (3, 5, 9000), (37, 23, 41, 30),
+             (40, 50, 60, 8), (65, 3, 40, 8), (12, 10, 8, 9, 11), (3, 4, 2, 3, 2),
+             (6, 7, 5, 8, 6, 7), (2, 3, 2, 3, 2, 3)]
+
+
+def _unbatched_inputs(cuda, shape, rank, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=cuda)
+    return x, [torch.randn((d, rank), generator=g, device=cuda) for d in shape]
+
+
+@pytest.mark.parametrize("rank", [1, 7, 10, 16, 48, 64])
+@pytest.mark.parametrize("shape", MF_SHAPES)
+def test_matrix_free_cluster_kernel_unbatched_matches_plain(cuda, shape, rank):
+    """Every mode: one counted launch a call, within 1e-4 of the plain
+    version, bitwise repeatable."""
+    x, fs = _unbatched_inputs(cuda, shape, rank, seed=rank)
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        before = (mf.KERNEL.launches, mf.BATCHED_KERNEL.launches)
+        out = mf.matrix_free_kernel(x, us, n)
+        assert (mf.KERNEL.launches, mf.BATCHED_KERNEL.launches) == (before[0] + 1, before[1])
+        assert tuple(out.shape) == (shape[n], rank)
+        assert _rel(out, mf.matrix_free_kernel_plain(x, us, n)) < REL
+        assert torch.equal(out, mf.matrix_free_kernel(x, us, n))
+
+
+@pytest.mark.parametrize("shape", [(225, 8, 200, 200), (37, 23, 41, 28), (33, 70, 128)])
+def test_matrix_free_kernel_on_a_misaligned_view(cuda, shape):
+    """A contiguous view 4 bytes off a 16-byte line takes 4-byte copies: the
+    same sums as the aligned call's 16-byte copies, bit for bit."""
+    x, fs = _unbatched_inputs(cuda, shape, 10, seed=23)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xm = buf[1:].view(x.shape)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 == 4
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        out = mf.matrix_free_kernel(xm, us, n)
+        assert _rel(out, mf.matrix_free_kernel_plain(xm, us, n)) < REL
+        assert torch.equal(out, mf.matrix_free_kernel(x, us, n))
+
+
+def test_matrix_free_kernel_refuses_16_byte_copies_of_a_misaligned_x(cuda):
+    import ctypes
+
+    x, fs = _unbatched_inputs(cuda, (8, 6, 12), 4, seed=3)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    xm = buf[1:].view(x.shape)
+    out = torch.empty((8, 4), device=cuda)
+    ws = torch.empty((3, 8, 4), device=cuda)
+    ptrs = (ctypes.c_void_p * 3)(0, fs[1].data_ptr(), fs[2].data_ptr())
+    shape = (ctypes.c_int64 * 3)(8, 6, 12)
+    args = [ptrs, shape, 3, 0, 4, 3, 2, 12]  # 3 groups of 2 over the 6 outer indices
+    before = mf.KERNEL.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        mf.KERNEL.launch(xm.data_ptr(), *args, 1, ws.data_ptr(), out.data_ptr(), 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # more groups, no workspace
+        mf.KERNEL.launch(x.data_ptr(), *args, 1, None, out.data_ptr(), 0)
+    mf.KERNEL.launch(xm.data_ptr(), *args, 0, ws.data_ptr(), out.data_ptr(), 0)  # 4-byte copies
+    assert mf.KERNEL.launches == before + 1
+    us = [fs[1], fs[2]]
+    assert _rel(out, mf.matrix_free_kernel_plain(xm, us, 0)) < REL
+
+
+def test_matrix_free_kernel_launches_the_cuda_kernels_its_design_states(cuda):
+    """One kernel a call with one group (the clusters write the output),
+    two with more (the groups' partials, then their sum in group order);
+    no workspace with one group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape in [(33, 8, 12), (45, 40, 44), (3, 5, 9000)]:
+        x, fs = _unbatched_inputs(cuda, shape, 10, seed=5)
+        for n in range(3):
+            us = [fs[k] for k in range(3) if k != n]
+            g = mf.unbatched_launch_shape(shape, n, 10)
+            mf.matrix_free_kernel(x, us, n)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = mf.matrix_free_kernel(x, us, n)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            assert "matrix_free_cluster_kernel" in names[0]
+            if g.groups == 1:
+                assert len(names) == 1
+            else:
+                assert len(names) == 2 and "sum_splits_kernel" in names[1]
+            del out
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            out = mf.matrix_free_kernel(x, us, n)
+            grew = torch.cuda.max_memory_allocated() - base
+            ws = 0 if g.groups == 1 else 512 * -(-g.groups * shape[n] * 10 * 4 // 512)
+            assert grew <= 512 * -(-out.numel() * 4 // 512) + ws
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 32, 48, 64])
+@pytest.mark.parametrize("shape", [(225, 59, 200, 200), (225, 59, 20100), (37, 23, 41, 30),
+                                   (5, 6, 7)])
+def test_matrix_free_unbatched_residency_and_cluster_slots_match_the_occupancy_query(
+        cuda, shape, rank):
+    """The residency and the clusters a wave that unbatched_launch_shape
+    counts are what the CUDA occupancy queries give on this card."""
+    assert torch.cuda.get_device_properties(0).multi_processor_count == mf.SMS
+    for n in range(len(shape)):
+        g = mf.unbatched_launch_shape(shape, n, rank)
+        per_sm, clusters = mf.occupancy(g, rank)
+        assert per_sm == g.residency
+        assert clusters == mf.CLUSTER_SLOTS[g.residency][g.splits]
+        assert g.row_blocks * g.groups <= clusters or g.groups == 1  # one wave, or groups of 1
 
 
 @pytest.mark.parametrize("rank,dtype", [(80, torch.float32), (10, torch.float64)])

@@ -1,17 +1,19 @@
-"""The batched matrix-free CUDA kernel's launch geometry, on the CPU.
+"""The matrix-free CUDA kernel's launch geometry, on the CPU.
 
-``repro_torch.kernels.matrix_free.launch_shape`` is pure Python: it sizes
-the one launch of ``matrix_free_batched_cluster_kernel`` (csrc/matrix_free.cu)
-from the shape alone.  The kernel runs only on the card
-(``tests/test_torch_gpu.py`` holds it against its plain version there); here
-the geometry is checked to cover the work exactly once and to stay inside the
-card's limits, and the kernel's per-thread copy loop is replayed to show that
-it copies every element of a tile exactly once.
+``repro_torch.kernels.matrix_free.launch_shape`` (a stack of tensors) and
+``unbatched_launch_shape`` (one tensor) are pure Python: they size the
+launches of ``matrix_free_cluster_kernel`` (csrc/matrix_free.cu) from the
+shape alone.  The kernel runs only on the card (``tests/test_torch_gpu.py``
+holds it against its plain version there); here the geometry is checked to
+cover the work exactly once and to stay inside the card's limits, and the
+kernel's per-thread copy loop is replayed to show that it copies every
+element of a tile exactly once.
 """
 
 import collections
 import math
 
+import numpy as np
 import pytest
 
 from repro_torch.kernels import matrix_free as tmf
@@ -52,7 +54,7 @@ def _check(shape, n, rank, slabs):
     q = tmf.contracted_mode(order, n)
     outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
     # every (slab, row) in exactly one CTA: slab = grid z, BLOCK_ROWS rows a row block
-    assert g.slabs == slabs and g.outer == outer
+    assert g.slabs == slabs and g.outer == outer and g.groups == 1
     assert (g.row_blocks - 1) * BLOCK_ROWS < shape[n] <= g.row_blocks * BLOCK_ROWS
     # every outer index in exactly one rank of its cluster; the cluster is grid y
     assert g.splits in tmf.SPLITS and g.splits <= outer
@@ -61,7 +63,7 @@ def _check(shape, n, rank, slabs):
     assert g.q_chunk % 4 == 0 and g.q_chunk >= 4
     assert (g.chunks - 1) * g.q_chunk < shape[q] <= g.chunks * g.q_chunk
     # shared memory and grid limits
-    assert g.smem == tmf.batched_smem(g.q_chunk, _padded(rank), g.i_contig)
+    assert g.smem == tmf.cluster_smem(g.q_chunk, _padded(rank), g.i_contig)
     assert g.smem <= tmf.SMEM_BYTES
     assert g.residency * (g.smem + tmf.BLOCK_RESERVED_SMEM) <= tmf.SM_SMEM_BYTES
     assert g.row_blocks <= GRID_X and g.splits <= GRID_YZ and g.slabs <= GRID_YZ
@@ -131,8 +133,8 @@ def test_long_contracted_modes_are_cut_into_equal_chunks():
     g = tmf.launch_shape((225, 59, 20100), 1, 10, 3)
     assert g.chunks > 1 and g.q_chunk * g.chunks - 20100 < 4 * g.chunks
     smem_budget = tmf.SM_SMEM_BYTES // g.residency - tmf.BLOCK_RESERVED_SMEM
-    assert tmf.batched_smem(g.q_chunk, 12, False) <= smem_budget
-    assert tmf.batched_smem(g.q_chunk + 4, 12, False) > smem_budget or g.chunks == 1
+    assert tmf.cluster_smem(g.q_chunk, 12, False) <= smem_budget
+    assert tmf.cluster_smem(g.q_chunk + 4, 12, False) > smem_budget or g.chunks == 1
     # rank 64 keeps one CTA an SM and the whole fleet q extent
     g = tmf.launch_shape(FLEET, 0, 64, 8)
     assert (g.residency, g.chunks, g.q_chunk) == (1, 1, 200)
@@ -172,6 +174,169 @@ def _copies(g, ni):
 def test_the_copy_loop_copies_every_tile_element_once(shape, rank):
     for n in range(len(shape)):
         g = tmf.launch_shape(shape, n, rank, 1)
+        tails = {BLOCK_ROWS, shape[n] - (g.row_blocks - 1) * BLOCK_ROWS}
+        for ni in tails:
+            if g.vec and g.i_contig:
+                assert ni % 4 == 0  # a quad of rows is all in or all out
+            want = collections.Counter(
+                (i, j) for i in range(ni) for j in range(g.q_chunk)
+            )
+            assert _copies(g, ni) == want
+
+
+# ---- the unbatched launch: groups x splits parts of one tensor's outer range
+
+FMRI = (225, 59, 200, 200)
+LINEAR3 = (225, 59, 20100)  # the fMRI tensor's 3-way linearization
+
+
+def _check_unbatched(shape, n, rank, bps=4):
+    """The unbatched launch at mode ``n``: every row, outer index and index
+    of q in exactly one (row block, part, chunk), within the card's limits."""
+    g = tmf.unbatched_launch_shape(shape, n, rank, bps)
+    order = len(shape)
+    q = tmf.contracted_mode(order, n)
+    outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
+    parts = g.groups * g.splits
+    assert g.slabs == 1 and g.outer == outer
+    assert (g.row_blocks - 1) * BLOCK_ROWS < shape[n] <= g.row_blocks * BLOCK_ROWS
+    # part blockIdx.y = group * splits + rank: every outer index in exactly one part
+    assert g.splits in tmf.SPLITS and g.groups >= 1
+    assert parts <= outer and parts <= GRID_YZ
+    assert _cover(outer, parts) == collections.Counter(range(outer))
+    assert g.q_chunk % 4 == 0 and (g.chunks - 1) * g.q_chunk < shape[q] <= g.chunks * g.q_chunk
+    # shared memory within the residency, grid limits, copies
+    assert g.smem == tmf.cluster_smem(g.q_chunk, _padded(rank), g.i_contig)
+    assert g.smem <= tmf.SMEM_BYTES
+    assert g.residency * (g.smem + tmf.BLOCK_RESERVED_SMEM) <= tmf.SM_SMEM_BYTES
+    assert g.row_blocks <= GRID_X
+    assert g.i_contig == (n == order - 1) and g.vec == (shape[-1] % 4 == 0)
+    return g
+
+
+def _boxes(g, shape, n):
+    """How often the launch covers each (row, outer index, index of q): one
+    box a (row block, part, chunk), counted on a dense grid."""
+    q = tmf.contracted_mode(len(shape), n)
+    parts = g.groups * g.splits
+    count = np.zeros((shape[n], g.outer, shape[q]), dtype=np.int32)
+    for b in range(g.row_blocks):
+        for p in range(parts):
+            o0, o1 = g.outer * p // parts, g.outer * (p + 1) // parts
+            for ch in range(g.chunks):
+                count[b * BLOCK_ROWS:(b + 1) * BLOCK_ROWS, o0:o1,
+                      ch * g.q_chunk:(ch + 1) * g.q_chunk] += 1
+    return count
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 64])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_unbatched_launch_covers_every_row_outer_index_and_q_index_once(shape, rank):
+    for n in range(len(shape)):
+        g = _check_unbatched(shape, n, rank)
+        assert (_boxes(g, shape, n) == 1).all()
+
+
+@pytest.mark.parametrize("rank", [1, 10, 16, 64])
+@pytest.mark.parametrize("shape", [FMRI, LINEAR3, FLEET], ids=lambda s: "x".join(map(str, s)))
+def test_unbatched_launch_of_the_fmri_shapes_within_the_limits(shape, rank):
+    for n in range(len(shape)):
+        _check_unbatched(shape, n, rank)
+
+
+def _waves(row_blocks, groups, splits, per_sm):
+    return math.ceil(row_blocks * groups / tmf.CLUSTER_SLOTS[per_sm][splits])
+
+
+@pytest.mark.parametrize("rank", [1, 10, 64])
+@pytest.mark.parametrize(
+    "shape", SHAPES + [FMRI, LINEAR3, FLEET, (20100, 3, 5)], ids=lambda s: "x".join(map(str, s))
+)
+def test_unbatched_launch_fills_the_fewest_whole_waves_counted_by_cluster(shape, rank):
+    """Against every legal (splits, groups): the launch takes the fewest
+    waves, counting a wave as the clusters of its size the card holds, and
+    no launch in that many waves runs more CTAs; on a tie the larger split."""
+    for bps in (1, 2, 4, 16):
+        for n in range(len(shape)):
+            g = tmf.unbatched_launch_shape(shape, n, rank, bps)
+            per_sm = min(bps, g.residency)
+            legal = [(s, k) for s in tmf.SPLITS
+                     for k in range(1, min(g.outer // s, GRID_YZ // s) + 1)]
+            fewest = min(_waves(g.row_blocks, k, s, per_sm) for s, k in legal)
+            within = [(g.row_blocks * k * s, s) for s, k in legal
+                      if _waves(g.row_blocks, k, s, per_sm) <= fewest]
+            assert _waves(g.row_blocks, g.groups, g.splits, per_sm) == fewest
+            assert (g.row_blocks * g.groups * g.splits, g.splits) == max(within)
+
+
+def test_unbatched_fmri_launches_fill_one_wave_of_cluster_slots():
+    """Rank 10 on the fMRI tensor: one wave each, 264 / 264 / 259 / 259 CTAs
+    of the 264 slots of 132 SMs at 2 CTAs each, the whole q extent of 200
+    in every stage.  Clusters of 4 would hold 248 (62 on the card), so mode
+    0 counted by SM (8 groups of 4: 64 clusters) would spill a second wave."""
+    want = {0: (8, 33, 1), 1: (2, 66, 2), 2: (7, 37, 1), 3: (7, 37, 1)}
+    for n, (row_blocks, groups, splits) in want.items():
+        g = _check_unbatched(FMRI, n, 10)
+        assert (g.row_blocks, g.groups, g.splits) == (row_blocks, groups, splits)
+        assert (g.q_chunk, g.chunks, g.residency, g.vec) == (200, 1, 2, True)
+        assert g.row_blocks * g.groups <= tmf.CLUSTER_SLOTS[2][g.splits]
+    assert 8 * 8 > tmf.CLUSTER_SLOTS[2][4]
+
+
+def test_unbatched_linearization_cuts_q_into_equal_chunks():
+    """The 3-way linearization's q (20100 at modes 0 and 1) does not fit a
+    stage: the fewest equal chunks that do; its mode 2 (20100 rows) needs
+    three waves of clusters of one."""
+    smem_budget = tmf.SM_SMEM_BYTES // 2 - tmf.BLOCK_RESERVED_SMEM
+    for n in (0, 1):
+        g = _check_unbatched(LINEAR3, n, 10)
+        assert g.chunks > 1 and g.q_chunk * g.chunks - 20100 < 4 * g.chunks
+        assert tmf.cluster_smem(g.q_chunk, 12, False) <= smem_budget
+        assert tmf.cluster_smem(g.q_chunk + 4, 12, False) > smem_budget
+    g = _check_unbatched(LINEAR3, 2, 10)
+    assert (g.row_blocks, g.groups, g.splits, g.chunks) == (629, 1, 1, 1)
+    assert math.ceil(g.row_blocks / tmf.CLUSTER_SLOTS[2][1]) == 3
+
+
+@pytest.mark.parametrize("rank", [1, 10, 64])
+def test_unbatched_workspace_holds_the_groups_partials(rank):
+    for shape in [FMRI, LINEAR3] + SHAPES:
+        for n in range(len(shape)):
+            g = tmf.unbatched_launch_shape(shape, n, rank)
+            ws = tmf.workspace_shape(g, shape[n], rank)
+            if g.groups == 1:
+                assert ws is None  # the clusters write the output
+            else:
+                assert ws == (g.groups, shape[n], rank)
+            if shape == FMRI and rank == 10:
+                assert 4 * math.prod(ws) < 0.3e6  # under 0.3 MB
+    assert tmf.workspace_shape(tmf.unbatched_launch_shape(FMRI, 0, 10), 225, 10) == (33, 225, 10)
+
+
+def test_unbatched_blocks_per_sm_caps_the_ctas_an_sm_counts():
+    for shape in (FMRI, LINEAR3, (33, 70, 129)):
+        for n in range(len(shape)):
+            default = tmf.unbatched_launch_shape(shape, n, 10)
+            assert tmf.unbatched_launch_shape(shape, n, 10, 4) == default  # the default knob
+            assert tmf.unbatched_launch_shape(shape, n, 10, 2) == default  # the residency
+            assert tmf.unbatched_launch_shape(shape, n, 10, 16) == default
+            assert tmf.unbatched_launch_shape(shape, n, 64, 1) == tmf.unbatched_launch_shape(
+                shape, n, 64)  # rank 64: one CTA an SM anyway
+    # one CTA an SM counted: half the clusters a wave; 128 CTAs as 8 groups of 2
+    # (16 groups of 1 run as many, and the larger split wins the tie)
+    g = tmf.unbatched_launch_shape(FMRI, 0, 10, 1)
+    assert (g.groups, g.splits) == (8, 2) and g.row_blocks * g.groups <= tmf.CLUSTER_SLOTS[1][2]
+    with pytest.raises(ValueError):
+        tmf.unbatched_launch_shape(FMRI, 0, 10, 0)
+
+
+@pytest.mark.parametrize("rank", [10, 64])
+@pytest.mark.parametrize(
+    "shape", [FMRI, LINEAR3] + SHAPES, ids=lambda s: "x".join(map(str, s))
+)
+def test_the_copy_loop_copies_every_tile_element_once_at_the_unbatched_shapes(shape, rank):
+    for n in range(len(shape)):
+        g = tmf.unbatched_launch_shape(shape, n, rank)
         tails = {BLOCK_ROWS, shape[n] - (g.row_blocks - 1) * BLOCK_ROWS}
         for ni in tails:
             if g.vec and g.i_contig:
