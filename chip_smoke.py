@@ -14,6 +14,7 @@ CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions.
 
     python3 chip_smoke.py [--seed 0] [--rank 10] [--sweeps 5]
+    python3 chip_smoke.py --only fused                # phases 0-7 of rows 1 and 3 only
     python3 chip_smoke.py --only matrix_free          # phases 0-4 of row 2 only
     python3 chip_smoke.py --only batched_matrix_free  # phases 0, 1, 5, 7 of row 4 only
 
@@ -37,17 +38,19 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    card run must agree with the port's CPU run.
 4. timing of each kernel per mode at the main path's shapes with CUDA
    events, beside its plain version, one PyTorch einsum call and the bound
-   ``max(bytes / 3.35e12, flops / 67e12)``; for the matrix-free kernel
-   also device ms a launch (``torch.profiler``) and the CUDA kernels a call
-   (counted exactly in a CUDA graph of one call: 1 with one group, 2 with
-   more, as its launch states) and its residency
-   and cluster slots against the CUDA occupancy queries.
+   ``max(bytes / 3.35e12, flops / 67e12)``; for both kernels also device
+   ms a launch (``torch.profiler``) and the CUDA kernels a call (counted
+   exactly in a CUDA graph of one call: 1 with one group, 2 with more, as
+   each launch states), and for the matrix-free kernel its residency and
+   cluster slots against the CUDA occupancy queries.
 5. batched kernels vs plain versions on the card, same bound: both on every
    mode of an 8-subject batch (8 x 225 x 200 x 200, cut from the tensor by
    subject) and of an odd 5-subject batch, the matrix-free one also on small
    order-4, 5 and 6 batches; both at rank 16 (the serving path's second
    signature) on the 8-subject batch and, unbatched, on subject 0; slab 0's
-   output bitwise unchanged when the other slabs hold other data.
+   output bitwise unchanged when the other slabs hold other data; the
+   batched fused kernel bitwise equal to the batched matrix-free kernel on
+   the 8-subject batch (its views of a 3-way stack are the stack itself).
 6. serving path: ``CPService(batch_size=8, n_iters=sweeps, tol=0)`` under
    strategies autotune (empty tuning cache: the model plans), fused and
    matrix_free serves the 59 subjects at rank ``--rank`` plus subjects 0-7
@@ -63,7 +66,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``batch_size=8`` ones within ``FIT_AGREE``).  Prints problems/s and ms per batch (host clock
    over a second flush of the same fleet) and peak memory.
 7. timing of both batched kernels per mode at ``(8, 225, 200, 200)``, as in
-   phase 4, and the batched sweep's time outside the kernels: the host-clock
+   phase 4 (device ms a launch and CUDA kernels a call, which must be 1,
+   for both), and the batched sweep's time outside the kernels: the host-clock
    time of a batched ``cp_als`` run as a dispatch runs it (one sync) less
    the kernels' CUDA-event times from the separate timing loop.
 8. new kernels vs plain versions on the card, same bound: multi-TTV at the
@@ -437,16 +441,16 @@ def _row4_occupancy(torch, xb, smi, phase):
                                  f"< the residency {g.residency} its geometry assumes")
 
 
-def _trace_served_sweep(torch, args, xb, init, smi, phase):
-    """A batch dispatch as ``CPService`` runs it under ``matrix_free`` (its
+def _trace_served_sweep(torch, args, xb, init, smi, phase, strategy="matrix_free"):
+    """A batch dispatch as ``CPService`` runs it under ``strategy`` (its
     sweeps in one chunk, one host sync), traced by ``torch.profiler``."""
     from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
 
-    plan = plan_sweep(Problem(tuple(xb.shape[1:]), args.rank, batch=xb.shape[0]), "matrix_free",
+    plan = plan_sweep(Problem(tuple(xb.shape[1:]), args.rank, batch=xb.shape[0]), strategy,
                       tuning_cache=TuningCache())
     wall, evs = _trace(torch, lambda: cp_als(xb, plan, n_iters=args.sweeps, tol=0.0,
                                               init_factors=init, sweeps_per_sync=args.sweeps))
-    _log_trace(f"[{phase}] trace of one matrix_free batch dispatch (S={xb.shape[0]}, rank "
+    _log_trace(f"[{phase}] trace of one {strategy} batch dispatch (S={xb.shape[0]}, rank "
                f"{args.rank}, {args.sweeps} sweeps, one sync), per sweep", wall, evs,
                args.sweeps, smi)
 
@@ -555,15 +559,15 @@ def _row2_occupancy(torch, smi, phase):
     return want
 
 
-def _trace_big_sweep(torch, args, x4, init, smi, phase):
-    """Sweeps of the big tensor under ``matrix_free`` (all in one chunk,
-    one host sync), traced by ``torch.profiler``, per sweep."""
+def _trace_big_sweep(torch, args, x4, init, smi, phase, strategy="matrix_free"):
+    """Sweeps of the big tensor under ``strategy`` (all in one chunk, one
+    host sync), traced by ``torch.profiler``, per sweep."""
     from repro_torch.plan import Problem, cp_als, plan_sweep
 
-    plan = plan_sweep(Problem.from_tensor(x4, args.rank), strategy="matrix_free")
+    plan = plan_sweep(Problem.from_tensor(x4, args.rank), strategy=strategy)
     wall, evs = _trace(torch, lambda: cp_als(x4, plan, n_iters=args.sweeps, tol=0.0,
                                               init_factors=init, sweeps_per_sync=args.sweeps))
-    _log_trace(f"[{phase}] trace of the big tensor under matrix_free ({tuple(x4.shape)}, rank "
+    _log_trace(f"[{phase}] trace of the big tensor under {strategy} ({tuple(x4.shape)}, rank "
                f"{args.rank}, {args.sweeps} sweeps, one sync), per sweep", wall, evs,
                args.sweeps, smi)
 
@@ -617,6 +621,101 @@ def _mf_checks(torch, gen, dev, check, x4, rank, phase=2):
                   mf.matrix_free_kernel(x, us, n), mf.matrix_free_kernel_plain(x, us, n), phase)
 
 
+def _only_fused(torch, args, dev, smi) -> None:
+    """``--only fused``: build ``fused_mttkrp.cu`` and ``matrix_free.cu``,
+    run phase 2's fused checks and the row-1 checks, phase 5's batched
+    fused checks and row 3 against row 4 bitwise, time both fused kernels
+    per mode as phases 4 and 7 do (CUDA events; device time by the
+    profiler and CUDA kernels a call from a CUDA graph of one call;
+    occupancy against the residency and cluster slots the geometry
+    counts), time the batch's modes at every split, and time and trace
+    the big tensor's and the batch's ``fused`` sweeps.  On a tree without
+    the fold's geometry it gates nothing that the fold changed (the
+    kernels a call, row 3 = row 4) and only prints."""
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
+
+    fold = hasattr(fm, "launch_geometry")
+    t0 = time.perf_counter()
+    _build.build_all([fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL])
+    _log(f"[1] built {fm.KERNEL.source.name} and {mf.KERNEL.source.name} in "
+         f"{time.perf_counter() - t0:.1f} s")
+    for line in fm.KERNEL.ptxas_log.splitlines():
+        if "entry function" in line or "Used" in line or "spill" in line:
+            _log(f"[1] {fm.KERNEL.source.name}: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    rank = args.rank
+    x4 = synth_fmri(torch, gen, rank, dev)
+    err = {"fused": 0.0, "fused_b": 0.0}
+    check = _checker(torch, err)
+    f4 = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+    for n in range(4):  # phase 2's fused checks
+        t, a, b, pos = ops.bilinear_operands(x4, f4, n)
+        check(f"fused 4-way mode {n} pos {pos} T{tuple(t.shape)}{_fused_geometry(t, pos, rank)}",
+              "fused", fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+              fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos))
+    _row1_checks(torch, gen, dev, check, x4, 2)
+    xb = torch.stack([x4[:, s].contiguous() for s in range(SERVE_BATCH)])
+    fb = [torch.randn((SERVE_BATCH, d, rank), generator=gen, device=dev) for d in xb.shape[1:]]
+    fb16 = [torch.randn((SERVE_BATCH, d, SECOND_RANK), generator=gen, device=dev)
+            for d in xb.shape[1:]]
+    for n in range(3):  # phase 5's batched fused checks
+        for label, x, fs in ((f"S={SERVE_BATCH}", xb, fb), ("S=5 (odd)", xb[:5], [f[:5] for f in fb]),
+                             (f"S={SERVE_BATCH} rank {SECOND_RANK}", xb, fb16)):
+            t, a, b, pos = ops.bilinear_operands_batched(x, fs, n)
+            check(f"fused batched {label} mode {n} pos {pos} T{tuple(t.shape)}"
+                  f"{_fused_geometry(t, pos, a.shape[-1], x.shape[0])}", "fused_b",
+                  fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos),
+                  fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos), 5)
+    del fb16
+    _row3_same_as_row4(torch, xb, fb, 5, gate=fold)
+    torch.cuda.synchronize()
+    init = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+    _row1_times(torch, x4, init, smi, 4)
+    got = _row1_device(torch, x4, init, smi, 4)
+    if fold:
+        want = _row1_want_kernels(x4, init)
+        _log(f"[4] fused_mttkrp_bilinear CUDA kernels a call {got} (want {want})")
+        if got != want:
+            raise SystemExit("fused_mttkrp_bilinear: CUDA kernels a call off its design")
+    _row3_times(torch, xb, fb, smi, 7)
+    got = _row3_device(torch, xb, fb, smi, 7)
+    if fold and set(got) != {1}:
+        raise SystemExit(f"fused_mttkrp_bilinear_batched: {got} CUDA kernels a call, not 1")
+    if fold:
+        _fused_occupancy(torch, x4, xb, smi, 4)
+    _row4_splits(torch, xb, fb, smi, 7)
+    plan = plan_sweep(Problem.from_tensor(x4, rank), strategy="fused")
+    for _ in range(2):  # the second run's sweeps
+        fm.KERNEL.launches = 0
+        secs = []
+        cp_als(x4, plan, n_iters=args.sweeps, tol=0.0, init_factors=init,
+               callback=lambda it, f, dt: secs.append(dt))
+        torch.cuda.synchronize()
+    _log(f"[3] fused: per-sweep s {secs} (host clock, one device sync per sweep); "
+         f"launches fused {fm.KERNEL.launches}; card {smi}")
+    _trace_big_sweep(torch, args, x4, init, smi, 3, "fused")
+    del x4
+    initb = [f.clone() for f in fb]
+    plan = plan_sweep(Problem(tuple(xb.shape[1:]), rank, batch=SERVE_BATCH), "fused",
+                      tuning_cache=TuningCache())
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cp_als(xb, plan, n_iters=args.sweeps, tol=0.0, init_factors=initb,
+               sweeps_per_sync=args.sweeps)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / args.sweeps
+    _log(f"[7] batched fused sweep (S={SERVE_BATCH}, rank {rank}): {1e3 * dt:.3f} ms (host clock, "
+         f"cp_als with sweeps_per_sync={args.sweeps} as a served dispatch, its set-up included); "
+         f"card {smi}")
+    _trace_served_sweep(torch, args, xb, initb, smi, 7, "fused")
+    _log(f"[2] max abs err of the fused kernel: {err['fused']:.3e}; [5] of the batched fused "
+         f"kernel: {err['fused_b']:.3e}")
+
+
 def _only_matrix_free(torch, args, dev, smi) -> None:
     """``--only matrix_free``: build ``matrix_free.cu``, run phase 2's
     unbatched matrix-free checks and the row-2 checks, time the kernel per
@@ -657,6 +756,266 @@ def _only_matrix_free(torch, args, dev, smi) -> None:
          f"launches matrix_free {mf.KERNEL.launches}; card {smi}")
     _trace_big_sweep(torch, args, x4, init, smi, 3)
     _log(f"[2] max abs err of the matrix-free kernel: {err['mf']:.3e}")
+
+
+# ---- rows 1 and 3: the fused bilinear kernels (on the cluster body since
+# the fold redesign; the helpers read the geometry only where the port has it)
+
+_BILINEAR = {0: "iab,ac,bc->ic", 1: "aib,ac,bc->ic", 2: "abi,ac,bc->ic"}
+
+
+def _fused_geometry(t, pos, c, slabs=None) -> str:
+    """The fused launch of view ``t`` at ``pos``, where the port computes one."""
+    from repro_torch.kernels import fused_mttkrp as fm
+
+    if not hasattr(fm, "launch_geometry"):
+        return ""
+    g = fm.launch_geometry(tuple(t.shape[-3:]), pos, c, slabs)
+    vec = g.vec and t.data_ptr() % 16 == 0  # as the wrapper decides
+    grid = (f"({g.row_blocks}, {g.groups} x {g.splits})" if slabs is None
+            else f"({g.row_blocks}, {g.splits}, {g.slabs})")
+    return (f" [grid {grid}, clusters of {g.splits}, {g.groups} group(s), q chunk "
+            f"{g.q_chunk} x {g.chunks}, {'16' if vec else '4'}-byte copies, {g.smem} B shared]")
+
+
+def _row1_checks(torch, gen, dev, check, x4, phase):
+    """The unbatched fused kernel beyond phase 2's checks, on the 4-way
+    tensor: every mode at rank 64, run twice bitwise at rank 10, and a
+    misaligned view of 8 subjects (4-byte copies) bitwise equal to the
+    aligned call."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops
+
+    def one(label, x, fs, n):
+        t, a, b, pos = ops.bilinear_operands(x, fs, n)
+        out = fm.fused_mttkrp_bilinear(t, a, b, pos=pos)
+        check(f"fused {label} mode {n} pos {pos} T{tuple(t.shape)}"
+              f"{_fused_geometry(t, pos, a.shape[-1])}", "fused", out,
+              fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos), phase)
+        return out
+
+    def same(label, a, b):
+        ok = torch.equal(a, b)
+        _log(f"[{phase}] fused {label}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"fused {label}: not bitwise equal")
+
+    f10 = [torch.randn((d, 10), generator=gen, device=dev) for d in x4.shape]
+    f64 = [torch.randn((d, 64), generator=gen, device=dev) for d in x4.shape]
+    for n in range(x4.ndim):
+        one("4-way rank 64", x4, f64, n)
+        out = one("4-way rank 10 (run twice)", x4, f10, n)
+        t, a, b, pos = ops.bilinear_operands(x4, f10, n)
+        same(f"mode {n} run twice bitwise equal", out, fm.fused_mttkrp_bilinear(t, a, b, pos=pos))
+    del f64
+    xa = x4[:, :8].contiguous()
+    buf = torch.empty(xa.numel() + 1, device=dev)
+    xm = buf[1:].view(xa.shape)  # a contiguous view 4 bytes off a 16-byte line
+    xm.copy_(xa)
+    fs = f10[:1] + [f10[1][:8]] + f10[2:]
+    for n in range(xa.ndim):
+        out = one(f"8 subjects misaligned x (data_ptr % 16 = {xm.data_ptr() % 16})", xm, fs, n)
+        t, a, b, pos = ops.bilinear_operands(xa, fs, n)
+        same(f"misaligned mode {n} bitwise equal to the aligned call", out,
+             fm.fused_mttkrp_bilinear(t, a, b, pos=pos))
+
+
+def _row1_times(torch, x4, init, smi, phase, reps=20):
+    """Phase 4's row-1 timing: each mode's kernel, plain version and one
+    einsum call (CUDA events) beside the bound; returns the rows."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops
+
+    rows = []
+    for n in range(4):
+        t, a, b, pos = ops.bilinear_operands(x4, init, n)
+        c = a.shape[1]
+        byts = 4 * (t.numel() + a.numel() + b.numel() + t.shape[pos] * c)
+        r = {
+            "ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos), reps),
+            "plain_ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos), 5),
+            "library_ms": _time_ms(torch, lambda: torch.einsum(_BILINEAR[pos], t, a, b), 5),
+            "bytes_ms": byts / HBM_BW * 1e3, "flops_ms": 2 * t.numel() * c / PEAK_FLOPS * 1e3,
+        }
+        rows.append(r)
+        bound = max(r["bytes_ms"], r["flops_ms"])
+        _log(f"[{phase}] fused_mttkrp_bilinear mode {n}: kernel {r['ms']:.4f} ms, plain "
+             f"{r['plain_ms']:.4f} ms, einsum {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
+             f"({'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'})"
+             f"{_fused_geometry(t, pos, c)}; card {smi}")
+    _log(f"[{phase}] fused_mttkrp_bilinear sweep (4 launches): kernel "
+         f"{sum(r['ms'] for r in rows):.4f} ms, bound "
+         f"{sum(max(r['bytes_ms'], r['flops_ms']) for r in rows):.4f} ms; card {smi}")
+    return rows
+
+
+def _row1_device(torch, x4, init, smi, phase):
+    """Device time a launch (``torch.profiler``) and CUDA kernels a call
+    (:func:`_graph_ops`) of the unbatched fused kernel on every mode of the
+    4-way tensor; returns each mode's kernels a call."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops
+
+    per_call = []
+    for n in range(x4.ndim):
+        t, a, b, pos = ops.bilinear_operands(x4, init, n)
+        run = lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos)  # noqa: E731
+        host, dev_us, k, names = _host_device_us(torch, run, 20)
+        ops_, kern = _graph_ops(torch, run)
+        per_call.append(ops_ if ops_ == kern else (ops_, kern))
+        _log(f"[{phase}] fused_mttkrp_bilinear mode {n}: device {dev_us / 1e3:.4f} ms a launch "
+             f"(torch.profiler: {k:g} kernels a call, {names}); {ops_} device operations a "
+             f"call, {kern} of them kernels (CUDA graph of one call); host {host:.2f} us a "
+             f"call (host clock, 20 calls, no sync); card {smi}")
+    return per_call
+
+
+def _row1_want_kernels(x4, init):
+    """The CUDA kernels each mode's fused call launches by design: 1 with
+    one group, 2 with more (the groups' partials, then their sum)."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops
+
+    want = []
+    for n in range(x4.ndim):
+        t, a, _, pos = ops.bilinear_operands(x4, init, n)
+        g = fm.launch_geometry(tuple(t.shape), pos, a.shape[-1])
+        want.append(1 if g.groups == 1 else 2)
+    return want
+
+
+def _row3_times(torch, xb, fb, smi, phase, reps=50):
+    """Phase 7's row-3 timing at the batch: each mode's kernel, plain
+    version and one einsum call (CUDA events) beside the bound; returns the
+    rows."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops
+
+    rows = []
+    for n in range(3):
+        t, a, b, pos = ops.bilinear_operands_batched(xb, fb, n)
+        c = a.shape[-1]
+        spec = "s" + _BILINEAR[pos].replace(",", ",s").replace("->", "->s")
+        r = {
+            "ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos), reps),
+            "plain_ms": _time_ms(
+                torch, lambda: fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos), 10),
+            "library_ms": _time_ms(torch, lambda: torch.einsum(spec, t, a, b), 10),
+            "bytes_ms": 4 * (t.numel() + a.numel() + b.numel() + xb.shape[0] * t.shape[1 + pos]
+                             * c) / HBM_BW * 1e3,
+            "flops_ms": 2 * t.numel() * c / PEAK_FLOPS * 1e3,
+        }
+        rows.append(r)
+        bound = max(r["bytes_ms"], r["flops_ms"])
+        _log(f"[{phase}] fused_mttkrp_bilinear_batched S={xb.shape[0]} mode {n}: kernel "
+             f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, einsum {r['library_ms']:.4f} ms, "
+             f"bound {bound:.4f} ms "
+             f"({'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'})"
+             f"{_fused_geometry(t, pos, c, xb.shape[0])}; card {smi}")
+    _log(f"[{phase}] fused_mttkrp_bilinear_batched batch sweep (3 launches): kernel "
+         f"{sum(r['ms'] for r in rows):.4f} ms, bound "
+         f"{sum(max(r['bytes_ms'], r['flops_ms']) for r in rows):.4f} ms; card {smi}")
+    return rows
+
+
+def _row3_device(torch, xb, fb, smi, phase):
+    """Device time a launch (``torch.profiler``) and CUDA kernels a call
+    (:func:`_graph_ops`) of the batched fused kernel on every mode of the
+    batch; returns the kernels a call."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import ops
+
+    per_call = []
+    for n in range(3):
+        t, a, b, pos = ops.bilinear_operands_batched(xb, fb, n)
+        run = lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos)  # noqa: E731
+        host, dev_us, k, names = _host_device_us(torch, run, 50)
+        ops_, kern = _graph_ops(torch, run)
+        per_call.append(ops_ if ops_ == kern else (ops_, kern))
+        _log(f"[{phase}] fused_mttkrp_bilinear_batched S={xb.shape[0]} mode {n}: device "
+             f"{dev_us / 1e3:.4f} ms a launch (torch.profiler: {k:g} kernels a call, {names}); "
+             f"{ops_} device operations a call, {kern} of them kernels (CUDA graph of one call); "
+             f"host {host:.2f} us a call (host clock, 50 calls, no sync); card {smi}")
+    return per_call
+
+
+def _row3_same_as_row4(torch, xb, fb, phase, gate=True):
+    """The fused views of the 8-subject stack are the stack itself: row 3
+    must equal row 4 (the batched matrix-free kernel) bit for bit."""
+    from repro_torch.kernels import ops
+
+    for n in range(3):
+        same = torch.equal(ops.fused_mttkrp_batched(xb, fb, n),
+                           ops.matrix_free_mttkrp_batched(xb, fb, n))
+        _log(f"[{phase}] fused batched S={xb.shape[0]} mode {n} bitwise equal to matrix_free "
+             f"batched: {'ok' if same else 'FAIL' if gate else 'no (not gated)'}")
+        if gate and not same:
+            raise SystemExit("fused batched differs from matrix_free batched on a 3-way stack")
+
+
+def _fused_occupancy(torch, x4, xb, smi, phase):
+    """The fused launches' residency and cluster slots (rows 1 and 3, ranks
+    10, 16 and 64), from the CUDA occupancy queries of the shared body,
+    against the constants the geometry counts."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import ops
+
+    views = []
+    xm = torch.empty(x4.shape, device="meta")  # shapes only
+    for n in range(x4.ndim):
+        t, _, _, pos = ops.bilinear_operands(xm, [torch.empty((d, 1), device="meta")
+                                                  for d in x4.shape], n)
+        views.append((f"row 1 mode {n}", tuple(t.shape), pos, None))
+    views += [(f"row 3 mode {n}", tuple(xb.shape[1:]), n, xb.shape[0]) for n in range(3)]
+    for rank in (10, SECOND_RANK, 64):
+        for label, view, pos, slabs in views:
+            g = fm.launch_geometry(view, pos, rank, slabs)
+            per_sm, clusters = mf.occupancy(g, rank)
+            counted = mf.CLUSTER_SLOTS[g.residency][g.splits]
+            waves = -(-g.row_blocks * g.groups * g.slabs // clusters)
+            _log(f"[{phase}] fused {label} view {view} rank {rank}: "
+                 f"{g.row_blocks * g.groups * g.splits * g.slabs} CTAs in clusters of "
+                 f"{g.splits}, {g.smem} B shared each; occupancy {per_sm} CTAs an SM (residency "
+                 f"constant {g.residency}), {clusters} clusters on the card (counted {counted}): "
+                 f"{waves} wave(s)")
+            if per_sm < g.residency or clusters != counted:
+                raise SystemExit(f"fused {label} rank {rank}: the occupancy query disagrees with "
+                                 "the geometry's residency or cluster slots")
+
+
+def _row4_splits(torch, xb, fb, smi, phase):
+    """The batch's launches (row 4's, and row 3's since the fold) at every
+    split the batched entry takes, mode by mode, through the C entry (the
+    wrapper's launch but the split; not counted), timed by CUDA events: the
+    geometry's choice against the others."""
+    import ctypes
+
+    from repro_torch.kernels import matrix_free as mf
+
+    c = fb[0].shape[-1]
+    shape, slabs = tuple(xb.shape[1:]), xb.shape[0]
+    dims = (ctypes.c_int64 * 3)(*shape)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n in range(3):
+        g = mf.launch_shape(shape, n, c, slabs)
+        us = [fb[k] for k in range(3) if k != n]
+        plain = mf.matrix_free_batched_kernel_plain(xb, us, n)
+        out = torch.empty_like(plain)
+        ptrs = (ctypes.c_void_p * 3)(*[0 if k == n else fb[k].data_ptr() for k in range(3)])
+        for s in mf.SPLITS:
+            def run(s=s):
+                mf.BATCHED_KERNEL.query(xb.data_ptr(), ptrs, dims, 3, n, c, slabs, s, g.q_chunk,
+                                        int(g.vec), out.data_ptr(), stream)
+            ms = _time_ms(torch, run, 50)
+            rel, _ = _rel(torch, out, plain)
+            _log(f"[{phase}] matrix_free batched S={slabs} mode {n} at splits {s} "
+                 f"({g.row_blocks * slabs * s} CTAs in clusters of {s}): {ms:.4f} ms (CUDA "
+                 f"events, 50 launches), rel err {rel:.2e}"
+                 f"{' <- the geometry' if s == g.splits else ''}; card {smi}")
+            if not rel <= REL_ERR_BOUND:
+                raise SystemExit(f"matrix_free batched mode {n} at splits {s} disagrees with its "
+                                 "plain version")
 
 
 def _einsum_spec(order: int, n: int) -> str:
@@ -1190,10 +1549,11 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
-    ap.add_argument("--only", choices=["matrix_free", "batched_matrix_free"],
-                    help="run only the unbatched (phases 0-4 for that kernel) or the batched "
-                         "(phases 0, 1, 5 and 7) matrix-free kernel's checks, timing and "
-                         "trace; prints no result line")
+    ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free"],
+                    help="run only both fused kernels' (phases 0-7 for those kernels), the "
+                         "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
+                         "5 and 7) matrix-free kernel's checks, timing and trace; prints no "
+                         "result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1223,7 +1583,7 @@ def main(argv=None) -> int:
     _log(f"[0] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
          f"cudnn={torch.backends.cudnn.allow_tf32}")
     if args.only:
-        only = {"matrix_free": _only_matrix_free,
+        only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
@@ -1318,24 +1678,12 @@ def main(argv=None) -> int:
             raise SystemExit("card and CPU runs disagree on a small input")
 
     # ---- phase 4: timing at the main path's shapes
-    rows = {"fused": []}
-    for n in range(4):
-        t, a, b, pos = ops.bilinear_operands(x4, init, n)
-        c = a.shape[1]
-        spec = {0: "iab,ac,bc->ic", 1: "aib,ac,bc->ic", 2: "abi,ac,bc->ic"}[pos]
-        byts = 4 * (t.numel() + a.numel() + b.numel() + t.shape[pos] * c)
-        flops = 2 * t.numel() * c
-        r = {
-            "ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos), 20),
-            "plain_ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos), 5),
-            "library_ms": _time_ms(torch, lambda: torch.einsum(spec, t, a, b), 5),
-            "bytes_ms": byts / HBM_BW * 1e3, "flops_ms": flops / PEAK_FLOPS * 1e3,
-        }
-        rows["fused"].append(r)
-        bound = max(r["bytes_ms"], r["flops_ms"])
-        _log(f"[4] fused_mttkrp_bilinear mode {n}: kernel {r['ms']:.4f} ms, plain "
-             f"{r['plain_ms']:.4f} ms, einsum {r['library_ms']:.4f} ms, bound {bound:.4f} ms "
-             f"({'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}); card {smi}")
+    rows = {"fused": _row1_times(torch, x4, init, smi, 4)}
+    row1_kernels = _row1_device(torch, x4, init, smi, 4)
+    want_kernels = _row1_want_kernels(x4, init)
+    if row1_kernels != want_kernels:
+        raise SystemExit(f"fused_mttkrp_bilinear calls launch {row1_kernels} CUDA kernels, not "
+                         f"the {want_kernels} its design states")
     rows["mf"] = _row2_times(torch, x4, init, smi, 4)
     row2_kernels = _row2_device(torch, x4, init, smi, 4)
     want_kernels = _row2_occupancy(torch, smi, 4)
@@ -1398,6 +1746,7 @@ def main(argv=None) -> int:
             if not same:
                 raise SystemExit(f"{label}: slab 0 depends on the other slabs")
     del yb, gb
+    _row3_same_as_row4(torch, xb, fb, 5)
     _row4_checks(torch, gen, dev, check, xb, fb, 5)
     torch.cuda.synchronize()
 
@@ -1407,20 +1756,9 @@ def main(argv=None) -> int:
     )
 
     # ---- phase 7: batched kernel timing at the serving shapes
+    rows["fused_b"] = _row3_times(torch, xb, fb, smi, 7)
     for n in range(3):
-        t, a, b, pos = ops.bilinear_operands_batched(xb, fb, n)
-        c = a.shape[-1]
-        spec = {0: "siab,sac,sbc->sic", 1: "saib,sac,sbc->sic", 2: "sabi,sac,sbc->sic"}[pos]
-        r = {
-            "ms": _time_ms(torch, lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos), 50),
-            "plain_ms": _time_ms(
-                torch, lambda: fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos), 10),
-            "library_ms": _time_ms(torch, lambda: torch.einsum(spec, t, a, b), 10),
-            "bytes_ms": 4 * (t.numel() + a.numel() + b.numel() + SERVE_BATCH * t.shape[1 + pos]
-                             * c) / HBM_BW * 1e3,
-            "flops_ms": 2 * t.numel() * c / PEAK_FLOPS * 1e3,
-        }
-        rows.setdefault("fused_b", []).append(r)
+        c = fb[0].shape[-1]
         us = [fb[k] for k in range(3) if k != n]
         letters = "abd"
         lib_spec = ",".join(["s" + letters] + ["s" + letters[k] + "c" for k in range(3) if k != n])
@@ -1434,12 +1772,15 @@ def main(argv=None) -> int:
             "flops_ms": 2 * xb.numel() * c / PEAK_FLOPS * 1e3,
         }
         rows.setdefault("mf_b", []).append(r2)
-        for label, row in (("fused_mttkrp_bilinear_batched", r), ("matrix_free_batched_kernel", r2)):
-            bound = max(row["bytes_ms"], row["flops_ms"])
-            _log(f"[7] {label} S={SERVE_BATCH} mode {n}: kernel {row['ms']:.4f} ms, "
-                 f"plain {row['plain_ms']:.4f} ms, einsum {row['library_ms']:.4f} ms, "
-                 f"bound {bound:.4f} ms "
-                 f"({'bytes' if row['bytes_ms'] >= row['flops_ms'] else 'operations'}); card {smi}")
+        bound = max(r2["bytes_ms"], r2["flops_ms"])
+        _log(f"[7] matrix_free_batched_kernel S={SERVE_BATCH} mode {n}: kernel {r2['ms']:.4f} ms, "
+             f"plain {r2['plain_ms']:.4f} ms, einsum {r2['library_ms']:.4f} ms, "
+             f"bound {bound:.4f} ms "
+             f"({'bytes' if r2['bytes_ms'] >= r2['flops_ms'] else 'operations'}); card {smi}")
+    row3_kernels = _row3_device(torch, xb, fb, smi, 7)
+    if set(row3_kernels) != {1}:
+        raise SystemExit(f"a fused_mttkrp_bilinear_batched call launches other than one CUDA "
+                         f"kernel: {row3_kernels}")
     row4_kernels = _row4_device(torch, xb, fb, smi, 7)
     if set(row4_kernels) != {1}:
         raise SystemExit(f"a matrix_free_batched_kernel call launches other than one CUDA "

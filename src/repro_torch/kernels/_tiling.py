@@ -12,15 +12,15 @@ pad the tensor (a padded copy of the fMRI tensor would cost 2.12 GB);
 
 from __future__ import annotations
 
-import math
-
 import torch
 import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
-# Thread blocks to aim for per SM when a reduction is split across blocks:
-# enough blocks in flight to keep every SM streaming from HBM.
+# The MTTKRP kernels' split knob: the most CTAs an SM is counted to hold
+# when their launch geometry (matrix_free.py) splits a reduction.  The
+# default is above the kernels' residency (2 at rank <= 32, 1 above), so it
+# changes nothing; smaller values count fewer slots a wave.
 BLOCKS_PER_SM = 4
 # Target-mode rows per thread block of both CUDA kernels (BI in
 # csrc/mttkrp_common.cuh) and the rank paddings they are compiled for
@@ -77,34 +77,6 @@ def check_kernel_operand(name: str, t: Tensor) -> None:
         )
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-
-
-def split_reduction(
-    rows: int,
-    reduce_extent: int,
-    device,
-    slabs: int = 1,
-    *,
-    blocks_per_sm: int = BLOCKS_PER_SM,
-    block_rows: int = BLOCK_ROWS,
-) -> tuple[int, int]:
-    """``(per_split, splits)`` for a kernel whose grid is ``slabs`` times
-    ``ceil(rows / block_rows)`` row blocks times ``splits`` slices of an
-    outer reduction of ``reduce_extent`` steps: enough blocks for
-    ``blocks_per_sm`` per SM counting every slab's row blocks, no empty
-    slice, at most 65535 slices (the grid's y limit).  Depends only on the
-    shape, the slab count, the knob and the card, so a result is bitwise
-    repeatable.  ``blocks_per_sm`` is the one tile knob the autotuner
-    times for the fused kernels (their row and reduction tiles are
-    compile-time; the matrix-free kernels size their launches in
-    ``matrix_free.py``); the default keeps every earlier launch."""
-    if blocks_per_sm < 1:
-        raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_blocks = slabs * math.ceil(rows / block_rows)
-    want = max(1, min(reduce_extent, 65535, math.ceil(blocks_per_sm * sms / row_blocks)))
-    per_split = math.ceil(reduce_extent / want)
-    return per_split, math.ceil(reduce_extent / per_split)
 
 
 def check_slabs(slabs: int) -> None:

@@ -10,11 +10,13 @@ Port of ``repro.kernels.fused_mttkrp.fused_mttkrp_bilinear`` and
 where ``T`` is a free 3-D view of the tensor and ``A``/``B`` are the two
 partial KRPs :func:`repro_torch.kernels.ops.fused_mttkrp` builds; the
 batched form computes the same per slab ``s`` of a stack, ``M[s,i,c]`` from
-``T[s]``, ``A[s]``, ``B[s]``.  On the card the wrappers launch the CUDA
-kernel of ``csrc/fused_mttkrp.cu``: each thread block forms the tile
-``A[a, :] * B[b-tile, :]`` in shared memory and contracts the streamed
-tensor tile against it; the design notes are in that file.  On the CPU
-they take the ``*_plain`` versions.
+``T[s]``, ``A[s]``, ``B[s]``.  That is the order-3 matrix-free fold of the
+view at mode ``pos``, with ``A`` in the one outer slot and ``B`` in the
+contracted one (:data:`FOLD_MODES`), so on the card the wrappers launch the
+port's one Hopper MTTKRP body (``csrc/mttkrp_cluster.cuh``) through the
+entries of ``csrc/fused_mttkrp.cu``, with the matrix-free kernels' launch
+geometry of the view (:func:`launch_geometry`); the design notes are in
+those files.  On the CPU they take the ``*_plain`` versions.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import ctypes
 
 import torch
 
+from . import matrix_free as mf
 from ._build import CudaKernel
 from ._tiling import (
     BLOCKS_PER_SM,
@@ -30,7 +33,6 @@ from ._tiling import (
     check_rank,
     check_slabs,
     reference_tiles,
-    split_reduction,
     use_kernel,
 )
 
@@ -40,13 +42,18 @@ _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "fused_mttkrp.cu",
     "fused_mttkrp_bilinear_f32",
-    [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _c64, _c64, _c64, _int, _c64, _int, _ptr],
+    [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _c64, _c64, _c64, _int, _int, _int, _c64, _int, _ptr],
 )
 BATCHED_KERNEL = CudaKernel(
     "fused_mttkrp.cu",
     "fused_mttkrp_bilinear_batched_f32",
-    [_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _c64, _c64, _c64, _int, _c64, _int, _ptr],
+    [_ptr, _ptr, _ptr, _ptr, _int, _int, _c64, _c64, _c64, _int, _int, _c64, _int, _ptr],
 )
+
+# The order-3 fold of the view at each pos: (target mode, A's mode, B's
+# mode).  B's is the mode the fold contracts first, the highest one other
+# than pos (matrix_free.contracted_mode(3, pos)); A's is the outer mode.
+FOLD_MODES = {0: (0, 1, 2), 1: (1, 0, 2), 2: (2, 0, 1)}
 
 _SPECS = {0: "iab,ac,bc->ic", 1: "aib,ac,bc->ic", 2: "abi,ac,bc->ic"}
 _BATCHED_SPECS = {0: "siab,sac,sbc->sic", 1: "saib,sac,sbc->sic", 2: "sabi,sac,sbc->sic"}
@@ -86,37 +93,52 @@ def _dims(t: Tensor, a: Tensor, b: Tensor, pos: int, lead: int) -> int:
     return dim_i
 
 
-def launch_split(
-    dim_i: int, dim_a: int, device, slabs: int | None = None, *,
+def launch_geometry(
+    view: tuple[int, int, int], pos: int, rank: int, slabs: int | None = None,
     blocks_per_sm: int = BLOCKS_PER_SM,
-) -> tuple[int, int]:
-    """``(a per split, splits)`` of a launch with ``dim_i`` output rows and
-    ``dim_a`` rows of ``A`` (the split reduction), per slab when batched."""
-    return split_reduction(dim_i, dim_a, device, slabs or 1, blocks_per_sm=blocks_per_sm)
+) -> mf.ClusterLaunch:
+    """The launch of the fold of a 3-D ``view`` at mode ``pos`` and
+    ``rank``, from the shape alone (cached): the matrix-free kernels'
+    :func:`~repro_torch.kernels.matrix_free.unbatched_launch_shape` for one
+    view (``slabs`` None), :func:`~repro_torch.kernels.matrix_free.launch_shape`
+    for a stack of ``slabs``.  ``blocks_per_sm`` caps the CTAs an SM is
+    counted to hold, as there."""
+    if slabs is None:
+        return mf.unbatched_launch_shape(view, pos, rank, blocks_per_sm)
+    return mf.launch_shape(view, pos, rank, slabs, blocks_per_sm)
 
 
-def _launch(kernel: CudaKernel, t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i: int,
-            slabs: int | None, blocks_per_sm: int) -> Tensor:
-    """Check the operands and launch ``kernel``; ``slabs`` is ``None`` for
-    the unbatched entry point.  Returns ``(I, C)`` or ``(S, I, C)``."""
+def _launch(t: Tensor, a: Tensor, b: Tensor, pos: int, dim_i: int, slabs: int | None,
+            blocks_per_sm: int) -> Tensor:
+    """Check the operands and launch the unbatched entry (``slabs`` None;
+    with more than one group also its pass over the workspace) or the
+    batched one.  Returns ``(I, C)`` or ``(S, I, C)``."""
     c = a.shape[-1]
     check_kernel_operand("t", t)
     check_kernel_operand("A", a)
     check_kernel_operand("B", b)
     check_rank(c)
-    lead = () if slabs is None else (slabs,)
-    if slabs is not None:
-        check_slabs(slabs)
-    a_per_split, splits = launch_split(
-        dim_i, a.shape[-2], t.device, slabs, blocks_per_sm=blocks_per_sm
-    )
-    ws = torch.empty(lead + (splits, dim_i, c), dtype=torch.float32, device=t.device)
-    out = torch.empty(lead + (dim_i, c), dtype=torch.float32, device=t.device)
-    d0, d1, d2 = (int(d) for d in t.shape[-3:])
-    kernel.launch(
-        t.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        pos, *lead, d0, d1, d2, c, a_per_split, splits,
-        torch.cuda.current_stream(t.device).cuda_stream,
+    view = tuple(int(d) for d in t.shape[-3:])
+    t_ptr = t.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(t.device.index)
+    if slabs is None:
+        g = launch_geometry(view, pos, c, None, blocks_per_sm)
+        out = t.new_empty((dim_i, c))
+        ws_shape = mf.workspace_shape(g, dim_i, c)
+        ws = None if ws_shape is None else t.new_empty(ws_shape)
+        KERNEL.launch(
+            t_ptr, a.data_ptr(), b.data_ptr(), None if ws is None else ws.data_ptr(),
+            out.data_ptr(), pos, *view, c, g.groups, g.splits, g.q_chunk,
+            int(g.vec and t_ptr % 16 == 0),  # a contiguous view may start off a 16-byte line
+            stream,
+        )
+        return out
+    check_slabs(slabs)
+    g = launch_geometry(view, pos, c, slabs, blocks_per_sm)
+    out = t.new_empty((slabs, dim_i, c))
+    BATCHED_KERNEL.launch(
+        t_ptr, a.data_ptr(), b.data_ptr(), out.data_ptr(), pos, slabs, *view, c, g.splits,
+        g.q_chunk, int(g.vec and t_ptr % 16 == 0), stream,
     )
     return out
 
@@ -135,11 +157,14 @@ def fused_mttkrp_bilinear(
     """``M[i,c] = sum_{a,b} T * A[a,c] * B[b,c]`` with T's i-axis at ``pos``.
 
     CUDA tensors launch the kernel (contiguous float32 operands, rank up to
-    64, else it raises); CPU tensors take the plain version.  Any extent is
+    64, else it raises): one launch of the fold's body, plus a pass that
+    adds the groups' partials in a fixed order where the launch has more
+    than one group.  CPU tensors take the plain version.  Any extent is
     accepted: the kernel masks ragged tiles, so nothing is padded.
-    ``blocks_per_sm`` sizes the split of the ``a`` reduction
-    (:func:`~repro_torch.kernels._tiling.split_reduction`); the plain
-    version ignores it.  ``block_i``, ``block_b`` and ``interpret`` are the
+    ``blocks_per_sm`` caps the CTAs an SM is counted to hold when
+    :func:`launch_geometry` sizes the launch (at or above the kernel's
+    residency, 2 at rank <= 32, it changes nothing); the plain version
+    ignores it.  ``block_i``, ``block_b`` and ``interpret`` are the
     reference's keywords, taken for its signature: the CUDA tiles are fixed
     at compile time, so the tile sizes change nothing, and ``interpret``
     never decides the device (a CUDA tensor launches the kernel even with
@@ -149,7 +174,7 @@ def fused_mttkrp_bilinear(
     dim_i = _dims(t, a, b, pos, 0)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_plain(t, a, b, pos=pos)
-    return _launch(KERNEL, t, a, b, pos, dim_i, None, blocks_per_sm)
+    return _launch(t, a, b, pos, dim_i, None, blocks_per_sm)
 
 
 def fused_mttkrp_bilinear_batched(
@@ -168,16 +193,16 @@ def fused_mttkrp_bilinear_batched(
 
     ``t`` is ``(S, *3-D view)`` with the i-axis of each slab's view at
     ``pos``; ``a``/``b`` are the per-slab partial KRPs ``(S, dim, C)``.
-    CUDA tensors launch the kernel, one slab per block along the grid's z
-    axis (contiguous float32 operands, rank up to 64, 1..65535 slabs, else
-    it raises); CPU tensors take the plain version.  Nothing is padded: not
-    the slabs, not any extent.  ``blocks_per_sm``, ``block_i``, ``block_b``
-    and ``interpret`` as in :func:`fused_mttkrp_bilinear`; ``block_batch``,
-    the reference's slab tile, changes nothing either (every slab is its
-    own z block).
+    CUDA tensors make one launch of the kernel, one slab per grid z
+    (contiguous float32 operands, rank up to 64, 1..65535 slabs, else it
+    raises): no workspace, the split summed on chip.  CPU tensors take the
+    plain version.  Nothing is padded: not the slabs, not any extent.
+    ``blocks_per_sm``, ``block_i``, ``block_b`` and ``interpret`` as in
+    :func:`fused_mttkrp_bilinear`; ``block_batch``, the reference's slab
+    tile, changes nothing either (every slab is its own z block).
     """
     reference_tiles(block_i=block_i, block_b=block_b, block_batch=block_batch)
     dim_i = _dims(t, a, b, pos, 1)
     if not use_kernel(t, a, b):
         return fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos)
-    return _launch(BATCHED_KERNEL, t, a, b, pos, dim_i, int(t.shape[0]), blocks_per_sm)
+    return _launch(t, a, b, pos, dim_i, int(t.shape[0]), blocks_per_sm)

@@ -11,11 +11,13 @@ the CUDA kernel of ``csrc/matrix_free.cu`` (design notes there); on the CPU
 it takes :func:`matrix_free_kernel_plain`, the same fold in torch ops.
 The batched forms fold each slab of a stack ``(S, *shape)`` against that
 slab's own factors ``(S, I_k, C)``.  Both forms launch one kernel body
-whose outer reduction is split over thread-block clusters and summed on
-chip, with the geometry from the shape alone: :func:`launch_shape` for a
-stack (one launch), :func:`unbatched_launch_shape` for one tensor (one
-launch, plus a pass that adds the clusters' partials in a fixed order
-where a row block has more than one cluster).
+(``csrc/mttkrp_cluster.cuh``, which the fused bilinear kernels launch
+too), whose steps -- one (chunk of the contracted mode, outer index) pair
+each -- are split over thread-block clusters and summed on chip, with the
+geometry from the shape alone: :func:`launch_shape` for a stack (one
+launch), :func:`unbatched_launch_shape` for one tensor (one launch, plus a
+pass that adds the clusters' partials in a fixed order where a row block
+has more than one cluster).
 
 Supported: every mode of order-3..6 tensors, plus a leading batch axis.
 """
@@ -45,25 +47,25 @@ from ._tiling import (
 Tensor = torch.Tensor
 
 # Indices of the contracted (highest non-target) mode a step of the first
-# CUDA kernel took (BR in mttkrp_common.cuh); :func:`_reduction_blocks` only.
+# CUDA kernel took; :func:`_reduction_blocks` only.
 BLOCK_R = 64
 # Shared memory one thread block may use on Hopper (227 KB), and one SM's
 # (228 KB; each resident block also holds 1 KB of it for the system).
 SMEM_BYTES = 232448
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
-# The kernel (csrc/matrix_free.cu, matrix_free_cluster_kernel): warps of a
-# CTA (THREADS = 32 rows x 8 warps), tiles in flight, outer modes whose
+# The kernel (csrc/mttkrp_cluster.cuh, matrix_free_cluster_kernel): warps
+# of a CTA (THREADS = 32 rows x 8 warps), tiles in flight, outer modes whose
 # factor rows a stage carries.
 WARPS = 8
 STAGES = 3
 MAX_OUTER = 4
-# CTAs of a cluster along grid y, each a part of the outer reduction.
+# CTAs of a cluster along grid y, each a part of a row block's steps.
 SPLITS = (1, 2, 4, 8)
-# Grid y: groups x splits parts of the outer reduction.
+# Grid y: groups x splits parts of a row block's steps.
 MAX_GRID_Y = 65535
-# SMs of an H100 SXM: the split fills this many SMs in whole waves (a card
-# test checks it against the device).
+# SMs of an H100 SXM (a card test checks it against the device); the wave
+# slots the geometry counts are CLUSTER_SLOTS, below.
 SMS = 132
 # Clusters of each size in SPLITS that an H100 SXM holds at once when each
 # SM holds 1 or 2 of the kernel's CTAs (cudaOccupancyMaxActiveClusters; a
@@ -196,23 +198,37 @@ def _check_operands(mode_shape: Sequence[int], us: Sequence[Tensor], n: int, lea
 
 class ClusterLaunch(NamedTuple):
     """One launch of the kernel: a grid of ``(row_blocks, groups * splits,
-    slabs)`` CTAs of 256 threads in clusters of ``(1, splits, 1)``, each
-    streaming ``chunks`` passes of ``q_chunk`` indices of the contracted
-    mode ``q`` over one of ``groups * splits`` balanced parts of the outer
-    range.  A cluster sums its parts on chip; with ``groups > 1`` (one
-    tensor) a second pass adds the groups' partials in group order."""
+    slabs)`` CTAs of 256 threads in clusters of ``(1, splits, 1)``.  A
+    (slab, row block) folds :attr:`steps` steps, one (chunk of ``q_chunk``
+    indices of the contracted mode ``q``, outer index) pair each, chunk
+    outer; part ``p`` of the ``P = groups * splits`` takes the flat steps
+    ``[steps * p // P, steps * (p + 1) // P)`` (:func:`part_steps`).  A
+    cluster sums its parts on chip; with ``groups > 1`` (one tensor) a
+    second pass adds the groups' partials in group order."""
 
     row_blocks: int  # grid x: BLOCK_ROWS target rows a CTA
     groups: int  # clusters a row block along grid y (1 for a stack)
-    splits: int  # CTAs of a cluster along grid y: parts of the outer range, summed on chip
+    splits: int  # CTAs of a cluster along grid y: parts of the steps, summed on chip
     slabs: int  # grid z
-    outer: int  # outer multi-indices of a (slab, row block), split over groups x splits
+    outer: int  # outer multi-indices of a (slab, row block)
     q_chunk: int  # indices of mode q a stage holds (a multiple of 4)
     chunks: int  # passes over q: ceil(I_q / q_chunk)
     i_contig: bool  # the target mode is the last, contiguous one
     vec: bool  # 16-byte copies: the contiguous axis' extent is a multiple of 4
     smem: int  # dynamic shared memory, bytes
     residency: int  # CTAs an SM holds
+
+    @property
+    def steps(self) -> int:
+        """Steps of a (slab, row block): chunks x outer indices."""
+        return self.chunks * self.outer
+
+
+def part_steps(steps: int, part: int, parts: int) -> tuple[int, int]:
+    """The flat steps ``[lo, hi)`` of part ``part`` of ``parts`` (the
+    kernel's balanced cut; step ``s`` is chunk ``s // outer``, outer index
+    ``s % outer``)."""
+    return steps * part // parts, steps * (part + 1) // parts
 
 
 def contracted_mode(order: int, n: int) -> int:
@@ -235,12 +251,12 @@ def cluster_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
 def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int,
                     split: Callable[[int, int, int], tuple[int, int, int]]) -> ClusterLaunch:
     """A launch at mode ``n`` and ``rank`` whose grid comes from
-    ``split(row_blocks, outer, CTAs an SM counted) -> (groups, splits,
-    slabs)``, the CTAs an SM counted being ``min(blocks_per_sm,
-    residency)``.  A stage holds the whole extent of the contracted mode
-    ``q`` where it fits in the shared memory that lets ``residency`` CTAs
-    share an SM, else the largest equal chunk of it that fits (a multiple
-    of 4).  16-byte copies where the contiguous axis' extent is a multiple
+    ``split(row_blocks, steps, CTAs an SM counted) -> (groups, splits,
+    slabs)``, the steps being a row block's (chunks x outer indices) and
+    the CTAs an SM counted ``min(blocks_per_sm, residency)``.  A stage
+    holds the whole extent of the contracted mode ``q`` where it fits in
+    the shared memory that lets ``residency`` CTAs share an SM, else the
+    largest equal chunk of it that fits (a multiple of 4).  16-byte copies where the contiguous axis' extent is a multiple
     of 4 (the wrapper also checks ``x``'s alignment)."""
     if blocks_per_sm < 1:
         raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
@@ -261,7 +277,7 @@ def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: in
     chunks = -(-eq // q_chunk)
     outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
     row_blocks = -(-shape[n] // BLOCK_ROWS)
-    groups, splits, slabs = split(row_blocks, outer, min(blocks_per_sm, res))
+    groups, splits, slabs = split(row_blocks, chunks * outer, min(blocks_per_sm, res))
     return ClusterLaunch(
         row_blocks, groups, splits, slabs, outer, q_chunk, chunks, i_contig,
         shape[-1] % 4 == 0, cluster_smem(q_chunk, cp, i_contig), res,
@@ -276,26 +292,22 @@ def launch_shape(
     ``shape`` at mode ``n`` and ``rank``, from the shape alone (the stage
     as :func:`_cluster_launch` sizes it; one group).
 
-    The outer range is split over a cluster of ``splits`` in {1, 2, 4, 8}
-    CTAs (never more than there are outer indices), chosen to fill the card
-    in whole waves: the split whose ``row_blocks * splits * slabs`` CTAs use
-    the largest share of the waves they take, ``SMS * min(blocks_per_sm,
-    residency)`` CTAs a wave, the smaller split on a tie.  So
-    ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at and above
-    the residency it changes nothing.
+    A row block's steps are split over a cluster of ``splits`` in {1, 2, 4,
+    8} CTAs (never more than there are steps).  Wave slots are counted by
+    cluster, as in :func:`unbatched_launch_shape`: a wave holds
+    ``CLUSTER_SLOTS[min(blocks_per_sm, residency)][splits]`` of the
+    ``row_blocks * slabs`` clusters.  The launch takes the fewest waves and,
+    within them, the most CTAs (the larger split).  So ``blocks_per_sm``
+    caps the CTAs an SM is counted to hold; at and above the residency it
+    changes nothing.
     """
 
-    def split(row_blocks, outer, per_sm):
-        slots = SMS * per_sm
-        best, best_use = 1, 0.0
-        for s in SPLITS:
-            if s > outer:
-                break
-            ctas = row_blocks * s * slabs
-            use = ctas / (-(-ctas // slots) * slots)
-            if use > best_use:
-                best, best_use = s, use
-        return 1, best, slabs
+    def split(row_blocks, steps, per_sm):
+        slots = CLUSTER_SLOTS[per_sm]
+        clusters = row_blocks * slabs
+        waves = {s: -(-clusters // slots[s]) for s in SPLITS if s <= steps}
+        fewest = min(waves.values())
+        return 1, max(s for s, w in waves.items() if w == fewest), slabs
 
     return _cluster_launch(shape, n, rank, blocks_per_sm, split)
 
@@ -309,25 +321,25 @@ def unbatched_launch_shape(
     :func:`_cluster_launch` sizes it; one slab).
 
     One tensor's row blocks (2-8 at the fMRI modes) fill few of the card's
-    CTA slots, so each row block's outer range is cut into ``groups``
-    clusters of ``splits`` in {1, 2, 4, 8} CTAs.  Wave slots are counted by
+    CTA slots, so each row block's steps are cut into ``groups`` clusters of
+    ``splits`` in {1, 2, 4, 8} CTAs.  Wave slots are counted by
     cluster, ``CLUSTER_SLOTS`` at ``min(blocks_per_sm, residency)`` CTAs an
     SM (the card holds fewer clusters of 4 and 8 than its CTA slots
     suggest).  The launch takes the fewest waves its row blocks need (one,
     unless they outnumber the clusters of one a wave holds) and, within
     them, the most CTAs; on a tie the larger split (fewer groups for the
-    second pass to add).  Every part holds at least one outer index, and
-    groups x splits stays within the grid's y limit.  So ``blocks_per_sm``
-    caps the CTAs an SM is counted to hold; at and above the residency it
-    changes nothing.
+    second pass to add).  Every part holds at least one step (chunk of
+    ``q``, outer index), and groups x splits stays within the grid's y
+    limit.  So ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at
+    and above the residency it changes nothing.
     """
 
-    def split(row_blocks, outer, per_sm):
+    def split(row_blocks, steps, per_sm):
         slots = CLUSTER_SLOTS[per_sm]
         waves = -(-row_blocks // slots[1])  # clusters of one: the most a wave holds
         best = (0, 0, 0)  # (CTAs, splits, groups)
         for s in SPLITS:
-            groups = min(waves * slots[s] // row_blocks, outer // s, MAX_GRID_Y // s)
+            groups = min(waves * slots[s] // row_blocks, steps // s, MAX_GRID_Y // s)
             if groups >= 1:
                 best = max(best, (row_blocks * groups * s, s, groups))
         return best[2], best[1], 1

@@ -289,12 +289,14 @@ def _tune_fused_tiles(x: Tensor, factors: Sequence[Tensor], *, reps: int, budget
     from repro_torch.kernels import ops as kops
 
     n = x.ndim // 2  # internal mode: the kernel's primary bilinear layout
-    t, a, _, pos = kops.bilinear_operands(x, factors, n)
+    t, _, _, pos = kops.bilinear_operands(x, factors, n)
+    rank = factors[0].shape[-1]
 
-    def effective(cand):  # the kernel's (a per split, splits)
+    def effective(cand):  # the launch's (groups, splits) of the view
         if not x.is_cuda:
             return ()
-        return fm.launch_split(t.shape[pos], a.shape[0], x.device, blocks_per_sm=cand[0])
+        g = fm.launch_geometry(tuple(t.shape), pos, rank, None, cand[0])
+        return g.groups, g.splits
 
     rows = _tile_rows(
         tuple((b,) for b in FUSED_TILE_CANDIDATES),

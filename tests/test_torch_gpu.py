@@ -625,3 +625,181 @@ def test_tune_on_the_card_falls_back_to_the_gemms_where_the_kernels_do_not_go(cu
     for strategy in ("fused", "matrix_free"):
         with pytest.raises((ValueError, TypeError), match="float32 at rank 1..64"):
             cp_als(x, plan_sweep(problem, strategy), n_iters=1, tol=0.0)
+
+
+# ---- the fused bilinear kernels on the cluster body: the order-3 fold of the view
+
+# Views (d0, d1, d2): B's axis fits one stage, or is cut into chunks
+# (4000 at pos 0 and 1 of (6, 5, 4000), and at pos 2 of (6, 4000, 8)).
+FUSED_VIEWS = [(5, 6, 7), (33, 70, 128), (37, 41, 30), (6, 5, 4000), (6, 4000, 8),
+               (3, 9000, 12)]
+
+
+def _view_inputs(cuda, view, pos, rank, seed, slabs=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    lead = () if slabs is None else (slabs,)
+    ab = [d for k, d in enumerate(view) if k != pos]
+    t = torch.randn(lead + view, generator=g, device=cuda)
+    a = torch.randn(lead + (ab[0], rank), generator=g, device=cuda)
+    b = torch.randn(lead + (ab[1], rank), generator=g, device=cuda)
+    return t, a, b
+
+
+@pytest.mark.parametrize("rank", [1, 7, 10, 16, 48, 64])
+@pytest.mark.parametrize("view", FUSED_VIEWS)
+def test_fused_kernels_on_the_cluster_body_match_plain(cuda, view, rank):
+    """Both entries at pos 0, 1 and 2: one counted launch a call, within
+    1e-4 of the plain version, bitwise repeatable."""
+    for pos in range(3):
+        t, a, b = _view_inputs(cuda, view, pos, rank, seed=rank + pos)
+        before = (fm.KERNEL.launches, fm.BATCHED_KERNEL.launches)
+        out = fm.fused_mttkrp_bilinear(t, a, b, pos=pos)
+        assert (fm.KERNEL.launches, fm.BATCHED_KERNEL.launches) == (before[0] + 1, before[1])
+        assert _rel(out, fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos)) < REL
+        assert torch.equal(out, fm.fused_mttkrp_bilinear(t, a, b, pos=pos))
+        t, a, b = _view_inputs(cuda, view, pos, rank, seed=rank + pos + 50, slabs=3)
+        before = (fm.KERNEL.launches, fm.BATCHED_KERNEL.launches)
+        out = fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos)
+        assert (fm.KERNEL.launches, fm.BATCHED_KERNEL.launches) == (before[0], before[1] + 1)
+        assert tuple(out.shape) == (3, view[pos], rank)
+        assert _rel(out, fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos)) < REL
+        assert torch.equal(out, fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos))
+
+
+@pytest.mark.parametrize("view", [(225, 200, 200), (37, 41, 28), (6, 5, 4000)])
+def test_fused_kernels_on_a_misaligned_view(cuda, view):
+    """A contiguous view 4 bytes off a 16-byte line takes 4-byte copies: the
+    same sums as the aligned call's 16-byte copies, bit for bit."""
+    for pos in range(3):
+        for slabs in (None, 2):
+            t, a, b = _view_inputs(cuda, view, pos, 10, seed=pos, slabs=slabs)
+            buf = torch.empty(t.numel() + 1, device=cuda)
+            tm = buf[1:].view(t.shape)
+            tm.copy_(t)
+            assert tm.data_ptr() % 16 == 4
+            if slabs is None:
+                run, plain = fm.fused_mttkrp_bilinear, fm.fused_mttkrp_bilinear_plain
+            else:
+                run, plain = fm.fused_mttkrp_bilinear_batched, fm.fused_mttkrp_bilinear_batched_plain
+            out = run(tm, a, b, pos=pos)
+            assert _rel(out, plain(tm, a, b, pos=pos)) < REL
+            assert torch.equal(out, run(t, a, b, pos=pos))
+
+
+@pytest.mark.parametrize("shape,slabs", [((225, 200, 200), 8), ((37, 41, 30), 5), ((6, 5, 4000), 3)])
+def test_fused_batched_equals_matrix_free_batched_on_a_3_way_stack(cuda, shape, slabs):
+    """The fused views of a 3-way stack are the stack itself: the same
+    launch as the batched matrix-free kernel, the same bits."""
+    x, fs = _batched_inputs(cuda, slabs, shape, 10, seed=31)
+    for n in range(3):
+        assert torch.equal(ops.fused_mttkrp_batched(x, fs, n), ops.matrix_free_mttkrp_batched(x, fs, n))
+
+
+def _graph_kernels(fn):
+    """The kinds of the device operations one call of ``fn`` puts on its
+    stream (0: a kernel), read from a CUDA graph captured from the call
+    (never replayed) through libcuda: an exact count, where a profiler
+    window may drop events.  ``fn`` runs once before the capture."""
+    import ctypes
+
+    fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    kinds = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    del graph
+    torch.cuda.synchronize()
+    return kinds
+
+
+def test_fused_kernels_launch_the_cuda_kernels_their_design_states(cuda):
+    """Batched: one kernel a call, no workspace.  Unbatched: one with one
+    group, two with more (the groups' partials, then their sum).  Counted
+    in a CUDA graph of one call."""
+    for view in [(33, 8, 12), (45, 40, 44), (6, 5, 4000)]:
+        for pos in range(3):
+            for slabs in (None, 4):
+                t, a, b = _view_inputs(cuda, view, pos, 10, seed=5, slabs=slabs)
+                if slabs is None:
+                    run = lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos)  # noqa: E731
+                    g = fm.launch_geometry(view, pos, 10)
+                else:
+                    run = lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos)  # noqa: E731
+                    g = fm.launch_geometry(view, pos, 10, slabs)
+                assert _graph_kernels(run) == [0] * (1 if g.groups == 1 else 2)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                out = run()
+                grew = torch.cuda.max_memory_allocated() - base
+                ws = 0 if g.groups == 1 else 512 * -(-g.groups * view[pos] * 10 * 4 // 512)
+                assert grew <= 512 * -(-out.numel() * 4 // 512) + ws
+
+
+def test_fused_kernels_refuse_what_they_cannot_run(cuda):
+    """vec on a misaligned T and more parts than a row block has steps are
+    refused by the C entries, not run."""
+    t, a, b = _view_inputs(cuda, (8, 6, 12), 0, 4, seed=3)
+    buf = torch.empty(t.numel() + 1, device=cuda)
+    tm = buf[1:].view(t.shape)
+    out = torch.empty((8, 4), device=cuda)
+    ws = torch.empty((4, 8, 4), device=cuda)
+    before = fm.KERNEL.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):  # vec, misaligned
+        fm.KERNEL.launch(tm.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), 0, 8, 6, 12, 4, 3, 2, 12, 1, 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # 8 parts, 6 steps
+        fm.KERNEL.launch(t.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), 0, 8, 6, 12, 4, 4, 2, 12, 1, 0)
+    with pytest.raises(RuntimeError, match="invalid argument"):  # pos 3
+        fm.KERNEL.launch(t.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), 3, 8, 6, 12, 4, 1, 1, 12, 1, 0)
+    fm.KERNEL.launch(tm.data_ptr(), a.data_ptr(), b.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), 0, 8, 6, 12, 4, 3, 2, 12, 0, 0)  # 4-byte copies run
+    assert fm.KERNEL.launches == before + 1
+    assert _rel(out, fm.fused_mttkrp_bilinear_plain(tm, a, b, pos=0)) < REL
+
+
+@pytest.mark.parametrize("rank", [1, 10, 64])
+@pytest.mark.parametrize("shape", [(6, 5, 4000), (4, 3, 5, 4000), (3, 4000, 8), (225, 59, 2010)])
+def test_matrix_free_kernels_cut_the_steps_of_a_chunked_q(cuda, shape, rank):
+    """Contracted modes cut into chunks: parts cut the flat (chunk, outer
+    index) steps; both entries within 1e-4 of their plain versions and
+    bitwise repeatable."""
+    x, fs = _unbatched_inputs(cuda, shape, rank, seed=rank + 7)
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        out = mf.matrix_free_kernel(x, us, n)
+        assert _rel(out, mf.matrix_free_kernel_plain(x, us, n)) < REL
+        assert torch.equal(out, mf.matrix_free_kernel(x, us, n))
+    xb, fb = _batched_inputs(cuda, 3, shape, rank, seed=rank + 8)
+    for n in range(len(shape)):
+        us = [fb[k] for k in range(len(shape)) if k != n]
+        out = mf.matrix_free_batched_kernel(xb, us, n)
+        assert _rel(out, mf.matrix_free_batched_kernel_plain(xb, us, n)) < REL
+        assert torch.equal(out, mf.matrix_free_batched_kernel(xb, us, n))
+
+
+def test_both_libraries_of_the_shared_body_prepare_their_own_kernels(cuda):
+    """fused_mttkrp.cu and matrix_free.cu are two libraries built from one
+    header: each must raise its own kernels' shared-memory limit, whichever
+    library launches an instance first (launches here need over 48 KB)."""
+    runs = {"fused": ops.fused_mttkrp_batched, "matrix_free": ops.matrix_free_mttkrp_batched}
+    for rank, first in ((7, "fused"), (20, "matrix_free")):
+        x, fs = _batched_inputs(cuda, 2, (33, 70, 1000), rank, seed=rank)
+        assert mf.launch_shape((33, 70, 1000), 0, rank, 2).smem > 48 * 1024
+        order = [first] + [k for k in runs if k != first]
+        outs = [runs[k](x, fs, 0) for k in order]
+        assert torch.equal(outs[0], outs[1])
+        assert _rel(outs[0], mf.matrix_free_batched_kernel_plain(x, [fs[1], fs[2]], 0)) < REL

@@ -7,7 +7,9 @@ shape alone.  The kernel runs only on the card (``tests/test_torch_gpu.py``
 holds it against its plain version there); here the geometry is checked to
 cover the work exactly once and to stay inside the card's limits, and the
 kernel's per-thread copy loop is replayed to show that it copies every
-element of a tile exactly once.
+element of a tile exactly once.  A row block's work is its steps, one
+(chunk of q, outer index) pair each, chunk outer; the parts of a launch
+cut that flat step range (``tests/test_torch_fused.py`` replays the walk).
 """
 
 import collections
@@ -37,12 +39,13 @@ SHAPES = [
 FLEET = (225, 200, 200)
 
 
-def _cover(outer, splits):
-    """Each outer index's cluster ranks, by the kernel's balanced cut
-    ([O r / splits, O (r + 1) / splits) for rank r)."""
+def _cover(steps, splits):
+    """Each step's cluster ranks, by the kernel's balanced cut of the flat
+    step range ([S r / splits, S (r + 1) / splits) for rank r)."""
     seen = collections.Counter()
     for r in range(splits):
-        lo, hi = outer * r // splits, outer * (r + 1) // splits
+        lo, hi = tmf.part_steps(steps, r, splits)
+        assert (lo, hi) == (steps * r // splits, steps * (r + 1) // splits)
         assert lo < hi, "an empty rank"
         seen.update(range(lo, hi))
     return seen
@@ -56,9 +59,11 @@ def _check(shape, n, rank, slabs):
     # every (slab, row) in exactly one CTA: slab = grid z, BLOCK_ROWS rows a row block
     assert g.slabs == slabs and g.outer == outer and g.groups == 1
     assert (g.row_blocks - 1) * BLOCK_ROWS < shape[n] <= g.row_blocks * BLOCK_ROWS
-    # every outer index in exactly one rank of its cluster; the cluster is grid y
-    assert g.splits in tmf.SPLITS and g.splits <= outer
-    assert _cover(outer, g.splits) == collections.Counter(range(outer))
+    # every step (chunk of q, outer index) in exactly one rank of its cluster;
+    # the cluster is grid y
+    assert g.steps == g.chunks * outer
+    assert g.splits in tmf.SPLITS and g.splits <= g.steps
+    assert _cover(g.steps, g.splits) == collections.Counter(range(g.steps))
     # every index of q in exactly one chunk of a multiple of 4
     assert g.q_chunk % 4 == 0 and g.q_chunk >= 4
     assert (g.chunks - 1) * g.q_chunk < shape[q] <= g.chunks * g.q_chunk
@@ -93,35 +98,39 @@ def test_launch_shape_of_the_fleet(slabs, rank):
 
 
 def test_the_fleet_batch_fits_the_cards_slots_with_whole_q_tiles():
-    """8 subjects, rank 10: clusters of 4, 256 / 224 / 224 CTAs within the
-    264 CTA slots of 132 SMs at 2 CTAs each, the whole q extent of 200 in
-    every stage.  (Clusters of 4 fill 248 of the slots on an H100: mode 0's
-    256 CTAs take a second wave of 8.)"""
-    for n, row_blocks in ((0, 8), (1, 7), (2, 7)):
+    """8 subjects, rank 10: one wave each, the whole q extent of 200 in
+    every stage.  Modes 1 and 2: 56 clusters of 4, 224 CTAs.  Mode 0: 64
+    clusters of 2, 128 CTAs -- an H100 holds 62 clusters of 4 (248 of its
+    264 CTA slots), so mode 0's 64 clusters of 4 (256 CTAs, the launch when
+    slots were counted by SM) ran a second wave of 8 CTAs."""
+    for n, row_blocks, splits in ((0, 8, 2), (1, 7, 4), (2, 7, 4)):
         g = tmf.launch_shape(FLEET, n, 10, 8)
-        assert (g.row_blocks, g.splits, g.slabs, g.q_chunk, g.chunks) == (row_blocks, 4, 8, 200, 1)
+        assert (g.row_blocks, g.splits, g.slabs, g.q_chunk, g.chunks) == (
+            row_blocks, splits, 8, 200, 1)
         assert g.residency == 2 and g.vec
         assert g.row_blocks * g.splits * g.slabs <= tmf.SMS * g.residency
+        assert g.row_blocks * g.slabs <= tmf.CLUSTER_SLOTS[2][g.splits]  # one wave
+    assert 8 * 8 > tmf.CLUSTER_SLOTS[2][4]
 
 
 @pytest.mark.parametrize("rank", [1, 10, 64])
 @pytest.mark.parametrize("slabs", [1, 5, 8, 59])
 @pytest.mark.parametrize("shape", SHAPES + [FLEET], ids=lambda s: "x".join(map(str, s)))
 def test_splits_fill_whole_waves(shape, slabs, rank):
-    """No other split in {1, 2, 4, 8} uses the waves it takes better; on a
-    tie the smaller one wins; blocks_per_sm caps the CTAs an SM counts."""
+    """Wave slots counted by cluster: no other split in {1, 2, 4, 8} takes
+    fewer waves of the clusters the card holds, and none as few runs more
+    CTAs; blocks_per_sm caps the CTAs an SM counts."""
     for bps in (1, 2, 4, 16):
         for n in range(len(shape)):
             g = tmf.launch_shape(shape, n, rank, slabs, bps)
-            slots = tmf.SMS * min(bps, g.residency)
+            slots = tmf.CLUSTER_SLOTS[min(bps, g.residency)]
 
-            def use(s):
-                ctas = g.row_blocks * s * slabs
-                return ctas / (math.ceil(ctas / slots) * slots)
+            def waves(s):
+                return math.ceil(g.row_blocks * slabs / slots[s])
 
-            legal = [s for s in tmf.SPLITS if s <= g.outer]
-            assert use(g.splits) == max(use(s) for s in legal)
-            assert all(use(s) < use(g.splits) for s in legal if s < g.splits)
+            legal = [s for s in tmf.SPLITS if s <= g.steps]
+            assert waves(g.splits) == min(waves(s) for s in legal)
+            assert all(waves(s) > waves(g.splits) for s in legal if s > g.splits)
     # at and above the residency the knob changes nothing
     assert tmf.launch_shape(FLEET, 0, 10, 8, 2) == tmf.launch_shape(FLEET, 0, 10, 8, 16)
     with pytest.raises(ValueError):
@@ -198,12 +207,12 @@ def _check_unbatched(shape, n, rank, bps=4):
     q = tmf.contracted_mode(order, n)
     outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
     parts = g.groups * g.splits
-    assert g.slabs == 1 and g.outer == outer
+    assert g.slabs == 1 and g.outer == outer and g.steps == g.chunks * outer
     assert (g.row_blocks - 1) * BLOCK_ROWS < shape[n] <= g.row_blocks * BLOCK_ROWS
-    # part blockIdx.y = group * splits + rank: every outer index in exactly one part
+    # part blockIdx.y = group * splits + rank: every step in exactly one part
     assert g.splits in tmf.SPLITS and g.groups >= 1
-    assert parts <= outer and parts <= GRID_YZ
-    assert _cover(outer, parts) == collections.Counter(range(outer))
+    assert parts <= g.steps and parts <= GRID_YZ
+    assert _cover(g.steps, parts) == collections.Counter(range(g.steps))
     assert g.q_chunk % 4 == 0 and (g.chunks - 1) * g.q_chunk < shape[q] <= g.chunks * g.q_chunk
     # shared memory within the residency, grid limits, copies
     assert g.smem == tmf.cluster_smem(g.q_chunk, _padded(rank), g.i_contig)
@@ -216,15 +225,17 @@ def _check_unbatched(shape, n, rank, bps=4):
 
 def _boxes(g, shape, n):
     """How often the launch covers each (row, outer index, index of q): one
-    box a (row block, part, chunk), counted on a dense grid."""
+    box a (row block, step of a part), step s being chunk s // outer and
+    outer index s % outer, counted on a dense grid."""
     q = tmf.contracted_mode(len(shape), n)
     parts = g.groups * g.splits
     count = np.zeros((shape[n], g.outer, shape[q]), dtype=np.int32)
     for b in range(g.row_blocks):
         for p in range(parts):
-            o0, o1 = g.outer * p // parts, g.outer * (p + 1) // parts
-            for ch in range(g.chunks):
-                count[b * BLOCK_ROWS:(b + 1) * BLOCK_ROWS, o0:o1,
+            lo, hi = tmf.part_steps(g.steps, p, parts)
+            for s in range(lo, hi):
+                ch, o = divmod(s, g.outer)
+                count[b * BLOCK_ROWS:(b + 1) * BLOCK_ROWS, o,
                       ch * g.q_chunk:(ch + 1) * g.q_chunk] += 1
     return count
 
@@ -261,7 +272,7 @@ def test_unbatched_launch_fills_the_fewest_whole_waves_counted_by_cluster(shape,
             g = tmf.unbatched_launch_shape(shape, n, rank, bps)
             per_sm = min(bps, g.residency)
             legal = [(s, k) for s in tmf.SPLITS
-                     for k in range(1, min(g.outer // s, GRID_YZ // s) + 1)]
+                     for k in range(1, min(g.steps // s, GRID_YZ // s) + 1)]
             fewest = min(_waves(g.row_blocks, k, s, per_sm) for s, k in legal)
             within = [(g.row_blocks * k * s, s) for s, k in legal
                       if _waves(g.row_blocks, k, s, per_sm) <= fewest]
