@@ -8,8 +8,11 @@ through ``Problem.from_tensor -> plan_sweep -> cp_als``, and the fleet of its
 59 per-subject tensors (225 x 200 x 200) served by ``CPService`` through
 ``Problem(batch=8) -> plan_sweep -> batched cp_als``; the kernelized 2-step
 MTTKRP and the explicit KRP (``ops.mttkrp_2step_kernel``,
-``ops.krp_materialize``); and the measured-autotuning path ``tune() ->
-plan_sweep("autotune") -> cp_als`` and ``-> CPService``.  Holds all seven
+``ops.krp_materialize``); the measured-autotuning path ``tune() ->
+plan_sweep("autotune") -> cp_als`` and ``-> CPService``; and the legacy
+front door (``core.cp_als(x, CPConfig(...))``) and pairwise-perturbation
+sweeps (``Problem(pp_tol > 0) -> plan_sweep("pp") -> cp_als``, tuned and
+served).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions.
 
@@ -17,6 +20,7 @@ and batched, and the KRP pair) against their plain PyTorch versions.
     python3 chip_smoke.py --only fused                # phases 0-7 of rows 1 and 3 only
     python3 chip_smoke.py --only matrix_free          # phases 0-4 of row 2 only
     python3 chip_smoke.py --only batched_matrix_free  # phases 0, 1, 5, 7 of row 4 only
+    python3 chip_smoke.py --only pp                   # phases 0, 1 and 12 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -105,6 +109,30 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    sweep at each ``blocks_per_sm`` candidate; and the CUDA kernels one
    multi-TTV call launches, counted in a CUDA graph of the call (must be 1).
 
+12. the legacy front door and PP sweeps.  (a) ``core.cp_als(x4,
+   CPConfig(rank, method=m))`` for ``m`` in fused and matrix_free bitwise
+   equal (factors, weights, per-sweep fits) to phase 3's ``plan.cp_als``,
+   with 4 x sweeps launches of row 1 / row 2; one ``core.cpals.als_sweep``
+   (fused, matrix_free) and one ``core.dimtree.dimtree_sweep`` bitwise equal
+   to one engine sweep under the matching plan.  (b) ``cp_als`` under
+   ``plan_sweep(Problem.from_tensor(x4, rank, pp_tol=PP_TOL), "pp")`` for
+   ``PP_SWEEPS`` sweeps from phase 3's init beside the exact ``auto`` run:
+   the exact/approximate sequence (at least one of each), ``pp_exact_sweeps``,
+   one host-gate read a sweep, finite fits within ``PP_FIT_AGREE`` of the
+   exact run's, launches read off the plan, and the last approximate
+   sweep's first-order MTTKRP closer to the exact one at its factors than
+   the largest drift; printed: ms per exact and approximate sweep, the
+   cache build (CUDA events) and its peak memory, the exact fraction
+   against ``PP_EXACT_FRACTION``.  (c) ``tune(x4, rank, pp_tol=PP_TOL)``:
+   positive PP rows, and the ``autotune`` plan priced on them
+   (``describe()["pp"]["basis"] == "measured"``).  (d) ``CPService(
+   batch_size=8, pp_tol=PP_FLEET_TOL, strategy="pp")`` serving the 59
+   subjects from phase 6's inits: counters (59 completed, 8 batches, 5
+   padded slots, one ``|pp`` signature), finite fits (gap to phase 6's
+   printed), ``pp_exact_sweeps`` per batch, problems/s.  (e) a small PP run
+   on the card and on the CPU: the same sequence, fits within
+   ``SMALL_FIT_AGREE``.
+
 The kernels-a-call gates (phases 4, 7 and 11) count the nodes of a CUDA
 graph captured from one call, not the profiler's events: the profiler drops
 a few kernel events of a window now and then.
@@ -135,6 +163,24 @@ REL_ERR_BOUND = 1e-4
 FIT_AGREE = 1e-3
 # The small card-vs-CPU run: same algorithms, ~1e-6 differences per sweep.
 SMALL_FIT_AGREE = 1e-4
+# Phase 12's PP runs.  PP_TOL is the reference bench's PP_TOL
+# (benchmarks/bench_mttkrp.py).  On the fMRI tensor from seed 0 at rank 10
+# the ALS step first falls under it at sweep 10 (0.015; sweep 9's is 0.060):
+# PP_SWEEPS = 16 leaves the build and six approximate sweeps after ten
+# exact ones.  The fleet runs phase 6's 5 sweeps, whose steps a batch are
+# 0.29-0.41 at sweep 3 and 0.15-0.23 at sweep 4: PP_FLEET_TOL = 0.25 makes
+# every batch build the cache after sweep 4 and approximate sweep 5 (at
+# 0.15, five batches built after their last sweep and none approximated).
+# (Steps: the host-gate reads of a full smoke, NVIDIA H100 80GB HBM3, 700 W.)
+PP_TOL = 0.05
+PP_SWEEPS = 16
+PP_FLEET_TOL = 0.25
+# PP fits against the exact run's: a first-order PP MTTKRP neglects terms of
+# second order in the drift (< PP_TOL on every approximate sweep), a relative
+# error of about PP_TOL**2 = 2.5e-3 a sweep that moves the iterate and its fit
+# by about as much; a few approximate sweeps stay within 1e-2.  A sign or
+# index fault in a correction errs by the drift itself, ~5e-2.
+PP_FIT_AGREE = 1e-2
 # Nominal H100 SXM datasheet rates at 700 W (fp32 without tensor cores, HBM3).
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
@@ -1544,16 +1590,343 @@ def _only_batched_matrix_free(torch, args, dev, smi) -> None:
     _log(f"[5] max abs err of the batched matrix-free kernel: {err['mf_b']:.3e}")
 
 
+# ---- phase 12: the legacy front door and pairwise-perturbation (PP) sweeps
+class _PPRecorder:
+    """Wraps the PP engine's module-level steps for one run: the sequence of
+    sweeps ('E' exact, 'B' exact followed by a cache build, 'a'
+    approximate), the host-gate reads and the last approximate sweep's
+    output state.  The engine looks these up by name at call time."""
+
+    NAMES = ("_exact_sweep", "_pp_sweep", "_pp_materialize", "_host_gate")
+
+    def __init__(self, sweep):
+        self.sweep = sweep
+        self.real = {k: getattr(sweep, k) for k in self.NAMES}
+        self.seq, self.reads, self.last_pp = [], [], None
+
+    def __enter__(self):
+        real = self.real
+
+        def exact(*a, **k):
+            self.seq.append("E")
+            return real["_exact_sweep"](*a, **k)
+
+        def pp_sweep(*a, **k):
+            self.seq.append("a")
+            self.last_pp = real["_pp_sweep"](*a, **k)
+            return self.last_pp
+
+        def build(*a, **k):
+            if self.seq and self.seq[-1] == "E":
+                self.seq[-1] = "B"
+            return real["_pp_materialize"](*a, **k)
+
+        def gate(d):
+            v = real["_host_gate"](d)
+            self.reads.append(v)
+            return v
+
+        for name, fn in zip(self.NAMES, (exact, pp_sweep, build, gate)):
+            setattr(self.sweep, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.sweep, name, fn)
+
+    @property
+    def pattern(self) -> str:
+        return "".join(self.seq)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_inits=None,
+              serve_fits=None):
+    """Phase 12 (see the module docstring).  ``engine`` maps each of auto,
+    fused and matrix_free to ``(state, per-sweep fits)`` of phase 3's
+    ``plan.cp_als`` from ``init``; ``subjects``, ``serve_inits`` and
+    ``serve_fits`` are phase 6's fleet, inits and exact served fits (made
+    here when the phase runs alone)."""
+    from repro_torch import core
+    from repro_torch.core.cpals import als_sweep as legacy_als_sweep
+    from repro_torch.core.dimtree import dimtree_sweep
+    from repro_torch.core.tensor_ops import tensor_norm
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import ref
+    from repro_torch.plan import (PP_EXACT_FRACTION, LocalExecutor, Problem, SweepState,
+                                  TuningCache, als_sweep, cp_als, plan_sweep, tune)
+    from repro_torch.plan import sweep as tsweep
+    from repro_torch.serve import CPService
+    from repro_torch.serve import cp_service
+
+    rank, sweeps = args.rank, args.sweeps
+
+    # ---- 12a: the legacy front door on the big tensor, from phase 3's init
+    for method, kern in (("fused", fm.KERNEL), ("matrix_free", mf.KERNEL)):
+        fits = []
+        torch.cuda.synchronize()
+        fm.KERNEL.launches = mf.KERNEL.launches = 0
+        st = core.cp_als(x4, core.CPConfig(rank, n_iters=sweeps, tol=0.0, method=method),
+                         init_factors=init, callback=lambda it, f, dt: fits.append(f))
+        torch.cuda.synchronize()
+        got = (fm.KERNEL.launches, mf.KERNEL.launches)
+        want = (4 * sweeps, 0) if method == "fused" else (0, 4 * sweeps)
+        est, efits = engine[method]
+        same = (fits == efits and torch.equal(st.weights, est.weights)
+                and all(torch.equal(u, v) for u, v in zip(st.factors, est.factors)))
+        _log(f"[12] core.cp_als(CPConfig(method={method!r})): launches fused {got[0]} "
+             f"matrix_free {got[1]} (want {want}); fits {fits}; bitwise equal to phase 3's "
+             f"plan.cp_als: {'ok' if same else 'FAIL'}")
+        if got != want or not same:
+            raise SystemExit(f"legacy cp_als {method}: launch counts or bits differ")
+    w, nx = torch.ones(rank, device=dev), tensor_norm(x4)
+    legacy = {
+        "fused": lambda: legacy_als_sweep(x4, init, w, nx, 0, "fused", True),
+        "matrix_free": lambda: legacy_als_sweep(x4, init, w, nx, 0, "matrix_free", True),
+        "dimtree": lambda: dimtree_sweep(x4, init, w, nx, 0),
+    }
+    for strategy, run in legacy.items():
+        plan = plan_sweep(Problem.from_tensor(x4, rank), strategy,
+                          schedule=None if strategy == "dimtree" else "flat")
+        fm.KERNEL.launches = mf.KERNEL.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        got = (fm.KERNEL.launches, mf.KERNEL.launches)
+        st = als_sweep(plan.problem, plan, LocalExecutor(),
+                       SweepState(x=x4, factors=init, weights=w, norm_x=nx, it=0))
+        same = (torch.equal(out[1], st.weights) and torch.equal(out[2], st.fit)
+                and all(torch.equal(u, v) for u, v in zip(out[0], st.factors)))
+        want = {"fused": (4, 0), "matrix_free": (0, 4), "dimtree": (0, 0)}[strategy]
+        _log(f"[12] legacy {'dimtree_sweep' if strategy == 'dimtree' else 'als_sweep'} "
+             f"({strategy}, schedule {plan.resolved_schedule.name}): launches {got} (want {want}); "
+             f"fit {float(out[2]):.7f}; bitwise equal to one engine sweep: "
+             f"{'ok' if same else 'FAIL'}")
+        if got != want or not same:
+            raise SystemExit(f"legacy {strategy} sweep: launch counts or bits differ")
+
+    # ---- 12b: PP on the big tensor, beside the exact auto run for the same sweeps
+    exact_fits = []
+    cp_als(x4, plan_sweep(Problem.from_tensor(x4, rank), "auto"), n_iters=PP_SWEEPS, tol=0.0,
+           init_factors=init, callback=lambda it, f, dt: exact_fits.append(f))
+    problem = Problem.from_tensor(x4, rank, pp_tol=PP_TOL)
+    plan = plan_sweep(problem, "pp")
+    _log(f"[12] PP plan (pp_tol {PP_TOL:g}): schedule {plan.resolved_schedule.name} nodes "
+         f"{[np_.algorithm for np_ in plan.nodes]}; describe()['pp'] "
+         f"{json.dumps(plan.describe()['pp'])}")
+    fits, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fm.KERNEL.launches = mf.KERNEL.launches = 0
+    with _PPRecorder(tsweep) as rec:
+        st = cp_als(x4, plan, n_iters=PP_SWEEPS, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: (fits.append(f), secs.append(dt)))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    got = (fm.KERNEL.launches, mf.KERNEL.launches)
+    n_exact = sum(1 for s in rec.seq if s != "a")
+    want = (_kernel_leaves(plan, "fused") * n_exact, _kernel_leaves(plan, "matrix_free") * n_exact)
+    gap = max(abs(a - b) for a, b in zip(fits, exact_fits))
+    by = {k: [1e3 * t for s, t in zip(rec.seq, secs) if s == k] for k in "EBa"}
+    _log(f"[12] PP cp_als {tuple(x4.shape)} rank {rank}, {PP_SWEEPS} sweeps: sequence "
+         f"{rec.pattern} (E exact, B exact + cache build, a approximate); pp_exact_sweeps "
+         f"{st.pp_exact_sweeps}; exact fraction {st.pp_exact_sweeps / st.it:.3f} (planner assumes "
+         f"{PP_EXACT_FRACTION}); host-gate reads {len(rec.reads)} (one a sweep) "
+         f"{[round(v, 5) for v in rec.reads]}")
+    _log(f"[12] PP fits {fits}; exact auto fits {exact_fits}; max |diff| {gap:.3e} "
+         f"(bound {PP_FIT_AGREE:g})")
+    _log(f"[12] PP per-sweep ms (host clock, one chunk a sweep, each ending in the host sync): "
+         f"exact {by['E']} (median {_median(by['E']):.3f}), exact + build {by['B']}, "
+         f"approximate {by['a']} (median {_median(by['a']):.3f}); peak memory {peak:.3f} GB; "
+         f"launches fused {got[0]} matrix_free {got[1]} (want {want}); card {smi}")
+    if st.it != PP_SWEEPS or st.pp_exact_sweeps != n_exact or len(rec.reads) != PP_SWEEPS:
+        raise SystemExit("PP cp_als: wrong sweep count, exact-sweep count or host-gate reads")
+    if "a" not in rec.seq or n_exact == 0:
+        raise SystemExit(f"PP cp_als: sequence {rec.pattern} lacks an approximate or exact sweep")
+    if got != want or not all(math.isfinite(f) for f in fits) or gap > PP_FIT_AGREE:
+        raise SystemExit("PP cp_als: launch counts, non-finite fits or fits off the exact run")
+    # the last approximate sweep's first-order MTTKRP against the exact one at its factors
+    pp = rec.last_pp.pp
+    fs = rec.last_pp.factors
+    drift = tsweep._pp_drift(fs, pp.ref)
+    worst = 0.0
+    for n in range(4):
+        approx = pp.base[n]
+        for m in range(4):
+            if m != n:
+                du = fs[m] - pp.ref[m]
+                approx = approx + (tsweep._pp_contract_second(pp.pairs[(n, m)], du) if n < m
+                                   else tsweep._pp_contract_first(pp.pairs[(m, n)], du))
+        exact = ref.fused_mttkrp_ref(x4, fs, n)
+        rel = float((approx.double() - exact.double()).norm() / exact.double().norm())
+        worst = max(worst, rel)
+        _log(f"[12] last approximate sweep, mode {n}: first-order MTTKRP rel err {rel:.3e}")
+    dmax = float(drift.max())
+    _log(f"[12] first-order MTTKRP worst rel err {worst:.3e} against the largest drift "
+         f"{dmax:.3e} (second order: must stay below it) {'ok' if worst < dmax else 'FAIL'}")
+    if not worst < dmax:
+        raise SystemExit("PP: the first-order MTTKRP is no closer than the drift (a sign or "
+                         "index fault)")
+    # the cache build alone: CUDA events and its own peak memory
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build = tsweep._pp_materialize(problem, LocalExecutor(), x4, list(init), 0)
+    torch.cuda.synchronize()
+    build_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    del build
+    build_ms = _time_ms(torch, lambda: tsweep._pp_materialize(problem, LocalExecutor(), x4,
+                                                              list(init), 0), 3)
+    corr_state = SweepState(x=x4, factors=list(fs), weights=rec.last_pp.weights, norm_x=nx,
+                            it=1, grams=rec.last_pp.grams, pp=pp)
+    corr_ms = _time_ms(torch, lambda: tsweep._pp_sweep(problem, plan, corr_state), 10)
+    bound_ms = 6 * x4.numel() * 4 / HBM_BW * 1e3
+    _log(f"[12] PP cache build (6 pair einsums + 4 bases): {build_ms:.3f} ms (CUDA events, 3 "
+         f"calls; bound {bound_ms:.3f} ms: 6 passes over the tensor); its peak memory above "
+         f"the resident set {build_peak:.3f} GB; one correction-only sweep {corr_ms:.3f} ms "
+         f"(CUDA events, 10 calls, no host read); card {smi}")
+
+    # ---- 12c: tuned PP
+    cache = TuningCache(None)
+    t0 = time.perf_counter()
+    entry = tune(x4, rank, factors=init, cache=cache, budget_ms=None, reps=3, pp_tol=PP_TOL)
+    torch.cuda.synchronize()
+    tuned = plan_sweep(problem, "autotune", tuning_cache=cache)
+    d = tuned.describe()["pp"]
+    _log(f"[12] tune(pp_tol={PP_TOL:g}) in {time.perf_counter() - t0:.1f} s: pp rows "
+         f"{entry['pp']} (CUDA events, median of 3); autotune plan: schedule "
+         f"{tuned.resolved_schedule.name} nodes {[np_.algorithm for np_ in tuned.nodes]}; "
+         f"describe()['pp'] {json.dumps(d)}")
+    _log(f"[12] autotune PP {'enabled' if tuned.pp else 'not enabled'}: amortized "
+         f"{1e3 * d['amortized_sweep_s']:.3f} ms a sweep ({d['exact_fraction']} x (exact "
+         f"{1e3 * d['exact_sweep_s']:.3f} + build {1e3 * d['build_s']:.3f}) + "
+         f"{1 - d['exact_fraction']} x correction {1e3 * d['correction_sweep_s']:.3f}) "
+         f"{'<' if tuned.pp else '>='} exact {1e3 * d['exact_sweep_s']:.3f} ms; card {smi}")
+    if not (entry["pp"].get("build_s", 0) > 0 and entry["pp"].get("correct_sweep_s", 0) > 0):
+        raise SystemExit(f"tune(pp_tol) wrote no positive PP rows: {entry['pp']}")
+    if d["basis"] != "measured":
+        raise SystemExit("autotune PP plan is not priced on the measured basis")
+
+    # ---- 12d: the PP fleet
+    if subjects is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+        subjects = [x4[:, s].contiguous() for s in range(FMRI[1])]
+        shape = tuple(subjects[0].shape)
+        serve_inits = {(i, rank): [torch.randn((d_, rank), generator=gen, device=dev)
+                                   for d_ in shape] for i in range(len(subjects))}
+        svc = CPService(batch_size=SERVE_BATCH, n_iters=sweeps, tol=0.0, strategy="autotune",
+                        tuning_cache=TuningCache(), device=dev)
+        futs = [svc.submit(subjects[i], rank, init_factors=serve_inits[(i, rank)])
+                for i in range(len(subjects))]
+        svc.flush()
+        serve_fits = [f.result().fit for f in futs]
+    states = []
+    real_cp_als = cp_service.cp_als
+
+    def recording_cp_als(*a, **k):
+        states.append(real_cp_als(*a, **k))
+        return states[-1]
+
+    svc = CPService(batch_size=SERVE_BATCH, n_iters=sweeps, tol=0.0, pp_tol=PP_FLEET_TOL,
+                    strategy="pp", tuning_cache=TuningCache(), device=dev)
+    futs = [svc.submit(subjects[i], rank, init_factors=serve_inits[(i, rank)])
+            for i in range(len(subjects))]
+    cp_service.cp_als = recording_cp_als
+    try:
+        with _PPRecorder(tsweep) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.flush()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        cp_service.cp_als = real_cp_als
+    stats = svc.stats()
+    res = [f.result() for f in futs]
+    want_stats = {"completed": len(subjects), "batches": -(-len(subjects) // SERVE_BATCH),
+                  "padded_slots": SERVE_BATCH * -(-len(subjects) // SERVE_BATCH) - len(subjects),
+                  "signatures": 1}
+    sigs = {r.signature for r in res}
+    gapf = max(abs(r.fit - f) for r, f in zip(res, serve_fits))
+    _log(f"[12] PP fleet CPService(batch_size={SERVE_BATCH}, n_iters={sweeps}, "
+         f"pp_tol={PP_FLEET_TOL:g}, strategy='pp'): stats "
+         f"{json.dumps({k: stats[k] for k in sorted(stats)})}; signature {sorted(sigs)}; "
+         f"pp_exact_sweeps per batch {[s.pp_exact_sweeps for s in states]}, sequences "
+         f"{[rec.pattern[i:i + sweeps] for i in range(0, len(rec.pattern), sweeps)]}, host-gate "
+         f"reads {[round(v, 4) for v in rec.reads]}; fits vs phase 6's "
+         f"exact fits: max |diff| {gapf:.3e}; {len(subjects) / dt:.2f} problems/s (host clock, "
+         f"first flush, plan made in it); card {smi}")
+    if {k: stats[k] for k in want_stats} != want_stats or len(sigs) != 1 or not all(
+        "|pp" in s for s in sigs
+    ):
+        raise SystemExit(f"PP fleet: serving counters {stats} != {want_stats} or signature {sigs}")
+    if len(states) != want_stats["batches"] or any(s.pp_exact_sweeps is None for s in states):
+        raise SystemExit("PP fleet: a batch ran without the PP cache")
+    if not all(math.isfinite(r.fit) and r.sweeps == sweeps for r in res):
+        raise SystemExit("PP fleet: non-finite fit or wrong sweep count")
+
+    # ---- 12e: a small PP run on the card against the port's CPU run
+    g = torch.Generator().manual_seed(5)
+    shape, srank = (12, 10, 8, 6), 3
+    true = [torch.randn((d_, srank), generator=g) for d_ in shape]
+    xs = torch.einsum("ac,bc,dc,ec->abde", *true)
+    xs = (xs + 0.1 * xs.std() * torch.randn(xs.shape, generator=g)).contiguous()
+    sinit = [torch.randn((d_, srank), generator=g) for d_ in shape]
+    out = []
+    for where in ("cpu", dev):
+        sfits = []
+        with _PPRecorder(tsweep) as r:
+            cp_als(xs.to(where), plan_sweep(Problem(shape, srank, pp_tol=0.05), "pp"), n_iters=12,
+                   tol=0.0, init_factors=[u.to(where) for u in sinit],
+                   callback=lambda it, f, dt: sfits.append(f))
+        out.append((r.pattern, sfits))
+    (cpu_seq, cpu_fits), (card_seq, card_fits) = out
+    dsmall = max(abs(a - b) for a, b in zip(cpu_fits, card_fits))
+    _log(f"[12] small PP run {shape} rank {srank} pp_tol 0.05 (every gate value at least 1.4x "
+         f"from it on the CPU): card sequence {card_seq}, CPU {cpu_seq}; fits max |diff| "
+         f"{dsmall:.3e} (bound {SMALL_FIT_AGREE:g})")
+    if cpu_seq != card_seq or dsmall > SMALL_FIT_AGREE:
+        raise SystemExit("small PP run: card and CPU disagree")
+
+
+def _only_pp(torch, args, dev, smi) -> None:
+    """``--only pp``: build the kernels, make the fMRI tensor and phase 3's
+    init, run phase 3's three ``plan.cp_als`` runs for the bitwise
+    comparison, then phase 12."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+    from repro_torch.plan import Problem, cp_als, plan_sweep
+
+    _build.build_all([fm.KERNEL, mf.KERNEL, mt.KERNEL])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x4 = synth_fmri(torch, gen, args.rank, dev)
+    init = [torch.randn((d, args.rank), generator=gen, device=dev) for d in FMRI]
+    engine = {}
+    for strategy in ("auto", "fused", "matrix_free"):
+        fits = []
+        st = cp_als(x4, plan_sweep(Problem.from_tensor(x4, args.rank), strategy),
+                    n_iters=args.sweeps, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: fits.append(f))
+        engine[strategy] = (st, fits)
+    _pp_phase(torch, args, dev, smi, x4, init, engine)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
-    ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free"],
+    ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
-                         "5 and 7) matrix-free kernel's checks, timing and trace; prints no "
-                         "result line")
+                         "5 and 7) matrix-free kernel's checks, timing and trace, or phase 12 "
+                         "(the legacy front door and PP sweeps); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1584,7 +1957,7 @@ def main(argv=None) -> int:
          f"cudnn={torch.backends.cudnn.allow_tf32}")
     if args.only:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
-                "batched_matrix_free": _only_batched_matrix_free}[args.only]
+                "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -1623,7 +1996,7 @@ def main(argv=None) -> int:
 
     # ---- phase 3: the main path
     init = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
-    fits, launches, sweep_secs = {}, {}, {}
+    fits, launches, sweep_secs, states = {}, {}, {}, {}
     for strategy in ("auto", "fused", "matrix_free"):
         problem = Problem.from_tensor(x4, rank)
         plan = plan_sweep(problem, strategy=strategy)
@@ -1639,6 +2012,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         launches[strategy] = (fm.KERNEL.launches, mf.KERNEL.launches)
         sweep_secs[strategy] = secs
+        states[strategy] = st
         peak = torch.cuda.max_memory_allocated() / 1e9
         _log(f"[3] {strategy}: schedule {plan.resolved_schedule.name} nodes {algs}")
         _log(f"[3] {strategy}: fits {fits[strategy]}")
@@ -1800,6 +2174,10 @@ def main(argv=None) -> int:
         torch, args, dev, smi, x4, init, f4, subjects, fb, gen, check, rows, fits["auto"],
         sweep_secs["auto"], serve_inits, serve_fits,
     )
+
+    # ---- phase 12: the legacy front door and PP sweeps
+    _pp_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
+              subjects, serve_inits, serve_fits)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -1,7 +1,6 @@
-"""CP-ALS state and the shared per-update algebra (paper Sec. 2.2).
+"""CP-ALS entry points and the shared per-update algebra (paper Sec. 2.2).
 
-Port of the helpers of ``repro.core.cpals`` that the sweep engine
-(:mod:`repro_torch.plan.sweep`) imports.  Per mode-n update:
+Port of ``repro.core.cpals``.  Per mode-n update:
 
     M   = MTTKRP(X, {U_k}, n)
     H   = *_{k != n} (U_k^T U_k)
@@ -9,14 +8,21 @@ Port of the helpers of ``repro.core.cpals`` that the sweep engine
 
 and the fit comes from the factored identity reusing the last MTTKRP:
     ||X - Y||^2 = ||X||^2 - 2 <X, Y> + ||Y||^2.
+
+The sweep itself lives in one place, :func:`repro_torch.plan.sweep.als_sweep`,
+driven by a ``SweepPlan``; :func:`als_sweep` and :func:`cp_als` below are
+the legacy wrappers that build the plan for the old ``method=`` argument.
+This module keeps the small algebra helpers the engine imports.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
+
+from .mttkrp import Method
 
 Tensor = torch.Tensor
 
@@ -27,6 +33,20 @@ class CPState:
     weights: Tensor  # lambda, shape (C,) -- or (B, C)
     fit: Tensor  # 0-d tensor -- or shape (B,)
     it: int = 0
+    # Exact sweeps run when the plan used pairwise perturbation
+    # (Problem.pp_tol > 0); None for exact-only runs.
+    pp_exact_sweeps: int | None = None
+
+
+@dataclass
+class CPConfig:
+    rank: int
+    n_iters: int = 50
+    tol: float = 1.0e-5
+    method: Method = "auto"
+    seed: int = 0
+    normalize: bool = True
+    track_fit: bool = True
 
 
 def grams(factors: Sequence[Tensor]) -> list[Tensor]:
@@ -72,3 +92,52 @@ def normalize_columns(u: Tensor, it: int) -> tuple[Tensor, Tensor]:
     if it != 0:
         norms = torch.clamp(norms, min=1.0)
     return u / norms[..., None, :], norms
+
+
+def als_sweep(
+    x: Tensor,
+    factors: list[Tensor],
+    weights: Tensor,
+    norm_x: Tensor,
+    it: int,
+    method: Method,
+    normalize: bool,
+) -> tuple[list[Tensor], Tensor, Tensor]:
+    """One full ALS sweep over all modes; returns ``(factors, weights, fit)``.
+
+    Legacy wrapper: builds the flat plan for ``method`` and runs the one
+    sweep engine on a ``LocalExecutor``
+    (:func:`repro_torch.plan.legacy_sweep`).
+    """
+    from repro_torch import plan as planlib
+
+    return planlib.legacy_sweep(
+        x, factors, weights, norm_x, it, strategy=method, normalize=normalize
+    )
+
+
+def cp_als(
+    x: Tensor,
+    config: CPConfig,
+    init_factors: list[Tensor] | None = None,
+    callback: Callable[[int, float, float], None] | None = None,
+) -> CPState:
+    """Run CP-ALS with the plan ``plan_sweep`` makes for ``config.method``;
+    per-sweep times go through ``callback(it, fit, seconds)``.
+
+    Legacy wrapper over :func:`repro_torch.plan.cp_als`, on ``x``'s device.
+    """
+    from repro_torch import plan as planlib
+
+    problem = planlib.Problem.from_tensor(x, config.rank)
+    sweep_plan = planlib.plan_sweep(problem, strategy=config.method, normalize=config.normalize)
+    return planlib.cp_als(
+        x,
+        sweep_plan,
+        n_iters=config.n_iters,
+        tol=config.tol,
+        seed=config.seed,
+        track_fit=config.track_fit,
+        init_factors=init_factors,
+        callback=callback,
+    )

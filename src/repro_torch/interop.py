@@ -7,7 +7,9 @@ other.  A batched state (leading ``B`` axis on every factor, ``(B, C)``
 weights, ``(B,)`` fits) crosses the same way.  :func:`cpresult_to_numpy`
 reads a served result (``CPResult``) of either package, since the
 reference's fields convert with ``np.asarray``; :func:`cpresult_from_numpy`
-builds the port's.
+builds the port's.  A pairwise-perturbation cache (``PPState``) crosses
+the same way (:func:`ppstate_to_numpy`, :func:`ppstate_from_numpy`), so
+both packages' PP sweeps can start from one state.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ def cpstate_from_numpy(
     *,
     fit=None,
     it: int = 0,
+    pp_exact_sweeps: int | None = None,
     device: str | torch.device,
 ) -> CPState:
     """The port's :class:`CPState` from numpy factors/weights (copied onto
@@ -44,18 +47,62 @@ def cpstate_from_numpy(
         fit_t = torch.zeros(tuple(w.shape[:-1]), dtype=w.dtype, device=device)
     else:
         fit_t = torch.tensor(np.asarray(fit), dtype=w.dtype, device=device)
-    return CPState(factors=fs, weights=w, fit=fit_t, it=int(it))
+    return CPState(
+        factors=fs, weights=w, fit=fit_t, it=int(it),
+        pp_exact_sweeps=None if pp_exact_sweeps is None else int(pp_exact_sweeps),
+    )
 
 
 def cpstate_to_numpy(state) -> dict:
-    """``{"factors", "weights", "fit", "it"}`` of a state of either package,
-    as numpy arrays (fit a 0-d or ``(B,)`` array) and an int."""
+    """``{"factors", "weights", "fit", "it", "pp_exact_sweeps"}`` of a state
+    of either package, as numpy arrays (fit a 0-d or ``(B,)`` array), an
+    int, and an int or ``None``."""
+    pp = state.pp_exact_sweeps
     return {
         "factors": [_numpy(f) for f in state.factors],
         "weights": _numpy(state.weights),
         "fit": np.asarray(_numpy(state.fit)),
         "it": int(state.it),
+        "pp_exact_sweeps": None if pp is None else int(pp),
     }
+
+
+def ppstate_to_numpy(pp) -> dict:
+    """``{"ref", "pairs", "base", "drift", "n_exact"}`` of a PP cache of
+    either package: numpy arrays (``pairs`` keyed by ``(n, m)``) and an
+    int."""
+    return {
+        "ref": [_numpy(f) for f in pp.ref],
+        "pairs": {tuple(k): _numpy(v) for k, v in pp.pairs.items()},
+        "base": [_numpy(b) for b in pp.base],
+        "drift": _numpy(pp.drift),
+        "n_exact": int(pp.n_exact),
+    }
+
+
+def ppstate_from_numpy(
+    ref: Sequence[np.ndarray],
+    pairs: dict,
+    base: Sequence[np.ndarray],
+    drift: np.ndarray,
+    n_exact: int,
+    *,
+    device: str | torch.device,
+):
+    """The port's ``PPState`` from numpy arrays (copied onto ``device``), as
+    :func:`ppstate_to_numpy` gives them for a reference cache; the host copy
+    of the drift maximum comes from ``drift`` itself, with no device read."""
+    from repro_torch.plan.sweep import PPState  # the sweep engine, only here
+
+    drift = np.asarray(drift, dtype=np.float32)
+    return PPState(
+        ref=[torch.tensor(np.asarray(f), device=device) for f in ref],
+        pairs={tuple(k): torch.tensor(np.asarray(v), device=device) for k, v in pairs.items()},
+        base=[torch.tensor(np.asarray(b), device=device) for b in base],
+        drift=torch.tensor(drift, device=device),
+        n_exact=int(n_exact),
+        drift_max=float(drift.max()),
+    )
 
 
 def cpresult_to_numpy(result) -> dict:

@@ -11,15 +11,25 @@ same-shaped tensors (``Problem(batch=B)``):
   :meth:`SweepPlan.describe` exposes the predictions.
 * :class:`LocalExecutor` -- where contractions run; ``"fused"`` and
   ``"matrix_free"`` leaves launch the port's CUDA kernels on the card.
-* :func:`cp_als` / :func:`als_sweep` -- the one sweep engine and driver.
+* :func:`cp_als` / :func:`als_sweep` -- the one sweep engine and driver;
+  :func:`legacy_sweep` is the bridge behind the legacy wrappers
+  (``core.cpals.als_sweep``, ``core.dimtree.dimtree_sweep``).
+* Pairwise perturbation (Ma & Solomonik, arXiv 2010.12056):
+  ``Problem(pp_tol > 0)`` opts a problem into approximate sweeps that
+  reuse cached pairwise intermediates (:func:`pp_pairs` describes them,
+  :class:`PPState` carries them) plus first-order corrections while every
+  factor's drift stays under tolerance, rebuilding after an exact sweep
+  once one crosses it.  :func:`pp_amortized_cost` prices the amortized
+  sweep so ``plan_sweep`` can argmin PP against the exact strategies
+  (``strategy="pp"`` forces it); ``pp_tol=0`` problems never build the
+  cache and stay bitwise identical to classic exact ALS.
 * :func:`tune` -- hardware autotuning: times kernel tiles and every
   candidate plan's contractions on the tensor's device into a
   :class:`TuningCache`, which ``plan_sweep(strategy="autotune")`` reads
   through :func:`lookup_measurements`.
 
-Sharded problems (mapped modes or a sharded batch axis) and
-pairwise-perturbation problems raise ``NotImplementedError``: they come
-with the distribution and PP slices.
+Sharded problems (mapped modes or a sharded batch axis) raise
+``NotImplementedError``: they come with the distribution slice.
 """
 
 from .autotune import (
@@ -32,11 +42,15 @@ from .autotune import (
 from .cost import (
     ALGORITHMS,
     EXECUTORS,
+    PP_EXACT_FRACTION,
     ModeCost,
     dimtree_mode_cost,
     executor_mode_cost,
     mode_cost,
     node_cost,
+    pp_amortized_cost,
+    pp_build_cost,
+    pp_correction_cost,
     validate_executor,
 )
 from .executor import Executor, LocalExecutor, make_executor
@@ -44,15 +58,17 @@ from .planner import SCHEDULE_NAMES, STRATEGIES, ModePlan, NodePlan, SweepPlan, 
 from .problem import Problem
 from .schedule import (
     ContractionNode,
+    PPPair,
     Schedule,
     binary_schedule,
     build_schedule,
     chain_schedule,
     enumerate_schedules,
     flat_schedule,
+    pp_pairs,
     ring_allreduce_bytes,
 )
-from .sweep import SweepState, als_sweep, cp_als
+from .sweep import PPState, SweepState, als_sweep, cp_als, legacy_sweep
 
 __all__ = [
     "ALGORITHMS",
@@ -66,6 +82,9 @@ __all__ = [
     "ModeCost",
     "ModePlan",
     "NodePlan",
+    "PPPair",
+    "PPState",
+    "PP_EXACT_FRACTION",
     "Problem",
     "Schedule",
     "SweepPlan",
@@ -81,11 +100,16 @@ __all__ = [
     "enumerate_schedules",
     "executor_mode_cost",
     "flat_schedule",
+    "legacy_sweep",
     "lookup_measurements",
     "make_executor",
     "mode_cost",
     "node_cost",
     "plan_sweep",
+    "pp_amortized_cost",
+    "pp_build_cost",
+    "pp_correction_cost",
+    "pp_pairs",
     "ring_allreduce_bytes",
     "tune",
     "validate_executor",

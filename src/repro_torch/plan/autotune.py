@@ -20,8 +20,10 @@ their outer reduction is split over the grid), and the multi-TTV kernel
 takes ``block_i`` (rows per thread block).  A candidate whose launch is
 the same as an earlier one's (same split, same block) is timed once; on
 the CPU the plain versions take no knob, so each table times its default
-alone.  Sharded, pairwise-perturbation and two-level problems come with
-the distribution and PP slices and raise ``NotImplementedError``.
+alone.  A ``pp_tol > 0`` problem also gets its pairwise-perturbation rows
+(the cache build and one correction-only sweep).  Sharded and two-level
+problems come with the distribution slice and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
-from repro_torch.core.tensor_ops import dims_split, random_factors
+from repro_torch.core.tensor_ops import dims_split, random_factors, tensor_norm
 from repro_torch.kernels._tiling import kernels_take
 
 from .problem import Problem
@@ -104,10 +106,13 @@ def node_key(
 class Measurements:
     """One problem's resolved tuning entry, as the planner consumes it:
     ``node_s`` maps :func:`node_key` strings to measured median seconds,
-    ``tiles`` maps kernel name to its tuned tile config."""
+    ``tiles`` maps kernel name to its tuned tile config, and ``pp`` holds
+    the pairwise-perturbation rows (``"build_s"``, ``"correct_sweep_s"``)
+    when the tuned problem opted in via ``pp_tol``."""
 
     node_s: Mapping[str, float] = field(default_factory=dict)
     tiles: Mapping[str, Mapping[str, int]] = field(default_factory=dict)
+    pp: Mapping[str, float] = field(default_factory=dict)
 
     def node_time(
         self, node: ContractionNode, algorithm: str, executor: str, collective: str = "flat"
@@ -119,6 +124,13 @@ class Measurements:
         """Tuned tile config for one kernel name, ``None`` if untuned."""
         t = self.tiles.get(kernel)
         return {k: int(v) for k, v in t.items()} if t else None
+
+    def pp_second(self, key: str) -> float | None:
+        """Measured seconds of one PP row (``"build_s"`` /
+        ``"correct_sweep_s"``), ``None`` when the entry was tuned without
+        pairwise perturbation."""
+        v = self.pp.get(key)
+        return float(v) if v is not None else None
 
 
 class TuningCache:
@@ -189,7 +201,11 @@ def lookup_measurements(
         for k, v in entry.get("tiles", {}).items()
         if v
     }
-    return Measurements(node_s=node_s, tiles=tiles)
+    return Measurements(
+        node_s=node_s,
+        tiles=tiles,
+        pp={str(k): float(v) for k, v in entry.get("pp", {}).items()},
+    )
 
 
 # ------------------------------------------------------------ measurement
@@ -497,6 +513,47 @@ def node_key_from(key: str) -> str:
     return f"x|x|{rest}"
 
 
+def _tune_pp(
+    problem: Problem, x: Tensor, factors: Sequence[Tensor], *, reps: int, budget: _Budget
+) -> dict[str, float]:
+    """Measure the two pairwise-perturbation phases of a ``pp_tol > 0``
+    problem: ``build_s`` (the cache build: pairwise intermediates and bases,
+    what a rebuilding exact sweep pays on top) and ``correct_sweep_s`` (one
+    correction-only sweep, what replaces the exact sweep while the drifts
+    stay under tolerance).  These are the measured inputs of
+    :func:`repro_torch.plan.cost.pp_amortized_cost`."""
+    from . import sweep as sweeplib  # lazy: sweep imports planner/executor
+    from .executor import LocalExecutor
+    from .planner import plan_sweep
+
+    ex = LocalExecutor()
+    xs, fs = ex.prepare(problem, x, list(factors))
+    rows: dict[str, float] = {}
+    if budget.exhausted():
+        return rows
+
+    def build():
+        return sweeplib._pp_materialize(problem, ex, xs, fs, 0)
+
+    rows["build_s"] = _time(build, reps, x.device)
+    if budget.exhausted():
+        return rows
+    plan = plan_sweep(problem, executor="local", schedule="flat")
+    state = sweeplib.SweepState(
+        x=xs,
+        factors=list(fs),
+        weights=torch.ones((problem.rank,), dtype=xs.dtype, device=xs.device),
+        norm_x=tensor_norm(xs).to(xs.dtype),
+        it=0,
+        grams=sweeplib.grams(fs),
+        pp=build(),
+    )
+    rows["correct_sweep_s"] = _time(
+        lambda: sweeplib._pp_sweep(problem, plan, state), reps, x.device
+    )
+    return rows
+
+
 def tune(
     x: Tensor,
     rank: int,
@@ -541,20 +598,20 @@ def tune(
     :func:`~repro_torch.kernels._tiling.kernels_take`), no kernel is timed:
     each tile table keeps its default knob and no rows, and no ``fused`` or
     ``matrix_free`` leaf is measured, so the plan falls back to the GEMM
-    algorithms (the planner takes a kernel leaf only when it was measured).  ``mesh``/``mode_axes``, ``pp_tol > 0`` and ``intra_axes``
-    raise ``NotImplementedError``: they come with the distribution and PP
-    slices.
+    algorithms (the planner takes a kernel leaf only when it was measured).
+    ``pp_tol > 0`` tunes the pairwise-perturbation variant of the problem
+    (its own cache key, through the signature's ``|pp`` field) and also
+    measures the PP cache build and one correction-only sweep into the
+    entry's ``pp`` rows, which ``plan_sweep`` then prefers over the
+    analytic PP prices.  ``mesh``/``mode_axes`` and ``intra_axes`` raise
+    ``NotImplementedError``: they come with the distribution slice.
     """
     if mesh is not None or mode_axes or intra_axes:
         raise NotImplementedError(
             "tuning sharded or two-level problems comes with the distribution slice of the port"
         )
-    if pp_tol > 0.0:
-        raise NotImplementedError(
-            "tuning pairwise-perturbation sweeps comes with the PP slice of the port"
-        )
     cache = cache or default_tuning_cache()
-    problem = Problem.from_tensor(x, rank)
+    problem = Problem.from_tensor(x, rank, pp_tol=pp_tol)
     if factors is None:
         gen = torch.Generator(device=x.device).manual_seed(seed)
         factors = random_factors(gen, x.shape, rank, x.dtype, device=x.device)
@@ -589,6 +646,9 @@ def tune(
             else _untuned_tiles("block_i", TTV_TILE_CANDIDATES[0], mode)
         ),
     }
+    pp_rows = (
+        _tune_pp(problem, x, factors, reps=reps, budget=budget) if problem.pp_tol > 0.0 else {}
+    )
     entry = {
         "backend": backend_name(),
         "n_devices": 1,
@@ -598,7 +658,7 @@ def tune(
         "tiles": tiles,
         "nodes": rows,
         "serial_fractions": _recalibrate_serial_fractions(problem, rows),
-        "pp": {},
+        "pp": pp_rows,
     }
     cache.put(problem_key(problem), entry)
     return entry

@@ -2,18 +2,19 @@
 
 Port of the single-device part of ``repro.plan.cost``: :class:`ModeCost`,
 :func:`mode_cost`, :func:`node_cost`, :func:`executor_mode_cost` and
-:func:`dimtree_mode_cost` for the ``"local"`` executor, and
-:func:`validate_executor`.  The flop/byte terms are the reference's,
+:func:`dimtree_mode_cost` for the ``"local"`` executor,
+:func:`validate_executor`, and the pairwise-perturbation prices
+(:func:`pp_build_cost`, :func:`pp_correction_cost`,
+:func:`pp_amortized_cost`, :data:`PP_EXACT_FRACTION`).  The flop/byte terms are the reference's,
 term for term; a batched problem scales every term by its
 ``local_batch`` (nothing is shared across the batch); seconds come from the H100 constants of
 :mod:`repro_torch.analysis.roofline` (``predicted_s = flops / PEAK_FLOPS +
 bytes / HBM_BW``).  With H100 constants a plan may legitimately choose
 other algorithms than the JAX package chooses for the same problem.
 
-Collective pricing (sharded executors, two-level meshes, compression) and
-the pairwise-perturbation prices come with the distribution and PP slices;
-the JSON rows keep their collective keys, at zero, so ``describe()`` output
-has the reference's layout.
+Collective pricing (sharded executors, two-level meshes, compression)
+comes with the distribution slice; the JSON rows keep their collective
+keys, at zero, so ``describe()`` output has the reference's layout.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from repro_torch.core.mttkrp import mttkrp_flops
 from repro_torch.core.tensor_ops import dims_split
 
 from .problem import Problem
-from .schedule import ContractionNode, binary_schedule
+from .schedule import ContractionNode, binary_schedule, pp_pairs
 
 ALGORITHMS = (
     "1step",
@@ -42,6 +43,12 @@ ALGORITHMS = (
 
 # Executor kinds of the reference; only "local" exists in this slice.
 EXECUTORS = ("local", "sharded", "overlapping", "compressed")
+
+# Assumed long-run fraction of pairwise-perturbation sweeps that
+# re-materialize the cache (factor drift crossing ``pp_tol``): the
+# reference's planning assumption, 1 in 8.  A run's measured fraction is
+# ``CPState.pp_exact_sweeps / CPState.it``.
+PP_EXACT_FRACTION = 0.125
 
 
 def validate_executor(problem: Problem, executor: str) -> None:
@@ -310,3 +317,81 @@ def dimtree_mode_cost(problem: Problem, n: int, split: int) -> ModeCost:
             bytes=total.bytes + head.bytes,
         )
     return total
+
+
+def pp_build_cost(problem: Problem) -> ModeCost:
+    """Cost of materializing the pairwise-perturbation cache once: one pass
+    over the tensor per pair intermediate ``M_{n,m}`` (the per-pair einsum
+    the executor runs, not an amortizing tree), plus the N small base
+    contractions ``M_{n,m} x V_m``.  Paid on every exact sweep that
+    rebuilds, so the planner adds it to the exact-sweep term."""
+    _check_local(problem)
+    c = problem.rank
+    s = problem.itemsize
+    lb = problem.local_batch
+    total = math.prod(problem.shape) * lb
+    gemm = byts = 0.0
+    for pair in pp_pairs(problem):
+        gemm += 2.0 * total * c
+        byts += total * s + math.prod(pair.local_shape) * lb * s
+    # base terms: one correction-shaped GEMM per mode off its first pair
+    for n in range(problem.ndim):
+        m = 1 if n == 0 else 0
+        ln, lm = problem.shape[n], problem.shape[m]
+        gemm += 2.0 * ln * lm * c * lb
+        byts += (ln * lm * c + lm * c + ln * c) * s * lb
+    return ModeCost(gemm_flops=gemm, krp_flops=0.0, second_step_flops=0.0, bytes=byts)
+
+
+def pp_correction_cost(problem: Problem) -> ModeCost:
+    """Cost of ONE approximate (correction-only) PP sweep, all modes: each
+    mode's MTTKRP is its cached base plus ``N - 1`` small GEMMs
+    ``(C, I_n, I_m) x (I_m, C) -> (I_n, C)``, so the sweep never touches
+    the tensor: ``O(sum I_n I_m C)`` flops instead of ``O(N |X| C)``."""
+    _check_local(problem)
+    c = problem.rank
+    s = problem.itemsize
+    lb = problem.local_batch
+    gemm = byts = 0.0
+    for n in range(problem.ndim):
+        ln = problem.shape[n]
+        out_bytes = ln * c * s * lb
+        for m in range(problem.ndim):
+            if m == n:
+                continue
+            lm = problem.shape[m]
+            gemm += 2.0 * ln * lm * c * lb
+            byts += (ln * lm * c + lm * c) * s * lb + out_bytes
+    return ModeCost(gemm_flops=gemm, krp_flops=0.0, second_step_flops=0.0, bytes=byts)
+
+
+def pp_amortized_cost(
+    problem: Problem,
+    exact_sweep_s: float,
+    *,
+    exact_fraction: float = PP_EXACT_FRACTION,
+    build_s: float | None = None,
+    correction_s: float | None = None,
+) -> dict:
+    """Amortized per-sweep price of the PP strategy, as a ``describe()`` row:
+    ``f * (exact_sweep_s + build_s) + (1 - f) * correction_s`` with ``f``
+    the assumed exact-sweep fraction.  ``build_s`` / ``correction_s``
+    default to the analytic predictions; pass hardware measurements (from
+    :func:`repro_torch.plan.autotune.tune`) to price on the measured
+    basis.  Slightly over-prices PP (the engine builds only after exact
+    sweeps whose own step settled under the tolerance), so the argmin errs
+    toward the exact strategy."""
+    if build_s is None:
+        build_s = pp_build_cost(problem).predicted_s
+    if correction_s is None:
+        correction_s = pp_correction_cost(problem).predicted_s
+    f = float(exact_fraction)
+    amortized = f * (exact_sweep_s + build_s) + (1.0 - f) * correction_s
+    return {
+        "tol": problem.pp_tol,
+        "exact_fraction": f,
+        "exact_sweep_s": exact_sweep_s,
+        "build_s": build_s,
+        "correction_sweep_s": correction_s,
+        "amortized_sweep_s": amortized,
+    }

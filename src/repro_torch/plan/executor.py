@@ -1,9 +1,10 @@
 """Executors: where a planned contraction actually runs.
 
 Port of the single-device part of ``repro.plan.executor``: the
-:class:`Executor` protocol, :class:`LocalExecutor` and
-:func:`make_executor`.  The sharded, overlapping and compressed executors
-come with the distribution slice of the port.
+:class:`Executor` protocol, :class:`LocalExecutor` (schedule nodes and
+the pairwise-perturbation intermediates) and :func:`make_executor`.  The
+sharded, overlapping and compressed executors come with the distribution
+slice of the port.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
 from repro_torch.core.mttkrp import mttkrp, mttkrp_batched
+from repro_torch.core.tensor_ops import mode_letters
 
 from .cost import EXECUTORS
 from .schedule import ContractionNode
@@ -91,6 +93,31 @@ class LocalExecutor:
             )(src, *[factors[m] for m in node.contracted])
         sibs = {m: factors[m] for m in node.contracted}
         return contract_from_partial(src, sibs, node.lo, node.hi, node.parent_lo)
+
+    def pp_pairs(
+        self, problem, x: Tensor, factors: Sequence[Tensor]
+    ) -> dict[tuple[int, int], Tensor]:
+        """All pairwise-perturbation intermediates at the current factors:
+        ``{(n, m): M_nm}`` for every ``n < m`` with
+        ``M_nm[c, i_n, i_m] = sum X * prod_{k not in {n,m}} U_k[i_k, c]``
+        in the rank-major layout of :class:`repro_torch.plan.schedule.PPPair`.
+        One einsum a pair, contracted rank-last (the GEMM orientation), then
+        rank moved to the front and made contiguous, so every correction is
+        a stride-1 batched GEMM; a leading batch axis on ``x`` and the
+        factors broadcasts through the ``...`` prefix."""
+        order = problem.ndim
+        letters = mode_letters(order)
+        out: dict[tuple[int, int], Tensor] = {}
+        for n in range(order):
+            for m in range(n + 1, order):
+                others = [k for k in range(order) if k not in (n, m)]
+                spec = (
+                    ",".join(["..." + letters] + ["..." + letters[k] + "c" for k in others])
+                    + "->..." + letters[n] + letters[m] + "c"
+                )
+                p = torch.einsum(spec, x, *[factors[k] for k in others])
+                out[(n, m)] = torch.movedim(p, -1, -3).contiguous()
+        return out
 
 
 def make_executor(kind: str, mesh=None, mode_axes=None) -> Executor:

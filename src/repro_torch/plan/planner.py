@@ -2,21 +2,26 @@
 
 Port of ``repro.plan.planner`` for unsharded problems on the ``"local"``
 executor, batched (``Problem(batch=B)``, every cost term scaled by the
-batch) or not, with every strategy except ``"pp"``.  ``auto``
-cost-argmins jointly over the contraction-tree shapes of
-:func:`repro_torch.plan.schedule.enumerate_schedules` and each root leaf's
-MTTKRP algorithm (1-step / 2-step-left / 2-step-right), breaking near-ties
-(within 10%) toward the paper's Sec. 5.3.3 recommendation and the flat
-per-mode sweep; ``autotune`` argmins on hardware measurements read from the
-tuning cache wherever a comparison set is fully measured; any other
-strategy forces that algorithm on every mode of the flat schedule.
+batch) or not.  ``auto`` cost-argmins jointly over the contraction-tree
+shapes of :func:`repro_torch.plan.schedule.enumerate_schedules` and each
+root leaf's MTTKRP algorithm (1-step / 2-step-left / 2-step-right),
+breaking near-ties (within 10%) toward the paper's Sec. 5.3.3
+recommendation and the flat per-mode sweep; ``autotune`` argmins on
+hardware measurements read from the tuning cache wherever a comparison set
+is fully measured; any other strategy forces that algorithm on every mode
+of the flat schedule.
 
-Sharded problems (mapped modes or a sharded batch axis) and
-pairwise-perturbation problems raise ``NotImplementedError``: they come
-with the distribution and PP slices of the port, as do the batch-parallel
-and mode-parallel placements the reference argmins over for sharded
-batched problems.  ``describe()`` keeps the reference's JSON layout (the
-placement candidates, mapping and PP rows are empty or disabled here).
+Problems with ``pp_tol > 0`` also price the pairwise-perturbation sweep
+(``SweepPlan.pp_info``): ``strategy="pp"`` forces it, ``"auto"`` and
+``"autotune"`` enable it when its amortized per-sweep seconds beat the
+exact sweep's, and every other strategy prices it without enabling it.
+
+Sharded problems (mapped modes or a sharded batch axis) raise
+``NotImplementedError``: they come with the distribution slice of the
+port, as do the batch-parallel and mode-parallel placements the reference
+argmins over for sharded batched problems.  ``describe()`` keeps the
+reference's JSON layout (the placement candidates and mapping rows are
+empty here).
 """
 
 from __future__ import annotations
@@ -24,7 +29,13 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 from typing import Mapping
 
-from .cost import ModeCost, executor_mode_cost, node_cost, validate_executor
+from .cost import (
+    ModeCost,
+    executor_mode_cost,
+    node_cost,
+    pp_amortized_cost,
+    validate_executor,
+)
 from .problem import Problem
 from .schedule import (
     ContractionNode,
@@ -113,6 +124,14 @@ class SweepPlan:
     ``split`` is the binary half boundary when the tree is the classic
     two-partial split; ``normalize`` is part of the sweep recipe.
     ``describe()`` is the JSON-ready prediction surface.
+
+    ``pp`` flags the pairwise-perturbation sweep mode: the engine still
+    carries this plan's exact schedule (exact sweeps run it verbatim), but
+    while factor drift stays under ``problem.pp_tol`` each sweep
+    approximates every MTTKRP from the cached pairwise intermediates plus
+    first-order corrections.  ``pp_info`` is the pricing row behind the
+    decision (:func:`repro_torch.plan.cost.pp_amortized_cost`), ``None``
+    when the problem never opted in (``pp_tol == 0``).
     """
 
     problem: Problem
@@ -123,6 +142,8 @@ class SweepPlan:
     executor: str = "local"
     schedule: Schedule | None = None
     nodes: tuple[NodePlan, ...] = ()
+    pp: bool = False
+    pp_info: Mapping | None = None
 
     @property
     def kind(self) -> str:
@@ -162,7 +183,10 @@ class SweepPlan:
 
     def describe(self) -> dict:
         """Predicted flops / HBM bytes per mode and per schedule node, plus
-        totals, in the reference's layout."""
+        totals, in the reference's layout.  The ``pp`` row prices the
+        pairwise-perturbation strategy against the exact sweep (amortized
+        per-sweep seconds; ``{"enabled": False}`` when the problem never
+        opted in via ``pp_tol``)."""
         return {
             "shape": list(self.problem.shape),
             "rank": self.problem.rank,
@@ -183,7 +207,7 @@ class SweepPlan:
             "modes": [m.as_dict() for m in self.modes],
             "nodes": [n.as_dict() for n in self.nodes],
             "serial_fractions": {},
-            "pp": {"enabled": False},
+            "pp": {"enabled": self.pp, **dict(self.pp_info or {})},
             "mappings": [],
             "lower_bound_bytes": None,
             "certified": False,
@@ -313,6 +337,17 @@ def plan_sweep(
     mode of the flat schedule.  ``schedule`` pins the tree shape.
     ``executor`` is ``'auto'`` or ``'local'``: the sharded kinds come with
     the distribution slice.
+
+    Problems with ``pp_tol > 0`` additionally price the pairwise-
+    perturbation sweep mode (Ma & Solomonik): ``'auto'``/``'autotune'``
+    enable it (``SweepPlan.pp``) when the amortized per-sweep seconds --
+    assumed exact-sweep fraction x (exact sweep + cache build) plus the
+    correction-only sweeps -- beat the exact sweep, and ``strategy='pp'``
+    forces it (its exact plan follows the ``'auto'`` argmin).  The
+    comparison runs on measured seconds only when both sides are measured
+    (the winning schedule's nodes and the tuned PP rows).  ``'fused'``,
+    ``'matrix_free'`` and the other forced strategies price PP but never
+    enable it.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (choose from {STRATEGIES})")
@@ -321,10 +356,15 @@ def plan_sweep(
             "sharded problems (mapped modes, or a batch sharded over mesh "
             "axes) come with the distribution slice of the port"
         )
-    if strategy == "pp" or problem.pp_tol > 0.0:
-        raise NotImplementedError(
-            "pairwise-perturbation sweeps come with the PP slice of the port"
+    if strategy == "pp" and problem.pp_tol <= 0.0:
+        raise ValueError(
+            "strategy='pp' needs Problem(pp_tol > 0): the drift threshold is "
+            "part of the problem (and its signature), not a planner flag"
         )
+    # "pp" forces the approximate sweep mode but still needs a full exact
+    # plan (exact sweeps run it verbatim): its schedule and leaf choices
+    # follow the "auto" cost argmin
+    node_strategy = "auto" if strategy == "pp" else strategy
     validate_executor(problem, "local" if executor == "auto" else executor)
     if split is not None:
         if strategy != "dimtree" and schedule != "binary":
@@ -342,8 +382,8 @@ def plan_sweep(
         measured = lookup_measurements(problem, cache=tuning_cache)
 
     rows = []  # (schedule, node plans, analytic total, measured total or None)
-    for sched in _resolve_schedules(problem, strategy, split, schedule):
-        plans = _plan_nodes(problem, sched, strategy, measured)
+    for sched in _resolve_schedules(problem, node_strategy, split, schedule):
+        plans = _plan_nodes(problem, sched, node_strategy, measured)
         pred = sum(np_.cost.predicted_s for np_ in plans)
         meas = None
         if measured is not None and all(np_.cost.measured_s is not None for np_ in plans):
@@ -362,6 +402,25 @@ def plan_sweep(
             if best[2] >= _NEAR_TIE * flat_row[2]:
                 best = flat_row
     sched, node_plans = best[0], best[1]
+
+    # pairwise perturbation, priced against the chosen exact plan whenever
+    # the problem opted in; measured and analytic seconds never meet in one
+    # comparison
+    pp_enabled = False
+    pp_info = None
+    if problem.pp_tol > 0.0:
+        m_build = measured.pp_second("build_s") if measured is not None else None
+        m_corr = measured.pp_second("correct_sweep_s") if measured is not None else None
+        if best[3] is not None and m_build is not None and m_corr is not None:
+            pp_info = pp_amortized_cost(problem, best[3], build_s=m_build, correction_s=m_corr)
+            pp_info["basis"] = "measured"
+        else:
+            pp_info = pp_amortized_cost(problem, best[2])
+            pp_info["basis"] = "analytic"
+        if strategy == "pp":
+            pp_enabled = True
+        elif strategy in ("auto", "autotune"):
+            pp_enabled = pp_info["amortized_sweep_s"] < pp_info["exact_sweep_s"]
     modes = tuple(
         sorted(
             (
@@ -381,4 +440,6 @@ def plan_sweep(
         executor="local",
         schedule=sched,
         nodes=node_plans,
+        pp=pp_enabled,
+        pp_info=pp_info,
     )

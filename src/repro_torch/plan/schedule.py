@@ -1,7 +1,7 @@
 """Contraction-schedule IR: general dimension trees as planner currency.
 
-Port of ``repro.plan.schedule`` (every builder; the pairwise-perturbation
-pair metadata comes with the PP slice of the port).
+Port of ``repro.plan.schedule``: every builder, and the
+pairwise-perturbation pair metadata (:class:`PPPair`, :func:`pp_pairs`).
 
 The paper's Sec. 6 names dimension trees as the natural next step beyond
 per-mode MTTKRP; Ma & Solomonik (arXiv:2010.12056) show *multi-level* trees
@@ -324,6 +324,84 @@ def build_schedule(problem: Problem, spec, name: str = "custom") -> Schedule:
     kids = tuple(make(s, ROOT, 0, problem.ndim) for s in spec)
     object.__setattr__(nodes[ROOT], "children", kids)
     return Schedule(problem=problem, nodes=tuple(nodes), name=name)
+
+
+@dataclass(frozen=True)
+class PPPair:
+    """Placement metadata of one pairwise-perturbation intermediate.
+
+    ``M_{n,m}[c, i_n, i_m] = sum X * prod_{k not in {n, m}} V_k[i_k, c]`` --
+    the cached two-mode partial of Ma & Solomonik's pairwise perturbation
+    (arXiv 2010.12056), built once per exact sweep and reused by every
+    approximate sweep until factor drift crosses ``Problem.pp_tol``.  The
+    stored layout is rank-major ``(C, I_n, I_m)`` so every per-sweep
+    correction contraction is a stride-1 batched GEMM over the rank axis
+    (the index-major layout forces a transpose per correction, which on
+    CPU costs more than the GEMM itself).  Like :class:`ContractionNode`,
+    placement is stamped at build time: ``reduce_axes`` are the mesh axes
+    mapped to the modes contracted away (everything but ``n`` and ``m``),
+    ``psum_participants`` their device product, and ``psum_bytes`` the
+    per-device ring all-reduce volume of the local ``(C, I_n, I_m)`` block.
+    """
+
+    n: int
+    m: int
+    shape: tuple[int, int, int]  # global (rank, I_n, I_m)
+    local_shape: tuple[int, int, int]  # per-device block dims of ``shape``
+    reduce_axes: tuple[str, ...]
+    psum_participants: int
+    psum_bytes: float
+
+    def as_dict(self) -> dict:
+        """JSON-ready projection: pair topology + placement metadata."""
+        return {
+            "pair": [self.n, self.m],
+            "shape": list(self.shape),
+            "reduce_axes": list(self.reduce_axes),
+            "psum_participants": self.psum_participants,
+            "psum_bytes": self.psum_bytes,
+        }
+
+
+def pp_pairs(problem: Problem) -> tuple[PPPair, ...]:
+    """Every pairwise intermediate of one PP cache, in ``(n, m)`` order.
+
+    One :class:`PPPair` per unordered mode pair ``n < m`` -- the reuse set a
+    pairwise-perturbation sweep reads: mode ``n``'s approximate MTTKRP takes
+    its base term plus one small correction GEMM against ``M_{n,m}`` for
+    every other mode ``m``.  The psum metadata mirrors the schedule nodes'
+    convention (ring all-reduce over the axes mapped to contracted modes),
+    so sharded PP builds need only the same per-node collectives.
+    """
+    c = problem.rank
+    s = problem.itemsize
+    lb = problem.local_batch
+    out = []
+    for n in range(problem.ndim):
+        for m in range(n + 1, problem.ndim):
+            mapped = [
+                k for k in sorted(problem.mode_axes) if k != n and k != m
+            ]
+            axes = tuple(problem.mode_axes[k] for k in mapped)
+            participants = (
+                math.prod(problem.axis_sizes[a] for a in axes) if axes else 1
+            )
+            local = (
+                c, problem.local_shape[n], problem.local_shape[m]
+            )
+            block_bytes = math.prod(local) * s * lb
+            out.append(
+                PPPair(
+                    n=n,
+                    m=m,
+                    shape=(c, problem.shape[n], problem.shape[m]),
+                    local_shape=local,
+                    reduce_axes=axes,
+                    psum_participants=participants,
+                    psum_bytes=ring_allreduce_bytes(block_bytes, participants),
+                )
+            )
+    return tuple(out)
 
 
 def flat_schedule(problem: Problem) -> Schedule:

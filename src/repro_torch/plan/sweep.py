@@ -1,7 +1,6 @@
 """THE ALS sweep: the one copy of the update algebra, plan- and executor-driven.
 
-Port of the exact path of ``repro.plan.sweep``.  Per mode-n update
-(paper Sec. 2.2):
+Port of ``repro.plan.sweep``.  Per mode-n update (paper Sec. 2.2):
 
     M   = MTTKRP(X, {U_k}, n)               (executor + plan decide how)
     H   = *_{k != n} (U_k^T U_k)            (Hadamard of Gram matrices)
@@ -11,13 +10,21 @@ with the fit tracked through the factored identity reusing the last MTTKRP.
 The engine walks the plan's contraction schedule node by node.  The
 reference's ``lax.scan`` over donated buffers becomes a Python loop that
 syncs with the host once per chunk of ``sweeps_per_sync`` sweeps.
+
+Plans with ``plan.pp`` run pairwise-perturbation sweeps (Ma & Solomonik,
+arXiv 2010.12056): while every factor's drift since the last cache build
+stays under ``problem.pp_tol``, a sweep approximates each MTTKRP from
+cached pairwise intermediates plus first-order corrections and never
+touches the tensor.  The reference decides exact against approximate with
+a traced ``lax.cond``; PyTorch runs eagerly, so the port reads one drift
+maximum to the host a sweep (:func:`_host_gate`) and branches in Python.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, MutableMapping, Sequence
 
 import torch
@@ -32,9 +39,9 @@ from repro_torch.core.cpals import (
 from repro_torch.core.tensor_ops import random_factors, tensor_norm
 
 from .executor import Executor, LocalExecutor
-from .planner import SweepPlan
+from .planner import SweepPlan, plan_sweep
 from .problem import Problem
-from .schedule import ROOT
+from .schedule import ROOT, pp_pairs as pp_pair_meta
 
 Tensor = torch.Tensor
 
@@ -45,11 +52,23 @@ def _host_fits(fits: Sequence[Tensor]) -> list:
     return torch.stack(list(fits)).tolist()
 
 
+def _host_gate(drift: Tensor) -> float:
+    """THE host read of the pairwise-perturbation gate: ``max(drift)`` of a
+    per-factor drift vector, as a Python float.  Exactly one call a sweep
+    under a PP plan (none otherwise).  Module-level so tests can count it."""
+    return float(drift.max())
+
+
 @dataclass
 class SweepState:
     """State carried across sweeps.  ``grams`` carries the per-factor Gram
     matrices ``U_k^T U_k``: each mode's update refreshes its own, so the
-    next sweep starts from exact values; ``None`` recomputes them all."""
+    next sweep starts from exact values; ``None`` recomputes them all.
+
+    ``pp`` is the pairwise-perturbation cache (:class:`PPState`) when the
+    plan enabled PP sweeps, ``None`` otherwise -- and ``None`` runs the
+    classic exact sweep, so ``pp_tol=0`` plans are bitwise exact ALS.
+    """
 
     x: Tensor
     factors: list[Tensor]
@@ -58,6 +77,106 @@ class SweepState:
     it: int
     fit: Tensor | float = 0.0
     grams: list[Tensor] | None = None
+    pp: Any = None
+
+
+@dataclass
+class PPState:
+    """Pairwise-perturbation cache (Ma & Solomonik, arXiv 2010.12056).
+
+    Built after an exact sweep and carried across the approximate ones:
+    ``ref`` are the factor iterates the cache was built from, ``pairs``
+    maps ``(n, m)`` (``n < m``) to the rank-major pairwise intermediate
+    ``M_{n,m}[c, i_n, i_m] = sum X * prod_{k not in {n,m}} V_k[i_k, c]``,
+    and ``base`` is each mode's exact MTTKRP at the reference point.
+    ``drift`` is the ``(ndim,)`` float32 per-factor relative drift
+    ``||U_n - V_n||_F / ||V_n||_F`` since the build (max over the batch
+    for batched problems; +inf while the cache is stale, so the run opens
+    with an exact sweep), and ``n_exact`` counts exact sweeps.
+    ``drift_max`` is the host copy of ``max(drift)`` that the gate reads
+    (:func:`_host_gate`), ``None`` until read.
+    """
+
+    ref: list[Tensor]
+    pairs: dict[tuple[int, int], Tensor]
+    base: list[Tensor]
+    drift: Tensor
+    n_exact: int
+    drift_max: float | None = None
+
+
+def _pp_drift(factors: Sequence[Tensor], ref: Sequence[Tensor]) -> Tensor:
+    """Per-factor relative drift ``||U_n - V_n||_F / ||V_n||_F`` as an
+    ``(ndim,)`` float32 vector (max over the batch when batched) -- the
+    quantity the PP gate compares against ``Problem.pp_tol``."""
+    ds = []
+    for u, v in zip(factors, ref):
+        du = (u - v).float()
+        num = torch.sqrt(torch.sum(du * du, dim=(-2, -1)))
+        den = torch.sqrt(torch.sum(v.float() ** 2, dim=(-2, -1)))
+        ds.append(torch.max(num / torch.clamp(den, min=1e-30)))
+    return torch.stack(ds)
+
+
+def _pp_contract_second(pair: Tensor, v: Tensor) -> Tensor:
+    """``M_{n,m} . v_m -> (I_n, C)``: contract the rank-major pair
+    ``(..., C, I_n, I_m)`` with a factor ``(..., I_m, C)`` over the m index,
+    one stride-1 batched GEMV over the rank axis."""
+    vt = v.transpose(-1, -2)  # (..., C, I_m)
+    out = torch.matmul(pair, vt[..., :, :, None])[..., 0]  # (..., C, I_n)
+    return out.transpose(-1, -2)
+
+
+def _pp_contract_first(pair: Tensor, v: Tensor) -> Tensor:
+    """``M_{m,n} . v_m -> (I_n, C)`` when the partner is the pair's first
+    index (``m < n``): the same batched GEMV, contracting the
+    ``(..., C, I_m, I_n)`` pair with ``(..., I_m, C)`` over ``I_m``."""
+    vt = v.transpose(-1, -2)  # (..., C, I_m)
+    out = torch.matmul(vt[..., :, None, :], pair)[..., 0, :]  # (..., C, I_n)
+    return out.transpose(-1, -2)
+
+
+def _pp_base(pairs: dict[tuple[int, int], Tensor], ref: Sequence[Tensor], n: int) -> Tensor:
+    """Mode-``n`` exact MTTKRP at the reference point, recovered from one
+    pairwise intermediate: ``M_{n,m}`` contracted with the reference factor
+    ``V_m`` of the smallest partner ``m``."""
+    m = 1 if n == 0 else 0
+    if n < m:
+        return _pp_contract_second(pairs[(n, m)], ref[m])
+    return _pp_contract_first(pairs[(m, n)], ref[m])
+
+
+def _pp_materialize(problem: Problem, executor, x, factors, n_exact: int) -> PPState:
+    """Build the PP cache at the current iterates: pairwise intermediates by
+    ``executor.pp_pairs``, per-mode bases, zero drift."""
+    pairs = executor.pp_pairs(problem, x, factors)
+    base = [_pp_base(pairs, factors, n) for n in range(problem.ndim)]
+    return PPState(
+        ref=list(factors),
+        pairs=pairs,
+        base=base,
+        drift=torch.zeros((problem.ndim,), dtype=torch.float32, device=x.device),
+        n_exact=int(n_exact),
+        drift_max=0.0,
+    )
+
+
+def _pp_init(problem: Problem, x, factors) -> PPState:
+    """Zero-filled PP cache with +inf drift, shaped like a built one, so the
+    first sweep is exact and ``n_exact`` counts from 0."""
+    lead = (problem.batch,) if problem.batched else ()
+    pairs = {
+        (p.n, p.m): torch.zeros(lead + p.shape, dtype=x.dtype, device=x.device)
+        for p in pp_pair_meta(problem)
+    }
+    return PPState(
+        ref=[torch.zeros_like(u) for u in factors],
+        pairs=pairs,
+        base=[torch.zeros_like(u) for u in factors],
+        drift=torch.full((problem.ndim,), math.inf, dtype=torch.float32, device=x.device),
+        n_exact=0,
+        drift_max=math.inf,
+    )
 
 
 def _pinv(h: Tensor) -> Tensor:
@@ -85,18 +204,11 @@ def _update_factor(
     return weights
 
 
-def als_sweep(
+def _exact_sweep(
     problem: Problem, plan: SweepPlan, executor: Executor, state: SweepState
 ) -> SweepState:
-    """One full ALS sweep over all modes, following ``plan`` on ``executor``.
-
-    The engine is a schedule walker: it visits the plan's contraction tree
-    in pre-order, materializing each internal node's partial tensor through
-    ``executor.contract`` and caching it for its children, and updating one
-    factor at each leaf.  Because children partition their parent's range
-    in order and nodes materialize right before their first descendant
-    leaf, any valid schedule reproduces the standard ALS iterates.
-    """
+    """The exact schedule-walking sweep (see :func:`als_sweep`); passes
+    ``state.pp`` through untouched."""
     x = state.x
     factors = list(state.factors)
     weights = state.weights
@@ -117,10 +229,134 @@ def als_sweep(
         else:
             cache[node.id] = out
     fit = fit_from_last_mttkrp(gs, weights, m_last, factors[-1], state.norm_x)
+    return _with_payload(state, (factors, weights, fit, gs))
+
+
+def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState) -> SweepState:
+    """One approximate sweep from the PP cache: per mode ``n`` the MTTKRP is
+    the cached base plus one small GEMV per perturbed factor,
+    ``M_n ~= base_n + sum_{m != n} M_{n,m} . (U_m - V_m)`` (first order in
+    the drifts; the neglected terms are products of two or more deltas).
+    The factor update is the shared exact algebra; the tensor is never
+    touched.  Returns the state with refreshed device drifts (not read to
+    the host: ``drift_max`` is ``None``); the cache rides along."""
+    pp = state.pp
+    factors = list(state.factors)
+    weights = state.weights
+    gs = list(state.grams) if state.grams is not None else grams(factors)
+    m_last = None
+    for n in range(problem.ndim):
+        m_n = pp.base[n]
+        for m in range(problem.ndim):
+            if m == n:
+                continue
+            du = factors[m] - pp.ref[m]
+            if n < m:
+                m_n = m_n + _pp_contract_second(pp.pairs[(n, m)], du)
+            else:
+                m_n = m_n + _pp_contract_first(pp.pairs[(m, n)], du)
+        m_last = m_n
+        weights = _update_factor(plan, factors, gs, weights, n, m_n, state.it)
+    fit = fit_from_last_mttkrp(gs, weights, m_last, factors[-1], state.norm_x)
+    new_pp = replace(pp, drift=_pp_drift(factors, pp.ref), drift_max=None)
+    return replace(_with_payload(state, (factors, weights, fit, gs)), pp=new_pp)
+
+
+def _with_payload(state: SweepState, payload) -> SweepState:
+    """Rebuild a :class:`SweepState` from the sweep-mutable payload
+    ``(factors, weights, fit, grams)``, keeping the tensor, ``norm_x``,
+    ``it`` and the PP cache from ``state``."""
+    factors, weights, fit, gs = payload
     return SweepState(
-        x=x, factors=factors, weights=weights, norm_x=state.norm_x, it=state.it,
-        fit=fit, grams=gs,
+        x=state.x, factors=list(factors), weights=weights, norm_x=state.norm_x,
+        it=state.it, fit=fit, grams=gs, pp=state.pp,
     )
+
+
+def als_sweep(
+    problem: Problem, plan: SweepPlan, executor: Executor, state: SweepState
+) -> SweepState:
+    """One full ALS sweep over all modes, following ``plan`` on ``executor``.
+
+    The engine is a schedule walker: it visits the plan's contraction tree
+    in pre-order, materializing each internal node's partial tensor through
+    ``executor.contract`` and caching it for its children, and updating one
+    factor at each leaf.  Because children partition their parent's range
+    in order and nodes materialize right before their first descendant
+    leaf, any valid schedule reproduces the standard ALS iterates.
+
+    With a PP cache on ``state.pp`` the sweep is gated: while every
+    factor's drift since the cache was built stays below
+    ``problem.pp_tol`` (compared in float32, as the reference's traced
+    gate does), the approximate :func:`_pp_sweep` runs; otherwise the exact
+    walk runs, and the cache is rebuilt at the fresh iterates only when the
+    exact sweep's own step settled under the tolerance (during the early
+    large-step sweeps a build would be stale at once).  After the sweep the
+    drift is the drift since the kept reference on an approximate sweep,
+    zero right after a rebuild and +inf while the cache is stale;
+    ``n_exact`` grows by one on every exact sweep.  Deciding on the host
+    takes one read a sweep through :func:`_host_gate`: the new drift after
+    an approximate sweep, the step after an exact one.  ``state.pp is
+    None`` (every ``pp_tol=0`` plan) skips the gate: the classic exact
+    sweep, bitwise, with no read.
+    """
+    if state.pp is None:
+        return _exact_sweep(problem, plan, executor, state)
+    pp0 = state.pp
+    tol = float(torch.tensor(problem.pp_tol, dtype=torch.float32))
+    gate = pp0.drift_max if pp0.drift_max is not None else _host_gate(pp0.drift)
+    if gate < tol:
+        out = _pp_sweep(problem, plan, state)
+        return replace(out, pp=replace(out.pp, drift_max=_host_gate(out.pp.drift)))
+    out = _exact_sweep(problem, plan, executor, state)
+    step = _host_gate(_pp_drift(out.factors, state.factors))
+    n_exact = pp0.n_exact + 1
+    if step < tol:
+        pp = _pp_materialize(problem, executor, state.x, out.factors, n_exact)
+    else:
+        pp = replace(
+            pp0, drift=torch.full_like(pp0.drift, math.inf), n_exact=n_exact,
+            drift_max=math.inf,
+        )
+    return replace(out, pp=pp)
+
+
+def legacy_sweep(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    weights: Tensor,
+    norm_x: Tensor,
+    it,
+    *,
+    strategy: str,
+    normalize: bool = True,
+    split: int | None = None,
+    mode_axes=None,
+    mesh=None,
+) -> tuple[list[Tensor], Tensor, Tensor]:
+    """The one bridge behind the pre-redesign sweep signatures.
+
+    Builds the Problem/plan/executor for an old-style ``(x, factors,
+    weights, norm_x, it)`` call, runs the engine once, and returns the
+    historical ``(factors, weights, fit)`` triple.  The plan is frozen on
+    the pre-schedule tree shapes: the flat per-mode sweep, or the binary
+    split for ``strategy="dimtree"``.  ``mesh``/``mode_axes`` (the sharded
+    wrappers) come with the distribution slice of the port.
+    """
+    if mesh is not None or mode_axes:
+        raise NotImplementedError(
+            "sharded legacy sweeps come with the distribution slice of the port"
+        )
+    problem = Problem.from_tensor(x, factors[0].shape[1])
+    plan = plan_sweep(
+        problem, strategy=strategy, split=split, normalize=normalize, executor="local",
+        schedule=None if strategy == "dimtree" else "flat",
+    )
+    state = SweepState(
+        x=x, factors=list(factors), weights=weights, norm_x=norm_x, it=int(it)
+    )
+    out = als_sweep(problem, plan, LocalExecutor(), state)
+    return out.factors, out.weights, out.fit
 
 
 def cp_als(
@@ -160,6 +396,20 @@ def cp_als(
     receives the batch-mean fit, and the run stops when every problem's fit
     delta is below ``tol`` (the shared stop of one batched dispatch).
 
+    Plans with ``plan.pp`` (built from a ``Problem(pp_tol > 0)``) run the
+    pairwise-perturbation loop: the PP cache rides along with the factors
+    (zeros and +inf drift at first, so the first sweep is exact), and
+    ``CPState.pp_exact_sweeps`` reports how many sweeps were exact --
+    ``pp_exact_sweeps / it`` is the measured exact-sweep fraction to hold
+    against the planner's ``PP_EXACT_FRACTION``.  The gate is decided on
+    the host: each sweep of a PP plan reads one drift maximum through
+    :func:`_host_gate` (a device sync a sweep, on top of the chunk's), so
+    the host knows before each sweep whether it streams the tensor.  A
+    batched PP run takes one branch for the whole batch (the drift is the
+    max over the batch).  ``pp_tol=0`` plans never build the cache, never
+    read a drift, and are bitwise identical to classic exact ALS
+    (``pp_exact_sweeps`` is ``None``).
+
     ``dispatch_cache`` and ``dispatch_key`` are accepted for the serving
     engine's calling convention and have nothing to cache: PyTorch runs
     eagerly, so there is no compiled sweep to reuse.
@@ -188,6 +438,7 @@ def cp_als(
     weights = torch.ones(lead + (problem.rank,), dtype=x.dtype, device=x.device)
     norm_x = tensor_norm(x, batched=problem.batched).to(x.dtype)
     gs = grams(factors)
+    pp = _pp_init(problem, x, factors) if plan.pp else None
 
     fit_prev = [-math.inf] * problem.batch if problem.batched else -math.inf
     fit = torch.zeros(lead, dtype=x.dtype, device=x.device)
@@ -201,9 +452,9 @@ def cp_als(
             state = als_sweep(
                 problem, plan, executor,
                 SweepState(x=x, factors=factors, weights=weights, norm_x=norm_x,
-                           it=it + j, grams=gs),
+                           it=it + j, grams=gs, pp=pp),
             )
-            factors, weights, gs = state.factors, state.weights, state.grams
+            factors, weights, gs, pp = state.factors, state.weights, state.grams, state.pp
             fits.append(state.fit)
         host = _host_fits(fits)  # the chunk's single host sync
         dt = time.perf_counter() - t0
@@ -223,4 +474,7 @@ def cp_als(
             fit_prev = f
         it += length
         fit = fits[-1]
-    return CPState(factors=factors, weights=weights, fit=fit, it=it)
+    return CPState(
+        factors=factors, weights=weights, fit=fit, it=it,
+        pp_exact_sweeps=pp.n_exact if pp is not None else None,
+    )

@@ -31,10 +31,14 @@ the same signature: with ``strategy="autotune"`` (the default) a signature
 with measurements plans from them (``stats()["warm_plan_hits"]``); other
 signatures plan from the analytic model.
 
+A ``pp_tol > 0`` request is a batched pairwise-perturbation problem: its
+signature carries ``|pp<tol>``, so it never shares a batch with the exact
+request for the same tensor, and the service's ``strategy`` decides
+whether its plan enables PP (``"pp"`` forces it).
+
 The service runs on ``device`` (``"cuda"`` unless the caller asks for the
-CPU): :meth:`CPService.submit` moves each tensor there.  A ``mesh`` and
-pairwise-perturbation requests (``pp_tol > 0``) raise
-``NotImplementedError``: they come with the distribution and PP slices.
+CPU): :meth:`CPService.submit` moves each tensor there.  A ``mesh`` raises
+``NotImplementedError``: it comes with the distribution slice.
 """
 
 from __future__ import annotations
@@ -110,6 +114,7 @@ class _CPRequest:
     rank: int
     n_iters: int
     tol: float
+    pp_tol: float
     init_factors: list[Tensor] | None
     seed: int
     future: CPFuture
@@ -121,13 +126,6 @@ class _SignatureState:
 
     problem: Problem
     plan: Any
-
-
-def _no_pp(pp_tol: float) -> None:
-    if pp_tol > 0.0:
-        raise NotImplementedError(
-            "pairwise-perturbation requests (pp_tol > 0) come with the PP slice of the port"
-        )
 
 
 class CPService:
@@ -146,8 +144,9 @@ class CPService:
     signature as the batch buckets.  ``max_pending`` bounds the queue; a
     full queue rejects submission with
     :class:`repro_torch.serve.queue.QueueFull`.  ``device`` is where every
-    request runs (default ``"cuda"``).  ``mesh`` and ``pp_tol > 0`` raise
-    ``NotImplementedError`` (distribution and PP slices of the port).
+    request runs (default ``"cuda"``).  ``pp_tol > 0`` makes every request
+    (unless it overrides it) a pairwise-perturbation problem.  ``mesh``
+    raises ``NotImplementedError`` (the distribution slice of the port).
     """
 
     def __init__(
@@ -171,13 +170,13 @@ class CPService:
             raise NotImplementedError(
                 "a batch-parallel mesh comes with the distribution slice of the port"
             )
-        _no_pp(float(pp_tol))
         self.batch_size = int(batch_size)
         self.n_iters = int(n_iters)
         self.tol = float(tol)
         self.sweeps_per_sync = sweeps_per_sync
         self.strategy = strategy
         self.tuning_cache = tuning_cache
+        self.pp_tol = float(pp_tol)
         self.device = torch.device(device)
         self._queue = RequestQueue(max_pending)
         self._states: dict[str, _SignatureState] = {}
@@ -193,24 +192,28 @@ class CPService:
         self._execute_s = 0.0
 
     # ------------------------------------------------------------ submission
-    def _problem_for(self, tensor: Tensor, rank: int) -> Problem:
+    def _problem_for(self, tensor: Tensor, rank: int, pp_tol: float | None = None) -> Problem:
         """The batched Problem one dispatch of this tensor's bucket solves."""
         return Problem(
-            shape=tuple(tensor.shape), rank=int(rank), dtype=tensor.dtype, batch=self.batch_size
+            shape=tuple(tensor.shape),
+            rank=int(rank),
+            dtype=tensor.dtype,
+            batch=self.batch_size,
+            pp_tol=self.pp_tol if pp_tol is None else float(pp_tol),
         )
 
     def signature_of(self, tensor: Tensor, rank: int, *, n_iters: int | None = None,
                      tol: float | None = None, pp_tol: float | None = None) -> str:
         """Batch-bucket signature of one request: the canonical
         :meth:`repro_torch.plan.problem.Problem.signature` of the *batched*
-        problem (shape, rank, dtype, device count, batch -- via
-        :func:`repro_torch.plan.autotune.problem_key`, so it shares the
+        problem (shape, rank, dtype, device count, batch, PP tolerance --
+        via :func:`repro_torch.plan.autotune.problem_key`, so it shares the
         tuning cache's key space) extended with the update options (sweep
-        budget, tolerance) of the dispatch."""
-        _no_pp(0.0 if pp_tol is None else float(pp_tol))
+        budget, tolerance) of the dispatch.  A ``pp_tol > 0`` request
+        buckets apart from the exact one for the same tensor."""
         n_iters = self.n_iters if n_iters is None else int(n_iters)
         tol = self.tol if tol is None else float(tol)
-        base = problem_key(self._problem_for(tensor, rank))
+        base = problem_key(self._problem_for(tensor, rank, pp_tol))
         return f"{base}|i{n_iters}|t{tol:g}"
 
     def submit(
@@ -230,12 +233,13 @@ class CPService:
 
         Returns a :class:`CPFuture` that resolves when the request's batch
         executes (during :meth:`step`/:meth:`flush`).  ``n_iters``/``tol``
-        override the service defaults (they are part of the signature:
-        requests only share a dispatch when their update options match);
-        ``pp_tol > 0`` raises ``NotImplementedError``.  ``init_factors``
-        pins the initial factors (per-mode ``(I_k, C)``, unbatched -- the
-        service stacks them into the batch), otherwise they are drawn from
-        a ``torch.Generator`` on the device seeded with ``seed``.  Higher
+        and ``pp_tol`` override the service defaults (they are part of the
+        signature: requests only share a dispatch when their update options
+        match, so a PP request never shares one with an exact request).
+        ``init_factors`` pins the initial factors (per-mode ``(I_k, C)``,
+        unbatched -- the service stacks them into the batch), otherwise they
+        are drawn from a ``torch.Generator`` on the device seeded with
+        ``seed``.  Higher
         ``priority`` serves first, FIFO within a priority.  Raises
         :class:`repro_torch.serve.queue.QueueFull` when ``max_pending``
         requests are already waiting.
@@ -256,6 +260,7 @@ class CPService:
             rank=rank,
             n_iters=self.n_iters if n_iters is None else int(n_iters),
             tol=self.tol if tol is None else float(tol),
+            pp_tol=self.pp_tol if pp_tol is None else float(pp_tol),
             init_factors=init_factors,
             seed=int(seed),
             future=CPFuture(-1, sig),
@@ -276,7 +281,7 @@ class CPService:
         state = self._states.get(sig)
         if state is not None:
             return state
-        problem = self._problem_for(payload.tensor, payload.rank)
+        problem = self._problem_for(payload.tensor, payload.rank, payload.pp_tol)
         warm = (
             self.strategy == "autotune"
             and lookup_measurements(problem, cache=self.tuning_cache) is not None

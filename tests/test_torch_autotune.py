@@ -185,6 +185,15 @@ def test_tune_seeds_its_own_factors_and_candidate_tables():
 )
 def test_sharded_and_pp_tuning_raise(kwargs):
     x, _ = _data()
+    if "pp_tol" in kwargs:  # PP tuning is ported: it measures the two PP rows
+        cache = tplan.TuningCache()
+        entry = tplan.tune(torch.from_numpy(x), RANK, cache=cache, budget_ms=None, reps=1,
+                           **kwargs)
+        assert set(entry["pp"]) == {"build_s", "correct_sweep_s"}
+        assert all(v > 0 for v in entry["pp"].values())
+        problem = tplan.Problem(SHAPE, RANK, pp_tol=kwargs["pp_tol"])
+        assert tplan.lookup_measurements(problem, cache=cache).pp == entry["pp"]
+        return
     with pytest.raises(NotImplementedError):
         tplan.tune(torch.from_numpy(x), RANK, cache=tplan.TuningCache(), **kwargs)
 

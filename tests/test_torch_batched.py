@@ -291,8 +291,9 @@ def test_sharded_batched_problems_still_raise():
         tplan.plan_sweep(p)
     with pytest.raises(NotImplementedError):
         tplan.mode_cost(p, 0, "1step")
-    with pytest.raises(NotImplementedError):
-        tplan.plan_sweep(tplan.Problem((4, 5, 6), 2, batch=2, pp_tol=0.1))
+    # a batched PP problem is ported: it plans and prices PP (one branch a batch)
+    pp = tplan.plan_sweep(tplan.Problem((4, 5, 6), 2, batch=2, pp_tol=0.1), "pp")
+    assert pp.pp and pp.describe()["pp"]["tol"] == 0.1
 
 
 # ----------------------------------------------------------- batched cp_als

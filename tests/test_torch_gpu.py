@@ -803,3 +803,64 @@ def test_both_libraries_of_the_shared_body_prepare_their_own_kernels(cuda):
         outs = [runs[k](x, fs, 0) for k in order]
         assert torch.equal(outs[0], outs[1])
         assert _rel(outs[0], mf.matrix_free_batched_kernel_plain(x, [fs[1], fs[2]], 0)) < REL
+
+
+# ---- the legacy front door and PP sweeps on the card
+@pytest.mark.parametrize("method,kernel", [("fused", fm.KERNEL), ("matrix_free", mf.KERNEL)])
+def test_legacy_cp_als_runs_the_kernels_and_is_the_engine_bitwise(cuda, method, kernel):
+    from repro_torch.core import CPConfig
+    from repro_torch.core import cp_als as legacy_cp_als
+    from repro_torch.core.cpals import als_sweep
+    from repro_torch.core.dimtree import dimtree_sweep
+    from repro_torch.core.tensor_ops import tensor_norm
+    from repro_torch.plan import LocalExecutor, SweepState
+    from repro_torch.plan import als_sweep as engine_sweep
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape, rank, sweeps = (33, 20, 40, 30), 10, 3
+    x = torch.randn(shape, generator=g, device=cuda)
+    init = [torch.randn((d, rank), generator=g, device=cuda) for d in shape]
+    before = kernel.launches
+    a = legacy_cp_als(x, CPConfig(rank, n_iters=sweeps, tol=0.0, method=method),
+                      init_factors=init)
+    assert kernel.launches - before == len(shape) * sweeps
+    b = cp_als(x, plan_sweep(Problem.from_tensor(x, rank), method), n_iters=sweeps, tol=0.0,
+               init_factors=init)
+    assert all(torch.equal(u, v) for u, v in zip(a.factors, b.factors))
+    assert torch.equal(a.weights, b.weights) and torch.equal(a.fit, b.fit)
+    w, nx = torch.ones(rank, device=cuda), tensor_norm(x)
+    for strategy, legacy in ((method, lambda: als_sweep(x, init, w, nx, 0, method, True)),
+                             ("dimtree", lambda: dimtree_sweep(x, init, w, nx, 0))):
+        plan = plan_sweep(Problem.from_tensor(x, rank), strategy,
+                          schedule=None if strategy == "dimtree" else "flat")
+        st = engine_sweep(plan.problem, plan, LocalExecutor(),
+                          SweepState(x=x, factors=init, weights=w, norm_x=nx, it=0))
+        out = legacy()
+        assert all(torch.equal(u, v) for u, v in zip(out[0], st.factors))
+        assert torch.equal(out[2], st.fit)
+
+
+@pytest.mark.parametrize("batch", [None, 3])
+def test_pp_run_on_the_card_agrees_with_the_cpu(cuda, batch):
+    """The same PP run on the card and on the CPU: the same exact-sweep
+    count (on the CPU every gate value of these data lies at least 1.4x
+    away from ``pp_tol``, so no rounding difference flips one) and fits
+    within 1e-4."""
+    g = torch.Generator().manual_seed(5)
+    shape, rank, sweeps, pp_tol = (12, 10, 8, 6), 3, 12, 0.05
+    lead = () if batch is None else (batch,)
+    true = [torch.randn(lead + (d, rank), generator=g) for d in shape]
+    x = torch.einsum("...ac,...bc,...dc,...ec->...abde", *true)
+    x = (x + 0.1 * x.std() * torch.randn(x.shape, generator=g)).contiguous()
+    init = [torch.randn(lead + (d, rank), generator=g) for d in shape]
+    problem = Problem(shape, rank, batch=batch or 1, pp_tol=pp_tol)
+    runs = {}
+    for where in ("cpu", cuda):
+        fits = []
+        st = cp_als(x.to(where), plan_sweep(problem, "pp"), n_iters=sweeps, tol=0.0,
+                    init_factors=[u.to(where) for u in init],
+                    callback=lambda i, f, s: fits.append(f))
+        runs[str(where)] = (st.pp_exact_sweeps, fits)
+    (n_cpu, f_cpu), (n_card, f_card) = runs.values()
+    assert n_card == n_cpu and 0 < n_card < sweeps
+    assert max(abs(a - b) for a, b in zip(f_cpu, f_card)) < 1e-4

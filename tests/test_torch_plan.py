@@ -115,9 +115,10 @@ def test_later_slices_raise_not_implemented():
         tplan.plan_sweep(
             tplan.Problem((4, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
         )
-    with pytest.raises(NotImplementedError):
-        tplan.plan_sweep(tplan.Problem((4, 6), 2, pp_tol=0.1))
-    with pytest.raises(NotImplementedError):
+    # PP is ported: a pp_tol > 0 problem plans with its PP row, and "pp"
+    # without a tolerance is the reference's ValueError
+    assert tplan.plan_sweep(tplan.Problem((4, 6), 2, pp_tol=0.1)).pp_info["tol"] == 0.1
+    with pytest.raises(ValueError, match="pp_tol"):
         tplan.plan_sweep(p, "pp")
     with pytest.raises(NotImplementedError):
         tplan.plan_sweep(p, executor="sharded")

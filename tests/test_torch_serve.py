@@ -283,13 +283,13 @@ def test_submit_validation_and_future_protocol():
 def test_mesh_and_pp_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="distribution"):
         CPService(batch_size=2, mesh=object())
-    with pytest.raises(NotImplementedError, match="PP"):
-        CPService(batch_size=2, pp_tol=0.25)
+    # PP requests are ported: they are taken and bucket under a |pp signature
+    assert CPService(batch_size=2, pp_tol=0.25, device="cpu").pp_tol == 0.25
     svc = _service(batch_size=2)
     x, _ = _request((5, 4, 3), seed=1)
-    with pytest.raises(NotImplementedError, match="PP"):
-        svc.submit(x, RANK, pp_tol=0.25)
-    assert svc.stats()["submitted"] == 0
+    fut = svc.submit(x, RANK, pp_tol=0.25)
+    assert "|pp0.25|" in fut.signature
+    assert svc.stats()["submitted"] == 1
 
 
 def test_service_runs_on_the_card_unless_told_otherwise():
