@@ -21,6 +21,7 @@ and batched, and the KRP pair) against their plain PyTorch versions.
     python3 chip_smoke.py --only matrix_free          # phases 0-4 of row 2 only
     python3 chip_smoke.py --only batched_matrix_free  # phases 0, 1, 5, 7 of row 4 only
     python3 chip_smoke.py --only pp                   # phases 0, 1 and 12 only
+    python3 chip_smoke.py --only dist                 # phases 0, 1 and 13 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -132,6 +133,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    printed), ``pp_exact_sweeps`` per batch, problems/s.  (e) a small PP run
    on the card and on the CPU: the same sequence, fits within
    ``SMALL_FIT_AGREE``.
+13. flat sharded CP-ALS over a ``torch.distributed`` DeviceMesh, in an NCCL
+   world of one (``init_process_group("nccl", init_method="file://...",
+   rank=0, world_size=1)``, mesh ``(1, 1)`` of ``("data", "model")``; NCCL
+   failing to start fails the run, nothing falls back).  (a) mode-parallel
+   on the fMRI tensor with ``mode_axes={0: "data", 2: "model"}``: for
+   matrix_free and fused, ``plan.cp_als`` under ``plan_sweep(...,
+   executor="sharded")`` with ``make_executor("sharded", ...)`` and
+   ``dist_cp_als(method=m)``, each bitwise equal (factors, weights,
+   per-sweep fits) to phase 3's local run, with 4 x sweeps launches of row 2
+   / row 1 and the collective count derived from the plan's schedule
+   (``_expected_gathers``); printed: seconds a sweep sharded against local
+   (host clock) and a trace of one sharded sweep with NCCL's share.  (b)
+   ``dist_dimtree_sweep`` for 3 sweeps bitwise equal to ``dimtree_sweep``.
+   (c) batch-parallel: subjects 0-7 stacked, ``mode_axes={}``,
+   ``batch_axes=("data",)``, under matrix_free and fused, bitwise equal to
+   the local batched engine, with 3 x sweeps launches of row 4 / row 3.
+
+NCCL beyond a world of one is not exercised here: the card is one H100.
 
 The kernels-a-call gates (phases 4, 7 and 11) count the nodes of a CUDA
 graph captured from one call, not the profiler's events: the profiler drops
@@ -1917,16 +1936,232 @@ def _only_pp(torch, args, dev, smi) -> None:
     _pp_phase(torch, args, dev, smi, x4, init, engine)
 
 
+# ---- phase 13: flat sharded CP-ALS over a torch.distributed DeviceMesh
+# The reference's mode-parallel mapping (tests/dist_worker.py) on the fMRI
+# tensor: time points on "data", the first region mode on "model".
+DIST_AXES = {0: "data", 2: "model"}
+DIST_TREE_SWEEPS = 3
+
+
+def _expected_gathers(plan, sweeps: int, batch_axes=()) -> tuple[int, str]:
+    """The collectives a sharded ``cp_als`` run of ``plan`` makes, derived
+    from its schedule, and the derivation.  Set-up: the tensor norm, one
+    gather a mapped mode's axis, and the Gram of each mapped mode.  A
+    sweep: each node's reduction (one gather an axis of the mapped modes it
+    contracts), the column norms and the Gram of each mapped leaf mode, the
+    fit's inner product when the last mode is mapped, and one gather a
+    batch axis for the sweep's fits (one host read a sweep)."""
+    prob = plan.problem
+    mapped = set(prob.mode_axes)
+    nodes = sum(len(node.reduce_axes) for node in plan.resolved_schedule.walk())
+    algebra = (2 if plan.normalize else 1) * len(mapped) + (prob.ndim - 1 in mapped)
+    setup = 2 * len(mapped)
+    per_sweep = nodes + algebra + len(batch_axes)
+    return setup + per_sweep * sweeps, (f"{setup} set-up + {sweeps} sweeps x ({nodes} node "
+                                        f"reductions + {algebra} algebra + {len(batch_axes)} "
+                                        f"fit gathers)")
+
+
+def _bitwise(st, fits, ref) -> bool:
+    """A ``cp_als`` state and its per-sweep fits bitwise equal to ``ref``'s."""
+    rst, rfits = ref
+    return (fits == rfits and st.weights.equal(rst.weights) and st.fit.equal(rst.fit)
+            and all(u.equal(v) for u, v in zip(st.factors, rst.factors)))
+
+
+def _dist_phase(torch, args, dev, smi, x4, init, engine, subjects) -> None:
+    """Phase 13: an NCCL world of one on the card, the flat sharded path at
+    full width against the single-device engine (see the module
+    docstring).  ``engine`` maps fused and matrix_free to ``(state,
+    per-sweep fits)`` of phase 3's ``plan.cp_als`` from ``init``."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    t0 = time.perf_counter()
+    try:
+        tdist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                 world_size=1)
+        mesh = make_host_mesh(1, 1, device="cuda")
+        probe = torch.ones(4, device=dev)
+        tdist.all_gather([torch.empty_like(probe)], probe, group=mesh.get_group("data"))
+        torch.cuda.synchronize()
+    except Exception as e:  # no fallback: the phase fails
+        shutil.rmtree(store, ignore_errors=True)
+        raise SystemExit(f"[13] NCCL failed to start: {type(e).__name__}: {e}")
+    _log(f"[13] NCCL world of 1 (backend {tdist.get_backend()}, NCCL "
+         f"{'.'.join(map(str, torch.cuda.nccl.version()))}), mesh {mesh.mesh_dim_names} "
+         f"{tuple(mesh.shape)}, first all_gather done in {time.perf_counter() - t0:.1f} s")
+    try:
+        _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh)
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh) -> None:
+    from repro_torch.core.dimtree import dimtree_sweep
+    from repro_torch.core.tensor_ops import tensor_norm
+    from repro_torch.dist import GATHERS, dist_cp_als, dist_dimtree_sweep
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import Problem, cp_als, make_executor, plan_sweep
+
+    rank, sweeps = args.rank, args.sweeps
+    kernels = {"matrix_free": (mf.KERNEL, fm.KERNEL), "fused": (fm.KERNEL, mf.KERNEL)}
+    batched = {"matrix_free": (mf.BATCHED_KERNEL, fm.BATCHED_KERNEL),
+               "fused": (fm.BATCHED_KERNEL, mf.BATCHED_KERNEL)}
+
+    def counted(run, pair):
+        """``run()`` with the kernel counters and the collective counter set
+        to 0 just before; returns its result and (launches of the path's
+        kernel, of the other, collectives)."""
+        torch.cuda.synchronize()
+        pair[0].launches = pair[1].launches = GATHERS.calls = 0
+        out = run()
+        torch.cuda.synchronize()
+        return out, (pair[0].launches, pair[1].launches, GATHERS.calls)
+
+    def local_secs(m):
+        secs = []
+        cp_als(x4, plan_sweep(Problem.from_tensor(x4, rank), m), n_iters=sweeps, tol=0.0,
+               init_factors=init, callback=lambda it, f, dt: secs.append(dt))
+        return secs
+
+    # ---- 13a: mode-parallel, the fMRI tensor at full width
+    for m in ("matrix_free", "fused"):
+        before = local_secs(m)
+        plan = plan_sweep(Problem.from_tensor(x4, rank, DIST_AXES, mesh), m, executor="sharded")
+        want, how = _expected_gathers(plan, sweeps)
+        fits, secs = [], []
+        st, got = counted(lambda: cp_als(
+            x4, plan, executor=make_executor("sharded", mesh, DIST_AXES), n_iters=sweeps,
+            tol=0.0, init_factors=init,
+            callback=lambda it, f, dt: (fits.append(f), secs.append(dt))), kernels[m])
+        same = _bitwise(st, fits, engine[m])
+        _log(f"[13] plan.cp_als sharded {m} {DIST_AXES}: schedule "
+             f"{plan.resolved_schedule.name}; launches {got[0]} of its kernel (want "
+             f"{4 * sweeps}), {got[1]} of the other; collectives {got[2]} (want {want}: {how}); "
+             f"bitwise equal to phase 3's local run: {'ok' if same else 'FAIL'}")
+        if not same or got[:2] != (4 * sweeps, 0) or got[2] != want:
+            raise SystemExit(f"sharded plan.cp_als {m}: bits, launches or collectives differ")
+        (blocks, w, fit), got = counted(lambda: dist_cp_als(
+            x4, rank, DIST_AXES, mesh, n_iters=sweeps, tol=0.0, init_factors=init, method=m),
+            kernels[m])
+        est = engine[m][0]
+        same = (w.equal(est.weights) and fit.equal(est.fit)
+                and all(u.equal(v) for u, v in zip(blocks, est.factors)))
+        _log(f"[13] dist_cp_als(method={m!r}): launches {got[0]} (want {4 * sweeps}), "
+             f"{got[1]} of the other; collectives {got[2]} (want {want}); factors, weights "
+             f"and fit bitwise equal to phase 3's: {'ok' if same else 'FAIL'}")
+        if not same or got[:2] != (4 * sweeps, 0) or got[2] != want:
+            raise SystemExit(f"dist_cp_als {m}: bits, launches or collectives differ")
+        after = local_secs(m)
+        _log(f"[13] {m} seconds a sweep (host clock, one sync a sweep): local {before} then "
+             f"{after}; sharded {secs}; medians local {_median(before + after):.6f} sharded "
+             f"{_median(secs):.6f}; card {smi}")
+        _dist_trace(torch, args, x4, init, plan, mesh, m, smi)
+
+    # ---- 13b: the dimension tree, sweep by sweep against the legacy sweep
+    w0, nx = torch.ones(rank, device=x4.device), tensor_norm(x4)
+    f_l, w_l, f_d, w_d = list(init), w0, list(init), w0
+    for it in range(DIST_TREE_SWEEPS):
+        f_l, w_l, fit_l = dimtree_sweep(x4, f_l, w_l, nx, it)
+        GATHERS.calls = 0
+        f_d, w_d, fit_d = dist_dimtree_sweep(x4, f_d, w_d, nx, it, DIST_AXES, mesh)
+        torch.cuda.synchronize()
+        same = (w_d.equal(w_l) and fit_d.equal(fit_l)
+                and all(u.equal(v) for u, v in zip(f_d, f_l)))
+        _log(f"[13] dist_dimtree_sweep {it}: fit {float(fit_d):.7f}, collectives "
+             f"{GATHERS.calls}; bitwise equal to dimtree_sweep: {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit("dist_dimtree_sweep differs from the legacy dimtree_sweep")
+
+    # ---- 13c: batch-parallel, subjects 0-7 stacked
+    xb = torch.stack(subjects[:SERVE_BATCH])
+    gen = torch.Generator(device=x4.device).manual_seed(args.seed + 13)
+    fb = [torch.randn((SERVE_BATCH, d, rank), generator=gen, device=x4.device)
+          for d in xb.shape[1:]]
+    for m in ("matrix_free", "fused"):
+        lfits = []
+        lst = cp_als(xb, plan_sweep(Problem.from_tensor(xb, rank, batch=SERVE_BATCH), m),
+                     n_iters=sweeps, tol=0.0, init_factors=fb,
+                     callback=lambda it, f, dt: lfits.append(f))
+        plan = plan_sweep(Problem.from_tensor(xb, rank, {}, mesh, batch=SERVE_BATCH,
+                                              batch_axes=("data",)), m, executor="sharded")
+        want, how = _expected_gathers(plan, sweeps, ("data",))
+        fits = []
+        st, got = counted(lambda: cp_als(
+            xb, plan, executor=make_executor("sharded", mesh, {}, batch_axes=("data",)),
+            n_iters=sweeps, tol=0.0, init_factors=fb,
+            callback=lambda it, f, dt: fits.append(f)), batched[m])
+        same = _bitwise(st, fits, (lst, lfits))
+        _log(f"[13] batch-parallel {m} ({tuple(xb.shape)}, batch on 'data', placement "
+             f"{plan.describe()['placement']}): launches {got[0]} of its batched kernel (want "
+             f"{3 * sweeps}), {got[1]} of the other; collectives {got[2]} (want {want}: {how}); "
+             f"bitwise equal to the local batched engine: {'ok' if same else 'FAIL'}")
+        if not same or got[:2] != (3 * sweeps, 0) or got[2] != want:
+            raise SystemExit(f"batch-parallel {m}: bits, launches or collectives differ")
+
+
+def _dist_trace(torch, args, x4, init, plan, mesh, m, smi) -> None:
+    """A ``torch.profiler`` trace of one sharded sweep (its set-up
+    included): the device's busy share and the share of NCCL's operations
+    (kernels named ``nccl*``) and of device-to-device copies in it."""
+    from repro_torch.plan import cp_als, make_executor
+
+    wall, evs = _trace(torch, lambda: cp_als(
+        x4, plan, executor=make_executor("sharded", mesh, DIST_AXES), n_iters=1, tol=0.0,
+        init_factors=init))
+    _log_trace(f"[13] trace of one sharded {m} sweep with its set-up", wall, evs, 1, smi)
+    busy = sum(b - a for a, b, _ in evs)
+    nccl = sum(b - a for a, b, name in evs if "nccl" in name.lower())
+    copies = sum(b - a for a, b, name in evs if name.startswith("Memcpy"))
+    _log(f"[13] {m}: NCCL operations {nccl:.1f} us, device copies {copies:.1f} us of "
+         f"{busy:.1f} us of device operations ({100 * nccl / max(busy, 1e-9):.2f}% NCCL); "
+         f"card {smi}")
+
+
+def _only_dist(torch, args, dev, smi) -> None:
+    """``--only dist``: build the MTTKRP kernels, make the fMRI tensor and
+    an init, run phase 3's fused and matrix_free ``plan.cp_als`` for the
+    bitwise comparison, then phase 13."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import Problem, cp_als, plan_sweep
+
+    _build.build_all([fm.KERNEL, mf.KERNEL])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x4 = synth_fmri(torch, gen, args.rank, dev)
+    init = [torch.randn((d, args.rank), generator=gen, device=dev) for d in FMRI]
+    engine = {}
+    for strategy in ("fused", "matrix_free"):
+        fits = []
+        st = cp_als(x4, plan_sweep(Problem.from_tensor(x4, args.rank), strategy),
+                    n_iters=args.sweeps, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: fits.append(f))
+        engine[strategy] = (st, fits)
+    subjects = [x4[:, s].contiguous() for s in range(SERVE_BATCH)]
+    _dist_phase(torch, args, dev, smi, x4, init, engine, subjects)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
-    ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp"],
+    ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
+                                       "dist"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
-                         "5 and 7) matrix-free kernel's checks, timing and trace, or phase 12 "
-                         "(the legacy front door and PP sweeps); prints no result line")
+                         "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
+                         "(the legacy front door and PP sweeps) or phase 13 (flat sharded "
+                         "CP-ALS in an NCCL world of one); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1957,7 +2192,8 @@ def main(argv=None) -> int:
          f"cudnn={torch.backends.cudnn.allow_tf32}")
     if args.only:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
-                "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp}[args.only]
+                "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
+                "dist": _only_dist}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -2178,6 +2414,10 @@ def main(argv=None) -> int:
     # ---- phase 12: the legacy front door and PP sweeps
     _pp_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
               subjects, serve_inits, serve_fits)
+
+    # ---- phase 13: flat sharded CP-ALS in an NCCL world of one
+    _dist_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
+                subjects)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

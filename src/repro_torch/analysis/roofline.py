@@ -11,9 +11,12 @@ power limit runs slower:
   (``torch.backends.cuda.matmul.allow_tf32 = False``), so fp32 CUDA-core
   throughput is the ceiling its contractions can reach.
 * ``HBM_BW`` -- 3.35 TB/s HBM3.
+* ``NVLINK_BW`` -- 900 GB/s of NVLink 4 a GPU, the link the flat
+  collective between the cards of one node rides (nominal: the datasheet's
+  total bandwidth a GPU, not a measured all-gather rate).
 
-The link constants and the collective parser come with the distribution
-slice of the port.
+The node-crossing link constant and the collective parser come with later
+distribution slices of the port.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
+NVLINK_BW = 900e9
 
 _DTYPE_BYTES = {
     "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,

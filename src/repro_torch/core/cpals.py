@@ -72,23 +72,40 @@ def fit_from_last_mttkrp(
     m_last: Tensor,
     last_factor: Tensor,
     norm_x: Tensor,
+    *,
+    row_sum: Callable[[Tensor], Tensor] | None = None,
 ) -> Tensor:
     """Fit via the factored identity, reusing the final mode's MTTKRP:
     ``<X, Y> = sum(M_last * (U_last * lambda))`` and
-    ``||Y||^2 = lambda^T ( *_k U_k^T U_k ) lambda``."""
+    ``||Y||^2 = lambda^T ( *_k U_k^T U_k ) lambda``.
+
+    ``row_sum`` completes the inner product when ``m_last`` and
+    ``last_factor`` hold only some rows of the last mode (a sharded
+    problem: the sum over the ranks holding the other rows); ``None`` is
+    the identity."""
     n_modes = len(gs)
     full_h = gs[-1] * hadamard_except(gs, n_modes - 1)
     norm_y_sq = torch.einsum("...c,...cd,...d->...", weights, full_h, weights)
     inner = torch.sum(m_last * (last_factor * weights[..., None, :]), dim=(-2, -1))
+    if row_sum is not None:
+        inner = row_sum(inner)
     resid_sq = torch.clamp(norm_x**2 - 2.0 * inner + norm_y_sq, min=0.0)
     return 1.0 - torch.sqrt(resid_sq) / norm_x
 
 
-def normalize_columns(u: Tensor, it: int) -> tuple[Tensor, Tensor]:
+def normalize_columns(
+    u: Tensor, it: int, *, row_sum: Callable[[Tensor], Tensor] | None = None
+) -> tuple[Tensor, Tensor]:
     """Column norms -> lambda.  The first sweep (``it == 0``, a Python int)
     uses the 2-norm, later sweeps ``max(1, norm)`` (the Tensor Toolbox
-    convention that keeps lambdas stable).  Norms run over the row axis."""
+    convention that keeps lambdas stable).  Norms run over the row axis.
+
+    With ``row_sum`` (``u`` holds some of the rows; ``row_sum`` sums a
+    per-column vector over the ranks holding the others) the norm is
+    ``sqrt(row_sum(norm ** 2))`` of this block's norms."""
     norms = torch.linalg.vector_norm(u, dim=-2)
+    if row_sum is not None:
+        norms = torch.sqrt(row_sum(norms * norms))
     if it != 0:
         norms = torch.clamp(norms, min=1.0)
     return u / norms[..., None, :], norms

@@ -11,7 +11,8 @@ wrappers (partial-KRP split, views, mode dispatch, the KRP fold and the
 kernelized 2-step MTTKRP); ref.py the plain-torch oracles the tests compare
 against.  The multi-TTV wrappers are reached as ``ops.multi_ttv`` /
 ``ops.multi_ttv_batched`` (a package-level ``multi_ttv`` would hide the
-module of that name).  A CUDA tensor launches a kernel, a CPU tensor takes
+module of that name); the package exports the low-level entries
+``multi_ttv_kernel`` / ``multi_ttv_batched_kernel``, as the reference does.  A CUDA tensor launches a kernel, a CPU tensor takes
 its plain version.
 """
 
@@ -31,6 +32,7 @@ from .matrix_free import (
     matrix_free_mttkrp,
     matrix_free_mttkrp_batched,
 )
+from .multi_ttv import multi_ttv_batched_kernel, multi_ttv_kernel
 
 __all__ = [
     "ops",
@@ -47,4 +49,6 @@ __all__ = [
     "matrix_free_kernel_plain",
     "matrix_free_mttkrp",
     "matrix_free_mttkrp_batched",
+    "multi_ttv_kernel",
+    "multi_ttv_batched_kernel",
 ]

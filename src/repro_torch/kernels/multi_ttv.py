@@ -150,6 +150,49 @@ def _launch(kernel: CudaKernel, t: Tensor, w: Tensor, block_i: int, slabs: int |
     return out
 
 
+def multi_ttv_kernel(
+    t: Tensor, w: Tensor, *, block_i: int, interpret: bool = False
+) -> Tensor:
+    """``M[i,c] = sum_l t[l,i,c] * w[l,c]`` (t: (L, I, C), w: (L, C)): the
+    reference's low-level entry, with its checks.  ``I`` must be a multiple
+    of ``block_i`` (``ValueError`` otherwise: the caller pads); the result
+    is float32.  A CUDA tensor makes the one launch :func:`multi_ttv` makes,
+    a CPU tensor takes the plain version.  ``interpret`` is the
+    reference's keyword and changes nothing."""
+    big_l, dim_i, c = t.shape
+    if tuple(w.shape) != (big_l, c):
+        raise ValueError(f"w shape {tuple(w.shape)} != ({big_l}, {c})")
+    if dim_i % block_i:
+        raise ValueError("I must be padded to the block size")
+    if not use_kernel(t, w):
+        return multi_ttv_plain(t, w).to(torch.float32)
+    return _launch(KERNEL, t, w, block_i, None)
+
+
+def multi_ttv_batched_kernel(
+    t: Tensor,
+    w: Tensor,
+    *,
+    block_i: int,
+    block_batch: int,
+    interpret: bool = False,
+) -> Tensor:
+    """Batched multi-TTV ``M[s,i,c] = sum_l t[s,l,i,c] * w[s,l,c]``: the
+    reference's low-level entry, with its checks.  ``S`` and ``I`` must be
+    multiples of ``block_batch`` and ``block_i`` (``ValueError``
+    otherwise); the result is float32.  One launch of the batched kernel on
+    a CUDA tensor (every slab its own z block, so ``block_batch`` only
+    checks the padding), the plain version on a CPU tensor."""
+    n_batch, big_l, dim_i, c = t.shape
+    if tuple(w.shape) != (n_batch, big_l, c):
+        raise ValueError(f"w shape {tuple(w.shape)} != ({n_batch}, {big_l}, {c})")
+    if dim_i % block_i or n_batch % block_batch:
+        raise ValueError("S and I must be padded to the block sizes")
+    if not use_kernel(t, w):
+        return multi_ttv_batched_plain(t, w).to(torch.float32)
+    return _launch(BATCHED_KERNEL, t, w, block_i, n_batch)
+
+
 def multi_ttv(
     t: Tensor, w: Tensor, *, block_i: int = 256, interpret: bool | None = None
 ) -> Tensor:

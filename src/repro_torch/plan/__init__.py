@@ -1,7 +1,8 @@
 """``repro_torch.plan`` -- one front door: Problem -> SweepPlan -> Executor.
 
-Port of ``repro.plan`` for single-device CP-ALS, one tensor or a batch of
-same-shaped tensors (``Problem(batch=B)``):
+Port of ``repro.plan`` for CP-ALS on one device or sharded over a
+``torch.distributed`` DeviceMesh, one tensor or a batch of same-shaped
+tensors (``Problem(batch=B)``):
 
 * :class:`Problem` -- immutable descriptor (shape, rank, dtype); its
   :meth:`~Problem.signature` string equals the reference's.
@@ -11,6 +12,10 @@ same-shaped tensors (``Problem(batch=B)``):
   :meth:`SweepPlan.describe` exposes the predictions.
 * :class:`LocalExecutor` -- where contractions run; ``"fused"`` and
   ``"matrix_free"`` leaves launch the port's CUDA kernels on the card.
+  :class:`ShardedExecutor` runs the same local contractions on this
+  rank's block of a mesh-sharded problem and completes each with a
+  deterministic reduction (:mod:`repro_torch.dist`);
+  :func:`make_executor` builds either from ``SweepPlan.executor``.
 * :func:`cp_als` / :func:`als_sweep` -- the one sweep engine and driver;
   :func:`legacy_sweep` is the bridge behind the legacy wrappers
   (``core.cpals.als_sweep``, ``core.dimtree.dimtree_sweep``).
@@ -28,8 +33,10 @@ same-shaped tensors (``Problem(batch=B)``):
   :class:`TuningCache`, which ``plan_sweep(strategy="autotune")`` reads
   through :func:`lookup_measurements`.
 
-Sharded problems (mapped modes or a sharded batch axis) raise
-``NotImplementedError``: they come with the distribution slice.
+Sharded problems plan with ``plan_sweep(..., executor="sharded")``.  The
+overlapping and compressed executors, two-level meshes and sharded
+pairwise perturbation raise ``NotImplementedError`` naming the
+distribution slice of the port that brings them (2, 3, 4 and 5).
 """
 
 from .autotune import (
@@ -53,8 +60,16 @@ from .cost import (
     pp_correction_cost,
     validate_executor,
 )
-from .executor import Executor, LocalExecutor, make_executor
-from .planner import SCHEDULE_NAMES, STRATEGIES, ModePlan, NodePlan, SweepPlan, plan_sweep
+from .executor import Executor, LocalExecutor, ShardedExecutor, make_executor
+from .planner import (
+    SCHEDULE_NAMES,
+    STRATEGIES,
+    ModePlan,
+    NodePlan,
+    SweepPlan,
+    plan_sweep,
+    select_executor,
+)
 from .problem import Problem
 from .schedule import (
     ContractionNode,
@@ -87,6 +102,7 @@ __all__ = [
     "PP_EXACT_FRACTION",
     "Problem",
     "Schedule",
+    "ShardedExecutor",
     "SweepPlan",
     "SweepState",
     "TuningCache",
@@ -111,6 +127,7 @@ __all__ = [
     "pp_correction_cost",
     "pp_pairs",
     "ring_allreduce_bytes",
+    "select_executor",
     "tune",
     "validate_executor",
 ]

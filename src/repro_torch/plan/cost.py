@@ -1,20 +1,28 @@
 """Analytic per-mode / per-node cost model behind ``plan_sweep``.
 
-Port of the single-device part of ``repro.plan.cost``: :class:`ModeCost`,
-:func:`mode_cost`, :func:`node_cost`, :func:`executor_mode_cost` and
-:func:`dimtree_mode_cost` for the ``"local"`` executor,
-:func:`validate_executor`, and the pairwise-perturbation prices
-(:func:`pp_build_cost`, :func:`pp_correction_cost`,
-:func:`pp_amortized_cost`, :data:`PP_EXACT_FRACTION`).  The flop/byte terms are the reference's,
-term for term; a batched problem scales every term by its
-``local_batch`` (nothing is shared across the batch); seconds come from the H100 constants of
-:mod:`repro_torch.analysis.roofline` (``predicted_s = flops / PEAK_FLOPS +
-bytes / HBM_BW``).  With H100 constants a plan may legitimately choose
-other algorithms than the JAX package chooses for the same problem.
+Port of ``repro.plan.cost`` for the ``"local"`` and ``"sharded"``
+executors: :class:`ModeCost`, :func:`mode_cost`, :func:`node_cost`,
+:func:`executor_mode_cost` and :func:`dimtree_mode_cost` (each with the
+reference's ``collective`` keyword), :func:`validate_executor`, and the
+pairwise-perturbation prices (:func:`pp_build_cost`,
+:func:`pp_correction_cost`, :func:`pp_amortized_cost`,
+:data:`PP_EXACT_FRACTION`).  The flop/byte terms are the reference's,
+term for term, on the per-device block dims of a sharded problem; a
+batched problem scales every term by its ``local_batch`` (nothing is
+shared across the batch).  A sharded node's completing reduction is
+priced as the reference prices its flat psum: the ring all-reduce volume
+of the local output block over the axes mapped to the contracted modes
+(``collective_bytes``, equal to the reference's byte for byte).  Seconds
+come from the H100 constants of :mod:`repro_torch.analysis.roofline`:
+``predicted_s = flops / PEAK_FLOPS + bytes / HBM_BW + collective_bytes /
+NVLINK_BW`` (the reference's bounded-overlap model with the plain sharded
+executor's serial fraction 1).  With H100 constants a plan may
+legitimately choose other algorithms than the JAX package chooses.
 
-Collective pricing (sharded executors, two-level meshes, compression)
-comes with the distribution slice; the JSON rows keep their collective
-keys, at zero, so ``describe()`` output has the reference's layout.
+Later distribution slices add the rest: the overlapping executor's
+chunks and serial fractions (slice 2), the compressed collective
+(slice 3), two-level meshes and hierarchical collectives (slice 4), and
+the collective terms of sharded pairwise perturbation (slice 5).
 """
 
 from __future__ import annotations
@@ -22,12 +30,12 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
-from repro_torch.analysis.roofline import HBM_BW, PEAK_FLOPS
+from repro_torch.analysis.roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS
 from repro_torch.core.mttkrp import mttkrp_flops
 from repro_torch.core.tensor_ops import dims_split
 
 from .problem import Problem
-from .schedule import ContractionNode, binary_schedule, pp_pairs
+from .schedule import ContractionNode, binary_schedule, pp_pairs, ring_allreduce_bytes
 
 ALGORITHMS = (
     "1step",
@@ -41,7 +49,8 @@ ALGORITHMS = (
     "baseline",
 )
 
-# Executor kinds of the reference; only "local" exists in this slice.
+# Executor kinds of the reference; "overlapping" and "compressed" come with
+# distribution slices 2 and 3 of the port.
 EXECUTORS = ("local", "sharded", "overlapping", "compressed")
 
 # Assumed long-run fraction of pairwise-perturbation sweeps that
@@ -52,29 +61,51 @@ PP_EXACT_FRACTION = 0.125
 
 
 def validate_executor(problem: Problem, executor: str) -> None:
-    """The validity predicate for (problem, executor) pairings.
-
-    ``"local"`` runs unsharded problems; the sharded kinds belong to the
-    distribution slice of the port and raise ``NotImplementedError``.
-    """
+    """The validity predicate for (problem, executor) pairings, as the
+    reference's: ``local`` cannot run sharded problems, and the
+    communication-hiding kinds need mapped modes to have anything to hide
+    (``ValueError``).  A valid ``"overlapping"`` or ``"compressed"``
+    pairing raises ``NotImplementedError``: those executors come with
+    distribution slices 2 and 3 of the port."""
     if executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r} (choose from {EXECUTORS})")
-    if executor != "local":
+    reason = None
+    if executor == "local" and problem.sharded:
+        reason = "it runs on one device but the problem maps modes/batch to mesh axes"
+    elif executor in ("overlapping", "compressed") and not problem.mode_axes:
+        reason = "it reschedules/compresses psums but the problem has none"
+    if reason is not None:
+        raise ValueError(f"executor {executor!r} cannot run this problem: {reason}")
+    if executor in ("overlapping", "compressed"):
+        slice_ = 2 if executor == "overlapping" else 3
         raise NotImplementedError(
-            f"executor {executor!r} comes with the distribution slice of the port"
-        )
-    if problem.sharded:
-        raise ValueError(
-            "executor 'local' cannot run this problem: it runs on one device "
-            "but the problem maps modes/batch to mesh axes"
+            f"executor {executor!r} comes with distribution slice {slice_} of the port"
         )
 
 
-def _check_local(problem: Problem) -> None:
+def _check_unsharded_pp(problem: Problem) -> None:
     if problem.sharded:
         raise NotImplementedError(
-            "sharded problems are priced by the distribution slice of the port"
+            "pairwise perturbation on a sharded problem comes with distribution "
+            "slice 5 of the port (sharded PP)"
         )
+
+
+def _collective_bytes(problem: Problem, block_bytes: float, reduce_axes) -> float:
+    """Per-device wire bytes of the flat reduction that completes one
+    contraction: the ring all-reduce volume of the ``block_bytes`` output
+    block over ``reduce_axes`` (0 when nothing is reduced), the
+    reference's single-level accounting.  A two-level problem
+    (``Problem.intra_axes``) splits it over two links: that comes with
+    distribution slice 4 of the port."""
+    p = math.prod(problem.axis_sizes[a] for a in reduce_axes)
+    if p <= 1:
+        return 0.0
+    if problem.intra_axes:
+        raise NotImplementedError(
+            "two-level meshes (intra_axes) come with distribution slice 4 of the port"
+        )
+    return ring_allreduce_bytes(block_bytes, p)
 
 
 @dataclass(frozen=True)
@@ -82,10 +113,14 @@ class ModeCost:
     """Cost terms for one contraction (a mode's MTTKRP or a schedule node).
 
     ``gemm_flops`` / ``krp_flops`` / ``second_step_flops`` are the terms of
-    ``mttkrp_flops``; ``bytes`` is total HBM traffic including
-    intermediates.  ``measured_s`` is a hardware-measured time from the
-    tuning cache (``None`` when never measured); ``predicted_s`` stays
-    model-only and ``expected_s`` prefers the measurement.
+    ``mttkrp_flops`` (local block dims for sharded problems); ``bytes`` is
+    total HBM traffic including intermediates; ``collective_bytes`` is the
+    per-device wire volume of the completing reduction (0 on unsharded
+    problems) and ``inter_bytes`` its node-crossing share (0: one level,
+    until two-level meshes come with slice 4).  ``measured_s`` is a
+    hardware-measured time from the tuning cache (``None`` when never
+    measured); ``predicted_s`` stays model-only and ``expected_s`` prefers
+    the measurement.
     """
 
     gemm_flops: float
@@ -93,6 +128,8 @@ class ModeCost:
     second_step_flops: float
     bytes: float
     measured_s: float | None = None
+    collective_bytes: float = 0.0
+    inter_bytes: float = 0.0
 
     @property
     def flops(self) -> float:
@@ -105,9 +142,23 @@ class ModeCost:
         return self.flops / PEAK_FLOPS + self.bytes / HBM_BW
 
     @property
+    def intra_bytes(self) -> float:
+        """Wire bytes on the fast level: the collective volume not
+        crossing nodes."""
+        return self.collective_bytes - self.inter_bytes
+
+    @property
+    def collective_s(self) -> float:
+        """Wire time of the completing collective at the nominal
+        ``NVLINK_BW``."""
+        return self.intra_bytes / NVLINK_BW
+
+    @property
     def predicted_s(self) -> float:
-        """Analytic seconds (one device: no collective to overlap)."""
-        return self.compute_s
+        """Analytic seconds: compute plus collective, the reference's
+        bounded-overlap model at the plain sharded executor's serial
+        fraction 1 (the reduction waits for the whole local contraction)."""
+        return self.compute_s + self.collective_s
 
     @property
     def expected_s(self) -> float:
@@ -115,20 +166,21 @@ class ModeCost:
         return self.predicted_s if self.measured_s is None else self.measured_s
 
     def as_dict(self) -> dict:
-        """JSON-ready projection of all terms plus the derived predictions
-        (the reference's keys; the collective terms are zero on one device)."""
+        """JSON-ready projection of all terms plus the derived predictions,
+        under the reference's keys (the serial fraction is the plain
+        executors' 1, so no overlap is predicted)."""
         return {
             "gemm_flops": self.gemm_flops,
             "krp_flops": self.krp_flops,
             "second_step_flops": self.second_step_flops,
             "flops": self.flops,
             "bytes": self.bytes,
-            "collective_bytes": 0.0,
-            "intra_bytes": 0.0,
-            "inter_bytes": 0.0,
+            "collective_bytes": self.collective_bytes,
+            "intra_bytes": self.intra_bytes,
+            "inter_bytes": self.inter_bytes,
             "serial_fraction": 1.0,
             "compute_s": self.compute_s,
-            "collective_s": 0.0,
+            "collective_s": self.collective_s,
             "predicted_overlap_efficiency": 0.0,
             "predicted_s": self.predicted_s,
             "measured_s": self.measured_s,
@@ -152,29 +204,36 @@ def _fused_krp_dims(local_shape, n: int) -> tuple[int, int]:
     return math.prod(dims[:s]), math.prod(dims[s:])
 
 
-def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
-    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on one device.
+def mode_cost(
+    problem: Problem, n: int, algorithm: str, *, collective: str = "flat"
+) -> ModeCost:
+    """Cost of one mode-``n`` MTTKRP under ``algorithm``, on the per-device
+    block dims, with the ring all-reduce of the local output block over the
+    axes mapped to the contracted modes for a sharded problem (none when
+    mode ``n`` is the only mapped mode: its axis carries the output rows).
+    ``collective`` is the reference's keyword: on a single-level mesh both
+    ``"flat"`` and ``"hierarchical"`` price the flat ring, as there.
 
     ``"dimtree"`` prices the mode's share of the balanced binary schedule
     via :func:`dimtree_mode_cost`.
     """
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r} (choose from {ALGORITHMS})")
-    _check_local(problem)
     if algorithm == "dimtree":
-        return dimtree_mode_cost(problem, n, (problem.ndim + 1) // 2)
-    shape = problem.shape
+        return dimtree_mode_cost(problem, n, (problem.ndim + 1) // 2, collective=collective)
+    shape = problem.local_shape
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch
     base = mttkrp_flops(shape, c, n, itemsize=s, batch=lb)
     L, In, R = dims_split(shape, n)
     out_bytes = In * c * s * lb
+    wire = dict(collective_bytes=_collective_bytes(problem, out_bytes, problem.reduce_axes_for(n)))
 
     if algorithm == "2step" and not problem.external_mode(n):
         # forced 2-step resolves its order by cost, like the Alg. 4 line-4 rule
-        left = mode_cost(problem, n, "2step-left")
-        right = mode_cost(problem, n, "2step-right")
+        left = mode_cost(problem, n, "2step-left", collective=collective)
+        right = mode_cost(problem, n, "2step-right", collective=collective)
         return left if left.predicted_s < right.predicted_s else right
 
     if algorithm == "1step" or (
@@ -186,6 +245,7 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
             krp_flops=base["krp_flops"],
             second_step_flops=0.0,
             bytes=base["tensor_bytes"] + 2.0 * base["krp_bytes"] + out_bytes,
+            **wire,
         )
     if algorithm in ("2step-left", "2step-right"):
         second_side = R if algorithm == "2step-left" else L
@@ -195,6 +255,7 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
             krp_flops=float((L + R) * c * lb),
             second_step_flops=2.0 * In * second_side * c * lb,
             bytes=base["tensor_bytes"] + 2.0 * intermediate + (L + R) * c * s * lb + out_bytes,
+            **wire,
         )
     if algorithm == "fused":
         da, db = _fused_krp_dims(shape, n)
@@ -204,6 +265,7 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
             second_step_flops=0.0,
             # the full KRP never hits HBM -- only the two partials stream in
             bytes=base["tensor_bytes"] + (da + db) * c * s * lb + out_bytes,
+            **wire,
         )
     if algorithm == "matrix_free":
         # bytes-read-once: the tensor streams through exactly once, the raw
@@ -220,6 +282,7 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
             krp_flops=0.0,
             second_step_flops=fold,
             bytes=base["tensor_bytes"] + factor_bytes + out_bytes,
+            **wire,
         )
     if algorithm == "einsum":
         return ModeCost(
@@ -227,6 +290,7 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
             krp_flops=0.0,
             second_step_flops=0.0,
             bytes=base["tensor_bytes"] + (L + In + R) * c * s * lb + out_bytes,
+            **wire,
         )
     # baseline: reorder (transpose copy: read + write) then one GEMM over the copy
     return ModeCost(
@@ -234,16 +298,24 @@ def mode_cost(problem: Problem, n: int, algorithm: str) -> ModeCost:
         krp_flops=base["krp_flops"],
         second_step_flops=0.0,
         bytes=3.0 * base["tensor_bytes"] + 2.0 * base["krp_bytes"] + out_bytes,
+        **wire,
     )
 
 
 def executor_mode_cost(
-    problem: Problem, n: int, algorithm: str, executor: str = "local"
+    problem: Problem,
+    n: int,
+    algorithm: str,
+    executor: str = "sharded",
+    *,
+    collective: str = "flat",
 ) -> ModeCost:
-    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on ``executor``
-    (``"local"``: the per-algorithm terms unchanged)."""
+    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on ``executor``:
+    the per-algorithm terms of :func:`mode_cost` unchanged on ``"local"``
+    and ``"sharded"`` (the reduction waits for the whole local
+    contraction).  ``collective`` as in :func:`mode_cost`."""
     validate_executor(problem, executor)
-    return mode_cost(problem, n, algorithm)
+    return mode_cost(problem, n, algorithm, collective=collective)
 
 
 def node_cost(
@@ -252,69 +324,81 @@ def node_cost(
     executor: str | None = None,
     *,
     algorithm: str = "1step",
+    collective: str = "flat",
 ) -> ModeCost:
-    """Cost of one schedule node's contraction on ``executor`` (default
-    ``"local"``).
+    """Cost of one schedule node's contraction on ``executor``
+    (``None``: ``"sharded"`` for a sharded problem, ``"local"`` otherwise),
+    on the per-device block dims:
 
     * leaf off the root -- a full mode MTTKRP under ``algorithm``;
     * internal node off the root -- one X-sized GEMM against the KRP of the
       contracted modes, writing the partial tensor;
     * any node off a partial -- a multi-TTV: one pass over the parent's
-      partial per contracted mode, shrinking as it goes.
+      partial per contracted mode, shrinking as it goes;
+
+    each plus the ring all-reduce of its output block over the axes of the
+    mapped modes contracted at that node.
     """
-    executor = "local" if executor is None else executor
+    if executor is None:
+        executor = "sharded" if problem.sharded else "local"
     validate_executor(problem, executor)
     if node.is_root:
         raise ValueError("the schedule root is the raw tensor, not a contraction")
     if node.from_root and node.is_leaf:
-        return executor_mode_cost(problem, node.lo, algorithm, executor)
-    _check_local(problem)
+        return executor_mode_cost(problem, node.lo, algorithm, executor, collective=collective)
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch
-    t_bytes = math.prod(node.local_shape) * lb * s  # kept dims * rank (x batch)
+    local = problem.local_shape
+    t_bytes = math.prod(node.local_shape) * lb * s  # kept local dims * rank (x batch)
+    wire = dict(collective_bytes=_collective_bytes(problem, t_bytes, node.reduce_axes))
     if node.from_root:
-        total = math.prod(problem.shape) * lb
+        total = math.prod(local) * lb
         krp_elems = (
-            math.prod(problem.shape[m] for m in node.contracted) * c * lb
-            if node.contracted
-            else 0
+            math.prod(local[m] for m in node.contracted) * c * lb if node.contracted else 0
         )
         return ModeCost(
             gemm_flops=2.0 * total * c,
             krp_flops=float(krp_elems),
             second_step_flops=0.0,
             bytes=total * s + 2.0 * krp_elems * s + t_bytes,
+            **wire,
         )
-    parent_elems = math.prod(problem.shape[node.parent_lo : node.parent_hi]) * c * lb
+    parent_elems = math.prod(local[node.parent_lo : node.parent_hi]) * c * lb
     ttv = 0.0
     elems = float(parent_elems)
     for m in node.contracted:
         ttv += 2.0 * elems
-        elems /= problem.shape[m]
+        elems /= local[m]
     return ModeCost(
         gemm_flops=0.0,
         krp_flops=0.0,
         second_step_flops=ttv,
         bytes=parent_elems * s + t_bytes,
+        **wire,
     )
 
 
-def dimtree_mode_cost(problem: Problem, n: int, split: int) -> ModeCost:
+def dimtree_mode_cost(
+    problem: Problem, n: int, split: int, *, collective: str = "flat"
+) -> ModeCost:
     """Dimension-tree cost of mode ``n`` given the half split at ``split``:
-    the mode's leaf, plus its half's partial contraction for the first mode
-    of each multi-mode half (summing over modes equals summing
-    :func:`node_cost` over the binary schedule's nodes)."""
+    the mode's leaf, plus its half's partial contraction (GEMM and
+    reduction) for the first mode of each multi-mode half (summing over
+    modes equals summing :func:`node_cost` over the binary schedule's
+    nodes)."""
     sched = binary_schedule(problem, split)
     leaf = sched.leaf_for_mode(n)
-    total = node_cost(problem, leaf, algorithm="1step")
+    total = node_cost(problem, leaf, algorithm="1step", collective=collective)
     if not leaf.from_root and n == leaf.parent_lo:
-        head = node_cost(problem, sched.nodes[leaf.parent])
+        head = node_cost(problem, sched.nodes[leaf.parent], collective=collective)
         total = ModeCost(
             gemm_flops=total.gemm_flops + head.gemm_flops,
             krp_flops=total.krp_flops + head.krp_flops,
             second_step_flops=total.second_step_flops + head.second_step_flops,
             bytes=total.bytes + head.bytes,
+            collective_bytes=total.collective_bytes + head.collective_bytes,
+            inter_bytes=total.inter_bytes + head.inter_bytes,
         )
     return total
 
@@ -324,8 +408,9 @@ def pp_build_cost(problem: Problem) -> ModeCost:
     over the tensor per pair intermediate ``M_{n,m}`` (the per-pair einsum
     the executor runs, not an amortizing tree), plus the N small base
     contractions ``M_{n,m} x V_m``.  Paid on every exact sweep that
-    rebuilds, so the planner adds it to the exact-sweep term."""
-    _check_local(problem)
+    rebuilds, so the planner adds it to the exact-sweep term.  A sharded
+    problem raises ``NotImplementedError`` (distribution slice 5)."""
+    _check_unsharded_pp(problem)
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch
@@ -348,7 +433,7 @@ def pp_correction_cost(problem: Problem) -> ModeCost:
     mode's MTTKRP is its cached base plus ``N - 1`` small GEMMs
     ``(C, I_n, I_m) x (I_m, C) -> (I_n, C)``, so the sweep never touches
     the tensor: ``O(sum I_n I_m C)`` flops instead of ``O(N |X| C)``."""
-    _check_local(problem)
+    _check_unsharded_pp(problem)
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch

@@ -1,10 +1,23 @@
 """Executors: where a planned contraction actually runs.
 
-Port of the single-device part of ``repro.plan.executor``: the
-:class:`Executor` protocol, :class:`LocalExecutor` (schedule nodes and
-the pairwise-perturbation intermediates) and :func:`make_executor`.  The
-sharded, overlapping and compressed executors come with the distribution
-slice of the port.
+Port of ``repro.plan.executor``: the :class:`Executor` protocol,
+:class:`LocalExecutor` (schedule nodes and the pairwise-perturbation
+intermediates on one device), :class:`ShardedExecutor` (the same local
+contractions on this rank's block of a DeviceMesh-sharded problem, each
+completed by the ordered reduction of :mod:`repro_torch.dist`) and
+:func:`make_executor`.  The overlapping and compressed executors come with
+distribution slices 2 and 3 of the port.
+
+Besides ``contract``, an executor gives the sweep engine two hooks for the
+small algebra of a sweep (:mod:`repro_torch.plan.sweep`):
+
+* ``allsum(t, modes)`` sums a partial result over the ranks that hold
+  different index blocks of ``modes`` -- the row sums of the Grams, the
+  column norms and the fit's inner product, and the tensor norm.  The
+  identity on one device, so a world of one runs the local engine's
+  operations bitwise.
+* ``gather_fits(fits)`` turns this rank's per-sweep fits into the whole
+  batch's, so every rank takes the same stopping decision.
 """
 
 from __future__ import annotations
@@ -16,6 +29,14 @@ import torch
 from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
 from repro_torch.core.mttkrp import mttkrp, mttkrp_batched
 from repro_torch.core.tensor_ops import mode_letters
+
+from repro_torch.dist.collectives import gather_cat, ordered_psum
+from repro_torch.dist.dist_mttkrp import (
+    _validate_collective,
+    contract_block,
+    mttkrp_block,
+    shard_problem,
+)
 
 from .cost import EXECUTORS
 from .schedule import ContractionNode
@@ -51,9 +72,21 @@ class Executor(Protocol):
     def contract(
         self, node: ContractionNode, src: Tensor, factors: Sequence[Tensor],
         algorithm: str = "auto", tiles: Mapping[str, int] | None = None,
+        collective: str = "flat",
     ) -> Tensor:
         """Run one schedule node's contraction of ``src`` (the parent's
-        output; the raw tensor for children of the root)."""
+        output; the raw tensor for children of the root).  ``collective``
+        is the plan's completing reduction for the node
+        (``NodePlan.collective``; ignored by executors without one)."""
+        ...
+
+    def allsum(self, t: Tensor, modes: Sequence[int]) -> Tensor:
+        """``t`` summed over the ranks holding other index blocks of
+        ``modes`` (the identity on one device)."""
+        ...
+
+    def gather_fits(self, fits: list[Tensor]) -> list[Tensor]:
+        """The whole batch's per-sweep fits from this rank's."""
         ...
 
 
@@ -68,13 +101,16 @@ class LocalExecutor:
     def contract(
         self, node: ContractionNode, src: Tensor, factors: Sequence[Tensor],
         algorithm: str = "auto", tiles: Mapping[str, int] | None = None,
+        collective: str = "flat",
     ) -> Tensor:
         """One schedule node: the planned MTTKRP for leaves off the root,
         the range GEMM for internal nodes off the root, a multi-TTV einsum
         for anything contracted from a partial.  A leading batch axis on
         ``src`` (and every factor) runs the batched MTTKRP for leaves (the
         batched kernels under ``fused``/``matrix_free``) and a
-        ``torch.func.vmap`` of the same contraction otherwise."""
+        ``torch.func.vmap`` of the same contraction otherwise.
+        ``collective`` is accepted for the protocol and ignored: one device
+        has nothing to reduce."""
         batched = _node_is_batched(node, src)
         if node.from_root:
             if node.is_leaf:
@@ -119,14 +155,122 @@ class LocalExecutor:
                 out[(n, m)] = torch.movedim(p, -1, -3).contiguous()
         return out
 
+    def allsum(self, t: Tensor, modes: Sequence[int]) -> Tensor:
+        """One device holds every row: the identity."""
+        return t
 
-def make_executor(kind: str, mesh=None, mode_axes=None) -> Executor:
-    """Instantiate the executor for a planner-chosen kind (``"local"``; the
-    sharded kinds come with the distribution slice of the port)."""
+    def gather_fits(self, fits: list[Tensor]) -> list[Tensor]:
+        """One device holds the whole batch: the identity."""
+        return fits
+
+
+class ShardedExecutor:
+    """Block-distributed execution over a ``torch.distributed`` DeviceMesh,
+    one process a rank.
+
+    Holds the concrete mesh and ``mode_axes`` mapping (the Problem carries
+    only their sizes).  :meth:`prepare` keeps this rank's blocks of the
+    global tensor and factors; every node contraction is the local
+    shared-memory contraction on the blocks -- the LocalExecutor's own calls,
+    so ``fused``/``matrix_free`` leaves launch the CUDA kernels -- plus the
+    ordered reduction over the axes mapped to the modes contracted at that
+    node (:func:`repro_torch.dist.dist_mttkrp.contract_block`).  The small
+    Gram/pinv algebra runs in the engine on every rank, its row sums
+    completed through :meth:`allsum`.
+
+    ``batch_axes`` names the mesh axes the leading batch dimension of a
+    batched problem is cut over (empty: batch whole on every rank, or no
+    batch).  Batch-parallel placements (``mode_axes`` empty, ``batch_axes``
+    set) run every contraction without a collective: each rank owns whole
+    problems.  ``node_axis`` names the intra-node axis of a two-level mesh,
+    for the hierarchical collective of distribution slice 4.
+    """
+
+    def __init__(self, mesh, mode_axes, batch_axes=(), node_axis=None):
+        self.mesh = mesh
+        self.mode_axes = dict(mode_axes)
+        self.batch_axes = tuple(batch_axes)
+        self.node_axis = node_axis
+
+    def prepare(self, problem, x: Tensor, factors: Sequence[Tensor]):
+        """This rank's blocks of the global tensor and factors per
+        ``mode_axes`` (no reordering); a leading batch axis is cut over
+        ``batch_axes``."""
+        return shard_problem(x, factors, self.mode_axes, self.mesh, batch_axes=self.batch_axes)
+
+    def contract(
+        self, node: ContractionNode, src: Tensor, factors: Sequence[Tensor],
+        algorithm: str = "auto", tiles: Mapping[str, int] | None = None,
+        collective: str = "flat",
+    ) -> Tensor:
+        """One schedule node on this rank's blocks: the local contraction
+        plus the node's ordered reduction over the axes mapped to its
+        contracted modes.  ``collective`` is ``"flat"`` (the hierarchical
+        one comes with distribution slice 4)."""
+        _validate_collective(collective)
+        if node.from_root and node.is_leaf:
+            return mttkrp_block(
+                src, list(factors), node.mode, self.mode_axes, self.mesh,
+                method=algorithm, tiles=tiles,
+            )
+        return contract_block(
+            src, list(factors), node.lo, node.hi, node.parent_lo, node.parent_hi,
+            self.mode_axes, self.mesh, from_root=node.from_root,
+        )
+
+    def pp_pairs(self, problem, x: Tensor, factors: Sequence[Tensor]):
+        """Sharded pairwise perturbation comes with distribution slice 5."""
+        raise NotImplementedError(
+            "pairwise perturbation on a sharded problem comes with distribution "
+            "slice 5 of the port (sharded PP)"
+        )
+
+    def allsum(self, t: Tensor, modes: Sequence[int]) -> Tensor:
+        """``t`` summed over the ranks that hold different index blocks of
+        ``modes``: the ordered reduction over the axes mapped to them, in
+        mode order (the identity when none is mapped)."""
+        axes = tuple(self.mode_axes[m] for m in sorted(set(modes)) if m in self.mode_axes)
+        return ordered_psum(t, axes, self.mesh) if axes else t
+
+    def gather_fits(self, fits: list[Tensor]) -> list[Tensor]:
+        """The whole batch's per-sweep fits from this rank's: one gather a
+        batch axis over the chunk's fits stacked (the identity when the
+        batch is not cut: then every rank holds the same fits)."""
+        if not self.batch_axes or fits[0].ndim == 0:
+            return fits
+        return list(gather_cat(torch.stack(fits), self.batch_axes, self.mesh, dim=-1).unbind(0))
+
+
+def make_executor(
+    kind: str,
+    mesh=None,
+    mode_axes=None,
+    *,
+    n_chunks: int = 4,
+    batch_axes=(),
+    node_axis=None,
+) -> Executor:
+    """Instantiate the executor for a planner-chosen kind.
+
+    ``kind`` is a ``SweepPlan.executor`` value (one of
+    :data:`repro_torch.plan.cost.EXECUTORS`); ``"sharded"`` needs the
+    concrete ``mesh`` + ``mode_axes``, which the Problem does not carry.
+    ``batch_axes`` names the mesh axes a batched problem's leading batch
+    dimension is cut over (batch-parallel placements pass ``mode_axes={}``
+    plus the batch axes); ``node_axis`` names the intra-node axis of a
+    two-level mesh.  ``"overlapping"`` (whose pipeline ``n_chunks`` sizes)
+    and ``"compressed"`` raise ``NotImplementedError``: they come with
+    distribution slices 2 and 3 of the port.
+    """
     if kind not in EXECUTORS:
         raise ValueError(f"unknown executor kind {kind!r} (choose from {EXECUTORS})")
-    if kind != "local":
+    if kind == "local":
+        return LocalExecutor()
+    if kind in ("overlapping", "compressed"):
+        slice_ = 2 if kind == "overlapping" else 3
         raise NotImplementedError(
-            f"executor {kind!r} comes with the distribution slice of the port"
+            f"executor {kind!r} comes with distribution slice {slice_} of the port"
         )
-    return LocalExecutor()
+    if mesh is None or mode_axes is None:
+        raise ValueError(f"executor {kind!r} needs mesh and mode_axes")
+    return ShardedExecutor(mesh, mode_axes, batch_axes, node_axis)

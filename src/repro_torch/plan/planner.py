@@ -16,16 +16,21 @@ Problems with ``pp_tol > 0`` also price the pairwise-perturbation sweep
 ``"autotune"`` enable it when its amortized per-sweep seconds beat the
 exact sweep's, and every other strategy prices it without enabling it.
 
-Sharded problems (mapped modes or a sharded batch axis) raise
-``NotImplementedError``: they come with the distribution slice of the
-port, as do the batch-parallel and mode-parallel placements the reference
-argmins over for sharded batched problems.  ``describe()`` keeps the
-reference's JSON layout (the placement candidates and mapping rows are
-empty here).
+Sharded problems (mapped modes or a sharded batch axis) plan on the
+``"sharded"`` executor, which the caller names (``executor="sharded"``):
+every node is priced on the per-device block with its flat reduction,
+and a batched mode-parallel problem is argmin'd against its
+all-batch-parallel remap, as the reference does (``SweepPlan.placements``).
+``executor="auto"`` on a sharded problem raises ``NotImplementedError``:
+its argmin includes the overlapping executor of distribution slice 2.
+Two-level meshes (``Problem.intra_axes``; slice 4) and sharded pairwise
+perturbation (slice 5) raise too.  ``describe()`` keeps the reference's
+JSON layout (the mapping rows of two-level planning are empty here).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Mapping
 
@@ -91,17 +96,15 @@ class NodePlan:
     ``"partial-krp"`` for root-level partial GEMMs, and ``"partial-ttv"``
     for contractions of an already-computed partial.  ``tiles`` carries a
     tuned tile config read from the tuning cache for kernel-backed leaves.
+    ``collective`` is the completing reduction the executor runs:
+    ``"flat"`` (the hierarchical one comes with distribution slice 4).
     """
 
     node: ContractionNode
     algorithm: str
     cost: ModeCost
     tiles: Mapping[str, int] | None = None
-
-    @property
-    def collective(self) -> str:
-        """The completing collective: ``"flat"`` (one device has none)."""
-        return "flat"
+    collective: str = "flat"
 
     def as_dict(self) -> dict:
         """JSON-ready row: node topology metadata + every cost term."""
@@ -125,6 +128,14 @@ class SweepPlan:
     two-partial split; ``normalize`` is part of the sweep recipe.
     ``describe()`` is the JSON-ready prediction surface.
 
+    For batched sharded problems the planner also argmins over placements
+    (mode-parallel as given against all-batch-parallel); ``placements``
+    records each candidate's predicted cost and ``problem`` is the winning
+    placement -- build the executor from ``plan.problem``'s
+    ``mode_axes``/``batch_axes``, not from the problem that was planned.
+    ``mappings`` stays empty: two-level mapping search comes with
+    distribution slice 4.
+
     ``pp`` flags the pairwise-perturbation sweep mode: the engine still
     carries this plan's exact schedule (exact sweeps run it verbatim), but
     while factor drift stays under ``problem.pp_tol`` each sweep
@@ -142,8 +153,10 @@ class SweepPlan:
     executor: str = "local"
     schedule: Schedule | None = None
     nodes: tuple[NodePlan, ...] = ()
+    placements: tuple[Mapping, ...] = ()
     pp: bool = False
     pp_info: Mapping | None = None
+    mappings: tuple[Mapping, ...] = ()
 
     @property
     def kind(self) -> str:
@@ -175,15 +188,18 @@ class SweepPlan:
         return {
             "flops": sum(r.cost.flops for r in rows),
             "bytes": sum(r.cost.bytes for r in rows),
-            "collective_bytes": 0.0,
-            "intra_bytes": 0.0,
-            "inter_bytes": 0.0,
+            "collective_bytes": sum(r.cost.collective_bytes for r in rows),
+            "intra_bytes": sum(r.cost.intra_bytes for r in rows),
+            "inter_bytes": sum(r.cost.inter_bytes for r in rows),
             "predicted_s": sum(r.cost.predicted_s for r in rows),
         }
 
     def describe(self) -> dict:
-        """Predicted flops / HBM bytes per mode and per schedule node, plus
-        totals, in the reference's layout.  The ``pp`` row prices the
+        """Predicted flops / HBM bytes / collective bytes per mode and per
+        schedule node, plus totals, in the reference's layout -- and, for
+        batched sharded problems, the placement candidates compared (each
+        with its predicted seconds and wire bytes, the selected one
+        flagged).  The ``pp`` row prices the
         pairwise-perturbation strategy against the exact sweep (amortized
         per-sweep seconds; ``{"enabled": False}`` when the problem never
         opted in via ``pp_tol``)."""
@@ -195,28 +211,53 @@ class SweepPlan:
             "kind": self.kind,
             "executor": self.executor,
             "split": self.split,
-            "sharded": False,
-            "mode_axes": {},
+            "sharded": self.problem.sharded,
+            "mode_axes": {str(k): v for k, v in self.problem.mode_axes.items()},
             "batch": self.problem.batch,
             "batch_axes": list(self.problem.batch_axes),
             "local_batch": self.problem.local_batch,
-            "placement": "unsharded",
-            "placements": [],
-            "local_shape": list(self.problem.shape),
+            "placement": _placement_label(self.problem),
+            "placements": [dict(p) for p in self.placements],
+            "local_shape": list(self.problem.local_shape),
             "schedule": self.resolved_schedule.name,
             "modes": [m.as_dict() for m in self.modes],
             "nodes": [n.as_dict() for n in self.nodes],
             "serial_fractions": {},
             "pp": {"enabled": self.pp, **dict(self.pp_info or {})},
-            "mappings": [],
+            "mappings": [dict(m) for m in self.mappings],
             "lower_bound_bytes": None,
             "certified": False,
             "totals": self.total_cost(),
         }
 
 
+def _placement_label(problem: Problem) -> str:
+    """Human name of a problem's mesh placement (for describe()/planning)."""
+    if problem.mode_axes:
+        return "mode-parallel"
+    if problem.batch_axes:
+        return "batch-parallel"
+    return "unsharded"
+
+
+def _placement_candidates(problem: Problem) -> list[Problem]:
+    """Placement candidates the planner argmins over, as-given first: a
+    batched mode-parallel problem also gets the all-batch-parallel remap
+    (no mapped modes, the batch sharded over every mesh axis) whenever the
+    batch divides the device count -- the placement with zero reduce
+    traffic.  Any other problem has one candidate."""
+    cands = [problem]
+    if problem.batched and problem.mode_axes and problem.axis_sizes:
+        devices = math.prod(problem.axis_sizes.values())
+        if devices > 1 and problem.batch % devices == 0:
+            cands.append(
+                replace(problem, mode_axes={}, batch_axes=tuple(sorted(problem.axis_sizes)))
+            )
+    return cands
+
+
 def _auto_mode(
-    problem: Problem, n: int, node: ContractionNode, measured=None
+    problem: Problem, n: int, node: ContractionNode, executor: str = "local", measured=None
 ) -> ModePlan:
     """Cost-model dispatch for one mode (reproduces paper Sec. 5.3.3).
 
@@ -228,9 +269,9 @@ def _auto_mode(
     """
 
     def cost(alg: str) -> ModeCost:
-        c = executor_mode_cost(problem, n, alg, "local")
+        c = executor_mode_cost(problem, n, alg, executor)
         if measured is not None:
-            m = measured.node_time(node, alg, "local")
+            m = measured.node_time(node, alg, executor)
             if m is not None:
                 c = replace(c, measured_s=m)
         return c
@@ -240,7 +281,7 @@ def _auto_mode(
         cands["2step-left"] = cost("2step-left")
         cands["2step-right"] = cost("2step-right")
     for kernel_alg in ("fused", "matrix_free"):
-        if measured is not None and measured.node_time(node, kernel_alg, "local") is not None:
+        if measured is not None and measured.node_time(node, kernel_alg, executor) is not None:
             cands[kernel_alg] = cost(kernel_alg)
     if len(cands) > 1 and all(c.measured_s is not None for c in cands.values()):
         alg = min(cands, key=lambda a: cands[a].measured_s)
@@ -260,29 +301,29 @@ def _auto_mode(
 
 
 def _plan_nodes(
-    problem: Problem, sched: Schedule, strategy: str, measured=None
+    problem: Problem, sched: Schedule, strategy: str, executor: str = "local", measured=None
 ) -> tuple[NodePlan, ...]:
-    """NodePlans in evaluation order for one schedule."""
+    """NodePlans in evaluation order for one (schedule, executor) pair."""
     plans = []
     for node in sched.walk():
         if node.from_root and node.is_leaf:
             if strategy in ("auto", "autotune"):
-                mp = _auto_mode(problem, node.mode, node, measured)
+                mp = _auto_mode(problem, node.mode, node, executor, measured)
                 alg, cost = mp.algorithm, mp.cost
             else:
                 # forced strategies pin the leaf algorithm; tree strategies
                 # route root leaves through the 1-step GEMM
                 alg = "1step" if strategy == "dimtree" else strategy
-                cost = executor_mode_cost(problem, node.mode, alg, "local")
+                cost = executor_mode_cost(problem, node.mode, alg, executor)
             tiles = None
             if measured is not None and alg in ("fused", "matrix_free"):
                 tiles = measured.kernel_tiles("fused_mttkrp" if alg == "fused" else alg)
             plans.append(NodePlan(node, alg, cost, tiles=tiles))
         else:
             alg = "partial-krp" if node.from_root else "partial-ttv"
-            cost = node_cost(problem, node, "local")
+            cost = node_cost(problem, node, executor)
             if measured is not None:
-                m = measured.node_time(node, alg, "local")
+                m = measured.node_time(node, alg, executor)
                 if m is not None:
                     cost = replace(cost, measured_s=m)
             plans.append(NodePlan(node, alg, cost))
@@ -314,6 +355,45 @@ def _resolve_schedules(
     return [flat_schedule(problem)]
 
 
+def select_executor(problem: Problem, strategy: str = "auto", *, schedule=None,
+                    tuning_cache=None) -> str:
+    """Cost-argmin executor kind for ``problem`` under ``strategy``, as
+    :func:`plan_sweep` picks it with ``executor="auto"``: ``"local"`` for an
+    unsharded problem.  A sharded problem raises ``NotImplementedError``:
+    the reference's argmin includes the overlapping executor, which comes
+    with distribution slice 2 of the port."""
+    return plan_sweep(
+        problem, strategy, executor="auto", schedule=schedule, tuning_cache=tuning_cache
+    ).executor
+
+
+def _best_row(prob: Problem, schedules, strategy: str, executor: str, measured):
+    """``(schedule, node plans, analytic total, measured total or None)``
+    of the best schedule for one placement: a strict argmin on measured
+    seconds when every candidate is fully measured, else the analytic
+    argmin with the near-tie preference for the flat sweep."""
+    rows = []
+    for sched in schedules:
+        plans = _plan_nodes(prob, sched, strategy, executor, measured)
+        pred = sum(np_.cost.predicted_s for np_ in plans)
+        meas = None
+        if measured is not None and all(np_.cost.measured_s is not None for np_ in plans):
+            meas = sum(np_.cost.measured_s for np_ in plans)
+        rows.append((sched, plans, pred, meas))
+    if measured is not None and all(r[3] is not None for r in rows):
+        return min(rows, key=lambda r: r[3])
+    best = rows[0]
+    for r in rows[1:]:
+        if r[2] < best[2]:
+            best = r
+    # near-tie preference: a tree must beat the flat sweep by >10% to win
+    flat_row = next((r for r in rows if r[0].is_flat), None)
+    if flat_row is not None and best[0] is not flat_row[0]:
+        if best[2] >= _NEAR_TIE * flat_row[2]:
+            best = flat_row
+    return best
+
+
 def plan_sweep(
     problem: Problem,
     strategy: str = "auto",
@@ -324,7 +404,8 @@ def plan_sweep(
     schedule: Schedule | str | None = None,
     tuning_cache=None,
 ) -> SweepPlan:
-    """Plan one full ALS sweep for an unsharded ``problem`` (batched or not).
+    """Plan one full ALS sweep for ``problem`` (batched or not, sharded or
+    not).
 
     ``strategy='auto'`` cost-argmins jointly over contraction-tree shapes
     (flat, the binary split at every boundary, the chain for order >= 4)
@@ -335,8 +416,17 @@ def plan_sweep(
     ``'auto'``.  ``'dimtree'`` forces the binary tree (``split`` defaults to
     the balanced half); any other strategy forces that algorithm on every
     mode of the flat schedule.  ``schedule`` pins the tree shape.
-    ``executor`` is ``'auto'`` or ``'local'``: the sharded kinds come with
-    the distribution slice.
+
+    ``executor`` is ``'auto'`` (``"local"`` for an unsharded problem) or a
+    kind of :data:`repro_torch.plan.cost.EXECUTORS`, checked by
+    :func:`repro_torch.plan.cost.validate_executor`.  A sharded problem
+    plans on ``executor="sharded"``; ``"auto"`` raises
+    ``NotImplementedError`` for it (the reference's argmin includes the
+    overlapping executor of distribution slice 2).  A batched mode-parallel
+    problem is argmin'd against its all-batch-parallel remap: the winner
+    becomes ``SweepPlan.problem`` and both candidates are recorded on
+    ``SweepPlan.placements``.  Two-level problems (``intra_axes``) raise
+    (slice 4).
 
     Problems with ``pp_tol > 0`` additionally price the pairwise-
     perturbation sweep mode (Ma & Solomonik): ``'auto'``/``'autotune'``
@@ -347,25 +437,38 @@ def plan_sweep(
     comparison runs on measured seconds only when both sides are measured
     (the winning schedule's nodes and the tuned PP rows).  ``'fused'``,
     ``'matrix_free'`` and the other forced strategies price PP but never
-    enable it.
+    enable it.  A sharded problem with ``pp_tol > 0`` raises (sharded PP is
+    distribution slice 5).
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (choose from {STRATEGIES})")
-    if problem.sharded:
-        raise NotImplementedError(
-            "sharded problems (mapped modes, or a batch sharded over mesh "
-            "axes) come with the distribution slice of the port"
-        )
     if strategy == "pp" and problem.pp_tol <= 0.0:
         raise ValueError(
             "strategy='pp' needs Problem(pp_tol > 0): the drift threshold is "
             "part of the problem (and its signature), not a planner flag"
         )
+    if executor == "auto":
+        if problem.sharded:
+            raise NotImplementedError(
+                "executor='auto' on a sharded problem argmins over the overlapping "
+                "executor, which comes with distribution slice 2 of the port; pass "
+                "executor='sharded'"
+            )
+        executor = "local"
+    validate_executor(problem, executor)
+    if problem.sharded and problem.intra_axes:
+        raise NotImplementedError(
+            "two-level meshes (intra_axes) come with distribution slice 4 of the port"
+        )
+    if problem.sharded and problem.pp_tol > 0.0:
+        raise NotImplementedError(
+            "pairwise perturbation on a sharded problem comes with distribution "
+            "slice 5 of the port (sharded PP)"
+        )
     # "pp" forces the approximate sweep mode but still needs a full exact
     # plan (exact sweeps run it verbatim): its schedule and leaf choices
     # follow the "auto" cost argmin
     node_strategy = "auto" if strategy == "pp" else strategy
-    validate_executor(problem, "local" if executor == "auto" else executor)
     if split is not None:
         if strategy != "dimtree" and schedule != "binary":
             raise ValueError(
@@ -381,41 +484,51 @@ def plan_sweep(
 
         measured = lookup_measurements(problem, cache=tuning_cache)
 
-    rows = []  # (schedule, node plans, analytic total, measured total or None)
-    for sched in _resolve_schedules(problem, node_strategy, split, schedule):
-        plans = _plan_nodes(problem, sched, node_strategy, measured)
-        pred = sum(np_.cost.predicted_s for np_ in plans)
-        meas = None
-        if measured is not None and all(np_.cost.measured_s is not None for np_ in plans):
-            meas = sum(np_.cost.measured_s for np_ in plans)
-        rows.append((sched, plans, pred, meas))
-    if measured is not None and all(r[3] is not None for r in rows):
-        best = min(rows, key=lambda r: r[3])
-    else:
-        best = rows[0]
-        for r in rows[1:]:
-            if r[2] < best[2]:
-                best = r
-        # near-tie preference: a tree must beat the flat sweep by >10% to win
-        flat_row = next((r for r in rows if r[0].is_flat), None)
-        if flat_row is not None and best[0] is not flat_row[0]:
-            if best[2] >= _NEAR_TIE * flat_row[2]:
-                best = flat_row
-    sched, node_plans = best[0], best[1]
+    # a pinned Schedule instance is bound to one Problem, so placement
+    # exploration (which rebuilds schedules per candidate) is off
+    pinned = isinstance(schedule, Schedule)
+    picked = []  # rows: (problem, schedule, node plans, analytic, measured)
+    for prob in [problem] if pinned else _placement_candidates(problem):
+        if prob is not problem:
+            try:
+                validate_executor(prob, executor)
+            except ValueError:
+                continue  # the forced kind cannot run the alternate placement
+        schedules = _resolve_schedules(prob, node_strategy, split, schedule)
+        picked.append((prob,) + _best_row(prob, schedules, node_strategy, executor, measured))
+    # placement argmin on the analytic totals: strict < keeps the as-given one
+    winner = picked[0]
+    for row in picked[1:]:
+        if row[3] < winner[3]:
+            winner = row
+    prob, sched, node_plans = winner[0], winner[1], winner[2]
+    placement_rows = tuple(
+        {
+            "placement": _placement_label(r[0]),
+            "mode_axes": {str(k): v for k, v in r[0].mode_axes.items()},
+            "batch_axes": list(r[0].batch_axes),
+            "executor": executor,
+            "schedule": r[1].name,
+            "predicted_s": r[3],
+            "collective_bytes": sum(np_.cost.collective_bytes for np_ in r[2]),
+            "selected": r is winner,
+        }
+        for r in picked
+    ) if len(picked) > 1 else ()
 
     # pairwise perturbation, priced against the chosen exact plan whenever
     # the problem opted in; measured and analytic seconds never meet in one
     # comparison
     pp_enabled = False
     pp_info = None
-    if problem.pp_tol > 0.0:
+    if prob.pp_tol > 0.0:
         m_build = measured.pp_second("build_s") if measured is not None else None
         m_corr = measured.pp_second("correct_sweep_s") if measured is not None else None
-        if best[3] is not None and m_build is not None and m_corr is not None:
-            pp_info = pp_amortized_cost(problem, best[3], build_s=m_build, correction_s=m_corr)
+        if winner[4] is not None and m_build is not None and m_corr is not None:
+            pp_info = pp_amortized_cost(prob, winner[4], build_s=m_build, correction_s=m_corr)
             pp_info["basis"] = "measured"
         else:
-            pp_info = pp_amortized_cost(problem, best[2])
+            pp_info = pp_amortized_cost(prob, winner[3])
             pp_info["basis"] = "analytic"
         if strategy == "pp":
             pp_enabled = True
@@ -432,14 +545,15 @@ def plan_sweep(
         )
     )
     return SweepPlan(
-        problem,
+        prob,
         strategy,
         modes,
         split=sched.split,
         normalize=normalize,
-        executor="local",
+        executor=executor,
         schedule=sched,
         nodes=node_plans,
+        placements=placement_rows,
         pp=pp_enabled,
         pp_info=pp_info,
     )

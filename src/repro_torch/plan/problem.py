@@ -24,6 +24,12 @@ import torch
 from repro_torch.analysis.roofline import dtype_itemsize
 
 
+def _axis_sizes(mesh) -> dict[str, int]:
+    """``{axis name: size}`` of a DeviceMesh (whose ``shape`` is a tuple of
+    sizes, in the order of ``mesh_dim_names``)."""
+    return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
 @dataclass(frozen=True)
 class Problem:
     """Descriptor of one CP-ALS / MTTKRP problem.
@@ -167,8 +173,9 @@ class Problem:
     ) -> "Problem":
         """Build a Problem from an array (or tracer / ShapeDtypeStruct).
 
-        Pass ``mode_axes`` + ``mesh`` for a block-distributed problem; the
-        mesh contributes only its axis sizes (the object stays with the
+        Pass ``mode_axes`` + ``mesh`` (a ``torch.distributed`` DeviceMesh
+        with named dimensions) for a block-distributed problem; the mesh
+        contributes only its axis sizes (the object stays with the
         executor).  With ``batch=B > 1`` the array's leading axis is the
         batch (``x.shape[0] == B``) and the tensor shape is ``x.shape[1:]``;
         ``batch_axes`` optionally shards that axis over mesh axes.
@@ -189,7 +196,7 @@ class Problem:
             rank=rank,
             dtype=x.dtype,
             mode_axes=mode_axes or {},
-            axis_sizes=dict(mesh.shape) if mesh is not None else {},
+            axis_sizes=_axis_sizes(mesh) if mesh is not None else {},
             batch=batch,
             batch_axes=tuple(batch_axes),
             pp_tol=pp_tol,

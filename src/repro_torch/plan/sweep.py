@@ -18,6 +18,17 @@ cached pairwise intermediates plus first-order corrections and never
 touches the tensor.  The reference decides exact against approximate with
 a traced ``lax.cond``; PyTorch runs eagerly, so the port reads one drift
 maximum to the host a sweep (:func:`_host_gate`) and branches in Python.
+
+On a sharded problem (:class:`~repro_torch.plan.executor.ShardedExecutor`,
+one process a rank) the engine holds this rank's blocks: the tensor block
+and, per factor, its row block (or the whole factor when its mode is
+unmapped).  The reference lets JAX insert the reductions its global-array
+algebra needs; here the four sums over every row or every entry -- the
+Grams, the column norms, the fit's inner product over the last mode and
+the tensor norm -- go through the executor's ``allsum`` hook, the identity
+on one device and the ordered reduction on a mesh.  The update algebra
+stays in one copy, ``pinv`` of the Hadamard of Grams runs on every rank on
+the same bits, and a world of one runs the local engine's operations.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from repro_torch.core.cpals import (
 )
 from repro_torch.core.tensor_ops import random_factors, tensor_norm
 
-from .executor import Executor, LocalExecutor
+from .executor import Executor, LocalExecutor, ShardedExecutor
 from .planner import SweepPlan, plan_sweep
 from .problem import Problem
 from .schedule import ROOT, pp_pairs as pp_pair_meta
@@ -179,6 +190,25 @@ def _pp_init(problem: Problem, x, factors) -> PPState:
     )
 
 
+def _no_sum(t: Tensor, modes: Sequence[int]) -> Tensor:
+    """The ``allsum`` of one device: every row is here."""
+    return t
+
+
+def _grams(factors: Sequence[Tensor], allsum) -> list[Tensor]:
+    """Every factor's Gram ``U_k^T U_k``, its rows summed over the ranks."""
+    return [allsum(g, (k,)) for k, g in enumerate(grams(factors))]
+
+
+def _fit(gs, weights, m_last, factors, norm_x, allsum) -> Tensor:
+    """The fit from the last leaf's MTTKRP (mode N-1), its inner product
+    summed over the ranks holding that mode's other rows."""
+    last = len(factors) - 1
+    return fit_from_last_mttkrp(
+        gs, weights, m_last, factors[-1], norm_x, row_sum=lambda t: allsum(t, (last,))
+    )
+
+
 def _pinv(h: Tensor) -> Tensor:
     """``pinv`` with the reference's cutoff: ``jnp.linalg.pinv`` drops
     singular values below ``10 * max(m, n) * eps`` of the largest, where
@@ -189,18 +219,20 @@ def _pinv(h: Tensor) -> Tensor:
 
 def _update_factor(
     plan: SweepPlan, factors: list[Tensor], gs: list[Tensor], weights: Tensor,
-    n: int, m_n: Tensor, it: int,
+    n: int, m_n: Tensor, it: int, allsum=_no_sum,
 ) -> Tensor:
     """THE per-mode factor update: solve ``U H = M`` via pinv on the C x C
     Gram-Hadamard, optionally column-normalize into the lambdas, and
-    refresh exactly the changed factor's Gram.  Mutates ``factors``/``gs``
-    in place; returns the (possibly updated) weights."""
+    refresh exactly the changed factor's Gram.  The column norms and the
+    Gram sum over the rows of mode ``n`` held by other ranks through
+    ``allsum``.  Mutates ``factors``/``gs`` in place; returns the (possibly
+    updated) weights."""
     h = hadamard_except(gs, n)
     u = m_n @ _pinv(h)
     if plan.normalize:
-        u, weights = normalize_columns(u, it)
+        u, weights = normalize_columns(u, it, row_sum=lambda t: allsum(t, (n,)))
     factors[n] = u
-    gs[n] = u.transpose(-1, -2) @ u
+    gs[n] = allsum(u.transpose(-1, -2) @ u, (n,))
     return weights
 
 
@@ -212,23 +244,26 @@ def _exact_sweep(
     x = state.x
     factors = list(state.factors)
     weights = state.weights
-    gs = list(state.grams) if state.grams is not None else grams(factors)
+    allsum = executor.allsum
+    gs = list(state.grams) if state.grams is not None else _grams(factors, allsum)
     m_last = None
     cache: dict[int, Tensor] = {ROOT: x}
     for node in plan.resolved_schedule.walk():
         src = cache[node.parent]
         if plan.nodes:
             np_ = plan.node_plan(node.id)
-            alg, tiles = np_.algorithm, np_.tiles
+            alg, tiles, coll = np_.algorithm, np_.tiles, np_.collective
         else:
-            alg, tiles = "auto", None
-        out = executor.contract(node, src, factors, alg, tiles=tiles)
+            alg, tiles, coll = "auto", None, "flat"
+        out = executor.contract(node, src, factors, alg, tiles=tiles, collective=coll)
         if node.is_leaf:
             m_last = out
-            weights = _update_factor(plan, factors, gs, weights, node.mode, out, state.it)
+            weights = _update_factor(
+                plan, factors, gs, weights, node.mode, out, state.it, allsum
+            )
         else:
             cache[node.id] = out
-    fit = fit_from_last_mttkrp(gs, weights, m_last, factors[-1], state.norm_x)
+    fit = _fit(gs, weights, m_last, factors, state.norm_x, allsum)
     return _with_payload(state, (factors, weights, fit, gs))
 
 
@@ -243,7 +278,7 @@ def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState) -> SweepStat
     pp = state.pp
     factors = list(state.factors)
     weights = state.weights
-    gs = list(state.grams) if state.grams is not None else grams(factors)
+    gs = list(state.grams) if state.grams is not None else _grams(factors, _no_sum)
     m_last = None
     for n in range(problem.ndim):
         m_n = pp.base[n]
@@ -257,7 +292,7 @@ def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState) -> SweepStat
                 m_n = m_n + _pp_contract_first(pp.pairs[(m, n)], du)
         m_last = m_n
         weights = _update_factor(plan, factors, gs, weights, n, m_n, state.it)
-    fit = fit_from_last_mttkrp(gs, weights, m_last, factors[-1], state.norm_x)
+    fit = _fit(gs, weights, m_last, factors, state.norm_x, _no_sum)
     new_pp = replace(pp, drift=_pp_drift(factors, pp.ref), drift_max=None)
     return replace(_with_payload(state, (factors, weights, fit, gs)), pp=new_pp)
 
@@ -337,25 +372,28 @@ def legacy_sweep(
     """The one bridge behind the pre-redesign sweep signatures.
 
     Builds the Problem/plan/executor for an old-style ``(x, factors,
-    weights, norm_x, it)`` call, runs the engine once, and returns the
-    historical ``(factors, weights, fit)`` triple.  The plan is frozen on
-    the pre-schedule tree shapes: the flat per-mode sweep, or the binary
-    split for ``strategy="dimtree"``.  ``mesh``/``mode_axes`` (the sharded
-    wrappers) come with the distribution slice of the port.
+    weights, norm_x, it)`` call -- sharded when ``mesh`` is given -- runs
+    the engine once, and returns the historical ``(factors, weights, fit)``
+    triple.  The plan is frozen on the exact executors and the
+    pre-schedule tree shapes: the flat per-mode sweep, or the binary split
+    for ``strategy="dimtree"``.  Sharded, ``x`` and ``factors`` are the
+    global ones and the factors returned this rank's blocks.
     """
-    if mesh is not None or mode_axes:
-        raise NotImplementedError(
-            "sharded legacy sweeps come with the distribution slice of the port"
-        )
-    problem = Problem.from_tensor(x, factors[0].shape[1])
+    problem = Problem.from_tensor(x, factors[0].shape[1], mode_axes=mode_axes, mesh=mesh)
     plan = plan_sweep(
-        problem, strategy=strategy, split=split, normalize=normalize, executor="local",
+        problem, strategy=strategy, split=split, normalize=normalize,
+        executor="sharded" if mesh is not None else "local",
         schedule=None if strategy == "dimtree" else "flat",
     )
+    if mesh is not None:
+        executor = ShardedExecutor(mesh, mode_axes)
+        x, factors = executor.prepare(problem, x, factors)
+    else:
+        executor = LocalExecutor()
     state = SweepState(
         x=x, factors=list(factors), weights=weights, norm_x=norm_x, it=int(it)
     )
-    out = als_sweep(problem, plan, LocalExecutor(), state)
+    out = als_sweep(problem, plan, executor, state)
     return out.factors, out.weights, out.fit
 
 
@@ -380,6 +418,15 @@ def cp_als(
     from a ``torch.Generator`` on ``x``'s device seeded with ``seed`` (not
     stream-identical to the JAX package's init).  Caller-provided factors
     are never modified: every update makes new tensors.
+
+    On a sharded plan pass the matching executor (build one from
+    ``plan.executor`` with :func:`repro_torch.plan.make_executor`); every
+    rank calls with the same global ``x`` (and ``init_factors``), draws
+    the same global factors, and keeps its blocks (``executor.prepare``),
+    so a run on any mesh starts where one device does.  The returned
+    factors, weights and fits are this rank's blocks (the weights and an
+    unbatched fit are the same on every rank); the stopping decision reads
+    the whole batch's fits on every rank.
 
     ``sweeps_per_sync`` sweeps are queued per chunk and the host reads the
     chunk's fits once at its end (one device sync per chunk instead of per
@@ -435,13 +482,17 @@ def cp_als(
     else:
         factors = list(init_factors)
     x, factors = executor.prepare(problem, x, factors)
-    weights = torch.ones(lead + (problem.rank,), dtype=x.dtype, device=x.device)
-    norm_x = tensor_norm(x, batched=problem.batched).to(x.dtype)
-    gs = grams(factors)
+    allsum = executor.allsum
+    local_lead = (problem.local_batch,) if problem.batched else ()
+    weights = torch.ones(local_lead + (problem.rank,), dtype=x.dtype, device=x.device)
+    # the norm of this rank's block, squared and summed over every mapped axis
+    block_norm = tensor_norm(x, batched=problem.batched)
+    norm_x = torch.sqrt(allsum(block_norm * block_norm, range(problem.ndim))).to(x.dtype)
+    gs = _grams(factors, allsum)
     pp = _pp_init(problem, x, factors) if plan.pp else None
 
     fit_prev = [-math.inf] * problem.batch if problem.batched else -math.inf
-    fit = torch.zeros(lead, dtype=x.dtype, device=x.device)
+    fit = torch.zeros(local_lead, dtype=x.dtype, device=x.device)
     it = 0
     done = False
     while it < n_iters and not done:
@@ -456,7 +507,8 @@ def cp_als(
             )
             factors, weights, gs, pp = state.factors, state.weights, state.grams, state.pp
             fits.append(state.fit)
-        host = _host_fits(fits)  # the chunk's single host sync
+        # the chunk's single host sync, on the whole batch's fits
+        host = _host_fits(executor.gather_fits(fits))
         dt = time.perf_counter() - t0
         for j, f in enumerate(host):
             if problem.batched:

@@ -11,6 +11,7 @@ convergence thresholds of the reference are not used as oracles: runs are
 compared sweep by sweep from shared inputs.
 """
 
+import dataclasses
 import importlib
 
 import jax.numpy as jnp
@@ -287,10 +288,17 @@ def test_batched_costs_match_reference(reference_constants, shape):
 
 def test_sharded_batched_problems_still_raise():
     p = tplan.Problem((4, 5, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
+    # executor="auto" argmins over the overlapping executor (slice 2)
     with pytest.raises(NotImplementedError, match="distribution"):
         tplan.plan_sweep(p)
-    with pytest.raises(NotImplementedError):
-        tplan.mode_cost(p, 0, "1step")
+    # sharded PP is slice 5; the batch-parallel placement itself is priced as
+    # the reference prices it (flat sharding: slice 1)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        tplan.plan_sweep(dataclasses.replace(p, pp_tol=0.1), "pp", executor="sharded")
+    jp = jplan.Problem((4, 5, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
+    for key in ("flops", "bytes", "collective_bytes"):
+        assert tplan.mode_cost(p, 0, "1step").as_dict()[key] == jplan.mode_cost(
+            jp, 0, "1step").as_dict()[key]
     # a batched PP problem is ported: it plans and prices PP (one branch a batch)
     pp = tplan.plan_sweep(tplan.Problem((4, 5, 6), 2, batch=2, pp_tol=0.1), "pp")
     assert pp.pp and pp.describe()["pp"]["tol"] == 0.1

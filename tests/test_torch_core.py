@@ -244,3 +244,14 @@ def test_port_imports_neither_jax_nor_reference():
                     bad.append(f"{path.relative_to(ROOT)}: {name}")
     assert len(_port_sources()) > 10
     assert not bad, bad
+
+
+def test_core_exports_krp_or_ones_batched_as_the_reference_does():
+    from repro_torch.core import krp_or_ones_batched
+
+    assert "krp_or_ones_batched" in tcore.__all__
+    rng = np.random.default_rng(4)
+    mats = [rng.standard_normal((3, d, 2)).astype(np.float32) for d in (4, 3)]
+    _close(jcore.krp_or_ones_batched([jnp.asarray(m) for m in mats], 3, 2),
+           krp_or_ones_batched([torch.from_numpy(m) for m in mats], 3, 2))
+    _close(jcore.krp_or_ones_batched([], 3, 2), krp_or_ones_batched([], 3, 2))

@@ -9,6 +9,8 @@ main path runs through both kernels.  Run there with
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -439,21 +441,13 @@ def test_matrix_free_batched_kernel_refuses_16_byte_copies_of_a_misaligned_x(cud
 
 
 def test_matrix_free_batched_kernel_is_one_cuda_kernel_and_no_workspace(cuda):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Counted in a CUDA graph of one call, which drops no kernel."""
     x, fs = _batched_inputs(cuda, 8, (45, 40, 44), 10, seed=5)
     for n in range(3):
         us = [fs[k] for k in range(3) if k != n]
-        mf.matrix_free_batched_kernel(x, us, n)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            out = mf.matrix_free_batched_kernel(x, us, n)
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        assert [e.name for e in kernels] == [kernels[0].name]
-        assert "matrix_free_cluster_kernel" in kernels[0].name
-        del out
+        names = _graph_kernel_names(lambda: mf.matrix_free_batched_kernel(x, us, n))
+        assert names == [names[0]]
+        assert "matrix_free_cluster_kernel" in names[0]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
@@ -559,27 +553,21 @@ def test_matrix_free_kernel_refuses_16_byte_copies_of_a_misaligned_x(cuda):
 def test_matrix_free_kernel_launches_the_cuda_kernels_its_design_states(cuda):
     """One kernel a call with one group (the clusters write the output),
     two with more (the groups' partials, then their sum in group order);
-    no workspace with one group."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    no workspace with one group.  Counted in a CUDA graph of one call."""
     for shape in [(33, 8, 12), (45, 40, 44), (3, 5, 9000)]:
         x, fs = _unbatched_inputs(cuda, shape, 10, seed=5)
         for n in range(3):
             us = [fs[k] for k in range(3) if k != n]
             g = mf.unbatched_launch_shape(shape, n, 10)
-            mf.matrix_free_kernel(x, us, n)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                out = mf.matrix_free_kernel(x, us, n)
-                torch.cuda.synchronize()
-            names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+            names = _graph_kernel_names(lambda: mf.matrix_free_kernel(x, us, n))
+            # the graph's nodes come in no set order: the cluster kernel, then
+            # (with groups) the sum of the groups' partials, which depends on it
+            names = sorted(names, key=lambda name: "sum_splits_kernel" in name)
             assert "matrix_free_cluster_kernel" in names[0]
             if g.groups == 1:
                 assert len(names) == 1
             else:
                 assert len(names) == 2 and "sum_splits_kernel" in names[1]
-            del out
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
@@ -723,6 +711,51 @@ def _graph_kernels(fn):
     return kinds
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of libcuda."""
+
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def _graph_kernel_names(fn):
+    """The names of the CUDA kernels one call of ``fn`` launches, read from
+    a CUDA graph captured from the call (never replayed): every node must be
+    a kernel, and each kernel node's function name comes from libcuda
+    (``cuFuncGetName``, or ``cuKernelGetName`` for a library kernel).  An
+    exact list, where a profiler window may drop events; in no set order.
+    ``fn`` runs once before the capture."""
+    fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(count)) == 0
+    nodes = (ctypes.c_void_p * count.value)()
+    assert cu.cuGraphGetNodes(handle, nodes, ctypes.byref(count)) == 0
+    names = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        assert kind.value == 0, f"a graph node of type {kind.value}, not a kernel"
+        params = _KernelNodeParams()
+        assert cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)) == 0
+        name = ctypes.c_char_p()
+        if params.func:
+            assert cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func)) == 0
+        else:
+            assert cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern)) == 0
+        names.append(name.value.decode())
+    del graph
+    torch.cuda.synchronize()
+    return names
+
+
 def test_fused_kernels_launch_the_cuda_kernels_their_design_states(cuda):
     """Batched: one kernel a call, no workspace.  Unbatched: one with one
     group, two with more (the groups' partials, then their sum).  Counted
@@ -864,3 +897,47 @@ def test_pp_run_on_the_card_agrees_with_the_cpu(cuda, batch):
     (n_cpu, f_cpu), (n_card, f_card) = runs.values()
     assert n_card == n_cpu and 0 < n_card < sweeps
     assert max(abs(a - b) for a, b in zip(f_cpu, f_card)) < 1e-4
+
+
+def test_sharded_cp_als_in_an_nccl_world_of_one_is_the_local_engine(cuda, tmp_path):
+    """The flat sharded path on the card: an NCCL world of one on a (1, 1)
+    mesh, mode-parallel and batch-parallel, bitwise equal to the local
+    engine (a gather of one rank copies its partial), its reductions made
+    through NCCL."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import GATHERS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.plan import make_executor
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn((8, 6, 4, 5), generator=g, device=cuda)
+        init = [torch.randn((d, 3), generator=g, device=cuda) for d in x.shape]
+        xb = torch.randn((4, 6, 4, 5), generator=g, device=cuda)
+        initb = [torch.randn((4, d, 3), generator=g, device=cuda) for d in xb.shape[1:]]
+        axes = {0: "data", 2: "model"}
+        runs = [
+            (x, init, Problem.from_tensor(x, 3), Problem.from_tensor(x, 3, axes, mesh),
+             dict(mode_axes=axes)),
+            (xb, initb, Problem.from_tensor(xb, 3, batch=4),
+             Problem.from_tensor(xb, 3, {}, mesh, batch=4, batch_axes=("data",)),
+             dict(mode_axes={}, batch_axes=("data",))),
+        ]
+        for xs, fs, local, sharded, kw in runs:
+            for m in ("matrix_free", "fused"):
+                lfits, fits = [], []
+                lst = cp_als(xs, plan_sweep(local, m), n_iters=4, tol=0.0, init_factors=fs,
+                             callback=lambda it, f, dt: lfits.append(f))
+                GATHERS.calls = 0
+                st = cp_als(xs, plan_sweep(sharded, m, executor="sharded"),
+                            executor=make_executor("sharded", mesh, **kw), n_iters=4, tol=0.0,
+                            init_factors=fs, callback=lambda it, f, dt: fits.append(f))
+                assert GATHERS.calls > 0
+                assert fits == lfits and st.weights.equal(lst.weights)
+                assert all(u.equal(v) for u, v in zip(st.factors, lst.factors))
+    finally:
+        tdist.destroy_process_group()

@@ -190,14 +190,24 @@ def test_mttkrp_from_partial_matches_reference(order, pos):
 def test_legacy_sweep_refuses_sharded_calls_and_exports():
     x, init = _data((4, 5, 6), 2, seed=6)
     tx, tfs, tw, tn = _sweep_args(x, init, 2, "torch")
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tplan.legacy_sweep(tx, tfs, tw, tn, 0, strategy="auto", mesh=object())
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tplan.legacy_sweep(tx, tfs, tw, tn, 0, strategy="auto", mode_axes={0: "x"})
-    out = tplan.legacy_sweep(tx, tfs, tw, tn, 0, strategy="einsum")
-    assert len(out) == 3 and tuple(out[1].shape) == (2,)
+    # sharded legacy sweeps run on a DeviceMesh (tests/test_torch_dist.py); a
+    # mapped mode without a mesh, or on a mesh without its axis, is refused
+    # with the reference's ValueError
+    import types
+
     import repro.plan as jplan
 
+    jx, jfs, jw, jn = _sweep_args(x, init, 2, "jax")
+    with pytest.raises(ValueError, match="no size known for mesh axis 'x'") as terr:
+        tplan.legacy_sweep(tx, tfs, tw, tn, 0, strategy="auto", mode_axes={0: "x"})
+    with pytest.raises(ValueError) as jerr:
+        jplan.legacy_sweep(jx, jfs, jw, jn, 0, strategy="auto", mode_axes={0: "x"})
+    assert str(terr.value) == str(jerr.value)
+    other = types.SimpleNamespace(mesh_dim_names=("y",), shape=(2,))
+    with pytest.raises(ValueError, match="no size known for mesh axis 'x'"):
+        tplan.legacy_sweep(tx, tfs, tw, tn, 0, strategy="auto", mode_axes={0: "x"}, mesh=other)
+    out = tplan.legacy_sweep(tx, tfs, tw, tn, 0, strategy="einsum")
+    assert len(out) == 3 and tuple(out[1].shape) == (2,)
     for name in ("legacy_sweep", "pp_pairs", "PPPair", "PPState", "PP_EXACT_FRACTION",
                  "pp_build_cost", "pp_correction_cost", "pp_amortized_cost"):
         assert name in tplan.__all__ and name in jplan.__all__

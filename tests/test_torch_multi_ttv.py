@@ -238,3 +238,66 @@ def test_multi_ttv_operands_take_both_orders():
     for n in (0, 3):
         with pytest.raises(ValueError):
             tops.multi_ttv_operands(x, fs, n)
+
+
+@pytest.mark.parametrize("block_i", [8, 16, 48])
+def test_multi_ttv_kernel_matches_the_reference_entry(block_i):
+    """The low-level entry the package exports: unpadded, float32 out."""
+    from repro.kernels import multi_ttv_kernel as jkernel
+    from repro_torch.kernels import multi_ttv_kernel
+
+    rng = _rng(block_i + 1)
+    t = rng.standard_normal((5, 48, 6)).astype(np.float32)
+    w = rng.standard_normal((5, 6)).astype(np.float32)
+    before = _launches()
+    out = multi_ttv_kernel(torch.from_numpy(t), torch.from_numpy(w), block_i=block_i)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (48, 6)
+    _close(jkernel(jnp.asarray(t), jnp.asarray(w), block_i=block_i, interpret=True), out)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("block_i,block_batch", [(8, 1), (16, 2), (48, 4)])
+def test_multi_ttv_batched_kernel_matches_the_reference_entry(block_i, block_batch):
+    from repro.kernels import multi_ttv_batched_kernel as jkernel
+    from repro_torch.kernels import multi_ttv_batched_kernel
+
+    rng = _rng(block_i + block_batch)
+    t = rng.standard_normal((4, 3, 48, 5)).astype(np.float32)
+    w = rng.standard_normal((4, 3, 5)).astype(np.float32)
+    before = _launches()
+    out = multi_ttv_batched_kernel(torch.from_numpy(t), torch.from_numpy(w),
+                                   block_i=block_i, block_batch=block_batch)
+    assert out.dtype == torch.float32 and tuple(out.shape) == (4, 48, 5)
+    _close(jkernel(jnp.asarray(t), jnp.asarray(w), block_i=block_i, block_batch=block_batch,
+                   interpret=True), out)
+    assert _launches() == before
+
+
+@pytest.mark.parametrize("case", ["w_shape", "unpadded_i", "batched_w_shape",
+                                  "batched_unpadded_i", "batched_unpadded_s"])
+def test_multi_ttv_kernels_raise_where_the_reference_raises(case):
+    from repro.kernels import multi_ttv_batched_kernel as jbatched
+    from repro.kernels import multi_ttv_kernel as jkernel
+    from repro_torch.kernels import multi_ttv_batched_kernel, multi_ttv_kernel
+
+    rng = _rng(7)
+    t3 = rng.standard_normal((3, 10, 4)).astype(np.float32)
+    t4 = rng.standard_normal((3, 2, 10, 4)).astype(np.float32)
+    calls = {
+        "w_shape": (jkernel, multi_ttv_kernel, t3, np.ones((3, 5), np.float32),
+                    dict(block_i=5)),
+        "unpadded_i": (jkernel, multi_ttv_kernel, t3, np.ones((3, 4), np.float32),
+                       dict(block_i=4)),
+        "batched_w_shape": (jbatched, multi_ttv_batched_kernel, t4,
+                            np.ones((3, 4), np.float32), dict(block_i=5, block_batch=1)),
+        "batched_unpadded_i": (jbatched, multi_ttv_batched_kernel, t4,
+                               np.ones((3, 2, 4), np.float32), dict(block_i=4, block_batch=1)),
+        "batched_unpadded_s": (jbatched, multi_ttv_batched_kernel, t4,
+                               np.ones((3, 2, 4), np.float32), dict(block_i=5, block_batch=2)),
+    }
+    jfn, tfn, t, w, kw = calls[case]
+    with pytest.raises(ValueError) as jerr:
+        jfn(jnp.asarray(t), jnp.asarray(w), interpret=True, **kw)
+    with pytest.raises(ValueError) as terr:
+        tfn(torch.from_numpy(t), torch.from_numpy(w), **kw)
+    assert str(terr.value) == str(jerr.value)

@@ -120,8 +120,12 @@ def test_later_slices_raise_not_implemented():
     assert tplan.plan_sweep(tplan.Problem((4, 6), 2, pp_tol=0.1)).pp_info["tol"] == 0.1
     with pytest.raises(ValueError, match="pp_tol"):
         tplan.plan_sweep(p, "pp")
-    with pytest.raises(NotImplementedError):
-        tplan.plan_sweep(p, executor="sharded")
+    # the sharded executor is ported (it takes an unsharded problem too, as
+    # the reference's does); the overlapping one is distribution slice 2
+    assert tplan.plan_sweep(p, executor="sharded").executor == "sharded"
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        tplan.plan_sweep(tplan.Problem((4, 6), 2, mode_axes={0: "x"}, axis_sizes={"x": 2}),
+                         executor="overlapping")
     with pytest.raises(NotImplementedError):
         tplan.make_executor("overlapping")
     with pytest.raises(ValueError):
