@@ -12,7 +12,9 @@ MTTKRP and the explicit KRP (``ops.mttkrp_2step_kernel``,
 plan_sweep("autotune") -> cp_als`` and ``-> CPService``; and the legacy
 front door (``core.cp_als(x, CPConfig(...))``) and pairwise-perturbation
 sweeps (``Problem(pp_tol > 0) -> plan_sweep("pp") -> cp_als``, tuned and
-served).  Holds all seven
+served); and the sharded front door in an NCCL world of one (the sharded,
+overlapping and compressed executors, ``executor="auto"``, ``tune(mesh=)``
+and ``CPService(mesh=)``).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions.
 
@@ -133,7 +135,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    printed), ``pp_exact_sweeps`` per batch, problems/s.  (e) a small PP run
    on the card and on the CPU: the same sequence, fits within
    ``SMALL_FIT_AGREE``.
-13. flat sharded CP-ALS over a ``torch.distributed`` DeviceMesh, in an NCCL
+13. sharded CP-ALS over a ``torch.distributed`` DeviceMesh, in an NCCL
    world of one (``init_process_group("nccl", init_method="file://...",
    rank=0, world_size=1)``, mesh ``(1, 1)`` of ``("data", "model")``; NCCL
    failing to start fails the run, nothing falls back).  (a) mode-parallel
@@ -149,6 +151,31 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    (c) batch-parallel: subjects 0-7 stacked, ``mode_axes={}``,
    ``batch_axes=("data",)``, under matrix_free and fused, bitwise equal to
    the local batched engine, with 3 x sweeps launches of row 4 / row 3.
+   (d) the overlapping executor (``n_chunks`` 4) on (a)'s problem under
+   matrix_free and fused: every leaf in 4 slabs within ``LEAF_REL`` of the
+   sharded leaf; ``plan.cp_als`` with fits within ``FIT_AGREE`` of phase
+   3's, the launches (one a slab), collectives (one an axis a slab) and
+   slab copies (each slab of a mode past the first) the plan and the
+   chunks state; printed: the bytes copied a sweep, seconds a sweep against
+   sharded and local, and a trace of one sweep with the NCCL operations
+   that ran beside another device operation.  The binary tree for 3
+   sweeps bitwise equal to the sharded executor's, the chain's fits
+   within ``FIT_AGREE``.  (e) the compressed executor on the same problem
+   under matrix_free and fused: fits finite and within
+   ``COMPRESSED_FIT_AGREE`` of phase 3's, every residual changed every
+   sweep, the launches, collectives and int8 gathers the plan states;
+   printed: int8 gathers and bytes a sweep, seconds a sweep.  (f)
+   ``select_executor``/``plan_sweep(executor="auto")`` under the H100
+   constants, with each kind's predicted seconds.  (g) ``tune(mesh=,
+   mode_axes=)`` in its default budget: the rows of the three kinds, the
+   fitted ``serial_fractions`` and the ``autotune`` plan, whose
+   ``cp_als`` fits agree with phase 3's within ``FIT_AGREE``
+   (``COMPRESSED_FIT_AGREE`` if it picks the compressed kind).  (h)
+   ``CPService(mesh=)`` serving the 67 requests of phase 6 batch-parallel
+   at batch 8 under matrix_free and fused, beside the single-device
+   service from the same inits: phase 6's counters, 3 x sweeps x 9
+   launches of row 4 / row 3, fits within ``FIT_AGREE`` of both services'
+   (the single-device one of this phase and phase 6's).
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -1943,17 +1970,29 @@ DIST_AXES = {0: "data", 2: "model"}
 DIST_TREE_SWEEPS = 3
 
 
-def _expected_gathers(plan, sweeps: int, batch_axes=()) -> tuple[int, str]:
+def _slabs(plan, node, n_chunks: int) -> int:
+    """The slabs a node's reduction is cut into under the overlapping
+    executor: ``n_chunks`` capped by the local extent of the node's first
+    kept mode (1 without a reduction or with ``n_chunks`` 1)."""
+    if not node.reduce_axes or n_chunks <= 1:
+        return 1
+    return max(1, min(n_chunks, plan.problem.local_shape[node.lo]))
+
+
+def _expected_gathers(plan, sweeps: int, batch_axes=(), n_chunks: int = 1) -> tuple[int, str]:
     """The collectives a sharded ``cp_als`` run of ``plan`` makes, derived
     from its schedule, and the derivation.  Set-up: the tensor norm, one
     gather a mapped mode's axis, and the Gram of each mapped mode.  A
     sweep: each node's reduction (one gather an axis of the mapped modes it
-    contracts), the column norms and the Gram of each mapped leaf mode, the
-    fit's inner product when the last mode is mapped, and one gather a
-    batch axis for the sweep's fits (one host read a sweep)."""
+    contracts, a slab: ``n_chunks`` is the overlapping executor's), the
+    column norms and the Gram of each mapped leaf mode, the fit's inner
+    product when the last mode is mapped, and one gather a batch axis for
+    the sweep's fits (one host read a sweep).  The compressed executor
+    makes the same count: its int8 gather is one an axis too."""
     prob = plan.problem
     mapped = set(prob.mode_axes)
-    nodes = sum(len(node.reduce_axes) for node in plan.resolved_schedule.walk())
+    nodes = sum(len(node.reduce_axes) * _slabs(plan, node, n_chunks)
+                for node in plan.resolved_schedule.walk())
     algebra = (2 if plan.normalize else 1) * len(mapped) + (prob.ndim - 1 in mapped)
     setup = 2 * len(mapped)
     per_sweep = nodes + algebra + len(batch_axes)
@@ -1969,11 +2008,16 @@ def _bitwise(st, fits, ref) -> bool:
             and all(u.equal(v) for u, v in zip(st.factors, rst.factors)))
 
 
-def _dist_phase(torch, args, dev, smi, x4, init, engine, subjects) -> None:
-    """Phase 13: an NCCL world of one on the card, the flat sharded path at
+def _dist_phase(torch, args, dev, smi, x4, init, engine, subjects, serve_inits=None,
+                serve_fits=None) -> None:
+    """Phase 13: an NCCL world of one on the card, the sharded paths at
     full width against the single-device engine (see the module
     docstring).  ``engine`` maps fused and matrix_free to ``(state,
-    per-sweep fits)`` of phase 3's ``plan.cp_als`` from ``init``."""
+    per-sweep fits)`` of phase 3's ``plan.cp_als`` from ``init``;
+    ``subjects`` is the 59-subject fleet, ``serve_inits`` phase 6's
+    per-request inits and ``serve_fits`` its served fits of the
+    rank-``--rank`` requests (the inits made here, and the fits not
+    compared, when the phase runs alone)."""
     import shutil
     import tempfile
 
@@ -1997,7 +2041,11 @@ def _dist_phase(torch, args, dev, smi, x4, init, engine, subjects) -> None:
          f"{'.'.join(map(str, torch.cuda.nccl.version()))}), mesh {mesh.mesh_dim_names} "
          f"{tuple(mesh.shape)}, first all_gather done in {time.perf_counter() - t0:.1f} s")
     try:
-        _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh)
+        secs = _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh)
+        _dist_overlapping(torch, args, smi, x4, init, engine, mesh, secs)
+        _dist_compressed(torch, args, smi, x4, init, engine, mesh, secs)
+        _dist_auto_and_tune(torch, args, smi, x4, init, engine, mesh)
+        _dist_serve(torch, args, dev, smi, subjects, serve_inits, serve_fits, mesh)
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -2033,6 +2081,7 @@ def _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh) -> None:
         return secs
 
     # ---- 13a: mode-parallel, the fMRI tensor at full width
+    out = {}
     for m in ("matrix_free", "fused"):
         before = local_secs(m)
         plan = plan_sweep(Problem.from_tensor(x4, rank, DIST_AXES, mesh), m, executor="sharded")
@@ -2064,6 +2113,7 @@ def _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh) -> None:
         _log(f"[13] {m} seconds a sweep (host clock, one sync a sweep): local {before} then "
              f"{after}; sharded {secs}; medians local {_median(before + after):.6f} sharded "
              f"{_median(secs):.6f}; card {smi}")
+        out[m] = {"local": _median(before + after), "sharded": _median(secs)}
         _dist_trace(torch, args, x4, init, plan, mesh, m, smi)
 
     # ---- 13b: the dimension tree, sweep by sweep against the legacy sweep
@@ -2106,6 +2156,274 @@ def _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh) -> None:
              f"bitwise equal to the local batched engine: {'ok' if same else 'FAIL'}")
         if not same or got[:2] != (3 * sweeps, 0) or got[2] != want:
             raise SystemExit(f"batch-parallel {m}: bits, launches or collectives differ")
+    return out
+
+
+# The overlapping executor's slab count (repro_torch.plan.DEFAULT_OVERLAP_CHUNKS).
+DIST_CHUNKS = 4
+# A full MTTKRP cut into DIST_CHUNKS slabs against the unsplit kernel: each slab
+# is its own launch with its own split of the outer sum, so the fp32 sums run
+# in other orders (~1e-7 relative); an indexing fault between slabs is O(1).
+LEAF_REL = 1e-5
+# The compressed executor's fits against the exact run's: the reference's own
+# compressed_cpals bound (tests/dist_worker.py).  An int8 step is 1/254 of a
+# partial's largest entry a participant; error feedback keeps the accumulated
+# error within one step, so the iterates track the exact ones to ~1e-3.
+COMPRESSED_FIT_AGREE = 2e-2
+
+
+def _overlap_counts(plan, sweeps: int, n_chunks: int) -> tuple[int, int]:
+    """Kernel launches and slab copies of an overlapping run of a plan whose
+    root leaves run a kernel: one launch a slab, and a copy of every slab of
+    a mode past the first (a strided view of the block)."""
+    launches = copies = 0
+    for node in plan.resolved_schedule.walk():
+        if node.from_root and node.is_leaf:
+            k = _slabs(plan, node, n_chunks)
+            launches += k
+            copies += k if k > 1 and node.mode > 0 else 0
+    return launches * sweeps, copies * sweeps
+
+
+def _nccl_overlap(evs) -> tuple[int, int, float, float]:
+    """Of a trace's device events: the NCCL operations, how many of them ran
+    beside another device operation, their µs, and the µs of that overlap."""
+    nccl = [(a, b) for a, b, name in evs if "nccl" in name.lower()]
+    other = [(a, b) for a, b, name in evs if "nccl" not in name.lower()]
+    beside, overlap = 0, 0.0
+    for a, b in nccl:
+        o = sum(max(0.0, min(b, d) - max(a, c)) for c, d in other)
+        beside += o > 0
+        overlap += o
+    return len(nccl), beside, sum(b - a for a, b in nccl), overlap
+
+
+def _dist_overlapping(torch, args, smi, x4, init, engine, mesh, secs) -> None:
+    """13d: the overlapping executor on the fMRI tensor (see the module
+    docstring)."""
+    from repro_torch.dist import GATHERS, SLAB_COPIES
+    from repro_torch.dist.dist_mttkrp import mttkrp_block, mttkrp_overlapped_block
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import Problem, cp_als, make_executor, plan_sweep
+
+    rank, sweeps = args.rank, args.sweeps
+    problem = Problem.from_tensor(x4, rank, DIST_AXES, mesh)
+    ex = make_executor("overlapping", mesh, DIST_AXES, n_chunks=DIST_CHUNKS)
+    for m, kernel in (("matrix_free", mf.KERNEL), ("fused", fm.KERNEL)):
+        worst = 0.0
+        for n in range(4):
+            a = mttkrp_block(x4, init, n, DIST_AXES, mesh, method=m)
+            b = mttkrp_overlapped_block(x4, init, n, DIST_AXES, mesh, method=m,
+                                        n_chunks=DIST_CHUNKS)
+            worst = max(worst, _rel(torch, b, a)[0])
+        _log(f"[13] overlapping {m}: each leaf in {DIST_CHUNKS} slabs against the sharded "
+             f"leaf: largest rel err {worst:.3e} (bound {LEAF_REL:g})")
+        if not worst <= LEAF_REL:
+            raise SystemExit(f"overlapping {m}: a slabbed leaf disagrees with the sharded leaf")
+        plan = plan_sweep(problem, m, executor="overlapping", n_chunks=DIST_CHUNKS)
+        want_l, want_c = _overlap_counts(plan, sweeps, DIST_CHUNKS)
+        want_g, how = _expected_gathers(plan, sweeps, n_chunks=DIST_CHUNKS)
+        fits, osecs = [], []
+        torch.cuda.synchronize()
+        kernel.launches = GATHERS.calls = SLAB_COPIES.calls = SLAB_COPIES.bytes = 0
+        st = cp_als(x4, plan, executor=ex, n_iters=sweeps, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: (fits.append(f), osecs.append(dt)))
+        torch.cuda.synchronize()
+        got = (kernel.launches, GATHERS.calls, SLAB_COPIES.calls, SLAB_COPIES.bytes)
+        gap = max(abs(a - b) for a, b in zip(fits, engine[m][1]))
+        finite = all(math.isfinite(f) for f in fits) and all(
+            bool(torch.isfinite(u).all()) for u in st.factors)
+        _log(f"[13] overlapping {m} (n_chunks {DIST_CHUNKS}): fits {fits}; against phase 3's "
+             f"max |diff| {gap:.3e} (bound {FIT_AGREE:g}); launches {got[0]} (want {want_l}: "
+             f"{want_l // sweeps} a sweep); collectives {got[1]} (want {want_g}: {how}); slab "
+             f"copies {got[2]} (want {want_c}), {got[3] / sweeps / 1e9:.3f} GB copied a sweep")
+        if not finite or gap > FIT_AGREE or got[:3] != (want_l, want_g, want_c):
+            raise SystemExit(f"overlapping {m}: fits, launches, collectives or copies differ")
+        _log(f"[13] {m} seconds a sweep (host clock, medians): overlapping "
+             f"{_median(osecs):.6f} ({osecs}), sharded {secs[m]['sharded']:.6f}, local "
+             f"{secs[m]['local']:.6f}; card {smi}")
+        wall, evs = _trace(torch, lambda: cp_als(x4, plan, executor=ex, n_iters=1, tol=0.0,
+                                                 init_factors=init))
+        _log_trace(f"[13] trace of one overlapping {m} sweep with its set-up", wall, evs, 1, smi)
+        count, beside, nccl_us, overlap_us = _nccl_overlap(evs)
+        _log(f"[13] overlapping {m}: {count} NCCL operations ({nccl_us:.1f} us), {beside} of "
+             f"them beside another device operation ({overlap_us:.1f} us of overlap); card {smi}")
+    # tree schedules: partials bitwise the sharded executor's; the chain's
+    # root leaf is cut into slabs, so its run holds at the fits' bound
+    for name, strategy, schedule in (("binary", "dimtree", None), ("chain", "1step", "chain")):
+        runs = {}
+        for kind in ("sharded", "overlapping"):
+            plan = plan_sweep(problem, strategy, executor=kind, schedule=schedule,
+                              n_chunks=DIST_CHUNKS)
+            fits = []
+            GATHERS.calls = 0
+            st = cp_als(x4, plan, executor=make_executor(kind, mesh, DIST_AXES,
+                                                          n_chunks=DIST_CHUNKS),
+                        n_iters=DIST_TREE_SWEEPS, tol=0.0, init_factors=init,
+                        callback=lambda it, f, dt: fits.append(f))
+            torch.cuda.synchronize()
+            want, _ = _expected_gathers(plan, DIST_TREE_SWEEPS,
+                                        n_chunks=DIST_CHUNKS if kind == "overlapping" else 1)
+            runs[kind] = (st, fits, GATHERS.calls, want, plan.resolved_schedule.name)
+        (sst, sfits, *_), (ost, ofits, calls, want, sched) = runs["sharded"], runs["overlapping"]
+        same = _bitwise(ost, ofits, (sst, sfits))
+        gap = max(abs(a - b) for a, b in zip(ofits, sfits))
+        _log(f"[13] overlapping {sched}: {DIST_TREE_SWEEPS} sweeps bitwise equal to the sharded "
+             f"executor's: {'yes' if same else 'no'} (fits max |diff| {gap:.3e}); collectives "
+             f"{calls} (want {want})")
+        if calls != want or gap > FIT_AGREE or (name == "binary" and not same):
+            raise SystemExit(f"overlapping {sched}: bits, fits or collectives differ")
+
+
+def _dist_compressed(torch, args, smi, x4, init, engine, mesh, secs) -> None:
+    """13e: the compressed executor on the fMRI tensor (see the module
+    docstring)."""
+    from repro_torch.dist import GATHERS, INT8_GATHERS
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import CompressedShardedExecutor, Problem, cp_als, plan_sweep
+
+    class Probe(CompressedShardedExecutor):
+        """Counts the node contractions that hand back a changed residual."""
+
+        updates = 0
+
+        def contract_carry(self, node, src, factors, algorithm, carry, tiles=None,
+                           collective="flat"):
+            out, new = super().contract_carry(node, src, factors, algorithm, carry,
+                                              tiles=tiles, collective=collective)
+            if carry is not None and node.id in carry:
+                self.updates += not torch.equal(new[node.id], carry[node.id])
+            return out, new
+
+    rank, sweeps = args.rank, args.sweeps
+    problem = Problem.from_tensor(x4, rank, DIST_AXES, mesh)
+    for m, kernel in (("matrix_free", mf.KERNEL), ("fused", fm.KERNEL)):
+        plan = plan_sweep(problem, m, executor="compressed")
+        ex = Probe(mesh, DIST_AXES)
+        reducing = [node for node in plan.resolved_schedule.walk() if node.reduce_axes]
+        want_i = sum(len(node.reduce_axes) for node in reducing) * sweeps
+        want_g, how = _expected_gathers(plan, sweeps)
+        fits, csecs = [], []
+        torch.cuda.synchronize()
+        kernel.launches = GATHERS.calls = INT8_GATHERS.calls = INT8_GATHERS.bytes = 0
+        st = cp_als(x4, plan, executor=ex, n_iters=sweeps, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: (fits.append(f), csecs.append(dt)))
+        torch.cuda.synchronize()
+        got = (kernel.launches, GATHERS.calls, INT8_GATHERS.calls, ex.updates)
+        want = (4 * sweeps, want_g, want_i, len(reducing) * sweeps)
+        gap = max(abs(a - b) for a, b in zip(fits, engine[m][1]))
+        finite = all(math.isfinite(f) for f in fits) and all(
+            bool(torch.isfinite(u).all()) for u in st.factors)
+        _log(f"[13] compressed {m}: fits {fits}; against phase 3's max |diff| {gap:.3e} (bound "
+             f"{COMPRESSED_FIT_AGREE:g}); launches {got[0]} (want {want[0]}); collectives "
+             f"{got[1]} (want {want_g}: {how}); int8 gathers {got[2]} (want {want_i}: "
+             f"{want_i // sweeps} a sweep, {INT8_GATHERS.bytes / sweeps:.0f} B sent a sweep); "
+             f"residuals changed {got[3]} times (want {want[3]}: {len(reducing)} nodes every "
+             f"sweep)")
+        if not finite or gap > COMPRESSED_FIT_AGREE or got != want:
+            raise SystemExit(f"compressed {m}: fits, launches, gathers or carry differ")
+        _log(f"[13] {m} seconds a sweep (host clock, medians): compressed "
+             f"{_median(csecs):.6f} ({csecs}), sharded {secs[m]['sharded']:.6f}, local "
+             f"{secs[m]['local']:.6f}; card {smi}")
+
+
+def _dist_auto_and_tune(torch, args, smi, x4, init, engine, mesh) -> None:
+    """13f-g: the executor argmin under the H100 constants, then the
+    sharded tuner and its ``autotune`` plan (see the module docstring)."""
+    from repro_torch.plan import (Problem, TuningCache, cp_als, make_executor, plan_sweep,
+                                  select_executor, tune)
+
+    rank, sweeps = args.rank, args.sweeps
+    problem = Problem.from_tensor(x4, rank, DIST_AXES, mesh)
+    for strategy in ("auto", "matrix_free", "fused"):
+        plan = plan_sweep(problem, strategy)
+        totals = {k: plan_sweep(problem, strategy, executor=k).total_cost()["predicted_s"]
+                  for k in ("sharded", "overlapping", "compressed")}
+        _log(f"[13] executor='auto' under the H100 constants, strategy {strategy}: "
+             f"select_executor -> {select_executor(problem, strategy)}; plan {plan.executor} on "
+             f"{plan.resolved_schedule.name}; predicted s a sweep by kind {totals}")
+    cache = TuningCache()
+    t0 = time.perf_counter()
+    entry = tune(x4, rank, mesh=mesh, mode_axes=DIST_AXES, cache=cache)
+    _log(f"[13] tune(mesh=, mode_axes={DIST_AXES}) in {time.perf_counter() - t0:.2f} s (budget "
+         f"{entry['budget_ms']} ms, elapsed_ms {entry['elapsed_ms']:.1f}): "
+         f"{len(entry['nodes'])} node rows; card {smi}")
+    for kind in ("sharded", "overlapping", "compressed"):
+        rows = [r for r in entry["nodes"] if r["executor"] == kind]
+        _log(f"[13] tune rows {kind} ({len(rows)}): "
+             + ", ".join(f"{r['key'].split('|', 1)[1]} {1e3 * r['measured_s']:.3f} ms"
+                         for r in rows))
+    _log(f"[13] tune serial_fractions {entry['serial_fractions']}")
+    plan = plan_sweep(problem, "autotune", tuning_cache=cache)
+    bound = COMPRESSED_FIT_AGREE if plan.executor == "compressed" else FIT_AGREE
+    fits = []
+    st = cp_als(x4, plan, executor=make_executor(plan.executor, mesh, DIST_AXES), n_iters=sweeps,
+                tol=0.0, init_factors=init, callback=lambda it, f, dt: fits.append(f))
+    torch.cuda.synchronize()
+    gap = max(abs(a - b) for a, b in zip(fits, engine["matrix_free"][1]))
+    _log(f"[13] autotune plan: executor {plan.executor}, schedule {plan.resolved_schedule.name}, "
+         f"nodes {[np_.algorithm for np_ in plan.nodes]}, serial_fractions "
+         f"{plan.describe()['serial_fractions']}; fits {fits}; against phase 3's max |diff| "
+         f"{gap:.3e} (bound {bound:g})")
+    if not all(math.isfinite(f) for f in fits) or gap > bound or st.it != sweeps:
+        raise SystemExit("the tuned sharded plan's fits disagree with phase 3's")
+
+
+def _dist_serve(torch, args, dev, smi, subjects, serve_inits, serve_fits, mesh) -> None:
+    """13h: the fleet served batch-parallel through ``CPService(mesh=)``
+    beside the single-device service (see the module docstring)."""
+    from repro_torch.dist import GATHERS
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import TuningCache
+    from repro_torch.serve import CPService
+
+    rank, sweeps = args.rank, args.sweeps
+    shape = tuple(subjects[0].shape)
+    requests = [(i, rank) for i in range(len(subjects))]
+    requests += [(i, SECOND_RANK) for i in range(SECOND_SUBJECTS)]
+    if serve_inits is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+        serve_inits = {(i, r): [torch.randn((d, r), generator=gen, device=dev) for d in shape]
+                       for i, r in requests}
+    batches = -(-len(subjects) // SERVE_BATCH) + 1
+    want_stats = {"completed": len(requests), "signatures": 2, "compiles": 2,
+                  "batches": batches, "padded_slots": SERVE_BATCH * (batches - 1) - len(subjects)}
+    for m, kernel in (("matrix_free", mf.BATCHED_KERNEL), ("fused", fm.BATCHED_KERNEL)):
+        fits = {}
+        for label, where in (("single-device", None), ("mesh", mesh)):
+            svc = CPService(batch_size=SERVE_BATCH, n_iters=sweeps, tol=0.0, strategy=m,
+                            tuning_cache=TuningCache(), mesh=where, device=dev)
+            futs = [svc.submit(subjects[i], r, init_factors=serve_inits[(i, r)])
+                    for i, r in requests]
+            torch.cuda.synchronize()
+            kernel.launches = GATHERS.calls = 0
+            t0 = time.perf_counter()
+            svc.flush()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            stats = {k: svc.stats()[k] for k in want_stats}
+            res = [f.result() for f in futs]
+            fits[label] = [r.fit for r in res]
+            kinds = sorted({st.plan.executor for st in svc._states.values()})
+            _log(f"[13] CPService({label}) {m}: executors {kinds}; stats {stats}; launches of "
+                 f"its batched kernel {kernel.launches} (want {3 * sweeps * batches}); "
+                 f"collectives {GATHERS.calls}; {len(requests) / dt:.2f} problems/s (host clock, "
+                 f"first flush, plans made in it); card {smi}")
+            if stats != want_stats or kernel.launches != 3 * sweeps * batches or not all(
+                    math.isfinite(r.fit) and r.sweeps == sweeps for r in res):
+                raise SystemExit(f"CPService({label}) {m}: counters, launches or results differ")
+        gap = max(abs(a - b) for a, b in zip(fits["mesh"], fits["single-device"]))
+        gap6 = (max(abs(a - b) for a, b in zip(fits["mesh"], serve_fits))
+                if serve_fits is not None else 0.0)
+        _log(f"[13] CPService(mesh=) {m} against the single-device service: fits max |diff| "
+             f"{gap:.3e} (bitwise: {'yes' if fits['mesh'] == fits['single-device'] else 'no'}); "
+             f"against phase 6's served fits: "
+             f"{f'{gap6:.3e}' if serve_fits is not None else 'not run'} (bound {FIT_AGREE:g})")
+        if gap > FIT_AGREE or gap6 > FIT_AGREE:
+            raise SystemExit(f"CPService(mesh=) {m}: served fits disagree")
 
 
 def _dist_trace(torch, args, x4, init, plan, mesh, m, smi) -> None:
@@ -2127,15 +2445,18 @@ def _dist_trace(torch, args, x4, init, plan, mesh, m, smi) -> None:
 
 
 def _only_dist(torch, args, dev, smi) -> None:
-    """``--only dist``: build the MTTKRP kernels, make the fMRI tensor and
-    an init, run phase 3's fused and matrix_free ``plan.cp_als`` for the
-    bitwise comparison, then phase 13."""
+    """``--only dist``: build the MTTKRP kernels (and multi-TTV, which
+    ``tune()`` builds), make the fMRI tensor and an init, run phase 3's
+    fused and matrix_free ``plan.cp_als`` for the bitwise comparison, then
+    phase 13 (the fleet and its inits made for it)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_mttkrp as fm
     from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
     from repro_torch.plan import Problem, cp_als, plan_sweep
 
-    _build.build_all([fm.KERNEL, mf.KERNEL])
+    # tune() also builds multi_ttv.cu: all three sources in parallel, here
+    _build.build_all([fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL])
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     x4 = synth_fmri(torch, gen, args.rank, dev)
     init = [torch.randn((d, args.rank), generator=gen, device=dev) for d in FMRI]
@@ -2146,7 +2467,7 @@ def _only_dist(torch, args, dev, smi) -> None:
                     n_iters=args.sweeps, tol=0.0, init_factors=init,
                     callback=lambda it, f, dt: fits.append(f))
         engine[strategy] = (st, fits)
-    subjects = [x4[:, s].contiguous() for s in range(SERVE_BATCH)]
+    subjects = [x4[:, s].contiguous() for s in range(FMRI[1])]
     _dist_phase(torch, args, dev, smi, x4, init, engine, subjects)
 
 
@@ -2160,8 +2481,9 @@ def main(argv=None) -> int:
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
-                         "(the legacy front door and PP sweeps) or phase 13 (flat sharded "
-                         "CP-ALS in an NCCL world of one); prints no result line")
+                         "(the legacy front door and PP sweeps) or phase 13 (sharded CP-ALS, "
+                         "its executors, tuner and service in an NCCL world of one); prints no "
+                         "result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2417,7 +2739,7 @@ def main(argv=None) -> int:
 
     # ---- phase 13: flat sharded CP-ALS in an NCCL world of one
     _dist_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
-                subjects)
+                subjects, serve_inits, serve_fits)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -31,9 +31,15 @@ route through the one engine of :mod:`repro_torch.plan.sweep`
 (``ShardedExecutor`` holds the mesh); this module keeps the placement
 primitives and the entry points of the reference's names.
 
-Only the flat collective is here: ``collective="hierarchical"`` comes with
-distribution slice 4, the overlapped and compressed variants with slices 2
-and 3.
+Besides the plain entries: the overlapped ones (distribution slice 2:
+``dist_mttkrp_overlapped`` cuts the local MTTKRP into slabs along mode
+``n`` and issues each slab's reduction asynchronously before the next
+slab's contraction; a tree node's reduction is issued slab by slab the
+same way), and the compressed ones (slice 3: ``dist_mttkrp_compressed``
+and ``dist_contract_*_compressed`` complete with the int8 error-feedback
+gather of :func:`repro_torch.dist.collectives.compressed_psum`, this
+rank's residual threaded through).  ``collective="hierarchical"`` comes
+with distribution slice 4.
 """
 
 from __future__ import annotations
@@ -45,10 +51,20 @@ import torch
 from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
 from repro_torch.core.mttkrp import Method, mttkrp, mttkrp_batched
 
-from .collectives import ordered_psum
+from .collectives import _Count, compressed_psum, ordered_psum, ordered_psum_async
 
 Tensor = torch.Tensor
 ModeAxes = Mapping[int, str]
+
+# default slab count of the overlapped reduction pipeline; the planner's
+# knob is repro_torch.plan.cost.DEFAULT_OVERLAP_CHUNKS (the same value,
+# kept as a literal here so repro_torch.dist never imports repro_torch.plan
+# at module level)
+DEFAULT_OVERLAP_CHUNKS = 4
+
+# copies the overlapped MTTKRP makes of a slab that is not contiguous in
+# the block (every mode but the first): ``calls`` and ``bytes`` copied
+SLAB_COPIES = _Count()
 
 # Collective strategies of the reference's node reductions; "hierarchical"
 # (reduce-scatter within the node axis, cross-node psum, all-gather back)
@@ -205,6 +221,13 @@ def shard_problem(
 # world of one runs the single-device engine's operations bitwise.
 # ShardedExecutor calls these on the blocks it holds.
 # --------------------------------------------------------------------------
+def _local_mttkrp(x, factors, n, method, tiles) -> Tensor:
+    """The local mode-``n`` MTTKRP of a block (batched on a leading batch
+    axis), the LocalExecutor's own call."""
+    run = mttkrp_batched if x.ndim == len(factors) + 1 else mttkrp
+    return run(x, list(factors), n, method=method, tiles=tiles)
+
+
 def mttkrp_block(
     x: Tensor,
     factors: Sequence[Tensor],
@@ -216,9 +239,109 @@ def mttkrp_block(
 ) -> Tensor:
     """Mode-``n`` MTTKRP of this rank's blocks (a leading batch axis runs
     the batched MTTKRP), reduced over the axes mapped to modes != n."""
-    run = mttkrp_batched if x.ndim == len(factors) + 1 else mttkrp
-    m = run(x, list(factors), n, method=method, tiles=tiles)
+    m = _local_mttkrp(x, factors, n, method, tiles)
     return ordered_psum(m, _reduce_axes(mode_axes, (n,)), mesh)
+
+
+def _slab(x: Tensor, dim: int, i0: int, i1: int) -> Tensor:
+    """Rows ``[i0, i1)`` of ``x`` along ``dim``, copied when the view is not
+    contiguous (the CUDA kernels take contiguous operands); each copy is
+    counted in :data:`SLAB_COPIES`."""
+    s = x.narrow(dim, i0, i1 - i0)
+    if s.is_contiguous():
+        return s
+    SLAB_COPIES.calls += 1
+    SLAB_COPIES.bytes += s.numel() * s.element_size()
+    return s.contiguous()
+
+
+def mttkrp_overlapped_block(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    mode_axes: ModeAxes,
+    mesh,
+    method: Method = "auto",
+    tiles: Mapping[str, int] | None = None,
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+) -> Tensor:
+    """:func:`mttkrp_block` with the reduction pipelined behind the
+    contraction: the block is cut into ``n_chunks`` slabs along mode ``n``,
+    each slab's local MTTKRP (its own GEMM or kernel launch) is followed at
+    once by its asynchronous reduction, and the reductions are waited for
+    in order and laid side by side.  Slabs own disjoint output rows, so
+    this is one reduction's result up to the slab contractions' own
+    rounding (a slab's kernel may split its sum otherwise).  No collective
+    to hide, ``n_chunks <= 1`` or one local row: :func:`mttkrp_block`."""
+    axes = _reduce_axes(mode_axes, (n,))
+    lead = 1 if x.ndim == len(factors) + 1 else 0
+    local_in = x.shape[lead + n]
+    if not axes or n_chunks <= 1 or local_in <= 1:
+        return mttkrp_block(x, factors, n, mode_axes, mesh, method=method, tiles=tiles)
+    bounds = _chunk_bounds(local_in, n_chunks)
+    pending = [
+        ordered_psum_async(_local_mttkrp(_slab(x, lead + n, i0, i1), factors, n, method, tiles),
+                           axes, mesh)
+        for i0, i1 in zip(bounds[:-1], bounds[1:])
+    ]
+    return torch.cat([p.wait() for p in pending], dim=lead)
+
+
+def mttkrp_compressed_block(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    mode_axes: ModeAxes,
+    mesh,
+    err: Tensor,
+    method: Method = "auto",
+    tiles: Mapping[str, int] | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Mode-``n`` MTTKRP of this rank's blocks completed by the int8
+    error-feedback gather over the axes mapped to modes != n; ``err`` is
+    this rank's residual (the local output block's shape).  Returns
+    ``(result, new_err)``; with nothing to reduce, the exact result and
+    ``err`` unchanged."""
+    axes = _reduce_axes(mode_axes, (n,))
+    m = _local_mttkrp(x, factors, n, method, tiles)
+    if not axes:
+        return m, err
+    return compressed_psum(m, axes, err.reshape(m.shape), mesh)
+
+
+def _contract_local(
+    src: Tensor,
+    factors: Sequence[Tensor],
+    lo: int,
+    hi: int,
+    parent_lo: int,
+    parent_hi: int,
+    *,
+    from_root: bool,
+) -> tuple[Tensor, list[int], int]:
+    """One schedule node's local contraction of this rank's block:
+    ``(output, contracted modes, 1 if batched else 0)``.  A leading batch
+    axis on ``src`` (one more than the node's topology gives) runs the same
+    contraction under ``torch.func.vmap``."""
+    order = parent_hi - parent_lo
+    batched = src.ndim == (order if from_root else order + 1) + 1
+    contracted = [m for m in range(parent_lo, parent_hi) if not lo <= m < hi]
+    if from_root:
+        if batched:
+            out = torch.func.vmap(
+                lambda t, *fs: partial_mttkrp_range(t, list(fs), lo, hi)
+            )(src, *factors)
+        else:
+            out = partial_mttkrp_range(src, list(factors), lo, hi)
+    elif batched:
+        out = torch.func.vmap(
+            lambda t, *fs: contract_from_partial(t, dict(zip(contracted, fs)), lo, hi, parent_lo)
+        )(src, *[factors[m] for m in contracted])
+    else:
+        out = contract_from_partial(
+            src, {m: factors[m] for m in contracted}, lo, hi, parent_lo
+        )
+    return out, contracted, 1 if batched else 0
 
 
 def contract_block(
@@ -238,42 +361,54 @@ def contract_block(
     the raw tensor block (``from_root``) or the contraction of a partial
     block, then the ordered reduction over the axes of the mapped modes
     contracted at this node.  ``factors`` is the full list of factor
-    blocks.  A leading batch axis on ``src`` (one more than the node's
-    topology gives) runs the same contraction under ``torch.func.vmap``.
-    ``n_chunks > 1`` reduces slab by slab along mode ``lo`` (the output's
-    first kept mode): elementwise sums of disjoint rows, so the values are
-    those of one reduction."""
-    order = parent_hi - parent_lo
-    batched = src.ndim == (order if from_root else order + 1) + 1
-    contracted = [m for m in range(parent_lo, parent_hi) if not lo <= m < hi]
-    if from_root:
-        if batched:
-            out = torch.func.vmap(
-                lambda t, *fs: partial_mttkrp_range(t, list(fs), lo, hi)
-            )(src, *factors)
-        else:
-            out = partial_mttkrp_range(src, list(factors), lo, hi)
-    elif batched:
-        out = torch.func.vmap(
-            lambda t, *fs: contract_from_partial(t, dict(zip(contracted, fs)), lo, hi, parent_lo)
-        )(src, *[factors[m] for m in contracted])
-    else:
-        out = contract_from_partial(
-            src, {m: factors[m] for m in contracted}, lo, hi, parent_lo
-        )
+    blocks.  ``n_chunks > 1`` reduces slab by slab along mode ``lo`` (the
+    output's first kept mode), the overlapping executor's tree-node path:
+    every slab's reduction is issued asynchronously, then each is waited
+    for in order and written into its rows.  Elementwise sums of disjoint
+    rows of one local result: bitwise the values of one reduction."""
+    out, contracted, lead = _contract_local(
+        src, factors, lo, hi, parent_lo, parent_hi, from_root=from_root
+    )
     reduce_axes = _node_reduce_axes(mode_axes, contracted)
     if not reduce_axes:
         return out
-    lead = 1 if batched else 0
     bounds = _chunk_bounds(out.shape[lead], n_chunks)
     if len(bounds) == 2:
         return ordered_psum(out, reduce_axes, mesh)
+    pending = [
+        (i0, i1, ordered_psum_async(out.narrow(lead, i0, i1 - i0), reduce_axes, mesh))
+        for i0, i1 in zip(bounds[:-1], bounds[1:])
+    ]
     total = torch.empty_like(out)  # the local result's layout, as one reduction keeps it
-    for i0, i1 in zip(bounds[:-1], bounds[1:]):
-        total.narrow(lead, i0, i1 - i0).copy_(
-            ordered_psum(out.narrow(lead, i0, i1 - i0), reduce_axes, mesh)
-        )
+    for i0, i1, p in pending:
+        total.narrow(lead, i0, i1 - i0).copy_(p.wait())
     return total
+
+
+def contract_block_compressed(
+    src: Tensor,
+    factors: Sequence[Tensor],
+    lo: int,
+    hi: int,
+    parent_lo: int,
+    parent_hi: int,
+    mode_axes: ModeAxes,
+    mesh,
+    err: Tensor,
+    *,
+    from_root: bool,
+) -> tuple[Tensor, Tensor]:
+    """:func:`contract_block` completed by the int8 error-feedback gather
+    over the node's reduce axes, ``err`` this rank's residual of the node
+    (the local output block's shape).  Returns ``(result, new_err)``; with
+    nothing to reduce, the exact result and ``err`` unchanged."""
+    out, contracted, _ = _contract_local(
+        src, factors, lo, hi, parent_lo, parent_hi, from_root=from_root
+    )
+    reduce_axes = _node_reduce_axes(mode_axes, contracted)
+    if not reduce_axes:
+        return out, err
+    return compressed_psum(out, reduce_axes, err.reshape(out.shape), mesh)
 
 
 # --------------------------------------------------------------------------
@@ -344,6 +479,20 @@ def dist_contract_range(
     )
 
 
+def _partial_blocks(t, factors, parent_lo, parent_hi, mode_axes, mesh, batch_axes):
+    """This rank's blocks of a global partial tensor (modes ``[parent_lo,
+    parent_hi)`` plus the rank axis, after a leading batch axis when
+    batched) and of the global factors."""
+    batched = t.ndim == parent_hi - parent_lo + 2
+    lead = tuple(batch_axes) if batched else None
+    if batched:
+        _validate_batch(t.shape[0], batch_axes, mode_axes, mesh)
+    kept = [mode_axes.get(k) for k in range(parent_lo, parent_hi)]
+    ts = _block(t, kept + [None], mesh, lead)
+    fs = [_block(u, [mode_axes.get(k)], mesh, lead) for k, u in enumerate(factors)]
+    return ts, fs
+
+
 def dist_contract_partial(
     t: Tensor,
     factors: Sequence[Tensor],
@@ -371,17 +520,153 @@ def dist_contract_partial(
     :func:`dist_contract_range`.
     """
     _validate_collective(collective)
-    order = parent_hi - parent_lo
-    batched = t.ndim == order + 2
-    lead = tuple(batch_axes) if batched else None
-    if batched:
-        _validate_batch(t.shape[0], batch_axes, mode_axes, mesh)
-    kept = [mode_axes.get(k) for k in range(parent_lo, parent_hi)]
-    ts = _block(t, kept + [None], mesh, lead)
-    fs = [_block(u, [mode_axes.get(k)], mesh, lead) for k, u in enumerate(factors)]
+    ts, fs = _partial_blocks(t, factors, parent_lo, parent_hi, mode_axes, mesh, batch_axes)
     return contract_block(
         ts, fs, lo, hi, parent_lo, parent_hi, mode_axes, mesh, from_root=False,
         n_chunks=n_chunks,
+    )
+
+
+def dist_mttkrp_overlapped(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    mode_axes: ModeAxes,
+    mesh,
+    method: Method = "auto",
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    tiles: Mapping[str, int] | None = None,
+    *,
+    batch_axes: Sequence[str] = (),
+    collective: str = "flat",
+    node_axis: str | None = None,
+) -> Tensor:
+    """Mode-``n`` MTTKRP with the completing reduction hidden behind the
+    contraction.
+
+    The placement of :func:`dist_mttkrp`, but this rank's block is cut into
+    ``n_chunks`` slabs along mode ``n`` (along mode ``n`` of every problem
+    of a batched block): slab ``k``'s local MTTKRP runs, its reduction is
+    issued asynchronously (``async_op=True``), and slab ``k + 1``'s
+    contraction is queued while it is in flight; the reductions are waited
+    for in order and laid side by side.  A slab that is not contiguous in
+    the block is copied first (:data:`SLAB_COPIES`): the CUDA kernels take
+    contiguous operands.  Slabs own disjoint output rows, so the result is
+    :func:`dist_mttkrp`'s up to each slab contraction's own rounding.
+    Falls back to :func:`dist_mttkrp` when the mapping needs no reduction,
+    ``n_chunks <= 1`` or the local extent of mode ``n`` is 1.  Returns this
+    rank's block.  ``collective`` is ``"flat"`` (``"hierarchical"`` comes
+    with distribution slice 4).
+    """
+    _validate_collective(collective)
+    xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
+    return mttkrp_overlapped_block(
+        xs, fs, n, mode_axes, mesh, method=method, tiles=tiles, n_chunks=n_chunks
+    )
+
+
+def init_mttkrp_error_state(
+    shape: Sequence[int], rank: int, mode_axes: ModeAxes, mesh, *, device=None
+) -> dict[int, Tensor]:
+    """Zero error-feedback residuals for the compressed factor reduction:
+    one fp32 tensor for each mode whose MTTKRP needs a reduction (a mapped
+    mode other than itself exists).  SPMD, so each is *this rank's*
+    residual, the shape of its output block ``(I_n / size of mode n's axis,
+    C)`` -- not the reference's global array with one leading axis a
+    reduced mesh axis.  Thread the dict through :func:`dist_mttkrp_compressed`
+    calls.  ``device`` defaults to the mesh's device type."""
+    _validate(shape, mode_axes, mesh)
+    sizes = _axis_sizes(mesh)
+    device = mesh.device_type if device is None else device
+    errs: dict[int, Tensor] = {}
+    for n in range(len(shape)):
+        if not _reduce_axes(mode_axes, (n,)):
+            continue
+        rows = shape[n] // (sizes[mode_axes[n]] if n in mode_axes else 1)
+        errs[n] = torch.zeros((rows, rank), dtype=torch.float32, device=device)
+    return errs
+
+
+def dist_mttkrp_compressed(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    n: int,
+    mode_axes: ModeAxes,
+    mesh,
+    err: Tensor,
+    method: Method = "auto",
+    tiles: Mapping[str, int] | None = None,
+    *,
+    batch_axes: Sequence[str] = (),
+    collective: str = "flat",
+    node_axis: str | None = None,
+) -> tuple[Tensor, Tensor]:
+    """Mode-``n`` MTTKRP completed by the int8 error-feedback collective.
+
+    The local MTTKRP and placement of :func:`dist_mttkrp`, but the
+    completing reduction is :func:`repro_torch.dist.collectives.compressed_psum`
+    over the same axes: each rank quantizes ``partial + err`` to int8 with
+    a private scale, the payloads are gathered and every rank adds them
+    dequantized in rank order.  ``err`` is this rank's residual for mode
+    ``n`` (:func:`init_mttkrp_error_state`; a batched block takes one of its
+    output block's shape).  Returns ``(this rank's block, new_err)``.  The
+    carried residual keeps the accumulated quantization error within one
+    int8 step, which lets compressed CP-ALS track the exact fit.
+    ``collective`` is ``"flat"`` (the hierarchical split around the
+    compressor comes with distribution slice 4).
+    """
+    _validate_collective(collective)
+    xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
+    return mttkrp_compressed_block(xs, fs, n, mode_axes, mesh, err, method=method, tiles=tiles)
+
+
+def dist_contract_range_compressed(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    lo: int,
+    hi: int,
+    mode_axes: ModeAxes,
+    mesh,
+    err: Tensor,
+    *,
+    batch_axes: Sequence[str] = (),
+    collective: str = "flat",
+    node_axis: str | None = None,
+) -> tuple[Tensor, Tensor]:
+    """:func:`dist_contract_range` with the node's reduction compressed:
+    the int8 error-feedback gather over the same axes, ``err`` this rank's
+    residual of the node (its output block's shape).  Returns ``(this
+    rank's block, new_err)``; the exact path when the node reduces
+    nothing."""
+    _validate_collective(collective)
+    xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
+    return contract_block_compressed(
+        xs, fs, lo, hi, 0, len(factors), mode_axes, mesh, err, from_root=True
+    )
+
+
+def dist_contract_partial_compressed(
+    t: Tensor,
+    factors: Sequence[Tensor],
+    lo: int,
+    hi: int,
+    parent_lo: int,
+    parent_hi: int,
+    mode_axes: ModeAxes,
+    mesh,
+    err: Tensor,
+    *,
+    batch_axes: Sequence[str] = (),
+    collective: str = "flat",
+    node_axis: str | None = None,
+) -> tuple[Tensor, Tensor]:
+    """:func:`dist_contract_partial` with the node's reduction compressed
+    (``err`` as in :func:`dist_contract_range_compressed`); returns ``(this
+    rank's block, new_err)``."""
+    _validate_collective(collective)
+    ts, fs = _partial_blocks(t, factors, parent_lo, parent_hi, mode_axes, mesh, batch_axes)
+    return contract_block_compressed(
+        ts, fs, lo, hi, parent_lo, parent_hi, mode_axes, mesh, err, from_root=False
     )
 
 
@@ -465,8 +750,12 @@ def dist_cp_als(
     this rank's factor blocks (row-distributed per ``mode_axes``), and the
     weights and fit, the same on every rank.  ``dimtree=True`` runs the
     distributed dimension-tree sweep (the same iterates, 2 tensor reads a
-    sweep).  ``executor`` is ``"sharded"``; the overlapping and compressed
-    executors and ``"auto"`` come with distribution slices 2 and 3.
+    sweep).  ``executor`` picks the communication of the node reductions:
+    ``"sharded"`` (the default, one ordered reduction a node),
+    ``"overlapping"`` (slab reductions issued behind the slab
+    contractions; exact), ``"compressed"`` (the int8 error-feedback gather,
+    its residuals threaded through the sweeps; approximate) or ``"auto"``
+    (the cost argmin of :func:`repro_torch.plan.select_executor`).
 
     A wrapper over the one :func:`repro_torch.plan.cp_als` loop.
     """

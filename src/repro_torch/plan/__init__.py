@@ -15,7 +15,12 @@ tensors (``Problem(batch=B)``):
   :class:`ShardedExecutor` runs the same local contractions on this
   rank's block of a mesh-sharded problem and completes each with a
   deterministic reduction (:mod:`repro_torch.dist`);
-  :func:`make_executor` builds either from ``SweepPlan.executor``.
+  :class:`OverlappingExecutor` issues each node's reduction slab by slab
+  behind the contraction (exact), :class:`CompressedShardedExecutor` makes
+  it the int8 error-feedback gather, its residuals carried through the
+  sweep (``SweepState.carry``).  :func:`select_executor` is the cost
+  argmin among them and :func:`make_executor` builds one from
+  ``SweepPlan.executor``.
 * :func:`cp_als` / :func:`als_sweep` -- the one sweep engine and driver;
   :func:`legacy_sweep` is the bridge behind the legacy wrappers
   (``core.cpals.als_sweep``, ``core.dimtree.dimtree_sweep``).
@@ -33,10 +38,11 @@ tensors (``Problem(batch=B)``):
   :class:`TuningCache`, which ``plan_sweep(strategy="autotune")`` reads
   through :func:`lookup_measurements`.
 
-Sharded problems plan with ``plan_sweep(..., executor="sharded")``.  The
-overlapping and compressed executors, two-level meshes and sharded
-pairwise perturbation raise ``NotImplementedError`` naming the
-distribution slice of the port that brings them (2, 3, 4 and 5).
+Sharded problems plan with ``plan_sweep`` as unsharded ones do:
+``executor="auto"`` argmins the sharded kinds; ``tune(mesh=, mode_axes=)``
+measures them.  Two-level meshes and sharded pairwise perturbation raise
+``NotImplementedError`` naming the distribution slice of the port that
+brings them (4 and 5).
 """
 
 from .autotune import (
@@ -48,9 +54,11 @@ from .autotune import (
 )
 from .cost import (
     ALGORITHMS,
+    DEFAULT_OVERLAP_CHUNKS,
     EXECUTORS,
     PP_EXACT_FRACTION,
     ModeCost,
+    compressed_allgather_bytes,
     dimtree_mode_cost,
     executor_mode_cost,
     mode_cost,
@@ -60,7 +68,14 @@ from .cost import (
     pp_correction_cost,
     validate_executor,
 )
-from .executor import Executor, LocalExecutor, ShardedExecutor, make_executor
+from .executor import (
+    CompressedShardedExecutor,
+    Executor,
+    LocalExecutor,
+    OverlappingExecutor,
+    ShardedExecutor,
+    make_executor,
+)
 from .planner import (
     SCHEDULE_NAMES,
     STRATEGIES,
@@ -87,9 +102,11 @@ from .sweep import PPState, SweepState, als_sweep, cp_als, legacy_sweep
 
 __all__ = [
     "ALGORITHMS",
+    "DEFAULT_OVERLAP_CHUNKS",
     "EXECUTORS",
     "SCHEDULE_NAMES",
     "STRATEGIES",
+    "CompressedShardedExecutor",
     "ContractionNode",
     "Executor",
     "LocalExecutor",
@@ -97,6 +114,7 @@ __all__ = [
     "ModeCost",
     "ModePlan",
     "NodePlan",
+    "OverlappingExecutor",
     "PPPair",
     "PPState",
     "PP_EXACT_FRACTION",
@@ -110,6 +128,7 @@ __all__ = [
     "binary_schedule",
     "build_schedule",
     "chain_schedule",
+    "compressed_allgather_bytes",
     "cp_als",
     "default_tuning_cache",
     "dimtree_mode_cost",

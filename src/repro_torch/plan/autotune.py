@@ -1,6 +1,6 @@
 """Hardware-measured autotuning: the tuning cache, its keys and ``tune()``.
 
-Port of ``repro.plan.autotune`` for single-device problems.  The read side
+Port of ``repro.plan.autotune``.  The read side
 (:func:`backend_name`, :func:`problem_key`, :func:`node_key`,
 :class:`Measurements`, :class:`TuningCache`, :func:`default_tuning_cache`,
 :func:`lookup_measurements`) is what ``plan_sweep`` consults; the measuring
@@ -21,14 +21,26 @@ takes ``block_i`` (rows per thread block).  A candidate whose launch is
 the same as an earlier one's (same split, same block) is timed once; on
 the CPU the plain versions take no knob, so each table times its default
 alone.  A ``pp_tol > 0`` problem also gets its pairwise-perturbation rows
-(the cache build and one correction-only sweep).  Sharded and two-level
-problems come with the distribution slice and raise
-``NotImplementedError``.
+(the cache build and one correction-only sweep).
+
+A sharded problem (``tune(x, rank, mesh=, mode_axes=)``, every rank with
+the same global tensor) times every node under the ``"sharded"``,
+``"overlapping"`` and ``"compressed"`` executors -- the kernel leaves
+too, on this rank's blocks and slabs -- and fits the overlapping
+executor's serial fraction from the measured sharded/overlapping pairs
+(``serial_fractions``, which the planner then prices with).  The ranks
+must decide alike, or they deadlock on the next collective: every
+measured time is the maximum over the ranks (the slowest rank sets a
+sweep's pace) and the budget is spent when any rank's is, each agreed by
+one gather an axis, so every rank stores the same entry.  Two-level
+meshes (``intra_axes``) come with distribution slice 4, sharded pairwise
+perturbation with slice 5.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -63,7 +75,8 @@ MATRIX_FREE_TILE_CANDIDATES = (4, 2, 8, 16)
 TTV_TILE_CANDIDATES = (256, 64, 128, 512)
 
 # Leaf algorithms the tuner measures head-to-head for a full mode-n MTTKRP
-# (the kernels too: every problem tuned here runs on the local executor).
+# (the kernels too, under every executor: the port's kernels run on a
+# rank's block as on a whole tensor).
 _LEAF_ALGORITHMS = ("1step", "2step-left", "2step-right", "fused", "matrix_free")
 _EXTERNAL_LEAF_ALGORITHMS = ("1step", "fused", "matrix_free")
 
@@ -106,12 +119,16 @@ def node_key(
 class Measurements:
     """One problem's resolved tuning entry, as the planner consumes it:
     ``node_s`` maps :func:`node_key` strings to measured median seconds,
-    ``tiles`` maps kernel name to its tuned tile config, and ``pp`` holds
-    the pairwise-perturbation rows (``"build_s"``, ``"correct_sweep_s"``)
-    when the tuned problem opted in via ``pp_tol``."""
+    ``tiles`` maps kernel name to its tuned tile config,
+    ``serial_fractions`` are the overlap constants fitted from measured
+    sharded/overlapping node pairs (empty when nothing paired), and ``pp``
+    holds the pairwise-perturbation rows (``"build_s"``,
+    ``"correct_sweep_s"``) when the tuned problem opted in via
+    ``pp_tol``."""
 
     node_s: Mapping[str, float] = field(default_factory=dict)
     tiles: Mapping[str, Mapping[str, int]] = field(default_factory=dict)
+    serial_fractions: Mapping[str, float] = field(default_factory=dict)
     pp: Mapping[str, float] = field(default_factory=dict)
 
     def node_time(
@@ -204,6 +221,9 @@ def lookup_measurements(
     return Measurements(
         node_s=node_s,
         tiles=tiles,
+        serial_fractions={
+            str(k): float(v) for k, v in entry.get("serial_fractions", {}).items()
+        },
         pp={str(k): float(v) for k, v in entry.get("pp", {}).items()},
     )
 
@@ -212,16 +232,36 @@ def lookup_measurements(
 class _Budget:
     """Wall-clock budget for one tune() call.  It starts after the kernels
     are built (see :func:`tune`), so a first ``nvcc`` build does not use it
-    up; everything timed after that counts."""
+    up; everything timed after that counts.
 
-    def __init__(self, budget_ms: float | None):
+    With a ``mesh`` every decision is the ranks' together: ``exhausted``
+    is true on every rank once it is on any, and :meth:`agree` turns a
+    rank's number into the maximum over the ranks."""
+
+    def __init__(self, budget_ms: float | None, mesh=None):
         self.budget_ms = budget_ms
+        self.mesh = mesh
         self.t0 = time.perf_counter()
+
+    def elapsed_ms(self) -> float:
+        return (time.perf_counter() - self.t0) * 1e3
 
     def exhausted(self) -> bool:
         if self.budget_ms is None:
             return False
-        return (time.perf_counter() - self.t0) * 1e3 >= self.budget_ms
+        return self.agree(float(self.elapsed_ms() >= self.budget_ms)) > 0.0
+
+    def agree(self, value: float) -> float:
+        """``value``'s maximum over the mesh's ranks (one gather an axis);
+        ``value`` itself without a mesh."""
+        if self.mesh is None:
+            return value
+        from repro_torch.dist.collectives import _gather
+
+        t = torch.tensor([float(value)], dtype=torch.float64, device=self.mesh.device_type)
+        for axis in self.mesh.mesh_dim_names:
+            t = torch.stack(_gather(t, self.mesh.get_group(axis))).amax(dim=0)
+        return float(t)
 
 
 def _time(fn: Callable[[], Any], reps: int, device: torch.device) -> float:
@@ -271,7 +311,7 @@ def _tile_rows(
                 "candidate": list(cand),
                 "effective": list(eff),
                 "is_default": i == 0,
-                "measured_s": _time(lambda c=cand: run(c), reps, device),
+                "measured_s": budget.agree(_time(lambda c=cand: run(c), reps, device)),
             }
         )
     return rows
@@ -396,10 +436,12 @@ def _tune_ttv_tiles(
 def _leaf_algorithms(
     problem: Problem, node: ContractionNode, *, kernels: bool = True
 ) -> tuple[str, ...]:
-    """Algorithm candidates the tuner measures for one root-leaf MTTKRP on
-    the local executor (the reference's ``kind="local"`` set), without the
-    ``fused`` and ``matrix_free`` kernels when ``kernels`` is False (the
-    tensor's device, dtype and rank are not theirs:
+    """Algorithm candidates the tuner measures for one root-leaf MTTKRP
+    under any executor (the reference's ``kind="local"`` set: the port's
+    kernels run on a rank's block too, where the reference measures its
+    Pallas kernels locally only), without the ``fused`` and
+    ``matrix_free`` kernels when ``kernels`` is False (the tensor's device,
+    dtype and rank are not theirs:
     :func:`~repro_torch.kernels._tiling.kernels_take`)."""
     algs = _EXTERNAL_LEAF_ALGORITHMS if problem.external_mode(node.mode) else _LEAF_ALGORITHMS
     return algs if kernels else tuple(a for a in algs if a not in ("fused", "matrix_free"))
@@ -426,84 +468,132 @@ def _tune_nodes(
     *,
     reps: int,
     budget: _Budget,
+    mesh=None,
+    mode_axes: Mapping[int, str] | None = None,
     fused_tiles: Mapping[str, int] | None = None,
     matrix_free_tiles: Mapping[str, int] | None = None,
     kernels: bool = True,
 ) -> list[dict]:
-    """Measure every node of every candidate schedule on the local executor.
+    """Measure every node of every candidate (schedule x executor) plan.
 
-    Walks each candidate schedule exactly like the sweep engine (parents'
-    outputs cached for their children), timing each deduped
-    :func:`node_key` once.  Root leaves are measured under every competing
-    algorithm -- ``fused`` with ``fused_tiles`` and ``matrix_free`` with
-    ``matrix_free_tiles`` (the already-tuned knobs), so the argmin times
-    exactly the configuration the resulting plan will execute; with
-    ``kernels`` False those two are left out.  Stops cleanly when
-    ``budget`` runs out: unmeasured nodes keep their analytic costs at plan
-    time.  ``LocalExecutor.contract`` runs eagerly; there is
-    nothing to compile.
+    The executors are ``"local"`` for an unsharded problem and
+    ``"sharded"``, ``"overlapping"`` and ``"compressed"`` for a
+    mode-parallel one (on ``mesh`` with ``mode_axes``).  Walks each
+    candidate schedule exactly like the sweep engine (parents' outputs
+    cached for their children, the compressed executor measured through
+    its carry path), timing each deduped :func:`node_key` once.  Root
+    leaves are measured under every competing algorithm -- ``fused`` with
+    ``fused_tiles`` and ``matrix_free`` with ``matrix_free_tiles`` (the
+    already-tuned knobs), so the argmin times exactly the configuration the
+    resulting plan will execute; with ``kernels`` False those two are left
+    out.  Stops cleanly when ``budget`` runs out: unmeasured nodes keep
+    their analytic costs at plan time.  Sharded, every time is the
+    maximum over the ranks and the budget's end is agreed (see
+    :class:`_Budget`), so every rank walks, times and stores alike.
     """
-    from .executor import LocalExecutor
+    from .executor import make_executor
     from .planner import plan_sweep
     from .schedule import enumerate_schedules
 
-    kind = "local"
-    ex = LocalExecutor()
-    xs, fs = ex.prepare(problem, x, list(factors))
+    kinds = ("sharded", "overlapping", "compressed") if problem.mode_axes else ("local",)
+    executors = {kind: make_executor(kind, mesh, mode_axes) for kind in kinds}
+    # every sharded kind places the problem alike: one set of blocks
+    xs, fs = executors[kinds[0]].prepare(problem, x, list(factors))
     # flat first: its leaves are the full per-mode MTTKRPs every tree shares,
-    # so a tight budget still measures the comparisons that matter most
+    # and each schedule under every executor before the next schedule, so a
+    # tight budget still measures the comparisons that matter most
     schedules = sorted(enumerate_schedules(problem), key=lambda s: not s.is_flat)
     rows: list[dict] = []
     seen: set[str] = set()
     for sched in schedules:
-        plan = plan_sweep(problem, schedule=sched, executor=kind)
-        cache: dict[int, Tensor] = {ROOT: xs}
-        for node in sched.walk():
-            src = cache[node.parent]
-            planned = plan.node_plan(node.id).algorithm
-            leaf = node.from_root and node.is_leaf
-            algs = _leaf_algorithms(problem, node, kernels=kernels) if leaf else (planned,)
-            out = None
-            for alg in algs:
-                tl = {"fused": fused_tiles, "matrix_free": matrix_free_tiles}.get(alg)
+        for kind, ex in executors.items():
+            plan = plan_sweep(problem, schedule=sched, executor=kind)
+            carry = ex.init_carry(plan, xs, fs) if hasattr(ex, "init_carry") else None
+            cache: dict[int, Tensor] = {ROOT: xs}
+            for node in sched.walk():
+                src = cache[node.parent]
+                planned = plan.node_plan(node.id).algorithm
+                leaf = node.from_root and node.is_leaf
+                algs = _leaf_algorithms(problem, node, kernels=kernels) if leaf else (planned,)
+                for alg in algs:
+                    tl = {"fused": fused_tiles, "matrix_free": matrix_free_tiles}.get(alg)
 
-                def fn(node=node, src=src, alg=alg, tl=tl):
-                    return ex.contract(node, src, fs, alg, tiles=tl)
+                    def fn(node=node, src=src, alg=alg, tl=tl, ex=ex, carry=carry):
+                        if carry is not None:
+                            return ex.contract_carry(node, src, fs, alg, carry, tiles=tl)
+                        return ex.contract(node, src, fs, alg, tiles=tl)
 
-                key = node_key(node, alg, kind)
-                if key not in seen and not budget.exhausted():
-                    seen.add(key)
-                    rows.append(
-                        {
-                            "key": key,
-                            "executor": kind,
-                            "algorithm": alg,
-                            "collective": "flat",
-                            "schedule": sched.name,
-                            "node": node.id,
-                            "measured_s": _time(fn, reps, x.device),
-                        }
-                    )
-                if alg == planned and not node.is_leaf:
-                    out = fn()
-            if not node.is_leaf:
-                cache[node.id] = out
+                    key = node_key(node, alg, kind)
+                    if key not in seen and not budget.exhausted():
+                        seen.add(key)
+                        rows.append(
+                            {
+                                "key": key,
+                                "executor": kind,
+                                "algorithm": alg,
+                                "collective": "flat",
+                                "schedule": sched.name,
+                                "node": node.id,
+                                "measured_s": budget.agree(_time(fn, reps, x.device)),
+                            }
+                        )
+                    # the planned contraction feeds the children, and a
+                    # compressed leaf's moves the residuals on
+                    if alg == planned and (not node.is_leaf or carry is not None):
+                        out = fn()
+                        if carry is not None:
+                            out, carry = out
+                        if not node.is_leaf:
+                            cache[node.id] = out
     return rows
 
 
 def _recalibrate_serial_fractions(
     problem: Problem, rows: Sequence[Mapping[str, Any]]
 ) -> dict[str, float]:
-    """The overlapping executor's unhidable fraction, fitted from measured
-    sharded/overlapping node pairs; ``{}`` for an unsharded problem (no
-    pair exists), as in the reference.  Sharded problems raise: their
-    executors come with the distribution slice of the port."""
+    """Fit the overlapping executor's unhidable fraction from measured
+    pairs, as the reference does.
+
+    For every node measured under both ``sharded`` and ``overlapping`` the
+    bounded-overlap model says ``t_sh - t_ov = (1 - f) * min(compute,
+    collective)``; the hidable term comes from the same node's analytic
+    predictions (``(pred_sh - pred_ov) / predicted_overlap_efficiency``).
+    The median over the pairs, each clamped to [0, 1]; ``{}`` when nothing
+    paired (an unsharded problem)."""
+    from .cost import node_cost
+    from .schedule import enumerate_schedules
+
     if not problem.sharded:
         return {}
-    raise NotImplementedError(
-        "serial fractions are fitted from sharded executors, which come with "
-        "the distribution slice of the port"
-    )
+    by_key = {r["key"]: float(r["measured_s"]) for r in rows}
+    nodes_by_sig: dict[str, ContractionNode] = {}
+    for sched in enumerate_schedules(problem):
+        for node in sched.walk():
+            if not node.is_root:
+                nodes_by_sig.setdefault(node_key(node, "x", "x"), node)
+    fits: list[float] = []
+    for r in rows:
+        if r["executor"] != "sharded":
+            continue
+        t_ov = by_key.get(r["key"].replace("sharded|", "overlapping|", 1))
+        node = nodes_by_sig.get(node_key_from(r["key"]))
+        if t_ov is None or node is None:
+            continue
+        kw = dict(algorithm=r["algorithm"]) if node.from_root and node.is_leaf else {}
+        pred_sh = node_cost(problem, node, "sharded", **kw)
+        pred_ov = node_cost(problem, node, "overlapping", **kw)
+        eff = pred_ov.predicted_overlap_efficiency
+        if eff <= 0.0:
+            continue
+        min_term = (pred_sh.predicted_s - pred_ov.predicted_s) / eff
+        if min_term <= 0.0:
+            continue
+        f = 1.0 - (float(r["measured_s"]) - t_ov) / min_term
+        fits.append(min(1.0, max(0.0, f)))
+    if not fits:
+        return {}
+    fits.sort()
+    return {"sharded": 1.0, "overlapping": fits[len(fits) // 2]}
 
 
 def node_key_from(key: str) -> str:
@@ -535,7 +625,7 @@ def _tune_pp(
     def build():
         return sweeplib._pp_materialize(problem, ex, xs, fs, 0)
 
-    rows["build_s"] = _time(build, reps, x.device)
+    rows["build_s"] = budget.agree(_time(build, reps, x.device))
     if budget.exhausted():
         return rows
     plan = plan_sweep(problem, executor="local", schedule="flat")
@@ -548,8 +638,8 @@ def _tune_pp(
         grams=sweeplib.grams(fs),
         pp=build(),
     )
-    rows["correct_sweep_s"] = _time(
-        lambda: sweeplib._pp_sweep(problem, plan, state), reps, x.device
+    rows["correct_sweep_s"] = budget.agree(
+        _time(lambda: sweeplib._pp_sweep(problem, plan, state), reps, x.device)
     )
     return rows
 
@@ -603,15 +693,29 @@ def tune(
     (its own cache key, through the signature's ``|pp`` field) and also
     measures the PP cache build and one correction-only sweep into the
     entry's ``pp`` rows, which ``plan_sweep`` then prefers over the
-    analytic PP prices.  ``mesh``/``mode_axes`` and ``intra_axes`` raise
-    ``NotImplementedError``: they come with the distribution slice.
+    analytic PP prices.
+
+    ``mesh`` + ``mode_axes`` tune a sharded problem: call on every rank with
+    the same global ``x`` (and ``factors``).  Its nodes are timed under the
+    sharded, overlapping and compressed executors on this rank's blocks,
+    the overlap constants are fitted from the measured pairs into the
+    entry's ``serial_fractions`` (clamped to [0, 1]), and every time, the
+    budget's end and ``elapsed_ms`` are agreed over the ranks (the maximum,
+    one gather an axis), so every rank stores the same entry.
+    ``intra_axes`` (two-level meshes, distribution slice 4) and ``pp_tol >
+    0`` with a mesh (sharded PP, slice 5) raise ``NotImplementedError``.
     """
-    if mesh is not None or mode_axes or intra_axes:
+    if intra_axes:
         raise NotImplementedError(
-            "tuning sharded or two-level problems comes with the distribution slice of the port"
+            "two-level meshes (intra_axes) come with distribution slice 4 of the port"
+        )
+    if mesh is not None and pp_tol > 0.0:
+        raise NotImplementedError(
+            "pairwise perturbation on a sharded problem comes with distribution "
+            "slice 5 of the port (sharded PP)"
         )
     cache = cache or default_tuning_cache()
-    problem = Problem.from_tensor(x, rank, pp_tol=pp_tol)
+    problem = Problem.from_tensor(x, rank, mode_axes=mode_axes, mesh=mesh, pp_tol=pp_tol)
     if factors is None:
         gen = torch.Generator(device=x.device).manual_seed(seed)
         factors = random_factors(gen, x.shape, rank, x.dtype, device=x.device)
@@ -624,7 +728,7 @@ def tune(
         from repro_torch.kernels import multi_ttv as mt
 
         _build.build_all([fm.KERNEL, mf.KERNEL, mt.KERNEL])
-    budget = _Budget(budget_ms)
+    budget = _Budget(budget_ms, mesh if problem.sharded else None)
     mode = x.ndim // 2
     if kernels:
         fused = _tune_fused_tiles(x, factors, reps=reps, budget=budget)
@@ -633,7 +737,7 @@ def tune(
         fused = _untuned_tiles("blocks_per_sm", FUSED_TILE_CANDIDATES[0], mode)
         mfree = _untuned_tiles("blocks_per_sm", MATRIX_FREE_TILE_CANDIDATES[0], mode)
     rows = _tune_nodes(
-        problem, x, factors, reps=reps, budget=budget,
+        problem, x, factors, reps=reps, budget=budget, mesh=mesh, mode_axes=mode_axes,
         fused_tiles={"blocks_per_sm": fused["blocks_per_sm"]},
         matrix_free_tiles={"blocks_per_sm": mfree["blocks_per_sm"]},
         kernels=kernels,
@@ -651,10 +755,10 @@ def tune(
     )
     entry = {
         "backend": backend_name(),
-        "n_devices": 1,
+        "n_devices": math.prod(problem.axis_sizes.values()) if problem.axis_sizes else 1,
         "budget_ms": budget_ms,
         "reps": reps,
-        "elapsed_ms": (time.perf_counter() - budget.t0) * 1e3,
+        "elapsed_ms": budget.agree(budget.elapsed_ms()),
         "tiles": tiles,
         "nodes": rows,
         "serial_fractions": _recalibrate_serial_fractions(problem, rows),

@@ -1,10 +1,11 @@
 """Analytic per-mode / per-node cost model behind ``plan_sweep``.
 
-Port of ``repro.plan.cost`` for the ``"local"`` and ``"sharded"``
-executors: :class:`ModeCost`, :func:`mode_cost`, :func:`node_cost`,
-:func:`executor_mode_cost` and :func:`dimtree_mode_cost` (each with the
-reference's ``collective`` keyword), :func:`validate_executor`, and the
-pairwise-perturbation prices (:func:`pp_build_cost`,
+Port of ``repro.plan.cost`` for the ``"local"``, ``"sharded"``,
+``"overlapping"`` and ``"compressed"`` executors: :class:`ModeCost`,
+:func:`mode_cost`, :func:`node_cost`, :func:`executor_mode_cost` and
+:func:`dimtree_mode_cost` (each with the reference's ``collective``
+keyword), :func:`validate_executor`, :func:`compressed_allgather_bytes`,
+and the pairwise-perturbation prices (:func:`pp_build_cost`,
 :func:`pp_correction_cost`, :func:`pp_amortized_cost`,
 :data:`PP_EXACT_FRACTION`).  The flop/byte terms are the reference's,
 term for term, on the per-device block dims of a sharded problem; a
@@ -13,22 +14,31 @@ shared across the batch).  A sharded node's completing reduction is
 priced as the reference prices its flat psum: the ring all-reduce volume
 of the local output block over the axes mapped to the contracted modes
 (``collective_bytes``, equal to the reference's byte for byte).  Seconds
-come from the H100 constants of :mod:`repro_torch.analysis.roofline`:
-``predicted_s = flops / PEAK_FLOPS + bytes / HBM_BW + collective_bytes /
-NVLINK_BW`` (the reference's bounded-overlap model with the plain sharded
-executor's serial fraction 1).  With H100 constants a plan may
-legitimately choose other algorithms than the JAX package chooses.
+come from the H100 constants of :mod:`repro_torch.analysis.roofline`
+under the reference's bounded-overlap model::
 
-Later distribution slices add the rest: the overlapping executor's
-chunks and serial fractions (slice 2), the compressed collective
-(slice 3), two-level meshes and hierarchical collectives (slice 4), and
-the collective terms of sharded pairwise perturbation (slice 5).
+    predicted_s = max(compute_s, collective_s)
+                + serial_fraction * min(compute_s, collective_s)
+
+with ``compute_s = flops / PEAK_FLOPS + bytes / HBM_BW`` and
+``collective_s = collective_bytes / NVLINK_BW``.  ``serial_fraction`` is 1
+on the plain executors (the reduction waits for the whole contraction)
+and ``1 / n_chunks`` on the overlapping one; the compressed executor
+replaces the ring by the int8 gather's bytes and adds its quantize and
+dequantize passes.  Measured fractions enter through ``serial_fractions``.
+With H100 constants a plan may legitimately choose other algorithms and
+executors than the JAX package chooses.
+
+Two-level meshes and hierarchical collectives come with distribution
+slice 4, the collective terms of sharded pairwise perturbation with
+slice 5.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
+from typing import Mapping
 
 from repro_torch.analysis.roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS
 from repro_torch.core.mttkrp import mttkrp_flops
@@ -49,9 +59,18 @@ ALGORITHMS = (
     "baseline",
 )
 
-# Executor kinds of the reference; "overlapping" and "compressed" come with
-# distribution slices 2 and 3 of the port.
+# Executor kinds the planner dispatches over (repro_torch.plan.executor).
 EXECUTORS = ("local", "sharded", "overlapping", "compressed")
+
+# Default slab count of the overlapping executor's reduction pipeline: the
+# serial fraction is about 1 / n_chunks, so 4 hides 75% of the hidable term
+# while each slab's contraction stays large.
+DEFAULT_OVERLAP_CHUNKS = 4
+
+# compressed_psum's payload: one int8 byte an element plus one fp32 scale
+# a sender (a quarter of an fp32 element's bytes).
+_INT8_ITEMSIZE = 1.0
+_SCALE_BYTES = 4.0
 
 # Assumed long-run fraction of pairwise-perturbation sweeps that
 # re-materialize the cache (factor drift crossing ``pp_tol``): the
@@ -61,12 +80,12 @@ PP_EXACT_FRACTION = 0.125
 
 
 def validate_executor(problem: Problem, executor: str) -> None:
-    """The validity predicate for (problem, executor) pairings, as the
+    """THE validity predicate for (problem, executor) pairings, as the
     reference's: ``local`` cannot run sharded problems, and the
     communication-hiding kinds need mapped modes to have anything to hide
-    (``ValueError``).  A valid ``"overlapping"`` or ``"compressed"``
-    pairing raises ``NotImplementedError``: those executors come with
-    distribution slices 2 and 3 of the port."""
+    (a batch-parallel placement has no reduction).  Schedules never
+    restrict the executor: any node's reduction can be overlapped or
+    compressed.  Raises ``ValueError`` on rejection."""
     if executor not in EXECUTORS:
         raise ValueError(f"unknown executor {executor!r} (choose from {EXECUTORS})")
     reason = None
@@ -76,11 +95,6 @@ def validate_executor(problem: Problem, executor: str) -> None:
         reason = "it reschedules/compresses psums but the problem has none"
     if reason is not None:
         raise ValueError(f"executor {executor!r} cannot run this problem: {reason}")
-    if executor in ("overlapping", "compressed"):
-        slice_ = 2 if executor == "overlapping" else 3
-        raise NotImplementedError(
-            f"executor {executor!r} comes with distribution slice {slice_} of the port"
-        )
 
 
 def _check_unsharded_pp(problem: Problem) -> None:
@@ -117,7 +131,9 @@ class ModeCost:
     total HBM traffic including intermediates; ``collective_bytes`` is the
     per-device wire volume of the completing reduction (0 on unsharded
     problems) and ``inter_bytes`` its node-crossing share (0: one level,
-    until two-level meshes come with slice 4).  ``measured_s`` is a
+    until two-level meshes come with slice 4).  ``serial_fraction`` is the
+    executor's unhidable share of the smaller of the compute and collective
+    times (1: no overlap, the additive model).  ``measured_s`` is a
     hardware-measured time from the tuning cache (``None`` when never
     measured); ``predicted_s`` stays model-only and ``expected_s`` prefers
     the measurement.
@@ -130,6 +146,7 @@ class ModeCost:
     measured_s: float | None = None
     collective_bytes: float = 0.0
     inter_bytes: float = 0.0
+    serial_fraction: float = 1.0
 
     @property
     def flops(self) -> float:
@@ -155,10 +172,19 @@ class ModeCost:
 
     @property
     def predicted_s(self) -> float:
-        """Analytic seconds: compute plus collective, the reference's
-        bounded-overlap model at the plain sharded executor's serial
-        fraction 1 (the reduction waits for the whole local contraction)."""
-        return self.compute_s + self.collective_s
+        """Bounded-overlap roofline: ``max + serial_fraction * min`` of the
+        compute and collective times (``serial_fraction`` 1 is their sum:
+        the reduction waits for the whole local contraction)."""
+        c, q = self.compute_s, self.collective_s
+        return max(c, q) + self.serial_fraction * min(c, q)
+
+    @property
+    def predicted_overlap_efficiency(self) -> float:
+        """The share of the hidable (smaller) term that is hidden:
+        ``1 - serial_fraction`` when there is a collective, else 0."""
+        if self.collective_bytes <= 0.0:
+            return 0.0
+        return 1.0 - self.serial_fraction
 
     @property
     def expected_s(self) -> float:
@@ -167,8 +193,7 @@ class ModeCost:
 
     def as_dict(self) -> dict:
         """JSON-ready projection of all terms plus the derived predictions,
-        under the reference's keys (the serial fraction is the plain
-        executors' 1, so no overlap is predicted)."""
+        under the reference's keys."""
         return {
             "gemm_flops": self.gemm_flops,
             "krp_flops": self.krp_flops,
@@ -178,14 +203,29 @@ class ModeCost:
             "collective_bytes": self.collective_bytes,
             "intra_bytes": self.intra_bytes,
             "inter_bytes": self.inter_bytes,
-            "serial_fraction": 1.0,
+            "serial_fraction": self.serial_fraction,
             "compute_s": self.compute_s,
             "collective_s": self.collective_s,
-            "predicted_overlap_efficiency": 0.0,
+            "predicted_overlap_efficiency": self.predicted_overlap_efficiency,
             "predicted_s": self.predicted_s,
             "measured_s": self.measured_s,
             "expected_s": self.expected_s,
         }
+
+
+def compressed_allgather_bytes(
+    block_bytes: float, participants: int, itemsize: float = 4.0
+) -> float:
+    """Per-device wire bytes of :func:`repro_torch.dist.collectives.compressed_psum`:
+    each device receives the ``participants - 1`` other int8 payloads
+    (``block_bytes / itemsize`` bytes each) plus one fp32 scale each.
+    Against the fp32 ring all-reduce (``2 B (p - 1) / p``) the ratio is
+    ``p / 8``: a gain for few participants (4x at 2) that vanishes at 8 and
+    inverts beyond, which is why the executor is chosen by cost."""
+    if participants <= 1:
+        return 0.0
+    payload = block_bytes * _INT8_ITEMSIZE / itemsize
+    return (participants - 1) * (payload + _SCALE_BYTES)
 
 
 def _fused_krp_dims(local_shape, n: int) -> tuple[int, int]:
@@ -302,20 +342,87 @@ def mode_cost(
     )
 
 
+def _compress_terms(
+    problem: Problem, base: ModeCost, block_bytes: float, participants: int
+) -> ModeCost:
+    """Replace a node's ring all-reduce by the int8 error-feedback gather:
+    the wire bytes become :func:`compressed_allgather_bytes` of the local
+    output block, and HBM traffic grows by the quantize pass (write and
+    read the int8 block) and the dequantize pass (read the ``p - 1``
+    gathered payloads).  One level only: the hierarchical split around the
+    compressor comes with distribution slice 4."""
+    int8_block = block_bytes * _INT8_ITEMSIZE / problem.itemsize
+    return replace(
+        base,
+        collective_bytes=compressed_allgather_bytes(block_bytes, participants, problem.itemsize),
+        inter_bytes=0.0,
+        bytes=base.bytes + (participants + 1) * int8_block,
+    )
+
+
+def _adjust(
+    problem: Problem,
+    base: ModeCost,
+    executor: str,
+    *,
+    chunk_extent: int,
+    n_chunks: int,
+    block_bytes: float,
+    participants: int,
+    serial_fractions: Mapping[str, float] | None,
+) -> ModeCost:
+    """The executor's adjustment of a node's terms: the compression terms,
+    then the schedule's serial fraction (``1 / chunks`` on the overlapping
+    executor, chunks capped by the slab axis' local extent, unless a
+    fitted fraction is given)."""
+    if executor == "compressed" and base.collective_bytes > 0.0:
+        base = _compress_terms(problem, base, block_bytes, participants)
+    fitted = (serial_fractions or {}).get(executor)
+    if base.collective_bytes <= 0.0:
+        return base
+    if executor == "overlapping":
+        chunks = max(1, min(int(n_chunks), int(chunk_extent)))
+        f = float(fitted) if fitted is not None else 1.0 / chunks
+        return replace(base, serial_fraction=f)
+    if fitted is not None:
+        return replace(base, serial_fraction=float(fitted))
+    return base
+
+
 def executor_mode_cost(
     problem: Problem,
     n: int,
     algorithm: str,
     executor: str = "sharded",
     *,
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    serial_fractions: Mapping[str, float] | None = None,
     collective: str = "flat",
 ) -> ModeCost:
-    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on ``executor``:
-    the per-algorithm terms of :func:`mode_cost` unchanged on ``"local"``
-    and ``"sharded"`` (the reduction waits for the whole local
-    contraction).  ``collective`` as in :func:`mode_cost`."""
+    """Cost of one mode-``n`` MTTKRP under ``algorithm`` on ``executor``,
+    the executor's adjustments on top of :func:`mode_cost`:
+
+    * ``"local"`` / ``"sharded"`` -- the per-algorithm terms unchanged
+      (serial fraction 1: the reduction waits for the whole contraction);
+    * ``"overlapping"`` -- the same terms, but the slab pipeline hides all
+      but ``1 / n_chunks`` of the smaller of compute and collective time
+      (chunks capped by mode ``n``'s local extent);
+    * ``"compressed"`` -- the ring all-reduce becomes the int8 gather
+      (:func:`compressed_allgather_bytes`) and HBM traffic grows by the
+      quantize and dequantize passes.
+
+    ``serial_fractions`` (executor kind -> measured unhidable fraction,
+    e.g. from :func:`repro_torch.plan.autotune.tune`) overrides the analytic
+    defaults.  ``collective`` as in :func:`mode_cost`."""
     validate_executor(problem, executor)
-    return mode_cost(problem, n, algorithm, collective=collective)
+    base = mode_cost(problem, n, algorithm, collective=collective)
+    _, in_local, _ = dims_split(problem.local_shape, n)
+    block = in_local * problem.rank * problem.itemsize * problem.local_batch
+    p = math.prod(problem.axis_sizes[a] for a in problem.reduce_axes_for(n))
+    return _adjust(
+        problem, base, executor, chunk_extent=problem.local_shape[n], n_chunks=n_chunks,
+        block_bytes=block, participants=p, serial_fractions=serial_fractions,
+    )
 
 
 def node_cost(
@@ -324,6 +431,8 @@ def node_cost(
     executor: str | None = None,
     *,
     algorithm: str = "1step",
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    serial_fractions: Mapping[str, float] | None = None,
     collective: str = "flat",
 ) -> ModeCost:
     """Cost of one schedule node's contraction on ``executor``
@@ -337,7 +446,9 @@ def node_cost(
       partial per contracted mode, shrinking as it goes;
 
     each plus the ring all-reduce of its output block over the axes of the
-    mapped modes contracted at that node.
+    mapped modes contracted at that node, adjusted for the executor as in
+    :func:`executor_mode_cost` (the overlapping executor's slabs run along
+    the node's first kept mode).
     """
     if executor is None:
         executor = "sharded" if problem.sharded else "local"
@@ -345,7 +456,10 @@ def node_cost(
     if node.is_root:
         raise ValueError("the schedule root is the raw tensor, not a contraction")
     if node.from_root and node.is_leaf:
-        return executor_mode_cost(problem, node.lo, algorithm, executor, collective=collective)
+        return executor_mode_cost(
+            problem, node.lo, algorithm, executor, n_chunks=n_chunks,
+            serial_fractions=serial_fractions, collective=collective,
+        )
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch
@@ -357,25 +471,31 @@ def node_cost(
         krp_elems = (
             math.prod(local[m] for m in node.contracted) * c * lb if node.contracted else 0
         )
-        return ModeCost(
+        base = ModeCost(
             gemm_flops=2.0 * total * c,
             krp_flops=float(krp_elems),
             second_step_flops=0.0,
             bytes=total * s + 2.0 * krp_elems * s + t_bytes,
             **wire,
         )
-    parent_elems = math.prod(local[node.parent_lo : node.parent_hi]) * c * lb
-    ttv = 0.0
-    elems = float(parent_elems)
-    for m in node.contracted:
-        ttv += 2.0 * elems
-        elems /= local[m]
-    return ModeCost(
-        gemm_flops=0.0,
-        krp_flops=0.0,
-        second_step_flops=ttv,
-        bytes=parent_elems * s + t_bytes,
-        **wire,
+    else:
+        parent_elems = math.prod(local[node.parent_lo : node.parent_hi]) * c * lb
+        ttv = 0.0
+        elems = float(parent_elems)
+        for m in node.contracted:
+            ttv += 2.0 * elems
+            elems /= local[m]
+        base = ModeCost(
+            gemm_flops=0.0,
+            krp_flops=0.0,
+            second_step_flops=ttv,
+            bytes=parent_elems * s + t_bytes,
+            **wire,
+        )
+    return _adjust(
+        problem, base, executor, chunk_extent=local[node.lo], n_chunks=n_chunks,
+        block_bytes=t_bytes, participants=node.psum_participants,
+        serial_fractions=serial_fractions,
     )
 
 

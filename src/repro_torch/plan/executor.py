@@ -4,9 +4,13 @@ Port of ``repro.plan.executor``: the :class:`Executor` protocol,
 :class:`LocalExecutor` (schedule nodes and the pairwise-perturbation
 intermediates on one device), :class:`ShardedExecutor` (the same local
 contractions on this rank's block of a DeviceMesh-sharded problem, each
-completed by the ordered reduction of :mod:`repro_torch.dist`) and
-:func:`make_executor`.  The overlapping and compressed executors come with
-distribution slices 2 and 3 of the port.
+completed by the ordered reduction of :mod:`repro_torch.dist`),
+:class:`OverlappingExecutor` (the same results, each node's reduction
+issued slab by slab behind the contraction: communication hiding, exact),
+:class:`CompressedShardedExecutor` (each node's reduction the int8
+error-feedback gather, the per-node residuals threaded through the sweep
+as carry state: communication compression, approximate but convergent)
+and :func:`make_executor`.
 
 Besides ``contract``, an executor gives the sweep engine two hooks for the
 small algebra of a sweep (:mod:`repro_torch.plan.sweep`):
@@ -34,11 +38,14 @@ from repro_torch.dist.collectives import gather_cat, ordered_psum
 from repro_torch.dist.dist_mttkrp import (
     _validate_collective,
     contract_block,
+    contract_block_compressed,
     mttkrp_block,
+    mttkrp_compressed_block,
+    mttkrp_overlapped_block,
     shard_problem,
 )
 
-from .cost import EXECUTORS
+from .cost import DEFAULT_OVERLAP_CHUNKS, EXECUTORS
 from .schedule import ContractionNode
 
 Tensor = torch.Tensor
@@ -186,6 +193,9 @@ class ShardedExecutor:
     for the hierarchical collective of distribution slice 4.
     """
 
+    # slab count of a tree node's reduction: 1 = one reduction
+    _n_chunks = 1
+
     def __init__(self, mesh, mode_axes, batch_axes=(), node_axis=None):
         self.mesh = mesh
         self.mode_axes = dict(mode_axes)
@@ -215,7 +225,7 @@ class ShardedExecutor:
             )
         return contract_block(
             src, list(factors), node.lo, node.hi, node.parent_lo, node.parent_hi,
-            self.mode_axes, self.mesh, from_root=node.from_root,
+            self.mode_axes, self.mesh, from_root=node.from_root, n_chunks=self._n_chunks,
         )
 
     def pp_pairs(self, problem, x: Tensor, factors: Sequence[Tensor]):
@@ -241,36 +251,140 @@ class ShardedExecutor:
         return list(gather_cat(torch.stack(fits), self.batch_axes, self.mesh, dim=-1).unbind(0))
 
 
+class OverlappingExecutor(ShardedExecutor):
+    """Communication-hiding sharded executor (exact).
+
+    The placement and results of :class:`ShardedExecutor`, but every
+    node's reduction is pipelined in ``n_chunks`` slabs along its first
+    kept mode, each issued asynchronously (``async_op=True``) before the
+    next slab's work is queued: a full MTTKRP leaf runs one local MTTKRP a
+    slab (its own GEMM or kernel launch, so the leaf agrees with the plain
+    executor at fp32 tolerance:
+    :func:`repro_torch.dist.dist_mttkrp.mttkrp_overlapped_block`), and a
+    tree node runs one local contraction and reduces its slabs' disjoint
+    rows (bitwise the plain executor's).  Only the schedule changes.
+    """
+
+    def __init__(
+        self, mesh, mode_axes, n_chunks: int = DEFAULT_OVERLAP_CHUNKS, batch_axes=(),
+        node_axis=None,
+    ):
+        super().__init__(mesh, mode_axes, batch_axes, node_axis)
+        self.n_chunks = int(n_chunks)
+
+    @property
+    def _n_chunks(self) -> int:
+        """Slab count of the inherited tree-node ``contract``."""
+        return self.n_chunks
+
+    def contract(
+        self, node: ContractionNode, src: Tensor, factors: Sequence[Tensor],
+        algorithm: str = "auto", tiles: Mapping[str, int] | None = None,
+        collective: str = "flat",
+    ) -> Tensor:
+        """One schedule node with its reduction issued behind the slab
+        contractions."""
+        _validate_collective(collective)
+        if node.from_root and node.is_leaf:
+            return mttkrp_overlapped_block(
+                src, list(factors), node.mode, self.mode_axes, self.mesh,
+                method=algorithm, tiles=tiles, n_chunks=self.n_chunks,
+            )
+        return super().contract(node, src, factors, algorithm, tiles=tiles, collective=collective)
+
+
+class CompressedShardedExecutor(ShardedExecutor):
+    """Communication-compressing sharded executor (approximate, convergent).
+
+    Every node's reduction -- the per-mode MTTKRP reductions and the
+    partial contractions of tree schedules -- runs through the int8
+    error-feedback gather (:func:`repro_torch.dist.collectives.compressed_psum`):
+    each rank quantizes its partial plus its carried residual, the int8
+    payloads are gathered and every rank adds them dequantized in rank
+    order.  The per-node residuals are sweep state: :meth:`init_carry`
+    makes them, the engine threads them through :meth:`contract_carry`, so
+    the accumulated quantization error of every node stays within one int8
+    step and compressed CP-ALS converges to the exact fit.  The engine's
+    ``allsum`` and ``gather_fits`` hooks stay exact: only node
+    contractions are compressed.  Nodes whose mapping needs no reduction
+    run the exact path.
+    """
+
+    def init_carry(self, plan, x: Tensor, factors: Sequence[Tensor]) -> dict[int, Tensor]:
+        """Zero residuals, one for every schedule node that reduces: this
+        rank's output block of the node (after a leading axis of the local
+        batch for a batched problem), fp32, on ``x``'s device.  The
+        reference's residuals are global arrays with one leading axis a
+        reduced mesh axis; SPMD, each rank holds its own."""
+        prob = plan.problem
+        lead = (prob.local_batch,) if prob.batched else ()
+        return {
+            node.id: torch.zeros(lead + tuple(node.local_shape), dtype=torch.float32,
+                                 device=x.device)
+            for node in plan.resolved_schedule.walk()
+            if node.reduce_axes
+        }
+
+    def contract_carry(
+        self,
+        node: ContractionNode,
+        src: Tensor,
+        factors: Sequence[Tensor],
+        algorithm: str,
+        carry,
+        tiles: Mapping[str, int] | None = None,
+        collective: str = "flat",
+    ) -> tuple[Tensor, dict]:
+        """Compressed node contraction; returns ``(result, new_carry)``.  A
+        node without a residual runs the exact path and leaves the carry as
+        it is; ``tiles`` threads the plan's kernel knob into the local
+        MTTKRP."""
+        _validate_collective(collective)
+        if carry is None or node.id not in carry:
+            out = self.contract(node, src, factors, algorithm, tiles=tiles, collective=collective)
+            return out, carry
+        err = carry[node.id]
+        if node.from_root and node.is_leaf:
+            out, new_err = mttkrp_compressed_block(
+                src, list(factors), node.mode, self.mode_axes, self.mesh, err,
+                method=algorithm, tiles=tiles,
+            )
+        else:
+            out, new_err = contract_block_compressed(
+                src, list(factors), node.lo, node.hi, node.parent_lo, node.parent_hi,
+                self.mode_axes, self.mesh, err, from_root=node.from_root,
+            )
+        return out, {**carry, node.id: new_err}
+
+
 def make_executor(
     kind: str,
     mesh=None,
     mode_axes=None,
     *,
-    n_chunks: int = 4,
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
     batch_axes=(),
     node_axis=None,
 ) -> Executor:
     """Instantiate the executor for a planner-chosen kind.
 
     ``kind`` is a ``SweepPlan.executor`` value (one of
-    :data:`repro_torch.plan.cost.EXECUTORS`); ``"sharded"`` needs the
+    :data:`repro_torch.plan.cost.EXECUTORS`); the sharded kinds need the
     concrete ``mesh`` + ``mode_axes``, which the Problem does not carry.
+    ``n_chunks`` sizes the overlapping executor's slab pipeline;
     ``batch_axes`` names the mesh axes a batched problem's leading batch
     dimension is cut over (batch-parallel placements pass ``mode_axes={}``
     plus the batch axes); ``node_axis`` names the intra-node axis of a
-    two-level mesh.  ``"overlapping"`` (whose pipeline ``n_chunks`` sizes)
-    and ``"compressed"`` raise ``NotImplementedError``: they come with
-    distribution slices 2 and 3 of the port.
+    two-level mesh.
     """
     if kind not in EXECUTORS:
         raise ValueError(f"unknown executor kind {kind!r} (choose from {EXECUTORS})")
     if kind == "local":
         return LocalExecutor()
-    if kind in ("overlapping", "compressed"):
-        slice_ = 2 if kind == "overlapping" else 3
-        raise NotImplementedError(
-            f"executor {kind!r} comes with distribution slice {slice_} of the port"
-        )
     if mesh is None or mode_axes is None:
         raise ValueError(f"executor {kind!r} needs mesh and mode_axes")
+    if kind == "overlapping":
+        return OverlappingExecutor(mesh, mode_axes, n_chunks, batch_axes, node_axis)
+    if kind == "compressed":
+        return CompressedShardedExecutor(mesh, mode_axes, batch_axes, node_axis)
     return ShardedExecutor(mesh, mode_axes, batch_axes, node_axis)

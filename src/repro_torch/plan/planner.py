@@ -16,16 +16,20 @@ Problems with ``pp_tol > 0`` also price the pairwise-perturbation sweep
 ``"autotune"`` enable it when its amortized per-sweep seconds beat the
 exact sweep's, and every other strategy prices it without enabling it.
 
-Sharded problems (mapped modes or a sharded batch axis) plan on the
-``"sharded"`` executor, which the caller names (``executor="sharded"``):
-every node is priced on the per-device block with its flat reduction,
-and a batched mode-parallel problem is argmin'd against its
-all-batch-parallel remap, as the reference does (``SweepPlan.placements``).
-``executor="auto"`` on a sharded problem raises ``NotImplementedError``:
-its argmin includes the overlapping executor of distribution slice 2.
-Two-level meshes (``Problem.intra_axes``; slice 4) and sharded pairwise
-perturbation (slice 5) raise too.  ``describe()`` keeps the reference's
-JSON layout (the mapping rows of two-level planning are empty here).
+Sharded problems (mapped modes or a sharded batch axis) plan jointly over
+the schedule and the executor: with ``executor="auto"`` (the default) a
+mode-parallel problem argmins ``"sharded"``, ``"overlapping"`` (slab
+reductions hidden behind the slab contractions) and ``"compressed"`` (the
+int8 error-feedback gather, which changes the numerics and so must win by
+more than 10%, ``_COMPRESS_MARGIN``) on predicted sweep seconds, as the
+reference's :func:`select_executor` does; a batch-parallel placement has
+no reduction and runs ``"sharded"``.  Every node is priced on the
+per-device block, and a batched mode-parallel problem is argmin'd against
+its all-batch-parallel remap (``SweepPlan.placements``).  Two-level meshes
+(``Problem.intra_axes``; distribution slice 4) and sharded pairwise
+perturbation (slice 5) raise ``NotImplementedError``.  ``describe()``
+keeps the reference's JSON layout (the mapping rows of two-level planning
+are empty here).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from dataclasses import dataclass, replace
 from typing import Mapping
 
 from .cost import (
+    DEFAULT_OVERLAP_CHUNKS,
+    EXECUTORS,
     ModeCost,
     executor_mode_cost,
     node_cost,
@@ -73,6 +79,10 @@ SCHEDULE_NAMES = ("flat", "binary", "chain")
 # cheaper, and a tree must beat the flat sweep by >10% to win: the model
 # alone decides only clear wins.
 _NEAR_TIE = 0.9
+
+# the compressed executor changes the numerics (int8 and error feedback), so
+# it must beat the best exact executor by >10% predicted time to be chosen
+_COMPRESS_MARGIN = 0.9
 
 
 @dataclass(frozen=True)
@@ -134,7 +144,9 @@ class SweepPlan:
     placement -- build the executor from ``plan.problem``'s
     ``mode_axes``/``batch_axes``, not from the problem that was planned.
     ``mappings`` stays empty: two-level mapping search comes with
-    distribution slice 4.
+    distribution slice 4.  ``serial_fractions`` records the overlap
+    constants the plan was priced with when it was given (or read from a
+    tuning entry) any; ``None`` when the analytic defaults priced it.
 
     ``pp`` flags the pairwise-perturbation sweep mode: the engine still
     carries this plan's exact schedule (exact sweeps run it verbatim), but
@@ -157,6 +169,7 @@ class SweepPlan:
     pp: bool = False
     pp_info: Mapping | None = None
     mappings: tuple[Mapping, ...] = ()
+    serial_fractions: Mapping[str, float] | None = None
 
     @property
     def kind(self) -> str:
@@ -222,7 +235,7 @@ class SweepPlan:
             "schedule": self.resolved_schedule.name,
             "modes": [m.as_dict() for m in self.modes],
             "nodes": [n.as_dict() for n in self.nodes],
-            "serial_fractions": {},
+            "serial_fractions": dict(self.serial_fractions or {}),
             "pp": {"enabled": self.pp, **dict(self.pp_info or {})},
             "mappings": [dict(m) for m in self.mappings],
             "lower_bound_bytes": None,
@@ -257,7 +270,13 @@ def _placement_candidates(problem: Problem) -> list[Problem]:
 
 
 def _auto_mode(
-    problem: Problem, n: int, node: ContractionNode, executor: str = "local", measured=None
+    problem: Problem,
+    n: int,
+    node: ContractionNode,
+    executor: str = "local",
+    measured=None,
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    serial_fractions: Mapping[str, float] | None = None,
 ) -> ModePlan:
     """Cost-model dispatch for one mode (reproduces paper Sec. 5.3.3).
 
@@ -269,7 +288,9 @@ def _auto_mode(
     """
 
     def cost(alg: str) -> ModeCost:
-        c = executor_mode_cost(problem, n, alg, executor)
+        c = executor_mode_cost(
+            problem, n, alg, executor, n_chunks=n_chunks, serial_fractions=serial_fractions
+        )
         if measured is not None:
             m = measured.node_time(node, alg, executor)
             if m is not None:
@@ -301,33 +322,93 @@ def _auto_mode(
 
 
 def _plan_nodes(
-    problem: Problem, sched: Schedule, strategy: str, executor: str = "local", measured=None
+    problem: Problem,
+    sched: Schedule,
+    strategy: str,
+    executor: str = "local",
+    measured=None,
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    serial_fractions: Mapping[str, float] | None = None,
 ) -> tuple[NodePlan, ...]:
     """NodePlans in evaluation order for one (schedule, executor) pair."""
     plans = []
     for node in sched.walk():
         if node.from_root and node.is_leaf:
             if strategy in ("auto", "autotune"):
-                mp = _auto_mode(problem, node.mode, node, executor, measured)
+                mp = _auto_mode(
+                    problem, node.mode, node, executor, measured, n_chunks, serial_fractions
+                )
                 alg, cost = mp.algorithm, mp.cost
             else:
                 # forced strategies pin the leaf algorithm; tree strategies
                 # route root leaves through the 1-step GEMM
                 alg = "1step" if strategy == "dimtree" else strategy
-                cost = executor_mode_cost(problem, node.mode, alg, executor)
+                cost = executor_mode_cost(
+                    problem, node.mode, alg, executor, n_chunks=n_chunks,
+                    serial_fractions=serial_fractions,
+                )
             tiles = None
             if measured is not None and alg in ("fused", "matrix_free"):
                 tiles = measured.kernel_tiles("fused_mttkrp" if alg == "fused" else alg)
             plans.append(NodePlan(node, alg, cost, tiles=tiles))
         else:
             alg = "partial-krp" if node.from_root else "partial-ttv"
-            cost = node_cost(problem, node, executor)
+            cost = node_cost(
+                problem, node, executor, n_chunks=n_chunks, serial_fractions=serial_fractions
+            )
             if measured is not None:
                 m = measured.node_time(node, alg, executor)
                 if m is not None:
                     cost = replace(cost, measured_s=m)
             plans.append(NodePlan(node, alg, cost))
     return tuple(plans)
+
+
+def _best_executor(
+    problem: Problem,
+    sched: Schedule,
+    strategy: str,
+    candidates: tuple[str, ...],
+    n_chunks: int,
+    serial_fractions: Mapping[str, float] | None,
+    measured=None,
+) -> tuple[str, tuple[NodePlan, ...], float, float | None]:
+    """Cost-argmin executor for one schedule among ``candidates``:
+    ``(kind, node plans, analytic total, measured total or None)``.
+
+    Exact kinds compete head to head (a tie keeps the earlier, plainer
+    kind); ``compressed`` changes the numerics, so it must beat the best
+    exact kind by >10% (``_COMPRESS_MARGIN``).  When every candidate's node
+    plans are measured (autotune) the comparison runs on measured sweep
+    seconds, otherwise on the analytic predictions: measured and analytic
+    seconds never meet in one comparison."""
+    plans = {
+        ex: _plan_nodes(problem, sched, strategy, ex, measured, n_chunks, serial_fractions)
+        for ex in candidates
+    }
+    pred = {ex: sum(np_.cost.predicted_s for np_ in plans[ex]) for ex in candidates}
+    fully_measured = measured is not None and all(
+        np_.cost.measured_s is not None for ex in candidates for np_ in plans[ex]
+    )
+    totals = (
+        {ex: sum(np_.cost.measured_s for np_ in plans[ex]) for ex in candidates}
+        if fully_measured
+        else pred
+    )
+
+    def result(ex: str):
+        return ex, plans[ex], pred[ex], (totals[ex] if fully_measured else None)
+
+    exacts = [ex for ex in candidates if ex != "compressed"]
+    if not exacts:  # compressed was forced
+        return result(candidates[0])
+    best = exacts[0]
+    for ex in exacts[1:]:
+        if totals[ex] < totals[best]:
+            best = ex
+    if "compressed" in candidates and totals["compressed"] < _COMPRESS_MARGIN * totals[best]:
+        best = "compressed"
+    return result(best)
 
 
 def _resolve_schedules(
@@ -355,43 +436,30 @@ def _resolve_schedules(
     return [flat_schedule(problem)]
 
 
-def select_executor(problem: Problem, strategy: str = "auto", *, schedule=None,
-                    tuning_cache=None) -> str:
+def select_executor(
+    problem: Problem,
+    strategy: str = "auto",
+    *,
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    schedule=None,
+    serial_fractions: Mapping[str, float] | None = None,
+    tuning_cache=None,
+) -> str:
     """Cost-argmin executor kind for ``problem`` under ``strategy``, as
-    :func:`plan_sweep` picks it with ``executor="auto"``: ``"local"`` for an
-    unsharded problem.  A sharded problem raises ``NotImplementedError``:
-    the reference's argmin includes the overlapping executor, which comes
-    with distribution slice 2 of the port."""
+    :func:`plan_sweep` picks it with ``executor="auto"``.
+
+    Unsharded problems run locally and batch-parallel placements on the
+    plain ``"sharded"`` executor (no reduction to hide).  Mode-parallel
+    problems compare ``"sharded"`` with ``"overlapping"`` (slab reductions
+    hidden behind the slab contractions) and ``"compressed"`` (the int8
+    error-feedback gather) on predicted sweep seconds, jointly with the
+    schedule shapes the strategy admits; ``"compressed"`` must win by more
+    than 10% (``_COMPRESS_MARGIN``), ties go to the exact kinds.  With the
+    H100 constants the choice may differ from the reference's."""
     return plan_sweep(
-        problem, strategy, executor="auto", schedule=schedule, tuning_cache=tuning_cache
+        problem, strategy, executor="auto", n_chunks=n_chunks, schedule=schedule,
+        serial_fractions=serial_fractions, tuning_cache=tuning_cache,
     ).executor
-
-
-def _best_row(prob: Problem, schedules, strategy: str, executor: str, measured):
-    """``(schedule, node plans, analytic total, measured total or None)``
-    of the best schedule for one placement: a strict argmin on measured
-    seconds when every candidate is fully measured, else the analytic
-    argmin with the near-tie preference for the flat sweep."""
-    rows = []
-    for sched in schedules:
-        plans = _plan_nodes(prob, sched, strategy, executor, measured)
-        pred = sum(np_.cost.predicted_s for np_ in plans)
-        meas = None
-        if measured is not None and all(np_.cost.measured_s is not None for np_ in plans):
-            meas = sum(np_.cost.measured_s for np_ in plans)
-        rows.append((sched, plans, pred, meas))
-    if measured is not None and all(r[3] is not None for r in rows):
-        return min(rows, key=lambda r: r[3])
-    best = rows[0]
-    for r in rows[1:]:
-        if r[2] < best[2]:
-            best = r
-    # near-tie preference: a tree must beat the flat sweep by >10% to win
-    flat_row = next((r for r in rows if r[0].is_flat), None)
-    if flat_row is not None and best[0] is not flat_row[0]:
-        if best[2] >= _NEAR_TIE * flat_row[2]:
-            best = flat_row
-    return best
 
 
 def plan_sweep(
@@ -401,7 +469,9 @@ def plan_sweep(
     split: int | None = None,
     normalize: bool = True,
     executor: str = "auto",
+    n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
     schedule: Schedule | str | None = None,
+    serial_fractions: Mapping[str, float] | None = None,
     tuning_cache=None,
 ) -> SweepPlan:
     """Plan one full ALS sweep for ``problem`` (batched or not, sharded or
@@ -417,16 +487,19 @@ def plan_sweep(
     the balanced half); any other strategy forces that algorithm on every
     mode of the flat schedule.  ``schedule`` pins the tree shape.
 
-    ``executor`` is ``'auto'`` (``"local"`` for an unsharded problem) or a
-    kind of :data:`repro_torch.plan.cost.EXECUTORS`, checked by
-    :func:`repro_torch.plan.cost.validate_executor`.  A sharded problem
-    plans on ``executor="sharded"``; ``"auto"`` raises
-    ``NotImplementedError`` for it (the reference's argmin includes the
-    overlapping executor of distribution slice 2).  A batched mode-parallel
-    problem is argmin'd against its all-batch-parallel remap: the winner
-    becomes ``SweepPlan.problem`` and both candidates are recorded on
-    ``SweepPlan.placements``.  Two-level problems (``intra_axes``) raise
-    (slice 4).
+    ``executor='auto'`` also picks the executor kind by the same argmin
+    (see :func:`select_executor`); an explicit kind of
+    :data:`repro_torch.plan.cost.EXECUTORS` forces it, checked by
+    :func:`repro_torch.plan.cost.validate_executor`.  ``n_chunks`` sizes
+    the overlapping executor's slab pipeline; ``serial_fractions``
+    (executor kind -> unhidable fraction in [0, 1]) replaces the analytic
+    overlap constants in every cost and is recorded on
+    ``SweepPlan.serial_fractions`` (``'autotune'``, ``'fused'`` and
+    ``'matrix_free'`` read a tuned entry's fractions when none are given).
+    A batched mode-parallel problem is argmin'd against its
+    all-batch-parallel remap: the winner becomes ``SweepPlan.problem`` and
+    both candidates are recorded on ``SweepPlan.placements``.  Two-level
+    problems (``intra_axes``) raise (distribution slice 4).
 
     Problems with ``pp_tol > 0`` additionally price the pairwise-
     perturbation sweep mode (Ma & Solomonik): ``'auto'``/``'autotune'``
@@ -447,15 +520,8 @@ def plan_sweep(
             "strategy='pp' needs Problem(pp_tol > 0): the drift threshold is "
             "part of the problem (and its signature), not a planner flag"
         )
-    if executor == "auto":
-        if problem.sharded:
-            raise NotImplementedError(
-                "executor='auto' on a sharded problem argmins over the overlapping "
-                "executor, which comes with distribution slice 2 of the port; pass "
-                "executor='sharded'"
-            )
-        executor = "local"
-    validate_executor(problem, executor)
+    if executor != "auto":
+        validate_executor(problem, executor)
     if problem.sharded and problem.intra_axes:
         raise NotImplementedError(
             "two-level meshes (intra_axes) come with distribution slice 4 of the port"
@@ -476,6 +542,14 @@ def plan_sweep(
             )
         if not 0 < split < problem.ndim:
             raise ValueError(f"split {split} out of range for order-{problem.ndim} tensor")
+    if serial_fractions is not None:
+        for kind, f in dict(serial_fractions).items():
+            if kind not in EXECUTORS:
+                raise ValueError(
+                    f"unknown executor {kind!r} in serial_fractions (choose from {EXECUTORS})"
+                )
+            if not 0.0 <= float(f) <= 1.0:
+                raise ValueError(f"serial_fractions[{kind!r}] must be in [0, 1], got {f}")
     measured = None
     if strategy in ("autotune", "fused", "matrix_free"):
         # forced kernel strategies reuse tuned tile stamps; only autotune
@@ -483,34 +557,62 @@ def plan_sweep(
         from .autotune import lookup_measurements
 
         measured = lookup_measurements(problem, cache=tuning_cache)
+        if measured is not None and serial_fractions is None and measured.serial_fractions:
+            serial_fractions = dict(measured.serial_fractions)
+
+    def candidates(prob: Problem) -> tuple[str, ...]:
+        if executor != "auto":
+            return (executor,)
+        if prob.mode_axes:
+            return ("sharded", "overlapping", "compressed")
+        # a batch-parallel placement has no reduction: the plain kind
+        return ("sharded",) if prob.batch_axes else ("local",)
 
     # a pinned Schedule instance is bound to one Problem, so placement
     # exploration (which rebuilds schedules per candidate) is off
     pinned = isinstance(schedule, Schedule)
-    picked = []  # rows: (problem, schedule, node plans, analytic, measured)
+    picked = []  # rows: (problem, schedule, executor, node plans, analytic, measured)
     for prob in [problem] if pinned else _placement_candidates(problem):
-        if prob is not problem:
+        if prob is not problem and executor != "auto":
             try:
                 validate_executor(prob, executor)
             except ValueError:
                 continue  # the forced kind cannot run the alternate placement
-        schedules = _resolve_schedules(prob, node_strategy, split, schedule)
-        picked.append((prob,) + _best_row(prob, schedules, node_strategy, executor, measured))
+        rows = [
+            (sched,) + _best_executor(
+                prob, sched, node_strategy, candidates(prob), n_chunks, serial_fractions,
+                measured,
+            )
+            for sched in _resolve_schedules(prob, node_strategy, split, schedule)
+        ]
+        if measured is not None and all(r[4] is not None for r in rows):
+            best = min(rows, key=lambda r: r[4])
+        else:
+            best = rows[0]
+            for r in rows[1:]:
+                if r[3] < best[3]:
+                    best = r
+            # near-tie preference: a tree must beat the flat sweep by >10% to win
+            flat_row = next((r for r in rows if r[0].is_flat), None)
+            if flat_row is not None and best[0] is not flat_row[0]:
+                if best[3] >= _NEAR_TIE * flat_row[3]:
+                    best = flat_row
+        picked.append((prob,) + best)
     # placement argmin on the analytic totals: strict < keeps the as-given one
     winner = picked[0]
     for row in picked[1:]:
-        if row[3] < winner[3]:
+        if row[4] < winner[4]:
             winner = row
-    prob, sched, node_plans = winner[0], winner[1], winner[2]
+    prob, sched, chosen, node_plans = winner[0], winner[1], winner[2], winner[3]
     placement_rows = tuple(
         {
             "placement": _placement_label(r[0]),
             "mode_axes": {str(k): v for k, v in r[0].mode_axes.items()},
             "batch_axes": list(r[0].batch_axes),
-            "executor": executor,
+            "executor": r[2],
             "schedule": r[1].name,
-            "predicted_s": r[3],
-            "collective_bytes": sum(np_.cost.collective_bytes for np_ in r[2]),
+            "predicted_s": r[4],
+            "collective_bytes": sum(np_.cost.collective_bytes for np_ in r[3]),
             "selected": r is winner,
         }
         for r in picked
@@ -524,11 +626,11 @@ def plan_sweep(
     if prob.pp_tol > 0.0:
         m_build = measured.pp_second("build_s") if measured is not None else None
         m_corr = measured.pp_second("correct_sweep_s") if measured is not None else None
-        if winner[4] is not None and m_build is not None and m_corr is not None:
-            pp_info = pp_amortized_cost(prob, winner[4], build_s=m_build, correction_s=m_corr)
+        if winner[5] is not None and m_build is not None and m_corr is not None:
+            pp_info = pp_amortized_cost(prob, winner[5], build_s=m_build, correction_s=m_corr)
             pp_info["basis"] = "measured"
         else:
-            pp_info = pp_amortized_cost(prob, winner[3])
+            pp_info = pp_amortized_cost(prob, winner[4])
             pp_info["basis"] = "analytic"
         if strategy == "pp":
             pp_enabled = True
@@ -550,10 +652,11 @@ def plan_sweep(
         modes,
         split=sched.split,
         normalize=normalize,
-        executor=executor,
+        executor=chosen,
         schedule=sched,
         nodes=node_plans,
         placements=placement_rows,
         pp=pp_enabled,
         pp_info=pp_info,
+        serial_fractions=dict(serial_fractions) if serial_fractions else None,
     )

@@ -29,6 +29,9 @@ the tensor norm -- go through the executor's ``allsum`` hook, the identity
 on one device and the ordered reduction on a mesh.  The update algebra
 stays in one copy, ``pinv`` of the Hadamard of Grams runs on every rank on
 the same bits, and a world of one runs the local engine's operations.
+Executors with the carry extension (``contract_carry``, ``init_carry``:
+the compressed executor's per-node residuals) have their state threaded
+through ``SweepState.carry`` across every node contraction.
 """
 
 from __future__ import annotations
@@ -76,6 +79,11 @@ class SweepState:
     matrices ``U_k^T U_k``: each mode's update refreshes its own, so the
     next sweep starts from exact values; ``None`` recomputes them all.
 
+    ``carry`` is executor-private state threaded through the sweep (the
+    per-node error-feedback residuals of
+    :class:`~repro_torch.plan.executor.CompressedShardedExecutor`);
+    ``None`` for executors without it.
+
     ``pp`` is the pairwise-perturbation cache (:class:`PPState`) when the
     plan enabled PP sweeps, ``None`` otherwise -- and ``None`` runs the
     classic exact sweep, so ``pp_tol=0`` plans are bitwise exact ALS.
@@ -87,6 +95,7 @@ class SweepState:
     norm_x: Tensor
     it: int
     fit: Tensor | float = 0.0
+    carry: Any = None
     grams: list[Tensor] | None = None
     pp: Any = None
 
@@ -245,6 +254,8 @@ def _exact_sweep(
     factors = list(state.factors)
     weights = state.weights
     allsum = executor.allsum
+    carry = state.carry
+    use_carry = hasattr(executor, "contract_carry")
     gs = list(state.grams) if state.grams is not None else _grams(factors, allsum)
     m_last = None
     cache: dict[int, Tensor] = {ROOT: x}
@@ -255,7 +266,12 @@ def _exact_sweep(
             alg, tiles, coll = np_.algorithm, np_.tiles, np_.collective
         else:
             alg, tiles, coll = "auto", None, "flat"
-        out = executor.contract(node, src, factors, alg, tiles=tiles, collective=coll)
+        if use_carry:
+            out, carry = executor.contract_carry(
+                node, src, factors, alg, carry, tiles=tiles, collective=coll
+            )
+        else:
+            out = executor.contract(node, src, factors, alg, tiles=tiles, collective=coll)
         if node.is_leaf:
             m_last = out
             weights = _update_factor(
@@ -264,7 +280,7 @@ def _exact_sweep(
         else:
             cache[node.id] = out
     fit = _fit(gs, weights, m_last, factors, state.norm_x, allsum)
-    return _with_payload(state, (factors, weights, fit, gs))
+    return replace(_with_payload(state, (factors, weights, fit, gs)), carry=carry)
 
 
 def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState) -> SweepState:
@@ -300,11 +316,11 @@ def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState) -> SweepStat
 def _with_payload(state: SweepState, payload) -> SweepState:
     """Rebuild a :class:`SweepState` from the sweep-mutable payload
     ``(factors, weights, fit, grams)``, keeping the tensor, ``norm_x``,
-    ``it`` and the PP cache from ``state``."""
+    ``it``, the carry and the PP cache from ``state``."""
     factors, weights, fit, gs = payload
     return SweepState(
         x=state.x, factors=list(factors), weights=weights, norm_x=state.norm_x,
-        it=state.it, fit=fit, grams=gs, pp=state.pp,
+        it=state.it, fit=fit, carry=state.carry, grams=gs, pp=state.pp,
     )
 
 
@@ -420,7 +436,9 @@ def cp_als(
     are never modified: every update makes new tensors.
 
     On a sharded plan pass the matching executor (build one from
-    ``plan.executor`` with :func:`repro_torch.plan.make_executor`); every
+    ``plan.executor`` with :func:`repro_torch.plan.make_executor`; an
+    executor with ``init_carry`` -- the compressed one -- has its carry
+    made here, after ``prepare``, and threaded across the sweeps); every
     rank calls with the same global ``x`` (and ``init_factors``), draws
     the same global factors, and keeps its blocks (``executor.prepare``),
     so a run on any mesh starts where one device does.  The returned
@@ -482,6 +500,7 @@ def cp_als(
     else:
         factors = list(init_factors)
     x, factors = executor.prepare(problem, x, factors)
+    carry = executor.init_carry(plan, x, factors) if hasattr(executor, "init_carry") else None
     allsum = executor.allsum
     local_lead = (problem.local_batch,) if problem.batched else ()
     weights = torch.ones(local_lead + (problem.rank,), dtype=x.dtype, device=x.device)
@@ -503,9 +522,10 @@ def cp_als(
             state = als_sweep(
                 problem, plan, executor,
                 SweepState(x=x, factors=factors, weights=weights, norm_x=norm_x,
-                           it=it + j, grams=gs, pp=pp),
+                           it=it + j, carry=carry, grams=gs, pp=pp),
             )
             factors, weights, gs, pp = state.factors, state.weights, state.grams, state.pp
+            carry = state.carry
             fits.append(state.fit)
         # the chunk's single host sync, on the whole batch's fits
         host = _host_fits(executor.gather_fits(fits))

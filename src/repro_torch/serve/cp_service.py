@@ -37,12 +37,22 @@ request for the same tensor, and the service's ``strategy`` decides
 whether its plan enables PP (``"pp"`` forces it).
 
 The service runs on ``device`` (``"cuda"`` unless the caller asks for the
-CPU): :meth:`CPService.submit` moves each tensor there.  A ``mesh`` raises
-``NotImplementedError``: it comes with the distribution slice.
+CPU): :meth:`CPService.submit` moves each tensor there.
+
+``mesh`` (a ``torch.distributed`` DeviceMesh, one process a rank) serves
+batch-parallel: every dispatch's batch is cut over all the mesh's axes
+(``batch_size`` must divide by its device count), each rank runs its
+slice of the batch on the sharded executor without a collective, and the
+finished batch's factors, weights and fits are gathered over the batch
+axes, so every rank's futures hold whole problems.  SPMD: every rank
+submits the same requests in the same order, and no dispatch decision
+reads a clock (``latency_s`` is reported, never used), so the ranks
+dispatch alike.
 """
 
 from __future__ import annotations
 
+import math
 import time
 from dataclasses import dataclass
 from typing import Any, Sequence
@@ -50,7 +60,8 @@ from typing import Any, Sequence
 import torch
 
 from repro_torch.core.tensor_ops import random_factors
-from repro_torch.plan import Problem, cp_als, plan_sweep
+from repro_torch.dist.collectives import gather_cat
+from repro_torch.plan import Problem, cp_als, make_executor, plan_sweep
 from repro_torch.plan.autotune import lookup_measurements, problem_key
 
 from .queue import QueueFull, RequestQueue
@@ -122,10 +133,12 @@ class _CPRequest:
 
 @dataclass
 class _SignatureState:
-    """Per-signature state: planned once, on the signature's first dispatch."""
+    """Per-signature state: planned once, on the signature's first dispatch
+    (``executor`` is ``None`` for ``cp_als``'s local default)."""
 
     problem: Problem
     plan: Any
+    executor: Any = None
 
 
 class CPService:
@@ -146,7 +159,9 @@ class CPService:
     :class:`repro_torch.serve.queue.QueueFull`.  ``device`` is where every
     request runs (default ``"cuda"``).  ``pp_tol > 0`` makes every request
     (unless it overrides it) a pairwise-perturbation problem.  ``mesh``
-    raises ``NotImplementedError`` (the distribution slice of the port).
+    shards every dispatch's batch over all its axes (batch-parallel: no
+    collective inside a sweep; ``batch_size`` must divide by the mesh's
+    device count), every rank serving the same requests in the same order.
     """
 
     def __init__(
@@ -166,10 +181,15 @@ class CPService:
         """See the class docstring for the knobs; validation happens here."""
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "a batch-parallel mesh comes with the distribution slice of the port"
-            )
+            n_dev = math.prod(int(s) for s in mesh.shape)
+            if batch_size % n_dev:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the mesh's "
+                    f"{n_dev} devices (batch-parallel placement shards the "
+                    "batch axis evenly)"
+                )
         self.batch_size = int(batch_size)
         self.n_iters = int(n_iters)
         self.tol = float(tol)
@@ -193,12 +213,20 @@ class CPService:
 
     # ------------------------------------------------------------ submission
     def _problem_for(self, tensor: Tensor, rank: int, pp_tol: float | None = None) -> Problem:
-        """The batched Problem one dispatch of this tensor's bucket solves."""
+        """The batched Problem one dispatch of this tensor's bucket solves:
+        with a mesh, its batch cut over all the mesh's axes."""
+        mesh = self.mesh
+        axis_sizes = dict(zip(mesh.mesh_dim_names, mesh.shape)) if mesh is not None else {}
+        batch_axes = (
+            tuple(mesh.mesh_dim_names) if mesh is not None and self.batch_size > 1 else ()
+        )
         return Problem(
             shape=tuple(tensor.shape),
             rank=int(rank),
             dtype=tensor.dtype,
             batch=self.batch_size,
+            batch_axes=batch_axes,
+            axis_sizes=axis_sizes,
             pp_tol=self.pp_tol if pp_tol is None else float(pp_tol),
         )
 
@@ -276,8 +304,8 @@ class CPService:
 
     # ------------------------------------------------------------- execution
     def _state_for(self, sig: str, payload: _CPRequest) -> _SignatureState:
-        """Memoized per-signature plan (the warm-plan lookup); a miss is a
-        ``compiles`` count."""
+        """Memoized per-signature plan and executor (the warm-plan lookup);
+        a miss is a ``compiles`` count."""
         state = self._states.get(sig)
         if state is not None:
             return state
@@ -287,7 +315,13 @@ class CPService:
             and lookup_measurements(problem, cache=self.tuning_cache) is not None
         )
         plan = plan_sweep(problem, strategy=self.strategy, tuning_cache=self.tuning_cache)
-        state = _SignatureState(problem=plan.problem, plan=plan)
+        executor = None
+        if plan.executor != "local":
+            executor = make_executor(
+                plan.executor, self.mesh, plan.problem.mode_axes,
+                batch_axes=plan.problem.batch_axes,
+            )
+        state = _SignatureState(problem=plan.problem, plan=plan, executor=executor)
         self._counters["compiles"] += 1
         if warm:
             self._counters["warm_plan_hits"] += 1
@@ -310,7 +344,9 @@ class CPService:
         FIFO within), pads the batch by cycling the real requests into the
         empty slots, runs the bucket's batched ``cp_als``, and resolves
         exactly the real requests' futures -- returned in slot order.
-        Returns ``[]`` when nothing is pending.
+        With a mesh each rank runs its slice of the batch and the results
+        are gathered over the batch axes before they resolve.  Returns
+        ``[]`` when nothing is pending.
         """
         sig = self._queue.next_key()
         if sig is None:
@@ -338,12 +374,19 @@ class CPService:
         st = cp_als(
             x,
             state.plan,
+            executor=state.executor,
             n_iters=n_iters,
             tol=tol,
             init_factors=init,
             sweeps_per_sync=self.sweeps_per_sync or n_iters,
         )
-        fits = st.fit.reshape(-1).tolist()  # the dispatch's host sync
+        factors, weights, fit = list(st.factors), st.weights, st.fit
+        batch_axes = state.problem.batch_axes
+        if batch_axes:  # this rank's slice of the batch -> the whole batch
+            factors = [gather_cat(u, batch_axes, self.mesh) for u in factors]
+            weights = gather_cat(weights, batch_axes, self.mesh)
+            fit = gather_cat(fit, batch_axes, self.mesh)
+        fits = fit.reshape(-1).tolist()  # the dispatch's host sync
         now = time.monotonic()
         self._execute_s += now - t0
         self._counters["batches"] += 1
@@ -352,14 +395,14 @@ class CPService:
         futures = []
         for i, req in enumerate(chunk):
             if B > 1:
-                factors = [u[i] for u in st.factors]
-                weights = st.weights[i]
+                req_factors = [u[i] for u in factors]
+                req_weights = weights[i]
             else:
-                factors, weights = list(st.factors), st.weights
+                req_factors, req_weights = factors, weights
             req.payload.future._result = CPResult(
                 rid=req.rid,
-                factors=factors,
-                weights=weights,
+                factors=req_factors,
+                weights=req_weights,
                 fit=fits[i],
                 sweeps=int(st.it),
                 signature=sig,

@@ -9,6 +9,8 @@ the budget rule and the warm-plan hit of a served batch of one.  Inputs are
 made with numpy from a seed; float32 tolerance ``rtol=2e-4, atol=2e-5``.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -180,7 +182,7 @@ def test_tune_seeds_its_own_factors_and_candidate_tables():
 
 @pytest.mark.parametrize(
     "kwargs",
-    [dict(mode_axes={0: "x"}), dict(mesh=object()), dict(intra_axes=("x",)), dict(pp_tol=0.1)],
+    [dict(mode_axes={0: "x"}), dict(mesh=True), dict(intra_axes=("x",)), dict(pp_tol=0.1)],
     ids=["mode_axes", "mesh", "intra_axes", "pp"],
 )
 def test_sharded_and_pp_tuning_raise(kwargs):
@@ -194,8 +196,21 @@ def test_sharded_and_pp_tuning_raise(kwargs):
         problem = tplan.Problem(SHAPE, RANK, pp_tol=kwargs["pp_tol"])
         assert tplan.lookup_measurements(problem, cache=cache).pp == entry["pp"]
         return
-    with pytest.raises(NotImplementedError):
-        tplan.tune(torch.from_numpy(x), RANK, cache=tplan.TuningCache(), **kwargs)
+    if "intra_axes" in kwargs:  # two-level meshes: distribution slice 4
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            tplan.tune(torch.from_numpy(x), RANK, cache=tplan.TuningCache(), **kwargs)
+        return
+    if "mode_axes" in kwargs:  # a mapped mode needs the mesh it names
+        with pytest.raises(ValueError, match="no size known for mesh axis"):
+            tplan.tune(torch.from_numpy(x), RANK, cache=tplan.TuningCache(), **kwargs)
+        return
+    # sharded tuning is ported (8-rank worlds: tests/test_torch_dist_exec.py);
+    # a mesh with no mapped mode tunes the local problem on its device count
+    mesh = types.SimpleNamespace(mesh_dim_names=("x",), shape=(1,), device_type="cpu")
+    entry = tplan.tune(torch.from_numpy(x), RANK, mesh=mesh, cache=tplan.TuningCache(),
+                       budget_ms=None, reps=1)
+    assert entry["n_devices"] == 1 and entry["serial_fractions"] == {}
+    assert {r["executor"] for r in entry["nodes"]} == {"local"}
 
 
 def test_serial_fractions_and_node_key_from_follow_the_reference():

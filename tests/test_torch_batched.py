@@ -288,9 +288,11 @@ def test_batched_costs_match_reference(reference_constants, shape):
 
 def test_sharded_batched_problems_still_raise():
     p = tplan.Problem((4, 5, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
-    # executor="auto" argmins over the overlapping executor (slice 2)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        tplan.plan_sweep(p)
+    # executor="auto" on a batch-parallel placement: no reduction to hide or
+    # compress, so the plain sharded executor, as the reference picks
+    jp0 = jplan.Problem((4, 5, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
+    assert tplan.plan_sweep(p).executor == jplan.plan_sweep(
+        jp0, tuning_cache=jplan.TuningCache()).executor == "sharded"
     # sharded PP is slice 5; the batch-parallel placement itself is priced as
     # the reference prices it (flat sharding: slice 1)
     with pytest.raises(NotImplementedError, match="slice 5"):

@@ -941,3 +941,73 @@ def test_sharded_cp_als_in_an_nccl_world_of_one_is_the_local_engine(cuda, tmp_pa
                 assert all(u.equal(v) for u, v in zip(st.factors, lst.factors))
     finally:
         tdist.destroy_process_group()
+
+
+def test_overlapped_kernel_leaves_on_strided_slabs_in_an_nccl_world_of_one(cuda, tmp_path):
+    """The overlapping executor's leaf on the card: every mode cut into 3
+    slabs, each slab past mode 0 copied contiguous (a strided view of the
+    block), one kernel launch and one asynchronous NCCL gather a slab, the
+    result within the kernels' bound of the unsplit kernel's."""
+    import torch.distributed as tdist
+
+    from repro_torch.core.mttkrp import mttkrp
+    from repro_torch.dist import GATHERS, SLAB_COPIES, dist_mttkrp_overlapped
+    from repro_torch.launch.mesh import make_host_mesh
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn((9, 14, 7, 12), generator=g, device=cuda)
+        fs = [torch.randn((d, 6), generator=g, device=cuda) for d in x.shape]
+        axes = {0: "data", 2: "model"}
+        for method, kernel in (("fused", fm.KERNEL), ("matrix_free", mf.KERNEL)):
+            for n in range(4):
+                before = kernel.launches
+                GATHERS.calls = SLAB_COPIES.calls = 0
+                out = dist_mttkrp_overlapped(x, fs, n, axes, mesh, method=method, n_chunks=3)
+                assert kernel.launches == before + 3
+                assert SLAB_COPIES.calls == (0 if n == 0 else 3)
+                assert GATHERS.calls == 3 * sum(1 for m in axes if m != n)
+                whole = mttkrp(x, fs, n, method=method)
+                assert _rel(out, whole) < REL
+                plain = mttkrp(x.double(), [f.double() for f in fs], n, method="1step")
+                assert _rel(out, plain.float()) < REL
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_compressed_cp_als_in_an_nccl_world_of_one(cuda, tmp_path):
+    """The compressed executor on the card: int8 payloads through NCCL, the
+    residuals carried, the kernel leaves launched, the fit within the
+    reference's compressed bound (2e-2) of the exact sharded run's."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import INT8_GATHERS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.plan import make_executor
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        g = torch.Generator(device=cuda).manual_seed(7)
+        planted = [torch.randn((d, 3), generator=g, device=cuda) for d in (16, 12, 10)]
+        x = torch.einsum("ic,jc,kc->ijk", *planted)
+        init = [torch.randn((d, 3), generator=g, device=cuda) for d in x.shape]
+        axes = {0: "data", 1: "model"}
+        problem = Problem.from_tensor(x, 3, axes, mesh)
+        fits = {}
+        for kind in ("sharded", "compressed"):
+            INT8_GATHERS.calls = 0
+            before = mf.KERNEL.launches
+            st = cp_als(x, plan_sweep(problem, "matrix_free", executor=kind),
+                        executor=make_executor(kind, mesh, axes), n_iters=40, tol=1e-9,
+                        init_factors=init)
+            assert mf.KERNEL.launches - before == 3 * st.it
+            assert (INT8_GATHERS.calls > 0) == (kind == "compressed")
+            fits[kind] = float(st.fit)
+        assert fits["compressed"] > 0.75 and abs(fits["compressed"] - fits["sharded"]) < 2e-2
+    finally:
+        tdist.destroy_process_group()

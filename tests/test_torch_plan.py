@@ -109,24 +109,26 @@ def test_h100_constants_are_the_datasheet_values():
 
 def test_later_slices_raise_not_implemented():
     p = tplan.Problem((4, 6), 2)
-    with pytest.raises(NotImplementedError):
-        tplan.plan_sweep(tplan.Problem((4, 6), 2, mode_axes={0: "x"}, axis_sizes={"x": 2}))
-    with pytest.raises(NotImplementedError):  # batch-parallel placement: distribution slice
-        tplan.plan_sweep(
-            tplan.Problem((4, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
-        )
+    # sharded problems plan with executor="auto" (distribution slices 2-3):
+    # mode-parallel argmins the three sharded kinds, batch-parallel runs the
+    # plain one, as the reference's
+    mode_parallel = dict(shape=(4, 6), rank=2, mode_axes={0: "x"}, axis_sizes={"x": 2})
+    assert tplan.plan_sweep(tplan.Problem(**mode_parallel)).executor in (
+        "sharded", "overlapping", "compressed")
+    batch_parallel = dict(shape=(4, 6), rank=2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
+    assert tplan.plan_sweep(tplan.Problem(**batch_parallel)).executor == jplan.plan_sweep(
+        jplan.Problem(**batch_parallel), tuning_cache=jplan.TuningCache()).executor == "sharded"
     # PP is ported: a pp_tol > 0 problem plans with its PP row, and "pp"
     # without a tolerance is the reference's ValueError
     assert tplan.plan_sweep(tplan.Problem((4, 6), 2, pp_tol=0.1)).pp_info["tol"] == 0.1
     with pytest.raises(ValueError, match="pp_tol"):
         tplan.plan_sweep(p, "pp")
-    # the sharded executor is ported (it takes an unsharded problem too, as
-    # the reference's does); the overlapping one is distribution slice 2
+    # the sharded executor takes an unsharded problem too, as the
+    # reference's does; the overlapping one plans a mode-parallel problem
     assert tplan.plan_sweep(p, executor="sharded").executor == "sharded"
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tplan.plan_sweep(tplan.Problem((4, 6), 2, mode_axes={0: "x"}, axis_sizes={"x": 2}),
-                         executor="overlapping")
-    with pytest.raises(NotImplementedError):
+    assert tplan.plan_sweep(tplan.Problem(**mode_parallel),
+                            executor="overlapping").executor == "overlapping"
+    with pytest.raises(ValueError, match="needs mesh"):
         tplan.make_executor("overlapping")
     with pytest.raises(ValueError):
         tplan.make_executor("bogus")

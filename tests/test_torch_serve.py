@@ -10,6 +10,7 @@ port only.
 """
 
 import ast
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -281,8 +282,11 @@ def test_submit_validation_and_future_protocol():
 
 
 def test_mesh_and_pp_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="distribution"):
-        CPService(batch_size=2, mesh=object())
+    # a mesh serves batch-parallel (8-rank worlds: tests/test_torch_dist_exec.py);
+    # its device count must divide the batch, as in the reference
+    mesh = types.SimpleNamespace(mesh_dim_names=("b",), shape=(2,), device_type="cpu")
+    with pytest.raises(ValueError, match="not divisible by the mesh's 2 devices"):
+        CPService(batch_size=3, mesh=mesh, device="cpu")
     # PP requests are ported: they are taken and bucket under a |pp signature
     assert CPService(batch_size=2, pp_tol=0.25, device="cpu").pp_tol == 0.25
     svc = _service(batch_size=2)
@@ -349,7 +353,9 @@ def test_serve_cp_driver_runs_on_the_cpu():
                            "--rank", "3", "--dim", "6", "--n-iters", "2"])
     assert stats["completed"] == 5 and stats["signatures"] == 2 and stats["batches"] == 3
     assert stats["padded_slots"] == 1 and stats["compiles"] == 2
-    with pytest.raises(NotImplementedError):
+    # --mesh runs one rank a process under torchrun (tests/test_torch_dist_exec.py);
+    # outside one the environment names no rank
+    with pytest.raises(ValueError, match="RANK"):
         serve_cp.main(["--device", "cpu", "--mesh"])
 
 
