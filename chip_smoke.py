@@ -14,7 +14,8 @@ front door (``core.cp_als(x, CPConfig(...))``) and pairwise-perturbation
 sweeps (``Problem(pp_tol > 0) -> plan_sweep("pp") -> cp_als``, tuned and
 served); and the sharded front door in an NCCL world of one (the sharded,
 overlapping and compressed executors, ``executor="auto"``, ``tune(mesh=)``
-and ``CPService(mesh=)``).  Holds all seven
+and ``CPService(mesh=)``, the two-level node mesh and sharded pairwise
+perturbation).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions.
 
@@ -175,7 +176,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    at batch 8 under matrix_free and fused, beside the single-device
    service from the same inits: phase 6's counters, 3 x sweeps x 9
    launches of row 4 / row 3, fits within ``FIT_AGREE`` of both services'
-   (the single-device one of this phase and phase 6's).
+   (the single-device one of this phase and phase 6's).  (i) the two-level
+   path on ``make_node_mesh(1, 1)`` with ``{0: "node", 2: "device"}`` and
+   ``intra_axes=("device",)``, under matrix_free and fused: every node
+   planned flat (one node: no level to split), no lower bound and not
+   certified; ``plan.cp_als`` bitwise equal to phase 3's run (and so to
+   (a)'s), 4 x sweeps launches, (a)'s collective count and no
+   reduce-scatter; ``reduce_scatter`` (an NCCL all-to-all),
+   ``all_gather`` and ``hierarchical_psum`` of a mode-1 MTTKRP on the
+   one-rank group the identity bitwise, one reduce-scatter sending 0
+   bytes; ``tune(mesh=, intra_axes=)`` stores rows under a ``|node1`` key.
+   (j) sharded PP on (a)'s mesh and mapping at ``PP_TOL`` for
+   ``PP_SWEEPS`` sweeps: the pairs at the init bitwise the local
+   executor's; the exact/approximate sequence, fits, host-gate reads and
+   the last cache's pairs bitwise phase 12b's local run; launches read off
+   the plan; printed: exact and approximate ms a sweep against the local
+   ones, the sharded cache build (CUDA events) and its peak memory.  Then
+   ``CPService(mesh=, pp_tol=PP_FLEET_TOL, strategy="pp")`` serving the 59
+   subjects batch-parallel: fits, sequences and exact sweeps a batch
+   bitwise phase 12d's single-device PP fleet, and its counters.
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -1690,13 +1709,72 @@ def _median(xs):
     return xs[len(xs) // 2] if xs else float("nan")
 
 
+def _pp_run(torch, x4, plan, init, executor=None):
+    """A PP ``cp_als`` of ``PP_SWEEPS`` sweeps from ``init`` under the
+    recorder: ``(state, recorder, per-sweep fits, per-sweep seconds)``."""
+    from repro_torch.plan import cp_als
+    from repro_torch.plan import sweep as tsweep
+
+    fits, secs = [], []
+    with _PPRecorder(tsweep) as rec:
+        st = cp_als(x4, plan, executor=executor, n_iters=PP_SWEEPS, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: (fits.append(f), secs.append(dt)))
+    torch.cuda.synchronize()
+    return st, rec, fits, secs
+
+
+def _pp_fleet(torch, args, dev, subjects, serve_inits, mesh=None):
+    """The 59 subjects served as PP problems by ``CPService(batch_size=8,
+    pp_tol=PP_FLEET_TOL, strategy="pp")`` from phase 6's inits, on ``mesh``
+    when given: ``(service, results, each batch's cp_als state, recorder,
+    seconds of the flush)``."""
+    from repro_torch.plan import TuningCache
+    from repro_torch.plan import sweep as tsweep
+    from repro_torch.serve import CPService, cp_service
+
+    rank = args.rank
+    states = []
+    real_cp_als = cp_service.cp_als
+
+    def recording_cp_als(*a, **k):
+        states.append(real_cp_als(*a, **k))
+        return states[-1]
+
+    svc = CPService(batch_size=SERVE_BATCH, n_iters=args.sweeps, tol=0.0, pp_tol=PP_FLEET_TOL,
+                    strategy="pp", tuning_cache=TuningCache(), mesh=mesh, device=dev)
+    futs = [svc.submit(subjects[i], rank, init_factors=serve_inits[(i, rank)])
+            for i in range(len(subjects))]
+    cp_service.cp_als = recording_cp_als
+    try:
+        with _PPRecorder(tsweep) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            svc.flush()
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+    finally:
+        cp_service.cp_als = real_cp_als
+    return svc, [f.result() for f in futs], states, rec, dt
+
+
+def _fleet_want(subjects) -> dict:
+    """The serving counters of the PP fleet: 59 completed in 8 batches of
+    8, 5 padded slots, one ``|pp`` signature."""
+    batches = -(-len(subjects) // SERVE_BATCH)
+    return {"completed": len(subjects), "batches": batches,
+            "padded_slots": SERVE_BATCH * batches - len(subjects), "signatures": 1}
+
+
 def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_inits=None,
               serve_fits=None):
     """Phase 12 (see the module docstring).  ``engine`` maps each of auto,
     fused and matrix_free to ``(state, per-sweep fits)`` of phase 3's
     ``plan.cp_als`` from ``init``; ``subjects``, ``serve_inits`` and
     ``serve_fits`` are phase 6's fleet, inits and exact served fits (made
-    here when the phase runs alone)."""
+    here when the phase runs alone).  Returns the local PP references
+    phase 13j holds the sharded runs to: 12b's sequence, fits, seconds,
+    host-gate reads and last cache pairs, and 12d's fleet fits, sequence,
+    counters and exact sweeps a batch."""
     from repro_torch import core
     from repro_torch.core.cpals import als_sweep as legacy_als_sweep
     from repro_torch.core.dimtree import dimtree_sweep
@@ -1708,7 +1786,6 @@ def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_init
                                   TuningCache, als_sweep, cp_als, plan_sweep, tune)
     from repro_torch.plan import sweep as tsweep
     from repro_torch.serve import CPService
-    from repro_torch.serve import cp_service
 
     rank, sweeps = args.rank, args.sweeps
 
@@ -1764,15 +1841,13 @@ def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_init
     _log(f"[12] PP plan (pp_tol {PP_TOL:g}): schedule {plan.resolved_schedule.name} nodes "
          f"{[np_.algorithm for np_ in plan.nodes]}; describe()['pp'] "
          f"{json.dumps(plan.describe()['pp'])}")
-    fits, secs = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fm.KERNEL.launches = mf.KERNEL.launches = 0
-    with _PPRecorder(tsweep) as rec:
-        st = cp_als(x4, plan, n_iters=PP_SWEEPS, tol=0.0, init_factors=init,
-                    callback=lambda it, f, dt: (fits.append(f), secs.append(dt)))
-    torch.cuda.synchronize()
+    st, rec, fits, secs = _pp_run(torch, x4, plan, init)
     peak = torch.cuda.max_memory_allocated() / 1e9
+    local_pp = {"pattern": rec.pattern, "fits": list(fits), "secs": list(secs),
+                "reads": list(rec.reads), "pairs": rec.last_pp.pp.pairs}
     got = (fm.KERNEL.launches, mf.KERNEL.launches)
     n_exact = sum(1 for s in rec.seq if s != "a")
     want = (_kernel_leaves(plan, "fused") * n_exact, _kernel_leaves(plan, "matrix_free") * n_exact)
@@ -1870,32 +1945,9 @@ def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_init
                 for i in range(len(subjects))]
         svc.flush()
         serve_fits = [f.result().fit for f in futs]
-    states = []
-    real_cp_als = cp_service.cp_als
-
-    def recording_cp_als(*a, **k):
-        states.append(real_cp_als(*a, **k))
-        return states[-1]
-
-    svc = CPService(batch_size=SERVE_BATCH, n_iters=sweeps, tol=0.0, pp_tol=PP_FLEET_TOL,
-                    strategy="pp", tuning_cache=TuningCache(), device=dev)
-    futs = [svc.submit(subjects[i], rank, init_factors=serve_inits[(i, rank)])
-            for i in range(len(subjects))]
-    cp_service.cp_als = recording_cp_als
-    try:
-        with _PPRecorder(tsweep) as rec:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            svc.flush()
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-    finally:
-        cp_service.cp_als = real_cp_als
+    svc, res, states, rec, dt = _pp_fleet(torch, args, dev, subjects, serve_inits)
     stats = svc.stats()
-    res = [f.result() for f in futs]
-    want_stats = {"completed": len(subjects), "batches": -(-len(subjects) // SERVE_BATCH),
-                  "padded_slots": SERVE_BATCH * -(-len(subjects) // SERVE_BATCH) - len(subjects),
-                  "signatures": 1}
+    want_stats = _fleet_want(subjects)
     sigs = {r.signature for r in res}
     gapf = max(abs(r.fit - f) for r, f in zip(res, serve_fits))
     _log(f"[12] PP fleet CPService(batch_size={SERVE_BATCH}, n_iters={sweeps}, "
@@ -1914,6 +1966,8 @@ def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_init
         raise SystemExit("PP fleet: a batch ran without the PP cache")
     if not all(math.isfinite(r.fit) and r.sweeps == sweeps for r in res):
         raise SystemExit("PP fleet: non-finite fit or wrong sweep count")
+    local_pp["fleet"] = {"fits": [r.fit for r in res], "pattern": rec.pattern,
+                         "exact": [s.pp_exact_sweeps for s in states]}
 
     # ---- 12e: a small PP run on the card against the port's CPU run
     g = torch.Generator().manual_seed(5)
@@ -1937,6 +1991,7 @@ def _pp_phase(torch, args, dev, smi, x4, init, engine, subjects=None, serve_init
          f"{dsmall:.3e} (bound {SMALL_FIT_AGREE:g})")
     if cpu_seq != card_seq or dsmall > SMALL_FIT_AGREE:
         raise SystemExit("small PP run: card and CPU disagree")
+    return local_pp
 
 
 def _only_pp(torch, args, dev, smi) -> None:
@@ -2009,15 +2064,16 @@ def _bitwise(st, fits, ref) -> bool:
 
 
 def _dist_phase(torch, args, dev, smi, x4, init, engine, subjects, serve_inits=None,
-                serve_fits=None) -> None:
+                serve_fits=None, pp_ref=None) -> None:
     """Phase 13: an NCCL world of one on the card, the sharded paths at
     full width against the single-device engine (see the module
     docstring).  ``engine`` maps fused and matrix_free to ``(state,
     per-sweep fits)`` of phase 3's ``plan.cp_als`` from ``init``;
     ``subjects`` is the 59-subject fleet, ``serve_inits`` phase 6's
     per-request inits and ``serve_fits`` its served fits of the
-    rank-``--rank`` requests (the inits made here, and the fits not
-    compared, when the phase runs alone)."""
+    rank-``--rank`` requests, ``pp_ref`` phase 12's local PP references
+    (the inits and references made here, and the fits not compared, when
+    the phase runs alone)."""
     import shutil
     import tempfile
 
@@ -2040,12 +2096,22 @@ def _dist_phase(torch, args, dev, smi, x4, init, engine, subjects, serve_inits=N
     _log(f"[13] NCCL world of 1 (backend {tdist.get_backend()}, NCCL "
          f"{'.'.join(map(str, torch.cuda.nccl.version()))}), mesh {mesh.mesh_dim_names} "
          f"{tuple(mesh.shape)}, first all_gather done in {time.perf_counter() - t0:.1f} s")
+    if serve_inits is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
+        shape = tuple(subjects[0].shape)
+        serve_inits = {(i, r): [torch.randn((d, r), generator=gen, device=dev) for d in shape]
+                       for r, n in ((args.rank, len(subjects)), (SECOND_RANK, SECOND_SUBJECTS))
+                       for i in range(n)}
     try:
         secs = _dist_runs(torch, args, dev, smi, x4, init, engine, subjects, mesh)
         _dist_overlapping(torch, args, smi, x4, init, engine, mesh, secs)
         _dist_compressed(torch, args, smi, x4, init, engine, mesh, secs)
         _dist_auto_and_tune(torch, args, smi, x4, init, engine, mesh)
         _dist_serve(torch, args, dev, smi, subjects, serve_inits, serve_fits, mesh)
+        _dist_levels(torch, args, smi, x4, init, engine)
+        if pp_ref is None:
+            pp_ref = _pp_local_refs(torch, args, dev, x4, init, subjects, serve_inits)
+        _dist_pp(torch, args, dev, smi, x4, init, mesh, pp_ref, subjects, serve_inits)
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
@@ -2381,13 +2447,8 @@ def _dist_serve(torch, args, dev, smi, subjects, serve_inits, serve_fits, mesh) 
     from repro_torch.serve import CPService
 
     rank, sweeps = args.rank, args.sweeps
-    shape = tuple(subjects[0].shape)
     requests = [(i, rank) for i in range(len(subjects))]
     requests += [(i, SECOND_RANK) for i in range(SECOND_SUBJECTS)]
-    if serve_inits is None:
-        gen = torch.Generator(device=dev).manual_seed(args.seed + 6)
-        serve_inits = {(i, r): [torch.randn((d, r), generator=gen, device=dev) for d in shape]
-                       for i, r in requests}
     batches = -(-len(subjects) // SERVE_BATCH) + 1
     want_stats = {"completed": len(requests), "signatures": 2, "compiles": 2,
                   "batches": batches, "padded_slots": SERVE_BATCH * (batches - 1) - len(subjects)}
@@ -2426,6 +2487,166 @@ def _dist_serve(torch, args, dev, smi, subjects, serve_inits, serve_fits, mesh) 
             raise SystemExit(f"CPService(mesh=) {m}: served fits disagree")
 
 
+# 13i: the reference's two-level mapping on a node mesh of one node of one device
+NODE_AXES = {0: "node", 2: "device"}
+
+
+def _dist_levels(torch, args, smi, x4, init, engine) -> None:
+    """13i: the two-level path on ``make_node_mesh(1, 1)`` (see the module
+    docstring): one node is no level to split, so every node plans flat and
+    the sweeps are bitwise phase 3's (as 13a's are), with no
+    reduce-scatter; the collectives called alone are the identity."""
+    from repro_torch.core.mttkrp import mttkrp
+    from repro_torch.dist import (GATHERS, SCATTERS, all_gather, hierarchical_psum,
+                                  reduce_scatter)
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.launch.mesh import make_node_mesh
+    from repro_torch.plan import Problem, TuningCache, cp_als, make_executor, plan_sweep, tune
+
+    rank, sweeps = args.rank, args.sweeps
+    mesh = make_node_mesh(1, 1, device="cuda")
+    problem = Problem.from_tensor(x4, rank, NODE_AXES, mesh, intra_axes=("device",))
+    kernels = {"matrix_free": (mf.KERNEL, fm.KERNEL), "fused": (fm.KERNEL, mf.KERNEL)}
+    for m in ("matrix_free", "fused"):
+        plan = plan_sweep(problem, m, executor="sharded")
+        d = plan.describe()
+        colls = [n["collective"] for n in d["nodes"]]
+        hier = sum(c == "hierarchical" for c in colls)
+        ex = make_executor(plan.executor, mesh, plan.problem.mode_axes,
+                           node_axis=plan.problem.node_axis)
+        want, how = _expected_gathers(plan, sweeps)
+        fits = []
+        torch.cuda.synchronize()
+        kernels[m][0].launches = kernels[m][1].launches = GATHERS.calls = SCATTERS.calls = 0
+        st = cp_als(x4, plan, executor=ex, n_iters=sweeps, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: fits.append(f))
+        torch.cuda.synchronize()
+        got = (kernels[m][0].launches, kernels[m][1].launches, GATHERS.calls, SCATTERS.calls)
+        same = _bitwise(st, fits, engine[m])
+        _log(f"[13i] two-level {m} on make_node_mesh(1, 1) {NODE_AXES}, intra_axes ('device',): "
+             f"plan mapping {plan.problem.mode_axes}, collectives {colls}, lower_bound_bytes "
+             f"{d['lower_bound_bytes']}, certified {d['certified']}, {len(d['mappings'])} mapping "
+             f"rows; launches {got[0]} (want {4 * sweeps}), {got[1]} of the other; collectives "
+             f"{got[2]} (want {want}: {how}); reduce-scatters {got[3]} (want {hier} hierarchical "
+             f"nodes x {sweeps}); bitwise equal to phase 3's local run (13a's): "
+             f"{'ok' if same else 'FAIL'}")
+        if hier or d["lower_bound_bytes"] is not None or d["certified"] or colls != ["flat"] * 4:
+            raise SystemExit(f"13i {m}: a node of one node planned other than flat, or certified")
+        if not same or got != (4 * sweeps, 0, want, 0):
+            raise SystemExit(f"13i {m}: bits, launches or collectives differ")
+    # the collectives alone on the one-rank group: the identity, bitwise
+    t = mttkrp(x4, init, 1)
+    SCATTERS.calls = SCATTERS.bytes = GATHERS.calls = 0
+    rs = reduce_scatter(t, "device", mesh)
+    ag = all_gather(rs, "device", mesh)
+    hp = hierarchical_psum(t, ("node", "device"), mesh, node_axis="device")
+    torch.cuda.synchronize()
+    counts = (SCATTERS.calls, SCATTERS.bytes, GATHERS.calls)
+    same = torch.equal(rs, t) and torch.equal(ag, t) and torch.equal(hp, t)
+    _log(f"[13i] reduce_scatter, all_gather and hierarchical_psum of the mode-1 MTTKRP "
+         f"{tuple(t.shape)} on the one-rank group: identity bitwise {'ok' if same else 'FAIL'}; "
+         f"reduce-scatters {counts[0]} (want 1: the size-1 node axis makes hierarchical_psum "
+         f"the flat sum), bytes sent {counts[1]} (want 0), gathers {counts[2]} (want 3)")
+    if not same or counts != (1, 0, 3):
+        raise SystemExit("13i: the collectives of a group of one are not the identity")
+    cache = TuningCache()
+    t0 = time.perf_counter()
+    entry = tune(x4, rank, mesh=mesh, mode_axes=NODE_AXES, intra_axes=("device",), cache=cache)
+    colls = sorted({r["collective"] for r in entry["nodes"]})
+    _log(f"[13i] tune(mesh=, intra_axes=('device',)) in {time.perf_counter() - t0:.2f} s "
+         f"(elapsed_ms {entry['elapsed_ms']:.1f}): {len(entry['nodes'])} node rows, collectives "
+         f"{colls}; key {cache.keys()}; card {smi}")
+    if not entry["nodes"] or colls != ["flat"] or not cache.keys()[0].endswith("|node1"):
+        raise SystemExit("13i: the two-level tune stored no rows or the wrong key")
+
+
+def _pp_local_refs(torch, args, dev, x4, init, subjects, serve_inits) -> dict:
+    """Phase 12's local PP references when phase 13 runs alone: 12b's run
+    and 12d's fleet, without their logs and gates."""
+    from repro_torch.plan import Problem, plan_sweep
+
+    st, rec, fits, secs = _pp_run(torch, x4, plan_sweep(
+        Problem.from_tensor(x4, args.rank, pp_tol=PP_TOL), "pp"), init)
+    ref = {"pattern": rec.pattern, "fits": fits, "secs": secs, "reads": list(rec.reads),
+           "pairs": rec.last_pp.pp.pairs}
+    _, res, states, frec, _ = _pp_fleet(torch, args, dev, subjects, serve_inits)
+    ref["fleet"] = {"fits": [r.fit for r in res], "pattern": frec.pattern,
+                    "exact": [s.pp_exact_sweeps for s in states]}
+    return ref
+
+
+def _dist_pp(torch, args, dev, smi, x4, init, mesh, pp_ref, subjects, serve_inits) -> None:
+    """13j: sharded pairwise perturbation in the NCCL world of one (see the
+    module docstring), against phase 12's local runs ``pp_ref``."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.plan import LocalExecutor, Problem, make_executor, plan_sweep
+    from repro_torch.plan import sweep as tsweep
+
+    rank = args.rank
+    local_plan = plan_sweep(Problem.from_tensor(x4, rank, pp_tol=PP_TOL), "pp")
+    problem = Problem.from_tensor(x4, rank, DIST_AXES, mesh, pp_tol=PP_TOL)
+    plan = plan_sweep(problem, "pp", executor="sharded")
+    ex = make_executor(plan.executor, mesh, plan.problem.mode_axes)
+    xs, fs = ex.prepare(plan.problem, x4, init)
+    pairs = ex.pp_pairs(plan.problem, xs, fs)
+    local = LocalExecutor().pp_pairs(local_plan.problem, x4, init)
+    same_pairs = all(torch.equal(pairs[k], local[k]) for k in local)
+    del pairs, local
+    nodes, lnodes = [np_.algorithm for np_ in plan.nodes], [np_.algorithm for np_ in local_plan.nodes]
+    torch.cuda.synchronize()
+    fm.KERNEL.launches = mf.KERNEL.launches = 0
+    st, rec, fits, secs = _pp_run(torch, x4, plan, init, ex)
+    n_exact = sum(1 for s in rec.seq if s != "a")
+    got = (fm.KERNEL.launches, mf.KERNEL.launches)
+    want = (_kernel_leaves(plan, "fused") * n_exact, _kernel_leaves(plan, "matrix_free") * n_exact)
+    same = (rec.pattern == pp_ref["pattern"] and fits == pp_ref["fits"]
+            and rec.reads == pp_ref["reads"]
+            and all(torch.equal(rec.last_pp.pp.pairs[k], v) for k, v in pp_ref["pairs"].items()))
+    _log(f"[13j] sharded PP {DIST_AXES} (pp_tol {PP_TOL:g}, {PP_SWEEPS} sweeps): plan "
+         f"{plan.executor} nodes {nodes} (local {lnodes}); pairs at the init bitwise the local "
+         f"executor's: {'ok' if same_pairs else 'FAIL'}; sequence {rec.pattern} (phase 12 "
+         f"{pp_ref['pattern']}); pp_exact_sweeps {st.pp_exact_sweeps}; launches fused {got[0]} "
+         f"matrix_free {got[1]} (want {want}); fits, host-gate reads and the last cache's pairs "
+         f"bitwise phase 12's: {'ok' if same else 'FAIL'}")
+    if not same_pairs or not same or nodes != lnodes or got != want:
+        raise SystemExit("13j: sharded PP differs from phase 12's local PP")
+    by = {k: [1e3 * t for s, t in zip(rec.seq, secs) if s == k] for k in "EBa"}
+    lby = {k: [1e3 * t for s, t in zip(pp_ref["pattern"], pp_ref["secs"]) if s == k]
+           for k in "EBa"}
+    _log(f"[13j] per-sweep ms (host clock, one chunk a sweep, each ending in the host sync): "
+         f"sharded exact {by['E']} (median {_median(by['E']):.3f}) against local "
+         f"{_median(lby['E']):.3f}; exact + build {by['B']} against {lby['B']}; approximate "
+         f"{by['a']} (median {_median(by['a']):.3f}) against local {_median(lby['a']):.3f}; "
+         f"card {smi}")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build = tsweep._pp_materialize(plan.problem, ex, xs, fs, 0)
+    torch.cuda.synchronize()
+    build_peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    del build
+    build_ms = _time_ms(torch, lambda: tsweep._pp_materialize(plan.problem, ex, xs, fs, 0), 3)
+    _log(f"[13j] sharded PP cache build: {build_ms:.3f} ms (CUDA events, 3 calls), its peak "
+         f"memory above the resident set {build_peak:.3f} GB; card {smi}")
+    # the PP fleet through CPService(mesh=): batch-parallel, bitwise phase 12d's
+    svc, res, states, frec, dt = _pp_fleet(torch, args, dev, subjects, serve_inits, mesh)
+    stats = {k: svc.stats()[k] for k in _fleet_want(subjects)}
+    fleet = pp_ref["fleet"]
+    same = ([r.fit for r in res] == fleet["fits"] and frec.pattern == fleet["pattern"]
+            and [s.pp_exact_sweeps for s in states] == fleet["exact"])
+    kinds = sorted({s.plan.executor for s in svc._states.values()})
+    _log(f"[13j] CPService(mesh=, pp_tol={PP_FLEET_TOL:g}, strategy='pp'): executors {kinds}; "
+         f"stats {stats} (want {_fleet_want(subjects)}); pp_exact_sweeps per batch "
+         f"{[s.pp_exact_sweeps for s in states]}; fits, sequences and exact sweeps bitwise "
+         f"the single-device PP fleet's (phase 12d): {'ok' if same else 'FAIL'}; "
+         f"{len(subjects) / dt:.2f} problems/s (host clock, first flush, plan made in it); "
+         f"card {smi}")
+    if not same or stats != _fleet_want(subjects) or kinds != ["sharded"]:
+        raise SystemExit("13j: the sharded PP fleet differs from the single-device one")
+
+
 def _dist_trace(torch, args, x4, init, plan, mesh, m, smi) -> None:
     """A ``torch.profiler`` trace of one sharded sweep (its set-up
     included): the device's busy share and the share of NCCL's operations
@@ -2448,7 +2669,8 @@ def _only_dist(torch, args, dev, smi) -> None:
     """``--only dist``: build the MTTKRP kernels (and multi-TTV, which
     ``tune()`` builds), make the fMRI tensor and an init, run phase 3's
     fused and matrix_free ``plan.cp_als`` for the bitwise comparison, then
-    phase 13 (the fleet and its inits made for it)."""
+    phase 13 (the fleet, its inits and phase 12's local PP references made
+    for it)."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_mttkrp as fm
     from repro_torch.kernels import matrix_free as mf
@@ -2482,8 +2704,8 @@ def main(argv=None) -> int:
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
                          "(the legacy front door and PP sweeps) or phase 13 (sharded CP-ALS, "
-                         "its executors, tuner and service in an NCCL world of one); prints no "
-                         "result line")
+                         "its executors, tuner and service, the two-level mesh and sharded PP "
+                         "in an NCCL world of one); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2734,12 +2956,13 @@ def main(argv=None) -> int:
     )
 
     # ---- phase 12: the legacy front door and PP sweeps
-    _pp_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
-              subjects, serve_inits, serve_fits)
+    pp_ref = _pp_phase(torch, args, dev, smi, x4, init,
+                       {k: (states[k], fits[k]) for k in states}, subjects, serve_inits,
+                       serve_fits)
 
-    # ---- phase 13: flat sharded CP-ALS in an NCCL world of one
+    # ---- phase 13: sharded CP-ALS in an NCCL world of one
     _dist_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
-                subjects, serve_inits, serve_fits)
+                subjects, serve_inits, serve_fits, pp_ref)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -14,9 +14,16 @@ power limit runs slower:
 * ``NVLINK_BW`` -- 900 GB/s of NVLink 4 a GPU, the link the flat
   collective between the cards of one node rides (nominal: the datasheet's
   total bandwidth a GPU, not a measured all-gather rate).
+* ``INFINIBAND_BW`` -- 50 GB/s a GPU across nodes: one 400 Gb/s NDR
+  InfiniBand ConnectX-7 port a GPU, as NVIDIA's DGX H100 datasheet lists
+  (eight single-port adapters for eight GPUs).  The slow level of a
+  two-level mesh, the counterpart of the reference's ``DCN_BW``; nominal
+  until measured, like the others.  Its ratio to ``NVLINK_BW`` is 18x,
+  where the reference's ``ICI_BW / DCN_BW`` is 4x, so the planner's
+  flat-or-hierarchical and mesh-mapping choices may differ from the
+  reference's; the byte counts they compare do not.
 
-The node-crossing link constant and the collective parser come with later
-distribution slices of the port.
+The collective parser comes with the port's LM substrate.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
 NVLINK_BW = 900e9
+INFINIBAND_BW = 50e9
 
 _DTYPE_BYTES = {
     "f64": 8, "f32": 4, "f16": 2, "bf16": 2, "f8e4m3fn": 1, "f8e5m2": 1,

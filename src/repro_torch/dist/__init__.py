@@ -1,7 +1,8 @@
 """Distributed-memory extension of the paper's shared-memory MTTKRP.
 
-Port of ``repro.dist``, distribution slices 1-3 (flat sharded CP-ALS, its
-reductions overlapped with the contractions, and compressed).
+Port of ``repro.dist``: flat sharded CP-ALS, its reductions overlapped
+with the contractions or compressed, the two-level (hierarchical)
+reductions of a node mesh, and sharded pairwise perturbation.
 ``dist_mttkrp``: block-distributed MTTKRP/CP-ALS over a
 ``torch.distributed`` DeviceMesh -- the device-for-thread port of the
 paper's parallelization, with the communication structure of
@@ -19,25 +20,34 @@ contraction; the compressed ones (``dist_mttkrp_compressed``,
 gather, this rank's residuals (``init_mttkrp_error_state``) threaded
 through.
 
+Every entry takes ``collective="hierarchical"`` with a ``node_axis``: the
+reduction is then the reduce-scatter within the node, the ordered sum of
+the ``1/k`` shard across nodes and the all-gather back, so only a ``1/k``
+of each block crosses the slow level.  ``dist_pp_pairs`` builds the
+pairwise-perturbation intermediates of a block-distributed tensor.
+
 ``collectives``: the ordered gather-sum every exact reduction of the port
 runs (deterministic: a fixed summation order, the same bits on every
-rank), with its call counter ``GATHERS``, its asynchronous form, and
-``compressed_psum``/``init_error_state``.
-
-Later slices add the hierarchical collectives (4) and sharded pairwise
-perturbation (5); the compressed data-parallel train step comes with the
-LM substrate.
+rank), with its call counter ``GATHERS``, its asynchronous form,
+``compressed_psum``/``init_error_state``, and the two-level
+``reduce_scatter`` (counted in ``SCATTERS``), ``all_gather`` and
+``hierarchical_psum``.  The compressed data-parallel train step comes with
+the LM substrate.
 """
 
 from .collectives import (
     GATHERS,
     INT8_GATHERS,
+    SCATTERS,
+    all_gather,
     compressed_psum,
     gather_cat,
     gather_sum,
+    hierarchical_psum,
     init_error_state,
     ordered_psum,
     ordered_psum_async,
+    reduce_scatter,
 )
 from .dist_mttkrp import (
     DEFAULT_OVERLAP_CHUNKS,
@@ -52,6 +62,7 @@ from .dist_mttkrp import (
     dist_mttkrp,
     dist_mttkrp_compressed,
     dist_mttkrp_overlapped,
+    dist_pp_pairs,
     init_mttkrp_error_state,
     shard_problem,
 )
@@ -60,13 +71,17 @@ __all__ = [
     "DEFAULT_OVERLAP_CHUNKS",
     "GATHERS",
     "INT8_GATHERS",
+    "SCATTERS",
     "SLAB_COPIES",
+    "all_gather",
     "compressed_psum",
     "gather_cat",
     "gather_sum",
+    "hierarchical_psum",
     "init_error_state",
     "ordered_psum",
     "ordered_psum_async",
+    "reduce_scatter",
     "dist_als_sweep",
     "dist_contract_partial",
     "dist_contract_partial_compressed",
@@ -77,6 +92,7 @@ __all__ = [
     "dist_mttkrp",
     "dist_mttkrp_compressed",
     "dist_mttkrp_overlapped",
+    "dist_pp_pairs",
     "init_mttkrp_error_state",
     "shard_problem",
 ]

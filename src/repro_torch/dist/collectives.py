@@ -23,9 +23,16 @@ buffer a rank, the scale's four bytes first) and every rank dequantizes
 and adds them in group-rank order, carrying its own quantization error
 into the next round.  :data:`INT8_GATHERS` counts those gathers and the
 payload bytes they send.  :func:`init_error_state` makes zero residuals.
-The compressed data-parallel train step of the reference comes with the
-port's LM substrate; the hierarchical collectives come with distribution
-slice 4.
+
+The two-level collectives of a node mesh: :func:`reduce_scatter` within
+one axis (``all_to_all_single`` of the ``k`` row chunks, the received
+chunks added in group-rank order: the priced ``B (k - 1) / k`` bytes, and
+bitwise repeatable where ``torch.distributed.reduce_scatter`` promises no
+summation order), :func:`all_gather` back (the counted gather,
+concatenated), and :func:`hierarchical_psum` built of them around the
+ordered psum across nodes.  :data:`SCATTERS` counts the reduce-scatters
+and the bytes this rank sends in them.  The compressed data-parallel train
+step of the reference comes with the port's LM substrate.
 """
 
 from __future__ import annotations
@@ -53,6 +60,9 @@ GATHERS = _Count()
 # gathers of int8 payloads made by compressed_psum; ``bytes`` is what this
 # rank sent (its payload and scale, once an axis)
 INT8_GATHERS = _Count()
+# reduce-scatters (one all_to_all_single each); ``bytes`` is what this rank
+# sent to the other ranks of the group, ``B (k - 1) / k`` a call
+SCATTERS = _Count()
 
 
 def _gather(t: Tensor, group, *, async_op: bool = False):
@@ -69,11 +79,15 @@ def _gather(t: Tensor, group, *, async_op: bool = False):
 
 def _sum_parts(parts: Sequence[Tensor], t: Tensor) -> Tensor:
     """The gathered partials added in group-rank order, in ``t``'s layout."""
+    return _keep_layout(_add_in_order(parts), t)
+
+
+def _add_in_order(parts: Sequence[Tensor]) -> Tensor:
+    """``parts[0] + parts[1] + ...``, left to right: the one summation
+    order of the port's reductions."""
     out = parts[0]
     for p in parts[1:]:
         out = out + p
-    if out.stride() != t.stride():
-        out = torch.empty_like(t).copy_(out)
     return out
 
 
@@ -132,6 +146,130 @@ def gather_cat(t: Tensor, axes: Sequence[str], mesh, dim: int = 0) -> Tensor:
     for axis in reversed(tuple(axes)):
         t = torch.cat(_gather(t, mesh.get_group(axis)), dim=dim)
     return t
+
+
+def _keep_layout(out: Tensor, t: Tensor) -> Tensor:
+    """``out`` in ``t``'s layout (strides), as :func:`gather_sum` keeps it."""
+    if out.stride() != t.stride():
+        out = torch.empty_like(t).copy_(out)
+    return out
+
+
+def _scatter_issue(x: Tensor, axis: str, mesh, scatter_axis: int, async_op: bool):
+    """Send chunk ``j`` of ``x`` along ``scatter_axis`` to group rank ``j``
+    of ``axis`` (one ``all_to_all_single``, counted in :data:`SCATTERS`);
+    returns ``(received, work, sent)``: ``received[j]`` is rank ``j``'s
+    chunk of this rank's index (after ``work.wait()`` when asynchronous),
+    and ``sent`` the buffer the collective reads until then."""
+    group = mesh.get_group(axis)
+    k = dist.get_world_size(group)
+    if x.shape[scatter_axis] % k:
+        raise ValueError(
+            f"reduce_scatter: dim {scatter_axis} of extent {x.shape[scatter_axis]} "
+            f"does not divide over axis {axis!r} of size {k}"
+        )
+    src = x.movedim(scatter_axis, 0).contiguous()
+    recv = torch.empty_like(src)
+    work = dist.all_to_all_single(recv, src, group=group, async_op=async_op)
+    SCATTERS.calls += 1
+    SCATTERS.bytes += src.numel() * src.element_size() * (k - 1) // k
+    return recv.reshape((k, src.shape[0] // k) + tuple(src.shape[1:])), work, src
+
+
+def _scatter_sum(received: Tensor, scatter_axis: int) -> Tensor:
+    """The received chunks added in group-rank order, the scattered dim
+    moved back to ``scatter_axis``."""
+    return _add_in_order(received).movedim(0, scatter_axis)
+
+
+def reduce_scatter(x: Tensor, axis_name: str, mesh, *, scatter_axis: int = 0) -> Tensor:
+    """Tiled reduce-scatter of ``x`` over the mesh axis ``axis_name``: each
+    of its ``k`` ranks gets the sum over the group of its ``1/k`` slice of
+    ``x`` along ``scatter_axis`` (rank ``j`` the ``j``-th slice), the first
+    half of a ring all-reduce, ``B (k - 1) / k`` bytes sent a rank.
+    ``x.shape[scatter_axis]`` must divide by ``k``.  One
+    ``all_to_all_single`` carries the chunks; the received ones are added
+    in group-rank order, so a second call is bitwise the first (a group of
+    one returns ``x``'s values)."""
+    received, _, _ = _scatter_issue(x, axis_name, mesh, scatter_axis, False)
+    return _scatter_sum(received, scatter_axis)
+
+
+def all_gather(x: Tensor, axis_name: str, mesh, *, gather_axis: int = 0) -> Tensor:
+    """Tiled all-gather of ``x`` over the mesh axis ``axis_name``: the
+    ranks' blocks concatenated along ``gather_axis`` in group-rank order on
+    every rank, the second half of a ring all-reduce, undoing
+    :func:`reduce_scatter`'s split (one counted gather)."""
+    return gather_cat(x, (axis_name,), mesh, dim=gather_axis)
+
+
+def _levels(x: Tensor, axes, mesh, node_axis, scatter_axis):
+    """``(axes, inter axes)`` of a two-level sum, or ``(axes, None)`` when
+    it falls back to the flat ordered psum."""
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    if node_axis is None or node_axis not in axes:
+        return axes, None
+    inter = tuple(a for a in axes if a != node_axis)
+    k = dist.get_world_size(mesh.get_group(node_axis))
+    if not inter or k <= 1 or x.shape[scatter_axis] % k:
+        return axes, None
+    return axes, inter
+
+
+def hierarchical_psum(x: Tensor, axes, mesh, node_axis: str | None = None,
+                      *, scatter_axis: int = 0) -> Tensor:
+    """Two-level ``psum`` of ``x`` over the mesh ``axes``: fast links
+    within a node, only a ``1/k`` shard across the slow node boundary.
+
+    ``node_axis`` names the mesh axis of the ``k`` devices *within* one
+    node; the other ``axes`` cross nodes.  :func:`reduce_scatter` within
+    ``node_axis`` along ``scatter_axis``, the ordered psum of the shard
+    across the node-crossing axes, then :func:`all_gather` back: each rank
+    sends ``2 B (k - 1) / k`` bytes within the node and ``2 (B / k) (m - 1)
+    / m`` across nodes, where the flat sum sends ``2 B`` across them.  The
+    same sum as :func:`ordered_psum` grouped otherwise, so equal to it at
+    fp32 tolerance, the same bits on every rank and bitwise repeatable.
+    Falls back to the flat :func:`ordered_psum` whenever the decomposition
+    cannot apply: ``node_axis`` is ``None`` or not among ``axes``, it is
+    the only reduced axis, its size is 1, or ``x.shape[scatter_axis]`` does
+    not divide by it.  The result keeps ``x``'s layout."""
+    axes, inter = _levels(x, axes, mesh, node_axis, scatter_axis)
+    if inter is None:
+        return ordered_psum(x, axes, mesh)
+    return PendingHierarchicalSum(x, node_axis, inter, mesh, scatter_axis).wait()
+
+
+class PendingHierarchicalSum:
+    """A two-level sum whose reduce-scatter is in flight (over
+    ``node_axis``; ``inter`` are the node-crossing axes): :meth:`wait`
+    adds the received chunks in group-rank order, reduces the shard across
+    nodes and gathers it back, in ``t``'s layout."""
+
+    def __init__(self, t: Tensor, node_axis: str, inter, mesh, scatter_axis: int):
+        self.t, self.node_axis, self.inter, self.mesh = t, node_axis, inter, mesh
+        self.scatter_axis = scatter_axis
+        self.received, self.work, self.src = _scatter_issue(
+            t, node_axis, mesh, scatter_axis, True
+        )
+
+    def wait(self) -> Tensor:
+        self.work.wait()
+        shard = ordered_psum(_scatter_sum(self.received, self.scatter_axis), self.inter,
+                             self.mesh)
+        out = all_gather(shard, self.node_axis, self.mesh, gather_axis=self.scatter_axis)
+        self.received = self.work = self.src = None
+        return _keep_layout(out, self.t)
+
+
+def hierarchical_psum_async(t: Tensor, axes, mesh, node_axis: str | None = None,
+                            *, scatter_axis: int = 0):
+    """Issue :func:`hierarchical_psum` with its reduce-scatter asynchronous
+    (``async_op=True``); ``.wait()`` gives the sum.  Where the sum falls
+    back to the flat one, :func:`ordered_psum_async`."""
+    axes, inter = _levels(t, axes, mesh, node_axis, scatter_axis)
+    if inter is None:
+        return ordered_psum_async(t, axes, mesh)
+    return PendingHierarchicalSum(t, node_axis, inter, mesh, scatter_axis)
 
 
 def compressed_psum(x: Tensor, axis_name, err: Tensor, mesh) -> tuple[Tensor, Tensor]:

@@ -1,6 +1,6 @@
 """Block-distributed MTTKRP and CP-ALS over a ``torch.distributed`` DeviceMesh.
 
-Port of the flat entries of ``repro.dist.dist_mttkrp``.  The paper's
+Port of ``repro.dist.dist_mttkrp``.  The paper's
 shared-memory parallelization assigns contiguous row blocks of the
 (never-materialized) matricization to threads; the distributed port
 assigns contiguous *index blocks of the tensor modes* to devices.  A
@@ -31,15 +31,21 @@ route through the one engine of :mod:`repro_torch.plan.sweep`
 (``ShardedExecutor`` holds the mesh); this module keeps the placement
 primitives and the entry points of the reference's names.
 
-Besides the plain entries: the overlapped ones (distribution slice 2:
-``dist_mttkrp_overlapped`` cuts the local MTTKRP into slabs along mode
-``n`` and issues each slab's reduction asynchronously before the next
-slab's contraction; a tree node's reduction is issued slab by slab the
-same way), and the compressed ones (slice 3: ``dist_mttkrp_compressed``
-and ``dist_contract_*_compressed`` complete with the int8 error-feedback
-gather of :func:`repro_torch.dist.collectives.compressed_psum`, this
-rank's residual threaded through).  ``collective="hierarchical"`` comes
-with distribution slice 4.
+Besides the plain entries: the overlapped ones (``dist_mttkrp_overlapped``
+cuts the local MTTKRP into slabs along mode ``n`` and issues each slab's
+reduction asynchronously before the next slab's contraction; a tree
+node's reduction is issued slab by slab the same way), and the compressed
+ones (``dist_mttkrp_compressed`` and ``dist_contract_*_compressed``
+complete with the int8 error-feedback gather of
+:func:`repro_torch.dist.collectives.compressed_psum`, this rank's residual
+threaded through).  Every entry takes the reference's
+``collective="hierarchical"`` with a ``node_axis``: each reduction is then
+:func:`repro_torch.dist.collectives.hierarchical_psum`, the reduce-scatter
+within the node axis along the block's leading row axis, the ordered psum
+across nodes and the gather back; under compression the intra-node stage
+stays exact and only the cross-node one is int8.  :func:`dist_pp_pairs`
+builds the pairwise-perturbation intermediates of a sharded problem, each
+reduced over the axes of its contracted modes only.
 """
 
 from __future__ import annotations
@@ -50,8 +56,16 @@ import torch
 
 from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
 from repro_torch.core.mttkrp import Method, mttkrp, mttkrp_batched
+from repro_torch.core.tensor_ops import mode_letters
 
-from .collectives import _Count, compressed_psum, ordered_psum, ordered_psum_async
+from .collectives import (
+    _Count,
+    compressed_psum,
+    hierarchical_psum,
+    hierarchical_psum_async,
+    ordered_psum,
+    ordered_psum_async,
+)
 
 Tensor = torch.Tensor
 ModeAxes = Mapping[int, str]
@@ -66,19 +80,53 @@ DEFAULT_OVERLAP_CHUNKS = 4
 # the block (every mode but the first): ``calls`` and ``bytes`` copied
 SLAB_COPIES = _Count()
 
-# Collective strategies of the reference's node reductions; "hierarchical"
-# (reduce-scatter within the node axis, cross-node psum, all-gather back)
-# comes with distribution slice 4 of the port.
+# Collective strategies a node reduction can complete with: "flat" is the
+# ordered psum over every reduced axis; "hierarchical" the two-level one of
+# repro_torch.dist.collectives.hierarchical_psum (reduce-scatter within the
+# node axis, ordered psum of the shard across nodes, all-gather back).
 COLLECTIVES = ("flat", "hierarchical")
 
 
 def _validate_collective(collective: str) -> None:
     if collective not in COLLECTIVES:
         raise ValueError(f"unknown collective {collective!r} (choose from {COLLECTIVES})")
+
+
+def _node_psum(m: Tensor, reduce_axes, mesh, collective: str, node_axis: str | None,
+               *, scatter_axis: int = 0) -> Tensor:
+    """Complete one node contraction's reduction over ``reduce_axes``:
+    :func:`~repro_torch.dist.collectives.hierarchical_psum` with
+    ``node_axis`` as the intra-node level under ``"hierarchical"`` (the
+    flat sum wherever the decomposition cannot apply), the ordered psum
+    under ``"flat"``."""
+    _validate_collective(collective)
     if collective == "hierarchical":
-        raise NotImplementedError(
-            "the hierarchical collective comes with distribution slice 4 of the port"
-        )
+        return hierarchical_psum(m, reduce_axes, mesh, node_axis, scatter_axis=scatter_axis)
+    return ordered_psum(m, reduce_axes, mesh)
+
+
+def _node_psum_async(m: Tensor, reduce_axes, mesh, collective: str, node_axis: str | None,
+                     *, scatter_axis: int = 0):
+    """:func:`_node_psum` issued asynchronously: ``.wait()`` gives the sum."""
+    if collective == "hierarchical":
+        return hierarchical_psum_async(m, reduce_axes, mesh, node_axis,
+                                       scatter_axis=scatter_axis)
+    return ordered_psum_async(m, reduce_axes, mesh)
+
+
+def _compressed_reduce(out: Tensor, reduce_axes, mesh, err: Tensor, collective: str,
+                       node_axis: str | None) -> tuple[Tensor, Tensor]:
+    """The int8 error-feedback reduction of ``out`` over ``reduce_axes``.
+    Under ``"hierarchical"`` a reduction over ``node_axis`` and another
+    axis sums within the node exactly first and compresses only across
+    nodes; ``err`` keeps its shape (every rank of a node compresses the
+    same node sum)."""
+    _validate_collective(collective)
+    gather_axes = tuple(reduce_axes)
+    if collective == "hierarchical" and node_axis in reduce_axes and len(reduce_axes) > 1:
+        out = ordered_psum(out, (node_axis,), mesh)
+        gather_axes = tuple(a for a in reduce_axes if a != node_axis)
+    return compressed_psum(out, gather_axes, err.reshape(out.shape), mesh)
 
 
 def _axis_sizes(mesh) -> dict[str, int]:
@@ -236,11 +284,20 @@ def mttkrp_block(
     mesh,
     method: Method = "auto",
     tiles: Mapping[str, int] | None = None,
+    *,
+    collective: str = "flat",
+    node_axis: str | None = None,
 ) -> Tensor:
     """Mode-``n`` MTTKRP of this rank's blocks (a leading batch axis runs
-    the batched MTTKRP), reduced over the axes mapped to modes != n."""
+    the batched MTTKRP), reduced over the axes mapped to modes != n
+    (``collective`` and ``node_axis`` as in :func:`dist_mttkrp`; the
+    scatter axis is the output's row axis)."""
     m = _local_mttkrp(x, factors, n, method, tiles)
-    return ordered_psum(m, _reduce_axes(mode_axes, (n,)), mesh)
+    axes = _reduce_axes(mode_axes, (n,))
+    if not axes:
+        return m
+    lead = 1 if x.ndim == len(factors) + 1 else 0
+    return _node_psum(m, axes, mesh, collective, node_axis, scatter_axis=lead)
 
 
 def _slab(x: Tensor, dim: int, i0: int, i1: int) -> Tensor:
@@ -264,6 +321,9 @@ def mttkrp_overlapped_block(
     method: Method = "auto",
     tiles: Mapping[str, int] | None = None,
     n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
+    *,
+    collective: str = "flat",
+    node_axis: str | None = None,
 ) -> Tensor:
     """:func:`mttkrp_block` with the reduction pipelined behind the
     contraction: the block is cut into ``n_chunks`` slabs along mode ``n``,
@@ -271,17 +331,24 @@ def mttkrp_overlapped_block(
     once by its asynchronous reduction, and the reductions are waited for
     in order and laid side by side.  Slabs own disjoint output rows, so
     this is one reduction's result up to the slab contractions' own
-    rounding (a slab's kernel may split its sum otherwise).  No collective
-    to hide, ``n_chunks <= 1`` or one local row: :func:`mttkrp_block`."""
+    rounding (a slab's kernel may split its sum otherwise).  Under
+    ``collective="hierarchical"`` each slab's reduce-scatter is the
+    asynchronous step; a slab whose rows the node axis does not divide
+    reduces flat.  No collective to hide, ``n_chunks <= 1`` or one local
+    row: :func:`mttkrp_block`."""
+    _validate_collective(collective)
     axes = _reduce_axes(mode_axes, (n,))
     lead = 1 if x.ndim == len(factors) + 1 else 0
     local_in = x.shape[lead + n]
     if not axes or n_chunks <= 1 or local_in <= 1:
-        return mttkrp_block(x, factors, n, mode_axes, mesh, method=method, tiles=tiles)
+        return mttkrp_block(x, factors, n, mode_axes, mesh, method=method, tiles=tiles,
+                            collective=collective, node_axis=node_axis)
     bounds = _chunk_bounds(local_in, n_chunks)
     pending = [
-        ordered_psum_async(_local_mttkrp(_slab(x, lead + n, i0, i1), factors, n, method, tiles),
-                           axes, mesh)
+        _node_psum_async(
+            _local_mttkrp(_slab(x, lead + n, i0, i1), factors, n, method, tiles),
+            axes, mesh, collective, node_axis, scatter_axis=lead,
+        )
         for i0, i1 in zip(bounds[:-1], bounds[1:])
     ]
     return torch.cat([p.wait() for p in pending], dim=lead)
@@ -296,17 +363,22 @@ def mttkrp_compressed_block(
     err: Tensor,
     method: Method = "auto",
     tiles: Mapping[str, int] | None = None,
+    *,
+    collective: str = "flat",
+    node_axis: str | None = None,
 ) -> tuple[Tensor, Tensor]:
     """Mode-``n`` MTTKRP of this rank's blocks completed by the int8
     error-feedback gather over the axes mapped to modes != n; ``err`` is
-    this rank's residual (the local output block's shape).  Returns
-    ``(result, new_err)``; with nothing to reduce, the exact result and
-    ``err`` unchanged."""
+    this rank's residual (the local output block's shape).  Under
+    ``collective="hierarchical"`` the ``node_axis`` stage is an exact sum
+    first and only the cross-node one is compressed.  Returns ``(result,
+    new_err)``; with nothing to reduce, the exact result and ``err``
+    unchanged."""
     axes = _reduce_axes(mode_axes, (n,))
     m = _local_mttkrp(x, factors, n, method, tiles)
     if not axes:
         return m, err
-    return compressed_psum(m, axes, err.reshape(m.shape), mesh)
+    return _compressed_reduce(m, axes, mesh, err, collective, node_axis)
 
 
 def _contract_local(
@@ -356,6 +428,8 @@ def contract_block(
     *,
     from_root: bool,
     n_chunks: int = 1,
+    collective: str = "flat",
+    node_axis: str | None = None,
 ) -> Tensor:
     """One schedule node on this rank's blocks: the range contraction of
     the raw tensor block (``from_root``) or the contraction of a partial
@@ -365,7 +439,10 @@ def contract_block(
     output's first kept mode), the overlapping executor's tree-node path:
     every slab's reduction is issued asynchronously, then each is waited
     for in order and written into its rows.  Elementwise sums of disjoint
-    rows of one local result: bitwise the values of one reduction."""
+    rows of one local result: bitwise the values of one reduction (under
+    ``collective="hierarchical"`` the slab's rows are what the node axis
+    scatters, so a slab may group its sum otherwise than the whole)."""
+    _validate_collective(collective)
     out, contracted, lead = _contract_local(
         src, factors, lo, hi, parent_lo, parent_hi, from_root=from_root
     )
@@ -374,9 +451,10 @@ def contract_block(
         return out
     bounds = _chunk_bounds(out.shape[lead], n_chunks)
     if len(bounds) == 2:
-        return ordered_psum(out, reduce_axes, mesh)
+        return _node_psum(out, reduce_axes, mesh, collective, node_axis, scatter_axis=lead)
     pending = [
-        (i0, i1, ordered_psum_async(out.narrow(lead, i0, i1 - i0), reduce_axes, mesh))
+        (i0, i1, _node_psum_async(out.narrow(lead, i0, i1 - i0), reduce_axes, mesh,
+                                  collective, node_axis, scatter_axis=lead))
         for i0, i1 in zip(bounds[:-1], bounds[1:])
     ]
     total = torch.empty_like(out)  # the local result's layout, as one reduction keeps it
@@ -397,10 +475,13 @@ def contract_block_compressed(
     err: Tensor,
     *,
     from_root: bool,
+    collective: str = "flat",
+    node_axis: str | None = None,
 ) -> tuple[Tensor, Tensor]:
     """:func:`contract_block` completed by the int8 error-feedback gather
     over the node's reduce axes, ``err`` this rank's residual of the node
-    (the local output block's shape).  Returns ``(result, new_err)``; with
+    (the local output block's shape; the hierarchical split as in
+    :func:`mttkrp_compressed_block`).  Returns ``(result, new_err)``; with
     nothing to reduce, the exact result and ``err`` unchanged."""
     out, contracted, _ = _contract_local(
         src, factors, lo, hi, parent_lo, parent_hi, from_root=from_root
@@ -408,7 +489,37 @@ def contract_block_compressed(
     reduce_axes = _node_reduce_axes(mode_axes, contracted)
     if not reduce_axes:
         return out, err
-    return compressed_psum(out, reduce_axes, err.reshape(out.shape), mesh)
+    return _compressed_reduce(out, reduce_axes, mesh, err, collective, node_axis)
+
+
+def pp_pairs_block(
+    x: Tensor, factors: Sequence[Tensor], mode_axes: ModeAxes, mesh
+) -> dict[tuple[int, int], Tensor]:
+    """Every pairwise-perturbation intermediate of this rank's blocks:
+    ``{(n, m): this rank's block of M_nm}`` for every ``n < m``, in the
+    rank-major layout of :class:`repro_torch.plan.schedule.PPPair`
+    (``(C, I_n / p_n, I_m / p_m)``, after a leading axis of the local batch
+    when batched).  Per pair the LocalExecutor's own einsum on the blocks
+    (rank-last, then rank moved to the front and made contiguous), then the
+    ordered reduction over the axes mapped to the contracted modes only:
+    the kept modes' axes carry the pair's rows and columns, as the factors
+    the corrections perturb are cut.  A batch-parallel placement, or no
+    mapped mode at all (``mode_axes`` empty; ``mesh`` is then not read:
+    the local executor's pairs), reduces nothing."""
+    order = len(factors)
+    letters = mode_letters(order)
+    out: dict[tuple[int, int], Tensor] = {}
+    for n in range(order):
+        for m in range(n + 1, order):
+            others = [k for k in range(order) if k not in (n, m)]
+            spec = (
+                ",".join(["..." + letters] + ["..." + letters[k] + "c" for k in others])
+                + "->..." + letters[n] + letters[m] + "c"
+            )
+            p = torch.einsum(spec, x, *[factors[k] for k in others])
+            p = torch.movedim(p, -1, -3).contiguous()
+            out[(n, m)] = ordered_psum(p, _reduce_axes(mode_axes, (n, m)), mesh)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -440,12 +551,40 @@ def dist_mttkrp(
     A leading batch axis on ``x`` (``x.ndim == len(factors) + 1``) is cut
     over ``batch_axes`` and each rank runs the batched MTTKRP on its whole
     problems; batch axes are never reduced, which is why a batch-parallel
-    placement moves no reduce traffic.  ``collective`` is ``"flat"``
-    (``"hierarchical"`` and ``node_axis`` come with distribution slice 4).
+    placement moves no reduce traffic.
+
+    ``collective="hierarchical"`` completes the reduction with
+    :func:`repro_torch.dist.collectives.hierarchical_psum` instead of the
+    flat ordered psum: reduce-scatter of the output rows within
+    ``node_axis`` (the intra-node mesh axis), ordered psum of the ``1/k``
+    shard across nodes, all-gather back -- the same value up to the
+    grouping of the sum, ``k`` times less volume on the slow level.
     """
     _validate_collective(collective)
     xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
-    return mttkrp_block(xs, fs, n, mode_axes, mesh, method=method, tiles=tiles)
+    return mttkrp_block(xs, fs, n, mode_axes, mesh, method=method, tiles=tiles,
+                        collective=collective, node_axis=node_axis)
+
+
+def dist_pp_pairs(
+    x: Tensor,
+    factors: Sequence[Tensor],
+    mode_axes: ModeAxes,
+    mesh,
+    *,
+    batch_axes: Sequence[str] = (),
+) -> dict[tuple[int, int], Tensor]:
+    """All pairwise-perturbation intermediates of the block-distributed
+    global tensor ``x``: for every mode pair ``n < m``,
+    ``M_nm[c, i_n, i_m] = sum X * prod_{k not in {n, m}} U_k[i_k, c]`` with
+    the full MTTKRP's treatment and two kept modes instead of one (see
+    :func:`pp_pairs_block`).  A leading batch axis (``x.ndim ==
+    len(factors) + 1``) is cut over ``batch_axes`` and never reduced.
+    Returns ``{(n, m): this rank's block}``, the global pair ``(C, I_n,
+    I_m)`` (batch-led when batched) cut over the axes of modes ``n`` and
+    ``m``."""
+    xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
+    return pp_pairs_block(xs, fs, mode_axes, mesh)
 
 
 def dist_contract_range(
@@ -470,12 +609,15 @@ def dist_contract_range(
     contracted modes.  Returns this rank's block of the partial tensor
     (``x.shape[lo:hi] + (C,)`` globally), distributed over the axes of its
     surviving modes.  ``n_chunks > 1`` reduces slab by slab along mode
-    ``lo``, with the same values as one reduction.
+    ``lo``, with the same values as one reduction.  ``collective`` and
+    ``node_axis`` as in :func:`dist_mttkrp` (the scatter axis is mode
+    ``lo``).
     """
     _validate_collective(collective)
     xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
     return contract_block(
-        xs, fs, lo, hi, 0, len(factors), mode_axes, mesh, from_root=True, n_chunks=n_chunks
+        xs, fs, lo, hi, 0, len(factors), mode_axes, mesh, from_root=True, n_chunks=n_chunks,
+        collective=collective, node_axis=node_axis,
     )
 
 
@@ -516,14 +658,14 @@ def dist_contract_partial(
     the modes outside ``[lo, hi)`` with their row-distributed factors (a
     multi-TTV, the rank axis shared), and one ordered reduction over those
     modes' axes completes it.  Returns this rank's block.  With a single
-    kept mode this is the leaf update off a partial.  ``n_chunks`` as in
-    :func:`dist_contract_range`.
+    kept mode this is the leaf update off a partial.  ``n_chunks``,
+    ``collective`` and ``node_axis`` as in :func:`dist_contract_range`.
     """
     _validate_collective(collective)
     ts, fs = _partial_blocks(t, factors, parent_lo, parent_hi, mode_axes, mesh, batch_axes)
     return contract_block(
         ts, fs, lo, hi, parent_lo, parent_hi, mode_axes, mesh, from_root=False,
-        n_chunks=n_chunks,
+        n_chunks=n_chunks, collective=collective, node_axis=node_axis,
     )
 
 
@@ -555,13 +697,15 @@ def dist_mttkrp_overlapped(
     :func:`dist_mttkrp`'s up to each slab contraction's own rounding.
     Falls back to :func:`dist_mttkrp` when the mapping needs no reduction,
     ``n_chunks <= 1`` or the local extent of mode ``n`` is 1.  Returns this
-    rank's block.  ``collective`` is ``"flat"`` (``"hierarchical"`` comes
-    with distribution slice 4).
+    rank's block.  ``collective="hierarchical"`` completes each slab's
+    reduction with the two-level sum (a slab whose row count the
+    ``node_axis`` size does not divide reduces flat, still exact).
     """
     _validate_collective(collective)
     xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
     return mttkrp_overlapped_block(
-        xs, fs, n, mode_axes, mesh, method=method, tiles=tiles, n_chunks=n_chunks
+        xs, fs, n, mode_axes, mesh, method=method, tiles=tiles, n_chunks=n_chunks,
+        collective=collective, node_axis=node_axis,
     )
 
 
@@ -612,12 +756,17 @@ def dist_mttkrp_compressed(
     output block's shape).  Returns ``(this rank's block, new_err)``.  The
     carried residual keeps the accumulated quantization error within one
     int8 step, which lets compressed CP-ALS track the exact fit.
-    ``collective`` is ``"flat"`` (the hierarchical split around the
-    compressor comes with distribution slice 4).
+
+    ``collective="hierarchical"`` splits the levels around the compressor:
+    the ``node_axis`` (intra-node) reduction is an exact ordered sum
+    first, then only the cross-node exchange is quantized -- every rank of
+    a node compresses the same node sum, so the residual's shape and carry
+    are unchanged while the int8 gather spans the nodes only.
     """
     _validate_collective(collective)
     xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
-    return mttkrp_compressed_block(xs, fs, n, mode_axes, mesh, err, method=method, tiles=tiles)
+    return mttkrp_compressed_block(xs, fs, n, mode_axes, mesh, err, method=method, tiles=tiles,
+                                   collective=collective, node_axis=node_axis)
 
 
 def dist_contract_range_compressed(
@@ -637,11 +786,13 @@ def dist_contract_range_compressed(
     the int8 error-feedback gather over the same axes, ``err`` this rank's
     residual of the node (its output block's shape).  Returns ``(this
     rank's block, new_err)``; the exact path when the node reduces
-    nothing."""
+    nothing.  ``collective`` and ``node_axis`` as in
+    :func:`dist_mttkrp_compressed`."""
     _validate_collective(collective)
     xs, fs = shard_problem(x, factors, mode_axes, mesh, batch_axes=batch_axes)
     return contract_block_compressed(
-        xs, fs, lo, hi, 0, len(factors), mode_axes, mesh, err, from_root=True
+        xs, fs, lo, hi, 0, len(factors), mode_axes, mesh, err, from_root=True,
+        collective=collective, node_axis=node_axis,
     )
 
 
@@ -661,12 +812,14 @@ def dist_contract_partial_compressed(
     node_axis: str | None = None,
 ) -> tuple[Tensor, Tensor]:
     """:func:`dist_contract_partial` with the node's reduction compressed
-    (``err`` as in :func:`dist_contract_range_compressed`); returns ``(this
-    rank's block, new_err)``."""
+    (``err``, ``collective`` and ``node_axis`` as in
+    :func:`dist_contract_range_compressed`); returns ``(this rank's block,
+    new_err)``."""
     _validate_collective(collective)
     ts, fs = _partial_blocks(t, factors, parent_lo, parent_hi, mode_axes, mesh, batch_axes)
     return contract_block_compressed(
-        ts, fs, lo, hi, parent_lo, parent_hi, mode_axes, mesh, err, from_root=False
+        ts, fs, lo, hi, parent_lo, parent_hi, mode_axes, mesh, err, from_root=False,
+        collective=collective, node_axis=node_axis,
     )
 
 

@@ -38,9 +38,9 @@ def make_node_mesh(
 
     Axis ``axis_names[0]`` (default ``"node"``) spans the nodes,
     ``axis_names[1]`` (default ``"device"``) the devices within one node:
-    consecutive ranks share a node, as a launcher numbers them.  The
-    hierarchical collectives that use the two levels come with
-    distribution slice 4 of the port; on this slice's flat reductions it
-    is a 2-axis mesh like any other.
+    consecutive ranks share a node, as a launcher numbers them.  Pair it
+    with ``Problem(intra_axes=(axis_names[1],))``: the planner then prices
+    each reduction's two levels apart and may pick the hierarchical
+    collective, which reduce-scatters over ``axis_names[1]``.
     """
     return _mesh((nodes, devices_per_node), tuple(axis_names), device)

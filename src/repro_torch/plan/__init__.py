@@ -37,12 +37,20 @@ tensors (``Problem(batch=B)``):
   candidate plan's contractions on the tensor's device into a
   :class:`TuningCache`, which ``plan_sweep(strategy="autotune")`` reads
   through :func:`lookup_measurements`.
+* Two-level collectives (Ballard/Knight/Rouse, arXiv 1708.07401): problems
+  built with ``intra_axes`` declare a fast intra-node level of the mesh;
+  the cost model prices each node reduction's intra- and inter-node bytes
+  apart (:func:`collective_level_bytes`), the planner picks flat or
+  hierarchical per node (:func:`hierarchical_applicable` gates it),
+  enumerates alternative mode-to-axis mappings and certifies the winner
+  against the communication lower bound a node
+  (:func:`mttkrp_comm_lower_bound`), stamped as
+  ``SweepPlan.certified_bandwidth_optimal``.
 
 Sharded problems plan with ``plan_sweep`` as unsharded ones do:
 ``executor="auto"`` argmins the sharded kinds; ``tune(mesh=, mode_axes=)``
-measures them.  Two-level meshes and sharded pairwise perturbation raise
-``NotImplementedError`` naming the distribution slice of the port that
-brings them (4 and 5).
+measures them (``intra_axes=`` on a two-level mesh), and ``pp_tol > 0``
+runs pairwise perturbation on this rank's blocks.
 """
 
 from .autotune import (
@@ -58,10 +66,13 @@ from .cost import (
     EXECUTORS,
     PP_EXACT_FRACTION,
     ModeCost,
+    collective_level_bytes,
     compressed_allgather_bytes,
     dimtree_mode_cost,
     executor_mode_cost,
+    hierarchical_applicable,
     mode_cost,
+    mttkrp_comm_lower_bound,
     node_cost,
     pp_amortized_cost,
     pp_build_cost,
@@ -128,6 +139,7 @@ __all__ = [
     "binary_schedule",
     "build_schedule",
     "chain_schedule",
+    "collective_level_bytes",
     "compressed_allgather_bytes",
     "cp_als",
     "default_tuning_cache",
@@ -135,10 +147,12 @@ __all__ = [
     "enumerate_schedules",
     "executor_mode_cost",
     "flat_schedule",
+    "hierarchical_applicable",
     "legacy_sweep",
     "lookup_measurements",
     "make_executor",
     "mode_cost",
+    "mttkrp_comm_lower_bound",
     "node_cost",
     "plan_sweep",
     "pp_amortized_cost",

@@ -32,9 +32,11 @@ executor's serial fraction from the measured sharded/overlapping pairs
 must decide alike, or they deadlock on the next collective: every
 measured time is the maximum over the ranks (the slowest rank sets a
 sweep's pace) and the budget is spent when any rank's is, each agreed by
-one gather an axis, so every rank stores the same entry.  Two-level
-meshes (``intra_axes``) come with distribution slice 4, sharded pairwise
-perturbation with slice 5.
+one gather an axis, so every rank stores the same entry.  On a two-level
+mesh (``tune(intra_axes=)``) every node whose reduction spans both levels
+is timed flat and hierarchical (the ``|coll=hierarchical`` key field), so
+the planner's per-node choice argmins measured times; a sharded
+``pp_tol > 0`` problem times its PP rows on this rank's blocks.
 """
 
 from __future__ import annotations
@@ -489,14 +491,19 @@ def _tune_nodes(
     out.  Stops cleanly when ``budget`` runs out: unmeasured nodes keep
     their analytic costs at plan time.  Sharded, every time is the
     maximum over the ranks and the budget's end is agreed (see
-    :class:`_Budget`), so every rank walks, times and stores alike.
+    :class:`_Budget`), so every rank walks, times and stores alike.  On a
+    two-level problem every node whose reduction spans both levels is
+    timed under both collectives, the executors reducing over the
+    problem's ``node_axis``.
     """
+    from .cost import hierarchical_applicable
     from .executor import make_executor
     from .planner import plan_sweep
     from .schedule import enumerate_schedules
 
     kinds = ("sharded", "overlapping", "compressed") if problem.mode_axes else ("local",)
-    executors = {kind: make_executor(kind, mesh, mode_axes) for kind in kinds}
+    executors = {kind: make_executor(kind, mesh, mode_axes, node_axis=problem.node_axis)
+                 for kind in kinds}
     # every sharded kind places the problem alike: one set of blocks
     xs, fs = executors[kinds[0]].prepare(problem, x, list(factors))
     # flat first: its leaves are the full per-mode MTTKRPs every tree shares,
@@ -515,32 +522,37 @@ def _tune_nodes(
                 planned = plan.node_plan(node.id).algorithm
                 leaf = node.from_root and node.is_leaf
                 algs = _leaf_algorithms(problem, node, kernels=kernels) if leaf else (planned,)
+                colls = (("flat", "hierarchical")
+                         if hierarchical_applicable(problem, node.reduce_axes) else ("flat",))
                 for alg in algs:
                     tl = {"fused": fused_tiles, "matrix_free": matrix_free_tiles}.get(alg)
+                    for coll in colls:
 
-                    def fn(node=node, src=src, alg=alg, tl=tl, ex=ex, carry=carry):
-                        if carry is not None:
-                            return ex.contract_carry(node, src, fs, alg, carry, tiles=tl)
-                        return ex.contract(node, src, fs, alg, tiles=tl)
+                        def fn(node=node, src=src, alg=alg, tl=tl, ex=ex, carry=carry,
+                               coll=coll):
+                            if carry is not None:
+                                return ex.contract_carry(node, src, fs, alg, carry, tiles=tl,
+                                                         collective=coll)
+                            return ex.contract(node, src, fs, alg, tiles=tl, collective=coll)
 
-                    key = node_key(node, alg, kind)
-                    if key not in seen and not budget.exhausted():
-                        seen.add(key)
-                        rows.append(
-                            {
-                                "key": key,
-                                "executor": kind,
-                                "algorithm": alg,
-                                "collective": "flat",
-                                "schedule": sched.name,
-                                "node": node.id,
-                                "measured_s": budget.agree(_time(fn, reps, x.device)),
-                            }
-                        )
-                    # the planned contraction feeds the children, and a
-                    # compressed leaf's moves the residuals on
+                        key = node_key(node, alg, kind, coll)
+                        if key not in seen and not budget.exhausted():
+                            seen.add(key)
+                            rows.append(
+                                {
+                                    "key": key,
+                                    "executor": kind,
+                                    "algorithm": alg,
+                                    "collective": coll,
+                                    "schedule": sched.name,
+                                    "node": node.id,
+                                    "measured_s": budget.agree(_time(fn, reps, x.device)),
+                                }
+                            )
+                    # the planned contraction (flat) feeds the children, and
+                    # a compressed leaf's moves the residuals on
                     if alg == planned and (not node.is_leaf or carry is not None):
-                        out = fn()
+                        out = fn(coll="flat")
                         if carry is not None:
                             out, carry = out
                         if not node.is_leaf:
@@ -604,19 +616,29 @@ def node_key_from(key: str) -> str:
 
 
 def _tune_pp(
-    problem: Problem, x: Tensor, factors: Sequence[Tensor], *, reps: int, budget: _Budget
+    problem: Problem,
+    x: Tensor,
+    factors: Sequence[Tensor],
+    *,
+    reps: int,
+    budget: _Budget,
+    mesh=None,
+    mode_axes: Mapping[int, str] | None = None,
 ) -> dict[str, float]:
     """Measure the two pairwise-perturbation phases of a ``pp_tol > 0``
     problem: ``build_s`` (the cache build: pairwise intermediates and bases,
     what a rebuilding exact sweep pays on top) and ``correct_sweep_s`` (one
     correction-only sweep, what replaces the exact sweep while the drifts
     stay under tolerance).  These are the measured inputs of
-    :func:`repro_torch.plan.cost.pp_amortized_cost`."""
+    :func:`repro_torch.plan.cost.pp_amortized_cost`.  A sharded problem is
+    timed on this rank's blocks under the sharded executor, its sums over
+    the mesh included, each time agreed over the ranks."""
     from . import sweep as sweeplib  # lazy: sweep imports planner/executor
-    from .executor import LocalExecutor
+    from .executor import make_executor
     from .planner import plan_sweep
 
-    ex = LocalExecutor()
+    kind = "sharded" if problem.sharded else "local"
+    ex = make_executor(kind, mesh, mode_axes, node_axis=problem.node_axis)
     xs, fs = ex.prepare(problem, x, list(factors))
     rows: dict[str, float] = {}
     if budget.exhausted():
@@ -628,18 +650,19 @@ def _tune_pp(
     rows["build_s"] = budget.agree(_time(build, reps, x.device))
     if budget.exhausted():
         return rows
-    plan = plan_sweep(problem, executor="local", schedule="flat")
+    plan = plan_sweep(problem, executor=kind, schedule="flat")
+    norm = tensor_norm(xs)
     state = sweeplib.SweepState(
         x=xs,
         factors=list(fs),
         weights=torch.ones((problem.rank,), dtype=xs.dtype, device=xs.device),
-        norm_x=tensor_norm(xs).to(xs.dtype),
+        norm_x=torch.sqrt(ex.allsum(norm * norm, range(problem.ndim))).to(xs.dtype),
         it=0,
-        grams=sweeplib.grams(fs),
+        grams=sweeplib._grams(fs, ex.allsum),
         pp=build(),
     )
     rows["correct_sweep_s"] = budget.agree(
-        _time(lambda: sweeplib._pp_sweep(problem, plan, state), reps, x.device)
+        _time(lambda: sweeplib._pp_sweep(problem, plan, state, ex), reps, x.device)
     )
     return rows
 
@@ -701,21 +724,18 @@ def tune(
     the overlap constants are fitted from the measured pairs into the
     entry's ``serial_fractions`` (clamped to [0, 1]), and every time, the
     budget's end and ``elapsed_ms`` are agreed over the ranks (the maximum,
-    one gather an axis), so every rank stores the same entry.
-    ``intra_axes`` (two-level meshes, distribution slice 4) and ``pp_tol >
-    0`` with a mesh (sharded PP, slice 5) raise ``NotImplementedError``.
+    one gather an axis), so every rank stores the same entry; with
+    ``pp_tol > 0`` the PP rows are timed on this rank's blocks.
+    ``intra_axes`` declares the fast (intra-node) mesh axes of a two-level
+    mesh, as on :class:`~repro_torch.plan.problem.Problem`: every node
+    whose reduction spans both levels is then timed under the flat and the
+    hierarchical collective, and the entry's key carries the node
+    topology, so two-level measurements never collide with single-level
+    ones.
     """
-    if intra_axes:
-        raise NotImplementedError(
-            "two-level meshes (intra_axes) come with distribution slice 4 of the port"
-        )
-    if mesh is not None and pp_tol > 0.0:
-        raise NotImplementedError(
-            "pairwise perturbation on a sharded problem comes with distribution "
-            "slice 5 of the port (sharded PP)"
-        )
     cache = cache or default_tuning_cache()
-    problem = Problem.from_tensor(x, rank, mode_axes=mode_axes, mesh=mesh, pp_tol=pp_tol)
+    problem = Problem.from_tensor(x, rank, mode_axes=mode_axes, mesh=mesh, pp_tol=pp_tol,
+                                  intra_axes=intra_axes)
     if factors is None:
         gen = torch.Generator(device=x.device).manual_seed(seed)
         factors = random_factors(gen, x.shape, rank, x.dtype, device=x.device)
@@ -751,7 +771,8 @@ def tune(
         ),
     }
     pp_rows = (
-        _tune_pp(problem, x, factors, reps=reps, budget=budget) if problem.pp_tol > 0.0 else {}
+        _tune_pp(problem, x, factors, reps=reps, budget=budget, mesh=mesh, mode_axes=mode_axes)
+        if problem.pp_tol > 0.0 else {}
     )
     entry = {
         "backend": backend_name(),

@@ -5,33 +5,35 @@ Port of ``repro.plan.cost`` for the ``"local"``, ``"sharded"``,
 :func:`mode_cost`, :func:`node_cost`, :func:`executor_mode_cost` and
 :func:`dimtree_mode_cost` (each with the reference's ``collective``
 keyword), :func:`validate_executor`, :func:`compressed_allgather_bytes`,
-and the pairwise-perturbation prices (:func:`pp_build_cost`,
+the two-level prices (:func:`collective_level_bytes`,
+:func:`hierarchical_applicable`) and the Ballard-Knight-Rouse
+communication lower bound (:func:`mttkrp_comm_lower_bound`), and the
+pairwise-perturbation prices (:func:`pp_build_cost`,
 :func:`pp_correction_cost`, :func:`pp_amortized_cost`,
 :data:`PP_EXACT_FRACTION`).  The flop/byte terms are the reference's,
 term for term, on the per-device block dims of a sharded problem; a
 batched problem scales every term by its ``local_batch`` (nothing is
 shared across the batch).  A sharded node's completing reduction is
-priced as the reference prices its flat psum: the ring all-reduce volume
-of the local output block over the axes mapped to the contracted modes
-(``collective_bytes``, equal to the reference's byte for byte).  Seconds
-come from the H100 constants of :mod:`repro_torch.analysis.roofline`
-under the reference's bounded-overlap model::
+priced as the reference prices its psum: the ring all-reduce volume of
+the local output block over the axes mapped to the contracted modes
+(``collective_bytes``), split on a two-level mesh (``Problem.intra_axes``)
+into the bytes that stay in a node and those that cross nodes
+(``inter_bytes``), equal to the reference's byte for byte.  Seconds come
+from the H100 constants of :mod:`repro_torch.analysis.roofline` under the
+reference's bounded-overlap model::
 
     predicted_s = max(compute_s, collective_s)
                 + serial_fraction * min(compute_s, collective_s)
 
 with ``compute_s = flops / PEAK_FLOPS + bytes / HBM_BW`` and
-``collective_s = collective_bytes / NVLINK_BW``.  ``serial_fraction`` is 1
-on the plain executors (the reduction waits for the whole contraction)
-and ``1 / n_chunks`` on the overlapping one; the compressed executor
-replaces the ring by the int8 gather's bytes and adds its quantize and
-dequantize passes.  Measured fractions enter through ``serial_fractions``.
-With H100 constants a plan may legitimately choose other algorithms and
-executors than the JAX package chooses.
-
-Two-level meshes and hierarchical collectives come with distribution
-slice 4, the collective terms of sharded pairwise perturbation with
-slice 5.
+``collective_s = intra_bytes / NVLINK_BW + inter_bytes / INFINIBAND_BW``.
+``serial_fraction`` is 1 on the plain executors (the reduction waits for
+the whole contraction) and ``1 / n_chunks`` on the overlapping one; the
+compressed executor replaces the ring by the int8 gather's bytes and adds
+its quantize and dequantize passes.  Measured fractions enter through
+``serial_fractions``.  With H100 constants a plan may legitimately choose
+other algorithms, executors, collectives and mappings than the JAX
+package chooses (the links' ratio is 18x here, 4x there).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ import math
 from dataclasses import dataclass, replace
 from typing import Mapping
 
-from repro_torch.analysis.roofline import HBM_BW, NVLINK_BW, PEAK_FLOPS
+from repro_torch.analysis.roofline import HBM_BW, INFINIBAND_BW, NVLINK_BW, PEAK_FLOPS
 from repro_torch.core.mttkrp import mttkrp_flops
 from repro_torch.core.tensor_ops import dims_split
 
@@ -97,29 +99,123 @@ def validate_executor(problem: Problem, executor: str) -> None:
         raise ValueError(f"executor {executor!r} cannot run this problem: {reason}")
 
 
-def _check_unsharded_pp(problem: Problem) -> None:
-    if problem.sharded:
-        raise NotImplementedError(
-            "pairwise perturbation on a sharded problem comes with distribution "
-            "slice 5 of the port (sharded PP)"
-        )
+def _level_shards(problem: Problem, reduce_axes) -> tuple[int, int]:
+    """Split one reduction's participants into (intra ``k``, inter ``m``)
+    shards: ``k`` over the axes of ``Problem.intra_axes``, ``m`` over the
+    node-crossing rest."""
+    k = m = 1
+    for axis in reduce_axes:
+        if axis in problem.intra_axes:
+            k *= problem.axis_sizes[axis]
+        else:
+            m *= problem.axis_sizes[axis]
+    return k, m
 
 
-def _collective_bytes(problem: Problem, block_bytes: float, reduce_axes) -> float:
-    """Per-device wire bytes of the flat reduction that completes one
-    contraction: the ring all-reduce volume of the ``block_bytes`` output
-    block over ``reduce_axes`` (0 when nothing is reduced), the
-    reference's single-level accounting.  A two-level problem
-    (``Problem.intra_axes``) splits it over two links: that comes with
-    distribution slice 4 of the port."""
-    p = math.prod(problem.axis_sizes[a] for a in reduce_axes)
-    if p <= 1:
-        return 0.0
-    if problem.intra_axes:
-        raise NotImplementedError(
-            "two-level meshes (intra_axes) come with distribution slice 4 of the port"
-        )
-    return ring_allreduce_bytes(block_bytes, p)
+def collective_level_bytes(
+    problem: Problem, block_bytes: float, reduce_axes, collective: str = "flat"
+) -> tuple[float, float]:
+    """Per-device ``(collective_bytes, inter_bytes)`` of one node's
+    reduction of a ``block_bytes`` output block over ``reduce_axes``, as
+    the reference splits it:
+
+    * a single-level problem (no ``intra_axes``): the ring volume, all on
+      the fast links (``inter_bytes = 0``);
+    * a reduction within one node (``m <= 1``): the ring over the intra
+      shards, nothing crosses nodes;
+    * a reduction only across nodes (``k <= 1``): the whole ring on the
+      slow level;
+    * ``"flat"`` spanning both: one ring over all ``k * m`` devices, its
+      slowest hops across nodes, so all of it is charged there;
+    * ``"hierarchical"``: reduce-scatter and all-gather within the node
+      (``2 B (k - 1) / k``) and a ring over the ``1/k`` shard across nodes
+      (``2 (B / k) (m - 1) / m`` inter), the factor-``k`` cut of the slow
+      level's volume.
+    """
+    k, m = _level_shards(problem, reduce_axes)
+    if k * m <= 1:
+        return 0.0, 0.0
+    if not problem.intra_axes:
+        return ring_allreduce_bytes(block_bytes, k * m), 0.0
+    if m <= 1:
+        return ring_allreduce_bytes(block_bytes, k), 0.0
+    if k <= 1:
+        t = ring_allreduce_bytes(block_bytes, m)
+        return t, t
+    if collective != "hierarchical":
+        t = ring_allreduce_bytes(block_bytes, k * m)
+        return t, t
+    intra = ring_allreduce_bytes(block_bytes, k)
+    inter = ring_allreduce_bytes(block_bytes / k, m)
+    return intra + inter, inter
+
+
+def hierarchical_applicable(problem: Problem, reduce_axes) -> bool:
+    """True when a node's reduction spans both levels of a two-level mesh
+    (``k > 1`` intra shards and ``m > 1`` nodes): only then does the
+    hierarchical sum decompose instead of falling back to the flat one, so
+    only then has the planner a flat-or-hierarchical choice."""
+    k, m = _level_shards(problem, reduce_axes)
+    return k > 1 and m > 1
+
+
+def _node_grids(n_modes: int, nodes: int):
+    """All integer grids ``(m_1 .. m_N)`` with ``prod m_i == nodes``."""
+    if n_modes == 1:
+        yield (nodes,)
+        return
+    d = 1
+    while d * d <= nodes:
+        if nodes % d == 0:
+            for q in (d, nodes // d):
+                for rest in _node_grids(n_modes - 1, nodes // q):
+                    yield (q,) + rest
+                if d * d == nodes:
+                    break
+        d += 1
+
+
+def mttkrp_comm_lower_bound(
+    shape, rank: int, mesh_shape, *, itemsize: float = 4.0, per_mode: bool = False
+):
+    """Communication lower bound of one full MTTKRP sweep over ``P`` nodes,
+    the reference's Ballard/Knight/Rouse-style accounting (arXiv
+    1708.07401): a block placement of the dense tensor on ``P`` nodes is an
+    integer grid ``(m_1 .. m_N)`` with ``prod m_n = P``, and mode ``n``'s
+    MTTKRP then reduces partial factor blocks across the ``P / m_n`` nodes
+    sharing a mode-``n`` slab -- at best a ring all-reduce of the ``(I_n /
+    m_n, R)`` block, ``2 (I_n / m_n) R s (1 - m_n / P)`` bytes a node.  The
+    bound is the least per-sweep sum over all grids (fractional blocks
+    allowed, so it bounds every realizable mapping).
+
+    ``mesh_shape`` is the node count, or a tuple whose product is taken.
+    Returns bytes a node a sweep; with ``per_mode=True`` ``(bound, terms,
+    grid)``, ``terms[n]`` mode ``n``'s share at the minimizing grid.
+    """
+    dims = tuple(int(d) for d in shape)
+    if not dims:
+        raise ValueError("shape must have at least one mode")
+    nodes = mesh_shape
+    if not isinstance(nodes, int):
+        nodes = math.prod(int(x) for x in mesh_shape)
+    nodes = int(nodes)
+    if nodes < 1:
+        raise ValueError(f"node count must be >= 1, got {nodes}")
+    s = float(itemsize)
+    best = None
+    best_grid = None
+    for grid in _node_grids(len(dims), nodes):
+        total = 0.0
+        for d, m in zip(dims, grid):
+            total += 2.0 * (d / m) * rank * s * (1.0 - m / nodes)
+        if best is None or total < best:
+            best, best_grid = total, grid
+    if not per_mode:
+        return best
+    terms = tuple(
+        2.0 * (d / m) * rank * s * (1.0 - m / nodes) for d, m in zip(dims, best_grid)
+    )
+    return best, terms, best_grid
 
 
 @dataclass(frozen=True)
@@ -130,8 +226,9 @@ class ModeCost:
     ``mttkrp_flops`` (local block dims for sharded problems); ``bytes`` is
     total HBM traffic including intermediates; ``collective_bytes`` is the
     per-device wire volume of the completing reduction (0 on unsharded
-    problems) and ``inter_bytes`` its node-crossing share (0: one level,
-    until two-level meshes come with slice 4).  ``serial_fraction`` is the
+    problems) and ``inter_bytes`` its share that crosses the node boundary
+    of a two-level mesh, priced at ``INFINIBAND_BW`` (0 on one level, where
+    all of it rides NVLink).  ``serial_fraction`` is the
     executor's unhidable share of the smaller of the compute and collective
     times (1: no overlap, the additive model).  ``measured_s`` is a
     hardware-measured time from the tuning cache (``None`` when never
@@ -166,9 +263,10 @@ class ModeCost:
 
     @property
     def collective_s(self) -> float:
-        """Wire time of the completing collective at the nominal
-        ``NVLINK_BW``."""
-        return self.intra_bytes / NVLINK_BW
+        """Wire time of the completing collective: the intra-node bytes at
+        the nominal ``NVLINK_BW``, the node-crossing ones at
+        ``INFINIBAND_BW``."""
+        return self.intra_bytes / NVLINK_BW + self.inter_bytes / INFINIBAND_BW
 
     @property
     def predicted_s(self) -> float:
@@ -251,8 +349,9 @@ def mode_cost(
     block dims, with the ring all-reduce of the local output block over the
     axes mapped to the contracted modes for a sharded problem (none when
     mode ``n`` is the only mapped mode: its axis carries the output rows).
-    ``collective`` is the reference's keyword: on a single-level mesh both
-    ``"flat"`` and ``"hierarchical"`` price the flat ring, as there.
+    On a two-level problem ``collective`` picks how that volume splits over
+    the levels (:func:`collective_level_bytes`); on one level both values
+    price the flat ring, as in the reference.
 
     ``"dimtree"`` prices the mode's share of the balanced binary schedule
     via :func:`dimtree_mode_cost`.
@@ -268,7 +367,9 @@ def mode_cost(
     base = mttkrp_flops(shape, c, n, itemsize=s, batch=lb)
     L, In, R = dims_split(shape, n)
     out_bytes = In * c * s * lb
-    wire = dict(collective_bytes=_collective_bytes(problem, out_bytes, problem.reduce_axes_for(n)))
+    coll, inter = collective_level_bytes(problem, out_bytes, problem.reduce_axes_for(n),
+                                         collective)
+    wire = dict(collective_bytes=coll, inter_bytes=inter)
 
     if algorithm == "2step" and not problem.external_mode(n):
         # forced 2-step resolves its order by cost, like the Alg. 4 line-4 rule
@@ -343,19 +444,38 @@ def mode_cost(
 
 
 def _compress_terms(
-    problem: Problem, base: ModeCost, block_bytes: float, participants: int
+    problem: Problem,
+    base: ModeCost,
+    block_bytes: float,
+    participants: int,
+    *,
+    reduce_axes=(),
+    collective: str = "flat",
 ) -> ModeCost:
     """Replace a node's ring all-reduce by the int8 error-feedback gather:
     the wire bytes become :func:`compressed_allgather_bytes` of the local
     output block, and HBM traffic grows by the quantize pass (write and
     read the int8 block) and the dequantize pass (read the ``p - 1``
-    gathered payloads).  One level only: the hierarchical split around the
-    compressor comes with distribution slice 4."""
-    int8_block = block_bytes * _INT8_ITEMSIZE / problem.itemsize
+    gathered payloads).  On a two-level problem ``"hierarchical"`` prices
+    the split the executors run: an exact ring within the node and the
+    int8 gather across the ``m`` nodes only."""
+    s = problem.itemsize
+    int8_block = block_bytes * _INT8_ITEMSIZE / s
+    k, m = _level_shards(problem, reduce_axes)
+    if collective == "hierarchical" and k > 1 and m > 1:
+        intra = ring_allreduce_bytes(block_bytes, k)
+        inter = compressed_allgather_bytes(block_bytes, m, s)
+        return replace(
+            base,
+            collective_bytes=intra + inter,
+            inter_bytes=inter,
+            bytes=base.bytes + (m + 1) * int8_block,
+        )
+    coll = compressed_allgather_bytes(block_bytes, participants, s)
     return replace(
         base,
-        collective_bytes=compressed_allgather_bytes(block_bytes, participants, problem.itemsize),
-        inter_bytes=0.0,
+        collective_bytes=coll,
+        inter_bytes=coll if (problem.intra_axes and m > 1) else 0.0,
         bytes=base.bytes + (participants + 1) * int8_block,
     )
 
@@ -370,13 +490,16 @@ def _adjust(
     block_bytes: float,
     participants: int,
     serial_fractions: Mapping[str, float] | None,
+    reduce_axes=(),
+    collective: str = "flat",
 ) -> ModeCost:
     """The executor's adjustment of a node's terms: the compression terms,
     then the schedule's serial fraction (``1 / chunks`` on the overlapping
     executor, chunks capped by the slab axis' local extent, unless a
     fitted fraction is given)."""
     if executor == "compressed" and base.collective_bytes > 0.0:
-        base = _compress_terms(problem, base, block_bytes, participants)
+        base = _compress_terms(problem, base, block_bytes, participants,
+                               reduce_axes=reduce_axes, collective=collective)
     fitted = (serial_fractions or {}).get(executor)
     if base.collective_bytes <= 0.0:
         return base
@@ -418,10 +541,12 @@ def executor_mode_cost(
     base = mode_cost(problem, n, algorithm, collective=collective)
     _, in_local, _ = dims_split(problem.local_shape, n)
     block = in_local * problem.rank * problem.itemsize * problem.local_batch
-    p = math.prod(problem.axis_sizes[a] for a in problem.reduce_axes_for(n))
+    axes = problem.reduce_axes_for(n)
+    p = math.prod(problem.axis_sizes[a] for a in axes)
     return _adjust(
         problem, base, executor, chunk_extent=problem.local_shape[n], n_chunks=n_chunks,
         block_bytes=block, participants=p, serial_fractions=serial_fractions,
+        reduce_axes=axes, collective=collective,
     )
 
 
@@ -446,7 +571,8 @@ def node_cost(
       partial per contracted mode, shrinking as it goes;
 
     each plus the ring all-reduce of its output block over the axes of the
-    mapped modes contracted at that node, adjusted for the executor as in
+    mapped modes contracted at that node (split over the levels of a
+    two-level mesh per ``collective``), adjusted for the executor as in
     :func:`executor_mode_cost` (the overlapping executor's slabs run along
     the node's first kept mode).
     """
@@ -465,7 +591,8 @@ def node_cost(
     lb = problem.local_batch
     local = problem.local_shape
     t_bytes = math.prod(node.local_shape) * lb * s  # kept local dims * rank (x batch)
-    wire = dict(collective_bytes=_collective_bytes(problem, t_bytes, node.reduce_axes))
+    coll, inter = collective_level_bytes(problem, t_bytes, node.reduce_axes, collective)
+    wire = dict(collective_bytes=coll, inter_bytes=inter)
     if node.from_root:
         total = math.prod(local) * lb
         krp_elems = (
@@ -495,7 +622,7 @@ def node_cost(
     return _adjust(
         problem, base, executor, chunk_extent=local[node.lo], n_chunks=n_chunks,
         block_bytes=t_bytes, participants=node.psum_participants,
-        serial_fractions=serial_fractions,
+        serial_fractions=serial_fractions, reduce_axes=node.reduce_axes, collective=collective,
     )
 
 
@@ -525,49 +652,54 @@ def dimtree_mode_cost(
 
 def pp_build_cost(problem: Problem) -> ModeCost:
     """Cost of materializing the pairwise-perturbation cache once: one pass
-    over the tensor per pair intermediate ``M_{n,m}`` (the per-pair einsum
-    the executor runs, not an amortizing tree), plus the N small base
-    contractions ``M_{n,m} x V_m``.  Paid on every exact sweep that
-    rebuilds, so the planner adds it to the exact-sweep term.  A sharded
-    problem raises ``NotImplementedError`` (distribution slice 5)."""
-    _check_unsharded_pp(problem)
+    over the (local) tensor per pair intermediate ``M_{n,m}`` (the per-pair
+    einsum the executor runs, not an amortizing tree), each completed by
+    its ring all-reduce over the axes mapped to the contracted modes
+    (:func:`repro_torch.plan.schedule.pp_pairs` stamps the volume), plus
+    the N small base contractions ``M_{n,m} x V_m``.  Paid on every exact
+    sweep that rebuilds, so the planner adds it to the exact-sweep term."""
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch
-    total = math.prod(problem.shape) * lb
-    gemm = byts = 0.0
+    total = math.prod(problem.local_shape) * lb
+    gemm = byts = coll = 0.0
     for pair in pp_pairs(problem):
         gemm += 2.0 * total * c
         byts += total * s + math.prod(pair.local_shape) * lb * s
+        coll += pair.psum_bytes
     # base terms: one correction-shaped GEMM per mode off its first pair
     for n in range(problem.ndim):
         m = 1 if n == 0 else 0
-        ln, lm = problem.shape[n], problem.shape[m]
+        ln, lm = problem.local_shape[n], problem.local_shape[m]
         gemm += 2.0 * ln * lm * c * lb
         byts += (ln * lm * c + lm * c + ln * c) * s * lb
-    return ModeCost(gemm_flops=gemm, krp_flops=0.0, second_step_flops=0.0, bytes=byts)
+    return ModeCost(gemm_flops=gemm, krp_flops=0.0, second_step_flops=0.0, bytes=byts,
+                    collective_bytes=coll)
 
 
 def pp_correction_cost(problem: Problem) -> ModeCost:
     """Cost of ONE approximate (correction-only) PP sweep, all modes: each
     mode's MTTKRP is its cached base plus ``N - 1`` small GEMMs
     ``(C, I_n, I_m) x (I_m, C) -> (I_n, C)``, so the sweep never touches
-    the tensor: ``O(sum I_n I_m C)`` flops instead of ``O(N |X| C)``."""
-    _check_unsharded_pp(problem)
+    the tensor: ``O(sum I_n I_m C)`` flops instead of ``O(N |X| C)``.  On
+    a sharded problem the contraction over a mapped mode ``m`` ends in a
+    ring all-reduce of the ``(I_n, C)`` block over that mode's axis."""
     c = problem.rank
     s = problem.itemsize
     lb = problem.local_batch
-    gemm = byts = 0.0
+    gemm = byts = coll = 0.0
     for n in range(problem.ndim):
-        ln = problem.shape[n]
+        ln = problem.local_shape[n]
         out_bytes = ln * c * s * lb
         for m in range(problem.ndim):
             if m == n:
                 continue
-            lm = problem.shape[m]
+            lm = problem.local_shape[m]
             gemm += 2.0 * ln * lm * c * lb
             byts += (ln * lm * c + lm * c) * s * lb + out_bytes
-    return ModeCost(gemm_flops=gemm, krp_flops=0.0, second_step_flops=0.0, bytes=byts)
+            coll += ring_allreduce_bytes(out_bytes, problem.mode_shards(m))
+    return ModeCost(gemm_flops=gemm, krp_flops=0.0, second_step_flops=0.0, bytes=byts,
+                    collective_bytes=coll)
 
 
 def pp_amortized_cost(

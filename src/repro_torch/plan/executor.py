@@ -3,8 +3,9 @@
 Port of ``repro.plan.executor``: the :class:`Executor` protocol,
 :class:`LocalExecutor` (schedule nodes and the pairwise-perturbation
 intermediates on one device), :class:`ShardedExecutor` (the same local
-contractions on this rank's block of a DeviceMesh-sharded problem, each
-completed by the ordered reduction of :mod:`repro_torch.dist`),
+contractions and pairwise intermediates on this rank's block of a
+DeviceMesh-sharded problem, each completed by the ordered reduction of
+:mod:`repro_torch.dist`, flat or two-level as the plan's node says),
 :class:`OverlappingExecutor` (the same results, each node's reduction
 issued slab by slab behind the contraction: communication hiding, exact),
 :class:`CompressedShardedExecutor` (each node's reduction the int8
@@ -32,7 +33,6 @@ import torch
 
 from repro_torch.core.dimtree import contract_from_partial, partial_mttkrp_range
 from repro_torch.core.mttkrp import mttkrp, mttkrp_batched
-from repro_torch.core.tensor_ops import mode_letters
 
 from repro_torch.dist.collectives import gather_cat, ordered_psum
 from repro_torch.dist.dist_mttkrp import (
@@ -42,6 +42,7 @@ from repro_torch.dist.dist_mttkrp import (
     mttkrp_block,
     mttkrp_compressed_block,
     mttkrp_overlapped_block,
+    pp_pairs_block,
     shard_problem,
 )
 
@@ -147,20 +148,10 @@ class LocalExecutor:
         One einsum a pair, contracted rank-last (the GEMM orientation), then
         rank moved to the front and made contiguous, so every correction is
         a stride-1 batched GEMM; a leading batch axis on ``x`` and the
-        factors broadcasts through the ``...`` prefix."""
-        order = problem.ndim
-        letters = mode_letters(order)
-        out: dict[tuple[int, int], Tensor] = {}
-        for n in range(order):
-            for m in range(n + 1, order):
-                others = [k for k in range(order) if k not in (n, m)]
-                spec = (
-                    ",".join(["..." + letters] + ["..." + letters[k] + "c" for k in others])
-                    + "->..." + letters[n] + letters[m] + "c"
-                )
-                p = torch.einsum(spec, x, *[factors[k] for k in others])
-                out[(n, m)] = torch.movedim(p, -1, -3).contiguous()
-        return out
+        factors broadcasts through the ``...`` prefix.  The sharded
+        executors' block build with no mapped mode, so nothing to reduce
+        (:func:`repro_torch.dist.dist_mttkrp.pp_pairs_block`)."""
+        return pp_pairs_block(x, list(factors), {}, None)
 
     def allsum(self, t: Tensor, modes: Sequence[int]) -> Tensor:
         """One device holds every row: the identity."""
@@ -189,8 +180,10 @@ class ShardedExecutor:
     batched problem is cut over (empty: batch whole on every rank, or no
     batch).  Batch-parallel placements (``mode_axes`` empty, ``batch_axes``
     set) run every contraction without a collective: each rank owns whole
-    problems.  ``node_axis`` names the intra-node axis of a two-level mesh,
-    for the hierarchical collective of distribution slice 4.
+    problems.  ``node_axis`` names the intra-node axis of a two-level mesh
+    (``Problem.node_axis`` of a problem built with ``intra_axes``): a node
+    planned with ``collective="hierarchical"`` reduce-scatters over it,
+    sums the shard across nodes and gathers it back.
     """
 
     # slab count of a tree node's reduction: 1 = one reduction
@@ -215,25 +208,32 @@ class ShardedExecutor:
     ) -> Tensor:
         """One schedule node on this rank's blocks: the local contraction
         plus the node's ordered reduction over the axes mapped to its
-        contracted modes.  ``collective`` is ``"flat"`` (the hierarchical
-        one comes with distribution slice 4)."""
+        contracted modes, flat or hierarchical (over ``node_axis``) per
+        ``collective``."""
         _validate_collective(collective)
         if node.from_root and node.is_leaf:
             return mttkrp_block(
                 src, list(factors), node.mode, self.mode_axes, self.mesh,
-                method=algorithm, tiles=tiles,
+                method=algorithm, tiles=tiles, collective=collective, node_axis=self.node_axis,
             )
         return contract_block(
             src, list(factors), node.lo, node.hi, node.parent_lo, node.parent_hi,
             self.mode_axes, self.mesh, from_root=node.from_root, n_chunks=self._n_chunks,
+            collective=collective, node_axis=self.node_axis,
         )
 
-    def pp_pairs(self, problem, x: Tensor, factors: Sequence[Tensor]):
-        """Sharded pairwise perturbation comes with distribution slice 5."""
-        raise NotImplementedError(
-            "pairwise perturbation on a sharded problem comes with distribution "
-            "slice 5 of the port (sharded PP)"
-        )
+    def pp_pairs(
+        self, problem, x: Tensor, factors: Sequence[Tensor]
+    ) -> dict[tuple[int, int], Tensor]:
+        """All pairwise-perturbation intermediates of this rank's blocks
+        (``x`` and ``factors`` as :meth:`prepare` cut them):
+        :func:`repro_torch.dist.dist_mttkrp.pp_pairs_block`, the local
+        einsum of :meth:`LocalExecutor.pp_pairs` on the blocks, each pair
+        reduced in order over the axes of its contracted modes only, so
+        pair ``(n, m)`` is cut over the axes of modes ``n`` and ``m`` as
+        the factors its corrections perturb.  The overlapping and
+        compressed executors inherit it: the build stays exact."""
+        return pp_pairs_block(x, list(factors), self.mode_axes, self.mesh)
 
     def allsum(self, t: Tensor, modes: Sequence[int]) -> Tensor:
         """``t`` summed over the ranks that hold different index blocks of
@@ -283,12 +283,13 @@ class OverlappingExecutor(ShardedExecutor):
         collective: str = "flat",
     ) -> Tensor:
         """One schedule node with its reduction issued behind the slab
-        contractions."""
+        contractions (flat or hierarchical per ``collective``)."""
         _validate_collective(collective)
         if node.from_root and node.is_leaf:
             return mttkrp_overlapped_block(
                 src, list(factors), node.mode, self.mode_axes, self.mesh,
                 method=algorithm, tiles=tiles, n_chunks=self.n_chunks,
+                collective=collective, node_axis=self.node_axis,
             )
         return super().contract(node, src, factors, algorithm, tiles=tiles, collective=collective)
 
@@ -338,7 +339,9 @@ class CompressedShardedExecutor(ShardedExecutor):
         """Compressed node contraction; returns ``(result, new_carry)``.  A
         node without a residual runs the exact path and leaves the carry as
         it is; ``tiles`` threads the plan's kernel knob into the local
-        MTTKRP."""
+        MTTKRP.  With ``collective="hierarchical"`` the intra-node stage is
+        an exact sum over ``node_axis`` and only the cross-node one is
+        compressed."""
         _validate_collective(collective)
         if carry is None or node.id not in carry:
             out = self.contract(node, src, factors, algorithm, tiles=tiles, collective=collective)
@@ -347,12 +350,13 @@ class CompressedShardedExecutor(ShardedExecutor):
         if node.from_root and node.is_leaf:
             out, new_err = mttkrp_compressed_block(
                 src, list(factors), node.mode, self.mode_axes, self.mesh, err,
-                method=algorithm, tiles=tiles,
+                method=algorithm, tiles=tiles, collective=collective, node_axis=self.node_axis,
             )
         else:
             out, new_err = contract_block_compressed(
                 src, list(factors), node.lo, node.hi, node.parent_lo, node.parent_hi,
                 self.mode_axes, self.mesh, err, from_root=node.from_root,
+                collective=collective, node_axis=self.node_axis,
             )
         return out, {**carry, node.id: new_err}
 
@@ -374,8 +378,9 @@ def make_executor(
     ``n_chunks`` sizes the overlapping executor's slab pipeline;
     ``batch_axes`` names the mesh axes a batched problem's leading batch
     dimension is cut over (batch-parallel placements pass ``mode_axes={}``
-    plus the batch axes); ``node_axis`` names the intra-node axis of a
-    two-level mesh.
+    plus the batch axes); ``node_axis`` names the intra-node mesh axis the
+    hierarchical collective decomposes over (``Problem.node_axis`` for
+    problems built with ``intra_axes``).
     """
     if kind not in EXECUTORS:
         raise ValueError(f"unknown executor kind {kind!r} (choose from {EXECUTORS})")

@@ -25,15 +25,25 @@ more than 10%, ``_COMPRESS_MARGIN``) on predicted sweep seconds, as the
 reference's :func:`select_executor` does; a batch-parallel placement has
 no reduction and runs ``"sharded"``.  Every node is priced on the
 per-device block, and a batched mode-parallel problem is argmin'd against
-its all-batch-parallel remap (``SweepPlan.placements``).  Two-level meshes
-(``Problem.intra_axes``; distribution slice 4) and sharded pairwise
-perturbation (slice 5) raise ``NotImplementedError``.  ``describe()``
-keeps the reference's JSON layout (the mapping rows of two-level planning
-are empty here).
+its all-batch-parallel remap (``SweepPlan.placements``).
+
+Two-level meshes (``Problem.intra_axes``) plan against the
+Ballard-Knight-Rouse communication lower bound, as the reference does:
+every node whose reduction spans both levels is argmin'd flat against
+hierarchical (``NodePlan.collective``), alternative mode-to-axis mappings
+of the same mesh are enumerated until one's modeled node-crossing volume
+is within ``certify_eps`` of the bound (``SweepPlan.mappings``,
+``lower_bound_bytes``, ``certified_bandwidth_optimal``).  The winning
+mapping is ``SweepPlan.problem``: build the executor and the blocks from
+its ``mode_axes`` and ``node_axis``.  With the H100's links (NVLink 18x
+the node-crossing rate, against the reference's 4x) the per-node choice
+and the mapping may differ from the reference's.  ``describe()`` keeps the
+reference's JSON layout.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass, replace
 from typing import Mapping
@@ -43,6 +53,8 @@ from .cost import (
     EXECUTORS,
     ModeCost,
     executor_mode_cost,
+    hierarchical_applicable,
+    mttkrp_comm_lower_bound,
     node_cost,
     pp_amortized_cost,
     validate_executor,
@@ -106,8 +118,11 @@ class NodePlan:
     ``"partial-krp"`` for root-level partial GEMMs, and ``"partial-ttv"``
     for contractions of an already-computed partial.  ``tiles`` carries a
     tuned tile config read from the tuning cache for kernel-backed leaves.
-    ``collective`` is the completing reduction the executor runs:
-    ``"flat"`` (the hierarchical one comes with distribution slice 4).
+    ``collective`` is the completing reduction the executor runs
+    (``"flat"`` or ``"hierarchical"``, argmin'd per node on two-level
+    meshes).  ``lower_bound_bytes`` is a leaf's share of the
+    Ballard-Knight-Rouse lower bound (bytes a node a sweep), stamped when
+    the plan was certified against it; ``None`` elsewhere.
     """
 
     node: ContractionNode
@@ -115,6 +130,7 @@ class NodePlan:
     cost: ModeCost
     tiles: Mapping[str, int] | None = None
     collective: str = "flat"
+    lower_bound_bytes: float | None = None
 
     def as_dict(self) -> dict:
         """JSON-ready row: node topology metadata + every cost term."""
@@ -123,7 +139,7 @@ class NodePlan:
             "algorithm": self.algorithm,
             "tiles": dict(self.tiles) if self.tiles else None,
             "collective": self.collective,
-            "lower_bound_bytes": None,
+            "lower_bound_bytes": self.lower_bound_bytes,
             **self.cost.as_dict(),
         }
 
@@ -143,8 +159,15 @@ class SweepPlan:
     records each candidate's predicted cost and ``problem`` is the winning
     placement -- build the executor from ``plan.problem``'s
     ``mode_axes``/``batch_axes``, not from the problem that was planned.
-    ``mappings`` stays empty: two-level mapping search comes with
-    distribution slice 4.  ``serial_fractions`` records the overlap
+
+    On two-level meshes (``Problem.intra_axes``) the planner also argmins
+    over mesh mappings (mode-to-axis assignments), the flat-or-hierarchical
+    choice folded in per node: ``mappings`` records each evaluated
+    candidate with its modeled node-crossing volume a node and the
+    Ballard-Knight-Rouse lower bound, ``lower_bound_bytes`` is the winning
+    problem's bound (bytes a node a sweep) and
+    ``certified_bandwidth_optimal`` flags a winner within the planner's
+    ``certify_eps`` of it.  ``serial_fractions`` records the overlap
     constants the plan was priced with when it was given (or read from a
     tuning entry) any; ``None`` when the analytic defaults priced it.
 
@@ -170,6 +193,8 @@ class SweepPlan:
     pp_info: Mapping | None = None
     mappings: tuple[Mapping, ...] = ()
     serial_fractions: Mapping[str, float] | None = None
+    lower_bound_bytes: float | None = None
+    certified_bandwidth_optimal: bool = False
 
     @property
     def kind(self) -> str:
@@ -238,8 +263,8 @@ class SweepPlan:
             "serial_fractions": dict(self.serial_fractions or {}),
             "pp": {"enabled": self.pp, **dict(self.pp_info or {})},
             "mappings": [dict(m) for m in self.mappings],
-            "lower_bound_bytes": None,
-            "certified": False,
+            "lower_bound_bytes": self.lower_bound_bytes,
+            "certified": self.certified_bandwidth_optimal,
             "totals": self.total_cost(),
         }
 
@@ -267,6 +292,78 @@ def _placement_candidates(problem: Problem) -> list[Problem]:
                 replace(problem, mode_axes={}, batch_axes=tuple(sorted(problem.axis_sizes)))
             )
     return cands
+
+
+def _mapping_candidates(problem: Problem) -> list[Problem]:
+    """Alternative mode-to-axis assignments of a two-level problem's mesh:
+    every way to hand the axes the given mapping uses to distinct tensor
+    modes (divisibility-checked), the given one excluded -- the search
+    space of certified mesh planning.  Empty for a single-level problem,
+    whose planning never changes."""
+    if not (problem.intra_axes and problem.mode_axes):
+        return []
+    axes = sorted(set(problem.mode_axes.values()))
+    given = dict(problem.mode_axes)
+    out = []
+    for modes in itertools.permutations(range(problem.ndim), len(axes)):
+        mapping = dict(zip(modes, axes))
+        if mapping == given:
+            continue
+        if any(problem.shape[m] % problem.axis_sizes[a] for m, a in mapping.items()):
+            continue
+        out.append(replace(problem, mode_axes=mapping))
+    return out
+
+
+def _node_bound_bytes(problem: Problem) -> tuple[float, tuple[float, ...]] | None:
+    """(BKR bound, per-mode terms) in bytes a node a sweep for a two-level
+    mode-parallel problem; ``None`` where certification does not apply (a
+    flat mesh, a single node, or no mapped mode)."""
+    if not (problem.mode_axes and problem.intra_axes and problem.n_nodes > 1):
+        return None
+    bound, terms, _ = mttkrp_comm_lower_bound(
+        problem.shape, problem.rank, problem.n_nodes, itemsize=problem.itemsize, per_mode=True
+    )
+    lb = problem.local_batch
+    return bound * lb, tuple(t * lb for t in terms)
+
+
+def _pick_collective(
+    problem: Problem,
+    node: ContractionNode,
+    alg: str,
+    cost: ModeCost,
+    executor: str,
+    n_chunks: int,
+    serial_fractions: Mapping[str, float] | None,
+    measured=None,
+) -> tuple[str, ModeCost]:
+    """Flat-or-hierarchical argmin for one node's completing reduction.
+    ``cost`` is the node's flat cost (its measurement stamped when there is
+    one).  Where the reduction spans both levels the hierarchical variant
+    is priced head to head: measured seconds decide when both are
+    measured, the analytic prediction otherwise."""
+    if not hierarchical_applicable(problem, node.reduce_axes):
+        return "flat", cost
+    if node.from_root and node.is_leaf:
+        hier = executor_mode_cost(
+            problem, node.mode, alg, executor, n_chunks=n_chunks,
+            serial_fractions=serial_fractions, collective="hierarchical",
+        )
+    else:
+        hier = node_cost(
+            problem, node, executor, n_chunks=n_chunks,
+            serial_fractions=serial_fractions, collective="hierarchical",
+        )
+    if measured is not None:
+        m = measured.node_time(node, alg, executor, collective="hierarchical")
+        if m is not None:
+            hier = replace(hier, measured_s=m)
+    if cost.measured_s is not None and hier.measured_s is not None:
+        pick_hier = hier.measured_s < cost.measured_s
+    else:
+        pick_hier = hier.predicted_s < cost.predicted_s
+    return ("hierarchical", hier) if pick_hier else ("flat", cost)
 
 
 def _auto_mode(
@@ -330,7 +427,9 @@ def _plan_nodes(
     n_chunks: int = DEFAULT_OVERLAP_CHUNKS,
     serial_fractions: Mapping[str, float] | None = None,
 ) -> tuple[NodePlan, ...]:
-    """NodePlans in evaluation order for one (schedule, executor) pair."""
+    """NodePlans in evaluation order for one (schedule, executor) pair; on
+    a two-level mesh each node's reduction is also argmin'd flat against
+    hierarchical (:func:`_pick_collective`)."""
     plans = []
     for node in sched.walk():
         if node.from_root and node.is_leaf:
@@ -350,7 +449,10 @@ def _plan_nodes(
             tiles = None
             if measured is not None and alg in ("fused", "matrix_free"):
                 tiles = measured.kernel_tiles("fused_mttkrp" if alg == "fused" else alg)
-            plans.append(NodePlan(node, alg, cost, tiles=tiles))
+            coll, cost = _pick_collective(
+                problem, node, alg, cost, executor, n_chunks, serial_fractions, measured
+            )
+            plans.append(NodePlan(node, alg, cost, tiles=tiles, collective=coll))
         else:
             alg = "partial-krp" if node.from_root else "partial-ttv"
             cost = node_cost(
@@ -360,7 +462,10 @@ def _plan_nodes(
                 m = measured.node_time(node, alg, executor)
                 if m is not None:
                     cost = replace(cost, measured_s=m)
-            plans.append(NodePlan(node, alg, cost))
+            coll, cost = _pick_collective(
+                problem, node, alg, cost, executor, n_chunks, serial_fractions, measured
+            )
+            plans.append(NodePlan(node, alg, cost, collective=coll))
     return tuple(plans)
 
 
@@ -473,6 +578,7 @@ def plan_sweep(
     schedule: Schedule | str | None = None,
     serial_fractions: Mapping[str, float] | None = None,
     tuning_cache=None,
+    certify_eps: float = 0.25,
 ) -> SweepPlan:
     """Plan one full ALS sweep for ``problem`` (batched or not, sharded or
     not).
@@ -498,8 +604,16 @@ def plan_sweep(
     ``'matrix_free'`` read a tuned entry's fractions when none are given).
     A batched mode-parallel problem is argmin'd against its
     all-batch-parallel remap: the winner becomes ``SweepPlan.problem`` and
-    both candidates are recorded on ``SweepPlan.placements``.  Two-level
-    problems (``intra_axes``) raise (distribution slice 4).
+    both candidates are recorded on ``SweepPlan.placements``.
+
+    Two-level problems (``Problem.intra_axes``) plan against the
+    Ballard-Knight-Rouse communication lower bound: every node's reduction
+    is argmin'd flat against hierarchical, the alternative mode-to-axis
+    mappings of the same mesh are enumerated (divisibility-checked
+    permutations), each stamped with its modeled node-crossing volume a
+    node and the bound, and the enumeration stops once a candidate is
+    within ``certify_eps`` (relative) of the bound; the winner carries
+    ``certified_bandwidth_optimal`` and per-leaf ``lower_bound_bytes``.
 
     Problems with ``pp_tol > 0`` additionally price the pairwise-
     perturbation sweep mode (Ma & Solomonik): ``'auto'``/``'autotune'``
@@ -510,8 +624,8 @@ def plan_sweep(
     comparison runs on measured seconds only when both sides are measured
     (the winning schedule's nodes and the tuned PP rows).  ``'fused'``,
     ``'matrix_free'`` and the other forced strategies price PP but never
-    enable it.  A sharded problem with ``pp_tol > 0`` raises (sharded PP is
-    distribution slice 5).
+    enable it.  A sharded PP problem prices its pair reductions and the
+    corrections' sums over the mapped modes.
     """
     if strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {strategy!r} (choose from {STRATEGIES})")
@@ -522,15 +636,6 @@ def plan_sweep(
         )
     if executor != "auto":
         validate_executor(problem, executor)
-    if problem.sharded and problem.intra_axes:
-        raise NotImplementedError(
-            "two-level meshes (intra_axes) come with distribution slice 4 of the port"
-        )
-    if problem.sharded and problem.pp_tol > 0.0:
-        raise NotImplementedError(
-            "pairwise perturbation on a sharded problem comes with distribution "
-            "slice 5 of the port (sharded PP)"
-        )
     # "pp" forces the approximate sweep mode but still needs a full exact
     # plan (exact sweeps run it verbatim): its schedule and leaf choices
     # follow the "auto" cost argmin
@@ -568,16 +673,18 @@ def plan_sweep(
         # a batch-parallel placement has no reduction: the plain kind
         return ("sharded",) if prob.batch_axes else ("local",)
 
-    # a pinned Schedule instance is bound to one Problem, so placement
-    # exploration (which rebuilds schedules per candidate) is off
+    # a pinned Schedule instance is bound to one Problem, so placement and
+    # mapping exploration (which rebuild schedules per candidate) are off
     pinned = isinstance(schedule, Schedule)
-    picked = []  # rows: (problem, schedule, executor, node plans, analytic, measured)
-    for prob in [problem] if pinned else _placement_candidates(problem):
+
+    def evaluate(prob: Problem):
+        """One candidate problem's best (schedule, executor) row, or
+        ``None`` when a forced executor kind cannot run an alternate one."""
         if prob is not problem and executor != "auto":
             try:
                 validate_executor(prob, executor)
             except ValueError:
-                continue  # the forced kind cannot run the alternate placement
+                return None
         rows = [
             (sched,) + _best_executor(
                 prob, sched, node_strategy, candidates(prob), n_chunks, serial_fractions,
@@ -597,13 +704,77 @@ def plan_sweep(
             if flat_row is not None and best[0] is not flat_row[0]:
                 if best[3] >= _NEAR_TIE * flat_row[3]:
                     best = flat_row
-        picked.append((prob,) + best)
-    # placement argmin on the analytic totals: strict < keeps the as-given one
+        return (prob,) + best
+
+    def certify(row):
+        """(bound, node-crossing volume a node, certified) of one row;
+        ``(None, None, False)`` where the bound does not apply."""
+        bt = _node_bound_bytes(row[0])
+        if bt is None:
+            return None, None, False
+        bound, _ = bt
+        # per-device inter volume x devices a node = bytes crossing the node
+        # boundary a node a sweep, the quantity the bound limits
+        inter = sum(np_.cost.inter_bytes for np_ in row[3]) * row[0].intra_shards
+        return bound, inter, inter <= (1.0 + certify_eps) * bound
+
+    picked = []  # rows: (problem, schedule, executor, node plans, analytic, measured)
+    cert_rows = []  # (row, bound, inter, certified) of the rows the bound applies to
+    certified_found = False
+    for prob in [problem] if pinned else _placement_candidates(problem):
+        row = evaluate(prob)
+        if row is None:
+            continue
+        picked.append(row)
+        bound, inter, ok = certify(row)
+        if bound is not None:
+            cert_rows.append((row, bound, inter, ok))
+            certified_found = certified_found or ok
+    n_placements = len(picked)  # mapping rows appended below are not placements
+    # the mesh-mapping enumeration of a two-level problem, until a candidate
+    # certifies against the lower bound (skipped when the given one does)
+    if not pinned and not certified_found:
+        for prob in _mapping_candidates(problem):
+            row = evaluate(prob)
+            if row is None:
+                continue
+            picked.append(row)
+            bound, inter, ok = certify(row)
+            cert_rows.append((row, bound, inter, ok))
+            if ok:
+                break
+    # placement and mapping argmin on the analytic totals: strict < keeps
+    # the as-given problem on a tie
     winner = picked[0]
     for row in picked[1:]:
         if row[4] < winner[4]:
             winner = row
     prob, sched, chosen, node_plans = winner[0], winner[1], winner[2], winner[3]
+    lower_bound, certified = None, False
+    for row, bound, _, ok in cert_rows:
+        if row is winner:
+            lower_bound, certified = bound, ok
+            break
+    if lower_bound is not None:
+        _, terms = _node_bound_bytes(prob)
+        node_plans = tuple(
+            replace(np_, lower_bound_bytes=terms[np_.node.mode]) if np_.node.is_leaf else np_
+            for np_ in node_plans
+        )
+    mapping_rows = tuple(
+        {
+            "mode_axes": {str(k): v for k, v in row[0].mode_axes.items()},
+            "executor": row[2],
+            "schedule": row[1].name,
+            "predicted_s": row[4],
+            "inter_bytes_per_node": inter,
+            "lower_bound_bytes": bound,
+            "certified": ok,
+            "collectives": [np_.collective for np_ in row[3]],
+            "selected": row is winner,
+        }
+        for row, bound, inter, ok in cert_rows
+    )
     placement_rows = tuple(
         {
             "placement": _placement_label(r[0]),
@@ -615,8 +786,8 @@ def plan_sweep(
             "collective_bytes": sum(np_.cost.collective_bytes for np_ in r[3]),
             "selected": r is winner,
         }
-        for r in picked
-    ) if len(picked) > 1 else ()
+        for r in picked[:n_placements]
+    ) if n_placements > 1 else ()
 
     # pairwise perturbation, priced against the chosen exact plan whenever
     # the problem opted in; measured and analytic seconds never meet in one
@@ -658,5 +829,8 @@ def plan_sweep(
         placements=placement_rows,
         pp=pp_enabled,
         pp_info=pp_info,
+        mappings=mapping_rows,
         serial_fractions=dict(serial_fractions) if serial_fractions else None,
+        lower_bound_bytes=lower_bound,
+        certified_bandwidth_optimal=certified,
     )

@@ -32,6 +32,16 @@ the same bits, and a world of one runs the local engine's operations.
 Executors with the carry extension (``contract_carry``, ``init_carry``:
 the compressed executor's per-node residuals) have their state threaded
 through ``SweepState.carry`` across every node contraction.
+
+Sharded PP holds this rank's block of each pair, ``(C, I_n / p_n, I_m /
+p_m)``, and completes every sum the reference's global arrays complete
+silently: a correction or base term sums over the rows of its partner
+mode ``m`` (``allsum`` over mode ``m``), and the drift's squared
+numerators and denominators sum over mode ``n`` before the square root,
+the batch's maximum taken over every rank of the batch axes
+(``gather_fits``).  Every rank then reads the same gate on the host and
+takes the same branch: a rank that branched otherwise would deadlock at
+the next collective.
 """
 
 from __future__ import annotations
@@ -125,16 +135,23 @@ class PPState:
     drift_max: float | None = None
 
 
-def _pp_drift(factors: Sequence[Tensor], ref: Sequence[Tensor]) -> Tensor:
+def _pp_drift(factors: Sequence[Tensor], ref: Sequence[Tensor], executor=None) -> Tensor:
     """Per-factor relative drift ``||U_n - V_n||_F / ||V_n||_F`` as an
     ``(ndim,)`` float32 vector (max over the batch when batched) -- the
-    quantity the PP gate compares against ``Problem.pp_tol``."""
+    quantity the PP gate compares against ``Problem.pp_tol``.  With a
+    sharded ``executor`` the squared sums of factor ``n`` are summed over
+    the ranks holding its other rows before the square root, and the batch
+    maximum spans the whole batch, so every rank holds the same bits."""
+    allsum = executor.allsum if executor is not None else _no_sum
     ds = []
-    for u, v in zip(factors, ref):
+    for n, (u, v) in enumerate(zip(factors, ref)):
         du = (u - v).float()
-        num = torch.sqrt(torch.sum(du * du, dim=(-2, -1)))
-        den = torch.sqrt(torch.sum(v.float() ** 2, dim=(-2, -1)))
-        ds.append(torch.max(num / torch.clamp(den, min=1e-30)))
+        num = torch.sqrt(allsum(torch.sum(du * du, dim=(-2, -1)), (n,)))
+        den = torch.sqrt(allsum(torch.sum(v.float() ** 2, dim=(-2, -1)), (n,)))
+        ratio = num / torch.clamp(den, min=1e-30)
+        if executor is not None and ratio.ndim:
+            ratio = executor.gather_fits([ratio])[0]
+        ds.append(torch.max(ratio))
     return torch.stack(ds)
 
 
@@ -156,21 +173,33 @@ def _pp_contract_first(pair: Tensor, v: Tensor) -> Tensor:
     return out.transpose(-1, -2)
 
 
-def _pp_base(pairs: dict[tuple[int, int], Tensor], ref: Sequence[Tensor], n: int) -> Tensor:
+def _pp_correction(pairs, v: Tensor, n: int, m: int, allsum=None) -> Tensor:
+    """``M_{n,m} . v_m -> (I_n, C)`` whichever of the pair's indices the
+    partner ``m`` is, summed over the ranks holding other rows of mode
+    ``m`` (``allsum``; the identity on one device)."""
+    if n < m:
+        out = _pp_contract_second(pairs[(n, m)], v)
+    else:
+        out = _pp_contract_first(pairs[(m, n)], v)
+    return out if allsum is None else allsum(out, (m,))
+
+
+def _pp_base(pairs: dict[tuple[int, int], Tensor], ref: Sequence[Tensor], n: int,
+             allsum=None) -> Tensor:
     """Mode-``n`` exact MTTKRP at the reference point, recovered from one
     pairwise intermediate: ``M_{n,m}`` contracted with the reference factor
-    ``V_m`` of the smallest partner ``m``."""
+    ``V_m`` of the smallest partner ``m`` (summed over mode ``m``'s ranks
+    through ``allsum`` on a sharded problem)."""
     m = 1 if n == 0 else 0
-    if n < m:
-        return _pp_contract_second(pairs[(n, m)], ref[m])
-    return _pp_contract_first(pairs[(m, n)], ref[m])
+    return _pp_correction(pairs, ref[m], n, m, allsum)
 
 
 def _pp_materialize(problem: Problem, executor, x, factors, n_exact: int) -> PPState:
     """Build the PP cache at the current iterates: pairwise intermediates by
-    ``executor.pp_pairs``, per-mode bases, zero drift."""
+    ``executor.pp_pairs`` (this rank's blocks on a sharded problem),
+    per-mode bases, zero drift."""
     pairs = executor.pp_pairs(problem, x, factors)
-    base = [_pp_base(pairs, factors, n) for n in range(problem.ndim)]
+    base = [_pp_base(pairs, factors, n, executor.allsum) for n in range(problem.ndim)]
     return PPState(
         ref=list(factors),
         pairs=pairs,
@@ -182,11 +211,12 @@ def _pp_materialize(problem: Problem, executor, x, factors, n_exact: int) -> PPS
 
 
 def _pp_init(problem: Problem, x, factors) -> PPState:
-    """Zero-filled PP cache with +inf drift, shaped like a built one, so the
-    first sweep is exact and ``n_exact`` counts from 0."""
-    lead = (problem.batch,) if problem.batched else ()
+    """Zero-filled PP cache with +inf drift, shaped like a built one (this
+    rank's pair blocks on a sharded problem), so the first sweep is exact
+    and ``n_exact`` counts from 0."""
+    lead = (problem.local_batch,) if problem.batched else ()
     pairs = {
-        (p.n, p.m): torch.zeros(lead + p.shape, dtype=x.dtype, device=x.device)
+        (p.n, p.m): torch.zeros(lead + p.local_shape, dtype=x.dtype, device=x.device)
         for p in pp_pair_meta(problem)
     }
     return PPState(
@@ -283,33 +313,34 @@ def _exact_sweep(
     return replace(_with_payload(state, (factors, weights, fit, gs)), carry=carry)
 
 
-def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState) -> SweepState:
+def _pp_sweep(problem: Problem, plan: SweepPlan, state: SweepState,
+              executor: Executor | None = None) -> SweepState:
     """One approximate sweep from the PP cache: per mode ``n`` the MTTKRP is
     the cached base plus one small GEMV per perturbed factor,
     ``M_n ~= base_n + sum_{m != n} M_{n,m} . (U_m - V_m)`` (first order in
     the drifts; the neglected terms are products of two or more deltas).
     The factor update is the shared exact algebra; the tensor is never
-    touched.  Returns the state with refreshed device drifts (not read to
-    the host: ``drift_max`` is ``None``); the cache rides along."""
+    touched.  On a sharded problem (``executor`` a sharded one) each
+    correction sums over its partner mode's ranks and the Grams, column
+    norms, fit and drift over theirs, through ``executor.allsum``; with no
+    executor, one device.  Returns the state with refreshed device drifts
+    (not read to the host: ``drift_max`` is ``None``); the cache rides
+    along."""
+    allsum = executor.allsum if executor is not None else _no_sum
     pp = state.pp
     factors = list(state.factors)
     weights = state.weights
-    gs = list(state.grams) if state.grams is not None else _grams(factors, _no_sum)
+    gs = list(state.grams) if state.grams is not None else _grams(factors, allsum)
     m_last = None
     for n in range(problem.ndim):
         m_n = pp.base[n]
         for m in range(problem.ndim):
-            if m == n:
-                continue
-            du = factors[m] - pp.ref[m]
-            if n < m:
-                m_n = m_n + _pp_contract_second(pp.pairs[(n, m)], du)
-            else:
-                m_n = m_n + _pp_contract_first(pp.pairs[(m, n)], du)
+            if m != n:
+                m_n = m_n + _pp_correction(pp.pairs, factors[m] - pp.ref[m], n, m, allsum)
         m_last = m_n
-        weights = _update_factor(plan, factors, gs, weights, n, m_n, state.it)
-    fit = _fit(gs, weights, m_last, factors, state.norm_x, _no_sum)
-    new_pp = replace(pp, drift=_pp_drift(factors, pp.ref), drift_max=None)
+        weights = _update_factor(plan, factors, gs, weights, n, m_n, state.it, allsum)
+    fit = _fit(gs, weights, m_last, factors, state.norm_x, allsum)
+    new_pp = replace(pp, drift=_pp_drift(factors, pp.ref, executor), drift_max=None)
     return replace(_with_payload(state, (factors, weights, fit, gs)), pp=new_pp)
 
 
@@ -357,10 +388,10 @@ def als_sweep(
     tol = float(torch.tensor(problem.pp_tol, dtype=torch.float32))
     gate = pp0.drift_max if pp0.drift_max is not None else _host_gate(pp0.drift)
     if gate < tol:
-        out = _pp_sweep(problem, plan, state)
+        out = _pp_sweep(problem, plan, state, executor)
         return replace(out, pp=replace(out.pp, drift_max=_host_gate(out.pp.drift)))
     out = _exact_sweep(problem, plan, executor, state)
-    step = _host_gate(_pp_drift(out.factors, state.factors))
+    step = _host_gate(_pp_drift(out.factors, state.factors, executor))
     n_exact = pp0.n_exact + 1
     if step < tol:
         pp = _pp_materialize(problem, executor, state.x, out.factors, n_exact)

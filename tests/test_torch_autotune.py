@@ -196,9 +196,19 @@ def test_sharded_and_pp_tuning_raise(kwargs):
         problem = tplan.Problem(SHAPE, RANK, pp_tol=kwargs["pp_tol"])
         assert tplan.lookup_measurements(problem, cache=cache).pp == entry["pp"]
         return
-    if "intra_axes" in kwargs:  # two-level meshes: distribution slice 4
-        with pytest.raises(NotImplementedError, match="slice 4"):
+    if "intra_axes" in kwargs:  # two-level meshes are ported: the axis needs its mesh
+        with pytest.raises(ValueError, match="no size known for intra-node mesh axis"):
             tplan.tune(torch.from_numpy(x), RANK, cache=tplan.TuningCache(), **kwargs)
+        # with it, the entry keys on the node topology (8-rank two-level worlds:
+        # tests/test_torch_dist_levels.py); one device has no level to split
+        mesh = types.SimpleNamespace(mesh_dim_names=("x",), shape=(1,), device_type="cpu")
+        cache = tplan.TuningCache()
+        entry = tplan.tune(torch.from_numpy(x), RANK, mesh=mesh, cache=cache, budget_ms=None,
+                           reps=1, **kwargs)
+        problem = tplan.Problem(SHAPE, RANK, axis_sizes={"x": 1}, intra_axes=("x",))
+        assert cache.keys() == [tplan.autotune.problem_key(problem)]
+        assert cache.keys()[0].endswith("|node1")
+        assert {r["collective"] for r in entry["nodes"]} == {"flat"}
         return
     if "mode_axes" in kwargs:  # a mapped mode needs the mesh it names
         with pytest.raises(ValueError, match="no size known for mesh axis"):

@@ -293,10 +293,14 @@ def test_sharded_batched_problems_still_raise():
     jp0 = jplan.Problem((4, 5, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
     assert tplan.plan_sweep(p).executor == jplan.plan_sweep(
         jp0, tuning_cache=jplan.TuningCache()).executor == "sharded"
-    # sharded PP is slice 5; the batch-parallel placement itself is priced as
-    # the reference prices it (flat sharding: slice 1)
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tplan.plan_sweep(dataclasses.replace(p, pp_tol=0.1), "pp", executor="sharded")
+    # sharded PP is ported: the batch-parallel placement plans PP with no
+    # reduction to price, as the reference does
+    tpp = tplan.plan_sweep(dataclasses.replace(p, pp_tol=0.1), "pp", executor="sharded")
+    jpp = jplan.plan_sweep(dataclasses.replace(jp0, pp_tol=0.1), "pp", executor="sharded",
+                           tuning_cache=jplan.TuningCache())
+    assert tpp.pp and jpp.pp and tpp.executor == jpp.executor == "sharded"
+    assert tplan.pp_build_cost(tpp.problem).collective_bytes == jplan.pp_build_cost(
+        jpp.problem).collective_bytes == 0.0
     jp = jplan.Problem((4, 5, 6), 2, batch=2, batch_axes=("b",), axis_sizes={"b": 2})
     for key in ("flops", "bytes", "collective_bytes"):
         assert tplan.mode_cost(p, 0, "1step").as_dict()[key] == jplan.mode_cost(

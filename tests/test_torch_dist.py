@@ -678,9 +678,10 @@ def test_collective_bytes_match_the_reference(n, algorithm):
 
 
 def test_later_distribution_slices_raise_naming_their_slice():
-    """Slices 2 and 3 (the overlapping and compressed executors and the
-    argmin among them) are ported: they plan and build.  Slices 4 and 5
-    still raise, naming their slice."""
+    """Every distribution slice is ported: the overlapping and compressed
+    executors and the argmin among them (2, 3), the hierarchical collective
+    and two-level planning (4), sharded pairwise perturbation (5) -- they
+    plan and build; only unknown names raise."""
     import repro_torch.plan as tplan
 
     _, td = _dist_modules()
@@ -690,19 +691,24 @@ def test_later_distribution_slices_raise_naming_their_slice():
     assert tplan.select_executor(tplan.Problem((8, 6, 4), 3)) == "local"
     assert isinstance(tplan.make_executor("overlapping", object(), {}), tplan.OverlappingExecutor)
     assert tplan.plan_sweep(sharded, executor="compressed").executor == "compressed"
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        td._validate_collective("hierarchical")
+    td._validate_collective("hierarchical")
     with pytest.raises(ValueError, match="unknown collective"):
         td._validate_collective("ring")
     two_level = tplan.Problem((8, 6, 4), 3, mode_axes={0: "device"},
                               axis_sizes={"node": 2, "device": 2}, intra_axes=("device",))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        tplan.plan_sweep(two_level, executor="sharded")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tplan.plan_sweep(tplan.Problem((8, 6, 4), 3, mode_axes={0: "data"},
-                                       axis_sizes={"data": 2}, pp_tol=0.1), executor="sharded")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tplan.ShardedExecutor(object(), {0: "data"}).pp_pairs(sharded, None, [])
+    plan = tplan.plan_sweep(two_level, executor="sharded")
+    assert plan.executor == "sharded" and plan.lower_bound_bytes is not None
+    pp = tplan.plan_sweep(tplan.Problem((8, 6, 4), 3, mode_axes={0: "data"},
+                                        axis_sizes={"data": 2}, pp_tol=0.1), executor="sharded")
+    assert pp.describe()["pp"]["tol"] == 0.1
+    # with no mapped mode to reduce over, the sharded pairs are the local ones
+    mesh = types.SimpleNamespace(mesh_dim_names=("data",), shape=(1,),
+                                 get_group=lambda axis: None)
+    x = torch.arange(8 * 6 * 4, dtype=torch.float32).reshape(8, 6, 4) / 50.0
+    fs = [torch.full((d, 3), 0.5) for d in x.shape]
+    local = tplan.LocalExecutor().pp_pairs(sharded, x, fs)
+    ex = tplan.ShardedExecutor(mesh, {})
+    assert all(torch.equal(local[k], v) for k, v in ex.pp_pairs(sharded, x, fs).items())
     with pytest.raises(ValueError, match="needs mesh"):
         tplan.make_executor("sharded")
     assert isinstance(tplan.make_executor("sharded", object(), {}), tplan.ShardedExecutor)

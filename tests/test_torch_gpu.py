@@ -1011,3 +1011,102 @@ def test_compressed_cp_als_in_an_nccl_world_of_one(cuda, tmp_path):
         assert fits["compressed"] > 0.75 and abs(fits["compressed"] - fits["sharded"]) < 2e-2
     finally:
         tdist.destroy_process_group()
+
+
+def test_two_level_sharded_cp_als_in_an_nccl_world_of_one_is_the_local_engine(cuda, tmp_path):
+    """The two-level path on the card: ``make_node_mesh(1, 1)`` with
+    ``intra_axes=("device",)``.  One node has no level to split, so every
+    node plans flat, nothing is certified, and the sweeps are bitwise the
+    local engine's with no reduce-scatter; ``reduce_scatter`` (an NCCL
+    all-to-all), ``all_gather`` and ``hierarchical_psum`` on the one-rank
+    group are the identity, bitwise."""
+    import torch.distributed as tdist
+
+    from repro_torch.core.mttkrp import mttkrp
+    from repro_torch.dist import SCATTERS, all_gather, hierarchical_psum, reduce_scatter
+    from repro_torch.launch.mesh import make_node_mesh
+    from repro_torch.plan import make_executor
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_node_mesh(1, 1)
+        g = torch.Generator(device=cuda).manual_seed(11)
+        x = torch.randn((8, 6, 4, 5), generator=g, device=cuda)
+        init = [torch.randn((d, 3), generator=g, device=cuda) for d in x.shape]
+        axes = {0: "node", 2: "device"}
+        problem = Problem.from_tensor(x, 3, axes, mesh, intra_axes=("device",))
+        for m in ("matrix_free", "fused"):
+            plan = plan_sweep(problem, m, executor="sharded")
+            assert {np_.collective for np_ in plan.nodes} == {"flat"}
+            assert plan.lower_bound_bytes is None and not plan.certified_bandwidth_optimal
+            lfits, fits = [], []
+            lst = cp_als(x, plan_sweep(Problem.from_tensor(x, 3), m), n_iters=4, tol=0.0,
+                         init_factors=init, callback=lambda it, f, dt: lfits.append(f))
+            SCATTERS.calls = 0
+            st = cp_als(x, plan, executor=make_executor("sharded", mesh, plan.problem.mode_axes,
+                                                        node_axis=plan.problem.node_axis),
+                        n_iters=4, tol=0.0, init_factors=init,
+                        callback=lambda it, f, dt: fits.append(f))
+            assert SCATTERS.calls == 0
+            assert fits == lfits and st.weights.equal(lst.weights)
+            assert all(u.equal(v) for u, v in zip(st.factors, lst.factors))
+        t = mttkrp(x, init, 1)
+        SCATTERS.calls = SCATTERS.bytes = 0
+        rs = reduce_scatter(t, "device", mesh)
+        assert torch.equal(rs, t) and torch.equal(all_gather(rs, "device", mesh), t)
+        assert torch.equal(hierarchical_psum(t, ("node", "device"), mesh, node_axis="device"), t)
+        assert (SCATTERS.calls, SCATTERS.bytes) == (1, 0)
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_sharded_pp_in_an_nccl_world_of_one_is_the_local_pp(cuda, tmp_path):
+    """Sharded pairwise perturbation on the card: in an NCCL world of one
+    every allsum copies its one partial, so the pairs, the
+    exact/approximate sequence and the fits are bitwise the local PP run's,
+    mode-parallel and batch-parallel (the PP service's placement)."""
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.plan import LocalExecutor, make_executor
+    from repro_torch.plan import sweep as tsweep
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        g = torch.Generator(device=cuda).manual_seed(13)
+        planted = [torch.randn((4, d, 3), generator=g, device=cuda) for d in (12, 10, 8)]
+        xb = torch.einsum("sic,sjc,skc->sijk", *planted)
+        xb = xb + 0.1 * xb.std() * torch.randn(xb.shape, generator=g, device=cuda)
+        initb = [torch.randn((4, d, 3), generator=g, device=cuda) for d in (12, 10, 8)]
+        runs = [
+            (xb[0], [u[0] for u in initb], Problem.from_tensor(xb[0], 3, pp_tol=0.05),
+             Problem.from_tensor(xb[0], 3, {0: "data", 2: "model"}, mesh, pp_tol=0.05), {}),
+            (xb, initb, Problem.from_tensor(xb, 3, batch=4, pp_tol=0.05),
+             Problem.from_tensor(xb, 3, {}, mesh, batch=4, batch_axes=("data",), pp_tol=0.05),
+             {"batch_axes": ("data",)}),
+        ]
+        for x, init, local, sharded, kw in runs:
+            ex = make_executor("sharded", mesh, sharded.mode_axes, **kw)
+            xs, fs = ex.prepare(sharded, x, init)
+            lp, sp = LocalExecutor().pp_pairs(local, x, init), ex.pp_pairs(sharded, xs, fs)
+            assert all(torch.equal(lp[k], sp[k]) for k in lp)
+            out = []
+            for plan, executor in ((plan_sweep(local, "pp"), None),
+                                   (plan_sweep(sharded, "pp", executor="sharded"), ex)):
+                fits, seq = [], []
+                real = tsweep._pp_sweep
+                tsweep._pp_sweep = lambda *a, **k: (seq.append(1), real(*a, **k))[1]
+                try:
+                    st = cp_als(x, plan, executor=executor, n_iters=12, tol=0.0,
+                                init_factors=init, callback=lambda it, f, dt: fits.append(f))
+                finally:
+                    tsweep._pp_sweep = real
+                out.append((fits, len(seq), st.pp_exact_sweeps, st.factors))
+            (lfits, la, le, lf), (fits, a, e, f) = out
+            assert la > 0 and (fits, a, e) == (lfits, la, le)
+            assert all(u.equal(v) for u, v in zip(f, lf))
+    finally:
+        tdist.destroy_process_group()
