@@ -15,9 +15,14 @@ sweeps (``Problem(pp_tol > 0) -> plan_sweep("pp") -> cp_als``, tuned and
 served); and the sharded front door in an NCCL world of one (the sharded,
 overlapping and compressed executors, ``executor="auto"``, ``tune(mesh=)``
 and ``CPService(mesh=)``, the two-level node mesh and sharded pairwise
-perturbation).  Holds all seven
+perturbation); and the LM serving path, OLMo-1B at full width and depth
+served through ``ServeEngine`` (``build_model -> ServeEngine -> generate ->
+prefill / decode_step``), with its checkpoint restored by
+``launch.serve --ckpt-dir``.  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
-and batched, and the KRP pair) against their plain PyTorch versions.
+and batched, and the KRP pair) against their plain PyTorch versions; the LM
+path reaches none of them (the reference computes its attention, FFN and
+logits with plain products, no Pallas kernel).
 
     python3 chip_smoke.py [--seed 0] [--rank 10] [--sweeps 5]
     python3 chip_smoke.py --only fused                # phases 0-7 of rows 1 and 3 only
@@ -25,6 +30,7 @@ and batched, and the KRP pair) against their plain PyTorch versions.
     python3 chip_smoke.py --only batched_matrix_free  # phases 0, 1, 5, 7 of row 4 only
     python3 chip_smoke.py --only pp                   # phases 0, 1 and 12 only
     python3 chip_smoke.py --only dist                 # phases 0, 1 and 13 only
+    python3 chip_smoke.py --only lm                   # phases 0 and 14 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -195,6 +201,36 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``CPService(mesh=, pp_tol=PP_FLEET_TOL, strategy="pp")`` serving the 59
    subjects batch-parallel: fits, sequences and exact sweeps a batch
    bitwise phase 12d's single-device PP fleet, and its counters.
+
+14. the LM serving path (no kernel of the port; TF32 off as set in phase 0).
+   (a) olmo-1b at full width and depth (16 layers, d_model 2048, 16 heads of
+   128, d_ff 8192, vocab 50304, tied embeddings; bf16 compute over fp32
+   parameters, as its config states) built by ``build_model(cfg,
+   device="cuda", generator=...)`` from ``--seed``: its parameter count
+   must be the reference's ``OLMO_1B_PARAMS``; ``ServeEngine`` serves
+   ``LM_REQUESTS`` prompts as ``launch.serve`` makes them (lengths in [4,
+   16) from ``np.random.default_rng(seed)``), batch ``LM_BATCH``,
+   ``LM_NEW_TOKENS`` greedy tokens: every rid answered, every token in
+   ``[0, vocab)``, a second flush bitwise equal, and ``generate`` equal to
+   a manual ``prefill`` + ``decode_step`` argmax loop; printed: prefill ms
+   and decode ms a token (CUDA events), tokens/s (host clock over the
+   second flush), peak memory, and the decode step's bound (each fp32
+   weight read once over ``HBM_BW``).  (e) the 14a model and
+   ``init_opt_state`` of it saved by the port's ``CheckpointManager`` into
+   a temporary directory; ``launch.serve --ckpt-dir`` (in process) restores
+   it and serves ``default_rng(0)``'s prompts, bitwise the tokens the 14a
+   model serves for them.  (b) teacher-forced decode against the parallel
+   forward in fp32 compute, within ``LM_LOGIT_TOL``: olmo-1b at full width
+   and depth, and qwen3-8b at full width cut to ``QWEN3_LAYERS`` layers
+   (GQA g = 4, QK-norm, rope_theta 1e6: the grouped branch).  (c) olmo-1b
+   at full width cut to ``LM_SMALL_LAYERS`` layers, fp32, on the CPU and,
+   with the same parameters, on the card: prefill and 4 decode logits
+   within ``LM_LOGIT_TOL``; greedy tokens reported, and gated where the
+   CPU's top-2 gap exceeds the tolerance.  (d) that card model's dense FFN
+   weights factored by ``compress_ffn`` (rank ``LM_CP_RANK``) on the card;
+   the ``cp_rank`` model serves ``LM_BATCH`` requests, and its prefill
+   logits agree within ``LM_LOGIT_TOL`` with the dense model whose FFN
+   weights are the products ``A @ B``.
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -435,9 +471,10 @@ def _trace(torch, fn):
     return wall, evs
 
 
-def _log_trace(label: str, wall: float, evs, per: int, smi: str) -> None:
+def _log_trace(label: str, wall: float, evs, per: int, smi: str, unit: str = "sweep") -> None:
     """Print a trace's device busy share, its longest idle gaps and its ten
-    longest device operations (by summed time), per ``per`` repeats."""
+    longest device operations (by summed time), per ``per`` repeats (a
+    ``unit`` each)."""
     merged = []
     for a, b, _ in evs:
         if merged and a <= merged[-1][1]:
@@ -451,13 +488,13 @@ def _log_trace(label: str, wall: float, evs, per: int, smi: str) -> None:
     for a, b, name in evs:
         t, k = by_name.get(name, (0.0, 0))
         by_name[name] = (t + b - a, k + 1)
-    _log(f"{label}: {len(evs) / per:g} device operations a sweep; device busy {busy / per:.1f} us "
-         f"a sweep of a {window / per:.1f} us device window ({100 * busy / window:.1f}% busy) and "
-         f"of {wall / per:.1f} us host clock ({100 * busy / wall:.1f}%); longest idle gaps (us) "
-         f"{[round(g, 1) for g in gaps[:5]]}, {sum(gaps) / per:.1f} us idle a sweep in "
+    _log(f"{label}: {len(evs) / per:g} device operations a {unit}; device busy {busy / per:.1f} "
+         f"us a {unit} of a {window / per:.1f} us device window ({100 * busy / window:.1f}% busy) "
+         f"and of {wall / per:.1f} us host clock ({100 * busy / wall:.1f}%); longest idle gaps (us) "
+         f"{[round(g, 1) for g in gaps[:5]]}, {sum(gaps) / per:.1f} us idle a {unit} in "
          f"{len(gaps)} gaps; card {smi}")
     for name, (t, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        _log(f"{label}:   {t / per:9.1f} us a sweep, {k / per:g} a sweep: {name[:110]}")
+        _log(f"{label}:   {t / per:9.1f} us a {unit}, {k / per:g} a {unit}: {name[:110]}")
 
 
 def _row4_checks(torch, gen, dev, check, xb, fb, phase):
@@ -2693,19 +2730,316 @@ def _only_dist(torch, args, dev, smi) -> None:
     _dist_phase(torch, args, dev, smi, x4, init, engine, subjects)
 
 
+# ---- phase 14: the LM serving path
+# olmo-1b's parameter count: the reference's repro.analysis.flops.param_count
+# of its config, and the port's count on the meta device
+# (tests/test_torch_lm_configs.py::test_olmo_1b_has_the_reference_count).
+OLMO_1B_PARAMS = 1_176_764_416
+# Logits of two fp32 computations of one model (decode against the parallel
+# forward; the card against the CPU; factored FFN against its dense product):
+# the reference's own bound for decode against forward
+# (tests/test_models_smoke.py::test_decode_matches_forward_dense).
+LM_LOGIT_TOL = 2e-3
+LM_REQUESTS = 8
+LM_BATCH = 4
+LM_NEW_TOKENS = 16
+LM_CP_RANK = 64
+LM_SMALL_LAYERS = 2
+QWEN3_LAYERS = 4
+LM_TRACE_STEPS = 4
+
+
+def _lm_requests(vocab: int, seed: int, n: int) -> list:
+    """``launch.serve``'s prompts: lengths in [4, 16), tokens in [0, vocab)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(4, 16))) for _ in range(n)]
+
+
+def _lm_serve(model, params, prompts, new_tokens=LM_NEW_TOKENS):
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    eng = ServeEngine(model, params, GenerationConfig(max_new_tokens=new_tokens),
+                      batch_size=LM_BATCH)
+    rids = [eng.submit(p) for p in prompts]
+    return rids, eng.flush()
+
+
+def _lm_check_served(label, rids, results, vocab, new_tokens=LM_NEW_TOKENS):
+    ok = sorted(results) == sorted(rids) and all(
+        r.shape == (new_tokens,) and (r >= 0).all() and (r < vocab).all()
+        for r in results.values())
+    _log(f"{label}: {len(results)} of {len(rids)} rids answered, {new_tokens} tokens each "
+         f"in [0, {vocab}): {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: a request went unanswered or a token is out of range")
+
+
+def _lm_teacher_forced(torch, params, cfg, toks):
+    """Logits of the parallel forward and of decode step by step (one
+    token a step from an empty cache); their largest |difference| and scale."""
+    from repro_torch.models import transformer as tt
+
+    with torch.no_grad():
+        full = tt.lm_logits(params, cfg, tt.forward(params, cfg, toks)[0])
+        cache = tt.init_cache(cfg, toks.shape[0], toks.shape[1], torch.float32, toks.device)
+        steps = []
+        for i in range(toks.shape[1]):
+            lg, cache = tt.decode_step(params, cfg, toks[:, i : i + 1], cache)
+            steps.append(lg)
+        step = torch.cat(steps, 1)
+    return full, step
+
+
+def _lm_close(torch, label, got, want, tol=LM_LOGIT_TOL):
+    """``|got - want| <= tol + tol * |want|`` everywhere (allclose at rtol =
+    atol = tol), as the reference's tests hold logits."""
+    diff = (got.double() - want.double()).abs()
+    excess = float((diff - tol * want.double().abs()).max())
+    mabs = float(diff.max())
+    ok = math.isfinite(mabs) and excess <= tol
+    _log(f"{label}: max |diff| {mabs:.3e} (logits up to {float(want.abs().max()):.3f}; "
+         f"allclose rtol = atol = {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: logits disagree")
+    return mabs
+
+
+def _lm_phase(torch, args, dev, smi) -> None:
+    """Phase 14: the port's LM serving path on the card (see the module
+    docstring).  Catches nothing: any failure ends the run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.cp_layers import compress_ffn, reconstruction_error
+    from repro_torch.launch import serve as serve_driver
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.serve import GenerationConfig, generate
+    from repro_torch.train.optimizer import init_opt_state
+
+    t_phase = time.perf_counter()
+    cfg = get_config("olmo-1b")
+    # ---- 14a: olmo-1b at full width and depth, bf16 compute over fp32 params
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    n_params = count_params(model.params)
+    _log(f"[14a] olmo-1b: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads of "
+         f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}, compute "
+         f"{cfg.compute_dtype} over {cfg.param_dtype}; {n_params:,} params (reference "
+         f"{OLMO_1B_PARAMS:,}) built in {time.perf_counter() - t0:.2f} s")
+    if n_params != OLMO_1B_PARAMS:
+        raise SystemExit(f"olmo-1b has {n_params} parameters, not the reference's {OLMO_1B_PARAMS}")
+    prompts = _lm_requests(cfg.vocab, args.seed, LM_REQUESTS)
+    rids, first = _lm_serve(model, model.params, prompts)  # warm-up and the first answer
+    _lm_check_served("[14a] olmo-1b ServeEngine", rids, first, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rids2, second = _lm_serve(model, model.params, prompts)
+    serve_s = time.perf_counter() - t0  # flush returns host arrays: ends in a sync
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = sorted(second) == sorted(first) and all(np.array_equal(first[r], second[r])
+                                                   for r in first)
+    _log(f"[14a] a second flush of the same {LM_REQUESTS} requests bitwise equal: "
+         f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("olmo-1b: serving the same requests twice gave other tokens")
+    # generate against a manual prefill + decode argmax loop, on the first batch as flushed
+    s = max(len(p) for p in prompts[:LM_BATCH])
+    toks = np.zeros((LM_BATCH, s), np.int32)
+    for i, p in enumerate(prompts[:LM_BATCH]):
+        toks[i, s - len(p):] = p
+    first_batch = torch.from_numpy(toks).to(dev)
+    gen_out = generate(model, model.params, {"tokens": first_batch},
+                       GenerationConfig(max_new_tokens=LM_NEW_TOKENS))
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_NEW_TOKENS + 2)]
+    ev[0].record()
+    cache, logits = model.prefill(model.params, {"tokens": first_batch},
+                                  max_len=s + LM_NEW_TOKENS + 1)
+    ev[1].record()
+    manual = []
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    for i in range(LM_NEW_TOKENS):
+        manual.append(tok[:, 0])
+        logits, cache = model.decode_step(model.params, tok, cache)
+        ev[i + 2].record()
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    manual = torch.stack(manual, 1).cpu().numpy()
+    agree = np.array_equal(gen_out, manual) and all(
+        np.array_equal(first[rids[i]], manual[i]) for i in range(LM_BATCH))
+    _log(f"[14a] generate and the flushed batch equal a manual prefill + decode argmax loop: "
+         f"{'ok' if agree else 'FAIL'}")
+    if not agree:
+        raise SystemExit("olmo-1b: generate disagrees with prefill + decode_step")
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(LM_NEW_TOKENS)]
+    n_tok = sum(len(v) for v in second.values())
+    weight_bytes = 4 * n_params
+    _log(f"[14a] olmo-1b serving (batch {LM_BATCH}, prompts {sorted(len(p) for p in prompts)}, "
+         f"{LM_NEW_TOKENS} new tokens, greedy): prefill {prefill_ms:.3f} ms (prompt {s}, CUDA "
+         f"events); decode {sum(decode_ms) / len(decode_ms):.3f} ms a token (median "
+         f"{_median(decode_ms):.3f}, min {min(decode_ms):.3f}, max {max(decode_ms):.3f}); "
+         f"flush of {LM_REQUESTS} requests {serve_s * 1e3:.1f} ms, {n_tok / serve_s:.1f} tokens/s "
+         f"(host clock); peak memory {peak:.3f} GB; decode-step bound, each fp32 weight read "
+         f"once: {weight_bytes / 1e9:.3f} GB / {HBM_BW:.3g} B/s = "
+         f"{weight_bytes / HBM_BW * 1e3:.3f} ms; card {smi}")
+    # a trace of decode steps (each rewrites the same cache slot, so repeats are alike)
+    wall, evs = _trace(torch, lambda: [model.decode_step(model.params, tok, cache)
+                                       for _ in range(LM_TRACE_STEPS)])
+    _log_trace(f"[14a] olmo-1b decode (batch {LM_BATCH}, traced)", wall, evs, LM_TRACE_STEPS, smi,
+               unit="step")
+    del cache, logits, first_batch
+
+    # ---- 14e: a checkpoint round trip (here, while the 14a model is resident)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        free = shutil.disk_usage(tmp).free / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        opt = init_opt_state(model.params)
+        path = CheckpointManager(tmp).save(1, (model.params, opt), extra={"arch": cfg.name})
+        del opt
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir()) / 1e9
+        t0 = time.perf_counter()
+        restored = serve_driver.main(["--arch", cfg.name, "--requests", str(LM_REQUESTS),
+                                      "--new-tokens", str(LM_NEW_TOKENS), "--batch-size",
+                                      str(LM_BATCH), "--ckpt-dir", tmp, "--device", str(dev)])
+        restore_s = time.perf_counter() - t0
+        ckpt_peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if args.seed == 0:
+        want = first  # launch.serve draws its prompts from default_rng(0) too
+    else:
+        want = _lm_serve(model, model.params, _lm_requests(cfg.vocab, 0, LM_REQUESTS))[1]
+    same = sorted(restored) == sorted(want) and all(np.array_equal(restored[r], want[r])
+                                                    for r in want)
+    _log(f"[14e] checkpoint of (params, init_opt_state(params)): {size:.2f} GB written in "
+         f"{save_s:.1f} s ({free:.0f} GB free there); launch.serve --ckpt-dir restored it and "
+         f"served in {restore_s:.1f} s (peak memory {ckpt_peak:.2f} GB: the 14a model beside "
+         f"the driver's, its restore template and the restored tree); its greedy tokens "
+         f"bitwise 14a's: "
+         f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("the restored checkpoint served other tokens")
+    del restored
+    torch.cuda.empty_cache()
+
+    # ---- 14b: teacher-forced decode against the parallel forward, fp32 compute
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    toks = torch.randint(0, cfg.vocab, (2, 16), generator=gen, device=dev, dtype=torch.int32)
+    full, step = _lm_teacher_forced(torch, model.params, cfg32, toks)
+    _lm_close(torch, "[14b] olmo-1b decode vs forward (fp32, 16 tokens, batch 2)", step, full)
+    del model, full, step
+    torch.cuda.empty_cache()
+    qcfg = dataclasses.replace(get_config("qwen3-8b"), n_layers=QWEN3_LAYERS,
+                               compute_dtype="float32")
+    qwen = build_model(qcfg, device=dev, generator=gen)
+    _log(f"[14b] qwen3-8b at full width cut to {QWEN3_LAYERS} layers: {count_params(qwen.params):,} "
+         f"params, GQA {qcfg.n_heads}/{qcfg.n_kv_heads} (g = {qcfg.n_heads // qcfg.n_kv_heads}), "
+         f"QK-norm {qcfg.qk_norm}, rope_theta {qcfg.rope_theta:g}")
+    toks = torch.randint(0, qcfg.vocab, (2, 16), generator=gen, device=dev, dtype=torch.int32)
+    full, step = _lm_teacher_forced(torch, qwen.params, qcfg, toks)
+    _lm_close(torch, "[14b] qwen3-8b decode vs forward (fp32, 16 tokens, batch 2)", step, full)
+    del qwen, full, step
+    torch.cuda.empty_cache()
+
+    # ---- 14c: the card against the port's CPU run, olmo-1b full width, 2 layers, fp32
+    small = dataclasses.replace(cfg, n_layers=LM_SMALL_LAYERS, compute_dtype="float32")
+    cpu = build_model(small, device="cpu", generator=torch.Generator().manual_seed(args.seed))
+    card = build_model(small, device=dev, generator=gen)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, small.vocab, (2, 12), generator=torch.Generator().manual_seed(args.seed),
+                         dtype=torch.int32)
+    runs = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        t = toks.to(m.device)
+        cache, lg = m.prefill(m.params, {"tokens": t[:, :8]}, max_len=12)
+        steps = [lg]
+        for i in range(8, 12):
+            lg, cache = m.decode_step(m.params, t[:, i : i + 1], cache)
+            steps.append(lg)
+        runs[name] = torch.cat(steps, 1).cpu()
+    _lm_close(torch, "[14c] olmo-1b 2 layers, card vs CPU: prefill and 4 decode logits",
+              runs["card"], runs["cpu"])
+    top2 = runs["cpu"].topk(2, -1).values
+    gaps = (top2[..., 0] - top2[..., 1]).flatten()
+    same_tok = runs["cpu"].argmax(-1).flatten() == runs["card"].argmax(-1).flatten()
+    wide = gaps > LM_LOGIT_TOL
+    _log(f"[14c] greedy tokens equal at {int(same_tok.sum())} of {same_tok.numel()} positions; "
+         f"{int(wide.sum())} have a CPU top-2 gap over {LM_LOGIT_TOL:g} (smallest gap "
+         f"{float(gaps.min()):.3e}), all equal there: "
+         f"{'ok' if bool(same_tok[wide].all()) else 'FAIL'}")
+    if not bool(same_tok[wide].all()):
+        raise SystemExit("card and CPU pick other greedy tokens where the CPU's top-2 gap is wide")
+    del cpu
+
+    # ---- 14d: the cp_rank model against the dense model of its products
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = [{k: v.detach() for k, v in layer["mlp"].items()} for layer in card.params["layers"]]
+    factors = [compress_ffn(mlp, LM_CP_RANK) for mlp in dense]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    recon = max(reconstruction_error(mlp[k], fs[f"{k}_a"], fs[f"{k}_b"])
+                for mlp, fs in zip(dense, factors) for k in ("gate", "up", "down"))
+    cp_cfg = dataclasses.replace(small, cp_rank=LM_CP_RANK)
+    cp_model = build_model(cp_cfg, device=dev, generator=gen)
+    with torch.no_grad():
+        cp_model.params["embed"].copy_(card.params["embed"])
+        for lc, ld, fs in zip(cp_model.params["layers"], card.params["layers"], factors):
+            for k, v in ld["attn"].items():
+                lc["attn"][k].copy_(v)
+            for k, v in fs.items():
+                lc["mlp"][k].copy_(v)
+            for k in ("gate", "up", "down"):  # the dense model: W = A @ B
+                ld["mlp"][k].copy_(fs[f"{k}_a"] @ fs[f"{k}_b"])
+    prompts = _lm_requests(cp_cfg.vocab, args.seed + 2, LM_BATCH)
+    rids, served = _lm_serve(cp_model, cp_model.params, prompts)
+    _lm_check_served(f"[14d] olmo-1b 2 layers at cp_rank {LM_CP_RANK} ServeEngine", rids, served,
+                     cp_cfg.vocab)
+    toks = torch.randint(0, small.vocab, (LM_BATCH, 12), generator=gen, device=dev,
+                         dtype=torch.int32)
+    _, cp_logits = cp_model.prefill(cp_model.params, {"tokens": toks}, max_len=13)
+    _, dense_logits = card.prefill(card.params, {"tokens": toks}, max_len=13)
+    _log(f"[14d] compress_ffn of {LM_SMALL_LAYERS} layers' gate/up/down at rank {LM_CP_RANK} on "
+         f"the card in {fit_s:.2f} s (largest relative reconstruction error {recon:.3f}: random "
+         f"weights are far from rank {LM_CP_RANK}; the gate holds the factored FFN to its "
+         f"own products)")
+    _lm_close(torch, f"[14d] cp_rank {LM_CP_RANK} prefill vs the dense model of its products",
+              cp_logits, dense_logits)
+    del card, cp_model
+    torch.cuda.empty_cache()
+    _log(f"[14] LM serving phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
-                                       "dist"],
+                                       "dist", "lm"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
                          "(the legacy front door and PP sweeps) or phase 13 (sharded CP-ALS, "
                          "its executors, tuner and service, the two-level mesh and sharded PP "
-                         "in an NCCL world of one); prints no result line")
+                         "in an NCCL world of one) or phase 14 (the LM serving path); prints "
+                         "no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2737,7 +3071,7 @@ def main(argv=None) -> int:
     if args.only:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
-                "dist": _only_dist}[args.only]
+                "dist": _only_dist, "lm": _lm_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -2963,6 +3297,11 @@ def main(argv=None) -> int:
     # ---- phase 13: sharded CP-ALS in an NCCL world of one
     _dist_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
                 subjects, serve_inits, serve_fits, pp_ref)
+
+    # ---- phase 14: the LM serving path (the tensors of phases 2-13 released first)
+    del x4, init, f4, subjects, xb, fb, states, pp_ref
+    torch.cuda.empty_cache()
+    _lm_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

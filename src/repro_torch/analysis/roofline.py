@@ -23,7 +23,7 @@ power limit runs slower:
   flat-or-hierarchical and mesh-mapping choices may differ from the
   reference's; the byte counts they compare do not.
 
-The collective parser comes with the port's LM substrate.
+The collective parser comes with the LM's analysis (``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ rank), with its call counter ``GATHERS``, its asynchronous form,
 ``compressed_psum``/``init_error_state``, and the two-level
 ``reduce_scatter`` (counted in ``SCATTERS``), ``all_gather`` and
 ``hierarchical_psum``.  The compressed data-parallel train step comes with
-the LM substrate.
+the sharded LM (``ROADMAP.md`` queue 1).
 """
 
 from .collectives import (

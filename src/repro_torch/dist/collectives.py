@@ -32,7 +32,8 @@ summation order), :func:`all_gather` back (the counted gather,
 concatenated), and :func:`hierarchical_psum` built of them around the
 ordered psum across nodes.  :data:`SCATTERS` counts the reduce-scatters
 and the bytes this rank sends in them.  The compressed data-parallel train
-step of the reference comes with the port's LM substrate.
+step of the reference comes with the port's sharded LM (``ROADMAP.md``
+queue 1).
 """
 
 from __future__ import annotations

@@ -10,6 +10,14 @@ reference's fields convert with ``np.asarray``; :func:`cpresult_from_numpy`
 builds the port's.  A pairwise-perturbation cache (``PPState``) crosses
 the same way (:func:`ppstate_to_numpy`, :func:`ppstate_from_numpy`), so
 both packages' PP sweeps can start from one state.
+
+An LM's weights cross as a flat ``{leaf path: array}`` dict keyed by the
+reference's checkpoint leaf paths (``embed``, ``layers/attn/wq``,
+``final_norm/w``, ...), a scanned stack as one array with a leading layer
+axis: :func:`params_to_numpy` reads a port model's, and
+:func:`params_from_numpy` loads such a dict (from the reference's
+``repro.checkpoint.manager._flatten(params)``, say) into a port model.  The
+port's ``CheckpointManager`` writes and reads the same mapping.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import _tree
 from repro_torch.core.cpals import CPState
 
 
@@ -133,3 +142,30 @@ def cpresult_from_numpy(fields: dict, *, device: str | torch.device):
         signature=str(fields["signature"]),
         latency_s=float(fields["latency_s"]),
     )
+
+
+def params_to_numpy(model) -> dict[str, np.ndarray]:
+    """A port model's parameters as ``{reference leaf path: array}``."""
+    return _tree.flatten(model.params, _numpy, np.stack)
+
+
+@torch.no_grad()
+def params_from_numpy(model, flat: dict[str, np.ndarray]):
+    """Copy ``{reference leaf path: array}`` into ``model``'s parameters in
+    place (each keeps its dtype and device); every parameter must be given,
+    at its shape.  Returns ``model.params``."""
+    expected = _tree.flatten(model.params, lambda p: tuple(p.shape),
+                             lambda shapes: (len(shapes),) + shapes[0])
+    if set(flat) != set(expected):
+        missing, extra = sorted(set(expected) - set(flat)), sorted(set(flat) - set(expected))
+        raise KeyError(f"params_from_numpy: missing {missing}, unexpected {extra}")
+
+    def copy(arr, p, key):
+        if tuple(np.shape(arr)) != tuple(p.shape):
+            raise ValueError(f"{key}: shape {np.shape(arr)} != parameter {tuple(p.shape)}")
+        a = np.asarray(arr)
+        p.copy_(torch.from_numpy(a if a.flags.writeable else a.copy()))
+        return p
+
+    _tree.rebuild(model.params, lambda key: flat[key], copy)
+    return model.params

@@ -1,8 +1,8 @@
-"""Device meshes for the port's distributed CP-ALS.
+"""Device meshes and the LM's logical-axis plumbing.
 
-Port of the mesh constructors of ``repro.launch.mesh`` that the tensor
-algorithms use (the LM's logical-axis plumbing comes with the LM
-substrate).  A mesh is a ``torch.distributed`` DeviceMesh with named
+Port of ``repro.launch.mesh``: the mesh constructors the tensor algorithms
+use, and the ambient mesh and logical axes the LM's model code names.  A
+mesh is a ``torch.distributed`` DeviceMesh with named
 dimensions over the ranks of the default process group, which the
 caller starts (``torch.distributed.init_process_group``, given its
 address, world size and rank); each named dimension has its process group
@@ -14,7 +14,22 @@ unless the caller asks for ``"cpu"`` (gloo).
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+from typing import Any, Sequence
+
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+# Model code names logical axes; they resolve against the ambient mesh:
+#   "fsdp", "dp"    -> the data axes (("pod", "data") or ("data",))
+#   "tp", "expert"  -> "model"
+#   None            -> replicated
+SHARDED_LM = ("the sharded LM is not ported yet (ROADMAP.md queue 1: the sharded LM); "
+              "run the LM on one device")
+
+_MESH: contextvars.ContextVar[DeviceMesh | None] = contextvars.ContextVar(
+    "repro_torch_mesh", default=None
+)
 
 
 def _mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], device: str) -> DeviceMesh:
@@ -44,3 +59,62 @@ def make_node_mesh(
     collective, which reduce-scatters over ``axis_names[1]``.
     """
     return _mesh((nodes, devices_per_node), tuple(axis_names), device)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: DeviceMesh):
+    """Make ``mesh`` the ambient mesh of the model code inside the block."""
+    token = _MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESH.reset(token)
+
+
+def current_mesh() -> DeviceMesh | None:
+    return _MESH.get()
+
+
+def dp_axes(mesh: DeviceMesh) -> tuple[str, ...]:
+    return ("pod", "data") if "pod" in mesh.mesh_dim_names else ("data",)
+
+
+def dp_spec_entry(mesh: DeviceMesh):
+    """The data-parallel axes as one spec entry: a tuple when the batch dim
+    is sharded over several mesh axes, the bare name otherwise."""
+    dp = dp_axes(mesh)
+    return dp if len(dp) > 1 else dp[0]
+
+
+def resolve_logical(logical: Sequence[Any] | None, mesh: DeviceMesh) -> tuple:
+    """Map a tuple of logical axis names to mesh axis names, one entry a dim
+    (the reference's ``PartitionSpec`` entries, as a plain tuple)."""
+    if logical is None:
+        return ()
+    out: list[Any] = []
+    for ax in logical:
+        if ax is None:
+            out.append(None)
+        elif ax in ("fsdp", "dp"):
+            out.append(dp_spec_entry(mesh))
+        elif ax in ("tp", "expert"):
+            out.append("model")
+        else:
+            raise ValueError(f"unknown logical axis {ax!r}")
+    return tuple(out)
+
+
+def constraint(x, *logical: Any):
+    """The reference's sharding constraint: the identity with no ambient
+    mesh or a mesh of one rank; a larger mesh raises (the sharded LM)."""
+    mesh = current_mesh()
+    if mesh is None or mesh.size() == 1:
+        return x
+    raise NotImplementedError(SHARDED_LM)
+
+
+def tp_size(mesh: DeviceMesh | None = None) -> int:
+    mesh = mesh or current_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1
+    return int(mesh.size(mesh.mesh_dim_names.index("model")))

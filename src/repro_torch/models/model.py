@@ -1,0 +1,170 @@
+"""Model facade: build_model(cfg) -> an ``nn.Module`` with the reference's
+init / loss / prefill / decode interfaces.
+
+Port of ``repro.models.model``.  :class:`Model` holds its parameters as
+``nn.Parameter``s built from the param-definition tree with an explicit
+``torch.Generator``, on an explicit device (``"cuda"`` unless the caller
+asks otherwise; ``"meta"`` gives shapes with no storage).  ``model.params``
+is the tree of those parameters in the reference's structure (dicts, with a
+scanned stack's layers in a :class:`repro_torch._tree.Stacked` list), and
+the interfaces take a params tree explicitly, as the reference's pure
+functions do.  Serving (``prefill``, ``decode_step``) runs without
+autograd; ``loss_fn`` is the forward pass of training.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch._tree import tree_map
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as meshlib
+
+from . import transformer
+from .attention import KVCache
+from .common import cast_floats, init_tree, spec_tree, torch_dtype
+
+Tensor = torch.Tensor
+
+
+def cross_entropy(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """Mean next-token CE + accuracy.  logits: (B, S, V); labels: (B, S)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = torch.mean(lse - ll)
+    acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, acc
+
+
+def _register(module: nn.Module, tree: dict) -> None:
+    """Register a dict of parameters and subtrees on ``module``: tensors as
+    parameters, dicts as submodules, lists as ``nn.ModuleList``s."""
+
+    def child(node) -> nn.Module:
+        if isinstance(node, (list, tuple)):
+            return nn.ModuleList(child(t) for t in node)
+        m = nn.Module()
+        _register(m, node)
+        return m
+
+    for key, node in tree.items():
+        if isinstance(node, nn.Parameter):
+            module.register_parameter(key, node)
+        else:
+            module.add_module(key, child(node))
+
+
+class Model(nn.Module):
+    def __init__(self, cfg: ModelConfig, param_defs: Any, *, device: str | torch.device = "cuda",
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.cfg = cfg
+        self.param_defs = param_defs
+        tree = init_tree(param_defs, generator, torch_dtype(cfg.param_dtype), device)
+        self._params = tree_map(nn.Parameter, tree)
+        _register(self, self._params)
+
+    @property
+    def params(self) -> Any:
+        """The parameters as the reference's params tree."""
+        return self._params
+
+    @property
+    def device(self) -> torch.device:
+        return self._params["embed"].device
+
+    def init(self, generator: torch.Generator | None = None) -> Any:
+        """A freshly initialized params tree (plain tensors, this model's
+        device), drawn from ``generator``."""
+        return init_tree(self.param_defs, generator, torch_dtype(self.cfg.param_dtype),
+                         self.device)
+
+    def logical_specs(self) -> Any:
+        return spec_tree(self.param_defs)
+
+    def partition_specs(self, mesh, *, drop_fsdp: bool = False) -> Any:
+        """Each parameter's logical spec resolved on ``mesh`` (a tuple of mesh
+        axis names, one entry a dim); ``drop_fsdp=True`` keeps only tensor
+        parallelism, the serving layout."""
+
+        def resolve(d):
+            spec = d.spec
+            if drop_fsdp:
+                spec = tuple(None if ax == "fsdp" else ax for ax in spec)
+            return meshlib.resolve_logical(spec, mesh)
+
+        return tree_map(resolve, self.param_defs)
+
+    # ---- training ----
+    def loss_fn(self, params: Any, batch: dict) -> tuple[Tensor, dict]:
+        cfg = self.cfg
+        params = cast_floats(params, cfg.compute_dtype)
+        tokens = batch["tokens"]
+        positions = batch.get("positions")
+        if positions is not None:
+            positions = positions[:, : tokens.shape[1] - 1]
+        h, aux, _ = transformer.forward(params, cfg, tokens[:, :-1], positions)
+        logits = transformer.lm_logits(params, cfg, h)
+        loss, acc = cross_entropy(logits, tokens[:, 1:])
+        total = loss + cfg.router_aux_weight * aux if cfg.n_experts else loss
+        return total, {"ce": loss, "acc": acc, "aux": aux}
+
+    # ---- serving ----
+    @torch.no_grad()
+    def prefill(self, params: Any, batch: dict, max_len: int) -> tuple[Any, Tensor]:
+        """Process the prompt; returns (cache, last-token logits)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        h, _, collected = transformer.forward(
+            params, cfg, tokens, batch.get("positions"), collect_cache=True
+        )  # h is already final-normed
+        cache = transformer.init_cache(cfg, b, max_len, torch_dtype(cfg.compute_dtype),
+                                       tokens.device)
+        entries = _fill_cache(cache.entries, collected, s)
+        logits = transformer.lm_logits(params, cfg, h[:, -1:, :])
+        return transformer.DecodeCache(entries, s), logits
+
+    @torch.no_grad()
+    def decode_step(self, params: Any, tokens: Tensor, cache: Any):
+        return transformer.decode_step(params, self.cfg, tokens, cache)
+
+    def init_cache(self, batch: int, max_len: int) -> Any:
+        return transformer.init_cache(self.cfg, batch, max_len,
+                                      torch_dtype(self.cfg.compute_dtype), self.device)
+
+
+def _fill_cache(entries: list, collected: list, s: int) -> list:
+    """Write prefill K/V into a fresh decode cache, layer by layer.
+
+    Ring invariant (attention.attn_decode): the token at absolute position p
+    lives at slot ``p % W``.  When the prompt is longer than the window we
+    keep the last W tokens and roll them so position p lands at slot p % W --
+    the next decode write (slot s % W) then correctly evicts the oldest.
+    """
+    out = []
+    for entry, (k, v) in zip(entries, collected):  # (B, S, Hk, hd)
+        w = entry.k.shape[1]
+        if s >= w:
+            k = torch.roll(k[:, s - w : s], s % w, dims=1)
+            v = torch.roll(v[:, s - w : s], s % w, dims=1)
+            out.append(KVCache(k.to(entry.k.dtype), v.to(entry.v.dtype)))
+        else:
+            entry.k[:, :s] = k.to(entry.k.dtype)
+            entry.v[:, :s] = v.to(entry.v.dtype)
+            out.append(entry)
+    return out
+
+
+def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda",
+                generator: torch.Generator | None = None) -> Model:
+    """The model of ``cfg`` with parameters drawn from ``generator`` on
+    ``device``.  The dense and VLM families are ported; the others raise."""
+    if cfg.is_encdec:
+        raise transformer.not_ported(f"family {cfg.family!r}")
+    return Model(cfg, transformer.decoder_defs(cfg), device=device, generator=generator)
+

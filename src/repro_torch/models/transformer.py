@@ -1,0 +1,214 @@
+"""Decoder-only transformer assembly: layer loop, caches.
+
+Port of ``repro.models.transformer``.  The reference runs a homogeneous
+stack under ``lax.scan`` over per-layer params stacked on a leading axis
+(with ``jax.checkpoint`` for training); the port keeps the layers of such a
+stack apart in a :class:`repro_torch._tree.Stacked` list and loops over
+them (remat means nothing for serving).  The stack's checkpoint keys and
+arrays are the reference's: see :mod:`repro_torch._tree`.
+
+Layer recipes (the port builds ``attn`` and ``lattn``; the others raise):
+  attn   : h += Attn(norm(h));        h += FFN(norm(h))
+  moe    : h += Attn(norm(h));        h += MoE(norm(h))   (+aux loss)
+  ssm    : h += Mamba(norm(h))                             (no FFN; mamba-1)
+  rec    : h += RGLRU(norm(h));       h += FFN(norm(h))
+  lattn  : h += LocalAttn(norm(h));   h += FFN(norm(h))    (window attention)
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch._tree import Stacked
+from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as meshlib
+
+from . import attention as attn
+from .common import ParamDef, mask_vocab_pad, norm_apply, norm_defs, torch_dtype, vocab_padded
+from .ffn import ffn_apply, ffn_defs
+
+Tensor = torch.Tensor
+
+LATER_FAMILIES = ("the MoE, SSM, hybrid and enc-dec families are not ported yet "
+                  "(ROADMAP.md queue 1: the other LM families)")
+
+
+def not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what}: {LATER_FAMILIES}")
+
+
+# --------------------------------------------------------------------------
+# Layer type plan
+# --------------------------------------------------------------------------
+def layer_types(cfg: ModelConfig) -> list[str]:
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "moe":
+        return ["moe"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        pat = cfg.block_pattern or ("rec",)
+        types = [pat[i % len(pat)] for i in range(cfg.n_layers)]
+        return ["lattn" if t == "attn" else t for t in types]
+    return ["attn"] * cfg.n_layers
+
+
+def is_scanned(cfg: ModelConfig) -> bool:
+    types = layer_types(cfg)
+    return cfg.scan_layers and len(set(types)) == 1 and cfg.n_layers > 1
+
+
+# --------------------------------------------------------------------------
+# Parameter definitions
+# --------------------------------------------------------------------------
+def _layer_defs(cfg: ModelConfig, kind: str) -> dict:
+    if kind in ("attn", "lattn"):
+        return {
+            "ln1": norm_defs(cfg.norm, cfg.d_model),
+            "attn": attn.attn_defs(cfg),
+            "ln2": norm_defs(cfg.norm, cfg.d_model),
+            "mlp": ffn_defs(cfg),
+        }
+    if kind in ("moe", "ssm", "rec"):
+        raise not_ported(f"layer kind {kind!r}")
+    raise ValueError(kind)
+
+
+def decoder_defs(cfg: ModelConfig) -> dict:
+    types = layer_types(cfg)
+    v_pad = vocab_padded(cfg.vocab)
+    embed_spec = ("tp", None)  # vocab-sharded rows; d replicated (cheap lookup)
+    defs: dict[str, Any] = {
+        "embed": ParamDef((v_pad, cfg.d_model), embed_spec, "small"),
+        "final_norm": norm_defs(cfg.norm, cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        defs["head"] = ParamDef((cfg.d_model, v_pad), ("fsdp", "tp"))
+    layers = [_layer_defs(cfg, t) for t in types]
+    defs["layers"] = Stacked(layers) if is_scanned(cfg) else layers
+    return defs
+
+
+# --------------------------------------------------------------------------
+# Layer application (full-sequence)
+# --------------------------------------------------------------------------
+def _apply_layer(
+    p: dict,
+    cfg: ModelConfig,
+    kind: str,
+    h: Tensor,
+    positions: Tensor,
+    *,
+    collect: bool,
+):
+    """Returns (h, aux, cache_entry_or_None)."""
+    if kind not in ("attn", "lattn"):
+        raise not_ported(f"layer kind {kind!r}")
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    window = cfg.local_window if kind == "lattn" else cfg.sliding_window
+    x = norm_apply(cfg.norm, h, p["ln1"])
+    q_chunk = cfg.seq_chunk
+    if collect:
+        y, (k, v) = attn.attn_sequence(
+            p["attn"], cfg, x, positions, window=window, q_chunk=q_chunk, return_kv=True
+        )
+        cache_entry = (k, v)
+    else:
+        y = attn.attn_sequence(p["attn"], cfg, x, positions, window=window, q_chunk=q_chunk)
+        cache_entry = None
+    h = h + y
+    x2 = norm_apply(cfg.norm, h, p["ln2"])
+    return h + ffn_apply(p["mlp"], cfg, x2), zero, cache_entry
+
+
+def forward(
+    params: dict,
+    cfg: ModelConfig,
+    tokens: Tensor,
+    positions: Tensor | None = None,
+    *,
+    collect_cache: bool = False,
+):
+    """Token ids -> final hidden states.  Returns (hidden, aux, cache): the
+    cache a list of per-layer ``(k, v)`` when ``collect_cache``, else None."""
+    types = layer_types(cfg)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+        if cfg.mrope_sections:
+            positions = positions[..., None].expand(b, s, 3)
+    dt = torch_dtype(cfg.compute_dtype)
+    h = params["embed"][tokens].to(dt)
+    sp = ("dp", "tp", None) if (cfg.seq_shard and s > 1) else ("dp", None, None)
+    h = meshlib.constraint(h, *sp)
+
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    cache = []
+    for lp, kind in zip(params["layers"], types):
+        h, aux_l, cache_e = _apply_layer(lp, cfg, kind, h, positions, collect=collect_cache)
+        h = meshlib.constraint(h, *sp)
+        aux = aux + aux_l
+        cache.append(cache_e)
+
+    h = norm_apply(cfg.norm, h, params["final_norm"])
+    return h, aux, cache if collect_cache else None
+
+
+def lm_logits(params: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
+    dt = h.dtype
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"].to(dt).T
+    else:
+        logits = h @ params["head"].to(dt)
+    logits = mask_vocab_pad(logits, cfg.vocab)
+    return meshlib.constraint(logits, "dp", None, "tp")
+
+
+# --------------------------------------------------------------------------
+# Decode path
+# --------------------------------------------------------------------------
+class DecodeCache(NamedTuple):
+    """Per-model cache: ``entries`` one :class:`~.attention.KVCache` a layer
+    (the reference stacks a scanned stack's on a leading axis); ``length``
+    the tokens written so far, a host int."""
+
+    entries: Any
+    length: int
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+               device: str | torch.device = "cuda") -> DecodeCache:
+    entries = []
+    for kind in layer_types(cfg):
+        if kind not in ("attn", "lattn"):
+            raise not_ported(f"layer kind {kind!r}")
+        entries.append(attn.init_kv_cache(cfg, batch, max_len, dtype, device))
+    return DecodeCache(entries, 0)
+
+
+def _decode_layer(p: dict, cfg: ModelConfig, kind: str, h: Tensor, entry, length: int):
+    if kind not in ("attn", "lattn"):
+        raise not_ported(f"layer kind {kind!r}")
+    x = norm_apply(cfg.norm, h, p["ln1"])
+    y, entry = attn.attn_decode(p["attn"], cfg, x, entry, length)
+    h = h + y
+    x2 = norm_apply(cfg.norm, h, p["ln2"])
+    return h + ffn_apply(p["mlp"], cfg, x2), entry
+
+
+def decode_step(
+    params: dict, cfg: ModelConfig, tokens: Tensor, cache: DecodeCache
+) -> tuple[Tensor, DecodeCache]:
+    """One decode step.  tokens: (B, 1) int.  Returns (logits, cache): the
+    cache's tensors take the new row in place, its length one more."""
+    types = layer_types(cfg)
+    dt = torch_dtype(cfg.compute_dtype)
+    h = params["embed"][tokens].to(dt)
+    new_entries = []
+    for lp, kind, entry in zip(params["layers"], types, cache.entries):
+        h, ne = _decode_layer(lp, cfg, kind, h, entry, cache.length)
+        new_entries.append(ne)
+    h = norm_apply(cfg.norm, h, params["final_norm"])
+    logits = lm_logits(params, cfg, h)
+    return logits, DecodeCache(new_entries, cache.length + 1)

@@ -1,0 +1,96 @@
+"""AdamW with warmup+cosine schedule, global-norm clipping.
+
+Port of ``repro.train.optimizer`` (hand-rolled, as the reference's).
+Optimizer state is a tree of fp32 ``(m, v)`` mirroring the params, on each
+parameter's device; its checkpoint keys are the reference's (``step``,
+``m/...``, ``v/...``).  Serving restores a checkpoint into the template
+``(params, init_opt_state(params))``.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch._tree import leaves, tree_map, unflatten_like
+
+Tensor = torch.Tensor
+
+
+@dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    clip_norm: float = 1.0
+
+
+class OptState(NamedTuple):
+    step: Tensor
+    m: Any
+    v: Any
+
+
+def init_opt_state(params: Any) -> OptState:
+    def zeros():
+        return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                        params)
+
+    device = leaves(params)[0].device if leaves(params) else "cpu"
+    return OptState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
+
+
+def schedule(cfg: OptConfig, step: Tensor) -> Tensor:
+    step = step.float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    t = torch.clamp(
+        (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0
+    )
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * warm * cos
+
+
+def global_norm(tree: Any) -> Tensor:
+    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    return torch.sqrt(torch.sum(torch.stack(sq)))
+
+
+def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
+    return tree_map(lambda g: g.float() * scale, grads), norm
+
+
+@torch.no_grad()
+def adamw_update(
+    params: Any, grads: Any, state: OptState, cfg: OptConfig
+) -> tuple[Any, OptState, dict]:
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    step = state.step + 1
+    lr = schedule(cfg, step)
+    b1, b2 = cfg.beta1, cfg.beta2
+    bc1 = 1 - b1 ** step.float()
+    bc2 = 1 - b2 ** step.float()
+
+    def upd(p, g, m, v):
+        m2 = b1 * m + (1 - b1) * g
+        v2 = b2 * v + (1 - b2) * torch.square(g)
+        mh = m2 / bc1
+        vh = v2 / bc2
+        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
+        return (p.float() - lr * delta).to(p.dtype), m2, v2
+
+    outs = [upd(p, g, m, v) for p, g, m, v in zip(
+        leaves(params), leaves(grads), leaves(state.m), leaves(state.v))]
+    new_p = unflatten_like(params, [o[0] for o in outs])
+    new_m = unflatten_like(state.m, [o[1] for o in outs])
+    new_v = unflatten_like(state.v, [o[2] for o in outs])
+    return new_p, OptState(step, new_m, new_v), {"lr": lr, "grad_norm": gnorm}

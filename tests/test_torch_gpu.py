@@ -1110,3 +1110,44 @@ def test_sharded_pp_in_an_nccl_world_of_one_is_the_local_pp(cuda, tmp_path):
             assert all(u.equal(v) for u, v in zip(f, lf))
     finally:
         tdist.destroy_process_group()
+
+
+def test_reduced_lm_on_the_card_agrees_with_the_cpu(cuda):
+    """The LM serving path on the card: reduced olmo-1b (fp32 compute), the
+    CPU model's parameters moved to the card; prefill and decode logits
+    within the reference's 2e-3 of the CPU run, greedy tokens equal where
+    the CPU run's top-2 gap exceeds it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import GenerationConfig, generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("olmo-1b").reduced()
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.randint(0, cfg.vocab, (2, 9), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    logits = {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        t = toks.to(m.device)
+        cache, lg = m.prefill(m.params, {"tokens": t[:, :5]}, max_len=12)
+        steps = [lg]
+        for i in range(5, 9):
+            lg, cache = m.decode_step(m.params, t[:, i : i + 1], cache)
+            steps.append(lg)
+        logits[name] = torch.cat(steps, 1).cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=2e-3, atol=2e-3)
+    # greedy on the card against the CPU's argmax loop, while its top-2 gap exceeds 2e-3
+    b = generate(card, card.params, {"tokens": toks.to(cuda)}, GenerationConfig(max_new_tokens=6))
+    assert ((b >= 0) & (b < cfg.vocab)).all()
+    cache, lg = cpu.prefill(cpu.params, {"tokens": toks}, max_len=16)
+    live = [True, True]
+    for step in range(6):
+        top2 = lg[:, -1].topk(2, -1).values
+        tok = lg[:, -1].argmax(-1).to(torch.int32)
+        for row in range(2):
+            live[row] = live[row] and float(top2[row, 0] - top2[row, 1]) > 2e-3
+            if live[row]:
+                assert b[row, step] == int(tok[row])
+        lg, cache = cpu.decode_step(cpu.params, tok[:, None], cache)
