@@ -18,7 +18,9 @@ and ``CPService(mesh=)``, the two-level node mesh and sharded pairwise
 perturbation); and the LM serving path, OLMo-1B at full width and depth
 served through ``ServeEngine`` (``build_model -> ServeEngine -> generate ->
 prefill / decode_step``), with its checkpoint restored by
-``launch.serve --ckpt-dir``.  Holds all seven
+``launch.serve --ckpt-dir``; and the other LM families on that path,
+falcon-mamba-7b and recurrentgemma-2b at full width and depth,
+qwen2-moe-a2.7b at full width cut to 8 layers and whisper-base.  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions; the LM
 path reaches none of them (the reference computes its attention, FFN and
@@ -31,6 +33,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only pp                   # phases 0, 1 and 12 only
     python3 chip_smoke.py --only dist                 # phases 0, 1 and 13 only
     python3 chip_smoke.py --only lm                   # phases 0 and 14 only
+    python3 chip_smoke.py --only lm_families          # phases 0 and 15 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -231,6 +234,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    the ``cp_rank`` model serves ``LM_BATCH`` requests, and its prefill
    logits agree within ``LM_LOGIT_TOL`` with the dense model whose FFN
    weights are the products ``A @ B``.
+
+15. the other LM families on the serving path (no kernel of the port: the
+   reference's scans and MoE dispatch are plain ``jnp``), one model resident
+   at a time, random weights from ``--seed``, bf16 compute over fp32
+   parameters: (a) falcon-mamba-7b (Mamba-1 SSM) and (b) recurrentgemma-2b
+   (RG-LRU, rec, rec, local-attention) at full width and depth, (c)
+   qwen2-moe-a2.7b at full width cut to 8 of 24 layers (60 experts padded
+   to 64, top-4, a shared expert), (d) whisper-base (enc-dec, whole, the
+   engine's zero frames).  Each: its parameter count (``FAMILIES``);
+   ``ServeEngine`` serves ``LM_REQUESTS`` prompts as ``launch.serve`` makes
+   them plus a batch whose longest prompt is ``FAMILY_LONG_PROMPT`` (the
+   SSM's chunked scan), ``LM_NEW_TOKENS`` greedy tokens, batch ``LM_BATCH``:
+   every rid answered, a second flush bitwise equal, the first batch equal
+   to a manual ``prefill`` + ``decode_step`` loop; printed: prefill ms (the
+   first batch and the long one) and decode ms a token (CUDA events),
+   tokens/s (host clock over the second flush), peak memory, the decode
+   step's bound (each fp32 weight read once over ``HBM_BW``), a traced
+   decode step's device operations and busy share, and for (c) the pairs
+   dropped at capacity in prefill and decode.  Gates in fp32: decode
+   against the forward at full width (``FAMILY_CHECK``: falcon-mamba 4
+   layers over 256 tokens, the chunked scan against 256 recurrent steps;
+   recurrentgemma 3 layers; qwen2-moe 2 layers on 8 tokens, no pair
+   dropped; whisper-base whole, ``decode_step`` against ``decode_train``)
+   and the card against the port's CPU run (``FAMILY_SMALL_LAYERS``
+   layers, whisper-base whole), within ``LM_LOGIT_TOL``, greedy tokens
+   equal where the CPU's top-2 gap is wider; the checkpoint round trip
+   bitwise for whisper-base whole (restored and served by ``launch.serve
+   --ckpt-dir``) and falcon-mamba-7b cut to 2 layers (every leaf, and the
+   served tokens).
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -3026,20 +3058,352 @@ def _lm_phase(torch, args, dev, smi) -> None:
     _log(f"[14] LM serving phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
 
 
+# ---- phase 15: the other LM families on the serving path
+# (tag, architecture, layers kept (0: all), parameters).  The counts are the
+# sums of the reference's ParamDef shapes of each full config
+# (tests/test_torch_lm_configs.py::test_full_config_param_counts_equal_the_reference_defs);
+# qwen2-moe-a2.7b is cut to 8 of its 24 layers: 15,146,305,536 less 16 of its
+# 605,165,568-parameter layers.  At full depth its 60.59 GB of fp32 weights
+# leave too little of the card's 80 GB for the per-use bf16 casts.
+FAMILIES = (
+    ("15a", "falcon-mamba-7b", 0, 7_272_665_088),
+    ("15b", "recurrentgemma-2b", 0, 3_337_597_440),
+    ("15c", "qwen2-moe-a2.7b", 8, 5_463_656_448),
+    ("15d", "whisper-base", 0, 114_065_408),
+)
+# The longest prompt of the extra served batch: the SSM chunks its scan at
+# 128 only where 128 divides S, so 256 runs the chunked scan.
+FAMILY_LONG_PROMPT = 256
+# Layers of the fp32 decode-vs-forward gate (full width; whisper-base runs
+# whole), and its sequence length: falcon-mamba's 256 runs the chunked scan
+# against 256 recurrent steps; a MoE forward of one row of 8 tokens has
+# capacity 8 an expert, so no pair drops and decode must equal it.
+FAMILY_CHECK = {"falcon-mamba-7b": (4, 2, 256), "recurrentgemma-2b": (3, 2, 16),
+                "qwen2-moe-a2.7b": (2, 1, 8), "whisper-base": (0, 2, 16)}
+FAMILY_SMALL_LAYERS = 2  # the card against the CPU (whisper-base runs whole)
+
+
+def _with_moe_drops(fn):
+    """``fn()`` with every MoE layer call also counting the pairs it drops at
+    capacity (a host read a call): returns ``fn()``'s result and each call's
+    ``(tokens a row, pairs dropped)``."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod._moe_local
+    seen = []
+
+    def counting(p, cfg, x, **kw):
+        seen.append((x.shape[1], moe_mod.dropped_pairs(p, cfg, x)))
+        return real(p, cfg, x, **kw)
+
+    moe_mod._moe_local = counting
+    try:
+        return fn(), seen
+    finally:
+        moe_mod._moe_local = real
+
+
+def _family_batch(torch, cfg, prompts, dev):
+    """The batch ``ServeEngine.flush`` makes of ``prompts``: left-padded with
+    0 to the longest, zero frames for an enc-dec model."""
+    import numpy as np
+
+    s = max(len(p) for p in prompts)
+    toks = np.zeros((len(prompts), s), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, s - len(p):] = p
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.is_encdec:
+        batch["frames"] = torch.zeros((len(prompts), s, cfg.d_model), dtype=torch.float32,
+                                      device=dev)
+    return batch
+
+
+def _family_serve(torch, args, dev, smi, tag, cfg, want_params) -> None:
+    """15a-d serving: build the model from ``--seed`` (bf16 compute over fp32
+    parameters), serve ``LM_REQUESTS`` prompts as ``launch.serve`` makes them
+    plus one batch whose longest prompt is ``FAMILY_LONG_PROMPT`` tokens, twice
+    (bitwise equal), the first batch again by a manual prefill + decode loop
+    (equal), and print the times, peak memory, bound and a decode trace."""
+    import numpy as np
+
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    torch.cuda.synchronize()
+    n_params = count_params(model.params)
+    _log(f"[{tag}] {cfg.name}: family {cfg.family}, {cfg.n_layers} layers "
+         f"{'(enc ' + str(cfg.enc_layers) + ' + dec ' + str(cfg.dec_layers) + ') ' if cfg.is_encdec else ''}"
+         f"d_model {cfg.d_model}, vocab {cfg.vocab}, compute {cfg.compute_dtype} over "
+         f"{cfg.param_dtype}; {n_params:,} params ({4 * n_params / 1e9:.2f} GB; expected "
+         f"{want_params:,}) built in {time.perf_counter() - t0:.2f} s")
+    if n_params != want_params:
+        raise SystemExit(f"{cfg.name} has {n_params} parameters, not {want_params}")
+    prompts = _lm_requests(cfg.vocab, args.seed, LM_REQUESTS)
+    long = _lm_requests(cfg.vocab, args.seed + 3, LM_BATCH - 1)
+    long.append(np.random.default_rng(args.seed + 4).integers(0, cfg.vocab, FAMILY_LONG_PROMPT))
+    every = prompts + long
+    # the first flush also counts the pairs MoE layers drop at capacity (host reads)
+    (rids, first), seen = _with_moe_drops(lambda: _lm_serve(model, model.params, every))
+    _lm_check_served(f"[{tag}] {cfg.name} ServeEngine", rids, first, cfg.vocab)
+    if cfg.n_experts:
+        k, e = cfg.n_experts_per_tok, cfg.n_experts
+        _log(f"[{tag}] pairs dropped at capacity in the first flush (top-{k} of {e} experts, "
+             f"capacity factor {cfg.capacity_factor}, {cfg.n_layers} layers): prefill "
+             f"{sum(d for s_, d in seen if s_ > 1)}, decode {sum(d for s_, d in seen if s_ == 1)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rids2, second = _lm_serve(model, model.params, every)
+    serve_s = time.perf_counter() - t0  # flush returns host arrays: ends in a sync
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    same = rids2 == rids and all(np.array_equal(first[r], second[r]) for r in first)
+    _log(f"[{tag}] a second flush of the same {len(every)} requests bitwise equal: "
+         f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit(f"{cfg.name}: serving the same requests twice gave other tokens")
+    batch = _family_batch(torch, cfg, prompts[:LM_BATCH], dev)
+    s = batch["tokens"].shape[1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(LM_NEW_TOKENS + 2)]
+    ev[0].record()
+    cache, logits = model.prefill(model.params, batch, max_len=s + LM_NEW_TOKENS + 1)
+    ev[1].record()
+    manual = []
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    for i in range(LM_NEW_TOKENS):
+        manual.append(tok[:, 0])
+        logits, cache = model.decode_step(model.params, tok, cache)
+        ev[i + 2].record()
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    manual = torch.stack(manual, 1).cpu().numpy()
+    agree = all(np.array_equal(first[rids[i]], manual[i]) for i in range(LM_BATCH))
+    _log(f"[{tag}] the flushed first batch equals a manual prefill + decode argmax loop: "
+         f"{'ok' if agree else 'FAIL'}")
+    if not agree:
+        raise SystemExit(f"{cfg.name}: the engine disagrees with prefill + decode_step")
+    long_batch = _family_batch(torch, cfg, long, dev)
+    pe = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    pe[0].record()
+    model.prefill(model.params, long_batch, max_len=FAMILY_LONG_PROMPT + LM_NEW_TOKENS + 1)
+    pe[1].record()
+    torch.cuda.synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    long_ms = pe[0].elapsed_time(pe[1])
+    decode_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(LM_NEW_TOKENS)]
+    n_tok = sum(len(v) for v in second.values())
+    weight_bytes = 4 * n_params
+    _log(f"[{tag}] {cfg.name} serving (batch {LM_BATCH}, prompts "
+         f"{sorted(len(p) for p in every)}, {LM_NEW_TOKENS} new tokens, greedy): prefill "
+         f"{prefill_ms:.3f} ms (prompt {s}) and {long_ms:.3f} ms (prompt {FAMILY_LONG_PROMPT}), "
+         f"CUDA events; decode {sum(decode_ms) / len(decode_ms):.3f} ms a token (median "
+         f"{_median(decode_ms):.3f}, min {min(decode_ms):.3f}, max {max(decode_ms):.3f}); flush "
+         f"of {len(every)} requests {serve_s * 1e3:.1f} ms, {n_tok / serve_s:.1f} tokens/s (host "
+         f"clock); peak memory {peak:.3f} GB; decode-step bound, each fp32 weight read once: "
+         f"{weight_bytes / 1e9:.3f} GB / {HBM_BW:.3g} B/s = {weight_bytes / HBM_BW * 1e3:.3f} ms; "
+         f"card {smi}")
+    wall, evs = _trace(torch, lambda: [model.decode_step(model.params, tok, cache)
+                                       for _ in range(LM_TRACE_STEPS)])
+    _log_trace(f"[{tag}] {cfg.name} decode (batch {LM_BATCH}, traced)", wall, evs, LM_TRACE_STEPS,
+               smi, unit="step")
+    if cfg.is_encdec:
+        _family_checkpoint_served(torch, args, dev, tag, model)
+    del model, cache, logits, batch, long_batch
+    torch.cuda.empty_cache()
+
+
+def _family_checkpoint_served(torch, args, dev, tag, model) -> None:
+    """The served model and ``init_opt_state`` of it saved by the port's
+    ``CheckpointManager``; ``launch.serve --ckpt-dir`` (in process) restores
+    it and serves ``default_rng(0)``'s prompts, bitwise what the model
+    serves for them."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import serve as serve_driver
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = model.cfg
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+    try:
+        t0 = time.perf_counter()
+        path = CheckpointManager(tmp).save(1, (model.params, init_opt_state(model.params)),
+                                           extra={"arch": cfg.name})
+        size = sum(f.stat().st_size for f in Path(path).iterdir()) / 1e9
+        save_s = time.perf_counter() - t0
+        restored = serve_driver.main(["--arch", cfg.name, "--requests", str(LM_REQUESTS),
+                                      "--new-tokens", str(LM_NEW_TOKENS), "--batch-size",
+                                      str(LM_BATCH), "--ckpt-dir", tmp, "--device", str(dev)])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = _lm_serve(model, model.params, _lm_requests(cfg.vocab, 0, LM_REQUESTS))[1]
+    same = sorted(restored) == sorted(want) and all(np.array_equal(restored[r], want[r])
+                                                    for r in want)
+    _log(f"[{tag}] checkpoint of (params, init_opt_state(params)): {size:.2f} GB in {save_s:.1f} s; "
+         f"launch.serve --ckpt-dir restored it; its greedy tokens bitwise the model's: "
+         f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit(f"{cfg.name}: the restored checkpoint served other tokens")
+
+
+def _family_checks(torch, args, dev, smi, tag, name) -> None:
+    """15a-d gates in fp32 compute: decode against the forward at full width
+    (``FAMILY_CHECK`` layers), the card against the CPU (``FAMILY_SMALL_LAYERS``
+    layers), and for falcon-mamba-7b the checkpoint round trip of that model."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec as ed
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.common import count_params
+    from repro_torch.train.optimizer import init_opt_state
+
+    full_cfg = get_config(name)
+    layers, b, s = FAMILY_CHECK[name]
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 5)
+    cfg = dataclasses.replace(full_cfg, compute_dtype="float32",
+                              **({"n_layers": layers} if layers else {}))
+    m = build_model(cfg, device=dev, generator=gen)
+    toks = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev, dtype=torch.int32)
+    what = f"{cfg.n_layers} layers" if layers else "whole"
+    if cfg.is_encdec:
+        frames = torch.randn((b, 24, cfg.d_model), generator=gen, device=dev)
+        with torch.no_grad():
+            enc = ed.encode(m.params, cfg, frames)
+            full = ed.decode_train(m.params, cfg, toks, enc)
+            cache = ed.init_encdec_cache(m.params, cfg, enc, s, torch.float32)
+            steps = []
+            for i in range(s):
+                lg, cache = ed.decode_step(m.params, cfg, toks[:, i : i + 1], cache)
+                steps.append(lg)
+            step = torch.cat(steps, 1)
+    else:
+        if cfg.n_experts:
+            with torch.no_grad():
+                _, seen = _with_moe_drops(lambda: tt.forward(m.params, cfg, toks))
+            seen = [d for _, d in seen]
+            _log(f"[{tag}] pairs dropped in the forward of {b} x {s} tokens: {seen} (must be 0)")
+            if any(seen):
+                raise SystemExit(f"{name}: the forward dropped pairs; decode cannot equal it")
+        full, step = _lm_teacher_forced(torch, m.params, cfg, toks)
+    # the real vocabulary (whisper's padded slots hold -1e9 in both)
+    _lm_close(torch, f"[{tag}] {name} at full width ({what}, {count_params(m.params):,} params) "
+                     f"decode vs forward (fp32, {s} tokens, batch {b})",
+              step[..., : cfg.vocab], full[..., : cfg.vocab])
+    del m, full, step
+    torch.cuda.empty_cache()
+
+    # the card against the port's CPU run
+    small = dataclasses.replace(full_cfg, compute_dtype="float32",
+                                **({} if full_cfg.is_encdec else {"n_layers": FAMILY_SMALL_LAYERS}))
+    cpu = build_model(small, device="cpu", generator=torch.Generator().manual_seed(args.seed))
+    card = build_model(small, device=dev, generator=gen)
+    card.load_state_dict(cpu.state_dict())
+    cg = torch.Generator().manual_seed(args.seed + 6)
+    toks = torch.randint(0, small.vocab, (2, 12), generator=cg, dtype=torch.int32)
+    frames = torch.randn((2, 8, small.d_model), generator=cg)
+    runs = {}
+    for where, mm in (("cpu", cpu), ("card", card)):
+        t = toks.to(mm.device)
+        batch = {"tokens": t[:, :8]}
+        if small.is_encdec:
+            batch["frames"] = frames.to(mm.device)
+        cache, lg = mm.prefill(mm.params, batch, max_len=12)
+        steps = [lg]
+        for i in range(8, 12):
+            lg, cache = mm.decode_step(mm.params, t[:, i : i + 1], cache)
+            steps.append(lg)
+        runs[where] = torch.cat(steps, 1)[..., : small.vocab].cpu()
+    depth = "whole" if small.is_encdec else f"{FAMILY_SMALL_LAYERS} layers"
+    _lm_close(torch, f"[{tag}] {name} {depth}, card vs CPU: prefill and 4 decode logits",
+              runs["card"], runs["cpu"])
+    top2 = runs["cpu"].topk(2, -1).values
+    gaps = (top2[..., 0] - top2[..., 1]).flatten()
+    same_tok = runs["cpu"].argmax(-1).flatten() == runs["card"].argmax(-1).flatten()
+    wide = gaps > LM_LOGIT_TOL
+    _log(f"[{tag}] greedy tokens equal at {int(same_tok.sum())} of {same_tok.numel()} positions; "
+         f"{int(wide.sum())} have a CPU top-2 gap over {LM_LOGIT_TOL:g}, all equal there: "
+         f"{'ok' if bool(same_tok[wide].all()) else 'FAIL'}")
+    if not bool(same_tok[wide].all()):
+        raise SystemExit(f"{name}: card and CPU pick other greedy tokens where the gap is wide")
+    del cpu
+
+    if name == "falcon-mamba-7b":  # the checkpoint round trip of the 2-layer card model
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_family_")
+        try:
+            t0 = time.perf_counter()
+            path = CheckpointManager(tmp).save(1, (card.params, init_opt_state(card.params)),
+                                               extra={"arch": name})
+            size = sum(f.stat().st_size for f in Path(path).iterdir()) / 1e9
+            fresh = build_model(small, device=dev, generator=gen)
+            (params, _), manifest = CheckpointManager(tmp).restore(
+                (fresh.params, init_opt_state(fresh.params)))
+            rt_s = time.perf_counter() - t0
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        want, got = _tree.leaves(card.params), _tree.leaves(params)
+        bitwise = manifest["step"] == 1 and len(got) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(want, got))
+        prompts = _lm_requests(small.vocab, args.seed + 7, LM_BATCH)
+        a = _lm_serve(card, card.params, prompts)[1]
+        bb = _lm_serve(fresh, params, prompts)[1]
+        same = bitwise and all(np.array_equal(a[r], bb[r]) for r in a)
+        _log(f"[{tag}] checkpoint of the {FAMILY_SMALL_LAYERS}-layer model and its optimizer "
+             f"state: {size:.2f} GB written and restored in {rt_s:.1f} s; every leaf bitwise and "
+             f"the restored model's greedy tokens equal: {'ok' if same else 'FAIL'}")
+        if not same:
+            raise SystemExit(f"{name}: the checkpoint round trip changed the model")
+        del fresh, params
+    del card
+    torch.cuda.empty_cache()
+
+
+def _lm_families_phase(torch, args, dev, smi) -> None:
+    """Phase 15: the MoE, SSM, hybrid and enc-dec families on the card (see
+    the module docstring).  One model resident at a time; catches nothing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    for tag, name, layers, want in FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_config(name)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        _family_serve(torch, args, dev, smi, tag, cfg, want)
+        _family_checks(torch, args, dev, smi, tag, name)
+        _log(f"[{tag}] {name}: {time.perf_counter() - t0:.1f} s")
+    _log(f"[15] LM families phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
-                                       "dist", "lm"],
+                                       "dist", "lm", "lm_families"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
                          "(the legacy front door and PP sweeps) or phase 13 (sharded CP-ALS, "
                          "its executors, tuner and service, the two-level mesh and sharded PP "
-                         "in an NCCL world of one) or phase 14 (the LM serving path); prints "
-                         "no result line")
+                         "in an NCCL world of one), phase 14 (the LM serving path) or phase "
+                         "15 (the MoE, SSM, hybrid and enc-dec families); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -3071,7 +3435,7 @@ def main(argv=None) -> int:
     if args.only:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
-                "dist": _only_dist, "lm": _lm_phase}[args.only]
+                "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -3302,6 +3666,9 @@ def main(argv=None) -> int:
     del x4, init, f4, subjects, xb, fb, states, pp_ref
     torch.cuda.empty_cache()
     _lm_phase(torch, args, dev, smi)
+
+    # ---- phase 15: the other LM families (each model freed before the next)
+    _lm_families_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -1,9 +1,8 @@
 """Architecture config registry:  get_config(name) / list_archs().
 
 The port's own copy of ``repro.configs`` (plain dataclasses, no array
-library): the same ten architectures, field for field.  The port builds the
-dense and VLM families; the others are registered for their shapes and
-raise where a model of theirs would be built.
+library): the same ten architectures, field for field, and the port
+builds a model of each.
 """
 
 from __future__ import annotations

@@ -14,7 +14,8 @@ both packages' PP sweeps can start from one state.
 An LM's weights cross as a flat ``{leaf path: array}`` dict keyed by the
 reference's checkpoint leaf paths (``embed``, ``layers/attn/wq``,
 ``final_norm/w``, ...), a scanned stack as one array with a leading layer
-axis: :func:`params_to_numpy` reads a port model's, and
+axis and a plain layer list by index (an enc-dec model's
+``enc_layers/0/attn/wq``, ...): :func:`params_to_numpy` reads a port model's, and
 :func:`params_from_numpy` loads such a dict (from the reference's
 ``repro.checkpoint.manager._flatten(params)``, say) into a port model.  The
 port's ``CheckpointManager`` writes and reads the same mapping.

@@ -10,8 +10,9 @@ The same flags as the reference's, plus ``--device`` (default ``cuda``;
 seeded 0 on that device, then, with ``--ckpt-dir``, restored from the
 latest checkpoint there into the template ``(params, init_opt_state(params))``
 (a checkpoint of either package).  The prompts are the reference's: lengths
-in [4, 16) and tokens from ``np.random.default_rng(0)``.  ``--dp``/``--tp``
-above 1 raise: the sharded LM is not ported yet.
+in [4, 16) and tokens from ``np.random.default_rng(0)``.  Every
+architecture is served (an enc-dec model gets the engine's zero frames);
+``--dp``/``--tp`` above 1 raise: the sharded LM is not ported yet.
 """
 
 from __future__ import annotations

@@ -225,6 +225,12 @@ def act_fn(name: str) -> Callable[[Tensor], Tensor]:
     return {"silu": F.silu, "gelu": _gelu, "relu": F.relu}[name]
 
 
+def softplus(x: Tensor) -> Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` at every x (``F.softplus``
+    turns into the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def softcap(x: Tensor, cap: float) -> Tensor:
     return torch.tanh(x / cap) * cap if cap else x
 

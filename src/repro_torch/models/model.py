@@ -23,9 +23,11 @@ from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as meshlib
 
-from . import transformer
+from . import encdec, transformer
 from .attention import KVCache
 from .common import cast_floats, init_tree, spec_tree, torch_dtype
+from .rglru import LRUState
+from .ssm import SSMState
 
 Tensor = torch.Tensor
 
@@ -103,6 +105,11 @@ class Model(nn.Module):
     def loss_fn(self, params: Any, batch: dict) -> tuple[Tensor, dict]:
         cfg = self.cfg
         params = cast_floats(params, cfg.compute_dtype)
+        if cfg.is_encdec:
+            enc_out = encdec.encode(params, cfg, batch["frames"])
+            logits = encdec.decode_train(params, cfg, batch["tokens"][:, :-1], enc_out)
+            loss, acc = cross_entropy(logits, batch["tokens"][:, 1:])
+            return loss, {"ce": loss, "acc": acc}
         tokens = batch["tokens"]
         positions = batch.get("positions")
         if positions is not None:
@@ -116,30 +123,44 @@ class Model(nn.Module):
     # ---- serving ----
     @torch.no_grad()
     def prefill(self, params: Any, batch: dict, max_len: int) -> tuple[Any, Tensor]:
-        """Process the prompt; returns (cache, last-token logits)."""
+        """Process the prompt; returns (cache, last-token logits).
+
+        An enc-dec model encodes ``batch["frames"]`` and decodes only the
+        prompt's first token (``tokens[:, :1]``), as the reference does.
+        """
         cfg = self.cfg
+        dt = torch_dtype(cfg.compute_dtype)
         tokens = batch["tokens"]
+        if cfg.is_encdec:
+            enc_out = encdec.encode(params, cfg, batch["frames"])
+            cache = encdec.init_encdec_cache(params, cfg, enc_out, max_len, dt)
+            logits, cache = encdec.decode_step(params, cfg, tokens[:, :1], cache)
+            return cache, logits
         b, s = tokens.shape
         h, _, collected = transformer.forward(
             params, cfg, tokens, batch.get("positions"), collect_cache=True
         )  # h is already final-normed
-        cache = transformer.init_cache(cfg, b, max_len, torch_dtype(cfg.compute_dtype),
-                                       tokens.device)
+        cache = transformer.init_cache(cfg, b, max_len, dt, tokens.device)
         entries = _fill_cache(cache.entries, collected, s)
         logits = transformer.lm_logits(params, cfg, h[:, -1:, :])
         return transformer.DecodeCache(entries, s), logits
 
     @torch.no_grad()
     def decode_step(self, params: Any, tokens: Tensor, cache: Any):
+        if self.cfg.is_encdec:
+            return encdec.decode_step(params, self.cfg, tokens, cache)
         return transformer.decode_step(params, self.cfg, tokens, cache)
 
     def init_cache(self, batch: int, max_len: int) -> Any:
-        return transformer.init_cache(self.cfg, batch, max_len,
-                                      torch_dtype(self.cfg.compute_dtype), self.device)
+        cfg = self.cfg
+        assert not cfg.is_encdec, "enc-dec caches come from prefill()"
+        return transformer.init_cache(cfg, batch, max_len, torch_dtype(cfg.compute_dtype),
+                                      self.device)
 
 
 def _fill_cache(entries: list, collected: list, s: int) -> list:
-    """Write prefill K/V into a fresh decode cache, layer by layer.
+    """Write prefill K/V (or recurrent states) into a fresh decode cache,
+    layer by layer.
 
     Ring invariant (attention.attn_decode): the token at absolute position p
     lives at slot ``p % W``.  When the prompt is longer than the window we
@@ -147,7 +168,11 @@ def _fill_cache(entries: list, collected: list, s: int) -> list:
     the next decode write (slot s % W) then correctly evicts the oldest.
     """
     out = []
-    for entry, (k, v) in zip(entries, collected):  # (B, S, Hk, hd)
+    for entry, col in zip(entries, collected):
+        if isinstance(entry, (SSMState, LRUState)):
+            out.append(type(entry)(*(c.to(e.dtype) for e, c in zip(entry, col))))
+            continue
+        k, v = col  # (B, S, Hk, hd)
         w = entry.k.shape[1]
         if s >= w:
             k = torch.roll(k[:, s - w : s], s % w, dims=1)
@@ -163,8 +188,8 @@ def _fill_cache(entries: list, collected: list, s: int) -> list:
 def build_model(cfg: ModelConfig, *, device: str | torch.device = "cuda",
                 generator: torch.Generator | None = None) -> Model:
     """The model of ``cfg`` with parameters drawn from ``generator`` on
-    ``device``.  The dense and VLM families are ported; the others raise."""
-    if cfg.is_encdec:
-        raise transformer.not_ported(f"family {cfg.family!r}")
-    return Model(cfg, transformer.decoder_defs(cfg), device=device, generator=generator)
+    ``device``: the enc-dec backbone for an enc-dec config, else the
+    decoder-only stack."""
+    defs = encdec.encdec_defs(cfg) if cfg.is_encdec else transformer.decoder_defs(cfg)
+    return Model(cfg, defs, device=device, generator=generator)
 

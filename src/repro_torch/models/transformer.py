@@ -5,9 +5,11 @@ stack under ``lax.scan`` over per-layer params stacked on a leading axis
 (with ``jax.checkpoint`` for training); the port keeps the layers of such a
 stack apart in a :class:`repro_torch._tree.Stacked` list and loops over
 them (remat means nothing for serving).  The stack's checkpoint keys and
-arrays are the reference's: see :mod:`repro_torch._tree`.
+arrays are the reference's: see :mod:`repro_torch._tree`.  Heterogeneous
+stacks (recurrentgemma's (rec, rec, attn) cycle) are a plain list, as in
+the reference.
 
-Layer recipes (the port builds ``attn`` and ``lattn``; the others raise):
+Layer recipes:
   attn   : h += Attn(norm(h));        h += FFN(norm(h))
   moe    : h += Attn(norm(h));        h += MoE(norm(h))   (+aux loss)
   ssm    : h += Mamba(norm(h))                             (no FFN; mamba-1)
@@ -26,18 +28,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as meshlib
 
 from . import attention as attn
+from . import moe as moe_mod
+from . import rglru as rg
+from . import ssm as ssm_mod
 from .common import ParamDef, mask_vocab_pad, norm_apply, norm_defs, torch_dtype, vocab_padded
 from .ffn import ffn_apply, ffn_defs
 
 Tensor = torch.Tensor
-
-LATER_FAMILIES = ("the MoE, SSM, hybrid and enc-dec families are not ported yet "
-                  "(ROADMAP.md queue 1: the other LM families)")
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {LATER_FAMILIES}")
-
 
 # --------------------------------------------------------------------------
 # Layer type plan
@@ -70,8 +67,22 @@ def _layer_defs(cfg: ModelConfig, kind: str) -> dict:
             "ln2": norm_defs(cfg.norm, cfg.d_model),
             "mlp": ffn_defs(cfg),
         }
-    if kind in ("moe", "ssm", "rec"):
-        raise not_ported(f"layer kind {kind!r}")
+    if kind == "moe":
+        return {
+            "ln1": norm_defs(cfg.norm, cfg.d_model),
+            "attn": attn.attn_defs(cfg),
+            "ln2": norm_defs(cfg.norm, cfg.d_model),
+            "moe": moe_mod.moe_defs(cfg),
+        }
+    if kind == "ssm":
+        return {"ln": norm_defs(cfg.norm, cfg.d_model), "mixer": ssm_mod.ssm_defs(cfg)}
+    if kind == "rec":
+        return {
+            "ln1": norm_defs(cfg.norm, cfg.d_model),
+            "rec": rg.rglru_defs(cfg),
+            "ln2": norm_defs(cfg.norm, cfg.d_model),
+            "mlp": ffn_defs(cfg),
+        }
     raise ValueError(kind)
 
 
@@ -103,9 +114,24 @@ def _apply_layer(
     collect: bool,
 ):
     """Returns (h, aux, cache_entry_or_None)."""
-    if kind not in ("attn", "lattn"):
-        raise not_ported(f"layer kind {kind!r}")
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    if kind == "ssm":
+        x = norm_apply(cfg.norm, h, p["ln"])
+        if collect:
+            y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x, return_state=True)
+        else:
+            y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x), None
+        return h + y, zero, state
+    if kind == "rec":
+        x = norm_apply(cfg.norm, h, p["ln1"])
+        if collect:
+            y, state = rg.rglru_apply(p["rec"], cfg, x, return_state=True)
+        else:
+            y, state = rg.rglru_apply(p["rec"], cfg, x), None
+        h = h + y
+        h = h + ffn_apply(p["mlp"], cfg, norm_apply(cfg.norm, h, p["ln2"]))
+        return h, zero, state
+    # attention variants
     window = cfg.local_window if kind == "lattn" else cfg.sliding_window
     x = norm_apply(cfg.norm, h, p["ln1"])
     q_chunk = cfg.seq_chunk
@@ -119,7 +145,11 @@ def _apply_layer(
         cache_entry = None
     h = h + y
     x2 = norm_apply(cfg.norm, h, p["ln2"])
-    return h + ffn_apply(p["mlp"], cfg, x2), zero, cache_entry
+    if kind == "moe":
+        y2, aux = moe_mod.moe_apply(p["moe"], cfg, x2)
+    else:
+        y2, aux = ffn_apply(p["mlp"], cfg, x2), zero
+    return h + y2, aux, cache_entry
 
 
 def forward(
@@ -130,8 +160,11 @@ def forward(
     *,
     collect_cache: bool = False,
 ):
-    """Token ids -> final hidden states.  Returns (hidden, aux, cache): the
-    cache a list of per-layer ``(k, v)`` when ``collect_cache``, else None."""
+    """Token ids -> final hidden states.  Returns (hidden, aux, cache): aux
+    the summed MoE aux loss (0 without experts); the cache, when
+    ``collect_cache``, a list of per-layer ``(k, v)`` (attention layers) or
+    :class:`~.ssm.SSMState` / :class:`~.rglru.LRUState` (recurrent layers),
+    else None."""
     types = layer_types(cfg)
     b, s = tokens.shape
     if positions is None:
@@ -169,9 +202,10 @@ def lm_logits(params: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
 # Decode path
 # --------------------------------------------------------------------------
 class DecodeCache(NamedTuple):
-    """Per-model cache: ``entries`` one :class:`~.attention.KVCache` a layer
-    (the reference stacks a scanned stack's on a leading axis); ``length``
-    the tokens written so far, a host int."""
+    """Per-model cache: ``entries`` one :class:`~.attention.KVCache`,
+    :class:`~.ssm.SSMState` or :class:`~.rglru.LRUState` a layer (the
+    reference stacks a scanned stack's on a leading axis); ``length`` the
+    tokens written so far, a host int."""
 
     entries: Any
     length: int
@@ -179,29 +213,42 @@ class DecodeCache(NamedTuple):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device: str | torch.device = "cuda") -> DecodeCache:
-    entries = []
-    for kind in layer_types(cfg):
-        if kind not in ("attn", "lattn"):
-            raise not_ported(f"layer kind {kind!r}")
-        entries.append(attn.init_kv_cache(cfg, batch, max_len, dtype, device))
-    return DecodeCache(entries, 0)
+    def one(kind: str):
+        if kind == "ssm":
+            return ssm_mod.init_ssm_state(cfg, batch, dtype, device)
+        if kind == "rec":
+            return rg.init_lru_state(cfg, batch, dtype, device)
+        return attn.init_kv_cache(cfg, batch, max_len, dtype, device)
+
+    return DecodeCache([one(kind) for kind in layer_types(cfg)], 0)
 
 
 def _decode_layer(p: dict, cfg: ModelConfig, kind: str, h: Tensor, entry, length: int):
-    if kind not in ("attn", "lattn"):
-        raise not_ported(f"layer kind {kind!r}")
+    if kind == "ssm":
+        y, entry = ssm_mod.ssm_decode(p["mixer"], cfg, norm_apply(cfg.norm, h, p["ln"]), entry)
+        return h + y, entry
+    if kind == "rec":
+        y, entry = rg.rglru_decode(p["rec"], cfg, norm_apply(cfg.norm, h, p["ln1"]), entry)
+        h = h + y
+        h = h + ffn_apply(p["mlp"], cfg, norm_apply(cfg.norm, h, p["ln2"]))
+        return h, entry
     x = norm_apply(cfg.norm, h, p["ln1"])
     y, entry = attn.attn_decode(p["attn"], cfg, x, entry, length)
     h = h + y
     x2 = norm_apply(cfg.norm, h, p["ln2"])
-    return h + ffn_apply(p["mlp"], cfg, x2), entry
+    if kind == "moe":
+        y2, _ = moe_mod.moe_apply(p["moe"], cfg, x2)
+    else:
+        y2 = ffn_apply(p["mlp"], cfg, x2)
+    return h + y2, entry
 
 
 def decode_step(
     params: dict, cfg: ModelConfig, tokens: Tensor, cache: DecodeCache
 ) -> tuple[Tensor, DecodeCache]:
-    """One decode step.  tokens: (B, 1) int.  Returns (logits, cache): the
-    cache's tensors take the new row in place, its length one more."""
+    """One decode step.  tokens: (B, 1) int.  Returns (logits, cache): an
+    attention entry's tensors take the new row in place, a recurrent
+    layer's state is a new one, the length one more."""
     types = layer_types(cfg)
     dt = torch_dtype(cfg.compute_dtype)
     h = params["embed"][tokens].to(dt)

@@ -10,8 +10,8 @@ stream back):
   through ``Problem(batch=B) -> plan_sweep -> batched cp_als`` with the
   tuning cache as the warm-plan store.
 * :class:`ServeEngine` (:mod:`repro_torch.serve.engine`) -- the LM engine
-  (prefill + decode, greedy or sampled) over the port's dense and VLM
-  models.
+  (prefill + decode, greedy or sampled) over the port's models of every
+  family.
 
 Both share the bounded FIFO+priority :class:`RequestQueue` of
 :mod:`repro_torch.serve.queue` (backpressure via :class:`QueueFull`).

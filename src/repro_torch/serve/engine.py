@@ -5,7 +5,9 @@ queued prompts are packed into the next batch of ``batch_size`` rows
 through the shared :class:`repro_torch.serve.queue.RequestQueue` (the same
 machinery drives the CP service).  As in the reference, a batch's prompts
 are left-padded with token 0 to its longest prompt, the pads are attended
-(no padding mask) and positions count from the first pad.
+(no padding mask) and positions count from the first pad.  An enc-dec
+model gets zero frames of the batch's prompt length (the reference's stub
+frontend); its prefill decodes only the first prompt token.
 
 Greedy decoding (``temperature <= 0``) is the argmax; sampling draws from
 one ``torch.Generator`` seeded with ``gen.seed`` on the logits' device, so
@@ -124,6 +126,9 @@ class ServeEngine:
             for i, r in enumerate(chunk):
                 toks[i, s - len(r.payload.tokens) :] = r.payload.tokens  # left-pad
             batch = {"tokens": torch.from_numpy(toks).to(device)}
+            if self.model.cfg.is_encdec:  # the stubbed frontend: zero frames
+                batch["frames"] = torch.zeros((self.batch_size, s, self.model.cfg.d_model),
+                                              dtype=torch.float32, device=device)
             out = generate(self.model, self.params, batch, self.gen)
             for i, r in enumerate(chunk):
                 results[r.rid] = out[i]

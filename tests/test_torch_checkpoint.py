@@ -240,3 +240,37 @@ def test_stacked_layers_save_as_one_array(tmp_path, olmo):
     assert shapes["layers/attn/wq"] == [tm.cfg.n_layers] + list(
         tm.params["layers"][0]["attn"]["wq"].shape)
     assert set(dtypes.values()) == {"float32"}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-base"])
+def test_moe_and_encdec_checkpoints_interchange_bitwise(tmp_path, arch):
+    """A MoE model (a scanned stack with expert and shared-expert leaves) and
+    an enc-dec model (``enc_layers/0/...`` lists): the reference's checkpoint
+    restores in the port bitwise, the port's in the reference, with equal
+    manifests."""
+    jcfg = jconfigs.get_config(arch).reduced()
+    jp = jbuild(jcfg).init(jax.random.PRNGKey(13))
+    JManager(str(tmp_path / "j")).save(3, (jp, jinit_opt(jp)), extra={"arch": arch})
+    tm = build_model(tconfigs.get_config(arch).reduced(), device="cpu",
+                     generator=torch.Generator().manual_seed(14))
+    (params, opt), manifest = CheckpointManager(str(tmp_path / "j")).restore(
+        (tm.params, init_opt_state(tm.params)))
+    assert manifest["step"] == 3 and manifest["arch"] == arch
+    want = jflatten(jp)
+    got = _tree.flatten(params, lambda t: t.numpy(), np.stack)
+    assert sorted(got) == sorted(want)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    if jcfg.is_encdec:
+        assert "enc_layers/0/attn/wq" in want and "dec_layers/1/cross_attn/wk" in want
+    else:
+        assert "layers/moe/w_gate" in want and "layers/moe/shared/gate" in want
+    # the other way: the port writes a fresh model, the reference restores it
+    fresh = build_model(tm.cfg, device="cpu", generator=torch.Generator().manual_seed(15))
+    CheckpointManager(str(tmp_path / "t")).save(5, (fresh.params, init_opt_state(fresh.params)))
+    JManager(str(tmp_path / "j5")).save(5, (jp, jinit_opt(jp)))
+    assert _manifest(tmp_path / "t" / "step_00000005") == _manifest(tmp_path / "j5" / "step_00000005")
+    template = jax.tree.map(jnp.zeros_like, (jp, jinit_opt(jp)))
+    (jparams, _), _ = JManager(str(tmp_path / "t")).restore(template)
+    back, mine = jflatten(jparams), params_to_numpy(fresh)
+    assert sorted(back) == sorted(mine)
+    assert all(np.array_equal(back[k], mine[k]) for k in mine)

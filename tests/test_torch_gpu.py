@@ -1151,3 +1151,41 @@ def test_reduced_lm_on_the_card_agrees_with_the_cpu(cuda):
             if live[row]:
                 assert b[row, step] == int(tok[row])
         lg, cache = cpu.decode_step(cpu.params, tok[:, None], cache)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b", "qwen2-moe-a2.7b",
+                                  "whisper-base"])
+def test_reduced_lm_families_on_the_card_agree_with_the_cpu(cuda, arch):
+    """The SSM, hybrid, MoE and enc-dec serving paths on the card: the
+    reduced model (fp32 compute) with the CPU model's parameters; prefill
+    and 4 decode logits within the reference's 2e-3 of the CPU run (an
+    enc-dec model fed frames made on the CPU), and the engine serves."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import GenerationConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 9), generator=g, dtype=torch.int32)
+    frames = torch.randn(2, 5, cfg.d_model, generator=g)
+    logits = {}
+    for name, m in (("cpu", cpu), ("cuda", card)):
+        t = toks.to(m.device)
+        batch = {"tokens": t[:, :5]}
+        if cfg.is_encdec:
+            batch["frames"] = frames.to(m.device)
+        cache, lg = m.prefill(m.params, batch, max_len=12)
+        steps = [lg]
+        for i in range(5, 9):
+            lg, cache = m.decode_step(m.params, t[:, i : i + 1], cache)
+            steps.append(lg)
+        logits[name] = torch.cat(steps, 1).cpu()
+    torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=2e-3, atol=2e-3)
+    eng = ServeEngine(card, card.params, GenerationConfig(max_new_tokens=3), batch_size=2)
+    rids = [eng.submit(toks[i, : 4 + i].numpy()) for i in range(2)]
+    out = eng.flush()
+    assert sorted(out) == rids and all(((o >= 0) & (o < cfg.vocab)).all() for o in out.values())

@@ -3,10 +3,10 @@ the JAX reference, on the CPU.
 
 The configs are copies: every field of all ten architectures, full and
 ``reduced()``, equals the reference's; so do ``LM_SHAPES`` and the cell
-skip rule.  The port builds the dense and VLM families: each full config's
-parameter shapes (on the ``meta`` device, no storage) equal the
-reference's ``jax.eval_shape(model.init, key)`` leaf for leaf, under the
-reference's checkpoint leaf paths, and so do the counts.
+skip rule.  The port builds every family: each full config's parameter
+shapes (on the ``meta`` device, no storage; dbrx-132b's 132 B included)
+equal the reference's ``jax.eval_shape(model.init, key)`` leaf for leaf,
+under the reference's checkpoint leaf paths, and so do the counts.
 """
 
 import dataclasses
@@ -25,7 +25,8 @@ from repro_torch.launch import mesh as tmesh
 from repro_torch.models import build_model
 from repro_torch.models.common import count_params
 
-BUILT = ["olmo-1b", "qwen3-8b", "h2o-danube-3-4b", "deepseek-coder-33b", "qwen2-vl-7b"]
+BUILT = ["olmo-1b", "qwen3-8b", "h2o-danube-3-4b", "deepseek-coder-33b", "qwen2-vl-7b",
+         "dbrx-132b", "qwen2-moe-a2.7b", "falcon-mamba-7b", "recurrentgemma-2b", "whisper-base"]
 
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())
@@ -91,6 +92,24 @@ def test_olmo_1b_has_the_reference_count():
     model = build_model(tconfigs.get_config("olmo-1b"), device="meta")
     assert count_params(model.params) == 1_176_764_416
     assert param_count(jconfigs.get_config("olmo-1b")) == 1_176_764_416
+
+
+@pytest.mark.parametrize("arch,count", [
+    ("falcon-mamba-7b", 7_272_665_088),
+    ("recurrentgemma-2b", 3_337_597_440),
+    ("qwen2-moe-a2.7b", 15_146_305_536),  # 64 experts a layer: the 4 pads included
+    ("whisper-base", 114_065_408),
+])
+def test_full_config_param_counts_equal_the_reference_defs(arch, count):
+    """The full models the card serves (phase 15): the port's count on
+    ``meta`` is the sum of the reference's ``ParamDef`` shapes."""
+    import numpy as np
+    from repro.models.common import ParamDef as JDef
+
+    defs = jbuild(jconfigs.get_config(arch)).param_defs
+    n = sum(int(np.prod(d.shape)) for d in jax.tree.leaves(defs, is_leaf=lambda x: isinstance(x, JDef)))
+    assert n == count
+    assert count_params(build_model(tconfigs.get_config(arch), device="meta").params) == count
 
 
 class _Mesh:

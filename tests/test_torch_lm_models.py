@@ -10,7 +10,9 @@ Tolerances: the building blocks (norms, RoPE, M-RoPE, activations,
 attention, FFN) at the port's fp32 bound ``rtol=2e-4, atol=2e-5``; whole-
 model logits (forward, prefill, decode) and the loss at the reference's own
 2e-3 (``tests/test_models_smoke.py``: decode against the forward pass), and
-the SWA ring against the windowed forward at its 3e-3.
+the SWA ring against the windowed forward at its 3e-3.  Every one of the
+ten architectures is built; the MoE, SSM, RG-LRU and enc-dec blocks have
+their own parity tests in ``tests/test_torch_lm_families.py``.
 """
 
 import dataclasses
@@ -39,8 +41,8 @@ from repro_torch.models import transformer as ttrans
 TOL = dict(rtol=2e-4, atol=2e-5)
 MODEL_TOL = dict(rtol=2e-3, atol=2e-3)
 SWA_TOL = dict(rtol=3e-3, atol=3e-3)
-BUILT = ["olmo-1b", "qwen3-8b", "h2o-danube-3-4b", "deepseek-coder-33b", "qwen2-vl-7b"]
-LATER = ["dbrx-132b", "qwen2-moe-a2.7b", "falcon-mamba-7b", "recurrentgemma-2b", "whisper-base"]
+BUILT = ["olmo-1b", "qwen3-8b", "h2o-danube-3-4b", "deepseek-coder-33b", "qwen2-vl-7b",
+         "dbrx-132b", "qwen2-moe-a2.7b", "falcon-mamba-7b", "recurrentgemma-2b", "whisper-base"]
 
 
 def _cfgs(arch, **changes):
@@ -321,26 +323,69 @@ def test_cp_rank_ffn_takes_compress_ffn_output():
 # --------------------------------------------------------------------------
 # whole models
 # --------------------------------------------------------------------------
+def _batch(cfg, toks, seed=0):
+    batch = {"tokens": toks}
+    if cfg.mrope_sections:
+        batch["positions"] = _positions(cfg, *toks.shape)
+    if cfg.is_encdec:
+        batch["frames"] = np.random.default_rng(seed).standard_normal(
+            toks.shape + (cfg.d_model,)).astype(np.float32)
+    return batch
+
+
 @pytest.mark.parametrize("arch", BUILT)
 def test_forward_and_loss_match_the_reference(arch):
     jcfg, jm, jp, tm = _pair(arch, seed=1)
     s = 40 if arch.startswith("h2o") else 12
     toks = _tokens(jcfg, (2, s))
-    want = jax.jit(lambda p, t: jtrans.lm_logits(p, jcfg, jtrans.forward(p, jcfg, t)[0]))(
-        jp, jnp.asarray(toks))
-    with torch.no_grad():
-        th, aux, cache = ttrans.forward(tm.params, tm.cfg, torch.from_numpy(toks))
-        got = ttrans.lm_logits(tm.params, tm.cfg, th)
-    assert cache is None and float(aux) == 0.0
+    batch = _batch(jcfg, toks)
+    if jcfg.is_encdec:  # the encoder over the frames, the decoder teacher-forced
+        from repro.models import encdec as jencdec
+        from repro_torch.models import encdec as tencdec
+
+        want = jax.jit(lambda p, t, f: jencdec.decode_train(p, jcfg, t, jencdec.encode(p, jcfg, f)))(
+            jp, jnp.asarray(toks), jnp.asarray(batch["frames"]))
+        with torch.no_grad():
+            enc = tencdec.encode(tm.params, tm.cfg, torch.from_numpy(batch["frames"]))
+            got = tencdec.decode_train(tm.params, tm.cfg, torch.from_numpy(toks), enc)
+    else:
+        want, jaux = jax.jit(lambda p, t: (
+            lambda h, aux: (jtrans.lm_logits(p, jcfg, h), aux))(*jtrans.forward(p, jcfg, t)[:2]))(
+            jp, jnp.asarray(toks))
+        with torch.no_grad():
+            th, aux, cache = ttrans.forward(tm.params, tm.cfg, torch.from_numpy(toks))
+            got = ttrans.lm_logits(tm.params, tm.cfg, th)
+        assert cache is None
+        np.testing.assert_allclose(float(aux), float(jaux), **TOL)
+        assert (float(aux) > 0) == bool(jcfg.n_experts)
     np.testing.assert_allclose(_np(got), want, **MODEL_TOL)
-    batch = {"tokens": toks}
-    if jcfg.mrope_sections:
-        batch["positions"] = _positions(jcfg, 2, s)
     jloss, jmet = jax.jit(jm.loss_fn)(jp, {k: jnp.asarray(v) for k, v in batch.items()})
     with torch.no_grad():
         tloss, tmet = tm.loss_fn(tm.params, {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(tloss), float(jloss), **MODEL_TOL)
     np.testing.assert_allclose(float(tmet["acc"]), float(jmet["acc"]), atol=1e-6)
+    assert set(tmet) == set(jmet)
+
+
+def _check_cache(tcache, jcache, scanned):
+    """The port's decode cache (per-layer entries) holds the reference's
+    arrays (a scanned stack's stacked on a leading layer axis)."""
+    if hasattr(tcache, "self_kv"):  # enc-dec
+        assert tcache.length == int(jcache.length)
+        for t_kv, j_kv in zip(tcache.self_kv + tcache.cross_kv, jcache.self_kv + jcache.cross_kv):
+            for t_a, j_a in zip(t_kv, j_kv):
+                np.testing.assert_allclose(_np(t_a), j_a, **MODEL_TOL)
+        return
+    assert tcache.length == int(jcache.length)
+    if scanned:
+        for field in tcache.entries[0]._fields:
+            np.testing.assert_allclose(np.stack([_np(getattr(e, field)) for e in tcache.entries]),
+                                       getattr(jcache.entries, field), **MODEL_TOL)
+        return
+    for t_e, j_e in zip(tcache.entries, jcache.entries):
+        assert type(t_e).__name__ == type(j_e).__name__ and t_e._fields == j_e._fields
+        for t_a, j_a in zip(t_e, j_e):
+            np.testing.assert_allclose(_np(t_a), j_a, **MODEL_TOL)
 
 
 @pytest.mark.parametrize("arch", BUILT)
@@ -348,20 +393,22 @@ def test_prefill_and_decode_match_the_reference(arch):
     jcfg, jm, jp, tm = _pair(arch, seed=2)
     toks = _tokens(jcfg, (2, 14), seed=3)
     prompt = 8 if not arch.startswith("h2o") else 10
-    jcache, jl = jax.jit(lambda p, b: jm.prefill(p, b, max_len=24))(
-        jp, {"tokens": jnp.asarray(toks[:, :prompt])})
-    tcache, tl = tm.prefill(tm.params, {"tokens": torch.from_numpy(toks[:, :prompt])}, max_len=24)
-    assert tuple(tl.shape) == (2, 1, jcfg.vocab) and tcache.length == prompt
+    jb = {k: jnp.asarray(v) for k, v in _batch(jcfg, toks[:, :prompt], seed=4).items()}
+    tb = {k: torch.from_numpy(np.array(v)) for k, v in jb.items()}
+    jcache, jl = jax.jit(lambda p, b: jm.prefill(p, b, max_len=24))(jp, jb)
+    tcache, tl = tm.prefill(tm.params, tb, max_len=24)
+    assert tuple(tl.shape) == (2, 1, jcfg.vocab)
+    assert tcache.length == (1 if jcfg.is_encdec else prompt)  # enc-dec: the first token only
     np.testing.assert_allclose(_np(tl), jl, **MODEL_TOL)
     # the cache the port fills is the reference's, layer by layer
-    stacked_k = np.stack([_np(e.k) for e in tcache.entries])
-    np.testing.assert_allclose(stacked_k, jcache.entries.k, **MODEL_TOL)
+    _check_cache(tcache, jcache, ttrans.is_scanned(tm.cfg))
     decode = jax.jit(jm.decode_step)
     for i in range(prompt, 14):
         jl, jcache = decode(jp, jnp.asarray(toks[:, i : i + 1]), jcache)
         tl, tcache = tm.decode_step(tm.params, torch.from_numpy(toks[:, i : i + 1]), tcache)
         np.testing.assert_allclose(_np(tl), jl, **MODEL_TOL)
-    assert tcache.length == 14
+    _check_cache(tcache, jcache, ttrans.is_scanned(tm.cfg))
+    assert tcache.length == (14 - prompt + 1 if jcfg.is_encdec else 14)
 
 
 def test_prefill_longer_than_the_window_rolls_the_ring():
@@ -444,24 +491,6 @@ def test_params_from_numpy_refuses_missing_or_misshapen_leaves():
     bad["embed"] = bad["embed"][:-1]
     with pytest.raises(ValueError):
         params_from_numpy(tm, bad)
-
-
-@pytest.mark.parametrize("arch", LATER)
-def test_families_not_ported_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(tconfigs.get_config(arch).reduced(), device="meta")
-
-
-@pytest.mark.parametrize("kind", ["moe", "ssm", "rec"])
-def test_layer_kinds_not_ported_raise_when_applied(kind):
-    cfg = tconfigs.get_config("olmo-1b").reduced()
-    h = torch.zeros(1, 2, cfg.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrans._apply_layer({}, cfg, kind, h, torch.zeros(1, 2, dtype=torch.int32), collect=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrans._decode_layer({}, cfg, kind, h, None, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrans._layer_defs(cfg, kind)
 
 
 @pytest.mark.parametrize("arch", jconfigs.list_archs())

@@ -49,10 +49,14 @@ def olmo():
 
 
 def _reference_greedy(jm, jp, tokens, n):
-    """The reference's greedy tokens and each step's top-2 logit gap."""
+    """The reference's greedy tokens and each step's top-2 logit gap (an
+    enc-dec model given the engine's zero frames)."""
     prefill = jax.jit(lambda p, b: jm.prefill(p, b, max_len=tokens.shape[1] + n + 1))
     decode = jax.jit(jm.decode_step)
-    cache, logits = prefill(jp, {"tokens": jnp.asarray(tokens)})
+    batch = {"tokens": jnp.asarray(tokens)}
+    if jm.cfg.is_encdec:
+        batch["frames"] = jnp.zeros(tokens.shape + (jm.cfg.d_model,), jnp.float32)
+    cache, logits = prefill(jp, batch)
     toks, gaps = [], []
     for _ in range(n):
         last = np.asarray(logits[:, -1], np.float32)
@@ -226,3 +230,52 @@ def test_serve_driver_runs_on_the_cpu():
     )
     assert proc.returncode == 0, proc.stderr
     assert "served 2 requests / 8 tokens" in proc.stderr
+
+
+FAMILIES = ["qwen2-moe-a2.7b", "dbrx-132b", "falcon-mamba-7b", "recurrentgemma-2b", "whisper-base"]
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_engine_matches_the_reference_engine_for_the_other_families(arch):
+    """MoE, SSM, hybrid and enc-dec models through both engines (batch 4,
+    mixed lengths; an enc-dec model gets zero frames): every rid answered,
+    the reference engine's tokens its greedy loop's, the port's equal to
+    them under the top-2 rule."""
+    jcfg = jconfigs.get_config(arch).reduced()
+    jm = jbuild(jcfg)
+    jp = jm.init(jax.random.PRNGKey(8))
+    tm = build_model(tconfigs.get_config(arch).reduced(), device="cpu")
+    params_from_numpy(tm, _flatten(jp))
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, jcfg.vocab, int(rng.integers(4, 10))) for _ in range(5)]
+    jeng = JEngine(jm, jp, JGen(max_new_tokens=4), batch_size=4)
+    teng = ServeEngine(tm, tm.params, GenerationConfig(max_new_tokens=4), batch_size=4)
+    for p in prompts:
+        assert jeng.submit(p) == teng.submit(p)
+    jout, tout = jeng.flush(), teng.flush()
+    assert sorted(tout) == sorted(jout) == list(range(5))
+    compared = 0
+    for chunk in (range(0, 4), range(4, 5)):
+        s = max(len(prompts[i]) for i in chunk)
+        toks = np.zeros((4, s), np.int32)
+        for row, i in enumerate(chunk):
+            toks[row, s - len(prompts[i]):] = prompts[i]
+        want, gaps = _reference_greedy(jm, jp, toks, 4)
+        for row, i in enumerate(chunk):
+            np.testing.assert_array_equal(want[row], jout[i])
+            compared += _agree_under_top2([tout[i]], [want[row]], [gaps[row]])
+    assert compared >= 10
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "whisper-base"])
+def test_serve_driver_serves_the_other_families_on_the_cpu(arch):
+    """``launch.serve --device cpu`` serves a reduced SSM and a reduced
+    enc-dec model."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu", "--arch",
+         arch, "--reduced", "--requests", "3", "--new-tokens", "4"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "served 3 requests / 12 tokens" in proc.stderr
