@@ -20,7 +20,10 @@ served through ``ServeEngine`` (``build_model -> ServeEngine -> generate ->
 prefill / decode_step``), with its checkpoint restored by
 ``launch.serve --ckpt-dir``; and the other LM families on that path,
 falcon-mamba-7b and recurrentgemma-2b at full width and depth,
-qwen2-moe-a2.7b at full width cut to 8 layers and whisper-base.  Holds all seven
+qwen2-moe-a2.7b at full width cut to 8 layers and whisper-base; and the LM
+training path, OLMo-1B trained at full width and depth (``make_train_step``
+with accumulation and remat, the fault-tolerant ``train_loop``,
+``launch.train`` writing the checkpoint ``launch.serve`` serves).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions; the LM
 path reaches none of them (the reference computes its attention, FFN and
@@ -34,6 +37,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only dist                 # phases 0, 1 and 13 only
     python3 chip_smoke.py --only lm                   # phases 0 and 14 only
     python3 chip_smoke.py --only lm_families          # phases 0 and 15 only
+    python3 chip_smoke.py --only train                # phases 0 and 16 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -264,6 +268,35 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    --ckpt-dir``) and falcon-mamba-7b cut to 2 layers (every leaf, and the
    served tokens).
 
+16. the LM training path (no kernel of the port: the reference's training
+   step reaches no Pallas kernel), one model resident at a time.  (a)
+   olmo-1b at full width and depth, bf16 compute over fp32 parameters, remat
+   on: ``analysis.flops.param_count`` must be ``OLMO_1B_PARAMS``;
+   ``make_train_step`` with ``accum_steps`` ``TRAIN_ACCUM`` on
+   ``SyntheticLM`` batches of ``TRAIN_BATCH`` x ``TRAIN_SEQ`` from ``--seed``,
+   ``TRAIN_WARMUP_STEPS`` steps then ``TRAIN_TIMED_STEPS`` timed ones (CUDA
+   events): ms a step, tokens/s, ``model_flops`` (6 N D) a second against
+   ``BF16_PEAK_FLOPS``, peak memory, and a traced step (device operations,
+   busy share, the ten longest); gates: loss and grad norm finite, every
+   leaf moved by the first step, the last loss below the first.  (b) olmo-1b
+   at full width cut to ``TRAIN_SMALL_LAYERS`` layers, fp32: one step on the
+   card against the port's CPU step (metrics, each gradient leaf, the
+   updated parameters, at ``TRAIN_*`` bounds), ``accum_steps`` 2 against 1
+   under ``TRAIN_ACCUM_BOUND``, remat on against off bitwise, and
+   ``train_loop`` for ``TRAIN_LOOP_STEPS`` steps (checkpoint every
+   ``TRAIN_CKPT_EVERY``) with a fault at ``TRAIN_FAULT_STEP`` bitwise the
+   unfaulted run (losses, parameters and optimizer state), one failure, steps
+   4 and 5 replayed; checkpoint GB and save/restore seconds.  (c)
+   ``TRAIN_FAMILIES`` (falcon-mamba-7b, recurrentgemma-2b and qwen2-moe-a2.7b
+   at full width cut to 2 layers, whisper-base whole): one fp32 step of
+   ``TRAIN_FAMILY_BATCH`` x ``TRAIN_FAMILY_SEQ`` tokens on the card against
+   the CPU (metrics at the ``TRAIN_*`` bounds; the MoE's expert choices and
+   drops equal on both).  (d) ``launch.train`` trains olmo-1b at full width
+   and depth on the card (``TRAIN_DRIVER_STEPS`` steps of
+   ``TRAIN_DRIVER_BATCH`` x ``TRAIN_SEQ``, a checkpoint at the last), then
+   ``launch.serve --ckpt-dir`` restores that step and serves 4 requests: the
+   served parameters bitwise the trained ones.
+
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
 The kernels-a-call gates (phases 4, 7 and 11) count the nodes of a CUDA
@@ -279,6 +312,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -3390,20 +3424,531 @@ def _lm_families_phase(torch, args, dev, smi) -> None:
     _log(f"[15] LM families phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
 
 
+# ---- phase 16: the LM training path
+# 16a: olmo-1b's published training context (arXiv:2402.00838), global batch
+# 8 in 2 micro-batches of 4: 16,384 tokens a step.
+TRAIN_SEQ = 2048
+TRAIN_BATCH = 8
+TRAIN_ACCUM = 2
+TRAIN_LR = 3e-4
+TRAIN_WARMUP_STEPS = 2
+TRAIN_TIMED_STEPS = 5
+# NVIDIA's H100 SXM datasheet: 989 TFLOP/s dense BF16 on the tensor cores at
+# the full 700 W.  Nominal, not measured: the share of it a step reaches.
+BF16_PEAK_FLOPS = 989e12
+# 16b-c: card against the port's CPU run, at the CPU tests' bounds
+# (tests/test_torch_train.py): loss and metrics at the fp32 bound, each
+# gradient leaf within a norm-wise 2e-3 (the reference's whole-model bound),
+# updated parameters at the fp32 bound plus 2 * lr where a gradient is below
+# TRAIN_SIGN_NOISE of its leaf's largest (AdamW's first step moves such an
+# entry by about lr * sign(g)); accumulation against one batch under the
+# reference's 5e-3 (tests/test_train.py::test_grad_accum_equivalence).
+TRAIN_RTOL, TRAIN_ATOL = 2e-4, 2e-5
+TRAIN_GRAD_REL = 2e-3
+TRAIN_SIGN_NOISE = 1e-5
+TRAIN_ACCUM_BOUND = 5e-3
+TRAIN_SMALL_LAYERS = 2
+TRAIN_SMALL_BATCH, TRAIN_SMALL_SEQ = 4, 128
+TRAIN_LOOP_STEPS, TRAIN_FAULT_STEP, TRAIN_CKPT_EVERY = 8, 5, 3
+# 16c: full width cut to 2 layers (whisper-base whole), 2 x 256 tokens so
+# the SSM's chunked scan (128 divides 256) and RG-LRU's scan run backward.
+TRAIN_FAMILIES = (("falcon-mamba-7b", 2), ("recurrentgemma-2b", 2),
+                  ("qwen2-moe-a2.7b", 2), ("whisper-base", 0))
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ = 2, 256
+# 16d: launch.train at full width and depth, then launch.serve of its checkpoint.
+TRAIN_DRIVER_STEPS, TRAIN_DRIVER_BATCH = 2, 4
+
+
+def _train_batch(torch, cfg, data, index, dev, seed):
+    """Batch ``index`` of ``data`` on ``dev``; an enc-dec model also gets
+    frames drawn from ``seed`` (its frontend is a stub)."""
+    import numpy as np
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.batch(index).items()}
+    if cfg.is_encdec:
+        b, s = batch["tokens"].shape
+        frames = np.random.default_rng(seed).standard_normal((b, s - 1, cfg.d_model))
+        batch["frames"] = torch.from_numpy(frames.astype(np.float32)).to(dev)
+    return batch
+
+
+def _with_grads(fn):
+    """``fn()`` with the gradients each training step hands to
+    ``adamw_update`` recorded (on the host): returns ``fn()``'s result and
+    the list of ``{leaf path: array}``."""
+    import numpy as np
+
+    from repro_torch import _tree
+    from repro_torch.train import train_step as ts
+
+    real = ts.adamw_update
+    seen = []
+
+    def recording(params, grads, state, cfg):
+        seen.append(_tree.flatten(grads, lambda g: g.detach().cpu().numpy(), np.stack))
+        return real(params, grads, state, cfg)
+
+    ts.adamw_update = recording
+    try:
+        return fn(), seen
+    finally:
+        ts.adamw_update = real
+
+
+def _with_routing(fn):
+    """``fn()`` with each MoE routing's expert choices and dropped pairs
+    recorded (host reads): returns ``fn()``'s result and ``[(top_idx, dropped)]``."""
+    from repro_torch.models import moe as moe_mod
+
+    real = moe_mod.route
+    seen = []
+
+    def recording(*a, **k):
+        r = real(*a, **k)
+        seen.append((r.top_idx.cpu(), int((~r.keep).sum())))
+        return r
+
+    moe_mod.route = recording
+    try:
+        return fn(), seen
+    finally:
+        moe_mod.route = real
+
+
+def _train_close(label, got: dict, want: dict):
+    """Metrics of two runs of one step within ``TRAIN_RTOL``/``TRAIN_ATOL``."""
+    bad = {k: (float(got[k]), float(want[k])) for k in want
+           if not math.isclose(float(got[k]), float(want[k]), rel_tol=TRAIN_RTOL,
+                               abs_tol=TRAIN_ATOL)}
+    shown = ", ".join(f"{k} {float(got[k]):.6g} / {float(want[k]):.6g}" for k in sorted(want))
+    _log(f"{label}: {shown} (rtol {TRAIN_RTOL:g}, atol {TRAIN_ATOL:g}) "
+         f"{'ok' if not bad and set(got) == set(want) else 'FAIL'}")
+    if bad or set(got) != set(want):
+        raise SystemExit(f"{label}: metrics disagree {bad}")
+
+
+def _train_update_close(label, got: dict, want: dict, grads: dict, lr: float) -> None:
+    """Updated parameters at the fp32 bound plus AdamW's first-step
+    allowance of 2 * lr where the gradient is below ``TRAIN_SIGN_NOISE`` of
+    its leaf's largest."""
+    import numpy as np
+
+    worst, allowed = 0.0, 0
+    for k in want:
+        g = np.abs(grads[k])
+        small = g < TRAIN_SIGN_NOISE * g.max()
+        diff = np.abs(got[k] - want[k])
+        over = diff > TRAIN_ATOL + TRAIN_RTOL * np.abs(want[k]) + np.where(small, 2 * lr, 0.0)
+        if over.any():
+            raise SystemExit(f"{label}: {k} updated by {float(diff.max()):.3e} more")
+        worst = max(worst, float(diff[~small].max()) if (~small).any() else 0.0)
+        allowed += int(small.sum())
+    _log(f"{label}: updated parameters max |diff| {worst:.3e} where |g| >= {TRAIN_SIGN_NOISE:g} "
+         f"of its leaf's largest ({allowed} entries below, allowed 2 * lr) ok")
+
+
+def _train_grads_close(label, got: dict, want: dict) -> None:
+    import numpy as np
+
+    rel = {k: float(np.linalg.norm(got[k] - want[k]) / max(np.linalg.norm(want[k]), 1e-30))
+           for k in want}
+    worst = max(rel, key=rel.get)
+    ok = set(got) == set(want) and rel[worst] < TRAIN_GRAD_REL
+    _log(f"{label}: {len(rel)} gradient leaves, largest norm-wise relative error "
+         f"{rel[worst]:.3e} ({worst}; bound {TRAIN_GRAD_REL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: gradients disagree")
+
+
+def _host(tree):
+    import numpy as np
+
+    from repro_torch import _tree
+
+    return _tree.flatten(tree, lambda t: t.detach().cpu().numpy(), np.stack)
+
+
+# Device kernels by kind, by a substring of the name, in this order: the
+# GEMMs (cuBLAS's nvjet and cutlass kernels), the softmax, copies and dtype
+# casts (copy kernels, device-to-device memcpy), and the rest (elementwise
+# arithmetic, reductions, indexing).
+_KINDS = (("GEMMs", ("nvjet", "gemm", "cutlass")), ("softmax", ("softmax",)),
+          ("copies and casts", ("copy", "Memcpy")))
+
+
+def _log_kinds(label: str, evs, smi: str) -> None:
+    """Device time of a traced call by kind of kernel (``_KINDS``)."""
+    sums = {name: 0.0 for name, _ in _KINDS}
+    sums["other"] = 0.0
+    for a, b, name in evs:
+        kind = next((k for k, heads in _KINDS if any(h in name for h in heads)), "other")
+        sums[kind] += b - a
+    total = sum(sums.values())
+    _log(f"{label}: device time by kind: " + ", ".join(
+        f"{k} {v / 1e3:.1f} ms ({100 * v / total:.1f}%)" for k, v in sums.items())
+        + f"; card {smi}")
+
+
+def _train_full(torch, args, dev, smi) -> None:
+    """16a: olmo-1b at full width and depth, bf16 compute over fp32
+    parameters, remat on: steps of ``make_train_step`` timed with CUDA
+    events, against ``model_flops`` and the BF16 peak; a traced step."""
+    from repro_torch import _tree
+    from repro_torch.analysis import flops
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("olmo-1b")
+    n_params = flops.param_count(cfg)
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step_flops = flops.model_flops(cfg, shape)
+    _log(f"[16a] olmo-1b training: {cfg.n_layers} layers x {cfg.d_model}, vocab {cfg.vocab}, "
+         f"{cfg.compute_dtype} compute over {cfg.param_dtype} parameters, remat {cfg.remat}; "
+         f"analysis.flops.param_count {n_params:,} (reference {OLMO_1B_PARAMS:,}); global batch "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ} in {TRAIN_ACCUM} micro-batches; training state "
+         f"{n_params * flops.bytes_per_param(cfg, True) / 1e9:.2f} GB by bytes_per_param")
+    if n_params != OLMO_1B_PARAMS:
+        raise SystemExit(f"param_count(olmo-1b) is {n_params}, not {OLMO_1B_PARAMS}")
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=args.seed))
+    n_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    batches = [_train_batch(torch, cfg, data, i, dev, args.seed) for i in range(n_steps)]
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    step = make_train_step(model, opt_cfg, accum_steps=TRAIN_ACCUM)
+    p, s = model.params, init_opt_state(model.params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_steps + 1)]
+    mets = []
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i, batch in enumerate(batches):
+        p, s, met = step(p, s, batch)
+        ev[i + 1].record()
+        mets.append(met)
+        if i == 0:
+            moved = [not torch.equal(a, b) for a, b in zip(_tree.leaves(model.params),
+                                                          _tree.leaves(p))]
+        if i + 1 == TRAIN_WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t_timed = time.perf_counter()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t_timed) / TRAIN_TIMED_STEPS
+    first_s = ev[0].elapsed_time(ev[1]) / 1e3
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_WARMUP_STEPS, n_steps)]
+    losses = [float(m["loss"]) for m in mets]
+    norms = [float(m["grad_norm"]) for m in mets]
+    mean_ms = sum(ms) / len(ms)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    _log(f"[16a] losses {[round(x, 4) for x in losses]}; grad norms "
+         f"{[round(x, 4) for x in norms]}; lr {float(mets[-1]['lr']):.3g}")
+    _log(f"[16a] step {mean_ms:.1f} ms (CUDA events, {TRAIN_TIMED_STEPS} steps after "
+         f"{TRAIN_WARMUP_STEPS}: median {_median(ms):.1f}, min {min(ms):.1f}, max {max(ms):.1f}; "
+         f"first step {first_s:.2f} s; host clock {host_s * 1e3:.1f} ms a step); "
+         f"{tokens / (mean_ms / 1e3):,.0f} tokens/s; model_flops 6 N D = {step_flops:.4g} a step, "
+         f"{step_flops / (mean_ms / 1e3) / 1e12:.1f} TFLOP/s = "
+         f"{100 * step_flops / (mean_ms / 1e3) / BF16_PEAK_FLOPS:.1f}% of the nominal "
+         f"{BF16_PEAK_FLOPS / 1e12:.0f} TFLOP/s BF16 peak (bound {step_flops / BF16_PEAK_FLOPS * 1e3:.1f}"
+         f" ms); peak memory {peak:.2f} GB; wall {time.perf_counter() - t0:.1f} s; card {smi}")
+    finite = all(math.isfinite(x) for x in losses + norms)
+    _log(f"[16a] loss and grad norm finite every step: {'ok' if finite else 'FAIL'}; every one of "
+         f"{len(moved)} leaves moved by the first step: {'ok' if all(moved) else 'FAIL'}; last "
+         f"loss {losses[-1]:.4f} below the first {losses[0]:.4f}: "
+         f"{'ok' if losses[-1] < losses[0] else 'FAIL'}")
+    if not finite or not all(moved) or not losses[-1] < losses[0]:
+        raise SystemExit("olmo-1b training: non-finite, a leaf unmoved or the loss not lower")
+    wall, evs = _trace(torch, lambda: step(p, s, batches[-1]))
+    _log_trace("[16a] olmo-1b train step (traced)", wall, evs, 1, smi, unit="step")
+    _log_kinds("[16a] olmo-1b train step (traced)", evs, smi)
+    del p, s, mets, batches, model, step
+    torch.cuda.empty_cache()
+
+
+def _train_small(torch, args, dev, smi) -> None:
+    """16b: olmo-1b's width cut to 2 layers in fp32 compute: a step on the
+    card against the port's CPU step, accumulation, remat, and the
+    fault-tolerant loop bitwise its unfaulted run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.train.loop import LoopConfig, train_loop
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    small = dataclasses.replace(get_config("olmo-1b"), n_layers=TRAIN_SMALL_LAYERS,
+                                compute_dtype="float32")
+    cpu = build_model(small, device="cpu", generator=torch.Generator().manual_seed(args.seed))
+    card = build_model(small, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    data = SyntheticLM(DataConfig(small.vocab, TRAIN_SMALL_SEQ, TRAIN_SMALL_BATCH, seed=args.seed))
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    runs = {}
+    for where, m in (("cpu", cpu), ("card", card)):
+        t0 = time.perf_counter()
+        batch = _train_batch(torch, small, data, 0, m.device, args.seed)
+        (p2, s2, met), grads = _with_grads(
+            lambda: make_train_step(m, opt_cfg)(m.params, init_opt_state(m.params), batch))
+        runs[where] = (_host(p2), met, grads[0])
+        _log(f"[16b] olmo-1b {TRAIN_SMALL_LAYERS} layers fp32, one step of "
+             f"{TRAIN_SMALL_BATCH} x {TRAIN_SMALL_SEQ} on the {where}: "
+             f"{time.perf_counter() - t0:.2f} s (host clock, its first step)")
+        del p2, s2
+    label = f"[16b] olmo-1b {TRAIN_SMALL_LAYERS} layers, card vs CPU"
+    _train_close(label, runs["card"][1], runs["cpu"][1])
+    _train_grads_close(label, runs["card"][2], runs["cpu"][2])
+    _train_update_close(label, runs["card"][0], runs["cpu"][0], runs["cpu"][2], TRAIN_LR)
+    del cpu, runs
+
+    # accumulation over 2 micro-batches against one batch, and remat on against off
+    batch = _train_batch(torch, small, data, 0, dev, args.seed)
+    no_remat = build_model(dataclasses.replace(small, remat=False), device="meta")
+    out = {}
+    for key, m, accum in (("one", card, 1), ("accum", card, 2), ("no_remat", no_remat, 1)):
+        out[key] = make_train_step(m, opt_cfg, accum_steps=accum)(
+            card.params, init_opt_state(card.params), batch)
+    d = max(float((a - b).detach().abs().max()) for a, b in zip(_tree.leaves(out["one"][0]),
+                                                               _tree.leaves(out["accum"][0])))
+    _log(f"[16b] accum_steps 2 against 1: updated parameters max |diff| {d:.3e} (bound "
+         f"{TRAIN_ACCUM_BOUND:g}) {'ok' if d < TRAIN_ACCUM_BOUND else 'FAIL'}")
+    same = all(torch.equal(a, b) for a, b in zip(_tree.leaves(out["one"]),
+                                                 _tree.leaves(out["no_remat"])))
+    _log(f"[16b] remat on against off: parameters, optimizer state and metrics bitwise: "
+         f"{'ok' if same else 'FAIL'}")
+    if d >= TRAIN_ACCUM_BOUND or not same:
+        raise SystemExit("olmo-1b 2 layers: accumulation or remat changed the step")
+    del out, batch
+
+    # the fault-tolerant loop: a fault at TRAIN_FAULT_STEP, bitwise the unfaulted run
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        armed = [True]
+
+        def fault(step):
+            if step == TRAIN_FAULT_STEP and armed[0]:
+                armed[0] = False
+                raise RuntimeError("injected fault")
+
+        res, final = {}, {}
+        for key, hook in (("clean", None), ("faulted", fault)):
+            t0 = time.perf_counter()
+            res[key] = train_loop(card, data, OptConfig(lr=TRAIN_LR, warmup_steps=0),
+                                  LoopConfig(total_steps=TRAIN_LOOP_STEPS,
+                                             ckpt_every=TRAIN_CKPT_EVERY,
+                                             ckpt_dir=os.path.join(tmp, key)),
+                                  params=card.params, fault_hook=hook)
+            loop_s = time.perf_counter() - t0
+            mgr = CheckpointManager(os.path.join(tmp, key))
+            t0 = time.perf_counter()
+            (fp, fs), manifest = mgr.restore((card.params, init_opt_state(card.params)))
+            restore_s = time.perf_counter() - t0
+            final[key] = _tree.leaves((fp, fs))
+            size = sum(f.stat().st_size for f in Path(tmp, key, f"step_{manifest['step']:08d}")
+                       .iterdir()) / 1e9
+            _log(f"[16b] train_loop {key}: {TRAIN_LOOP_STEPS} steps, checkpoint every "
+                 f"{TRAIN_CKPT_EVERY}, in {loop_s:.1f} s; steps "
+                 f"{[m['step'] for m in res[key].metrics_history]}, failures "
+                 f"{res[key].failures}; its step-{manifest['step']} checkpoint {size:.2f} GB "
+                 f"restored in {restore_s:.1f} s")
+        hist = res["faulted"].metrics_history
+        by_step = {m["step"]: m["loss"] for m in res["clean"].metrics_history}
+        replay = [m["step"] for m in hist] == [1, 2, 3, 4, 5, 4, 5, 6, 7, 8]
+        same_loss = all(m["loss"] == by_step[m["step"]] for m in hist)
+        same_state = len(final["clean"]) == len(final["faulted"]) and all(
+            torch.equal(a, b) for a, b in zip(final["clean"], final["faulted"]))
+        ok = (res["faulted"].failures == 1 and res["clean"].failures == 0 and replay
+              and same_loss and same_state and res["faulted"].step == TRAIN_LOOP_STEPS)
+        _log(f"[16b] fault at step {TRAIN_FAULT_STEP}: failures {res['faulted'].failures}, steps 4 "
+             f"and 5 replayed from the step-3 checkpoint {replay}, every loss bitwise the "
+             f"unfaulted run's {same_loss}, the step-{TRAIN_LOOP_STEPS} parameters and optimizer "
+             f"state bitwise {same_state}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the faulted training run is not the unfaulted one")
+        t0 = time.perf_counter()
+        path = CheckpointManager(os.path.join(tmp, "save")).save(1, (card.params,
+                                                                    init_opt_state(card.params)))
+        save_s = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(path).iterdir()) / 1e9
+        _log(f"[16b] a checkpoint of the {TRAIN_SMALL_LAYERS}-layer state: {size:.2f} GB saved in "
+             f"{save_s:.1f} s (synchronous); card {smi}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del card, final
+    torch.cuda.empty_cache()
+
+
+def _train_families(torch, args, dev, smi) -> None:
+    """16c: one fp32 step of the SSM, hybrid, MoE and enc-dec families on
+    the card against the port's CPU step (loss and metrics; the MoE's
+    routing and drops equal on both)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    for name, layers in TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_config(name), compute_dtype="float32",
+                                  **({"n_layers": layers} if layers else {}))
+        data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH,
+                                      seed=args.seed))
+        cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(args.seed))
+        n = count_params(cpu.params)
+        state = cpu.state_dict()
+        runs = {}
+        for where in ("cpu", "card"):
+            m = cpu if where == "cpu" else build_model(cfg, device=dev)
+            if where == "card":
+                m.load_state_dict(state)
+                del state
+            batch = _train_batch(torch, cfg, data, 0, m.device, args.seed)
+            t0 = time.perf_counter()
+            (_, _, met), routes = _with_routing(
+                lambda: make_train_step(m, opt_cfg)(m.params, init_opt_state(m.params), batch))
+            secs = time.perf_counter() - t0
+            runs[where] = ({k: float(v) for k, v in met.items()}, routes, secs)
+            del m, batch, met
+            if where == "cpu":
+                del cpu
+        what = f"{cfg.n_layers} layers" if layers else "whole"
+        label = (f"[16c] {name} ({what}, {n:,} params) fp32 step of {TRAIN_FAMILY_BATCH} x "
+                 f"{TRAIN_FAMILY_SEQ}, card ({runs['card'][2]:.2f} s) vs CPU "
+                 f"({runs['cpu'][2]:.2f} s)")
+        _train_close(label, runs["card"][0], runs["cpu"][0])
+        if cfg.n_experts:
+            (_, rc, _), (_, rg, _) = runs["cpu"], runs["card"]
+            same = len(rc) == len(rg) and all(torch.equal(a[0], b[0]) and a[1] == b[1]
+                                              for a, b in zip(rc, rg))
+            _log(f"[16c] {name}: {len(rg)} routings (forward and remat's recomputation), top-"
+                 f"{cfg.n_experts_per_tok} experts equal on card and CPU, pairs dropped at "
+                 f"capacity {[d for _, d in rg]} on the card, {[d for _, d in rc]} on the CPU: "
+                 f"{'ok' if same else 'FAIL'}")
+            if not same:
+                raise SystemExit(f"{name}: the card routes otherwise than the CPU")
+        torch.cuda.empty_cache()
+    _log(f"[16c] families' backward on the card; card {smi}")
+
+
+def _train_drivers(torch, args, dev, smi) -> None:
+    """16d: ``launch.train`` trains olmo-1b at full width and depth on the
+    card, writing its checkpoints; ``launch.serve --ckpt-dir`` restores the
+    last and serves it: the served parameters are the trained ones, bitwise."""
+    import logging
+    import shutil
+    import tempfile
+
+    from repro_torch import _tree
+    from repro_torch.launch import serve as serve_driver
+    from repro_torch.launch import train as train_driver
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.train import loop as loop_mod
+
+    trained, served, logged = [], [], []
+    real_step, real_engine = loop_mod.make_train_step, engine_mod.ServeEngine
+
+    def recording_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def run(p, s, batch):
+            out = step(p, s, batch)
+            trained[:] = [out[0]]
+            return out
+
+        return run
+
+    class RecordingEngine(real_engine):
+        def __post_init__(self):
+            served.append(self.params)
+            super().__post_init__()
+
+    class Lines(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    handler = Lines()
+    logging.getLogger("repro_torch.launch.serve").addHandler(handler)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    loop_mod.make_train_step, engine_mod.ServeEngine = recording_step, RecordingEngine
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = train_driver.main(["--arch", "olmo-1b", "--steps", str(TRAIN_DRIVER_STEPS),
+                                 "--batch", str(TRAIN_DRIVER_BATCH), "--seq", str(TRAIN_SEQ),
+                                 "--ckpt-every", str(TRAIN_DRIVER_STEPS), "--ckpt-dir", tmp,
+                                 "--device", str(dev)])
+        train_s = time.perf_counter() - t0
+        train_peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = sorted(os.listdir(tmp))
+        size = sum(f.stat().st_size for f in Path(tmp, steps[-1]).iterdir()) / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = serve_driver.main(["--arch", "olmo-1b", "--requests", "4", "--ckpt-dir", tmp,
+                                 "--device", str(dev)])
+        serve_s = time.perf_counter() - t0
+        serve_peak = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        loop_mod.make_train_step, engine_mod.ServeEngine = real_step, real_engine
+        logging.getLogger("repro_torch.launch.serve").removeHandler(handler)
+        shutil.rmtree(tmp, ignore_errors=True)
+    restored = [line for line in logged if line.startswith("restored step")]
+    same = len(served) == 1 and len(trained) == 1 and all(
+        torch.equal(a, b) for a, b in zip(_tree.leaves(trained[0]), _tree.leaves(served[0])))
+    ok = (res.step == TRAIN_DRIVER_STEPS and res.failures == 0 and len(out) == 4
+          and restored and restored[0].startswith(f"restored step {TRAIN_DRIVER_STEPS} ")
+          and same)
+    _log(f"[16d] launch.train olmo-1b --steps {TRAIN_DRIVER_STEPS} --batch {TRAIN_DRIVER_BATCH} "
+         f"--seq {TRAIN_SEQ}: {train_s:.1f} s (build, {TRAIN_DRIVER_STEPS} steps and the "
+         f"checkpoints {steps}, {size:.2f} GB each), losses "
+         f"{[round(m['loss'], 4) for m in res.metrics_history]}, peak memory {train_peak:.2f} GB; "
+         f"launch.serve --ckpt-dir: {restored[:1]}, {len(out)} requests served in {serve_s:.1f} s "
+         f"(peak {serve_peak:.2f} GB); the served parameters bitwise the trained ones {same}: "
+         f"{'ok' if ok else 'FAIL'}; card {smi}")
+    if not ok:
+        raise SystemExit("launch.serve did not serve what launch.train trained")
+    del trained, served
+    torch.cuda.empty_cache()
+
+
+def _train_phase(torch, args, dev, smi) -> None:
+    """Phase 16: the LM training path on the card (see the module
+    docstring).  Each model is freed before the next; catches nothing."""
+    t_phase = time.perf_counter()
+    for part in (_train_full, _train_small, _train_families, _train_drivers):
+        t0 = time.perf_counter()
+        part(torch, args, dev, smi)
+        _log(f"[16] {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    _log(f"[16] LM training phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
-                                       "dist", "lm", "lm_families"],
+                                       "dist", "lm", "lm_families", "train"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
                          "(the legacy front door and PP sweeps) or phase 13 (sharded CP-ALS, "
                          "its executors, tuner and service, the two-level mesh and sharded PP "
-                         "in an NCCL world of one), phase 14 (the LM serving path) or phase "
-                         "15 (the MoE, SSM, hybrid and enc-dec families); prints no result line")
+                         "in an NCCL world of one), phase 14 (the LM serving path), phase 15 "
+                         "(the MoE, SSM, hybrid and enc-dec families) or phase 16 (the LM "
+                         "training path); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -3435,7 +3980,8 @@ def main(argv=None) -> int:
     if args.only:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
-                "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase}[args.only]
+                "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
+                "train": _train_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -3669,6 +4215,9 @@ def main(argv=None) -> int:
 
     # ---- phase 15: the other LM families (each model freed before the next)
     _lm_families_phase(torch, args, dev, smi)
+
+    # ---- phase 16: the LM training path (each model freed before the next)
+    _train_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -18,7 +18,11 @@ axis and a plain layer list by index (an enc-dec model's
 ``enc_layers/0/attn/wq``, ...): :func:`params_to_numpy` reads a port model's, and
 :func:`params_from_numpy` loads such a dict (from the reference's
 ``repro.checkpoint.manager._flatten(params)``, say) into a port model.  The
-port's ``CheckpointManager`` writes and reads the same mapping.
+port's ``CheckpointManager`` writes and reads the same mapping.  An AdamW
+state (``OptState``) crosses the same way, its moments keyed like the
+parameters: :func:`optstate_to_numpy` reads either package's,
+:func:`optstate_from_numpy` builds the port's for a model, so both
+packages' training steps can start from one state.
 """
 
 from __future__ import annotations
@@ -170,3 +174,34 @@ def params_from_numpy(model, flat: dict[str, np.ndarray]):
 
     _tree.rebuild(model.params, lambda key: flat[key], copy)
     return model.params
+
+
+def optstate_to_numpy(state) -> dict:
+    """``{"step": int, "m": {leaf path: array}, "v": {...}}`` of an AdamW
+    state of either package (the reference's moments are pytrees of the
+    parameters' structure, a scanned stack one array)."""
+    return {
+        "step": int(_numpy(state.step)),
+        "m": _tree.flatten(state.m, _numpy, np.stack),
+        "v": _tree.flatten(state.v, _numpy, np.stack),
+    }
+
+
+def optstate_from_numpy(model, fields: dict):
+    """The port's ``OptState`` for ``model``'s parameters from
+    :func:`optstate_to_numpy` fields: fp32 moments of the parameters'
+    structure, each on its parameter's device; every moment must be given,
+    at its parameter's shape."""
+    from repro_torch.train.optimizer import OptState  # the optimizer, only here
+
+    def moments(flat: dict):
+        def make(arr, p, key):
+            if tuple(np.shape(arr)) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {np.shape(arr)} != parameter {tuple(p.shape)}")
+            return torch.tensor(np.asarray(arr), dtype=torch.float32, device=p.device)
+
+        return _tree.rebuild(model.params, lambda key: flat[key], make)
+
+    device = model.device
+    return OptState(torch.tensor(int(fields["step"]), dtype=torch.int32, device=device),
+                    moments(fields["m"]), moments(fields["v"]))

@@ -7,7 +7,9 @@ self-attention + GELU MLP.  Decoder: learned positions, causal
 self-attention + cross-attention + MLP.  Serving computes the
 cross-attention K/V once from the encoder output and caches the decoder's
 self-attention K/V step by step; the cache's length is a host int, as
-:class:`.transformer.DecodeCache`'s.
+:class:`.transformer.DecodeCache`'s.  Training runs each encoder and
+decoder layer under :func:`.transformer._remat`, as the reference wraps it
+in ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as meshlib
@@ -30,6 +33,7 @@ from .common import (
     vocab_padded,
 )
 from .ffn import ffn_apply, ffn_defs
+from .transformer import _remat
 
 Tensor = torch.Tensor
 
@@ -81,33 +85,42 @@ def encode(params: dict, cfg: ModelConfig, frames: Tensor) -> Tensor:
     h = meshlib.constraint(h, "dp", None, None)
     positions = _positions(b, s, frames.device)
     for lp in params["enc_layers"]:
-        x = norm_apply(cfg.norm, h, lp["ln1"])
-        h = h + attn.attn_sequence(lp["attn"], cfg, x, positions, causal=False,
-                                   q_chunk=cfg.seq_chunk)
-        x2 = norm_apply(cfg.norm, h, lp["ln2"])
-        h = h + ffn_apply(lp["mlp"], cfg, x2)
+        h = _remat(cfg, _enc_layer, lp, cfg, h, positions)
     return norm_apply(cfg.norm, h, params["enc_norm"])
+
+
+def _enc_layer(lp: dict, cfg: ModelConfig, h: Tensor, positions: Tensor) -> Tensor:
+    x = norm_apply(cfg.norm, h, lp["ln1"])
+    h = h + attn.attn_sequence(lp["attn"], cfg, x, positions, causal=False,
+                               q_chunk=cfg.seq_chunk)
+    x2 = norm_apply(cfg.norm, h, lp["ln2"])
+    return h + ffn_apply(lp["mlp"], cfg, x2)
 
 
 def decode_train(params: dict, cfg: ModelConfig, tokens: Tensor, enc_out: Tensor) -> Tensor:
     """Teacher-forced decoder pass -> logits (B, S_dec, V)."""
     dt = torch_dtype(cfg.compute_dtype)
     b, s = tokens.shape
-    h = params["embed"][tokens].to(dt) + params["pos_embed"][:s].to(dt)[None]
+    h = F.embedding(tokens, params["embed"]).to(dt) + params["pos_embed"][:s].to(dt)[None]
     h = meshlib.constraint(h, "dp", None, None)
     positions = _positions(b, s, tokens.device)
     for lp in params["dec_layers"]:
-        x = norm_apply(cfg.norm, h, lp["ln1"])
-        h = h + attn.attn_sequence(lp["self_attn"], cfg, x, positions, causal=True,
-                                   q_chunk=cfg.seq_chunk)
-        xx = norm_apply(cfg.norm, h, lp["lnx"])
-        kv = attn.cross_attn_kv(lp["cross_attn"], cfg, enc_out)
-        h = h + attn.cross_attn(lp["cross_attn"], cfg, xx, kv)
-        x2 = norm_apply(cfg.norm, h, lp["ln2"])
-        h = h + ffn_apply(lp["mlp"], cfg, x2)
+        h = _remat(cfg, _dec_train_layer, lp, cfg, h, positions, enc_out)
     h = norm_apply(cfg.norm, h, params["dec_norm"])
     logits = mask_vocab_pad(h @ params["head"].to(dt), cfg.vocab)
     return meshlib.constraint(logits, "dp", None, "tp")
+
+
+def _dec_train_layer(lp: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
+                     enc_out: Tensor) -> Tensor:
+    x = norm_apply(cfg.norm, h, lp["ln1"])
+    h = h + attn.attn_sequence(lp["self_attn"], cfg, x, positions, causal=True,
+                               q_chunk=cfg.seq_chunk)
+    xx = norm_apply(cfg.norm, h, lp["lnx"])
+    kv = attn.cross_attn_kv(lp["cross_attn"], cfg, enc_out)
+    h = h + attn.cross_attn(lp["cross_attn"], cfg, xx, kv)
+    x2 = norm_apply(cfg.norm, h, lp["ln2"])
+    return h + ffn_apply(lp["mlp"], cfg, x2)
 
 
 class EncDecCache(NamedTuple):

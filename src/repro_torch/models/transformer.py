@@ -4,10 +4,13 @@ Port of ``repro.models.transformer``.  The reference runs a homogeneous
 stack under ``lax.scan`` over per-layer params stacked on a leading axis
 (with ``jax.checkpoint`` for training); the port keeps the layers of such a
 stack apart in a :class:`repro_torch._tree.Stacked` list and loops over
-them (remat means nothing for serving).  The stack's checkpoint keys and
-arrays are the reference's: see :mod:`repro_torch._tree`.  Heterogeneous
-stacks (recurrentgemma's (rec, rec, attn) cycle) are a plain list, as in
-the reference.
+them.  With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint.checkpoint`` (non-reentrant) while autograd
+records, so its activations are recomputed in the backward pass instead
+of kept: memory, not values, changes.  Serving runs without autograd and
+is untouched.  The stack's checkpoint keys and arrays are the reference's:
+see :mod:`repro_torch._tree`.  Heterogeneous stacks (recurrentgemma's
+(rec, rec, attn) cycle) are a plain list, as in the reference.
 
 Layer recipes:
   attn   : h += Attn(norm(h));        h += FFN(norm(h))
@@ -22,6 +25,8 @@ from __future__ import annotations
 from typing import Any, NamedTuple
 
 import torch
+import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch._tree import Stacked
 from repro_torch.configs.base import ModelConfig
@@ -104,6 +109,15 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------------
 # Layer application (full-sequence)
 # --------------------------------------------------------------------------
+def _remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under activation checkpointing when
+    ``cfg.remat`` and autograd records (the reference's ``jax.checkpoint``
+    around a layer)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def _apply_layer(
     p: dict,
     cfg: ModelConfig,
@@ -172,14 +186,19 @@ def forward(
         if cfg.mrope_sections:
             positions = positions[..., None].expand(b, s, 3)
     dt = torch_dtype(cfg.compute_dtype)
-    h = params["embed"][tokens].to(dt)
+    # F.embedding, not params["embed"][tokens]: the same rows, and a backward
+    # that sums a repeated token's rows in a fixed order on the CPU too
+    # (indexing's backward adds them with atomics there), so a step repeats
+    # bitwise.
+    h = F.embedding(tokens, params["embed"]).to(dt)
     sp = ("dp", "tp", None) if (cfg.seq_shard and s > 1) else ("dp", None, None)
     h = meshlib.constraint(h, *sp)
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = []
     for lp, kind in zip(params["layers"], types):
-        h, aux_l, cache_e = _apply_layer(lp, cfg, kind, h, positions, collect=collect_cache)
+        h, aux_l, cache_e = _remat(cfg, _apply_layer, lp, cfg, kind, h, positions,
+                                  collect=collect_cache)
         h = meshlib.constraint(h, *sp)
         aux = aux + aux_l
         cache.append(cache_e)

@@ -1189,3 +1189,46 @@ def test_reduced_lm_families_on_the_card_agree_with_the_cpu(cuda, arch):
     rids = [eng.submit(toks[i, : 4 + i].numpy()) for i in range(2)]
     out = eng.flush()
     assert sorted(out) == rids and all(((o >= 0) & (o < cfg.vocab)).all() for o in out.values())
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "falcon-mamba-7b", "recurrentgemma-2b",
+                                  "qwen2-moe-a2.7b", "whisper-base"])
+def test_reduced_train_step_on_the_card_agrees_with_the_cpu(cuda, arch):
+    """The training step on the card: the reduced model (fp32 compute, remat
+    on) with the CPU model's parameters; loss and gradient norm at the fp32
+    bound ``rtol=2e-4, atol=2e-5`` of the CPU step, and the step repeats
+    bitwise on the card (remat on against off too)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch).reduced()
+    cpu = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 257)).astype(np.int32))}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model)).astype(
+            np.float32))
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    out = {}
+    for name, m in (("cpu", cpu), ("cuda", card), ("again", card),
+                    ("no_remat", build_model(dataclasses.replace(cfg, remat=False),
+                                             device="meta"))):
+        p = card.params if name == "no_remat" else m.params
+        b = {k: v.to(p["embed"].device) for k, v in batch.items()}
+        out[name] = make_train_step(m, opt)(p, init_opt_state(p), b)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(out["cuda"][2][k].cpu(), out["cpu"][2][k], rtol=2e-4,
+                                   atol=2e-5)
+    for other in ("again", "no_remat"):
+        assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(out["cuda"]),
+                                                     _tree.leaves(out[other])))
