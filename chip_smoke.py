@@ -23,7 +23,10 @@ falcon-mamba-7b and recurrentgemma-2b at full width and depth,
 qwen2-moe-a2.7b at full width cut to 8 layers and whisper-base; and the LM
 training path, OLMo-1B trained at full width and depth (``make_train_step``
 with accumulation and remat, the fault-tolerant ``train_loop``,
-``launch.train`` writing the checkpoint ``launch.serve`` serves).  Holds all seven
+``launch.train`` writing the checkpoint ``launch.serve`` serves); and the
+sharded LM in an NCCL world of one (the compressed data-parallel step and
+``launch.train``/``launch.serve`` on a mesh, bitwise their local runs).
+Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions; the LM
 path reaches none of them (the reference computes its attention, FFN and
@@ -38,6 +41,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only lm                   # phases 0 and 14 only
     python3 chip_smoke.py --only lm_families          # phases 0 and 15 only
     python3 chip_smoke.py --only train                # phases 0 and 16 only
+    python3 chip_smoke.py --only sharded_lm           # phases 0, 16d and 17 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -296,6 +300,24 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``TRAIN_DRIVER_BATCH`` x ``TRAIN_SEQ``, a checkpoint at the last), then
    ``launch.serve --ckpt-dir`` restores that step and serves 4 requests: the
    served parameters bitwise the trained ones.
+
+17. the sharded LM in an NCCL world of one (``init_process_group("nccl",
+   init_method="file://...", rank=0, world_size=1)``, mesh ``(1, 1)`` of
+   ``("data", "model")``; NCCL failing to start fails the run, nothing
+   falls back).  (a) olmo-1b at full width and depth, bf16 compute over fp32
+   parameters: ``SHARDED_STEPS`` steps of ``SHARDED_BATCH`` x ``TRAIN_SEQ``
+   ``SyntheticLM`` tokens from one init, by ``make_train_step`` and by
+   ``make_compressed_dp_step`` exact and compressed; gates: losses finite,
+   the exact run bitwise the local one (losses and every parameter), the
+   compressed run's last loss within ``SHARDED_GAP`` of the exact run's,
+   one int8 gather a reference leaf a step, every residual leaf nonzero
+   after step 1; printed: ms a step (CUDA events) of each run, int8 GB a
+   step, peak memory.  (b) ``launch.train --distributed --dp 1 --tp 1`` as
+   16d: the trained parameters bitwise 16d's, the sharded path's
+   collectives counted (``dist.TP``, ``GATHERS``, ``SCATTERS`` above 0),
+   its checkpoint restored with ``mesh`` and ``model.partition_specs(mesh)``
+   bitwise, and ``launch.serve --distributed --tp 1 --ckpt-dir`` serving
+   16d's tokens; printed: step seconds against 16d's.
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -3842,15 +3864,16 @@ def _train_families(torch, args, dev, smi) -> None:
     _log(f"[16c] families' backward on the card; card {smi}")
 
 
-def _train_drivers(torch, args, dev, smi) -> None:
-    """16d: ``launch.train`` trains olmo-1b at full width and depth on the
-    card, writing its checkpoints; ``launch.serve --ckpt-dir`` restores the
-    last and serves it: the served parameters are the trained ones, bitwise."""
+def _run_drivers(torch, dev, tmp, train_flags=(), serve_flags=()):
+    """``launch.train`` of olmo-1b at full width and depth into ``tmp``
+    (``TRAIN_DRIVER_STEPS`` steps of ``TRAIN_DRIVER_BATCH`` x ``TRAIN_SEQ``,
+    a checkpoint at the last), then ``launch.serve --ckpt-dir tmp`` of 4
+    requests, each with its extra flags: returns the loop's result, the
+    trained and the served parameters (each as the step and the engine
+    hold them), the served tokens, the serve driver's log lines, and the
+    seconds and peak GB of each driver."""
     import logging
-    import shutil
-    import tempfile
 
-    from repro_torch import _tree
     from repro_torch.launch import serve as serve_driver
     from repro_torch.launch import train as train_driver
     from repro_torch.serve import engine as engine_mod
@@ -3880,7 +3903,6 @@ def _train_drivers(torch, args, dev, smi) -> None:
 
     handler = Lines()
     logging.getLogger("repro_torch.launch.serve").addHandler(handler)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
     loop_mod.make_train_step, engine_mod.ServeEngine = recording_step, RecordingEngine
     try:
         torch.cuda.synchronize()
@@ -3889,37 +3911,65 @@ def _train_drivers(torch, args, dev, smi) -> None:
         res = train_driver.main(["--arch", "olmo-1b", "--steps", str(TRAIN_DRIVER_STEPS),
                                  "--batch", str(TRAIN_DRIVER_BATCH), "--seq", str(TRAIN_SEQ),
                                  "--ckpt-every", str(TRAIN_DRIVER_STEPS), "--ckpt-dir", tmp,
-                                 "--device", str(dev)])
+                                 "--device", str(dev), *train_flags])
         train_s = time.perf_counter() - t0
         train_peak = torch.cuda.max_memory_allocated() / 1e9
-        steps = sorted(os.listdir(tmp))
-        size = sum(f.stat().st_size for f in Path(tmp, steps[-1]).iterdir()) / 1e9
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = serve_driver.main(["--arch", "olmo-1b", "--requests", "4", "--ckpt-dir", tmp,
-                                 "--device", str(dev)])
+                                 "--device", str(dev), *serve_flags])
         serve_s = time.perf_counter() - t0
         serve_peak = torch.cuda.max_memory_allocated() / 1e9
     finally:
         loop_mod.make_train_step, engine_mod.ServeEngine = real_step, real_engine
         logging.getLogger("repro_torch.launch.serve").removeHandler(handler)
+    return dict(res=res, trained=trained, served=served, out=out, logged=logged,
+                train_s=train_s, train_peak=train_peak, serve_s=serve_s, serve_peak=serve_peak)
+
+
+# 16d's run, kept for phase 17b's bitwise comparison: the trained parameters
+# (in host memory), the served tokens and the step seconds
+_DRIVER_RUN: dict = {}
+
+
+def _train_drivers(torch, args, dev, smi) -> None:
+    """16d: ``launch.train`` trains olmo-1b at full width and depth on the
+    card, writing its checkpoints; ``launch.serve --ckpt-dir`` restores the
+    last and serves it: the served parameters are the trained ones, bitwise."""
+    import shutil
+    import tempfile
+
+    from repro_torch import _tree
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_driver_")
+    try:
+        run = _run_drivers(torch, dev, tmp)
+        steps = sorted(os.listdir(tmp))
+        size = sum(f.stat().st_size for f in Path(tmp, steps[-1]).iterdir()) / 1e9
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    restored = [line for line in logged if line.startswith("restored step")]
+    res, trained, served, out = run["res"], run["trained"], run["served"], run["out"]
+    restored = [line for line in run["logged"] if line.startswith("restored step")]
     same = len(served) == 1 and len(trained) == 1 and all(
         torch.equal(a, b) for a, b in zip(_tree.leaves(trained[0]), _tree.leaves(served[0])))
     ok = (res.step == TRAIN_DRIVER_STEPS and res.failures == 0 and len(out) == 4
           and restored and restored[0].startswith(f"restored step {TRAIN_DRIVER_STEPS} ")
           and same)
     _log(f"[16d] launch.train olmo-1b --steps {TRAIN_DRIVER_STEPS} --batch {TRAIN_DRIVER_BATCH} "
-         f"--seq {TRAIN_SEQ}: {train_s:.1f} s (build, {TRAIN_DRIVER_STEPS} steps and the "
+         f"--seq {TRAIN_SEQ}: {run['train_s']:.1f} s (build, {TRAIN_DRIVER_STEPS} steps and the "
          f"checkpoints {steps}, {size:.2f} GB each), losses "
-         f"{[round(m['loss'], 4) for m in res.metrics_history]}, peak memory {train_peak:.2f} GB; "
-         f"launch.serve --ckpt-dir: {restored[:1]}, {len(out)} requests served in {serve_s:.1f} s "
-         f"(peak {serve_peak:.2f} GB); the served parameters bitwise the trained ones {same}: "
-         f"{'ok' if ok else 'FAIL'}; card {smi}")
+         f"{[round(m['loss'], 4) for m in res.metrics_history]}, step seconds (host clock) "
+         f"{[round(m['seconds'], 3) for m in res.metrics_history]}, peak memory "
+         f"{run['train_peak']:.2f} GB; launch.serve --ckpt-dir: {restored[:1]}, {len(out)} "
+         f"requests served in {run['serve_s']:.1f} s (peak {run['serve_peak']:.2f} GB); the "
+         f"served parameters bitwise the trained ones {same}: {'ok' if ok else 'FAIL'}; "
+         f"card {smi}")
     if not ok:
         raise SystemExit("launch.serve did not serve what launch.train trained")
-    del trained, served
+    _DRIVER_RUN.update(params=_tree.tree_map(lambda t: t.detach().cpu(), trained[0]), tokens=out,
+                       step_s=[m["seconds"] for m in res.metrics_history],
+                       losses=[m["loss"] for m in res.metrics_history])
+    del trained, served, run
     torch.cuda.empty_cache()
 
 
@@ -3934,21 +3984,219 @@ def _train_phase(torch, args, dev, smi) -> None:
     _log(f"[16] LM training phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
 
 
+# ---- phase 17: the sharded LM in an NCCL world of one
+# 17a: olmo-1b at full width and depth, 8 steps of 4 x 2048 tokens from one
+# init, make_train_step locally and make_compressed_dp_step exact and int8.
+SHARDED_STEPS = 8
+SHARDED_BATCH = 4
+SHARDED_GAP = 0.3  # the reference's own criterion (tests/dist_worker.py)
+
+
+def _sharded_dp(torch, args, dev, smi, mesh) -> None:
+    """17a: ``make_compressed_dp_step`` exact and compressed against
+    ``make_train_step`` on one mesh of one rank: the exact run bitwise the
+    local one, the compressed run's last loss within ``SHARDED_GAP``, one
+    int8 gather a reference leaf a step, every residual leaf nonzero after
+    step 1."""
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("olmo-1b")
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, SHARDED_BATCH, seed=args.seed))
+    batches = [_train_batch(torch, cfg, data, i, dev, args.seed) for i in range(SHARDED_STEPS)]
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    n_leaves = len(_tree.flatten(model.params, lambda x: x, lambda xs: xs))
+    runs = {}
+    for label in ("local", "exact", "compressed"):
+        p = model.params
+        s = init_opt_state(p)
+        if label == "local":
+            step = make_train_step(model, opt_cfg)
+        else:
+            err = coll.init_error_state(p, mesh)
+            dp_step = coll.make_compressed_dp_step(model, opt_cfg, mesh,
+                                                   compress=label == "compressed")
+        coll.INT8_GATHERS.calls = coll.INT8_GATHERS.bytes = coll.GATHERS.calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(SHARDED_STEPS + 1)]
+        losses, nonzero = [], None
+        t0 = time.perf_counter()
+        ev[0].record()
+        for i, batch in enumerate(batches):
+            if label == "local":
+                p, s, met = step(p, s, batch)
+            else:
+                p, s, err, met = dp_step(p, s, err, batch)
+            ev[i + 1].record()
+            losses.append(met["loss"])
+            if i == 0 and label == "compressed":
+                nonzero = all(bool(e.abs().max() > 0) for e in _tree.leaves(err))
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(1, SHARDED_STEPS)]
+        runs[label] = dict(losses=[float(x) for x in losses], ms=ms,
+                           wall=time.perf_counter() - t0,
+                           peak=torch.cuda.max_memory_allocated() / 1e9,
+                           int8=(coll.INT8_GATHERS.calls, coll.INT8_GATHERS.bytes),
+                           gathers=coll.GATHERS.calls, nonzero=nonzero)
+        del s
+        if label != "local":
+            del err
+        if label == "local":
+            local_p = p
+        elif label == "exact":  # compared now, so the compressed run has the memory
+            same_p = all(torch.equal(a, b) for a, b in zip(_tree.leaves(p),
+                                                           _tree.leaves(local_p)))
+            del local_p
+        del p
+        torch.cuda.empty_cache()
+    local, exact, comp = runs["local"], runs["exact"], runs["compressed"]
+    bitwise = exact["losses"] == local["losses"] and same_p
+    finite = all(math.isfinite(x) for r in runs.values() for x in r["losses"])
+    gap = abs(comp["losses"][-1] - exact["losses"][-1])
+    int8_ok = comp["int8"][0] == n_leaves * SHARDED_STEPS and exact["int8"][0] == 0
+    for label, r in runs.items():
+        _log(f"[17a] {label}: losses {[round(x, 4) for x in r['losses']]}; step "
+             f"{sum(r['ms']) / len(r['ms']):.1f} ms (CUDA events, steps 2-{SHARDED_STEPS}: median "
+             f"{_median(r['ms']):.1f}, min {min(r['ms']):.1f}, max {max(r['ms']):.1f}); wall "
+             f"{r['wall']:.1f} s; peak memory {r['peak']:.2f} GB; gathers {r['gathers']}; int8 "
+             f"gathers {r['int8'][0]} ({r['int8'][0] // SHARDED_STEPS} a step, "
+             f"{r['int8'][1] / SHARDED_STEPS / 1e9:.3f} GB a step); card {smi}")
+    ok = bitwise and finite and gap < SHARDED_GAP and int8_ok and comp["nonzero"]
+    _log(f"[17a] olmo-1b {SHARDED_BATCH} x {TRAIN_SEQ}, {SHARDED_STEPS} steps: exact DP step bitwise "
+         f"make_train_step (losses and every parameter) {bitwise}; losses finite {finite}; "
+         f"compressed last loss {comp['losses'][-1]:.4f} against exact {exact['losses'][-1]:.4f} "
+         f"(gap {gap:.4f} < {SHARDED_GAP}); int8 gathers one a reference leaf a step "
+         f"({n_leaves} leaves) {int8_ok}; every residual leaf nonzero after step 1 "
+         f"{comp['nonzero']}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("17a: the data-parallel steps failed their gates")
+    del runs, local, exact, comp, model, batches
+    torch.cuda.empty_cache()
+
+
+def _sharded_drivers(torch, args, dev, smi, mesh) -> None:
+    """17b: ``launch.train --distributed --dp 1 --tp 1`` bitwise 16d's local
+    run, through the sharded path's collectives; its checkpoint restored
+    onto the mesh bitwise; ``launch.serve --distributed --tp 1 --ckpt-dir``
+    serving 16d's tokens."""
+    import shutil
+    import tempfile
+
+    from repro_torch import _tree
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as coll
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptState, init_opt_state
+
+    counts = (coll.TP, coll.GATHERS, coll.SCATTERS)
+    for c in counts:
+        c.calls = c.bytes = 0
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_driver_")
+    try:
+        run = _run_drivers(torch, dev, tmp, ("--distributed", "--dp", "1", "--tp", "1"),
+                           ("--distributed", "--tp", "1"))
+        calls = [c.calls for c in counts]
+        res, trained = run["res"], run["trained"][0]
+        model = build_model(get_config("olmo-1b"), device="meta")
+        specs = model.partition_specs(mesh)
+        template = model.params  # shapes and dtypes only: the leaves land on the mesh's device
+        t0 = time.perf_counter()
+        (restored, _), manifest = CheckpointManager(tmp).restore(
+            (template, init_opt_state(template)), mesh=mesh,
+            specs=(specs, OptState((), specs, specs)))
+        restore_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    local = _DRIVER_RUN
+    bitwise = all(torch.equal(a.cpu(), b) for a, b in zip(_tree.leaves(trained),
+                                                          _tree.leaves(local["params"])))
+    restored_ok = manifest["step"] == TRAIN_DRIVER_STEPS and all(
+        torch.equal(a, b) for a, b in zip(_tree.leaves(restored), _tree.leaves(trained)))
+    served = run["out"]
+    tokens_ok = sorted(served) == sorted(local["tokens"]) and all(
+        (served[k] == local["tokens"][k]).all() for k in served)
+    ok = (res.step == TRAIN_DRIVER_STEPS and res.failures == 0 and bitwise and all(calls)
+          and restored_ok and tokens_ok)
+    step_s = [m["seconds"] for m in res.metrics_history]
+    _log(f"[17b] launch.train --distributed --dp 1 --tp 1 olmo-1b: {run['train_s']:.1f} s, losses "
+         f"{[round(m['loss'], 4) for m in res.metrics_history]} (16d "
+         f"{[round(x, 4) for x in local['losses']]}), step seconds (host clock) "
+         f"{[round(x, 3) for x in step_s]} against 16d's {[round(x, 3) for x in local['step_s']]}, "
+         f"peak memory {run['train_peak']:.2f} GB; collectives of the sharded path (TP, gathers, "
+         f"reduce-scatters) {calls}; the parameters bitwise 16d's {bitwise}; the checkpoint "
+         f"restored onto the mesh with partition_specs bitwise {restored_ok} ({restore_s:.1f} s); "
+         f"launch.serve --distributed --tp 1 --ckpt-dir served 16d's tokens {tokens_ok} "
+         f"({run['serve_s']:.1f} s, peak {run['serve_peak']:.2f} GB): {'ok' if ok else 'FAIL'}; "
+         f"card {smi}")
+    if not ok:
+        raise SystemExit("17b: the sharded drivers differ from the local ones")
+    del run, trained, restored, template
+    torch.cuda.empty_cache()
+
+
+def _sharded_lm_phase(torch, args, dev, smi) -> None:
+    """Phase 17: the sharded LM in an NCCL world of one (see the module
+    docstring).  NCCL failing to start fails the run; nothing falls back."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    if not _DRIVER_RUN:  # run alone: 16d's local run first, its gates included
+        _train_drivers(torch, args, dev, smi)
+    store = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        tdist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                 world_size=1)
+        mesh = make_host_mesh(1, 1, device="cuda")
+        probe = torch.ones(4, device=dev)
+        tdist.all_gather([torch.empty_like(probe)], probe, group=mesh.get_group("model"))
+        torch.cuda.synchronize()
+    except Exception as e:  # no fallback: the phase fails
+        shutil.rmtree(store, ignore_errors=True)
+        raise SystemExit(f"[17] NCCL failed to start: {type(e).__name__}: {e}")
+    _log(f"[17] NCCL world of 1 (backend {tdist.get_backend()}), mesh {mesh.mesh_dim_names} "
+         f"{tuple(mesh.shape)}")
+    try:
+        for part in (_sharded_dp, _sharded_drivers):
+            t0 = time.perf_counter()
+            part(torch, args, dev, smi, mesh)
+            _log(f"[17] {part.__name__}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    _DRIVER_RUN.clear()
+    torch.cuda.empty_cache()
+    _log(f"[17] sharded LM phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
-                                       "dist", "lm", "lm_families", "train"],
+                                       "dist", "lm", "lm_families", "train", "sharded_lm"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
                          "(the legacy front door and PP sweeps) or phase 13 (sharded CP-ALS, "
                          "its executors, tuner and service, the two-level mesh and sharded PP "
                          "in an NCCL world of one), phase 14 (the LM serving path), phase 15 "
-                         "(the MoE, SSM, hybrid and enc-dec families) or phase 16 (the LM "
-                         "training path); prints no result line")
+                         "(the MoE, SSM, hybrid and enc-dec families), phase 16 (the LM "
+                         "training path) or phase 17 (the sharded LM in an NCCL world of one); "
+                         "prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -3981,7 +4229,7 @@ def main(argv=None) -> int:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
                 "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
-                "train": _train_phase}[args.only]
+                "train": _train_phase, "sharded_lm": _sharded_lm_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -4218,6 +4466,9 @@ def main(argv=None) -> int:
 
     # ---- phase 16: the LM training path (each model freed before the next)
     _train_phase(torch, args, dev, smi)
+
+    # ---- phase 17: the sharded LM in an NCCL world of one (16d's run kept for 17b)
+    _sharded_lm_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

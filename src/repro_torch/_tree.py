@@ -130,3 +130,36 @@ def unflatten_like(tree: Any, new_leaves: list) -> Any:
     """``tree``'s structure with its leaves replaced, in :func:`leaves` order."""
     it = iter(new_leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def _spec_walk(tree: Any, specs: Any, out: list) -> None:
+    """``specs``' node at each leaf of ``tree``, in :func:`leaves` order:
+    the walk follows ``tree``'s structure, so a plain tuple of subtrees (a
+    ``(params, opt_state)`` pair) is a node there and a spec at a leaf."""
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _spec_walk(tree[k], specs[k], out)
+    elif _is_namedtuple(tree):
+        for f in tree._fields:
+            _spec_walk(getattr(tree, f), getattr(specs, f), out)
+    elif isinstance(tree, (list, tuple)):
+        for i, c in enumerate(tree):
+            _spec_walk(c, specs[i], out)
+    else:
+        out.append(specs)
+
+
+def specs_of(tree: Any, specs: Any) -> list:
+    """The spec of each leaf of ``tree`` (as ``Model.partition_specs``
+    gives a spec tree of its structure), in the order of :func:`leaves`."""
+    out: list = []
+    _spec_walk(tree, specs, out)
+    return out
+
+
+def map_with_specs(fn: Callable[[Any, Any], Any], tree: Any, specs: Any) -> Any:
+    """``tree`` with every leaf ``x`` replaced by ``fn(x, spec)``, its spec
+    from the matching spec tree, called in the order of :func:`leaves`."""
+    return unflatten_like(tree, [fn(x, s) for x, s in zip(leaves(tree), specs_of(tree, specs))])

@@ -21,9 +21,19 @@ int16, then as ``V2``) and, on restore, reads any leaf the manifest calls
 Async: ``save_async`` snapshots to host memory synchronously and runs the
 file I/O on a daemon thread; ``wait()`` drains pending writes.
 
-Elastic restore: ``restore(..., mesh=, specs=)`` places each leaf on the
-mesh's device, after checking each leaf's spec against the mesh's axes.  A
-mesh of more than one rank raises: the sharded LM is not ported yet.
+Sharded state: ``save(..., mesh=, specs=)`` takes a tree of this rank's
+blocks (each leaf's spec in ``specs``, a tree of resolved specs as
+``Model.partition_specs`` gives it), assembles every leaf to its full array
+(the port's counted gathers, on every rank), and rank 0 alone writes;
+the other ranks wait at a barrier (``save_async``: at the next ``wait()``).
+So a file is always the reference's format, whole leaves, readable by
+either package.
+
+Elastic restore: ``restore(..., mesh=, specs=)`` onto any mesh shape: each
+rank reads the full arrays and cuts its block by the leaf's spec (after
+checking the spec against the mesh's axes), on the mesh's device.  The
+template's leaves may be whole (their shapes checked against the file) or
+this rank's blocks.
 """
 
 from __future__ import annotations
@@ -38,8 +48,10 @@ from typing import Any
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from repro_torch import _tree
-from repro_torch.launch.mesh import SHARDED_LM
+from repro_torch.launch.mesh import NamedSharding, assemble_tree
 
 SEP = _tree.SEP
 BF16 = "bfloat16"
@@ -98,24 +110,48 @@ class CheckpointManager:
         self.keep = keep
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
+        self._barrier = False  # a sharded save_async the ranks have not met after
 
     # ---------- save ----------
-    def save(self, step: int, tree: Any, extra: dict | None = None) -> str:
-        arrays, dtypes = _flatten(tree)
-        return self._write(step, arrays, dtypes, extra or {})
+    def save(self, step: int, tree: Any, extra: dict | None = None, *, mesh=None,
+             specs: Any = None) -> str:
+        """Write ``tree`` as step ``step``; with ``mesh`` and ``specs`` the
+        leaves are this rank's blocks, assembled here, rank 0 writing and
+        every rank leaving once the file is complete."""
+        if mesh is None:
+            arrays, dtypes = _flatten(tree)
+            return self._write(step, arrays, dtypes, extra or {})
+        arrays, dtypes = _flatten(assemble_tree(tree, specs, mesh))
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        if dist.get_rank() == 0:
+            path = self._write(step, arrays, dtypes, extra or {})
+        dist.barrier()
+        return path
 
-    def save_async(self, step: int, tree: Any, extra: dict | None = None) -> None:
+    def save_async(self, step: int, tree: Any, extra: dict | None = None, *, mesh=None,
+                   specs: Any = None) -> None:
+        """``save`` with the file I/O on a daemon thread; the tree is copied
+        to host memory (assembled, on a mesh) before this returns."""
         self.wait()
+        if mesh is not None:
+            tree = assemble_tree(tree, specs, mesh)
+            self._barrier = True
         arrays, dtypes = _flatten(tree)  # snapshot now; IO later
-        self._thread = threading.Thread(
-            target=self._write, args=(step, arrays, dtypes, extra or {}), daemon=True
-        )
-        self._thread.start()
+        if mesh is None or dist.get_rank() == 0:
+            self._thread = threading.Thread(
+                target=self._write, args=(step, arrays, dtypes, extra or {}), daemon=True
+            )
+            self._thread.start()
 
     def wait(self) -> None:
+        """Drain the pending write; after a sharded ``save_async`` every rank
+        waits here until rank 0's file is complete."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, arrays: dict[str, np.ndarray], dtypes: dict[str, str],
                extra: dict) -> str:
@@ -168,11 +204,10 @@ class CheckpointManager:
         template leaf's shape (checked) and dtype, on its device.
 
         ``mesh`` (a ``DeviceMesh``) + ``specs`` (a tree of per-leaf specs,
-        tuples of mesh axis names, matching ``template``) place every leaf
-        on the mesh's device; a mesh of more than one rank raises.
+        tuples of mesh axis names, matching ``template``) cut every leaf to
+        this rank's block of the mesh, on the mesh's device: the template
+        leaf is then the whole leaf or this rank's block.
         """
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(f"elastic restore onto {mesh.size()} ranks: {SHARDED_LM}")
         if step is None:
             step = self.latest_step()
             if step is None:
@@ -183,15 +218,22 @@ class CheckpointManager:
         mesh_device = torch.device(mesh.device_type) if mesh is not None else None
 
         def convert(arr: np.ndarray, leaf, key: str):
-            if hasattr(leaf, "shape") and tuple(arr.shape) != tuple(leaf.shape):
+            sharding = None
+            if mesh is not None and specs is not None:
+                spec = _spec_at(specs, key)
+                _check_spec(spec, mesh, key, arr.ndim)
+                sharding = NamedSharding(mesh, tuple(spec or ()))
+            if hasattr(leaf, "shape") and tuple(arr.shape) != tuple(leaf.shape) and not (
+                    sharding is not None
+                    and sharding.block_shape(arr.shape) == tuple(leaf.shape)):
                 raise ValueError(f"{key}: shape {arr.shape} != template {tuple(leaf.shape)}")
             if manifest["dtypes"].get(key) == BF16:
                 t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.asarray(arr))
+            if sharding is not None:
+                t = sharding.cut(t)
             if mesh_device is not None:
-                if specs is not None:
-                    _check_spec(_spec_at(specs, key), mesh, key, t.ndim)
                 device = mesh_device
             else:
                 device = leaf.device if isinstance(leaf, torch.Tensor) else torch.device("cpu")

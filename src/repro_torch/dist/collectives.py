@@ -31,9 +31,23 @@ bitwise repeatable where ``torch.distributed.reduce_scatter`` promises no
 summation order), :func:`all_gather` back (the counted gather,
 concatenated), and :func:`hierarchical_psum` built of them around the
 ordered psum across nodes.  :data:`SCATTERS` counts the reduce-scatters
-and the bytes this rank sends in them.  The compressed data-parallel train
-step of the reference comes with the port's sharded LM (``ROADMAP.md``
-queue 1).
+and the bytes this rank sends in them.
+
+The sharded LM's collectives, autograd-aware (``torch.autograd.Function``s
+in Megatron's pairs, over the mesh's ``"model"`` axis, each run even on an
+axis of one rank; :data:`TP` counts them, forward and backward):
+
+* :func:`tp_copy`: into a tensor-parallel region, forward the identity,
+  backward the ordered sum of the ranks' partial gradients;
+* :func:`tp_sum`: out of it, forward the ordered sum, backward the identity;
+* :func:`sp_gather`: a sequence-sharded activation gathered whole, backward
+  the ordered reduce-scatter; :func:`sp_scatter` the reverse;
+* :func:`rep_gather` / :func:`rep_split`: into and out of a region every
+  rank computes whole (replicated), backward a rank's own slice / the
+  gather of the slices.
+
+:func:`make_compressed_dp_step` is the reference's data-parallel train step
+with the int8 error-feedback gradient exchange (or the exact ordered mean).
 """
 
 from __future__ import annotations
@@ -64,6 +78,8 @@ INT8_GATHERS = _Count()
 # reduce-scatters (one all_to_all_single each); ``bytes`` is what this rank
 # sent to the other ranks of the group, ``B (k - 1) / k`` a call
 SCATTERS = _Count()
+# the sharded LM's autograd collectives, one a forward or backward call
+TP = _Count()
 
 
 def _gather(t: Tensor, group, *, async_op: bool = False):
@@ -314,10 +330,10 @@ def compressed_psum(x: Tensor, axis_name, err: Tensor, mesh) -> tuple[Tensor, Te
 
 def init_error_state(params: Any, mesh=None, *, n_shards: int | None = None) -> Any:
     """Zero error-feedback residuals: one fp32 copy of each tensor of
-    ``params`` (a dict or a list of tensors) a device, as the reference's
-    ``(n, *param.shape)`` leaves.  ``n`` is ``n_shards`` when given, else
-    the size of ``mesh``; the port has no global device count to fall back
-    on, so one of them is needed."""
+    ``params`` (a tree of tensors: dicts, lists, a model's params) a
+    device, as the reference's ``(n, *param.shape)`` leaves.  ``n`` is
+    ``n_shards`` when given, else the size of ``mesh``; the port has no
+    global device count to fall back on, so one of them is needed."""
     if n_shards is not None:
         n = int(n_shards)
     elif mesh is not None:
@@ -328,6 +344,240 @@ def init_error_state(params: Any, mesh=None, *, n_shards: int | None = None) -> 
     def zeros(p: Tensor) -> Tensor:
         return torch.zeros((n,) + tuple(p.shape), dtype=torch.float32, device=p.device)
 
-    if isinstance(params, dict):
-        return {k: zeros(v) for k, v in params.items()}
-    return [zeros(p) for p in params]
+    from repro_torch._tree import tree_map
+
+    return tree_map(zeros, params)
+
+
+
+# --------------------------------------------------------------------------
+# The sharded LM's autograd collectives (the "model" axis of a mesh)
+# --------------------------------------------------------------------------
+AXIS = "model"
+
+
+def _model_index(mesh) -> tuple[int, int]:
+    k = mesh.mesh_dim_names.index(AXIS)
+    return int(mesh.size(k)), int(mesh.get_coordinate()[k])
+
+
+def _count(t: Tensor) -> None:
+    TP.calls += 1
+    TP.bytes += t.numel() * t.element_size()
+
+
+def _sum(t: Tensor, mesh) -> Tensor:
+    _count(t)
+    return gather_sum(t.contiguous(), mesh.get_group(AXIS))
+
+
+def _cat(t: Tensor, mesh, dim: int) -> Tensor:
+    _count(t)
+    return all_gather(t.contiguous(), AXIS, mesh, gather_axis=dim)
+
+
+def _scatter(t: Tensor, mesh, dim: int) -> Tensor:
+    _count(t)
+    return reduce_scatter(t, AXIS, mesh, scatter_axis=dim).contiguous()
+
+
+def _own(t: Tensor, mesh, dim: int) -> Tensor:
+    n, i = _model_index(mesh)
+    step = t.shape[dim] // n
+    return t.narrow(dim, i * step, step).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.mesh), None
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return _sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, replicated):
+        ctx.mesh, ctx.dim, ctx.replicated = mesh, dim, replicated
+        return _cat(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.replicated:
+            return _own(g, ctx.mesh, ctx.dim), None, None, None
+        return _scatter(g, ctx.mesh, ctx.dim), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, replicated):
+        ctx.mesh, ctx.dim = mesh, dim
+        return _own(x, mesh, dim) if replicated else _scatter(x, mesh, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _cat(g, ctx.mesh, ctx.dim), None, None, None
+
+
+def tp_copy(x: Tensor, mesh) -> Tensor:
+    """Into a tensor-parallel region: ``x`` as it is; its gradient, partial
+    on each ``"model"`` rank, summed over them in rank order."""
+    return _Copy.apply(x, mesh)
+
+
+def tp_sum(x: Tensor, mesh) -> Tensor:
+    """Out of a tensor-parallel region: the ranks' partials summed in rank
+    order over ``"model"``; the gradient passes as it is."""
+    return _Sum.apply(x, mesh)
+
+
+def sp_gather(x: Tensor, mesh, *, dim: int = 1) -> Tensor:
+    """The ``"model"`` ranks' blocks of ``x`` along ``dim`` (the sequence)
+    concatenated whole; the whole tensor's partial gradients reduce-scattered
+    back to the blocks, summed in rank order.  A leaf sharded along ``dim``
+    gathers the same way where each rank's use of it is partial."""
+    return _Gather.apply(x, mesh, dim, False)
+
+
+def sp_scatter(x: Tensor, mesh, *, dim: int = 1) -> Tensor:
+    """The ranks' partial ``x`` summed in rank order and cut along ``dim``
+    (this rank's block of the sequence); the blocks' gradients gathered
+    whole."""
+    return _Scatter.apply(x, mesh, dim, False)
+
+
+def rep_gather(x: Tensor, mesh, *, dim: int) -> Tensor:
+    """Blocks of ``x`` along ``dim`` gathered whole for a region every
+    ``"model"`` rank computes whole; the (equal) whole gradient cut back to
+    this rank's block."""
+    return _Gather.apply(x, mesh, dim, True)
+
+
+def rep_split(x: Tensor, mesh, *, dim: int) -> Tensor:
+    """This rank's block along ``dim`` of a tensor every ``"model"`` rank
+    holds whole; the blocks' gradients gathered whole."""
+    return _Scatter.apply(x, mesh, dim, True)
+
+
+def ordered_mean(t: Tensor, axes: Sequence[str], mesh) -> Tensor:
+    """The mean of ``t`` over the ranks of the mesh ``axes``: the ordered
+    sum divided by their count."""
+    n = math.prod(int(mesh.size(mesh.mesh_dim_names.index(a))) for a in axes)
+    return ordered_psum(t, axes, mesh) / n
+
+
+# --------------------------------------------------------------------------
+# The compressed data-parallel train step
+# --------------------------------------------------------------------------
+def make_compressed_dp_step(model, opt_cfg, mesh, *, compress: bool = True):
+    """Data-parallel train step with int8 + error-feedback gradient exchange.
+
+    Returns ``step(params, opt_state, err, batch) -> (params, opt_state,
+    new_err, metrics)``.  ``params`` are whole on every rank (the
+    reference's ``P()``); ``batch`` is the global batch, of which each rank
+    takes its data-parallel block of rows (row-major over the data axes).
+    The gradients of ``model.loss_fn`` on the block are taken under
+    :func:`~repro_torch.launch.mesh.manual_mode` (the model's single-device
+    path), then, with ``compress``, each leaf goes through
+    :func:`compressed_psum` over the data axes with this rank's residual and
+    is divided by the data-parallel size; without it, the ordered mean.
+    Loss and metrics are ordered means; then ``adamw_update``.  A scanned
+    stack's layers are one leaf of the reference's, so their gradients are
+    stacked into one quantized payload with one scale, as there.
+
+    ``err`` is :func:`init_error_state`'s: ``(n, *shape)`` leaves with ``n``
+    the mesh size (checked, as the reference checks).  The reference shards
+    the leading dim so a device holds its own row; here every rank holds
+    the whole array and the step reads and writes only this rank's row
+    (row-major over all mesh axes), returning the others as given.
+    ``compress=False`` swaps the quantized exchange for the exact mean (the
+    residuals returned as given), the baseline in tests.
+    """
+    from repro_torch import _tree
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_step import _grads_of
+
+    dp = meshlib.dp_axes(mesh)
+    dp_size = math.prod(int(mesh.size(mesh.mesh_dim_names.index(a))) for a in dp)
+    mesh_size = math.prod(int(s) for s in mesh.shape)
+
+    def step(params: Any, opt_state, err: Any, batch: dict):
+        for e in _tree.leaves(err):
+            if e.shape[0] != mesh_size:
+                raise ValueError(
+                    f"error-state leading dim {e.shape[0]} != mesh size "
+                    f"{mesh_size}; build it with init_error_state(params, mesh)"
+                )
+        row = 0
+        for k, c in enumerate(mesh.get_coordinate()):
+            row = row * int(mesh.size(k)) + int(c)
+        _, d = meshlib.dp_coord(mesh)
+        block = {}
+        for key, x in batch.items():
+            if x.shape[0] % dp_size:
+                raise ValueError(f"batch[{key!r}] of {x.shape[0]} rows does not divide over "
+                                 f"{dp_size} data-parallel ranks")
+            n = x.shape[0] // dp_size
+            block[key] = x.narrow(0, d * n, n)
+        with meshlib.use_mesh(mesh), meshlib.manual_mode():
+            loss, metrics, grads = _grads_of(model, params, block)
+        if compress:
+            # one quantization scale a reference leaf: a scanned stack's
+            # layers are one leaf there, so they are stacked here, a leaf at
+            # a time (each layer's gradient freed once stacked)
+            def layers(tree):  # path -> [leaf], or a Stacked of the layers' leaves
+                return _tree.flatten(tree, lambda x: [x],
+                                     lambda xs: _tree.Stacked(y for ys in xs for y in ys))
+
+            per_g, per_e = layers(grads), layers(err)
+            del grads
+            synced, new_e = {}, {}
+            for key in list(per_g):
+                gs, es = per_g.pop(key), per_e[key]
+                stacked = isinstance(es, _tree.Stacked)
+                g = torch.stack(gs) if stacked else gs[0]
+                del gs
+                e_row = torch.stack([e[row] for e in es]) if stacked else es[0][row]
+                total, new_row = compressed_psum(g, dp, e_row, mesh)
+                del g, e_row
+                total = total / dp_size
+                synced[key] = list(total.unbind(0)) if stacked else total
+                del total
+                outs = []
+                for e, r in zip(es, new_row.unbind(0) if stacked else [new_row]):
+                    out = e.clone()
+                    out[row] = r
+                    outs.append(out)
+                new_e[key] = outs if stacked else outs[0]
+
+            def fetch(table):
+                return lambda key: table[key]
+
+            grads = _tree.rebuild(err, fetch(synced), lambda x, leaf, key: x)
+            new_err = _tree.rebuild(err, fetch(new_e), lambda x, leaf, key: x)
+        else:
+            grads = _tree.tree_map(lambda g: ordered_mean(g, dp, mesh), grads)
+            new_err = err
+        loss = ordered_mean(loss, dp, mesh)
+        metrics = {k: ordered_mean(v, dp, mesh) for k, v in metrics.items()}
+        params, opt_state, opt_stats = opt.adamw_update(params, grads, opt_state, opt_cfg)
+        params = _tree.tree_map(lambda p: p.requires_grad_(), params)
+        metrics.update(opt_stats)
+        metrics["loss"] = loss
+        return params, opt_state, new_err, metrics
+
+    return step

@@ -22,7 +22,10 @@ port's ``CheckpointManager`` writes and reads the same mapping.  An AdamW
 state (``OptState``) crosses the same way, its moments keyed like the
 parameters: :func:`optstate_to_numpy` reads either package's,
 :func:`optstate_from_numpy` builds the port's for a model, so both
-packages' training steps can start from one state.
+packages' training steps can start from one state.  On a mesh the
+parameters cross as each rank's blocks: ``params_from_numpy(..., mesh=)``
+cuts every whole leaf to this rank's block, ``params_to_numpy(...,
+params=, mesh=)`` assembles the blocks back.
 """
 
 from __future__ import annotations
@@ -149,16 +152,25 @@ def cpresult_from_numpy(fields: dict, *, device: str | torch.device):
     )
 
 
-def params_to_numpy(model) -> dict[str, np.ndarray]:
-    """A port model's parameters as ``{reference leaf path: array}``."""
-    return _tree.flatten(model.params, _numpy, np.stack)
+def params_to_numpy(model, *, params=None, mesh=None) -> dict[str, np.ndarray]:
+    """A port model's parameters as ``{reference leaf path: array}``.  With
+    ``mesh``, ``params`` are this rank's blocks of ``model.partition_specs(
+    mesh, drop_fsdp=True)``, assembled whole here (collectives: every rank
+    calls it)."""
+    if mesh is not None:
+        from repro_torch.launch.mesh import assemble_tree
+
+        params = assemble_tree(params, model.partition_specs(mesh, drop_fsdp=True), mesh)
+    return _tree.flatten(model.params if params is None else params, _numpy, np.stack)
 
 
 @torch.no_grad()
-def params_from_numpy(model, flat: dict[str, np.ndarray]):
+def params_from_numpy(model, flat: dict[str, np.ndarray], *, mesh=None):
     """Copy ``{reference leaf path: array}`` into ``model``'s parameters in
     place (each keeps its dtype and device); every parameter must be given,
-    at its shape.  Returns ``model.params``."""
+    at its shape.  Returns ``model.params``; with ``mesh``, this rank's
+    blocks of them under ``model.partition_specs(mesh, drop_fsdp=True)``
+    (new tensors; the model keeps the whole parameters)."""
     expected = _tree.flatten(model.params, lambda p: tuple(p.shape),
                              lambda shapes: (len(shapes),) + shapes[0])
     if set(flat) != set(expected):
@@ -173,7 +185,12 @@ def params_from_numpy(model, flat: dict[str, np.ndarray]):
         return p
 
     _tree.rebuild(model.params, lambda key: flat[key], copy)
-    return model.params
+    if mesh is None:
+        return model.params
+    from repro_torch.launch.mesh import shard_tree
+
+    return shard_tree(_tree.tree_map(torch.Tensor.detach, model.params),
+                      model.partition_specs(mesh, drop_fsdp=True), mesh)
 
 
 def optstate_to_numpy(state) -> dict:

@@ -10,26 +10,61 @@ address, world size and rank); each named dimension has its process group
 
 The device type follows the tensors: ``"cuda"`` (one card a rank, NCCL)
 unless the caller asks for ``"cpu"`` (gloo).
+
+The sharded LM runs SPMD over local blocks: on a mesh, each parameter leaf
+of a rank is a plain tensor, this rank's block of the full leaf
+(:class:`NamedSharding` cuts and assembles it), and the model code puts the
+collectives where the reference's :func:`constraint` calls make GSPMD put
+them (``repro_torch.dist.collectives``: ``tp_copy``, ``tp_sum``,
+``sp_gather``, ``sp_scatter``).  :func:`constraint` itself is the identity
+on the local block.  Inside :func:`manual_mode` the model code runs its
+single-device path on whole parameters, as the reference's code inside
+``shard_map`` does (the compressed data-parallel step).
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
+from dataclasses import dataclass
 from typing import Any, Sequence
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch import _tree
 
 # Model code names logical axes; they resolve against the ambient mesh:
 #   "fsdp", "dp"    -> the data axes (("pod", "data") or ("data",))
 #   "tp", "expert"  -> "model"
 #   None            -> replicated
-SHARDED_LM = ("the sharded LM is not ported yet (ROADMAP.md queue 1: the sharded LM); "
-              "run the LM on one device")
+SHARDED_LM = ("MoE expert parallelism and tensor parallelism through the SSM, RG-LRU and "
+              "enc-dec layers are not ported yet (ROADMAP.md queue 1: the sharded LM); run "
+              "these families with a model axis of 1 (--tp 1)")
 
 _MESH: contextvars.ContextVar[DeviceMesh | None] = contextvars.ContextVar(
     "repro_torch_mesh", default=None
 )
+_MANUAL: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_manual", default=False
+)
+
+
+@contextlib.contextmanager
+def manual_mode():
+    """Mark a region as per-rank code on whole parameters (the reference's
+    code inside ``shard_map``): constraints are no-ops and the model code
+    takes its single-device path, with no collective."""
+    token = _MANUAL.set(True)
+    try:
+        yield
+    finally:
+        _MANUAL.reset(token)
+
+
+def in_manual_mode() -> bool:
+    return _MANUAL.get()
 
 
 def _mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], device: str) -> DeviceMesh:
@@ -104,13 +139,108 @@ def resolve_logical(logical: Sequence[Any] | None, mesh: DeviceMesh) -> tuple:
     return tuple(out)
 
 
-def constraint(x, *logical: Any):
-    """The reference's sharding constraint: the identity with no ambient
-    mesh or a mesh of one rank; a larger mesh raises (the sharded LM)."""
-    mesh = current_mesh()
-    if mesh is None or mesh.size() == 1:
+@dataclass(frozen=True)
+class NamedSharding:
+    """A leaf's layout on ``mesh``: ``spec`` one entry a dim (a mesh axis
+    name, a tuple of names with the first the most significant, or
+    ``None``), as :func:`resolve_logical` gives it.  A sharded dim must
+    divide by the product of its axes' sizes; block ``i`` of it (``i``
+    row-major over this rank's coordinates on those axes) is this rank's."""
+
+    mesh: Any
+    spec: tuple
+
+    def _axes(self, d: int) -> tuple[str, ...]:
+        entry = self.spec[d] if d < len(self.spec) else None
+        if entry is None:
+            return ()
+        return (entry,) if isinstance(entry, str) else tuple(entry)
+
+    def _split(self, d: int) -> tuple[int, int]:
+        """``(number of blocks, this rank's block)`` along dim ``d``."""
+        axes = self._axes(d)
+        if not axes:
+            return 1, 0
+        names = tuple(self.mesh.mesh_dim_names)
+        coord = self.mesh.get_coordinate()
+        n, i = 1, 0
+        for a in axes:
+            k = names.index(a)
+            size = int(self.mesh.size(k))
+            n, i = n * size, i * size + int(coord[k])
+        return n, i
+
+    def block_shape(self, shape: Sequence[int]) -> tuple[int, ...]:
+        """The shape of a rank's block of a leaf of ``shape``."""
+        if len(self.spec) > len(shape):
+            raise ValueError(f"spec {self.spec} has more entries than the leaf's {len(shape)} dims")
+        out = []
+        for d, extent in enumerate(shape):
+            n, _ = self._split(d)
+            if extent % n:
+                raise ValueError(f"dim {d} of extent {extent} does not divide over "
+                                 f"{self._axes(d)} ({n} blocks)")
+            out.append(extent // n)
+        return tuple(out)
+
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the full tensor ``x`` (its own storage)."""
+        self.block_shape(x.shape)
+        out = x
+        for d in range(x.ndim):
+            n, i = self._split(d)
+            if n > 1:
+                step = x.shape[d] // n
+                out = out.narrow(d, i * step, step)
+        return out.clone(memory_format=torch.contiguous_format) if out is not x else x
+
+    def assemble(self, x: torch.Tensor) -> torch.Tensor:
+        """The full tensor from every rank's block ``x`` (one counted
+        gather an axis of each sharded dim; every rank gets the same
+        bits)."""
+        from repro_torch.dist.collectives import gather_cat  # the port's collectives
+
+        for d in range(x.ndim):
+            axes = self._axes(d)
+            if axes and math.prod(int(self.mesh.size(self.mesh.mesh_dim_names.index(a)))
+                                  for a in axes) > 1:
+                x = gather_cat(x, axes, self.mesh, dim=d)
         return x
-    raise NotImplementedError(SHARDED_LM)
+
+
+def named_sharding(logical: Sequence[Any] | None, mesh: DeviceMesh | None = None
+                   ) -> NamedSharding:
+    """The logical spec resolved on ``mesh`` (default: the ambient one) as a
+    :class:`NamedSharding`, which cuts a full tensor to this rank's block
+    and assembles the blocks back."""
+    mesh = mesh or current_mesh()
+    assert mesh is not None, "no mesh in context"
+    return NamedSharding(mesh, resolve_logical(logical, mesh))
+
+
+def shard_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """Every leaf of the full ``tree`` cut to this rank's block by its spec
+    in ``specs`` (a tree of resolved specs, as ``Model.partition_specs``
+    gives it)."""
+    return _tree.map_with_specs(lambda x, s: NamedSharding(mesh, tuple(s)).cut(x), tree, specs)
+
+
+def assemble_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
+    """Every leaf of the blocks ``tree`` assembled to its full tensor, in
+    the order of :func:`repro_torch._tree.leaves` on every rank."""
+    return _tree.map_with_specs(lambda x, s: NamedSharding(mesh, tuple(s)).assemble(x),
+                                tree, specs)
+
+
+def constraint(x, *logical: Any):
+    """The reference's sharding constraint.  The port's tensors are local
+    blocks and its layout changes are explicit collectives in the model
+    code, so this is the identity on every mesh; the logical axes are
+    checked against the ambient mesh."""
+    mesh = current_mesh()
+    if mesh is not None and not in_manual_mode():
+        resolve_logical(logical, mesh)
+    return x
 
 
 def tp_size(mesh: DeviceMesh | None = None) -> int:
@@ -118,3 +248,76 @@ def tp_size(mesh: DeviceMesh | None = None) -> int:
     if mesh is None or "model" not in mesh.mesh_dim_names:
         return 1
     return int(mesh.size(mesh.mesh_dim_names.index("model")))
+
+
+def active_mesh() -> DeviceMesh | None:
+    """The ambient mesh when the model code runs on local blocks (not in
+    :func:`manual_mode`), else ``None``: the single-device path."""
+    mesh = current_mesh()
+    return None if mesh is None or in_manual_mode() else mesh
+
+
+def model_coord(mesh: DeviceMesh | None = None) -> tuple[int, int]:
+    """``(size, this rank's index)`` of the ``"model"`` axis of ``mesh``
+    (default: the active one); ``(1, 0)`` without one."""
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None or "model" not in mesh.mesh_dim_names:
+        return 1, 0
+    k = mesh.mesh_dim_names.index("model")
+    return int(mesh.size(k)), int(mesh.get_coordinate()[k])
+
+
+def dp_coord(mesh: DeviceMesh) -> tuple[int, int]:
+    """``(size, this rank's index)`` of the data-parallel axes of ``mesh``,
+    the index row-major over them (the first the most significant)."""
+    names = tuple(mesh.mesh_dim_names)
+    coord = mesh.get_coordinate()
+    n, i = 1, 0
+    for a in dp_axes(mesh):
+        k = names.index(a)
+        size = int(mesh.size(k))
+        n, i = n * size, i * size + int(coord[k])
+    return n, i
+
+
+def tp_active() -> int:
+    """The model-axis size the model code shards over: the active mesh's,
+    1 without one or in manual mode."""
+    return model_coord()[0]
+
+
+def driver_mesh(cfg, dp: int, tp: int, device: str, *,
+                distributed: bool = False) -> tuple[DeviceMesh | None, torch.device]:
+    """The mesh and device of a driver's ``--dp``/``--tp``/``--device``:
+    ``(None, device)`` without a process group (``distributed`` starts one
+    from a launcher's environment), else ``make_host_mesh(dp, tp)`` over the
+    world, ``dp * tp`` equal to its size, a CUDA rank on the card
+    ``LOCAL_RANK``.  Raises :data:`SHARDED_LM` for ``tp > 1`` on a family
+    whose tensor parallelism is not ported."""
+    import os
+
+    import torch.distributed as dist
+
+    if tp > 1 and cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(f"--tp {tp} for {cfg.name} ({cfg.family}): {SHARDED_LM}")
+    if distributed and not dist.is_initialized():  # pragma: no cover -- a launcher's env
+        dist.init_process_group()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if dp * tp != world:
+        raise ValueError(f"--dp {dp} x --tp {tp} must equal the world size {world} "
+                         "(start the ranks with a launcher and --distributed)")
+    dev = torch.device(device)
+    if not dist.is_initialized():
+        return None, dev
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    return make_host_mesh(dp, tp, device=dev.type), dev
+
+
+def require_local_tp(what: str) -> None:
+    """Raise :data:`SHARDED_LM` where ``what`` would run with a model axis
+    above 1 (the layers whose tensor parallelism is not ported)."""
+    tp = tp_active()
+    if tp > 1:
+        raise NotImplementedError(f"{what} on a model axis of {tp}: {SHARDED_LM}")

@@ -6,18 +6,25 @@ Port of ``repro.launch.train``::
         --steps 50 --batch 8 --seq 128 --reduced [--device cpu]
 
 The same flags as the reference's, plus ``--device`` (default ``cuda``;
-``cpu`` trains on the host).  The data pipeline shards by host:
-``host_id``/``host_count`` are the rank and world size of
-``torch.distributed`` when it is initialized (``--distributed`` calls
-``init_process_group`` from the launcher's environment, as ``torchrun``
-sets it), else 0 and 1.  ``--dp``/``--tp`` above 1, or a world of more than
-one rank, raise: the sharded LM is not ported yet.  The checkpoints
-(``--ckpt-dir``) restore in either package's ``launch.serve --ckpt-dir``.
+``cpu`` trains on the host).  With ``torch.distributed`` initialized
+(``--distributed`` calls ``init_process_group`` from the launcher's
+environment, as ``torchrun`` sets it, unless the caller already has), the
+loop runs on ``make_host_mesh(--dp, --tp)`` over the world (``dp * tp``
+must equal the world size; a CUDA rank takes the card ``LOCAL_RANK``):
+data parallelism over ``"data"``, tensor and sequence parallelism over
+``"model"``.  The data pipeline shards by data group: ``host_id`` is the
+rank's ``"data"`` coordinate and ``host_count`` is ``dp``, so the ranks of
+one data group read the same block.  Without a process group, ``--dp`` and
+``--tp`` above 1 raise; so does ``--tp`` above 1 for the MoE, SSM, RG-LRU
+and enc-dec families, whose tensor parallelism is not ported.  The
+checkpoints (``--ckpt-dir``, written whole by rank 0) restore in either
+package's ``launch.serve --ckpt-dir``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import logging
 import os
@@ -49,50 +56,46 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import torch
-    import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, MemmapCorpus, SyntheticLM
-    from repro_torch.launch.mesh import SHARDED_LM
+    from repro_torch.launch import mesh as meshlib
     from repro_torch.models import build_model
     from repro_torch.train.loop import LoopConfig, train_loop
     from repro_torch.train.optimizer import OptConfig
-
-    if args.distributed:  # pragma: no cover -- real fleet only
-        dist.init_process_group()
-    host_id, host_count = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() \
-        else (0, 1)
-    if args.dp * args.tp > 1 or host_count > 1:
-        raise NotImplementedError(f"--dp {args.dp} --tp {args.tp} on {host_count} ranks: "
-                                  f"{SHARDED_LM}")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, vocab=min(cfg.vocab, 2048))
-    device = torch.device(args.device)
+    mesh, device = meshlib.driver_mesh(cfg, args.dp, args.tp, args.device,
+                                       distributed=args.distributed)
+    host_id = meshlib.dp_coord(mesh)[1] if mesh is not None else 0
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device=device).manual_seed(0))
 
     dc = DataConfig(
         vocab=cfg.vocab, seq_len=args.seq, global_batch=args.batch,
-        host_id=host_id, host_count=host_count,
+        host_id=host_id, host_count=args.dp,
     )
     data = MemmapCorpus(args.corpus, dc) if args.corpus else SyntheticLM(dc)
 
     log.info("mesh {'data': %d, 'model': %d}, arch %s, %d steps on %s", args.dp, args.tp,
              cfg.name, args.steps, device)
-    result = train_loop(
-        model,
-        data,
-        OptConfig(lr=args.lr, total_steps=max(args.steps, 100)),
-        LoopConfig(
-            total_steps=args.steps,
-            ckpt_every=args.ckpt_every,
-            ckpt_dir=args.ckpt_dir,
-            accum_steps=args.accum,
-        ),
-    )
+    with contextlib.ExitStack() as stack:
+        if mesh is not None:
+            stack.enter_context(meshlib.use_mesh(mesh))
+        result = train_loop(
+            model,
+            data,
+            OptConfig(lr=args.lr, total_steps=max(args.steps, 100)),
+            LoopConfig(
+                total_steps=args.steps,
+                ckpt_every=args.ckpt_every,
+                ckpt_dir=args.ckpt_dir,
+                accum_steps=args.accum,
+            ),
+        )
     log.info(
         "done: step=%d final_loss=%.4f failures=%d stragglers=%s",
         result.step,

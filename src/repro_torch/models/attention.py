@@ -11,7 +11,23 @@ Scores are computed in the compute dtype, rounded to it, then softmaxed in
 fp32, as the reference does; every product casts its weight to the
 activation's dtype where it is used.  Sharding constraints are the
 reference's, resolved by :func:`repro_torch.launch.mesh.constraint` (the
-identity on one device).
+identity on a rank's local block).
+
+Tensor parallelism (an active mesh; ``tp`` ranks on ``"model"``): the
+parameters are this rank's blocks.  Where the query heads divide by ``tp``
+(:func:`_heads_sharded`), q/k/v are column-parallel over heads (this rank's
+``n_heads / tp`` query heads) and ``wo`` is row-parallel: the input enters
+with ``sp_gather`` (a sequence-sharded residual stream) or ``tp_copy`` and
+the output leaves with ``sp_scatter`` or ``tp_sum``; ``q_norm``/``k_norm``
+enter with ``tp_copy`` (their gradient is partial on each rank).  K/V are
+sharded by kv heads where those divide by ``tp`` (the grouped path, as the
+reference's ``hk % tp == 0``); otherwise ``wk``/``wv`` are gathered whole,
+K/V computed whole on every rank and expanded to the query heads, each
+rank keeping its own (the reference's expand path).  Where the query heads
+do not divide (the reference's ``"seq"`` layout, ``n_heads < tp``), every
+rank computes the attention whole on gathered weights (``rep_gather``) and
+keeps its sequence block (``rep_split``): the same values, ``tp`` times the
+work.
 """
 
 from __future__ import annotations
@@ -21,6 +37,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as coll
 from repro_torch.launch import mesh as meshlib
 
 from .common import ParamDef, apply_mrope, apply_rope, attention_scale, rms_norm
@@ -56,8 +73,60 @@ def _head_axis_ok(n_heads: int) -> bool:
     return n_heads >= max(meshlib.tp_size(), 1)
 
 
+def _heads_sharded(cfg: ModelConfig, tp: int) -> bool:
+    """The query heads are column-parallel over ``tp`` ranks."""
+    return cfg.n_heads % tp == 0
+
+
+def kv_sharded(cfg: ModelConfig, tp: int | None = None) -> bool:
+    """K/V (and the decode cache) are sharded by kv heads over ``tp``
+    ranks (default: the active model axis): the heads divide, so the
+    grouped path runs on each rank's share."""
+    tp = meshlib.tp_active() if tp is None else tp
+    return cfg.n_kv_heads % tp == 0
+
+
+def _tp_weights(p: dict, cfg: ModelConfig, mesh) -> dict:
+    """This rank's effective attention weights on ``mesh``: its blocks,
+    gathered whole where its use of them is not column/row parallel."""
+    tp, _ = meshlib.model_coord(mesh)
+    w = dict(p)
+    if _heads_sharded(cfg, tp):
+        for name in ("q_norm", "k_norm"):
+            if name in p:
+                w[name] = coll.tp_copy(p[name], mesh)
+        if not kv_sharded(cfg, tp):
+            w["wk"] = coll.sp_gather(p["wk"], mesh, dim=1)
+            w["wv"] = coll.sp_gather(p["wv"], mesh, dim=1)
+        return w
+    for name, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)):
+        w[name] = coll.rep_gather(p[name], mesh, dim=dim)
+    return w
+
+
+def _rank_kv(k: Tensor, v: Tensor, cfg: ModelConfig, mesh) -> tuple[Tensor, Tensor, bool | None]:
+    """``(K, V, grouped)`` this rank attends with: off a mesh or in the
+    whole-attention layout ``k, v`` as they are; with sharded kv heads its
+    share, grouped; else whole K/V expanded to the query heads and cut to
+    this rank's ``n_heads / tp`` of them."""
+    if mesh is None:
+        return k, v, None
+    tp, i = meshlib.model_coord(mesh)
+    if not _heads_sharded(cfg, tp):
+        return k, v, None
+    if kv_sharded(cfg, tp):
+        return k, v, True
+    n = cfg.n_heads // tp
+
+    def own(x):
+        x = torch.repeat_interleave(x, cfg.n_heads // cfg.n_kv_heads, dim=2)
+        return x[:, :, i * n:(i + 1) * n]
+
+    return own(k), own(v), None
+
+
 def _project_q(p: dict, cfg: ModelConfig, x: Tensor, layout: str = "heads") -> Tensor:
-    q = _split_heads(x @ p["wq"].to(x.dtype), cfg.n_heads, cfg.hd)
+    q = _split_heads(x @ p["wq"].to(x.dtype), -1, cfg.hd)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
     if layout == "seq":  # sequence-parallel attention (few-head archs)
@@ -68,8 +137,8 @@ def _project_q(p: dict, cfg: ModelConfig, x: Tensor, layout: str = "heads") -> T
 
 
 def _project_kv(p: dict, cfg: ModelConfig, x: Tensor) -> tuple[Tensor, Tensor]:
-    k = _split_heads(x @ p["wk"].to(x.dtype), cfg.n_kv_heads, cfg.hd)
-    v = _split_heads(x @ p["wv"].to(x.dtype), cfg.n_kv_heads, cfg.hd)
+    k = _split_heads(x @ p["wk"].to(x.dtype), -1, cfg.hd)
+    v = _split_heads(x @ p["wv"].to(x.dtype), -1, cfg.hd)
     if "k_norm" in p:
         k = rms_norm(k, p["k_norm"])
     spec = ("dp", None, "tp", None) if _head_axis_ok(cfg.n_kv_heads) else ("dp", None, None, None)
@@ -96,20 +165,23 @@ def _softmax_probs(scores: Tensor, mask: Tensor | None, dtype: torch.dtype) -> T
     return torch.softmax(scores, dim=-1).to(dtype)
 
 
-def _attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None) -> Tensor:
+def _attend(q: Tensor, k: Tensor, v: Tensor, mask: Tensor | None,
+            grouped: bool | None = None) -> Tensor:
     """q: (B,Sq,H,hd), k/v: (B,Sk,Hk,hd), mask broadcastable (B,1,1,Sq,Sk).
 
     With query groups (``g = H / Hk > 1``) whose kv-head axis divides the
     tensor-parallel degree -- always at one device -- the queries are
     grouped against the shared K/V; otherwise K/V are expanded to the full
-    query-head count, as the reference does for its sharding.
+    query-head count, as the reference does for its sharding.  ``grouped``
+    overrides the choice (a rank's share of sharded kv heads).
     """
     b, sq, h, hd = q.shape
     hk = k.shape[2]
     g = h // hk
-    tp = meshlib.tp_size()
+    if grouped is None:
+        grouped = hk % meshlib.tp_active() == 0
     scale = attention_scale(hd, q.dtype)
-    if g > 1 and hk % tp == 0:
+    if g > 1 and grouped:
         qg = q.reshape(b, sq, hk, g, hd)
         scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * scale
         probs = _softmax_probs(scores, mask, q.dtype)
@@ -153,8 +225,22 @@ def attn_sequence(
     window: int = 0,
     q_chunk: int = 0,
     return_kv: bool = False,
+    seq_sharded: bool = False,
 ):
-    """Self-attention over a full sequence.  Returns y [, (k, v) for caching]."""
+    """Self-attention over a full sequence.  Returns y [, (k, v) for caching].
+
+    On an active mesh ``x`` is this rank's sequence block when
+    ``seq_sharded`` (else whole), and so is y; the cached k/v are this
+    rank's kv heads where they are sharded, else whole."""
+    mesh = meshlib.active_mesh()
+    heads = True
+    if mesh is not None:
+        heads = _heads_sharded(cfg, meshlib.model_coord(mesh)[0])
+        p = _tp_weights(p, cfg, mesh)
+        if heads:
+            x = coll.sp_gather(x, mesh) if seq_sharded else coll.tp_copy(x, mesh)
+        elif seq_sharded:
+            x = coll.rep_gather(x, mesh, dim=1)
     b, s, _ = x.shape
     # windowed attention with no explicit chunk: chunk at the window size so
     # the scores stay O(s * window) instead of O(s^2)
@@ -166,10 +252,11 @@ def attn_sequence(
     q = _rope(cfg, _project_q(p, cfg, x, layout), positions)
     k, v = _project_kv(p, cfg, x)
     k = _rope(cfg, k, positions)
+    k_att, v_att, grouped = _rank_kv(k, v, cfg, mesh)
 
     if not chunked:
         mask = _causal_mask(s, s, 0, window, x.device) if causal else None
-        y = _attend(q, k, v, mask)
+        y = _attend(q, k_att, v_att, mask, grouped)
     else:
         n_chunks = s // q_chunk
         span = min(s, window + q_chunk) if window else s
@@ -180,20 +267,25 @@ def attn_sequence(
                 q_c = meshlib.constraint(q_c, "dp", "tp", None, None)
             if window and span < s:
                 start = min(max(c * q_chunk + q_chunk - span, 0), s - span)
-                k_c = k[:, start : start + span]
-                v_c = v[:, start : start + span]
+                k_c = k_att[:, start : start + span]
+                v_c = v_att[:, start : start + span]
                 i = (c * q_chunk + torch.arange(q_chunk, device=x.device))[:, None]
                 j = (start + torch.arange(span, device=x.device))[None, :]
                 m = (j <= i) & (j > i - window) if causal else (j >= 0).expand(q_chunk, span)
-                ys.append(_attend(q_c, k_c, v_c, m[None, None, None]))
+                ys.append(_attend(q_c, k_c, v_c, m[None, None, None], grouped))
             else:
                 m = _causal_mask(q_chunk, s, c * q_chunk, window, x.device) if causal else None
-                ys.append(_attend(q_c, k, v, m))
+                ys.append(_attend(q_c, k_att, v_att, m, grouped))
         y = torch.cat(ys, 1)
 
-    y = y.reshape(b, s, cfg.n_heads * cfg.hd)
+    y = y.reshape(b, s, -1)
     out = y @ p["wo"].to(y.dtype)
     out = meshlib.constraint(out, "dp", None, None)
+    if mesh is not None:
+        if heads:
+            out = coll.sp_scatter(out, mesh) if seq_sharded else coll.tp_sum(out, mesh)
+        elif seq_sharded:
+            out = coll.rep_split(out, mesh, dim=1)
     if return_kv:
         return out, (k, v)
     return out
@@ -203,7 +295,8 @@ def attn_sequence(
 # Decode (one token, cache)
 # --------------------------------------------------------------------------
 class KVCache(NamedTuple):
-    """k/v: (B, W, Hk, hd) with W = window (ring) or max_len (full)."""
+    """k/v: (B, W, Hk, hd) with W = window (ring) or max_len (full); on a
+    mesh Hk is this rank's share where :func:`kv_sharded`."""
 
     k: Tensor
     v: Tensor
@@ -214,7 +307,9 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     w = min(cfg.sliding_window or max_len, max_len)
     if cfg.local_window:
         w = min(cfg.local_window, max_len)
-    shape = (batch, w, cfg.n_kv_heads, cfg.hd)
+    tp = meshlib.tp_active()
+    hk = cfg.n_kv_heads // tp if kv_sharded(cfg, tp) else cfg.n_kv_heads
+    shape = (batch, w, hk, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
 
@@ -236,6 +331,13 @@ def attn_decode(
     """
     b = x.shape[0]
     w = cache.k.shape[1]
+    mesh = meshlib.active_mesh()
+    heads = True
+    if mesh is not None:
+        heads = _heads_sharded(cfg, meshlib.model_coord(mesh)[0])
+        p = _tp_weights(p, cfg, mesh)
+        if heads:
+            x = coll.tp_copy(x, mesh)
     if cfg.mrope_sections:  # text-only decode: all three streams advance together
         pos = torch.full((b, 1, len(cfg.mrope_sections)), length, dtype=torch.int32,
                          device=x.device)
@@ -250,9 +352,12 @@ def attn_decode(
     # Slots 0..min(length, W-1) hold data (ring: all slots once length >= W).
     valid = torch.arange(w, device=x.device) <= min(length, w - 1)  # (W,)
     mask = valid[None, None, None, None, :]  # -> (B, Hk, G, 1, W) by broadcast
-    y = _attend(q, cache.k, cache.v, mask)
-    y = y.reshape(b, 1, cfg.n_heads * cfg.hd)
+    k, v, grouped = _rank_kv(cache.k, cache.v, cfg, mesh)
+    y = _attend(q, k, v, mask, grouped)
+    y = y.reshape(b, 1, -1)
     out = y @ p["wo"].to(y.dtype)
+    if mesh is not None and heads:
+        out = coll.tp_sum(out, mesh)
     return out, cache
 
 

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch._tree import leaves, tree_map
+from repro_torch.launch import mesh as meshlib
 
 Tensor = torch.Tensor
 
@@ -86,9 +87,13 @@ def vocab_padded(vocab: int) -> int:
 
 
 def mask_vocab_pad(logits: Tensor, vocab: int) -> Tensor:
-    if logits.shape[-1] == vocab:
+    """Logit positions at or past ``vocab`` set to -1e9.  On a mesh the
+    last dim is this rank's vocab block (``"model"`` block ``i`` of ``tp``
+    starts at ``i * V_block``), so the pad sits in the last ranks' blocks."""
+    tp, i = meshlib.model_coord()
+    if tp == 1 and logits.shape[-1] == vocab:
         return logits
-    iota = torch.arange(logits.shape[-1], device=logits.device)
+    iota = torch.arange(logits.shape[-1], device=logits.device) + i * logits.shape[-1]
     return torch.where(iota < vocab, logits, torch.tensor(-1e9, dtype=logits.dtype,
                                                           device=logits.device))
 

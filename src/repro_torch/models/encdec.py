@@ -79,6 +79,7 @@ def _positions(b: int, s: int, device) -> Tensor:
 
 def encode(params: dict, cfg: ModelConfig, frames: Tensor) -> Tensor:
     """frames: (B, S_enc, d) stubbed frontend output -> encoder states."""
+    meshlib.require_local_tp("the enc-dec model")
     dt = torch_dtype(cfg.compute_dtype)
     b, s, _ = frames.shape
     h = frames.to(dt) + sinusoid_positions(s, cfg.d_model, frames.device).to(dt)[None]
@@ -99,6 +100,7 @@ def _enc_layer(lp: dict, cfg: ModelConfig, h: Tensor, positions: Tensor) -> Tens
 
 def decode_train(params: dict, cfg: ModelConfig, tokens: Tensor, enc_out: Tensor) -> Tensor:
     """Teacher-forced decoder pass -> logits (B, S_dec, V)."""
+    meshlib.require_local_tp("the enc-dec model")
     dt = torch_dtype(cfg.compute_dtype)
     b, s = tokens.shape
     h = F.embedding(tokens, params["embed"]).to(dt) + params["pos_embed"][:s].to(dt)[None]

@@ -33,12 +33,48 @@ Tensor = torch.Tensor
 
 
 def cross_entropy(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
-    """Mean next-token CE + accuracy.  logits: (B, S, V); labels: (B, S)."""
+    """Mean next-token CE + accuracy.  logits: (B, S, V); labels: (B, S).
+
+    On an active mesh ``logits`` is this rank's vocab block (``"model"``
+    block ``i`` of ``V / tp`` columns), as the reference's vocab axis is
+    tensor-parallel: the log-sum-exp comes from the blocks' own, the label
+    logit from the block that holds it (the others add zero), the accuracy
+    from the blocks' maxima (the first rank holding the largest, as
+    ``argmax`` takes the first); every cross-rank sum runs in rank order."""
+    mesh = meshlib.active_mesh()
+    if mesh is not None:
+        return _cross_entropy_blocks(logits, labels, mesh)
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     loss = torch.mean(lse - ll)
     acc = torch.mean((torch.argmax(logits, -1) == labels).float())
+    return loss, acc
+
+
+def _cross_entropy_blocks(logits: Tensor, labels: Tensor, mesh) -> tuple[Tensor, Tensor]:
+    from repro_torch.dist import collectives as coll
+
+    _, i = meshlib.model_coord(mesh)
+    group = mesh.get_group(coll.AXIS)
+    logits = logits.float()
+    n = logits.shape[-1]
+    lse_i = torch.logsumexp(logits, dim=-1)
+    top = torch.stack(coll._gather(lse_i.detach(), group)).amax(0)
+    # one rank: top is its own lse, exp(0) = 1 and log(1) = 0, bit for bit
+    lse = top + torch.log(coll.tp_sum(torch.exp(lse_i - top), mesh))
+    local = labels.long() - i * n
+    held = (local >= 0) & (local < n)
+    ll_i = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    ll = coll.tp_sum(torch.where(held, ll_i, torch.zeros((), device=ll_i.device)), mesh)
+    loss = torch.mean(lse - ll)
+    with torch.no_grad():
+        best, arg = logits.max(-1)
+        bests = torch.stack(coll._gather(best, group))  # (tp, B, S)
+        args = torch.stack(coll._gather(arg + i * n, group))
+        first = torch.argmax(bests, 0)  # the first rank holding the largest
+        pred = torch.gather(args, 0, first[None])[0]
+        acc = torch.mean((pred == labels).float())
     return loss, acc
 
 

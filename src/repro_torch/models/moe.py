@@ -66,9 +66,12 @@ def moe_defs(cfg: ModelConfig) -> dict:
 
 
 def moe_apply(p: dict, cfg: ModelConfig, x: Tensor) -> tuple[Tensor, Tensor]:
-    """Returns (y, aux_loss).  x: (B, S, d)."""
+    """Returns (y, aux_loss).  x: (B, S, d).  With a model axis of one the
+    experts are all local, as the reference's ``shard_map`` with ``tp = 1``
+    runs them on a data-parallel block, and so does manual mode; a larger
+    model axis (expert parallelism) raises."""
     mesh = meshlib.current_mesh()
-    if mesh is not None and mesh.size() > 1:
+    if mesh is not None and not meshlib.in_manual_mode() and meshlib.tp_size(mesh) > 1:
         raise NotImplementedError(meshlib.SHARDED_LM)
     return _moe_local(p, cfg, x, e_loc=padded_experts(cfg.n_experts), my_first=0,
                       act=act_fn("silu"))

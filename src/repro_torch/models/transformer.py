@@ -12,6 +12,17 @@ is untouched.  The stack's checkpoint keys and arrays are the reference's:
 see :mod:`repro_torch._tree`.  Heterogeneous stacks (recurrentgemma's
 (rec, rec, attn) cycle) are a plain list, as in the reference.
 
+On an active mesh (tensor parallelism over ``"model"``, the parameters this
+rank's blocks) the embedding is vocab-parallel: a masked lookup of this
+rank's rows, then the ranks' partials summed in rank order, cut along the
+sequence (``sp_scatter``) when ``cfg.seq_shard`` and the sequence divides
+(Megatron's sequence parallelism: the residual stream stays a sequence
+block between layers, the norms run on it with their weights entering by
+``tp_copy``), else summed whole (``tp_sum``).  The final hidden states are
+gathered whole (``rep_gather``), and :func:`lm_logits` gives this rank's
+vocab block.  Only the attention/FFN layers shard; the MoE, SSM, RG-LRU
+and local-attention layers raise on a model axis above 1.
+
 Layer recipes:
   attn   : h += Attn(norm(h));        h += FFN(norm(h))
   moe    : h += Attn(norm(h));        h += MoE(norm(h))   (+aux loss)
@@ -30,6 +41,7 @@ import torch.utils.checkpoint
 
 from repro_torch._tree import Stacked
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as coll
 from repro_torch.launch import mesh as meshlib
 
 from . import attention as attn
@@ -118,6 +130,23 @@ def _remat(cfg: ModelConfig, fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
+def _local_tp_only(types: list[str]) -> None:
+    """Only attention/FFN layers shard over ``"model"``: raise before any
+    collective when another layer would run on a model axis above 1."""
+    other = sorted(set(types) - {"attn"})
+    if other:
+        meshlib.require_local_tp(f"{'/'.join(other)} layers")
+
+
+def _norm(cfg: ModelConfig, x: Tensor, p: dict, seq_sharded: bool) -> Tensor:
+    """``norm_apply``; on a sequence block of an active mesh the weights
+    enter by ``tp_copy`` (each rank's gradient of them is partial)."""
+    mesh = meshlib.active_mesh()
+    if mesh is not None and seq_sharded:
+        p = {k: coll.tp_copy(w, mesh) for k, w in p.items()}
+    return norm_apply(cfg.norm, x, p)
+
+
 def _apply_layer(
     p: dict,
     cfg: ModelConfig,
@@ -126,44 +155,67 @@ def _apply_layer(
     positions: Tensor,
     *,
     collect: bool,
+    seq_sharded: bool = False,
 ):
     """Returns (h, aux, cache_entry_or_None)."""
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "ssm":
-        x = norm_apply(cfg.norm, h, p["ln"])
+        x = _norm(cfg, h, p["ln"], seq_sharded)
         if collect:
             y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x, return_state=True)
         else:
             y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x), None
         return h + y, zero, state
     if kind == "rec":
-        x = norm_apply(cfg.norm, h, p["ln1"])
+        x = _norm(cfg, h, p["ln1"], seq_sharded)
         if collect:
             y, state = rg.rglru_apply(p["rec"], cfg, x, return_state=True)
         else:
             y, state = rg.rglru_apply(p["rec"], cfg, x), None
         h = h + y
-        h = h + ffn_apply(p["mlp"], cfg, norm_apply(cfg.norm, h, p["ln2"]))
+        h = h + ffn_apply(p["mlp"], cfg, _norm(cfg, h, p["ln2"], seq_sharded),
+                          seq_sharded=seq_sharded)
         return h, zero, state
     # attention variants
     window = cfg.local_window if kind == "lattn" else cfg.sliding_window
-    x = norm_apply(cfg.norm, h, p["ln1"])
+    x = _norm(cfg, h, p["ln1"], seq_sharded)
     q_chunk = cfg.seq_chunk
     if collect:
         y, (k, v) = attn.attn_sequence(
-            p["attn"], cfg, x, positions, window=window, q_chunk=q_chunk, return_kv=True
+            p["attn"], cfg, x, positions, window=window, q_chunk=q_chunk, return_kv=True,
+            seq_sharded=seq_sharded,
         )
         cache_entry = (k, v)
     else:
-        y = attn.attn_sequence(p["attn"], cfg, x, positions, window=window, q_chunk=q_chunk)
+        y = attn.attn_sequence(p["attn"], cfg, x, positions, window=window, q_chunk=q_chunk,
+                               seq_sharded=seq_sharded)
         cache_entry = None
     h = h + y
-    x2 = norm_apply(cfg.norm, h, p["ln2"])
+    x2 = _norm(cfg, h, p["ln2"], seq_sharded)
     if kind == "moe":
         y2, aux = moe_mod.moe_apply(p["moe"], cfg, x2)
     else:
-        y2, aux = ffn_apply(p["mlp"], cfg, x2), zero
+        y2, aux = ffn_apply(p["mlp"], cfg, x2, seq_sharded=seq_sharded), zero
     return h + y2, aux, cache_entry
+
+
+def _embed(params: dict, tokens: Tensor, dt: torch.dtype, mesh) -> Tensor:
+    """The embedding rows of ``tokens`` in ``dt``; on ``mesh`` this rank's
+    partial: its vocab block's rows, zero for a token outside the block."""
+    # F.embedding, not params["embed"][tokens]: the same rows, and a backward
+    # that sums a repeated token's rows in a fixed order on the CPU too
+    # (indexing's backward adds them with atomics there), so a step repeats
+    # bitwise.
+    table = params["embed"]
+    if mesh is None:
+        return F.embedding(tokens, table).to(dt)
+    _, i = meshlib.model_coord(mesh)
+    n = table.shape[0]
+    local = tokens.long() - i * n
+    valid = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), table)
+    return torch.where(valid[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                           device=rows.device)).to(dt)
 
 
 def forward(
@@ -178,37 +230,48 @@ def forward(
     the summed MoE aux loss (0 without experts); the cache, when
     ``collect_cache``, a list of per-layer ``(k, v)`` (attention layers) or
     :class:`~.ssm.SSMState` / :class:`~.rglru.LRUState` (recurrent layers),
-    else None."""
+    else None.  On an active mesh the hidden states are whole on every
+    rank."""
     types = layer_types(cfg)
+    _local_tp_only(types)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
         if cfg.mrope_sections:
             positions = positions[..., None].expand(b, s, 3)
     dt = torch_dtype(cfg.compute_dtype)
-    # F.embedding, not params["embed"][tokens]: the same rows, and a backward
-    # that sums a repeated token's rows in a fixed order on the CPU too
-    # (indexing's backward adds them with atomics there), so a step repeats
-    # bitwise.
-    h = F.embedding(tokens, params["embed"]).to(dt)
-    sp = ("dp", "tp", None) if (cfg.seq_shard and s > 1) else ("dp", None, None)
+    mesh = meshlib.active_mesh()
+    tp, _ = meshlib.model_coord(mesh)
+    h = _embed(params, tokens, dt, mesh)
+    seq = cfg.seq_shard and s > 1
+    sp = ("dp", "tp", None) if seq else ("dp", None, None)
+    seq_sharded = mesh is not None and seq and s % tp == 0
+    if mesh is not None:
+        h = coll.sp_scatter(h, mesh) if seq_sharded else coll.tp_sum(h, mesh)
     h = meshlib.constraint(h, *sp)
 
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     cache = []
     for lp, kind in zip(params["layers"], types):
         h, aux_l, cache_e = _remat(cfg, _apply_layer, lp, cfg, kind, h, positions,
-                                  collect=collect_cache)
+                                  collect=collect_cache, seq_sharded=seq_sharded)
         h = meshlib.constraint(h, *sp)
         aux = aux + aux_l
         cache.append(cache_e)
 
-    h = norm_apply(cfg.norm, h, params["final_norm"])
+    h = _norm(cfg, h, params["final_norm"], seq_sharded)
+    if seq_sharded:
+        h = coll.rep_gather(h, mesh, dim=1)
     return h, aux, cache if collect_cache else None
 
 
 def lm_logits(params: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
+    """Logits of the whole hidden states ``h``; on an active mesh this
+    rank's vocab block (the embedding's or head's columns)."""
     dt = h.dtype
+    mesh = meshlib.active_mesh()
+    if mesh is not None:
+        h = coll.tp_copy(h, mesh)
     if cfg.tie_embeddings:
         logits = h @ params["embed"].to(dt).T
     else:
@@ -269,8 +332,13 @@ def decode_step(
     attention entry's tensors take the new row in place, a recurrent
     layer's state is a new one, the length one more."""
     types = layer_types(cfg)
+    _local_tp_only(types)
     dt = torch_dtype(cfg.compute_dtype)
-    h = params["embed"][tokens].to(dt)
+    mesh = meshlib.active_mesh()
+    if mesh is None:
+        h = params["embed"][tokens].to(dt)
+    else:
+        h = coll.tp_sum(_embed(params, tokens, dt, mesh), mesh)
     new_entries = []
     for lp, kind, entry in zip(params["layers"], types, cache.entries):
         h, ne = _decode_layer(lp, cfg, kind, h, entry, cache.length)

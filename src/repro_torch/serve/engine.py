@@ -13,6 +13,15 @@ Greedy decoding (``temperature <= 0``) is the argmax; sampling draws from
 one ``torch.Generator`` seeded with ``gen.seed`` on the logits' device, so
 one seed gives one sequence within the port (it cannot give the
 reference's ``jax.random`` draws).
+
+On an ambient mesh (``repro_torch.launch.mesh.use_mesh``) the parameters
+are each rank's blocks of the serving layout (``Model.partition_specs(mesh,
+drop_fsdp=True)``): the decode cache holds this rank's kv heads where they
+divide over ``"model"`` (else all of them), the logits of a step are
+gathered whole over ``"model"`` before a token is chosen, each data group
+serves its rows of a batch (``batch_size`` divides by the data-parallel
+size), and the groups' tokens are gathered so that every rank returns every
+result.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.dist.collectives import gather_cat
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import Model
 
 from .queue import RequestQueue
@@ -57,12 +68,19 @@ def generate(
     if gen.temperature > 0.0:
         generator = torch.Generator(device=logits.device).manual_seed(gen.seed)
     outs = []
-    tok = _select(logits[:, -1, :], gen, generator)
+    tok = _select(_whole(logits[:, -1, :]), gen, generator)
     for _ in range(gen.max_new_tokens):
         outs.append(tok[:, 0])
         logits, cache = model.decode_step(params, tok, cache)
-        tok = _select(logits[:, -1, :], gen, generator)
+        tok = _select(_whole(logits[:, -1, :]), gen, generator)
     return torch.stack(outs, 1).to(torch.int32).cpu().numpy()
+
+
+def _whole(logits: Tensor) -> Tensor:
+    """A step's logits over the whole vocab: on an active mesh the ranks'
+    vocab blocks gathered over ``"model"``."""
+    mesh = meshlib.active_mesh()
+    return logits if mesh is None else gather_cat(logits, ("model",), mesh, dim=-1)
 
 
 def _select(logits: Tensor, gen: GenerationConfig, generator: torch.Generator | None) -> Tensor:
@@ -117,6 +135,12 @@ class ServeEngine:
         """Serve every queued request; returns rid -> generated tokens."""
         results: dict[int, np.ndarray] = {}
         device = self.params["embed"].device
+        mesh = meshlib.active_mesh()
+        groups, group = meshlib.dp_coord(mesh) if mesh is not None else (1, 0)
+        if self.batch_size % groups:
+            raise ValueError(f"batch_size {self.batch_size} does not divide over {groups} "
+                             "data-parallel groups")
+        rows = self.batch_size // groups
         while True:
             chunk = self._queue.take(self.batch_size)
             if not chunk:
@@ -125,11 +149,15 @@ class ServeEngine:
             toks = np.zeros((self.batch_size, s), np.int32)
             for i, r in enumerate(chunk):
                 toks[i, s - len(r.payload.tokens) :] = r.payload.tokens  # left-pad
+            toks = toks[group * rows:(group + 1) * rows]
             batch = {"tokens": torch.from_numpy(toks).to(device)}
             if self.model.cfg.is_encdec:  # the stubbed frontend: zero frames
-                batch["frames"] = torch.zeros((self.batch_size, s, self.model.cfg.d_model),
+                batch["frames"] = torch.zeros((rows, s, self.model.cfg.d_model),
                                               dtype=torch.float32, device=device)
             out = generate(self.model, self.params, batch, self.gen)
+            if mesh is not None:
+                out = gather_cat(torch.from_numpy(out).to(device), meshlib.dp_axes(mesh),
+                                 mesh).cpu().numpy()
             for i, r in enumerate(chunk):
                 results[r.rid] = out[i]
         return results

@@ -21,6 +21,17 @@ illegal address, a device-side assert): that leaves the CUDA context
 unusable, every later call fails, and only a new process recovers; the
 checkpoints on disk are what that process resumes from.
 
+On an ambient mesh (``repro_torch.launch.mesh.use_mesh``) every rank runs
+the loop, and all step together: the state is this rank's blocks of
+``Model.partition_specs(mesh, drop_fsdp=True)`` (the fresh state or
+``params`` cut here, a restore cut by the same specs onto the same mesh),
+each batch this rank's data block (the data source cuts it), the metrics
+the step's ordered means, so every rank sees the same loss and takes the
+same branch; a checkpoint is assembled whole, and rank 0 alone writes it.
+A fault must be raised on every rank (a non-finite loss is, since the loss
+is the same everywhere); a rank failing alone leaves the others waiting in
+a collective.
+
 Each batch is host numpy from the data source, moved here to the model's
 device.  The reference compiles the step with ``jax.jit`` (``jit_kwargs``
 pass through to it); the port runs it eagerly and refuses any
@@ -38,11 +49,14 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed
 
+from repro_torch import _tree
 from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import Model
 
-from .optimizer import OptConfig, init_opt_state
+from .optimizer import OptConfig, OptState, init_opt_state
 from .train_step import make_train_step
 
 log = logging.getLogger("repro_torch.train")
@@ -90,15 +104,28 @@ def train_loop(
                          "and compiles nothing")
     mgr = CheckpointManager(loop_cfg.ckpt_dir, keep=loop_cfg.keep)
     step_fn = make_train_step(model, opt_cfg, accum_steps=loop_cfg.accum_steps)
+    mesh = meshlib.active_mesh()
+    where = {}
+    if mesh is not None:
+        pspecs = model.partition_specs(mesh, drop_fsdp=True)
+        where = {"mesh": mesh, "specs": (pspecs, OptState((), pspecs, pspecs))}
 
     def fresh_state():
         p = params if params is not None else model.init(_seed0(model))
+        if mesh is not None:
+            p = _blocks(model, p, pspecs, mesh)
         return p, init_opt_state(p)
+
+    def restore(step):
+        (p, s), _ = mgr.restore(_state_template(model, params), step, **where)
+        return p, s
 
     result = LoopResult(step=0)
     latest = mgr.latest_step()
+    if mesh is not None:  # every rank has looked before rank 0 may write step 0
+        torch.distributed.barrier()
     if latest is not None:
-        (p, opt_state), _ = mgr.restore(_state_template(model, params), latest)
+        p, opt_state = restore(latest)
         step = latest
         log.info("restored checkpoint at step %d", step)
     else:
@@ -106,7 +133,7 @@ def train_loop(
         step = 0
         # Step-0 checkpoint: guarantees a restore point exists even if the
         # first failure precedes the first periodic save.
-        mgr.save(0, (p, opt_state))
+        mgr.save(0, (p, opt_state), **where)
 
     durations: list[float] = []
     while step < loop_cfg.total_steps:
@@ -136,7 +163,7 @@ def train_loop(
                 log.info("step %d loss %.4f (%.2fs)", step, loss, dt)
             if step % loop_cfg.ckpt_every == 0 or step == loop_cfg.total_steps:
                 mgr.wait()
-                mgr.save_async(step, (p, opt_state))
+                mgr.save_async(step, (p, opt_state), **where)
         except Exception as e:  # noqa: BLE001 -- recovery boundary
             result.failures += 1
             log.warning("step %d failed (%s); failures=%d", step, e, result.failures)
@@ -149,7 +176,7 @@ def train_loop(
                 p, opt_state = fresh_state()
                 step = 0
             else:
-                (p, opt_state), _ = mgr.restore(_state_template(model, params), latest)
+                p, opt_state = restore(latest)
                 step = latest
             log.info("recovered to step %d", step)
 
@@ -161,6 +188,15 @@ def train_loop(
 def _seed0(model: Model) -> torch.Generator:
     """The reference's ``PRNGKey(0)``: a generator seeded 0 on the model's device."""
     return torch.Generator(device=model.device).manual_seed(0)
+
+
+def _blocks(model: Model, params: Any, specs: Any, mesh) -> Any:
+    """``params`` as this rank's blocks: a whole leaf (the definition's
+    shape) is cut, a leaf already a block is kept."""
+    defs = _tree.leaves(model.param_defs)
+    out = [meshlib.NamedSharding(mesh, tuple(s)).cut(x) if tuple(x.shape) == tuple(d.shape)
+           else x for x, d, s in zip(_tree.leaves(params), defs, _tree.specs_of(params, specs))]
+    return _tree.unflatten_like(params, out)
 
 
 def _state_template(model: Model, params: Any):

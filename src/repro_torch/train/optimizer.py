@@ -5,6 +5,11 @@ Optimizer state is a tree of fp32 ``(m, v)`` mirroring the params, on each
 parameter's device; its checkpoint keys are the reference's (``step``,
 ``m/...``, ``v/...``).  Serving restores a checkpoint into the template
 ``(params, init_opt_state(params))``.
+
+On a mesh the tree holds this rank's blocks: :func:`global_norm` (and so
+the clipping of :func:`adamw_update`) takes the parameters' resolved
+``specs`` and the ``mesh`` and sums a sharded leaf's squares over the
+axes it is sharded on, in rank order, counting a replicated leaf once.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch._tree import leaves, tree_map, unflatten_like
+from repro_torch._tree import leaves, specs_of, tree_map, unflatten_like
 
 Tensor = torch.Tensor
 
@@ -58,22 +63,40 @@ def schedule(cfg: OptConfig, step: Tensor) -> Tensor:
     return cfg.lr * warm * cos
 
 
-def global_norm(tree: Any) -> Tensor:
+def global_norm(tree: Any, *, specs: Any = None, mesh=None) -> Tensor:
+    """The 2-norm of every leaf together.  With ``specs`` and ``mesh`` the
+    leaves are this rank's blocks: the squares of the leaves sharded on the
+    same mesh axes go through one ordered sum over those axes (the same bits
+    on every rank), then all squares are added in leaf order."""
     sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
+    if mesh is not None and specs is not None:
+        from repro_torch.dist.collectives import ordered_psum
+
+        groups: dict[tuple, list[int]] = {}
+        for i, s in enumerate(specs_of(tree, specs)):
+            axes = tuple(a for e in s if e is not None
+                         for a in ((e,) if isinstance(e, str) else e))
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
+            total = ordered_psum(torch.stack([sq[i] for i in idx]), axes, mesh)
+            for j, i in enumerate(idx):
+                sq[i] = total[j]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: Any, max_norm: float, *, specs: Any = None,
+                        mesh=None) -> tuple[Any, Tensor]:
+    norm = global_norm(grads, specs=specs, mesh=mesh)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
 @torch.no_grad()
 def adamw_update(
-    params: Any, grads: Any, state: OptState, cfg: OptConfig
+    params: Any, grads: Any, state: OptState, cfg: OptConfig, *, specs: Any = None, mesh=None
 ) -> tuple[Any, OptState, dict]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, specs=specs, mesh=mesh)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

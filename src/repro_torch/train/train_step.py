@@ -1,4 +1,4 @@
-"""train_step builder: mixed precision, grad accumulation.
+"""The train step: mixed precision, grad accumulation, sharded steps.
 
 Port of ``repro.train.train_step``.  The step is functional, as the
 reference's pure function is: it takes a params tree and an optimizer state
@@ -11,6 +11,17 @@ leaves it returns require grad again.  Gradient accumulation slices every
 entry of the batch along dim 0 into ``accum_steps`` equal micro-batches
 (the batch must divide) and averages gradients and loss in fp32, as the
 reference's ``lax.scan`` does.
+
+On an ambient mesh (``repro_torch.launch.mesh.use_mesh``, outside manual
+mode) the step is one rank's part of the sharded step: ``params`` and the
+optimizer state are this rank's blocks of ``Model.partition_specs(mesh,
+drop_fsdp=True)`` (tensor parallelism over ``"model"``, replicated over
+the data axes) and ``batch`` is this rank's data-parallel block (the data
+pipeline cuts it by the rank's ``"data"`` coordinate; the ranks of one
+data group read the same block).  The model code runs the tensor-parallel
+collectives; the step then sums the gradients over the data axes in rank
+order and divides by their count, takes the ordered means of loss and
+metrics, and clips by the global norm of the sharded tree.
 """
 
 from __future__ import annotations
@@ -19,7 +30,8 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch._tree import leaves, tree_map, unflatten_like
+from repro_torch._tree import leaves, specs_of, tree_map, unflatten_like
+from repro_torch.launch import mesh as meshlib
 from repro_torch.models import Model
 
 from .optimizer import OptConfig, OptState, adamw_update
@@ -27,22 +39,39 @@ from .optimizer import OptConfig, OptState, adamw_update
 Tensor = torch.Tensor
 
 
+def _grads_of(model: Model, params: Any, batch: dict) -> tuple[Tensor, dict, Any]:
+    """``(loss, metrics, grads)`` of ``model.loss_fn`` at ``params``."""
+    tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss, metrics = model.loss_fn(tracked, batch)
+        grads = torch.autograd.grad(loss, leaves(tracked))
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, unflatten_like(params, list(grads))
+
+
+def _check_blocks(model: Model, params: Any, specs: Any, mesh) -> None:
+    """Each leaf of ``params`` must be this rank's block of its spec."""
+    defs = leaves(model.param_defs)
+    for p, d, s in zip(leaves(params), defs, specs_of(params, specs)):
+        want = meshlib.NamedSharding(mesh, tuple(s)).block_shape(d.shape)
+        if tuple(p.shape) != want:
+            raise ValueError(f"a parameter of shape {tuple(p.shape)} on the mesh: its block of "
+                             f"{tuple(d.shape)} under {tuple(s)} is {want}; cut the parameters "
+                             "with repro_torch.launch.mesh.shard_tree")
+
+
 def make_train_step(
     model: Model, opt_cfg: OptConfig, *, accum_steps: int = 1
 ) -> Callable:
     """Returns step(params, opt_state, batch) -> (params, opt_state, metrics)."""
 
-    def grads_of(params: Any, batch: dict) -> tuple[Tensor, dict, Any]:
-        tracked = tree_map(lambda p: p.detach().requires_grad_(), params)
-        with torch.enable_grad():
-            loss, metrics = model.loss_fn(tracked, batch)
-            grads = torch.autograd.grad(loss, leaves(tracked))
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, unflatten_like(params, list(grads))
-
     def step(params: Any, opt_state: OptState, batch: dict):
+        mesh = meshlib.active_mesh()
+        if mesh is not None:
+            specs = model.partition_specs(mesh, drop_fsdp=True)
+            _check_blocks(model, params, specs, mesh)
         if accum_steps == 1:
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = _grads_of(model, params, batch)
         else:
             def micro(i):
                 return {k: x.narrow(0, i * (x.shape[0] // accum_steps), x.shape[0] // accum_steps)
@@ -52,13 +81,23 @@ def make_train_step(
                                                    device=p.device), params)
             loss = torch.zeros((), dtype=torch.float32, device=leaves(params)[0].device)
             for i in range(accum_steps):
-                loss_i, _, g_i = grads_of(params, micro(i))
+                loss_i, _, g_i = _grads_of(model, params, micro(i))
                 for a, g in zip(leaves(grads), leaves(g_i)):  # the step's own sums
                     a.add_(g.float() / accum_steps)
                 loss = loss + loss_i / accum_steps
                 del g_i  # freed before the next micro-batch's backward
             metrics = {"ce": loss}
-        params, opt_state, opt_stats = adamw_update(params, grads, opt_state, opt_cfg)
+        if mesh is None:
+            params, opt_state, opt_stats = adamw_update(params, grads, opt_state, opt_cfg)
+        else:
+            from repro_torch.dist.collectives import ordered_mean
+
+            dp = meshlib.dp_axes(mesh)
+            grads = tree_map(lambda g: ordered_mean(g, dp, mesh), grads)
+            loss = ordered_mean(loss, dp, mesh)
+            metrics = {k: ordered_mean(v, dp, mesh) for k, v in metrics.items()}
+            params, opt_state, opt_stats = adamw_update(params, grads, opt_state, opt_cfg,
+                                                        specs=specs, mesh=mesh)
         params = tree_map(lambda p: p.requires_grad_(), params)
         metrics = dict(metrics)
         metrics.update(opt_stats)

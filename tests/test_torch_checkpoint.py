@@ -103,7 +103,8 @@ def world_of_one(tmp_path):
 
 def test_elastic_restore_new_mesh(tmp_path, world_of_one):
     """Save, then restore re-placed onto a (1, 1) DeviceMesh: each leaf on
-    the mesh's device, its spec checked against the mesh's axes."""
+    the mesh's device, its spec checked against the mesh's axes; onto a
+    mesh of two ranks each rank cuts its block."""
     mesh = world_of_one
     mgr = CheckpointManager(str(tmp_path / "ck"))
     tree = {"w": torch.arange(16.0).reshape(8, 2), "b": torch.ones(8)}
@@ -117,14 +118,18 @@ def test_elastic_restore_new_mesh(tmp_path, world_of_one):
     with pytest.raises(ValueError, match="more entries"):
         mgr.restore(_zeros_like(tree), mesh=mesh, specs={"w": ("data", None, None), "b": ()})
 
-    class Wider:  # a mesh of two ranks, as a DeviceMesh reports it
+    class Wider:  # rank 1 of a (1, 2) mesh, as a DeviceMesh reports it
         device_type, mesh_dim_names = "cpu", ("data", "model")
 
         def size(self, dim=None):
-            return 2
+            return 2 if dim is None else (1, 2)[dim]
 
-    with pytest.raises(NotImplementedError, match="sharded LM"):
-        mgr.restore(_zeros_like(tree), mesh=Wider(), specs=specs)
+        def get_coordinate(self):
+            return [0, 1]
+
+    blocks, _ = mgr.restore(_zeros_like(tree), mesh=Wider(),
+                            specs={"w": (None, "model"), "b": ("model",)})
+    assert torch.equal(blocks["w"], tree["w"][:, 1:]) and torch.equal(blocks["b"], tree["b"][4:])
 
 
 def test_manifest_contents(tmp_path):

@@ -1232,3 +1232,64 @@ def test_reduced_train_step_on_the_card_agrees_with_the_cpu(cuda, arch):
     for other in ("again", "no_remat"):
         assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(out["cuda"]),
                                                      _tree.leaves(out[other])))
+
+
+def test_sharded_lm_in_an_nccl_world_of_one_is_the_local_path(cuda, tmp_path, monkeypatch):
+    """The sharded LM on the card, in an NCCL world of one on a (1, 1)
+    mesh, at olmo-1b's width cut to 2 layers: ``make_compressed_dp_step(
+    compress=False)`` bitwise ``make_train_step`` step by step, and
+    ``launch.train --distributed --dp 1 --tp 1`` bitwise the local
+    ``launch.train`` (the checkpoint's every array), through the sharded
+    path's collectives."""
+    import dataclasses
+
+    import numpy as np
+    import torch.distributed as tdist
+
+    import repro_torch.configs as tconfigs
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    real = tconfigs.get_config
+    monkeypatch.setattr(tconfigs, "get_config",
+                        lambda arch: dataclasses.replace(real(arch), n_layers=2))
+    cfg = tconfigs.get_config("olmo-1b")
+    model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    data = SyntheticLM(DataConfig(cfg.vocab, 256, 4))
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in data.batch(i).items()}
+               for i in range(3)]
+    opt = OptConfig(lr=3e-4, warmup_steps=0)
+    flags = ["--arch", "olmo-1b", "--steps", "2", "--batch", "2", "--seq", "256",
+             "--ckpt-every", "2", "--device", "cuda:0"]
+    p, s = model.params, init_opt_state(model.params)
+    local = []
+    for b in batches:
+        p, s, met = make_train_step(model, opt)(p, s, b)
+        local.append((float(met["loss"]), p))
+    train_driver.main([*flags, "--ckpt-dir", str(tmp_path / "local")])
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        step = coll.make_compressed_dp_step(model, opt, mesh, compress=False)
+        p, s, err = model.params, init_opt_state(model.params), coll.init_error_state(
+            model.params, mesh)
+        for b, (loss, want) in zip(batches, local):
+            p, s, err, met = step(p, s, err, b)
+            assert float(met["loss"]) == loss
+            assert all(torch.equal(x, y) for x, y in zip(_tree.leaves(p), _tree.leaves(want)))
+        coll.TP.calls = 0
+        train_driver.main([*flags, "--ckpt-dir", str(tmp_path / "sharded"), "--distributed",
+                           "--dp", "1", "--tp", "1"])
+        assert coll.TP.calls > 0
+    finally:
+        tdist.destroy_process_group()
+    arrays = [np.load(tmp_path / d / "step_00000002" / "arrays.npz") for d in ("local", "sharded")]
+    assert set(arrays[0].files) == set(arrays[1].files)
+    assert all(np.array_equal(arrays[0][k], arrays[1][k]) for k in arrays[0].files)

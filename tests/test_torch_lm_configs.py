@@ -165,8 +165,9 @@ def test_mesh_plumbing_matches_the_reference():
     assert tmesh.tp_size(flat) == 4
     with tmesh.use_mesh(flat):
         assert tmesh.current_mesh() is flat
-        with pytest.raises(NotImplementedError, match="sharded LM"):
-            tmesh.constraint(x, "dp", None)
+        assert tmesh.constraint(x, "dp", None) is x  # a rank's block stays as it is
+        with pytest.raises(ValueError):
+            tmesh.constraint(x, "nope")
     with tmesh.use_mesh(_Mesh(("data", "model"), (1, 1))):
         assert tmesh.constraint(x, "dp", None) is x
     assert tmesh.current_mesh() is None

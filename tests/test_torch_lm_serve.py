@@ -217,8 +217,10 @@ def test_engine_backpressure():
 def test_serve_driver_refuses_a_sharded_mesh():
     from repro_torch.launch import serve
 
-    with pytest.raises(NotImplementedError, match="sharded LM"):
+    with pytest.raises(ValueError, match="world size 1"):
         serve.main(["--arch", "olmo-1b", "--reduced", "--tp", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="sharded LM"):
+        serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--tp", "2", "--device", "cpu"])
 
 
 def test_serve_driver_runs_on_the_cpu():

@@ -605,10 +605,13 @@ def test_train_driver_reads_a_memmap_corpus_and_accumulates(tmp_path, caplog):
 
 
 def test_train_driver_refuses_the_sharded_lm(tmp_path):
-    for flags in (["--dp", "2"], ["--tp", "2"]):
-        with pytest.raises(NotImplementedError, match="sharded LM"):
+    for flags in (["--dp", "2"], ["--tp", "2"]):  # no process group: a world of one
+        with pytest.raises(ValueError, match="world size 1"):
             train_driver.main(["--arch", "olmo-1b", "--reduced", "--steps", "1", "--device", "cpu",
                                "--ckpt-dir", str(tmp_path), *flags])
+    with pytest.raises(NotImplementedError, match="sharded LM"):
+        train_driver.main(["--arch", "falcon-mamba-7b", "--reduced", "--steps", "1", "--device",
+                           "cpu", "--ckpt-dir", str(tmp_path), "--tp", "2"])
 
 
 def test_train_driver_runs_as_a_module(tmp_path):
