@@ -25,8 +25,10 @@ training path, OLMo-1B trained at full width and depth (``make_train_step``
 with accumulation and remat, the fault-tolerant ``train_loop``,
 ``launch.train`` writing the checkpoint ``launch.serve`` serves); and the
 sharded LM in an NCCL world of one (the compressed data-parallel step and
-``launch.train``/``launch.serve`` on a mesh, bitwise their local runs).
-Holds all seven
+``launch.train``/``launch.serve`` on a mesh, bitwise their local runs), and
+the other families' tensor and expert parallelism there (the MoE, SSM,
+hybrid and enc-dec models served and trained on the mesh, against their
+local runs).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions; the LM
 path reaches none of them (the reference computes its attention, FFN and
@@ -42,6 +44,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only lm_families          # phases 0 and 15 only
     python3 chip_smoke.py --only train                # phases 0 and 16 only
     python3 chip_smoke.py --only sharded_lm           # phases 0, 16d and 17 only
+    python3 chip_smoke.py --only sharded_families     # phases 0 and 18 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -319,6 +322,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    bitwise, and ``launch.serve --distributed --tp 1 --ckpt-dir`` serving
    16d's tokens; printed: step seconds against 16d's.
 
+18. the other families on the mesh, in an NCCL world of one as phase 17
+   (mesh ``(1, 1)``; NCCL failing to start fails the run).  (a) serving at
+   full width, bf16 compute over fp32 parameters, the depths of phase 15
+   (falcon-mamba-7b and recurrentgemma-2b whole, qwen2-moe-a2.7b cut to 8
+   of 24 layers, whisper-base whole): a ``ServeEngine`` on the mesh (the
+   serving layout's blocks) and a local one on the same ``--seed`` weights;
+   gates: the greedy tokens equal, the prefill logits bitwise equal (or
+   within ``LM_LOGIT_TOL``, printed as differing), the family's layers
+   counted in ``dist.TP`` (its SSM, RG-LRU, expert-parallel MoE or cross
+   attention); printed: decode ms a token (CUDA events) on the mesh and
+   locally, peak memory.  (b) training at full width, each family at 2
+   layers (whisper-base whole), fp32, ``TRAIN_FAMILY_BATCH`` x
+   ``TRAIN_FAMILY_SEQ`` tokens: one ``make_train_step`` on the mesh bitwise
+   the local step (loss and every parameter), its collectives counted;
+   printed: step ms (CUDA events) on the mesh and locally.  A model axis
+   above 1 (tensor and expert parallelism proper, the query-row attention
+   layout) needs a second rank, which NCCL refuses on one card: the 8-rank
+   gloo worlds of ``tests/test_torch_sharded_lm_{moe,scan}.py`` check it.
+
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
 The kernels-a-call gates (phases 4, 7 and 11) count the nodes of a CUDA
@@ -332,6 +354,8 @@ per-kernel JSON summary.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import math
 import os
@@ -4181,13 +4205,243 @@ def _sharded_lm_phase(torch, args, dev, smi) -> None:
     _log(f"[17] sharded LM phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
 
 
+# ---- phase 18: the other families on the mesh (NCCL world of one)
+# The layer function of each family whose TP collectives phase 18 counts.
+SHARDED_FAMILY_LAYERS = {"ssm": ("ssm", "ssm_apply"), "hybrid": ("rglru", "rglru_apply"),
+                         "moe": ("moe", "moe_apply"), "encdec": ("attention", "cross_attn")}
+
+
+def _tp_inside(family: str):
+    """A context that counts the ``dist.TP`` collectives made inside the
+    family's layer function (``SHARDED_FAMILY_LAYERS``): yields a one-item
+    list holding the count."""
+    import contextlib
+    import importlib
+
+    from repro_torch.dist import collectives as coll
+
+    module_name, fn_name = SHARDED_FAMILY_LAYERS[family]
+    module = importlib.import_module(f"repro_torch.models.{module_name}")
+    real, count = getattr(module, fn_name), [0]
+
+    def counting(*a, **k):
+        before = coll.TP.calls
+        try:
+            return real(*a, **k)
+        finally:
+            count[0] += coll.TP.calls - before
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(module, fn_name, counting)
+        try:
+            yield count
+        finally:
+            setattr(module, fn_name, real)
+
+    return ctx()
+
+
+def _decode_ms(torch, model, params, batch, steps):
+    """``(prefill logits, decode ms a token, dist.TP collectives a decode
+    step)``: a prefill and ``steps`` greedy decode steps timed with CUDA
+    events."""
+    from repro_torch.dist import collectives as coll
+
+    s = batch["tokens"].shape[1]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    cache, logits = model.prefill(params, batch, max_len=s + steps + 1)
+    first = logits
+    tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    calls = coll.TP.calls
+    ev[0].record()
+    for i in range(steps):
+        logits, cache = model.decode_step(params, tok, cache)
+        ev[i + 1].record()
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+    torch.cuda.synchronize()
+    return first, [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)], (
+        (coll.TP.calls - calls) // steps)
+
+
+def _sharded_family_serve(torch, args, dev, smi, mesh, name, layers) -> None:
+    """18a: one family served at full width on the mesh and locally."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+
+    cfg = get_config(name)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    prompts = _lm_requests(cfg.vocab, args.seed, LM_REQUESTS)
+    batch = _family_batch(torch, cfg, prompts[:LM_BATCH], dev)
+    runs = {}
+    for where in ("local", "mesh"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            params = model.params
+            count = [0]
+            if where == "mesh":
+                stack.enter_context(meshlib.use_mesh(mesh))
+                params = meshlib.shard_tree(params, model.partition_specs(mesh, drop_fsdp=True),
+                                            mesh)
+                count = stack.enter_context(_tp_inside(cfg.family))
+            rids, served = _lm_serve(model, params, prompts)
+            with torch.no_grad():
+                logits, ms, per_step = _decode_ms(torch, model, params, batch, LM_NEW_TOKENS)
+        runs[where] = dict(rids=rids, served=served, logits=logits.float(), ms=ms,
+                           peak=torch.cuda.max_memory_allocated() / 1e9, tp=count[0],
+                           per_step=per_step)
+    local, sharded = runs["local"], runs["mesh"]
+    _lm_check_served(f"[18a] {name} on the mesh", sharded["rids"], sharded["served"], cfg.vocab)
+    same_tokens = local["rids"] == sharded["rids"] and all(
+        np.array_equal(local["served"][r], sharded["served"][r]) for r in local["served"])
+    bitwise = torch.equal(local["logits"], sharded["logits"])
+    diff = float((local["logits"] - sharded["logits"]).abs().max())
+    close = bitwise or diff <= LM_LOGIT_TOL
+    ok = same_tokens and close and sharded["tp"] > 0
+    what = f"{cfg.n_layers} layers" if layers else "whole"
+    extra = sum(sharded["ms"]) / len(sharded["ms"]) - sum(local["ms"]) / len(local["ms"])
+    _log(f"[18a] {name}: {sharded['per_step']} ordered collectives a decode step on the mesh; "
+         f"the mesh's extra {extra:.3f} ms a token is {extra / max(sharded['per_step'], 1):.3f} "
+         f"ms a collective; card {smi}")
+    _log(f"[18a] {name} ({what}, {cfg.compute_dtype} over {cfg.param_dtype}) served on the mesh "
+         f"against a local engine: greedy tokens of {len(prompts)} requests equal {same_tokens}; "
+         f"prefill logits {'bitwise equal' if bitwise else f'differ, max |diff| {diff:.3e} (bound {LM_LOGIT_TOL:g})'}; "
+         f"TP collectives inside its {SHARDED_FAMILY_LAYERS[cfg.family][1]} {sharded['tp']}; "
+         f"decode {sum(sharded['ms']) / len(sharded['ms']):.3f} ms a token on the mesh (median "
+         f"{_median(sharded['ms']):.3f}) against {sum(local['ms']) / len(local['ms']):.3f} locally "
+         f"(median {_median(local['ms']):.3f}), CUDA events, batch {LM_BATCH}; peak memory "
+         f"{sharded['peak']:.2f} GB on the mesh, {local['peak']:.2f} GB locally: "
+         f"{'ok' if ok else 'FAIL'}; card {smi}")
+    if not ok:
+        raise SystemExit(f"18a: {name} served on the mesh differs from the local engine")
+    del model, runs, local, sharded, batch
+    torch.cuda.empty_cache()
+
+
+def _sharded_family_train(torch, args, dev, smi, mesh, name, layers) -> None:
+    """18b: one fp32 train step at full width on the mesh, bitwise the local one."""
+    import dataclasses
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.models.common import count_params
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = dataclasses.replace(get_config(name), compute_dtype="float32",
+                              **({"n_layers": layers} if layers else {}))
+    model = build_model(cfg, device=dev, generator=torch.Generator(device=dev).manual_seed(args.seed))
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_BATCH, seed=args.seed))
+    batch = _train_batch(torch, cfg, data, 0, dev, args.seed)
+    step = make_train_step(model, OptConfig(lr=TRAIN_LR, warmup_steps=0))
+    runs = {}
+    for where in ("local", "mesh"):
+        params = model.params
+        with contextlib.ExitStack() as stack:
+            if where == "mesh":
+                stack.enter_context(meshlib.use_mesh(mesh))
+                params = meshlib.shard_tree(params, model.partition_specs(mesh, drop_fsdp=True),
+                                            mesh)
+            coll.TP.calls = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            p, state, met = step(params, init_opt_state(params), batch)
+            ev[1].record()
+            torch.cuda.synchronize()
+        # the updated parameters kept in host memory (the card holds one step's state)
+        runs[where] = dict(p=[t.cpu() for t in _tree.leaves(p)], loss=float(met["loss"]),
+                           ms=ev[0].elapsed_time(ev[1]), tp=coll.TP.calls,
+                           peak=torch.cuda.max_memory_allocated() / 1e9)
+        del p, state, met
+        torch.cuda.empty_cache()
+    local, sharded = runs["local"], runs["mesh"]
+    bitwise = sharded["loss"] == local["loss"] and all(
+        torch.equal(a, b) for a, b in zip(sharded["p"], local["p"]))
+    ok = bitwise and math.isfinite(local["loss"]) and sharded["tp"] > 0
+    what = f"{cfg.n_layers} layers" if layers else "whole"
+    _log(f"[18b] {name} ({what}, {count_params(model.params):,} params) fp32 step of "
+         f"{TRAIN_FAMILY_BATCH} x {TRAIN_FAMILY_SEQ} on the mesh bitwise the local step (loss "
+         f"{sharded['loss']:.6f}, every parameter) {bitwise}; TP collectives {sharded['tp']}; "
+         f"step {sharded['ms']:.1f} ms on the mesh against {local['ms']:.1f} ms locally (CUDA "
+         f"events, the first step of each); peak memory {sharded['peak']:.2f} GB on the mesh, "
+         f"{local['peak']:.2f} GB locally: {'ok' if ok else 'FAIL'}; card {smi}")
+    if not ok:
+        raise SystemExit(f"18b: {name}'s step on the mesh differs from the local step")
+    del model, runs, local, sharded, batch
+    torch.cuda.empty_cache()
+
+
+def _sharded_families_phase(torch, args, dev, smi) -> None:
+    """Phase 18: the MoE, SSM, hybrid and enc-dec families on the mesh in an
+    NCCL world of one (see the module docstring).  NCCL failing to start
+    fails the run; nothing falls back."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    # earlier phases' garbage in reference cycles (16d's and 17b's recording
+    # engine classes hold the served olmo-1b parameters, 4.7 GB each)
+    held = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"[18] {held:.2f} GB allocated at the phase's start, "
+         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after a garbage collection")
+    store = tempfile.mkdtemp(prefix="chip_smoke_families_")
+    try:
+        tdist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                 world_size=1)
+        mesh = make_host_mesh(1, 1, device="cuda")
+        probe = torch.ones(4, device=dev)
+        tdist.all_gather([torch.empty_like(probe)], probe, group=mesh.get_group("model"))
+        torch.cuda.synchronize()
+    except Exception as e:  # no fallback: the phase fails
+        shutil.rmtree(store, ignore_errors=True)
+        raise SystemExit(f"[18] NCCL failed to start: {type(e).__name__}: {e}")
+    _log(f"[18] NCCL world of 1 (backend {tdist.get_backend()}), mesh {mesh.mesh_dim_names} "
+         f"{tuple(mesh.shape)}; a model axis above 1 and the query-row layout need a second "
+         "rank (the CPU tests' 8-rank gloo worlds check them)")
+    try:
+        for _, name, layers, _ in FAMILIES:
+            t0 = time.perf_counter()
+            _sharded_family_serve(torch, args, dev, smi, mesh, name, layers)
+            _log(f"[18a] {name}: {time.perf_counter() - t0:.1f} s")
+        for name, layers in TRAIN_FAMILIES:
+            t0 = time.perf_counter()
+            _sharded_family_train(torch, args, dev, smi, mesh, name, layers)
+            _log(f"[18b] {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    torch.cuda.empty_cache()
+    _log(f"[18] sharded families phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
-                                       "dist", "lm", "lm_families", "train", "sharded_lm"],
+                                       "dist", "lm", "lm_families", "train", "sharded_lm",
+                                       "sharded_families"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -4195,8 +4449,8 @@ def main(argv=None) -> int:
                          "its executors, tuner and service, the two-level mesh and sharded PP "
                          "in an NCCL world of one), phase 14 (the LM serving path), phase 15 "
                          "(the MoE, SSM, hybrid and enc-dec families), phase 16 (the LM "
-                         "training path) or phase 17 (the sharded LM in an NCCL world of one); "
-                         "prints no result line")
+                         "training path), phase 17 (the sharded LM in an NCCL world of one) or "
+                         "phase 18 (the other families on the mesh there); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4229,7 +4483,8 @@ def main(argv=None) -> int:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
                 "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
-                "train": _train_phase, "sharded_lm": _sharded_lm_phase}[args.only]
+                "train": _train_phase, "sharded_lm": _sharded_lm_phase,
+                "sharded_families": _sharded_families_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -4469,6 +4724,9 @@ def main(argv=None) -> int:
 
     # ---- phase 17: the sharded LM in an NCCL world of one (16d's run kept for 17b)
     _sharded_lm_phase(torch, args, dev, smi)
+
+    # ---- phase 18: the other families on the mesh (NCCL world of one)
+    _sharded_families_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

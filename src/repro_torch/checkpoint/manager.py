@@ -222,7 +222,7 @@ class CheckpointManager:
             if mesh is not None and specs is not None:
                 spec = _spec_at(specs, key)
                 _check_spec(spec, mesh, key, arr.ndim)
-                sharding = NamedSharding(mesh, tuple(spec or ()))
+                sharding = NamedSharding.of(mesh, spec)
             if hasattr(leaf, "shape") and tuple(arr.shape) != tuple(leaf.shape) and not (
                     sharding is not None
                     and sharding.block_shape(arr.shape) == tuple(leaf.shape)):

@@ -39,9 +39,6 @@ from repro_torch import _tree
 #   "fsdp", "dp"    -> the data axes (("pod", "data") or ("data",))
 #   "tp", "expert"  -> "model"
 #   None            -> replicated
-SHARDED_LM = ("MoE expert parallelism and tensor parallelism through the SSM, RG-LRU and "
-              "enc-dec layers are not ported yet (ROADMAP.md queue 1: the sharded LM); run "
-              "these families with a model axis of 1 (--tp 1)")
 
 _MESH: contextvars.ContextVar[DeviceMesh | None] = contextvars.ContextVar(
     "repro_torch_mesh", default=None
@@ -139,16 +136,38 @@ def resolve_logical(logical: Sequence[Any] | None, mesh: DeviceMesh) -> tuple:
     return tuple(out)
 
 
+class PartsSpec(tuple):
+    """A resolved spec (equal to the plain tuple of its entries) of a leaf
+    whose last dim is ``parts`` equal parts laid end to end: a sharding cuts
+    each part into its blocks, and a rank's block of that dim is its block
+    of each part, in part order."""
+
+    def __new__(cls, entries, parts: int):
+        spec = super().__new__(cls, entries)
+        spec.parts = int(parts)
+        return spec
+
+
 @dataclass(frozen=True)
 class NamedSharding:
     """A leaf's layout on ``mesh``: ``spec`` one entry a dim (a mesh axis
     name, a tuple of names with the first the most significant, or
     ``None``), as :func:`resolve_logical` gives it.  A sharded dim must
     divide by the product of its axes' sizes; block ``i`` of it (``i``
-    row-major over this rank's coordinates on those axes) is this rank's."""
+    row-major over this rank's coordinates on those axes) is this rank's.
+    With ``parts > 1`` the last dim is that many equal parts laid end to
+    end, each cut into its blocks: a rank's block of it is its block of
+    every part, concatenated in part order."""
 
     mesh: Any
     spec: tuple
+    parts: int = 1
+
+    @classmethod
+    def of(cls, mesh, spec) -> "NamedSharding":
+        """The sharding of a resolved ``spec`` (a tuple, a
+        :class:`PartsSpec` or ``None``) on ``mesh``."""
+        return cls(mesh, tuple(spec or ()), getattr(spec, "parts", 1))
 
     def _axes(self, d: int) -> tuple[str, ...]:
         entry = self.spec[d] if d < len(self.spec) else None
@@ -177,9 +196,10 @@ class NamedSharding:
         out = []
         for d, extent in enumerate(shape):
             n, _ = self._split(d)
-            if extent % n:
+            k = self.parts if d == len(shape) - 1 else 1
+            if extent % (n * k):
                 raise ValueError(f"dim {d} of extent {extent} does not divide over "
-                                 f"{self._axes(d)} ({n} blocks)")
+                                 f"{self._axes(d)} ({n} blocks{f' of {k} parts' if k > 1 else ''})")
             out.append(extent // n)
         return tuple(out)
 
@@ -189,7 +209,11 @@ class NamedSharding:
         out = x
         for d in range(x.ndim):
             n, i = self._split(d)
-            if n > 1:
+            if n > 1 and d == x.ndim - 1 and self.parts > 1:
+                step = x.shape[d] // (n * self.parts)
+                out = torch.cat([part.narrow(d, i * step, step)
+                                 for part in out.chunk(self.parts, d)], d)
+            elif n > 1:
                 step = x.shape[d] // n
                 out = out.narrow(d, i * step, step)
         return out.clone(memory_format=torch.contiguous_format) if out is not x else x
@@ -202,9 +226,12 @@ class NamedSharding:
 
         for d in range(x.ndim):
             axes = self._axes(d)
-            if axes and math.prod(int(self.mesh.size(self.mesh.mesh_dim_names.index(a)))
-                                  for a in axes) > 1:
+            n = math.prod(int(self.mesh.size(self.mesh.mesh_dim_names.index(a))) for a in axes)
+            if axes and n > 1:
                 x = gather_cat(x, axes, self.mesh, dim=d)
+                if d == x.ndim - 1 and self.parts > 1:  # rank-major blocks -> part-major
+                    lead = x.shape[:-1]
+                    x = x.reshape(*lead, n, self.parts, -1).transpose(-3, -2).reshape(*lead, -1)
         return x
 
 
@@ -222,13 +249,13 @@ def shard_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
     """Every leaf of the full ``tree`` cut to this rank's block by its spec
     in ``specs`` (a tree of resolved specs, as ``Model.partition_specs``
     gives it)."""
-    return _tree.map_with_specs(lambda x, s: NamedSharding(mesh, tuple(s)).cut(x), tree, specs)
+    return _tree.map_with_specs(lambda x, s: NamedSharding.of(mesh, s).cut(x), tree, specs)
 
 
 def assemble_tree(tree: Any, specs: Any, mesh: DeviceMesh) -> Any:
     """Every leaf of the blocks ``tree`` assembled to its full tensor, in
     the order of :func:`repro_torch._tree.leaves` on every rank."""
-    return _tree.map_with_specs(lambda x, s: NamedSharding(mesh, tuple(s)).assemble(x),
+    return _tree.map_with_specs(lambda x, s: NamedSharding.of(mesh, s).assemble(x),
                                 tree, specs)
 
 
@@ -286,20 +313,17 @@ def tp_active() -> int:
     return model_coord()[0]
 
 
-def driver_mesh(cfg, dp: int, tp: int, device: str, *,
+def driver_mesh(dp: int, tp: int, device: str, *,
                 distributed: bool = False) -> tuple[DeviceMesh | None, torch.device]:
     """The mesh and device of a driver's ``--dp``/``--tp``/``--device``:
     ``(None, device)`` without a process group (``distributed`` starts one
     from a launcher's environment), else ``make_host_mesh(dp, tp)`` over the
     world, ``dp * tp`` equal to its size, a CUDA rank on the card
-    ``LOCAL_RANK``.  Raises :data:`SHARDED_LM` for ``tp > 1`` on a family
-    whose tensor parallelism is not ported."""
+    ``LOCAL_RANK``.  Every family shards over ``"model"``."""
     import os
 
     import torch.distributed as dist
 
-    if tp > 1 and cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(f"--tp {tp} for {cfg.name} ({cfg.family}): {SHARDED_LM}")
     if distributed and not dist.is_initialized():  # pragma: no cover -- a launcher's env
         dist.init_process_group()
     world = dist.get_world_size() if dist.is_initialized() else 1
@@ -314,10 +338,3 @@ def driver_mesh(cfg, dp: int, tp: int, device: str, *,
         torch.cuda.set_device(dev)
     return make_host_mesh(dp, tp, device=dev.type), dev
 
-
-def require_local_tp(what: str) -> None:
-    """Raise :data:`SHARDED_LM` where ``what`` would run with a model axis
-    above 1 (the layers whose tensor parallelism is not ported)."""
-    tp = tp_active()
-    if tp > 1:
-        raise NotImplementedError(f"{what} on a model axis of {tp}: {SHARDED_LM}")

@@ -19,9 +19,8 @@ launcher's environment unless the caller has), the engine serves on
 world size): the parameters are each rank's blocks of the serving layout
 (``partition_specs(mesh, drop_fsdp=True)``; a checkpoint is restored onto
 that mesh, each rank cutting its blocks), each data group serves its rows
-of a batch, and every rank returns every result.  Without a process group
-``--dp``/``--tp`` above 1 raise, as ``--tp`` above 1 does for the MoE, SSM,
-RG-LRU and enc-dec families.
+of a batch, and every rank returns every result; every family shards over
+``"model"``.  Without a process group ``--dp``/``--tp`` above 1 raise.
 """
 
 from __future__ import annotations
@@ -66,7 +65,7 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), vocab=min(cfg.reduced().vocab, 2048))
-    mesh, device = meshlib.driver_mesh(cfg, args.dp, args.tp, args.device,
+    mesh, device = meshlib.driver_mesh(args.dp, args.tp, args.device,
                                        distributed=args.distributed)
     model = build_model(cfg, device=device,
                         generator=torch.Generator(device=device).manual_seed(0))

@@ -14,9 +14,10 @@ must equal the world size; a CUDA rank takes the card ``LOCAL_RANK``):
 data parallelism over ``"data"``, tensor and sequence parallelism over
 ``"model"``.  The data pipeline shards by data group: ``host_id`` is the
 rank's ``"data"`` coordinate and ``host_count`` is ``dp``, so the ranks of
-one data group read the same block.  Without a process group, ``--dp`` and
-``--tp`` above 1 raise; so does ``--tp`` above 1 for the MoE, SSM, RG-LRU
-and enc-dec families, whose tensor parallelism is not ported.  The
+one data group read the same block; every family shards over ``"model"``
+(the MoE's experts, the SSM's and RG-LRU's channels, the attention's heads
+or query rows).  Without a process group, ``--dp`` and ``--tp`` above 1
+raise.  The
 checkpoints (``--ckpt-dir``, written whole by rank 0) restore in either
 package's ``launch.serve --ckpt-dir``.
 """
@@ -68,7 +69,7 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
         cfg = dataclasses.replace(cfg, vocab=min(cfg.vocab, 2048))
-    mesh, device = meshlib.driver_mesh(cfg, args.dp, args.tp, args.device,
+    mesh, device = meshlib.driver_mesh(args.dp, args.tp, args.device,
                                        distributed=args.distributed)
     host_id = meshlib.dp_coord(mesh)[1] if mesh is not None else 0
     model = build_model(cfg, device=device,

@@ -24,10 +24,16 @@ sharded by kv heads where those divide by ``tp`` (the grouped path, as the
 reference's ``hk % tp == 0``); otherwise ``wk``/``wv`` are gathered whole,
 K/V computed whole on every rank and expanded to the query heads, each
 rank keeping its own (the reference's expand path).  Where the query heads
-do not divide (the reference's ``"seq"`` layout, ``n_heads < tp``), every
-rank computes the attention whole on gathered weights (``rep_gather``) and
-keeps its sequence block (``rep_split``): the same values, ``tp`` times the
-work.
+do not divide and the stream is sequence-sharded, the layout is the
+reference's ``"seq"`` one (:func:`_attn_rows`): this rank's queries are its
+own sequence block, attended against K/V computed whole from the gathered
+input, and the output rows land in the sequence-sharded layout; the
+weights are gathered whole with a summed backward (``sp_gather``: each
+rank's gradient of them covers only its own rows) and ``q_norm``/``k_norm``
+enter with ``tp_copy``.  Decode and a whole (unsharded) stream keep the
+whole-attention layout there: every rank computes the attention whole on
+gathered weights (``rep_gather``, whose backward keeps a rank's own slice
+of the equal whole gradients), ``tp`` times the work.
 """
 
 from __future__ import annotations
@@ -86,21 +92,27 @@ def kv_sharded(cfg: ModelConfig, tp: int | None = None) -> bool:
     return cfg.n_kv_heads % tp == 0
 
 
-def _tp_weights(p: dict, cfg: ModelConfig, mesh) -> dict:
+def _tp_weights(p: dict, cfg: ModelConfig, mesh, *, rows: bool = False) -> dict:
     """This rank's effective attention weights on ``mesh``: its blocks,
-    gathered whole where its use of them is not column/row parallel."""
+    gathered whole where its use of them is not column/row parallel (with
+    a summed backward in the query-row layout, ``rows``, where each rank's
+    use of them is partial)."""
     tp, _ = meshlib.model_coord(mesh)
     w = dict(p)
-    if _heads_sharded(cfg, tp):
+    if _heads_sharded(cfg, tp) or rows:
         for name in ("q_norm", "k_norm"):
             if name in p:
                 w[name] = coll.tp_copy(p[name], mesh)
+    if _heads_sharded(cfg, tp):
         if not kv_sharded(cfg, tp):
-            w["wk"] = coll.sp_gather(p["wk"], mesh, dim=1)
-            w["wv"] = coll.sp_gather(p["wv"], mesh, dim=1)
+            for name in ("wk", "wv"):
+                if name in p:
+                    w[name] = coll.sp_gather(p[name], mesh, dim=1)
         return w
+    gather = coll.sp_gather if rows else coll.rep_gather
     for name, dim in (("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)):
-        w[name] = coll.rep_gather(p[name], mesh, dim=dim)
+        if name in p:
+            w[name] = gather(p[name], mesh, dim=dim)
     return w
 
 
@@ -236,11 +248,13 @@ def attn_sequence(
     heads = True
     if mesh is not None:
         heads = _heads_sharded(cfg, meshlib.model_coord(mesh)[0])
-        p = _tp_weights(p, cfg, mesh)
+        rows = seq_sharded and not heads
+        p = _tp_weights(p, cfg, mesh, rows=rows)
+        if rows:
+            return _attn_rows(p, cfg, x, positions, mesh, causal=causal, window=window,
+                              q_chunk=q_chunk, return_kv=return_kv)
         if heads:
             x = coll.sp_gather(x, mesh) if seq_sharded else coll.tp_copy(x, mesh)
-        elif seq_sharded:
-            x = coll.rep_gather(x, mesh, dim=1)
     b, s, _ = x.shape
     # windowed attention with no explicit chunk: chunk at the window size so
     # the scores stay O(s * window) instead of O(s^2)
@@ -281,11 +295,50 @@ def attn_sequence(
     y = y.reshape(b, s, -1)
     out = y @ p["wo"].to(y.dtype)
     out = meshlib.constraint(out, "dp", None, None)
-    if mesh is not None:
-        if heads:
-            out = coll.sp_scatter(out, mesh) if seq_sharded else coll.tp_sum(out, mesh)
-        elif seq_sharded:
-            out = coll.rep_split(out, mesh, dim=1)
+    if mesh is not None and heads:
+        out = coll.sp_scatter(out, mesh) if seq_sharded else coll.tp_sum(out, mesh)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _attn_rows(p: dict, cfg: ModelConfig, x: Tensor, positions: Tensor, mesh, *,
+               causal: bool, window: int, q_chunk: int, return_kv: bool):
+    """The query-row layout: ``x`` is this rank's sequence block (rows
+    ``rank * n`` on, ``p`` the gathered weights); its queries attend K/V
+    computed whole from the gathered input, with the masks at their global
+    rows.  With a window shorter than the sequence the rows run in chunks of
+    the window, each against a ``window + chunk`` key span, as the whole
+    sequence's chunks do.  Returns this rank's rows of the output [, the
+    whole (k, v)]."""
+    _, rank = meshlib.model_coord(mesh)
+    b, n, _ = x.shape
+    whole = coll.sp_gather(x, mesh)
+    s = whole.shape[1]
+    off = rank * n
+    q = _rope(cfg, _project_q(p, cfg, x, "seq"), positions[:, off:off + n])
+    k, v = _project_kv(p, cfg, whole)
+    k = _rope(cfg, k, positions)
+    if window and not q_chunk and s > window:
+        q_chunk = window
+    c = q_chunk if q_chunk and n > q_chunk and n % q_chunk == 0 else n
+    span = min(s, window + c) if window else s
+    ys = []
+    for r0 in range(0, n, c):
+        i0 = off + r0  # the chunk's first global row
+        q_c = q[:, r0:r0 + c]
+        if window and span < s:
+            start = min(max(i0 + c - span, 0), s - span)
+            i = (i0 + torch.arange(c, device=x.device))[:, None]
+            j = (start + torch.arange(span, device=x.device))[None, :]
+            m = (j <= i) & (j > i - window) if causal else (j >= 0).expand(c, span)
+            ys.append(_attend(q_c, k[:, start:start + span], v[:, start:start + span],
+                              m[None, None, None]))
+        else:
+            m = _causal_mask(c, s, i0, window, x.device) if causal else None
+            ys.append(_attend(q_c, k, v, m))
+    y = torch.cat(ys, 1).reshape(b, n, -1)
+    out = meshlib.constraint(y @ p["wo"].to(y.dtype), "dp", "tp", None)
     if return_kv:
         return out, (k, v)
     return out
@@ -364,14 +417,46 @@ def attn_decode(
 # --------------------------------------------------------------------------
 # Cross-attention (whisper decoder)
 # --------------------------------------------------------------------------
-def cross_attn_kv(p: dict, cfg: ModelConfig, enc_out: Tensor) -> tuple[Tensor, Tensor]:
+def cross_attn_kv(p: dict, cfg: ModelConfig, enc_out: Tensor, *,
+                  seq_sharded: bool = False) -> tuple[Tensor, Tensor]:
+    """The cross-attention K/V of the encoder states ``enc_out``, whole on
+    an active mesh (the caller gathers them).  There K/V are this rank's kv
+    heads where they divide over ``"model"``, else whole from gathered
+    ``wk``/``wv``: with a summed backward where the use is partial (the
+    heads layout, or the query-row layout of a ``seq_sharded`` decoder),
+    else a rank's own slice (the whole-attention layout)."""
+    mesh = meshlib.active_mesh()
+    if mesh is not None:
+        tp, _ = meshlib.model_coord(mesh)
+        if not kv_sharded(cfg, tp):
+            gather = coll.sp_gather if (_heads_sharded(cfg, tp) or seq_sharded) \
+                else coll.rep_gather
+            p = {name: gather(p[name], mesh, dim=1) for name in ("wk", "wv")}
     return _project_kv(p, cfg, enc_out)
 
 
-def cross_attn(p: dict, cfg: ModelConfig, x: Tensor, kv: tuple[Tensor, Tensor]) -> Tensor:
+def cross_attn(p: dict, cfg: ModelConfig, x: Tensor, kv: tuple[Tensor, Tensor], *,
+               seq_sharded: bool = False) -> Tensor:
+    """Cross-attention of the decoder states ``x`` on ``kv``
+    (:func:`cross_attn_kv`'s, of the same layout).  On an active mesh ``x``
+    is this rank's sequence block when ``seq_sharded`` (else whole), and so
+    is the output: column/row parallel over heads where they divide, else
+    the query-row layout (a ``seq_sharded`` block) or the whole attention."""
+    mesh = meshlib.active_mesh()
+    heads = True
+    if mesh is not None:
+        heads = _heads_sharded(cfg, meshlib.model_coord(mesh)[0])
+        p = _tp_weights({k: w for k, w in p.items() if k not in ("wk", "wv")}, cfg, mesh,
+                        rows=seq_sharded and not heads)
+        if heads:
+            x = coll.sp_gather(x, mesh) if seq_sharded else coll.tp_copy(x, mesh)
     b, s, _ = x.shape
     layout = "seq" if (not _head_axis_ok(cfg.n_heads) and s > 1) else "heads"
     q = _project_q(p, cfg, x, layout)
-    y = _attend(q, kv[0], kv[1], None)
-    y = y.reshape(b, s, cfg.n_heads * cfg.hd)
-    return y @ p["wo"].to(y.dtype)
+    k, v, grouped = _rank_kv(kv[0], kv[1], cfg, mesh)
+    y = _attend(q, k, v, None, grouped)
+    y = y.reshape(b, s, -1)
+    out = y @ p["wo"].to(y.dtype)
+    if mesh is not None and heads:
+        out = coll.sp_scatter(out, mesh) if seq_sharded else coll.tp_sum(out, mesh)
+    return out

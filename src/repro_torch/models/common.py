@@ -36,6 +36,9 @@ class ParamDef:
     spec: tuple[Any, ...]  # logical axes per dim: "fsdp" | "tp" | "expert" | None
     init: str = "fan_in"  # fan_in | normal | zeros | ones | small
     scale: float = 1.0
+    # the last dim is this many equal parts laid end to end (the SSM's
+    # in_proj, x | z): a sharding cuts each part (mesh.PartsSpec)
+    parts: int = 1
 
     def std(self) -> float:
         """The std of a random init: ``normal`` scale, ``small`` 0.02 x

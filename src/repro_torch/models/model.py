@@ -127,13 +127,16 @@ class Model(nn.Module):
     def partition_specs(self, mesh, *, drop_fsdp: bool = False) -> Any:
         """Each parameter's logical spec resolved on ``mesh`` (a tuple of mesh
         axis names, one entry a dim); ``drop_fsdp=True`` keeps only tensor
-        parallelism, the serving layout."""
+        parallelism, the serving layout.  A leaf of equal parts (``in_proj``)
+        gets a :class:`~repro_torch.launch.mesh.PartsSpec`, equal to the
+        plain tuple, which the port's shardings cut part by part."""
 
         def resolve(d):
             spec = d.spec
             if drop_fsdp:
                 spec = tuple(None if ax == "fsdp" else ax for ax in spec)
-            return meshlib.resolve_logical(spec, mesh)
+            spec = meshlib.resolve_logical(spec, mesh)
+            return meshlib.PartsSpec(spec, d.parts) if d.parts > 1 else spec
 
         return tree_map(resolve, self.param_defs)
 

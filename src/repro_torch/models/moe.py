@@ -13,10 +13,22 @@ load-balance aux loss.
 
 The expert count is padded to a multiple of 16 (qwen2-moe: 60 -> 64; the
 pads get -inf router logits and are never selected for k <= the real
-count).  The reference's expert parallelism (``shard_map`` over the
-``model`` axis) belongs to the sharded LM: on a mesh of more than one
-rank :func:`moe_apply` raises; with no mesh or a mesh of one rank it runs
-every expert locally, which is what the reference computes there.
+count).
+
+Expert parallelism (an active mesh; ``tp`` ranks on ``"model"``), the
+reference's ``shard_map``: each rank holds ``e_pad / tp`` experts (its
+``"expert"`` blocks) and routes every token of its data-parallel block to
+them, so the capacity counts the whole block's tokens as the reference's
+does.  The input enters with ``sp_gather`` (a sequence-sharded residual
+stream) or ``tp_copy``; the router and ``shared_gate`` (replicated, each
+rank's gradient of them partial: its own experts' pairs, its share of the
+shared expert) enter with ``tp_copy``; the shared expert is column/row
+parallel on its ``"tp"`` blocks, its partial joining the experts' before the
+one sum, which leaves with ``sp_scatter`` (the reference's ``psum``, then
+the sequence cut) or ``tp_sum``.  Every model rank computes the same aux
+loss from the whole routing; each enters the ordered sum over ``"model"`` as
+its ``1 / tp`` share, so the router's summed gradient counts it once.  Its
+mean over the data axes is the train step's, as the cross entropy's is.
 
 ``torch.topk`` promises no order among equal logits where
 ``jax.lax.top_k`` puts the lower index first; with real-valued router
@@ -32,6 +44,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import collectives as coll
 from repro_torch.launch import mesh as meshlib
 
 from .common import ParamDef, act_fn
@@ -65,16 +78,28 @@ def moe_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def moe_apply(p: dict, cfg: ModelConfig, x: Tensor) -> tuple[Tensor, Tensor]:
-    """Returns (y, aux_loss).  x: (B, S, d).  With a model axis of one the
-    experts are all local, as the reference's ``shard_map`` with ``tp = 1``
-    runs them on a data-parallel block, and so does manual mode; a larger
-    model axis (expert parallelism) raises."""
-    mesh = meshlib.current_mesh()
-    if mesh is not None and not meshlib.in_manual_mode() and meshlib.tp_size(mesh) > 1:
-        raise NotImplementedError(meshlib.SHARDED_LM)
-    return _moe_local(p, cfg, x, e_loc=padded_experts(cfg.n_experts), my_first=0,
-                      act=act_fn("silu"))
+def moe_apply(p: dict, cfg: ModelConfig, x: Tensor, *,
+              seq_sharded: bool = False) -> tuple[Tensor, Tensor]:
+    """Returns (y, aux_loss).  x: (B, S, d); on an active mesh this rank's
+    sequence block when ``seq_sharded`` (else whole), and so is y, with
+    this rank's experts (see the module docstring).  Off a mesh, or in
+    manual mode, every expert runs locally."""
+    act = act_fn("silu")
+    e_pad = padded_experts(cfg.n_experts)
+    mesh = meshlib.active_mesh()
+    if mesh is None:
+        return _moe_local(p, cfg, x, e_loc=e_pad, my_first=0, act=act)
+    tp, rank = meshlib.model_coord(mesh)
+    if e_pad % tp:
+        raise ValueError(f"padded experts {e_pad} not divisible by tp={tp}")
+    e_loc = e_pad // tp
+    x = coll.sp_gather(x, mesh) if seq_sharded else coll.tp_copy(x, mesh)
+    local = dict(p, router=coll.tp_copy(p["router"], mesh))
+    if p.get("shared") is not None:
+        local["shared_gate"] = coll.tp_copy(p["shared_gate"], mesh)
+    y, aux = _moe_local(local, cfg, x, e_loc=e_loc, my_first=rank * e_loc, act=act)
+    y = coll.sp_scatter(y, mesh) if seq_sharded else coll.tp_sum(y, mesh)
+    return y, coll.tp_sum(aux / tp, mesh)
 
 
 class Routing(NamedTuple):

@@ -20,8 +20,10 @@ sequence (``sp_scatter``) when ``cfg.seq_shard`` and the sequence divides
 block between layers, the norms run on it with their weights entering by
 ``tp_copy``), else summed whole (``tp_sum``).  The final hidden states are
 gathered whole (``rep_gather``), and :func:`lm_logits` gives this rank's
-vocab block.  Only the attention/FFN layers shard; the MoE, SSM, RG-LRU
-and local-attention layers raise on a model axis above 1.
+vocab block.  Every layer kind shards: attention and FFN (heads or query
+rows, column/row parallel), the MoE's experts, the SSM's and RG-LRU's
+channels (the scans on the whole sequence: they enter with ``sp_gather``
+and leave with ``sp_scatter``); the decode caches hold this rank's share.
 
 Layer recipes:
   attn   : h += Attn(norm(h));        h += FFN(norm(h))
@@ -130,12 +132,11 @@ def _remat(cfg: ModelConfig, fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
-def _local_tp_only(types: list[str]) -> None:
-    """Only attention/FFN layers shard over ``"model"``: raise before any
-    collective when another layer would run on a model axis above 1."""
-    other = sorted(set(types) - {"attn"})
-    if other:
-        meshlib.require_local_tp(f"{'/'.join(other)} layers")
+def _seq_sharded(cfg: ModelConfig, mesh, s: int) -> bool:
+    """A residual stream of ``s`` tokens is a sequence block on ``mesh``
+    between layers: ``cfg.seq_shard``, more than one token, and ``s``
+    divides over ``"model"``."""
+    return mesh is not None and cfg.seq_shard and s > 1 and s % meshlib.model_coord(mesh)[0] == 0
 
 
 def _norm(cfg: ModelConfig, x: Tensor, p: dict, seq_sharded: bool) -> Tensor:
@@ -162,16 +163,18 @@ def _apply_layer(
     if kind == "ssm":
         x = _norm(cfg, h, p["ln"], seq_sharded)
         if collect:
-            y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x, return_state=True)
+            y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x, return_state=True,
+                                         seq_sharded=seq_sharded)
         else:
-            y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x), None
+            y, state = ssm_mod.ssm_apply(p["mixer"], cfg, x, seq_sharded=seq_sharded), None
         return h + y, zero, state
     if kind == "rec":
         x = _norm(cfg, h, p["ln1"], seq_sharded)
         if collect:
-            y, state = rg.rglru_apply(p["rec"], cfg, x, return_state=True)
+            y, state = rg.rglru_apply(p["rec"], cfg, x, return_state=True,
+                                      seq_sharded=seq_sharded)
         else:
-            y, state = rg.rglru_apply(p["rec"], cfg, x), None
+            y, state = rg.rglru_apply(p["rec"], cfg, x, seq_sharded=seq_sharded), None
         h = h + y
         h = h + ffn_apply(p["mlp"], cfg, _norm(cfg, h, p["ln2"], seq_sharded),
                           seq_sharded=seq_sharded)
@@ -193,7 +196,7 @@ def _apply_layer(
     h = h + y
     x2 = _norm(cfg, h, p["ln2"], seq_sharded)
     if kind == "moe":
-        y2, aux = moe_mod.moe_apply(p["moe"], cfg, x2)
+        y2, aux = moe_mod.moe_apply(p["moe"], cfg, x2, seq_sharded=seq_sharded)
     else:
         y2, aux = ffn_apply(p["mlp"], cfg, x2, seq_sharded=seq_sharded), zero
     return h + y2, aux, cache_entry
@@ -233,7 +236,6 @@ def forward(
     else None.  On an active mesh the hidden states are whole on every
     rank."""
     types = layer_types(cfg)
-    _local_tp_only(types)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -241,11 +243,9 @@ def forward(
             positions = positions[..., None].expand(b, s, 3)
     dt = torch_dtype(cfg.compute_dtype)
     mesh = meshlib.active_mesh()
-    tp, _ = meshlib.model_coord(mesh)
     h = _embed(params, tokens, dt, mesh)
-    seq = cfg.seq_shard and s > 1
-    sp = ("dp", "tp", None) if seq else ("dp", None, None)
-    seq_sharded = mesh is not None and seq and s % tp == 0
+    sp = ("dp", "tp", None) if cfg.seq_shard and s > 1 else ("dp", None, None)
+    seq_sharded = _seq_sharded(cfg, mesh, s)
     if mesh is not None:
         h = coll.sp_scatter(h, mesh) if seq_sharded else coll.tp_sum(h, mesh)
     h = meshlib.constraint(h, *sp)
@@ -332,7 +332,6 @@ def decode_step(
     attention entry's tensors take the new row in place, a recurrent
     layer's state is a new one, the length one more."""
     types = layer_types(cfg)
-    _local_tp_only(types)
     dt = torch_dtype(cfg.compute_dtype)
     mesh = meshlib.active_mesh()
     if mesh is None:

@@ -17,7 +17,9 @@ reference's ``jax.random`` draws).
 On an ambient mesh (``repro_torch.launch.mesh.use_mesh``) the parameters
 are each rank's blocks of the serving layout (``Model.partition_specs(mesh,
 drop_fsdp=True)``): the decode cache holds this rank's kv heads where they
-divide over ``"model"`` (else all of them), the logits of a step are
+divide over ``"model"`` (else all of them) and its channels of an SSM or
+RG-LRU state (an enc-dec model's cross-attention K/V as its self-attention
+cache), the MoE decodes on its experts, the logits of a step are
 gathered whole over ``"model"`` before a token is chosen, each data group
 serves its rows of a batch (``batch_size`` divides by the data-parallel
 size), and the groups' tokens are gathered so that every rank returns every

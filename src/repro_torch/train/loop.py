@@ -194,7 +194,7 @@ def _blocks(model: Model, params: Any, specs: Any, mesh) -> Any:
     """``params`` as this rank's blocks: a whole leaf (the definition's
     shape) is cut, a leaf already a block is kept."""
     defs = _tree.leaves(model.param_defs)
-    out = [meshlib.NamedSharding(mesh, tuple(s)).cut(x) if tuple(x.shape) == tuple(d.shape)
+    out = [meshlib.NamedSharding.of(mesh, s).cut(x) if tuple(x.shape) == tuple(d.shape)
            else x for x, d, s in zip(_tree.leaves(params), defs, _tree.specs_of(params, specs))]
     return _tree.unflatten_like(params, out)
 

@@ -53,7 +53,7 @@ def _check_blocks(model: Model, params: Any, specs: Any, mesh) -> None:
     """Each leaf of ``params`` must be this rank's block of its spec."""
     defs = leaves(model.param_defs)
     for p, d, s in zip(leaves(params), defs, specs_of(params, specs)):
-        want = meshlib.NamedSharding(mesh, tuple(s)).block_shape(d.shape)
+        want = meshlib.NamedSharding.of(mesh, s).block_shape(d.shape)
         if tuple(p.shape) != want:
             raise ValueError(f"a parameter of shape {tuple(p.shape)} on the mesh: its block of "
                              f"{tuple(d.shape)} under {tuple(s)} is {want}; cut the parameters "
@@ -93,7 +93,12 @@ def make_train_step(
             from repro_torch.dist.collectives import ordered_mean
 
             dp = meshlib.dp_axes(mesh)
-            grads = tree_map(lambda g: ordered_mean(g, dp, mesh), grads)
+            flat = leaves(grads)
+            del grads
+            for i, g in enumerate(flat):  # a leaf at a time: each freed once averaged
+                flat[i] = ordered_mean(g, dp, mesh)
+            del g
+            grads = unflatten_like(params, flat)
             loss = ordered_mean(loss, dp, mesh)
             metrics = {k: ordered_mean(v, dp, mesh) for k, v in metrics.items()}
             params, opt_state, opt_stats = adamw_update(params, grads, opt_state, opt_cfg,

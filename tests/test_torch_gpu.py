@@ -1293,3 +1293,42 @@ def test_sharded_lm_in_an_nccl_world_of_one_is_the_local_path(cuda, tmp_path, mo
     arrays = [np.load(tmp_path / d / "step_00000002" / "arrays.npz") for d in ("local", "sharded")]
     assert set(arrays[0].files) == set(arrays[1].files)
     assert all(np.array_equal(arrays[0][k], arrays[1][k]) for k in arrays[0].files)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "qwen2-moe-a2.7b"])
+def test_sharded_families_in_an_nccl_world_of_one_are_the_local_step(cuda, tmp_path, arch):
+    """The SSM's channel-parallel and the MoE's expert-parallel paths on the
+    card, in an NCCL world of one on a (1, 1) mesh: one ``make_train_step``
+    of the reduced model bitwise the local step (loss and every parameter),
+    through the family's collectives (``dist.TP`` counted)."""
+    import torch.distributed as tdist
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 65), generator=gen, device=cuda)}
+    opt = OptConfig(lr=1e-3, warmup_steps=0)
+    step = make_train_step(model, opt)
+    p0, s0 = model.params, init_opt_state(model.params)
+    want_p, _, want = step(p0, s0, batch)
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = meshlib.make_host_mesh(1, 1)
+        blocks = meshlib.shard_tree(p0, model.partition_specs(mesh, drop_fsdp=True), mesh)
+        coll.TP.calls = 0
+        with meshlib.use_mesh(mesh):
+            got_p, _, got = step(blocks, init_opt_state(blocks), batch)
+        assert coll.TP.calls > 0
+    finally:
+        tdist.destroy_process_group()
+    assert float(got["loss"]) == float(want["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(got_p), _tree.leaves(want_p)))

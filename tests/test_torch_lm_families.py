@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import repro.configs as jconfigs
 import repro_torch.configs as tconfigs
@@ -29,6 +30,7 @@ from repro.models import rglru as jrglru
 from repro.models import scan_utils as jscan
 from repro.models import ssm as jssm
 from repro.models.common import act_fn as jact_fn
+from repro_torch.dist import collectives as tcoll
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import build_model
@@ -291,7 +293,7 @@ def _reference_routing(p, cfg, x):
     ("dbrx-132b", 128),         # no shared expert; drops
     ("qwen2-moe-a2.7b", 6),     # few tokens: capacity 8, nothing drops
 ])
-def test_moe_local_matches_the_reference(arch, tokens):
+def test_moe_local_matches_the_reference(arch, tokens, tmp_path):
     jcfg, tcfg, p, x = _moe_case(arch, tokens, 3)
     tp = _t(p)
     e_pad = jmoe.padded_experts(jcfg.n_experts)
@@ -314,15 +316,24 @@ def test_moe_local_matches_the_reference(arch, tokens):
         assert dropped > 0
     else:
         assert dropped == 0
-    # moe_apply with no mesh, and on a mesh of one rank, is the local body
+    # moe_apply with no mesh, and on a mesh of one rank (a gloo world of one:
+    # the expert-parallel path, its collectives run), is the local body
     ty2, taux2 = tmoe.moe_apply(tp, tcfg, torch.from_numpy(x))
     assert torch.equal(ty2, ty) and torch.equal(taux2, taux)
-    with tmesh.use_mesh(_Mesh((1, 1))):
-        assert torch.equal(tmoe.moe_apply(tp, tcfg, torch.from_numpy(x))[0], ty)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        with tmesh.use_mesh(tmesh.make_host_mesh(1, 1, device="cpu")):
+            calls = tcoll.TP.calls
+            ty3, taux3 = tmoe.moe_apply(tp, tcfg, torch.from_numpy(x))
+            assert tcoll.TP.calls > calls
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(ty3, ty) and torch.equal(taux3, taux)
 
 
 class _Mesh:
-    """Stands in for a DeviceMesh of ``("data", "model")``."""
+    """Stands in for rank ``(0, 0)`` of a DeviceMesh of ``("data", "model")``."""
 
     mesh_dim_names = ("data", "model")
 
@@ -332,11 +343,19 @@ class _Mesh:
     def size(self, dim=None):
         return self._sizes[dim] if dim is not None else self._sizes[0] * self._sizes[1]
 
+    def get_coordinate(self):
+        return [0, 0]
+
 
 def test_moe_apply_on_a_mesh_of_two_ranks_raises_the_sharded_lm():
+    """Expert parallelism is ported (the 8-rank worlds of
+    ``tests/test_torch_sharded_lm_moe.py`` run it); the one raise left on a
+    mesh is the reference's: a model axis that does not divide the padded
+    experts (16 here), before any collective."""
     jcfg, tcfg, p, x = _moe_case("qwen2-moe-a2.7b", 8, 4)
-    with tmesh.use_mesh(_Mesh((1, 2))):
-        with pytest.raises(NotImplementedError, match="sharded LM"):
+    assert tmoe.padded_experts(tcfg.n_experts) == 16
+    with tmesh.use_mesh(_Mesh((1, 3))):
+        with pytest.raises(ValueError, match="not divisible by tp=3"):
             tmoe.moe_apply(_t(p), tcfg, torch.from_numpy(x))
 
 

@@ -219,7 +219,9 @@ def test_serve_driver_refuses_a_sharded_mesh():
 
     with pytest.raises(ValueError, match="world size 1"):
         serve.main(["--arch", "olmo-1b", "--reduced", "--tp", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="sharded LM"):
+    # every family shards over "model" now: the MoE's --tp 2 is refused only
+    # because the mesh is not the world
+    with pytest.raises(ValueError, match="world size 1"):
         serve.main(["--arch", "qwen2-moe-a2.7b", "--reduced", "--tp", "2", "--device", "cpu"])
 
 

@@ -739,12 +739,17 @@ def test_named_sharding_cuts_and_sizes_blocks():
         tmesh.named_sharding(("tp",))
 
 
+ALL_ARCHS = ["olmo-1b", "qwen3-8b", "h2o-danube-3-4b", "deepseek-coder-33b", "qwen2-vl-7b",
+             "qwen2-moe-a2.7b", "dbrx-132b", "falcon-mamba-7b", "recurrentgemma-2b",
+             "whisper-base"]
+
+
 @pytest.mark.parametrize("tp", [2, 4, 8])
-@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-8b", "h2o-danube-3-4b",
-                                  "deepseek-coder-33b", "qwen2-vl-7b"])
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_published_attention_ffn_configs_cut_over_the_model_axis(arch, tp):
-    """Every parameter of the five attention/FFN families at full size has
-    a block on a model axis of 2, 4 and 8 (the serving layout)."""
+    """Every parameter of the ten architectures at full size has a block on
+    a model axis of 2, 4 and 8 (the serving layout); the SSM's ``in_proj``
+    (``x | z``) is cut part by part, and its blocks assemble it back."""
     from repro_torch import _tree
     from repro_torch.configs import get_config
     from repro_torch.launch import mesh as tmesh
@@ -753,30 +758,81 @@ def test_published_attention_ffn_configs_cut_over_the_model_axis(arch, tp):
     model = build_model(get_config(arch), device="meta")
     mesh = _Mesh((1, tp))
     specs = _tree.specs_of(model.param_defs, model.partition_specs(mesh, drop_fsdp=True))
+    parts = 0
     for d, spec in zip(_tree.leaves(model.param_defs), specs):
-        block = tmesh.NamedSharding(mesh, tuple(spec)).block_shape(d.shape)
+        block = tmesh.NamedSharding.of(mesh, spec).block_shape(d.shape)
         assert np.prod(block) * (tp if "model" in spec else 1) == np.prod(d.shape)
+        parts += getattr(spec, "parts", 1) > 1
+    assert (parts > 0) == (get_config(arch).family == "ssm")  # in_proj, a layer each
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_parts_cut_gives_each_rank_its_block_of_each_part(tp):
+    """``in_proj`` (d, 2 d_inner) = ``x | z``: rank r's block is ``[x block r
+    | z block r]``, and the blocks, concatenated rank-major as a gather
+    gives them, reorder to the whole bitwise."""
+    from repro_torch.launch import mesh as tmesh
+
+    d, di = 3, 4 * tp
+    w = torch.arange(d * 2 * di, dtype=torch.float32).reshape(d, 2 * di)
+    spec = tmesh.PartsSpec((None, "model"), 2)
+    assert spec == (None, "model")  # the reference's spec, as a tuple
+    blocks = []
+    for r in range(tp):
+        got = tmesh.NamedSharding.of(_Mesh((1, tp), (0, r)), spec).cut(w)
+        n = di // tp
+        assert torch.equal(got, torch.cat([w[:, r * n:(r + 1) * n],
+                                           w[:, di + r * n:di + (r + 1) * n]], 1))
+        blocks.append(got)
+    gathered = torch.cat(blocks, 1)
+    whole = gathered.reshape(d, tp, 2, -1).transpose(1, 2).reshape(d, -1)
+    assert torch.equal(whole, w)
 
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "falcon-mamba-7b", "recurrentgemma-2b",
                                   "whisper-base"])
 def test_families_without_tensor_parallelism_raise_the_sharded_lm(arch, tmp_path):
+    """Every family now shards over ``"model"``, so the drivers refuse
+    ``--tp 2`` only where the mesh is not the world (a process of one), and
+    ``driver_mesh`` takes the family's ``--dp 1 --tp 1`` on a gloo world of
+    one, on which the family's loss runs its collectives and equals the
+    local loss bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch import _tree
     from repro_torch.configs import get_config
+    from repro_torch.dist import collectives as coll
     from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import serve as serve_driver
     from repro_torch.launch import train as train_driver
     from repro_torch.models import build_model
 
-    with pytest.raises(NotImplementedError, match="sharded LM"):
+    with pytest.raises(ValueError, match="must equal the world size"):
         train_driver.main(["--arch", arch, "--reduced", "--steps", "1", "--device", "cpu",
                            "--ckpt-dir", str(tmp_path), "--tp", "2"])
+    with pytest.raises(ValueError, match="must equal the world size"):
+        serve_driver.main(["--arch", arch, "--reduced", "--device", "cpu", "--tp", "2"])
     cfg = get_config(arch).reduced()
     model = build_model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((2, 9), dtype=torch.long)}
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 9)))}
     if cfg.is_encdec:
-        batch["frames"] = torch.zeros((2, 8, cfg.d_model))
-    with tmesh.use_mesh(_Mesh((1, 2))):  # raises before any collective
-        with pytest.raises(NotImplementedError, match="sharded LM"):
-            model.loss_fn(model.params, batch)
+        batch["frames"] = torch.from_numpy(
+            np.random.default_rng(1).standard_normal((2, 8, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        want = model.loss_fn(model.params, batch)[0]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1)
+    try:
+        mesh, dev = tmesh.driver_mesh(1, 1, "cpu")
+        specs = model.partition_specs(mesh, drop_fsdp=True)
+        blocks = tmesh.shard_tree(_tree.tree_map(torch.Tensor.detach, model.params), specs, mesh)
+        coll.TP.calls = 0
+        with tmesh.use_mesh(mesh), torch.no_grad():
+            got = model.loss_fn(blocks, batch)[0]
+        assert coll.TP.calls > 0 and dev == torch.device("cpu")
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(got, want)
 
 
 def test_drivers_refuse_a_mesh_that_is_not_the_world(tmp_path):
@@ -795,7 +851,11 @@ def test_port_modules_of_this_slice_import_without_jax():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None; "
             "import repro_torch.launch.mesh, repro_torch.dist.collectives, "
             "repro_torch.train.train_step, repro_torch.train.loop, repro_torch.launch.train, "
-            "repro_torch.launch.serve, repro_torch.serve.engine, repro_torch.interop")
+            "repro_torch.launch.serve, repro_torch.serve.engine, repro_torch.interop, "
+            "repro_torch.models.moe, repro_torch.models.ssm, repro_torch.models.rglru, "
+            "repro_torch.models.attention, repro_torch.models.encdec, "
+            "repro_torch.models.transformer, repro_torch.models.model, "
+            "repro_torch.checkpoint.manager, repro_torch.train.optimizer")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                           timeout=120)

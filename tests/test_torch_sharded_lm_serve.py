@@ -14,8 +14,9 @@ tokens, crossing into each rank's blocks through
   gathered over ``"model"`` against the reference's unsharded ``forward``
   (fp32 at ``rtol=2e-4, atol=2e-5``, bf16 compute at 2e-3).  Reduced olmo
   has 4 heads and 2 kv heads, so (4, 2) takes the sharded-kv (grouped)
-  path, (2, 4) the replicated-kv (expand) path, (1, 8) the whole-attention
-  layout of ``n_heads < tp``.
+  path, (2, 4) the replicated-kv (expand) path, (1, 8) the query-row layout
+  of heads that do not divide ``tp`` (each rank's queries its own sequence
+  block).
 * ``serve``: ``launch.serve --dp 2 --tp 4`` (and ``--dp 1 --tp 8`` on
   qwen3-8b) against the single-rank engine: the same greedy tokens up to
   and including the first step whose top-2 logit gap on the single rank is
