@@ -45,6 +45,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only train                # phases 0 and 16 only
     python3 chip_smoke.py --only sharded_lm           # phases 0, 16d and 17 only
     python3 chip_smoke.py --only sharded_families     # phases 0 and 18 only
+    python3 chip_smoke.py --only dryrun               # phases 0 and 19 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -340,6 +341,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    above 1 (tensor and expert parallelism proper, the query-row attention
    layout) needs a second rank, which NCCL refuses on one card: the 8-rank
    gloo worlds of ``tests/test_torch_sharded_lm_{moe,scan}.py`` check it.
+19. FSDP and the dry-run, each part in a process of its own (a process
+   holds one default process group).  (a) olmo-1b whole, bf16 compute over
+   fp32 parameters, ``SHARDED_STEPS`` steps of ``SHARDED_BATCH`` x
+   ``TRAIN_SEQ`` tokens as 17a, in an NCCL world of one on a (1, 1) mesh:
+   ``make_train_step(fsdp=True)`` (parameters and AdamW state on the FSDP
+   blocks, gathered a layer at a time) against the ``drop_fsdp`` step there
+   and the local step; gate: bitwise (losses and every parameter); printed:
+   ms a step (CUDA events), peak memory, ``fsdp_gather`` calls a step.
+   (b) that step traced by the dry-run's counters
+   (``launch.dryrun.measure``) on fake tensors in a fake world of one, then
+   run on the card under the same counters; gates: flops, HBM bytes and
+   collective operand bytes equal (the trace is the card's program), the
+   predicted peak (arguments + temp) within ``DRYRUN_PEAK_BOUND`` of the
+   allocator's; printed: ``RooflineTerms`` (nominal H100 constants) beside
+   the measured ms.  (c) ``launch.dryrun`` of ``DRYRUN_CELLS`` and
+   ``launch.dryrun_cp --method auto`` on the pod mesh (a fake world of 256),
+   in processes on the host started with the phase (beside 19a-b); gate:
+   each ``ok`` with exit code 0;
+   printed: each record's flops, collective bytes, a rank's argument and
+   temp GB and its ``RooflineTerms``.
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -4434,14 +4455,348 @@ def _sharded_families_phase(torch, args, dev, smi) -> None:
     _log(f"[18] sharded families phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
 
 
+# ---- phase 19: FSDP on the card and the dry-run against the card
+# 19a/19b run in processes of their own (a process holds one default process
+# group; 19b starts a fake world, then an NCCL one), started by this one.
+# 19b: the dry-run's predicted peak (arguments + the storages the step holds
+# at once) against the allocator's: the caching allocator rounds each block
+# up to a multiple of 512 bytes, and the step's cuBLAS workspace comes from
+# it too, beyond what the trace sees.  Measured on an NVIDIA H100 80GB HBM3
+# at 700.00 W: 37.992 GB against 37.925 predicted, a gap of 0.18% (0.067
+# GB); DRYRUN_PEAK_BOUND allows five times that.
+DRYRUN_PEAK_BOUND = 0.01
+DRYRUN_CELLS = (("olmo-1b", "train_4k"), ("qwen3-8b", "decode_32k"))
+DRYRUN_PART_TIMEOUT = 300
+
+
+def _part_env() -> dict:
+    env = dict(os.environ)
+    src = str(ROOT / "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    return env
+
+
+def _nccl_world_of_one(torch, dev, tag: str):
+    """An NCCL world of one and its (1, 1) mesh; NCCL failing to start fails
+    the part (nothing falls back).  Returns ``(mesh, store dir)``."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    try:
+        tdist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                 world_size=1)
+        mesh = make_host_mesh(1, 1, device="cuda")
+        probe = torch.ones(4, device=dev)
+        tdist.all_gather([torch.empty_like(probe)], probe, group=mesh.get_group("model"))
+        torch.cuda.synchronize()
+    except Exception as e:
+        raise SystemExit(f"[{tag}] NCCL failed to start: {type(e).__name__}: {e}")
+    return mesh, store
+
+
+def _fsdp_part(torch, args, dev, smi) -> None:
+    """19a: olmo-1b whole, bf16 compute over fp32 parameters, ``SHARDED_STEPS``
+    steps of ``SHARDED_BATCH`` x ``TRAIN_SEQ`` tokens, as 17a: the local
+    step, the ``drop_fsdp`` step on a (1, 1) mesh and the FSDP step there
+    (``make_train_step(fsdp=True)``); gate: the FSDP run bitwise both (the
+    losses and every parameter after the last step)."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch import _tree
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    mesh, store = _nccl_world_of_one(torch, dev, "19a")
+    try:
+        cfg = get_config("olmo-1b")
+        model = build_model(cfg, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, SHARDED_BATCH, seed=args.seed))
+        batches = [_train_batch(torch, cfg, data, i, dev, args.seed) for i in range(SHARDED_STEPS)]
+        opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+        runs, finals = {}, {}
+        for label in ("local", "drop_fsdp", "fsdp"):
+            if label == "local":
+                p, ctx = model.params, contextlib.nullcontext()
+                step = make_train_step(model, opt_cfg)
+            else:
+                specs = model.partition_specs(mesh, drop_fsdp=label == "drop_fsdp")
+                p, ctx = meshlib.shard_tree(model.params, specs, mesh), meshlib.use_mesh(mesh)
+                step = make_train_step(model, opt_cfg, fsdp=label == "fsdp")
+            s = init_opt_state(p)
+            coll.FSDP.calls = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(SHARDED_STEPS + 1)]
+            losses = []
+            with ctx:
+                ev[0].record()
+                for i, batch in enumerate(batches):
+                    p, s, met = step(p, s, batch)
+                    ev[i + 1].record()
+                    losses.append(met["loss"])
+            torch.cuda.synchronize()
+            ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(1, SHARDED_STEPS)]
+            runs[label] = dict(losses=[float(x) for x in losses], ms=ms,
+                               peak=torch.cuda.max_memory_allocated() / 1e9,
+                               fsdp=coll.FSDP.calls / SHARDED_STEPS)
+            finals[label] = p
+            del s
+            if label == "drop_fsdp":  # compared now, so the FSDP run has the memory
+                same_drop = all(torch.equal(a, b) for a, b in zip(
+                    _tree.leaves(p), _tree.leaves(finals["local"])))
+                finals.pop("drop_fsdp")
+            elif label == "fsdp":
+                same_fsdp = all(torch.equal(a, b) for a, b in zip(
+                    _tree.leaves(p), _tree.leaves(finals["local"])))
+            del p
+            torch.cuda.empty_cache()
+        del finals
+        for label, r in runs.items():
+            _log(f"[19a] {label}: losses {[round(x, 4) for x in r['losses']]}; step "
+                 f"{sum(r['ms']) / len(r['ms']):.1f} ms (CUDA events, steps 2-{SHARDED_STEPS}: "
+                 f"median {_median(r['ms']):.1f}, min {min(r['ms']):.1f}, max {max(r['ms']):.1f});"
+                 f" peak memory {r['peak']:.2f} GB; fsdp_gather calls a step {r['fsdp']:.0f}; "
+                 f"card {smi}")
+        loc, drop, fsdp = runs["local"], runs["drop_fsdp"], runs["fsdp"]
+        bitwise = fsdp["losses"] == loc["losses"] == drop["losses"] and same_fsdp and same_drop
+        finite = all(math.isfinite(x) for r in runs.values() for x in r["losses"])
+        ok = bitwise and finite and fsdp["fsdp"] > 0
+        _log(f"[19a] olmo-1b {SHARDED_BATCH} x {TRAIN_SEQ}, {SHARDED_STEPS} steps on a (1, 1) "
+             f"mesh: make_train_step(fsdp=True) bitwise the drop_fsdp and local steps (losses "
+             f"and every parameter) {bitwise}; losses finite {finite}; fsdp_gather counted "
+             f"{fsdp['fsdp'] > 0}; FSDP step {_median(fsdp['ms']):.1f} ms against local "
+             f"{_median(loc['ms']):.1f} ms (medians): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("19a: the FSDP step failed its gates")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _dryrun_part(torch, args, dev, smi) -> None:
+    """19b: 19a's FSDP step traced by the dry-run's counters on fake tensors
+    in a fake world of one, then run on the card under the same counters in
+    an NCCL world of one; gates: flops, bytes and collective operand bytes
+    (over groups of one included) equal, the predicted peak within
+    ``DRYRUN_PEAK_BOUND`` of the allocator's; printed: the step's
+    ``RooflineTerms`` beside its measured ms."""
+    import shutil
+
+    import torch.distributed as tdist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.analysis.flops import model_flops
+    from repro_torch.analysis.roofline import terms_from_record
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = get_config("olmo-1b")
+    shape = ShapeConfig("19b", TRAIN_SEQ, SHARDED_BATCH, "train")
+    opt_cfg = OptConfig(lr=TRAIN_LR, warmup_steps=0)
+    dryrun.start_fake_world(1)
+    try:
+        mesh = meshlib.make_host_mesh(1, 1, device="cpu")
+        with FakeTensorMode(), meshlib.use_mesh(mesh):
+            meta = build_model(cfg, device="meta")
+            fake_args = (specs.blocks(specs.param_structs(meta, mesh)),
+                         specs.blocks(specs.opt_structs(meta, mesh)),
+                         specs.blocks(specs.train_batch_structs(cfg, shape, mesh)))
+            _, fake = dryrun.measure(make_train_step(meta, opt_cfg, fsdp=True), fake_args)
+        del fake_args, meta
+    finally:
+        tdist.destroy_process_group()
+    _log(f"[19b] fake trace (fake world of 1, (1, 1) mesh): {fake['trace_s']:.1f} s")
+
+    mesh, store = _nccl_world_of_one(torch, dev, "19b")
+    try:
+        model = build_model(cfg, device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(args.seed))
+        data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, SHARDED_BATCH, seed=args.seed))
+        batch = _train_batch(torch, cfg, data, 0, dev, args.seed)
+        p = meshlib.shard_tree(model.params, model.partition_specs(mesh), mesh)
+        s = init_opt_state(p)
+        step = make_train_step(model, opt_cfg, fsdp=True)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with meshlib.use_mesh(mesh):
+            out, real = dryrun.measure(step, (p, s, batch))
+            torch.cuda.synchronize()
+            step_peak = torch.cuda.max_memory_allocated() - held
+            del out
+            torch.cuda.empty_cache()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            for i in range(2):  # the step without the counters; the second one timed
+                out = step(p, s, batch)
+                ev[i + 1].record()
+                del out
+            torch.cuda.synchronize()
+            ms = ev[1].elapsed_time(ev[2])
+        args_b = real["argument_size_in_bytes"]
+        predicted = fake["argument_size_in_bytes"] + fake["temp_size_in_bytes"]
+        measured = args_b + step_peak
+        gap = abs(measured - predicted) / predicted
+        keys = ("flops", "bytes", "coll_bytes", "coll_issued_bytes", "coll_counts",
+                "argument_size_in_bytes")
+        same = {k: fake[k] == real[k] for k in keys}
+        for k in keys:
+            _log(f"[19b] {k}: fake {fake[k]} card {real[k]} equal {same[k]}")
+        _log(f"[19b] temp: fake trace {fake['temp_size_in_bytes'] / 1e9:.4f} GB, the card's "
+             f"storages {real['temp_size_in_bytes'] / 1e9:.4f} GB, the allocator's step peak "
+             f"{step_peak / 1e9:.4f} GB above {held / 1e9:.4f} GB held before the step; "
+             f"predicted peak (arguments + temp) {predicted / 1e9:.4f} GB against measured "
+             f"{measured / 1e9:.4f} GB: gap {gap:.4%} (bound {DRYRUN_PEAK_BOUND:.0%})")
+        record = {"chips": 1, "n_layers": cfg.n_layers, "accum_steps": 1,
+                  "model_flops": model_flops(cfg, shape), "full": fake}
+        t = terms_from_record(record)
+        _log(f"[19b] RooflineTerms (dry-run, nominal H100 SXM datasheet constants, 700 W): "
+             f"compute {t.compute_s * 1e3:.1f} ms, memory {t.memory_s * 1e3:.1f} ms, "
+             f"collective {t.collective_s * 1e3:.3f} ms, bound {t.step_bound_s * 1e3:.1f} ms "
+             f"({t.bottleneck}), mfu_bound {t.mfu_bound:.3f}, useful flops "
+             f"{t.useful_flops_ratio:.3f}; measured step {ms:.1f} ms (CUDA events, no "
+             f"counters; the counted run took {real['trace_s']:.1f} s of host clock); card {smi}")
+        ok = all(same.values()) and gap <= DRYRUN_PEAK_BOUND
+        _log(f"[19b] the fake trace is the card's program (flops, bytes, collectives equal) "
+             f"{all(same.values())}; peak within bound {gap <= DRYRUN_PEAK_BOUND}: "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("19b: the dry-run disagrees with the card")
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _run_part(part: str, args) -> None:
+    """Run ``--part`` in a process of its own; its log lines are this
+    phase's; a failure fails the phase."""
+    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--part", part, "--seed", str(args.seed)]
+    proc = subprocess.run(cmd, env=_part_env(), capture_output=True, text=True,
+                          timeout=DRYRUN_PART_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        if line.startswith(f"[{part}]"):
+            _log(line)
+    if proc.returncode != 0:
+        raise SystemExit(f"[{part}] failed (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+
+
+def _start_cells() -> tuple[Path, list]:
+    """19c's processes, started at once (on the host: they run beside 19a-b
+    on the card): ``launch.dryrun`` of ``DRYRUN_CELLS`` and
+    ``launch.dryrun_cp --method auto`` on the pod mesh."""
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="chip_smoke_cells_"))
+    cmds = [[sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", "pod", "--out", str(out)] for arch, shape in DRYRUN_CELLS]
+    cmds.append([sys.executable, "-m", "repro_torch.launch.dryrun_cp", "--method", "auto",
+                 "--mesh", "pod", "--out", str(out)])
+    return out, [(c, subprocess.Popen(c, env=_part_env(), cwd=ROOT, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True)) for c in cmds]
+
+
+def _finish_cells(out: Path, procs: list, smi) -> None:
+    """19c: each process's record ``ok`` with exit code 0; printed: the
+    records' flops, collective bytes, a rank's argument and temp GB and
+    their ``RooflineTerms``."""
+    from repro_torch.analysis.roofline import terms_from_record
+
+    bad = []
+    for c, proc in procs:
+        try:
+            o, e = proc.communicate(timeout=DRYRUN_PART_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            o, e = proc.communicate()
+        if proc.returncode != 0:
+            bad.append(f"{' '.join(c[2:])}: exit {proc.returncode}\n{e[-2000:]}")
+    for arch, shape in DRYRUN_CELLS:
+        path = out / f"{arch}__{shape}__pod.json"
+        if not path.exists():
+            bad.append(f"{arch} {shape}: no record")
+            continue
+        rec = json.loads(path.read_text())
+        if not rec.get("ok") or "full" not in rec:
+            bad.append(f"{arch} {shape}: not ok ({rec.get('error')})")
+            continue
+        st, t = rec["step"], terms_from_record(rec)
+        _log(f"[19c] {arch} {shape} pod (dry-run, fake world of 256): flops "
+             f"{st['flops']:.4e}, HBM bytes {st['bytes']:.4e}, coll bytes {st['coll_bytes']:.4e} "
+             f"(received {st['coll_received_bytes']:.4e}), a rank's arguments "
+             f"{st['argument_size_in_bytes'] / 1e9:.3f} GB and temp "
+             f"{st['temp_size_in_bytes'] / 1e9:.3f} GB; RooflineTerms (nominal H100 SXM datasheet "
+             f"constants, 700 W): compute {t.compute_s * 1e3:.2f} ms, memory "
+             f"{t.memory_s * 1e3:.2f} ms, collective {t.collective_s * 1e3:.2f} ms, bound "
+             f"{t.step_bound_s * 1e3:.2f} ms ({t.bottleneck}), mfu_bound {t.mfu_bound:.4f}; "
+             f"trace {st['compile_s']} s")
+    cp = list(out.glob("cpals__auto__pod__*.json"))
+    if not cp:
+        bad.append("dryrun_cp: no record")
+    else:
+        rec = json.loads(cp[0].read_text())
+        _log(f"[19c] cpals auto pod {rec['shape']} rank {rec['rank']} (dry-run, fake world of "
+             f"256): flops {rec['flops']:.4e}, bytes {rec['bytes']:.4e}, coll bytes "
+             f"{rec['coll_bytes']:.4e} (plan's ring estimate {rec['plan_collective_bytes']:.4e}), "
+             f"a rank's arguments {rec['arg_bytes'] / 1e9:.3f} GB and temp "
+             f"{rec['temp_bytes'] / 1e9:.3f} GB; trace {rec['compile_s']} s")
+        if not rec.get("ok"):
+            bad.append("dryrun_cp: not ok")
+    if bad:
+        raise SystemExit("[19c] " + "; ".join(bad))
+    _log(f"[19c] {len(DRYRUN_CELLS)} LM cells and the CP sweep traced ok; card {smi}")
+
+
+def _dryrun_phase(torch, args, dev, smi) -> None:
+    """Phase 19: FSDP on the card (19a), the dry-run against the card (19b),
+    the production cells (19c); see the module docstring."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out, cells = _start_cells()
+    try:
+        for part in ("19a", "19b"):
+            t0 = time.perf_counter()
+            _run_part(part, args)
+            _log(f"[19] {part}: {time.perf_counter() - t0:.1f} s")
+    except BaseException:  # a part failed: stop the cells' processes too
+        for _, proc in cells:
+            proc.kill()
+        raise
+    t0 = time.perf_counter()
+    _finish_cells(out, cells, smi)
+    _log(f"[19] 19c (after 19a-b, beside which it ran): {time.perf_counter() - t0:.1f} s")
+    _log(f"[19] dry-run phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--sweeps", type=int, default=5)
+    ap.add_argument("--part", choices=["19a", "19b"], help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
                                        "dist", "lm", "lm_families", "train", "sharded_lm",
-                                       "sharded_families"],
+                                       "sharded_families", "dryrun"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -4449,8 +4804,9 @@ def main(argv=None) -> int:
                          "its executors, tuner and service, the two-level mesh and sharded PP "
                          "in an NCCL world of one), phase 14 (the LM serving path), phase 15 "
                          "(the MoE, SSM, hybrid and enc-dec families), phase 16 (the LM "
-                         "training path), phase 17 (the sharded LM in an NCCL world of one) or "
-                         "phase 18 (the other families on the mesh there); prints no result line")
+                         "training path), phase 17 (the sharded LM in an NCCL world of one), "
+                         "phase 18 (the other families on the mesh there) or phase 19 (FSDP on "
+                         "the card and the dry-run against it); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4479,12 +4835,15 @@ def main(argv=None) -> int:
     _log(smi)
     _log(f"[0] allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
          f"cudnn={torch.backends.cudnn.allow_tf32}")
+    if args.part:  # one part of phase 19, in its own process
+        {"19a": _fsdp_part, "19b": _dryrun_part}[args.part](torch, args, dev, smi)
+        return 0
     if args.only:
         only = {"fused": _only_fused, "matrix_free": _only_matrix_free,
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
                 "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
                 "train": _train_phase, "sharded_lm": _sharded_lm_phase,
-                "sharded_families": _sharded_families_phase}[args.only]
+                "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -4727,6 +5086,9 @@ def main(argv=None) -> int:
 
     # ---- phase 18: the other families on the mesh (NCCL world of one)
     _sharded_families_phase(torch, args, dev, smi)
+
+    # ---- phase 19: FSDP on the card, the dry-run against it, production cells
+    _dryrun_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -46,6 +46,19 @@ axis of one rank; :data:`TP` counts them, forward and backward):
   rank computes whole (replicated), backward a rank's own slice / the
   gather of the slices.
 
+FSDP/ZeRO-3 parameter placement (:data:`FSDP` counts it, as :data:`TP`):
+a leaf held as this rank's block along its ``"fsdp"`` dim is an
+:class:`FsdpBlock`, and :func:`fsdp_gather` rebuilds its ``drop_fsdp``
+block where the model code uses it (:func:`fsdp_tree`, at the top of a
+layer's function): forward the blocks gathered over the data axes and
+concatenated in rank order, backward the ordered reduce-scatter, an
+all-to-all of chunks an axis, summed in rank order.
+
+:data:`RECORD`, when a dry-run sets it, takes every collective this rank
+issues under XLA's kind names (``all-reduce`` for an ordered sum,
+``all-gather``, ``reduce-scatter``): its operand bytes, as the
+reference's HLO parser counts them, and the bytes this rank receives.
+
 :func:`make_compressed_dp_step` is the reference's data-parallel train step
 with the int8 error-feedback gradient exchange (or the exact ordered mean).
 """
@@ -57,6 +70,8 @@ from typing import Any, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.mesh import dp_axes
 
 Tensor = torch.Tensor
 
@@ -82,15 +97,62 @@ SCATTERS = _Count()
 TP = _Count()
 
 
-def _gather(t: Tensor, group, *, async_op: bool = False):
+class _FsdpCount(_Count):
+    """:data:`TP`'s count for :func:`fsdp_gather`, with the bytes of the
+    gathered leaves alive at once (``live``) and their most (``peak``)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.live = 0
+        self.peak = 0
+
+
+# fsdp_gather's forward and backward calls (bytes: the gathered leaves)
+FSDP = _FsdpCount()
+
+
+class Recorder:
+    """Collectives by kind while a dry-run traces a step: ``bytes`` and
+    ``counts`` over groups of more than one rank (operand bytes, the
+    reference's measure), ``received`` the bytes this rank receives in
+    them, ``issued`` the operand bytes of every call, groups of one
+    included, and ``calls`` each call's ``(kind, operand bytes, ranks)``."""
+
+    def __init__(self) -> None:
+        from repro_torch.analysis.roofline import _COLL_KINDS  # the HLO parser's kinds
+
+        self.bytes = {k: 0 for k in _COLL_KINDS}
+        self.counts = {k: 0 for k in _COLL_KINDS}
+        self.received = 0
+        self.issued = 0
+        self.calls: list[tuple[str, int, int]] = []
+
+    def add(self, kind: str, operand: int, received: int, n: int) -> None:
+        self.issued += operand
+        self.calls.append((kind, operand, n))
+        if n > 1:
+            self.bytes[kind] += operand
+            self.counts[kind] += 1
+            self.received += received
+
+
+RECORD: Recorder | None = None
+
+
+def _gather(t: Tensor, group, *, async_op: bool = False, kind: str = "all-gather"):
     """This rank's ``t`` from every rank of ``group``, in group-rank order:
-    THE one ``all_gather`` of the port (counted in :data:`GATHERS`).
-    ``async_op`` returns ``(parts, work)``: the parts hold the result only
-    after ``work.wait()``."""
+    THE one ``all_gather`` of the port (counted in :data:`GATHERS`;
+    ``kind`` is what it stands for in :data:`RECORD`).  ``async_op``
+    returns ``(parts, work)``: the parts hold the result only after
+    ``work.wait()``."""
     t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    n = dist.get_world_size(group)
+    parts = [torch.empty_like(t) for _ in range(n)]
     work = dist.all_gather(parts, t, group=group, async_op=async_op)
     GATHERS.calls += 1
+    if RECORD is not None:
+        b = t.numel() * t.element_size()
+        RECORD.add(kind, b, (n - 1) * b, n)
     return (parts, work) if async_op else parts
 
 
@@ -114,7 +176,7 @@ def gather_sum(t: Tensor, group) -> Tensor:
     contraction may return a transposed view, and what consumes it may
     take another path on another layout), so a group of one returns its
     own partial, bitwise and stride for stride."""
-    return _sum_parts(_gather(t, group), t)
+    return _sum_parts(_gather(t, group, kind="all-reduce"), t)
 
 
 def ordered_psum(t: Tensor, axes: Sequence[str], mesh) -> Tensor:
@@ -136,7 +198,8 @@ class PendingSum:
     def __init__(self, t: Tensor, axes: Sequence[str], mesh):
         self.t, self.axes, self.mesh = t, tuple(axes), mesh
         self.src = t.contiguous()  # alive until the gather has read it
-        self.parts, self.work = _gather(self.src, mesh.get_group(self.axes[0]), async_op=True)
+        self.parts, self.work = _gather(self.src, mesh.get_group(self.axes[0]), async_op=True,
+                                        kind="all-reduce")
 
     def wait(self) -> Tensor:
         """The reduced tensor, bitwise :func:`ordered_psum`'s.  On NCCL
@@ -190,6 +253,9 @@ def _scatter_issue(x: Tensor, axis: str, mesh, scatter_axis: int, async_op: bool
     work = dist.all_to_all_single(recv, src, group=group, async_op=async_op)
     SCATTERS.calls += 1
     SCATTERS.bytes += src.numel() * src.element_size() * (k - 1) // k
+    if RECORD is not None:
+        b = src.numel() * src.element_size()
+        RECORD.add("reduce-scatter", b, b * (k - 1) // k, k)
     return recv.reshape((k, src.shape[0] // k) + tuple(src.shape[1:])), work, src
 
 
@@ -470,6 +536,84 @@ def rep_split(x: Tensor, mesh, *, dim: int) -> Tensor:
     """This rank's block along ``dim`` of a tensor every ``"model"`` rank
     holds whole; the blocks' gradients gathered whole."""
     return _Scatter.apply(x, mesh, dim, True)
+
+
+class FsdpBlock:
+    """A parameter leaf held as this rank's FSDP block: ``t`` is block
+    ``i`` along ``dim`` over the data axes of ``mesh`` of the leaf's
+    ``drop_fsdp`` block (``i`` row-major over the rank's data coordinates,
+    as ``NamedSharding`` cuts it).  ``dtype`` is the dtype the model code
+    uses it in: :meth:`to` sets it (the mixed-precision entry cast), and
+    :func:`fsdp_gather` casts the block before it gathers."""
+
+    __slots__ = ("t", "dim", "mesh", "dtype")
+
+    def __init__(self, t: Tensor, dim: int, mesh, dtype: torch.dtype | None = None):
+        self.t, self.dim, self.mesh = t, dim, mesh
+        self.dtype = t.dtype if dtype is None else dtype
+
+    def to(self, dtype: torch.dtype) -> "FsdpBlock":
+        return FsdpBlock(self.t, self.dim, self.mesh, dtype)
+
+    def is_floating_point(self) -> bool:
+        return self.t.is_floating_point()
+
+
+def _note_live(out: Tensor) -> None:
+    import weakref
+
+    b = out.numel() * out.element_size()
+    FSDP.live += b
+    FSDP.peak = max(FSDP.peak, FSDP.live)
+
+    def release(n=b):
+        FSDP.live -= n
+
+    weakref.finalize(out.untyped_storage(), release)
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim, dtype):
+        ctx.mesh, ctx.dim, ctx.in_dtype = mesh, dim, x.dtype
+        y = x.to(dtype)
+        FSDP.calls += 1
+        FSDP.bytes += y.numel() * y.element_size()
+        out = gather_cat(y.contiguous(), dp_axes(mesh), ctx.mesh, dim=dim)
+        _note_live(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        FSDP.calls += 1
+        g = g.to(ctx.in_dtype)
+        FSDP.bytes += g.numel() * g.element_size()
+        for axis in dp_axes(ctx.mesh):  # the order ordered_psum sums the axes in
+            g = reduce_scatter(g, axis, ctx.mesh, scatter_axis=ctx.dim)
+        return g.contiguous(), None, None, None
+
+
+def fsdp_gather(block: FsdpBlock) -> Tensor:
+    """The ``drop_fsdp`` block of an :class:`FsdpBlock`, in its ``dtype``:
+    the data ranks' blocks (cast first) concatenated along ``dim`` in rank
+    order (the first data axis the most significant).  Backward: the whole
+    gradient, cast to the block's dtype, reduce-scattered over the data
+    axes in the order :func:`ordered_psum` sums them (``"pod"``, then
+    ``"data"``), each an all-to-all of chunks summed in rank order; so this
+    rank's block of it is, bit for bit, its slice of the ordered sum of the
+    whole gradients.  The caller divides by the data size, as
+    :func:`ordered_mean` does."""
+    return _FsdpGather.apply(block.t, block.mesh, block.dim, block.dtype)
+
+
+def fsdp_tree(tree):
+    """``tree`` with every :class:`FsdpBlock` leaf gathered
+    (:func:`fsdp_gather`) and every other leaf as it is: called at the top
+    of the function that a layer's remat wraps, so about one layer's
+    gathered leaves are alive at a time and the recompute gathers again."""
+    from repro_torch._tree import tree_map
+
+    return tree_map(lambda x: fsdp_gather(x) if isinstance(x, FsdpBlock) else x, tree)
 
 
 def ordered_mean(t: Tensor, axes: Sequence[str], mesh) -> Tensor:

@@ -34,7 +34,14 @@ MAX_SLABS = 65535
 
 def use_kernel(*tensors: Tensor) -> bool:
     """True when every tensor lies on one CUDA device (launch the kernel),
-    False when every tensor lies on the CPU (take the plain version)."""
+    False when every tensor lies on the CPU (take the plain version).  A
+    fake tensor (a dry-run's, which holds no data) raises: a kernel can
+    take none, and its plain version would stand in for it unseen."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if any(is_fake(t) for t in tensors):
+        raise ValueError("a kernel wrapper was given a fake tensor (a dry-run's): "
+                         "the CUDA kernels need data on the card")
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands lie on different devices: {sorted(map(str, devices))}")

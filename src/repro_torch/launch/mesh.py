@@ -68,6 +68,31 @@ def _mesh(shape: tuple[int, ...], axis_names: tuple[str, ...], device: str) -> D
     return init_device_mesh(device, tuple(int(s) for s in shape), mesh_dim_names=tuple(axis_names))
 
 
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> DeviceMesh:
+    """The production mesh over the ranks of the default process group:
+    ``(16, 16)`` ``("data", "model")``, or ``(2, 16, 16)`` ``("pod",
+    "data", "model")`` with ``multi_pod``.  A larger world takes its first
+    256 or 512 ranks.  The shapes are the reference's, so a cell is the
+    same program; on H100 nodes of eight NVLink-joined GPUs a model axis of
+    16 spans two nodes, so its collectives cross the slower inter-node
+    links.  The dry-run (:mod:`repro_torch.launch.dryrun`) builds it in a
+    fake world of 512 ranks."""
+    import torch.distributed as dist
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world == n:
+        return _mesh(shape, axes, device)
+    if world > n:
+        return DeviceMesh(device, torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    raise RuntimeError(
+        f"need {n} devices for mesh {shape}, have {world} -- start a world of "
+        f"{n} ranks (repro_torch.launch.dryrun starts a fake one)"
+    )
+
+
 def make_host_mesh(data: int = 1, model: int = 1, *, device: str = "cuda") -> DeviceMesh:
     """``(data, model)`` mesh over the ranks of the default process group,
     the two-axis mesh the reference's cases build."""
@@ -105,6 +130,25 @@ def use_mesh(mesh: DeviceMesh):
 
 def current_mesh() -> DeviceMesh | None:
     return _MESH.get()
+
+
+def carry(fn):
+    """``fn`` run under the ambient mesh and manual mode in force now, on
+    whichever thread calls it.  The autograd engine runs a CUDA tensor's
+    backward pass, and so a remat's recompute, on a thread of its own,
+    where this thread's context variables are unset: without this the
+    recompute would take the single-device path."""
+    mesh, manual = current_mesh(), in_manual_mode()
+
+    def run(*args, **kwargs):
+        t_mesh, t_manual = _MESH.set(mesh), _MANUAL.set(manual)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _MANUAL.reset(t_manual)
+            _MESH.reset(t_mesh)
+
+    return run
 
 
 def dp_axes(mesh: DeviceMesh) -> tuple[str, ...]:

@@ -34,6 +34,12 @@ enter with ``tp_copy``.  Decode and a whole (unsharded) stream keep the
 whole-attention layout there: every rank computes the attention whole on
 gathered weights (``rep_gather``, whose backward keeps a rank's own slice
 of the equal whole gradients), ``tp`` times the work.
+
+A decode cache of type :class:`SeqKVCache` is cut by slots over
+``"model"`` instead (the dry-run's decode layout, split-K): each rank
+attends every query head against its own slots, and the ranks' partial
+softmax statistics are combined by log-sum-exp in rank order
+(:func:`_split_decode`); the cross-attention's encoder K/V likewise.
 """
 
 from __future__ import annotations
@@ -355,6 +361,17 @@ class KVCache(NamedTuple):
     v: Tensor
 
 
+class SeqKVCache(KVCache):
+    """A :class:`KVCache` whose slot axis is cut over ``"model"``: this
+    rank holds slots ``[r W / tp, (r + 1) W / tp)`` of every kv head (W the
+    whole cache's slots, ``r`` the rank's ``"model"`` index).  The decode
+    layout of the dry-run's cells (``launch/specs.py``, split-K decode):
+    every rank reads ``1 / tp`` of the cache whether or not the kv heads
+    divide.  The type states the layout; nothing infers it from shapes."""
+
+    __slots__ = ()
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device: str | torch.device = "cuda") -> KVCache:
     w = min(cfg.sliding_window or max_len, max_len)
@@ -365,6 +382,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
     shape = (batch, w, hk, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _decode_positions(cfg: ModelConfig, b: int, length: int, device) -> Tensor:
+    """The new token's position ``length`` for a batch of ``b``; text-only
+    M-RoPE decode advances its three streams together."""
+    shape = (b, 1, len(cfg.mrope_sections)) if cfg.mrope_sections else (b, 1)
+    return torch.full(shape, length, dtype=torch.int32, device=device)
 
 
 def attn_decode(
@@ -385,17 +409,15 @@ def attn_decode(
     b = x.shape[0]
     w = cache.k.shape[1]
     mesh = meshlib.active_mesh()
+    if mesh is not None and isinstance(cache, SeqKVCache):
+        return _attn_decode_split(p, cfg, x, cache, length, mesh), cache
     heads = True
     if mesh is not None:
         heads = _heads_sharded(cfg, meshlib.model_coord(mesh)[0])
         p = _tp_weights(p, cfg, mesh)
         if heads:
             x = coll.tp_copy(x, mesh)
-    if cfg.mrope_sections:  # text-only decode: all three streams advance together
-        pos = torch.full((b, 1, len(cfg.mrope_sections)), length, dtype=torch.int32,
-                         device=x.device)
-    else:
-        pos = torch.full((b, 1), length, dtype=torch.int32, device=x.device)
+    pos = _decode_positions(cfg, b, length, x.device)
     q = _rope(cfg, _project_q(p, cfg, x), pos)
     k_new, v_new = _project_kv(p, cfg, x)
     k_new = _rope(cfg, k_new, pos)
@@ -412,6 +434,70 @@ def attn_decode(
     if mesh is not None and heads:
         out = coll.tp_sum(out, mesh)
     return out, cache
+
+
+def _whole_cols(x: Tensor, w: Tensor, mesh) -> Tensor:
+    """``x @ w`` for a column block ``w`` of a weight, this rank's columns
+    gathered whole over ``"model"`` in rank order."""
+    return coll.gather_cat(x @ w.to(x.dtype), (coll.AXIS,), mesh, dim=-1)
+
+
+def _split_decode(p: dict, cfg: ModelConfig, q: Tensor, k: Tensor, v: Tensor,
+                  valid: Tensor | None, mesh) -> Tensor:
+    """Split-K attention of one token: the whole query ``q`` (B, 1, H, hd)
+    against this rank's slots ``k``/``v`` (B, W_r, Hk, hd) where ``valid``
+    (W_r,) allows, the ranks' partial maxima, sums and weighted values
+    combined over ``"model"`` in rank order by log-sum-exp; then this
+    rank's rows of ``wo`` (row parallel) and the ordered sum over
+    ``"model"``.  A rank with no valid slot adds zero (``exp`` of its
+    ``NEG_INF`` maximum less the largest)."""
+    tp, r = meshlib.model_coord(mesh)
+    b, _, h, hd = q.shape
+    hk = k.shape[2]
+    qg = q.reshape(b, 1, hk, h // hk, hd)
+    scores = (torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * attention_scale(hd, q.dtype)).float()
+    if valid is not None:
+        scores = scores.masked_fill(~valid, NEG_INF)
+    m = scores.amax(-1, keepdim=True)  # (B, Hk, G, 1, 1)
+    e = torch.exp(scores - m)
+    part = torch.cat([m, e.sum(-1, keepdim=True),
+                      torch.einsum("bhgqk,bkhd->bhgqd", e, v.float())], -1)
+    parts = coll._gather(part, mesh.get_group(coll.AXIS))  # rank order
+    top = torch.stack([t[..., :1] for t in parts]).amax(0)
+    acc = coll._add_in_order([t[..., 1:] * torch.exp(t[..., :1] - top) for t in parts])
+    y = (acc[..., 1:] / acc[..., :1]).to(q.dtype)  # (B, Hk, G, 1, hd)
+    y = y.permute(0, 3, 1, 2, 4).reshape(b, 1, h * hd)
+    n = h * hd // tp
+    out = y[..., r * n:(r + 1) * n] @ p["wo"].to(y.dtype)
+    return coll.tp_sum(out, mesh)
+
+
+def _attn_decode_split(p: dict, cfg: ModelConfig, x: Tensor, cache: SeqKVCache,
+                       length: int, mesh) -> Tensor:
+    """:func:`attn_decode` on a :class:`SeqKVCache`: q, k and v of the new
+    token from this rank's column blocks of ``wq``/``wk``/``wv`` gathered
+    whole (every head, whether or not the heads divide), the new row written
+    into the rank that owns its slot, then :func:`_split_decode`."""
+    tp, r = meshlib.model_coord(mesh)
+    b = x.shape[0]
+    wr = cache.k.shape[1]
+    w = wr * tp
+    pos = _decode_positions(cfg, b, length, x.device)
+    q = _split_heads(_whole_cols(x, p["wq"], mesh), -1, cfg.hd)
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+    q = _rope(cfg, q, pos)
+    k_new = _split_heads(_whole_cols(x, p["wk"], mesh), -1, cfg.hd)
+    v_new = _split_heads(_whole_cols(x, p["wv"], mesh), -1, cfg.hd)
+    if "k_norm" in p:
+        k_new = rms_norm(k_new, p["k_norm"])
+    k_new = _rope(cfg, k_new, pos)
+    slot = length % w
+    if slot // wr == r:  # this rank owns the new row's slot
+        cache.k[:, slot - r * wr: slot - r * wr + 1] = k_new.to(cache.k.dtype)
+        cache.v[:, slot - r * wr: slot - r * wr + 1] = v_new.to(cache.v.dtype)
+    valid = r * wr + torch.arange(wr, device=x.device) <= min(length, w - 1)
+    return _split_decode(p, cfg, q, cache.k, cache.v, valid, mesh)
 
 
 # --------------------------------------------------------------------------
@@ -443,6 +529,9 @@ def cross_attn(p: dict, cfg: ModelConfig, x: Tensor, kv: tuple[Tensor, Tensor], 
     is the output: column/row parallel over heads where they divide, else
     the query-row layout (a ``seq_sharded`` block) or the whole attention."""
     mesh = meshlib.active_mesh()
+    if mesh is not None and isinstance(kv, SeqKVCache):  # split-K over the encoder positions
+        q = _split_heads(_whole_cols(x, p["wq"], mesh), -1, cfg.hd)
+        return _split_decode(p, cfg, q, kv.k, kv.v, None, mesh)
     heads = True
     if mesh is not None:
         heads = _heads_sharded(cfg, meshlib.model_coord(mesh)[0])

@@ -22,7 +22,9 @@ embedding and head are vocab-parallel (:func:`.transformer._embed`,
 ``tp_copy`` on a sequence block (each rank adds its own rows).  The
 encoder states are gathered whole once for the cross-attention K/V, which
 are this rank's heads where they divide.  The decode caches hold this
-rank's kv heads where they divide, else all of them.
+rank's kv heads where they divide, else all of them.  Under FSDP each
+layer's FSDP-cut leaves are gathered at the top of its function (the one
+remat wraps), the head where :func:`_logits` uses it.
 
 :func:`encode` returns the encoder states whole on every rank (gathered
 with ``rep_gather``, as the decoder-only stack's final states are), so
@@ -116,6 +118,7 @@ def encode(params: dict, cfg: ModelConfig, frames: Tensor) -> Tensor:
 
 def _enc_layer(lp: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
                seq_sharded: bool = False) -> Tensor:
+    lp = coll.fsdp_tree(lp)
     x = _norm(cfg, h, lp["ln1"], seq_sharded)
     h = h + attn.attn_sequence(lp["attn"], cfg, x, positions, causal=False,
                                q_chunk=cfg.seq_chunk, seq_sharded=seq_sharded)
@@ -128,7 +131,7 @@ def _logits(params: dict, cfg: ModelConfig, h: Tensor, mesh) -> Tensor:
     rank's vocab block."""
     if mesh is not None:
         h = coll.tp_copy(h, mesh)
-    return mask_vocab_pad(h @ params["head"].to(h.dtype), cfg.vocab)
+    return mask_vocab_pad(h @ coll.fsdp_tree(params["head"]).to(h.dtype), cfg.vocab)
 
 
 def decode_train(params: dict, cfg: ModelConfig, tokens: Tensor, enc_out: Tensor) -> Tensor:
@@ -164,6 +167,7 @@ def decode_train(params: dict, cfg: ModelConfig, tokens: Tensor, enc_out: Tensor
 
 def _dec_train_layer(lp: dict, cfg: ModelConfig, h: Tensor, positions: Tensor,
                      enc_out: Tensor, seq_sharded: bool = False) -> Tensor:
+    lp = coll.fsdp_tree(lp)
     x = _norm(cfg, h, lp["ln1"], seq_sharded)
     h = h + attn.attn_sequence(lp["self_attn"], cfg, x, positions, causal=True,
                                q_chunk=cfg.seq_chunk, seq_sharded=seq_sharded)

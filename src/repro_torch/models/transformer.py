@@ -20,7 +20,9 @@ sequence (``sp_scatter``) when ``cfg.seq_shard`` and the sequence divides
 block between layers, the norms run on it with their weights entering by
 ``tp_copy``), else summed whole (``tp_sum``).  The final hidden states are
 gathered whole (``rep_gather``), and :func:`lm_logits` gives this rank's
-vocab block.  Every layer kind shards: attention and FFN (heads or query
+vocab block.  Under FSDP (``make_train_step(fsdp=True)``) a layer's
+FSDP-cut leaves are gathered at the top of :func:`_apply_layer`, the
+function remat wraps, and the head where :func:`lm_logits` uses it.  Every layer kind shards: attention and FFN (heads or query
 rows, column/row parallel), the MoE's experts, the SSM's and RG-LRU's
 channels (the scans on the whole sequence: they enter with ``sp_gather``
 and leave with ``sp_scatter``); the decode caches hold this rank's share.
@@ -126,9 +128,11 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 def _remat(cfg: ModelConfig, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, under activation checkpointing when
     ``cfg.remat`` and autograd records (the reference's ``jax.checkpoint``
-    around a layer)."""
+    around a layer).  The recompute runs under the ambient mesh of the
+    forward (``meshlib.carry``), on whichever thread the backward runs."""
     if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return torch.utils.checkpoint.checkpoint(meshlib.carry(fn), *args, use_reentrant=False,
+                                                 **kwargs)
     return fn(*args, **kwargs)
 
 
@@ -158,7 +162,9 @@ def _apply_layer(
     collect: bool,
     seq_sharded: bool = False,
 ):
-    """Returns (h, aux, cache_entry_or_None)."""
+    """Returns (h, aux, cache_entry_or_None).  FSDP blocks among ``p`` are
+    gathered here, inside the remat (see :func:`coll.fsdp_tree`)."""
+    p = coll.fsdp_tree(p)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == "ssm":
         x = _norm(cfg, h, p["ln"], seq_sharded)
@@ -275,7 +281,7 @@ def lm_logits(params: dict, cfg: ModelConfig, h: Tensor) -> Tensor:
     if cfg.tie_embeddings:
         logits = h @ params["embed"].to(dt).T
     else:
-        logits = h @ params["head"].to(dt)
+        logits = h @ coll.fsdp_tree(params["head"]).to(dt)
     logits = mask_vocab_pad(logits, cfg.vocab)
     return meshlib.constraint(logits, "dp", None, "tp")
 

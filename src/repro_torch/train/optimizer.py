@@ -9,7 +9,13 @@ parameter's device; its checkpoint keys are the reference's (``step``,
 On a mesh the tree holds this rank's blocks: :func:`global_norm` (and so
 the clipping of :func:`adamw_update`) takes the parameters' resolved
 ``specs`` and the ``mesh`` and sums a sharded leaf's squares over the
-axes it is sharded on, in rank order, counting a replicated leaf once.
+axes it is sharded on, in rank order (the data axes first), counting a
+replicated leaf once.  With ``fsdp_specs`` (the leaves' specs with their
+FSDP cut over the data axes) a leaf's squares are summed block by block of
+that cut and the blocks added as the data axes add them, whether the leaf
+is held whole over the data axes (a ``drop_fsdp`` block, its blocks summed
+here) or as its FSDP block (summed over the data axes): both layouts give
+the same norm, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch._tree import leaves, specs_of, tree_map, unflatten_like
+from repro_torch.launch import mesh as meshlib
 
 Tensor = torch.Tensor
 
@@ -63,40 +70,75 @@ def schedule(cfg: OptConfig, step: Tensor) -> Tensor:
     return cfg.lr * warm * cos
 
 
-def global_norm(tree: Any, *, specs: Any = None, mesh=None) -> Tensor:
+def _axes_of(spec) -> tuple[str, ...]:
+    return tuple(a for e in spec if e is not None for a in ((e,) if isinstance(e, str) else e))
+
+
+def _squares(g: Tensor, spec, fspec, mesh) -> Tensor:
+    """The sum of ``g``'s squares; for a leaf held whole over the data axes
+    whose ``fspec`` cuts it over them, the sum of each block's, added as
+    :func:`~repro_torch.dist.collectives.ordered_psum` adds the data ranks'
+    (over ``"pod"`` first, then ``"data"``)."""
+    dp = meshlib.dp_spec_entry(mesh)
+    sizes = [int(mesh.size(mesh.mesh_dim_names.index(a))) for a in meshlib.dp_axes(mesh)]
+    n = math.prod(sizes)
+    if fspec is None or dp not in tuple(fspec) or dp in tuple(spec) or n == 1 \
+            or g.shape[tuple(fspec).index(dp)] % n:
+        return torch.sum(torch.square(g.float()))
+    from repro_torch.dist.collectives import _add_in_order
+
+    dim = tuple(fspec).index(dp)
+    sq = [torch.sum(torch.square(c.contiguous().float())) for c in g.chunk(n, dim)]
+    # block i = row-major over the data axes; sum the most significant axis first
+    for k in range(len(sizes)):
+        inner = math.prod(sizes[k + 1:])
+        sq = [_add_in_order(sq[j::inner]) for j in range(inner)]
+    return sq[0]
+
+
+def global_norm(tree: Any, *, specs: Any = None, mesh=None, fsdp_specs: Any = None) -> Tensor:
     """The 2-norm of every leaf together.  With ``specs`` and ``mesh`` the
     leaves are this rank's blocks: the squares of the leaves sharded on the
-    same mesh axes go through one ordered sum over those axes (the same bits
-    on every rank), then all squares are added in leaf order."""
-    sq = [torch.sum(torch.square(g.float())) for g in leaves(tree)]
-    if mesh is not None and specs is not None:
-        from repro_torch.dist.collectives import ordered_psum
+    same mesh axes go through one ordered sum over those axes, the data
+    axes first (the same bits on every rank), then all squares are added in
+    leaf order.  ``fsdp_specs`` makes a leaf's squares a sum over its FSDP
+    blocks in either layout (see the module docstring)."""
+    if mesh is None or specs is None:
+        return torch.sqrt(torch.sum(torch.stack(
+            [torch.sum(torch.square(g.float())) for g in leaves(tree)])))
+    from repro_torch.dist.collectives import ordered_psum
 
-        groups: dict[tuple, list[int]] = {}
-        for i, s in enumerate(specs_of(tree, specs)):
-            axes = tuple(a for e in s if e is not None
-                         for a in ((e,) if isinstance(e, str) else e))
-            if axes:
-                groups.setdefault(axes, []).append(i)
-        for axes, idx in groups.items():
-            total = ordered_psum(torch.stack([sq[i] for i in idx]), axes, mesh)
-            for j, i in enumerate(idx):
-                sq[i] = total[j]
+    spec_list = specs_of(tree, specs)
+    fspec_list = specs_of(tree, fsdp_specs) if fsdp_specs is not None else [None] * len(spec_list)
+    sq = [_squares(g, s, f, mesh) for g, s, f in zip(leaves(tree), spec_list, fspec_list)]
+    dp_axes = meshlib.dp_axes(mesh)
+    groups: dict[tuple, list[int]] = {}
+    for i, s in enumerate(spec_list):
+        axes = _axes_of(s)
+        axes = tuple(a for a in dp_axes if a in axes) + tuple(a for a in axes if a not in dp_axes)
+        if axes:
+            groups.setdefault(axes, []).append(i)
+    for axes, idx in groups.items():
+        total = ordered_psum(torch.stack([sq[i] for i in idx]), axes, mesh)
+        for j, i in enumerate(idx):
+            sq[i] = total[j]
     return torch.sqrt(torch.sum(torch.stack(sq)))
 
 
 def clip_by_global_norm(grads: Any, max_norm: float, *, specs: Any = None,
-                        mesh=None) -> tuple[Any, Tensor]:
-    norm = global_norm(grads, specs=specs, mesh=mesh)
+                        mesh=None, fsdp_specs: Any = None) -> tuple[Any, Tensor]:
+    norm = global_norm(grads, specs=specs, mesh=mesh, fsdp_specs=fsdp_specs)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: g.float() * scale, grads), norm
 
 
 @torch.no_grad()
 def adamw_update(
-    params: Any, grads: Any, state: OptState, cfg: OptConfig, *, specs: Any = None, mesh=None
+    params: Any, grads: Any, state: OptState, cfg: OptConfig, *, specs: Any = None, mesh=None,
+    fsdp_specs: Any = None,
 ) -> tuple[Any, OptState, dict]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, specs=specs, mesh=mesh)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, specs=specs, mesh=mesh,
+                                       fsdp_specs=fsdp_specs)
     step = state.step + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2

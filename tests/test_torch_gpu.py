@@ -1332,3 +1332,108 @@ def test_sharded_families_in_an_nccl_world_of_one_are_the_local_step(cuda, tmp_p
         tdist.destroy_process_group()
     assert float(got["loss"]) == float(want["loss"])
     assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(got_p), _tree.leaves(want_p)))
+
+
+def _olmo_two_layers():
+    import dataclasses
+
+    import repro_torch.configs as tconfigs
+
+    return dataclasses.replace(tconfigs.get_config("olmo-1b"), n_layers=2)
+
+
+def test_fsdp_step_in_an_nccl_world_of_one_is_the_local_step(cuda, tmp_path):
+    """``make_train_step(fsdp=True)`` on the card (chip_smoke phase 19a at
+    olmo-1b's width cut to 2 layers, bf16 compute): on a (1, 1) mesh of an
+    NCCL world of one, bitwise the local step and the ``drop_fsdp`` step for
+    two steps, its layers gathered through ``fsdp_gather``."""
+    import torch.distributed as tdist
+
+    from repro_torch import _tree
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.dist import collectives as coll
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _olmo_two_layers()
+    model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+    data = SyntheticLM(DataConfig(cfg.vocab, 256, 4))
+    batches = [{k: torch.from_numpy(v).to(cuda) for k, v in data.batch(i).items()}
+               for i in range(2)]
+    opt = OptConfig(lr=3e-4, warmup_steps=0)
+
+    def run(step, p, ctx):
+        s, losses = init_opt_state(p), []
+        with ctx:
+            for b in batches:
+                p, s, met = step(p, s, b)
+                losses.append(float(met["loss"]))
+        return losses, p
+
+    import contextlib
+
+    want = run(make_train_step(model, opt), model.params, contextlib.nullcontext())
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = meshlib.make_host_mesh(1, 1)
+        for fsdp in (False, True):
+            coll.FSDP.calls = 0
+            p = meshlib.shard_tree(model.params, model.partition_specs(mesh, drop_fsdp=not fsdp),
+                                   mesh)
+            got = run(make_train_step(model, opt, fsdp=fsdp), p, meshlib.use_mesh(mesh))
+            assert got[0] == want[0]
+            assert all(torch.equal(a, b) for a, b in zip(_tree.leaves(got[1]),
+                                                          _tree.leaves(want[1])))
+            assert (coll.FSDP.calls > 0) == fsdp
+    finally:
+        tdist.destroy_process_group()
+
+
+def test_dry_run_trace_is_the_cards_program(cuda, tmp_path):
+    """chip_smoke phase 19b at olmo-1b's width cut to 2 layers: the FSDP
+    step traced on fake tensors in a fake world of one counts the flops,
+    HBM bytes and collective operand bytes the card's run of it counts."""
+    import torch.distributed as tdist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _olmo_two_layers()
+    shape = ShapeConfig("t", 256, 4, "train")
+    opt = OptConfig(lr=3e-4, warmup_steps=0)
+    dryrun.start_fake_world(1)
+    try:
+        mesh = meshlib.make_host_mesh(1, 1, device="cpu")
+        with FakeTensorMode(), meshlib.use_mesh(mesh):
+            meta = build_model(cfg, device="meta")
+            args = (specs.blocks(specs.param_structs(meta, mesh)),
+                    specs.blocks(specs.opt_structs(meta, mesh)),
+                    specs.blocks(specs.train_batch_structs(cfg, shape, mesh)))
+            _, fake = dryrun.measure(make_train_step(meta, opt, fsdp=True), args)
+    finally:
+        tdist.destroy_process_group()
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = meshlib.make_host_mesh(1, 1)
+        model = build_model(cfg, device=cuda, generator=torch.Generator(device=cuda).manual_seed(0))
+        batch = {k: torch.from_numpy(v).to(cuda)
+                 for k, v in SyntheticLM(DataConfig(cfg.vocab, 256, 4)).batch(0).items()}
+        p = meshlib.shard_tree(model.params, model.partition_specs(mesh), mesh)
+        with meshlib.use_mesh(mesh):
+            _, real = dryrun.measure(make_train_step(model, opt, fsdp=True),
+                                     (p, init_opt_state(p), batch))
+    finally:
+        tdist.destroy_process_group()
+    for k in ("flops", "bytes", "coll_bytes", "coll_issued_bytes", "coll_counts",
+              "argument_size_in_bytes", "temp_size_in_bytes"):
+        assert fake[k] == real[k], k

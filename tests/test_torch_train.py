@@ -270,7 +270,9 @@ def test_olmo_1b_train_flops_of_the_smoke_step():
 # --------------------------------------------------------------------------
 # public signatures against the reference (ast)
 # --------------------------------------------------------------------------
-ALLOWED_EXTRA = {"device", "generator", "argv"}
+# the invariants' keyword-only additions; ``fsdp`` is make_train_step's
+# FSDP/ZeRO-3 placement (the reference places parameters by spec instead)
+ALLOWED_EXTRA = {"device", "generator", "argv", "fsdp"}
 
 
 def _public(path: Path) -> dict:
