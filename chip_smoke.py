@@ -46,6 +46,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only sharded_lm           # phases 0, 16d and 17 only
     python3 chip_smoke.py --only sharded_families     # phases 0 and 18 only
     python3 chip_smoke.py --only dryrun               # phases 0 and 19 only
+    python3 chip_smoke.py --only examples             # phases 0 and 20 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -361,6 +362,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    each ``ok`` with exit code 0;
    printed: each record's flops, collective bytes, a rank's argument and
    temp GB and its ``RooflineTerms``.
+20. the user-facing surface, each part a process of its own with
+   ``--device cuda`` (the kernels built first, so the parts reuse them);
+   the fMRI example runs alone, then the other parts together (none of
+   them is timed): ``examples/repro_torch/quickstart.py`` (gates: the fused CUDA kernel
+   launched, its error within the example's bound); ``fmri_cpals.py`` at
+   the paper's size (``FMRI``, rank 10; gates: every fit finite, auto's
+   fit within ``FIT_AGREE`` of the baseline's on the 4-way and the 3-way
+   tensor, both runs starting from the same seeded init; printed: ms an
+   iteration of each and the speedups); ``distributed_cpals.py`` under
+   ``torch.distributed.run --standalone --nproc-per-node 1`` (an NCCL world
+   of one, ``--data 1 --model 1``); ``serve_lm.py`` and ``train_lm.py`` at
+   their defaults; ``tools/check_docs_torch.py --device cuda`` on the
+   architecture and serving documents (the distributed one needs 8 ranks
+   and runs on the CPU in the tests).  Any part's failure fails the phase.
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -380,8 +395,12 @@ import gc
 import json
 import math
 import os
+import re
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -4476,6 +4495,34 @@ def _part_env() -> dict:
     return env
 
 
+def _spawn(cmd: list) -> subprocess.Popen:
+    """Start ``cmd`` from the repo's root in a process group of its own (a
+    launcher's workers included), its output captured."""
+    return subprocess.Popen(cmd, cwd=ROOT, env=_part_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, process_group=0)
+
+
+def _stop(proc: subprocess.Popen) -> None:
+    """Kill ``proc``'s whole process group and reap ``proc``."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def _reap(proc: subprocess.Popen, timeout: float) -> tuple[int, str, str]:
+    """Wait for ``proc`` at most ``timeout`` seconds; a failure or the time
+    limit kills its group.  Returns ``(exit code, stdout, stderr)``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _stop(proc)
+        out, err = proc.communicate()
+        return proc.returncode, out, f"ran over {timeout} s\n{err}"
+    if proc.returncode != 0:
+        _stop(proc)
+    return proc.returncode, out, err
+
+
 def _nccl_world_of_one(torch, dev, tag: str):
     """An NCCL world of one and its (1, 1) mesh; NCCL failing to start fails
     the part (nothing falls back).  Returns ``(mesh, store dir)``."""
@@ -4690,14 +4737,13 @@ def _dryrun_part(torch, args, dev, smi) -> None:
 def _run_part(part: str, args) -> None:
     """Run ``--part`` in a process of its own; its log lines are this
     phase's; a failure fails the phase."""
-    cmd = [sys.executable, str(ROOT / "chip_smoke.py"), "--part", part, "--seed", str(args.seed)]
-    proc = subprocess.run(cmd, env=_part_env(), capture_output=True, text=True,
-                          timeout=DRYRUN_PART_TIMEOUT)
-    for line in proc.stdout.splitlines():
+    rc, out, err = _reap(_spawn([sys.executable, str(ROOT / "chip_smoke.py"), "--part", part,
+                                 "--seed", str(args.seed)]), DRYRUN_PART_TIMEOUT)
+    for line in out.splitlines():
         if line.startswith(f"[{part}]"):
             _log(line)
-    if proc.returncode != 0:
-        raise SystemExit(f"[{part}] failed (exit {proc.returncode}):\n{proc.stderr[-3000:]}")
+    if rc != 0:
+        raise SystemExit(f"[{part}] failed (exit {rc}):\n{err[-3000:]}")
 
 
 def _start_cells() -> tuple[Path, list]:
@@ -4711,8 +4757,7 @@ def _start_cells() -> tuple[Path, list]:
              "--mesh", "pod", "--out", str(out)] for arch, shape in DRYRUN_CELLS]
     cmds.append([sys.executable, "-m", "repro_torch.launch.dryrun_cp", "--method", "auto",
                  "--mesh", "pod", "--out", str(out)])
-    return out, [(c, subprocess.Popen(c, env=_part_env(), cwd=ROOT, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True)) for c in cmds]
+    return out, [(c, _spawn(c)) for c in cmds]
 
 
 def _finish_cells(out: Path, procs: list, smi) -> None:
@@ -4723,13 +4768,9 @@ def _finish_cells(out: Path, procs: list, smi) -> None:
 
     bad = []
     for c, proc in procs:
-        try:
-            o, e = proc.communicate(timeout=DRYRUN_PART_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            o, e = proc.communicate()
-        if proc.returncode != 0:
-            bad.append(f"{' '.join(c[2:])}: exit {proc.returncode}\n{e[-2000:]}")
+        rc, _, e = _reap(proc, DRYRUN_PART_TIMEOUT)
+        if rc != 0:
+            bad.append(f"{' '.join(c[2:])}: exit {rc}\n{e[-2000:]}")
     for arch, shape in DRYRUN_CELLS:
         path = out / f"{arch}__{shape}__pod.json"
         if not path.exists():
@@ -4780,12 +4821,128 @@ def _dryrun_phase(torch, args, dev, smi) -> None:
             _log(f"[19] {part}: {time.perf_counter() - t0:.1f} s")
     except BaseException:  # a part failed: stop the cells' processes too
         for _, proc in cells:
-            proc.kill()
+            _stop(proc)
         raise
     t0 = time.perf_counter()
     _finish_cells(out, cells, smi)
     _log(f"[19] 19c (after 19a-b, beside which it ran): {time.perf_counter() - t0:.1f} s")
     _log(f"[19] dry-run phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
+# ---- phase 20: the examples and the executable docs on the card
+EXAMPLE_TIMEOUT = 300  # seconds a part may take
+EXAMPLES = "examples/repro_torch"
+QUICKSTART_ERR_BOUND = 1e-2  # examples/repro_torch/quickstart.py's own
+_FMRI_ROW = re.compile(r"^\s+(4D|3D) (paper methods \(auto\)|reorder-baseline)\s+fit=(\S+)"
+                       r"\s+per-iter=\s*(\S+) ms\s+\((\d+) sweeps\)")
+
+
+def _finish_example(tag: str, proc: subprocess.Popen, t0: float) -> str:
+    """Wait for a part started at ``t0``; a failure or the time limit fails
+    the phase.  Returns its standard output."""
+    rc, out, err = _reap(proc, EXAMPLE_TIMEOUT)
+    if rc != 0:
+        raise SystemExit(f"[20] {tag} failed (exit {rc}):\n{out[-2000:]}\n{err[-3000:]}")
+    _log(f"[20] {tag}: exit 0 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _expect(tag: str, out: str, text: str) -> None:
+    if text not in out:
+        raise SystemExit(f"[20] {tag}: no {text!r} in its output:\n{out[-2000:]}")
+
+
+def _quickstart_part(out: str, smi: str) -> None:
+    m = re.search(r"max\|err\| vs einsum oracle: (\S+) .*launches (\d+)", out)
+    if m is None:
+        raise SystemExit(f"[20] quickstart: no kernel line in its output:\n{out[-2000:]}")
+    err, launches = float(m.group(1)), int(m.group(2))
+    for line in out.splitlines():
+        if line.startswith(("  schedule", "  mode", "final fit")):
+            _log(f"[20] quickstart: {line.strip()}")
+    _log(f"[20] quickstart: fused MTTKRP max abs err {err:.3e} (bound {QUICKSTART_ERR_BOUND:g}), "
+         f"fused_mttkrp_bilinear_f32 launches {launches}; card {smi}")
+    if not (launches >= 1 and err < QUICKSTART_ERR_BOUND):
+        raise SystemExit("[20] quickstart: the fused CUDA kernel did not launch or disagrees")
+
+
+def _fmri_part(args, smi: str) -> None:
+    t, s, r, _ = FMRI
+    t0 = time.perf_counter()
+    out = _finish_example("fmri_cpals", _spawn([
+        sys.executable, f"{EXAMPLES}/fmri_cpals.py", "--device", "cuda", "--time", str(t),
+        "--subjects", str(s), "--regions", str(r), "--rank", str(args.rank),
+        "--seed", str(args.seed)]), t0)
+    rows = {}
+    for line in out.splitlines():
+        m = _FMRI_ROW.match(line)
+        if m:
+            kind = "auto" if m.group(2).startswith("paper") else "baseline"
+            rows[(m.group(1), kind)] = (float(m.group(3)), float(m.group(4)), int(m.group(5)))
+    if len(rows) != 4:
+        raise SystemExit(f"[20] fmri_cpals: {len(rows)} of 4 result rows:\n{out[-2000:]}")
+    for line in out.splitlines():
+        if line.startswith(("4-way", "3-way")):
+            _log(f"[20] fmri_cpals: {line.strip()}")
+    bad = []
+    for order in ("4D", "3D"):
+        (fa, ta, na), (fb, tb, nb) = rows[(order, "auto")], rows[(order, "baseline")]
+        _log(f"[20] fmri_cpals {order} rank {args.rank}: auto {ta:.3f} ms an iteration (fit "
+             f"{fa:.4f}, {na} sweeps), baseline {tb:.3f} ms (fit {fb:.4f}, {nb} sweeps), "
+             f"speedup {tb / ta:.2f}x; card {smi}")
+        if not (math.isfinite(fa) and math.isfinite(fb)) or abs(fa - fb) > FIT_AGREE:
+            bad.append(f"{order}: fits {fa} / {fb} (agree within {FIT_AGREE:g})")
+    if bad:
+        raise SystemExit("[20] fmri_cpals: " + "; ".join(bad))
+
+
+def _examples_phase(torch, args, dev, smi) -> None:
+    """Phase 20: the examples and the port's executable docs on the card;
+    see the module docstring."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.build_all([fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
+                      mt.BATCHED_KERNEL, kk.KERNEL])  # built once; the parts load them
+    _fmri_part(args, smi)  # alone on the card: it times
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    cmds = {
+        "quickstart": [sys.executable, f"{EXAMPLES}/quickstart.py", "--device", "cuda"],
+        "distributed_cpals": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc-per-node", "1", f"{EXAMPLES}/distributed_cpals.py",
+                              "--data", "1", "--model", "1"],
+        "serve_lm": [sys.executable, f"{EXAMPLES}/serve_lm.py"],
+        "train_lm": [sys.executable, f"{EXAMPLES}/train_lm.py", "--ckpt-dir", ckpt],
+        "check_docs_torch": [sys.executable, "tools/check_docs_torch.py", "--device", "cuda",
+                             "--doc", "architecture", "--doc", "serving"],
+    }
+    t0 = time.perf_counter()
+    started = {tag: _spawn(cmd) for tag, cmd in cmds.items()}  # together: none times
+    try:
+        outs = {tag: _finish_example(tag, proc, t0) for tag, proc in started.items()}
+    finally:
+        for proc in started.values():  # a part failed: stop the others too
+            if proc.poll() is None:
+                _stop(proc)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    _quickstart_part(outs["quickstart"], smi)
+    out = outs["distributed_cpals"]
+    _expect("distributed_cpals", out, "OK: distributed result matches")
+    for line in out.splitlines():
+        if line.startswith(("distributed", "single-device", "  planner")):
+            _log(f"[20] distributed_cpals (NCCL world of one): {line.strip()}; card {smi}")
+    _expect("serve_lm", outs["serve_lm"], "served 6 requests, 96 tokens")
+    _log(f"[20] serve_lm: {outs['serve_lm'].splitlines()[0]}; card {smi}")
+    _expect("train_lm", outs["train_lm"], "over 40 steps")
+    _log(f"[20] train_lm: {outs['train_lm'].strip().splitlines()[-1]}; card {smi}")
+    _expect("check_docs_torch", outs["check_docs_torch"], "docs check OK (2 files)")
+    _log(f"[20] examples phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
 
 
 def main(argv=None) -> int:
@@ -4796,7 +4953,7 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=["19a", "19b"], help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
                                        "dist", "lm", "lm_families", "train", "sharded_lm",
-                                       "sharded_families", "dryrun"],
+                                       "sharded_families", "dryrun", "examples"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -4805,8 +4962,9 @@ def main(argv=None) -> int:
                          "in an NCCL world of one), phase 14 (the LM serving path), phase 15 "
                          "(the MoE, SSM, hybrid and enc-dec families), phase 16 (the LM "
                          "training path), phase 17 (the sharded LM in an NCCL world of one), "
-                         "phase 18 (the other families on the mesh there) or phase 19 (FSDP on "
-                         "the card and the dry-run against it); prints no result line")
+                         "phase 18 (the other families on the mesh there), phase 19 (FSDP on "
+                         "the card and the dry-run against it) or phase 20 (the examples and "
+                         "the executable docs); prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -4843,7 +5001,8 @@ def main(argv=None) -> int:
                 "batched_matrix_free": _only_batched_matrix_free, "pp": _only_pp,
                 "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
                 "train": _train_phase, "sharded_lm": _sharded_lm_phase,
-                "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase}[args.only]
+                "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase,
+                "examples": _examples_phase}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -5089,6 +5248,9 @@ def main(argv=None) -> int:
 
     # ---- phase 19: FSDP on the card, the dry-run against it, production cells
     _dryrun_phase(torch, args, dev, smi)
+
+    # ---- phase 20: the examples and the executable docs, each a process of its own
+    _examples_phase(torch, args, dev, smi)
 
     def summary(name_, source, replaces, key, launch):
         rs = rows[key]

@@ -149,13 +149,17 @@ def random_factors(
 
 
 def cp_full(weights: Tensor | None, factors: Sequence[Tensor]) -> Tensor:
-    """Densify a CP model  [[lambda; U_0, ..., U_{N-1}]]  (for tests/fit checks)."""
+    """Densify a CP model  [[lambda; U_0, ..., U_{N-1}]]  (for tests/fit checks).
+
+    Row-major, as the reference's array is: ``einsum`` may return a strided
+    tensor, which the kernels' free views refuse.
+    """
     rank = factors[0].shape[1]
     if weights is None:
         weights = torch.ones((rank,), dtype=factors[0].dtype, device=factors[0].device)
     letters = mode_letters(len(factors))
     spec = ",".join(["c"] + [let + "c" for let in letters]) + "->" + letters
-    return torch.einsum(spec, weights, *factors)
+    return torch.einsum(spec, weights, *factors).contiguous()
 
 
 def linear_index(multi_index: Sequence[int], shape: Sequence[int]) -> int:

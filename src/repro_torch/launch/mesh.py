@@ -119,6 +119,36 @@ def make_node_mesh(
 
 
 @contextlib.contextmanager
+def host_world(device: str | torch.device = "cuda"):
+    """A default process group for the block: the caller's when one is
+    started, else one from a launcher's environment (``RANK`` set, as
+    ``torchrun`` sets it), else a world of one over a file store in a
+    temporary directory (no TCP port).  NCCL for a CUDA ``device``, gloo
+    otherwise; a group started here is destroyed on exit.  The examples
+    build their ``make_host_mesh`` on it, where the reference's single
+    process sees its devices without one."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        if "RANK" in os.environ:
+            dist.init_process_group(backend)
+        else:
+            dist.init_process_group(backend, init_method=f"file://{tmp}/store", rank=0,
+                                    world_size=1)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+@contextlib.contextmanager
 def use_mesh(mesh: DeviceMesh):
     """Make ``mesh`` the ambient mesh of the model code inside the block."""
     token = _MESH.set(mesh)

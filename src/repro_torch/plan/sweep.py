@@ -461,7 +461,9 @@ def cp_als(
 ) -> CPState:
     """THE CP-ALS driver: init, chunked sweep loop, convergence stop.
 
-    Runs where ``x`` lies.  Without ``init_factors`` the factors are drawn
+    Runs where ``x`` lies; a strided ``x`` (a permuted view) is copied
+    once, here, into the row-major layout that the sweeps' free views and
+    kernels read.  Without ``init_factors`` the factors are drawn
     from a ``torch.Generator`` on ``x``'s device seeded with ``seed`` (not
     stream-identical to the JAX package's init).  Caller-provided factors
     are never modified: every update makes new tensors.
@@ -523,6 +525,7 @@ def cp_als(
         raise ValueError(
             f"problem expects x.shape {lead + problem.shape}, got {tuple(x.shape)}"
         )
+    x = x.contiguous()
     if init_factors is None:
         gen = torch.Generator(device=x.device).manual_seed(seed)
         factors = random_factors(

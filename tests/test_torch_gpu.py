@@ -1437,3 +1437,22 @@ def test_dry_run_trace_is_the_cards_program(cuda, tmp_path):
     for k in ("flops", "bytes", "coll_bytes", "coll_issued_bytes", "coll_counts",
               "argument_size_in_bytes", "temp_size_in_bytes"):
         assert fake[k] == real[k], k
+
+
+def test_kernel_entries_launch_on_a_strided_tensor(cuda):
+    """The quickstart's tensor is ``cp_full``'s output plus noise, which
+    ``einsum`` would leave strided: ``cp_full`` makes it row-major, so the
+    fused and matrix-free entries launch their kernels on it, as the
+    quickstart example does on the card."""
+    from repro_torch.core import cp_full, mttkrp_einsum, random_factors
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    fs = random_factors(g, (12, 10, 8, 6), 4, device=cuda)
+    x = cp_full(None, fs) + 0.1 * torch.randn((12, 10, 8, 6), generator=g, device=cuda)
+    assert x.is_contiguous()
+    for mod, fn in ((fm, ops.fused_mttkrp), (mf, ops.matrix_free_mttkrp)):
+        for n in range(4):
+            before = mod.KERNEL.launches
+            out = fn(x, fs, n)
+            assert mod.KERNEL.launches == before + 1
+            assert _rel(out, mttkrp_einsum(x, fs, n)) < REL
