@@ -30,7 +30,8 @@ the other families' tensor and expert parallelism there (the MoE, SSM,
 hybrid and enc-dec models served and trained on the mesh, against their
 local runs).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
-and batched, and the KRP pair) against their plain PyTorch versions; the LM
+and batched, and the KRP pair) against their plain PyTorch versions, at the
+main path's rank and at ranks 80 and 128 (column blocks); the LM
 path reaches none of them (the reference computes its attention, FFN and
 logits with plain products, no Pallas kernel).
 
@@ -47,6 +48,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only sharded_families     # phases 0 and 18 only
     python3 chip_smoke.py --only dryrun               # phases 0 and 19 only
     python3 chip_smoke.py --only examples             # phases 0 and 20 only
+    python3 chip_smoke.py --only high_rank            # phases 0, 1 and 21 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -376,6 +378,29 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    their defaults; ``tools/check_docs_torch.py --device cuda`` on the
    architecture and serving documents (the distributed one needs 8 ranks
    and runs on the CPU in the tests).  Any part's failure fails the phase.
+21. the MTTKRP kernels above rank 64, run right after phase 13 while the
+   fMRI tensor and its fleet are on the card (a rank above 64 is cut into
+   column blocks of one launch: ``matrix_free.column_blocks``).  At ranks
+   80 and 128: rows 1-2 on every mode of the fMRI tensor, rows 3-4 on
+   every mode of the 8-subject batch, row 5 at the 2-step path's second
+   steps (modes 1 and 2), row 6 at the batch's mode-1 second step and row
+   7 at the KRP's last fold; gates: each within ``REL_ERR_BOUND`` of its
+   plain version, run twice bitwise, one counted launch a call and the
+   CUDA kernels a call its design states (a CUDA graph of one call);
+   printed: kernel ms (CUDA events) beside the bound ``max(bytes /
+   3.35e12, flops / 67e12)`` (the tensor counted once, whatever the design
+   reads), the plain version and one ``torch.einsum``; rows 1-2 also at
+   rank 64, one column block, timed beside them.  Then ``cp_als`` under
+   auto, fused and matrix_free for ``HIGH_RANK_SWEEPS`` sweeps from one
+   init (gates: launch counts, fits within ``FIT_AGREE``; printed: ms a
+   sweep); at rank 128 the fleet's first 8 subjects served by
+   ``CPService`` under fused and matrix_free (gates: 3 batched launches a
+   sweep, fits within ``FIT_AGREE``), ``mttkrp_2step_kernel`` on every
+   mode against the einsum oracle, ``krp_materialize`` bitwise its oracle
+   and ``ops.multi_ttv_batched`` (gate: their launch counts);
+   ``tune(x4, 128)`` (gate: kernel tile rows and kernel node rows;
+   printed: the autotune plan); and one sharded ``matrix_free`` run at
+   rank 80 in an NCCL world of one (gate: bitwise the local run).
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -755,6 +780,15 @@ def _trace_served_sweep(torch, args, xb, init, smi, phase, strategy="matrix_free
                args.sweeps, smi)
 
 
+def _grid_x(g) -> str:
+    """Grid x of a launch: its row blocks, times its column blocks above
+    rank 64 (where the port cuts the rank into blocks)."""
+    blocks = getattr(g, "col_blocks", 1)
+    if blocks == 1:
+        return str(g.row_blocks)
+    return f"{g.row_blocks} x {blocks} column blocks of {g.block_width} at {g.padded_rank}"
+
+
 def _row2_geometry(x, n, c, bps=None) -> str:
     """The unbatched matrix-free launch at mode ``n``, where the port
     computes one."""
@@ -764,7 +798,7 @@ def _row2_geometry(x, n, c, bps=None) -> str:
         return ""
     g = mf.unbatched_launch_shape(tuple(x.shape), n, c, bps or mf.BLOCKS_PER_SM)
     vec = g.vec and x.data_ptr() % 16 == 0  # as the wrapper decides
-    return (f" [grid ({g.row_blocks}, {g.groups} x {g.splits}), clusters of {g.splits}, "
+    return (f" [grid ({_grid_x(g)}, {g.groups} x {g.splits}), clusters of {g.splits}, "
             f"{g.groups} group(s), q chunk {g.q_chunk} x {g.chunks}, "
             f"{'16' if vec else '4'}-byte copies, {g.smem} B shared]")
 
@@ -1072,8 +1106,8 @@ def _fused_geometry(t, pos, c, slabs=None) -> str:
         return ""
     g = fm.launch_geometry(tuple(t.shape[-3:]), pos, c, slabs)
     vec = g.vec and t.data_ptr() % 16 == 0  # as the wrapper decides
-    grid = (f"({g.row_blocks}, {g.groups} x {g.splits})" if slabs is None
-            else f"({g.row_blocks}, {g.splits}, {g.slabs})")
+    grid = (f"({_grid_x(g)}, {g.groups} x {g.splits})" if slabs is None
+            else f"({_grid_x(g)}, {g.splits}, {g.slabs})")
     return (f" [grid {grid}, clusters of {g.splits}, {g.groups} group(s), q chunk "
             f"{g.q_chunk} x {g.chunks}, {'16' if vec else '4'}-byte copies, {g.smem} B shared]")
 
@@ -2880,6 +2914,336 @@ def _only_dist(torch, args, dev, smi) -> None:
         engine[strategy] = (st, fits)
     subjects = [x4[:, s].contiguous() for s in range(FMRI[1])]
     _dist_phase(torch, args, dev, smi, x4, init, engine, subjects)
+
+
+# ---- phase 21: the MTTKRP kernels above rank 64 (column blocks)
+# Ranks of the phase: 80, two column blocks of 40 padded to 48; 128, two
+# of 64 (matrix_free.column_blocks).
+HIGH_RANKS = (80, 128)
+BLOCK_RANK_TIMED = 64  # one column block of the widest width, timed beside them
+HIGH_RANK_SWEEPS = 3
+HIGH_RANK_SHARDED = 80
+
+
+def _slab_spec(spec: str) -> str:
+    """An einsum spec with a leading slab axis ``s`` on every operand."""
+    return "s" + spec.replace(",", ",s").replace("->", "->s")
+
+
+def _high_rank_rows(torch, x4, fs, xb, fb, smi, rank, err):
+    """Rows 1-7 at ``rank`` on the fMRI tensor (rows 1, 2, 5, 7) and the
+    fleet batch (rows 3, 4, 6): every call within ``REL_ERR_BOUND`` of its
+    plain version and bitwise repeatable, one counted launch a call, the
+    CUDA kernels a call its design states (a CUDA graph of one call), and
+    its CUDA-event time beside the bound, the plain version and one
+    ``torch.einsum``.  Returns each row's sums over its calls."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+    from repro_torch.kernels import ops
+
+    def row(key, label, kernel, run, plain, library, byts, flops, want_kernels, reps):
+        out = run()
+        before = kernel.launches
+        again = run()
+        launched = kernel.launches - before
+        rel, mabs = _rel(torch, out, plain())
+        err[key] = max(err.get(key, 0.0), mabs)
+        ops_, kern = _graph_ops(torch, run)
+        r = {"ms": _time_ms(torch, run, reps), "plain_ms": _time_ms(torch, plain, 2),
+             "library_ms": _time_ms(torch, library, 2), "bytes_ms": byts / HBM_BW * 1e3,
+             "flops_ms": flops / PEAK_FLOPS * 1e3}
+        bound = max(r["bytes_ms"], r["flops_ms"])
+        ok = (math.isfinite(rel) and rel <= REL_ERR_BOUND and torch.equal(out, again)
+              and launched == 1 and ops_ == kern == want_kernels)
+        _log(f"[21] {label} rank {rank}: rel err {rel:.3e} max abs {mabs:.3e} (bound "
+             f"{REL_ERR_BOUND:g}), run twice bitwise {torch.equal(out, again)}, launches "
+             f"{launched} a call, {kern} CUDA kernels a call (want "
+             f"{want_kernels}); kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, einsum "
+             f"{r['library_ms']:.4f} ms, bound {bound:.4f} ms ("
+             f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}); card {smi} "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[21] {label} rank {rank}: wrong, not repeatable or wrong launches")
+        return r
+
+    rows = {}
+    for n in range(4):
+        t, a, b, pos = ops.bilinear_operands(x4, fs, n)
+        g = fm.launch_geometry(tuple(t.shape), pos, rank)
+        rows.setdefault("fused", []).append(row(
+            "fused", f"fused_mttkrp_bilinear mode {n} pos {pos}{_fused_geometry(t, pos, rank)}",
+            fm.KERNEL, lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+            lambda: fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos),
+            lambda: torch.einsum(_BILINEAR[pos], t, a, b),
+            4 * (t.numel() + a.numel() + b.numel() + t.shape[pos] * rank),
+            2 * t.numel() * rank, 1 if g.groups == 1 else 2, 5))
+        del t, a, b
+        us = [fs[k] for k in range(4) if k != n]
+        g = mf.unbatched_launch_shape(FMRI, n, rank)
+        rows.setdefault("mf", []).append(row(
+            "mf", f"matrix_free_kernel mode {n}{_row2_geometry(x4, n, rank)}", mf.KERNEL,
+            lambda: mf.matrix_free_kernel(x4, us, n),
+            lambda: mf.matrix_free_kernel_plain(x4, us, n),
+            lambda: torch.einsum(_einsum_spec(4, n), x4, *us),
+            4 * (x4.numel() + sum(u.numel() for u in us) + FMRI[n] * rank),
+            2 * x4.numel() * rank, 1 if g.groups == 1 else 2, 5))
+        torch.cuda.empty_cache()
+    for n in range(3):
+        t, a, b, pos = ops.bilinear_operands_batched(xb, fb, n)
+        rows.setdefault("fused_b", []).append(row(
+            "fused_b", f"fused_mttkrp_bilinear_batched S={len(xb)} mode {n} pos {pos}",
+            fm.BATCHED_KERNEL, lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos),
+            lambda: fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos),
+            lambda: torch.einsum(_slab_spec(_BILINEAR[pos]), t, a, b),
+            4 * (t.numel() + a.numel() + b.numel() + len(xb) * t.shape[1 + pos] * rank),
+            2 * t.numel() * rank, 1, 10))
+        us = [fb[k] for k in range(3) if k != n]
+        spec = _slab_spec(_einsum_spec(3, n))
+        rows.setdefault("mf_b", []).append(row(
+            "mf_b", f"matrix_free_batched_kernel S={len(xb)} mode {n}", mf.BATCHED_KERNEL,
+            lambda: mf.matrix_free_batched_kernel(xb, us, n),
+            lambda: mf.matrix_free_batched_kernel_plain(xb, us, n),
+            lambda: torch.einsum(spec, xb, *us),
+            4 * (xb.numel() + sum(u.numel() for u in us) + len(xb) * xb.shape[1 + n] * rank),
+            2 * xb.numel() * rank, 1, 10))
+    for n in (1, 2):  # the 2-step path's second steps
+        t, w = ops.multi_ttv_operands(x4, fs, n)
+        rows.setdefault("mt", []).append(row(
+            "mt", f"multi_ttv mode {n} T{tuple(t.shape)}", mt.KERNEL, lambda: mt.multi_ttv(t, w),
+            lambda: mt.multi_ttv_plain(t, w), lambda: torch.einsum("lic,lc->ic", t, w),
+            4 * (t.numel() + w.numel() + t.shape[1] * rank), 2 * t.numel(), 1, 50))
+    pairs = [ops.multi_ttv_operands(xb[s], [f[s] for f in fb], 1) for s in range(len(xb))]
+    tb, wb = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    del pairs
+    rows["mt_b"] = [row(
+        "mt_b", f"multi_ttv_batched T{tuple(tb.shape)}", mt.BATCHED_KERNEL,
+        lambda: mt.multi_ttv_batched(tb, wb), lambda: mt.multi_ttv_batched_plain(tb, wb),
+        lambda: torch.einsum("slic,slc->sic", tb, wb),
+        4 * (tb.numel() + wb.numel() + len(tb) * tb.shape[2] * rank), 2 * tb.numel(), 1, 50)]
+    del tb, wb
+    k12 = kk.krp_pair(fs[1], fs[2], block_b=512)
+    n_out = k12.shape[0] * FMRI[3] * rank
+    rows["krp"] = [row(
+        "krp", f"krp_pair {tuple(k12.shape)} (.) {tuple(fs[3].shape)} (the KRP's last fold, "
+        f"{4 * n_out / 1e9:.2f} GB)", kk.KERNEL, lambda: kk.krp_pair(k12, fs[3], block_b=512),
+        lambda: kk.krp_pair_plain(k12, fs[3]), lambda: torch.einsum("ac,bc->abc", k12, fs[3]),
+        4 * (k12.numel() + fs[3].numel() + n_out), n_out, 1, 10)]
+    del k12
+    torch.cuda.empty_cache()
+    summary = {}
+    for key, rs in rows.items():
+        b_bytes, b_ops = sum(r["bytes_ms"] for r in rs), sum(r["flops_ms"] for r in rs)
+        summary[key] = {"ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                        "library_ms": sum(r["library_ms"] for r in rs),
+                        "bound_ms": max(b_bytes, b_ops),
+                        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                        "calls": len(rs), "max_abs_err": err[key]}
+    return summary
+
+
+def _high_rank_phase(torch, args, dev, smi, x4, subjects) -> None:
+    """Phase 21 (see the module docstring): the MTTKRP kernels at ranks 80
+    and 128 on the fMRI tensor and the fleet; ``cp_als`` under the three
+    strategies, ``tune()`` at rank 128 and a sharded ``matrix_free`` run at
+    rank 80 in an NCCL world of one."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.dist import GATHERS
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.plan import (Problem, TuningCache, cp_als, make_executor, plan_sweep,
+                                  tune)
+    from repro_torch.serve import CPService
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 21)
+    xb = torch.stack(subjects[:SERVE_BATCH])
+    # one column block of 64, the widest: what each of rank 128's two costs alone
+    f64 = [torch.randn((d, BLOCK_RANK_TIMED), generator=gen, device=dev) for d in FMRI]
+    one = {"fused": 0.0, "matrix_free": 0.0}
+    for n in range(4):
+        t, a, b, pos = ops.bilinear_operands(x4, f64, n)
+        one["fused"] += _time_ms(torch, lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos), 5)
+        us = [f64[k] for k in range(4) if k != n]
+        one["matrix_free"] += _time_ms(torch, lambda: mf.matrix_free_kernel(x4, us, n), 5)
+    del f64, t, a, b, us
+    _log(f"[21] rank {BLOCK_RANK_TIMED} (one column block) kernel ms a sweep of the fMRI "
+         f"tensor: fused {one['fused']:.4f}, matrix_free {one['matrix_free']:.4f} (CUDA "
+         f"events); card {smi}")
+    local = {}
+    for rank in HIGH_RANKS:
+        nb, width, cp = mf.column_blocks(rank)
+        _log(f"[21] rank {rank}: {nb} column blocks of {width} columns (the last "
+             f"{rank - (nb - 1) * width}), each padded to {cp}")
+        fs = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+        fb = [torch.randn((SERVE_BATCH, d, rank), generator=gen, device=dev) for d in xb.shape[1:]]
+        err = {}
+        summary = _high_rank_rows(torch, x4, fs, xb, fb, smi, rank, err)
+        _log(f"[21] rows at rank {rank} (sums over each row's calls: 4 modes of rows 1-2, 3 of "
+             f"rows 3-4, modes 1-2 of row 5; card {smi}): {json.dumps(summary)}")
+        del fs, fb
+        # cp_als under the three strategies from one init
+        init = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+        fits, msec = {}, {}
+        for strategy in ("auto", "fused", "matrix_free"):
+            plan = plan_sweep(Problem.from_tensor(x4, rank), strategy)
+            torch.cuda.synchronize()
+            fm.KERNEL.launches = mf.KERNEL.launches = 0
+            got, secs = [], []
+            st = cp_als(x4, plan, n_iters=HIGH_RANK_SWEEPS, tol=0.0, init_factors=init,
+                        callback=lambda it, f, dt: (got.append(f), secs.append(dt)))
+            torch.cuda.synchronize()
+            launches = (fm.KERNEL.launches, mf.KERNEL.launches)
+            want = {"auto": (0, 0), "fused": (4 * HIGH_RANK_SWEEPS, 0),
+                    "matrix_free": (0, 4 * HIGH_RANK_SWEEPS)}[strategy]
+            fits[strategy], msec[strategy] = got, [1e3 * s for s in secs]
+            local[(rank, strategy)] = (st, got)
+            _log(f"[21] cp_als rank {rank} {strategy}: nodes "
+                 f"{[np_.algorithm for np_ in plan.nodes]}; fits {got}; ms a sweep "
+                 f"{[round(s, 3) for s in msec[strategy]]} (host clock, one sync a sweep); "
+                 f"launches fused {launches[0]} matrix_free {launches[1]} (want {want}); "
+                 f"card {smi}")
+            if launches != want or not all(math.isfinite(f) for f in got):
+                raise SystemExit(f"[21] cp_als rank {rank} {strategy}: launches or fits wrong")
+        gap = max(abs(a - b) for s in ("fused", "matrix_free")
+                  for a, b in zip(fits[s], fits["auto"]))
+        _log(f"[21] cp_als rank {rank}: fits across strategies max |diff| {gap:.3e} (bound "
+             f"{FIT_AGREE:g})")
+        if gap > FIT_AGREE:
+            raise SystemExit(f"[21] cp_als rank {rank}: the strategies disagree on the fits")
+        if rank != HIGH_RANK_SHARDED:
+            del init
+        else:
+            sharded_init = init
+        torch.cuda.empty_cache()
+
+    # the entry points of rows 3-7 at rank 128: the fleet served under the
+    # kernel strategies, the 2-step MTTKRP, the batched multi-TTV, the KRP
+    rank = HIGH_RANKS[-1]
+    shape = tuple(subjects[0].shape)
+    inits = [[torch.randn((d, rank), generator=gen, device=dev) for d in shape]
+             for _ in range(SERVE_BATCH)]
+    served = {}
+    for strategy, kernel in (("fused", fm.BATCHED_KERNEL), ("matrix_free", mf.BATCHED_KERNEL)):
+        svc = CPService(batch_size=SERVE_BATCH, n_iters=HIGH_RANK_SWEEPS, tol=0.0,
+                        strategy=strategy, tuning_cache=TuningCache(), device=dev)
+        futs = [svc.submit(subjects[i], rank, init_factors=inits[i]) for i in range(SERVE_BATCH)]
+        torch.cuda.synchronize()
+        kernel.launches = 0
+        t0 = time.perf_counter()
+        svc.flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        served[strategy] = [f.result().fit for f in futs]
+        want = 3 * HIGH_RANK_SWEEPS
+        _log(f"[21] CPService rank {rank} {strategy}: {SERVE_BATCH} subjects in one batch, "
+             f"{1e3 * secs:.3f} ms (host clock, {HIGH_RANK_SWEEPS} sweeps); batched launches "
+             f"{kernel.launches} (want {want}); fits {[round(f, 6) for f in served[strategy]]}; "
+             f"card {smi}")
+        if kernel.launches != want or not all(math.isfinite(f) for f in served[strategy]):
+            raise SystemExit(f"[21] CPService rank {rank} {strategy}: launches or fits wrong")
+    gap = max(abs(a - b) for a, b in zip(served["fused"], served["matrix_free"]))
+    if gap > FIT_AGREE:
+        raise SystemExit(f"[21] CPService rank {rank}: fused and matrix_free fits differ by {gap}")
+    del inits
+    fs = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+    for k in (mt.KERNEL, mt.BATCHED_KERNEL, fm.KERNEL, kk.KERNEL):
+        k.launches = 0
+    worst = max(_rel(torch, ops.mttkrp_2step_kernel(x4, fs, n), ref.fused_mttkrp_ref(x4, fs, n))[0]
+                for n in range(4))
+    krp_same = torch.equal(ops.krp_materialize(fs[1:]), ref.krp_ref(fs[1:]))
+    fsub = [torch.randn((d, rank), generator=gen, device=dev) for d in shape]
+    pairs = [ops.multi_ttv_operands(subjects[i], fsub, 1) for i in range(2)]  # the fleet's mode 1
+    tb, wb = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    ops.multi_ttv_batched(tb, wb)
+    torch.cuda.synchronize()
+    got = (mt.KERNEL.launches, fm.KERNEL.launches, kk.KERNEL.launches, mt.BATCHED_KERNEL.launches)
+    _log(f"[21] rank {rank}: mttkrp_2step_kernel on every mode against the einsum oracle, worst "
+         f"rel err {worst:.3e} (bound {REL_ERR_BOUND:g}); krp_materialize bitwise the oracle: "
+         f"{krp_same}; launches multi_ttv {got[0]} fused {got[1]} krp_pair {got[2]} "
+         f"multi_ttv_batched {got[3]} (want 2, 2, 2, 1)")
+    if worst > REL_ERR_BOUND or not krp_same or got != (2, 2, 2, 1):
+        raise SystemExit(f"[21] the 2-step, KRP or batched multi-TTV path at rank {rank} failed")
+    del fs, fsub, pairs, tb, wb
+    torch.cuda.empty_cache()
+
+    # tune() at rank 128: the kernels timed, and the plan it makes
+    for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL):
+        k.launches = 0
+    cache = TuningCache(None)
+    t0 = time.perf_counter()
+    entry = tune(x4, rank, cache=cache, budget_ms=None, reps=1)
+    torch.cuda.synchronize()
+    tile_rows = {name_: len(summ["rows"]) for name_, summ in entry["tiles"].items()}
+    algs = sorted({r["algorithm"] for r in entry["nodes"] if "algorithm" in r})
+    plan = plan_sweep(Problem.from_tensor(x4, rank), "autotune", tuning_cache=cache)
+    _log(f"[21] tune(x4, {rank}): tile rows {tile_rows}, {len(entry['nodes'])} node rows "
+         f"({algs}), launches fused {fm.KERNEL.launches} matrix_free {mf.KERNEL.launches} "
+         f"multi_ttv {mt.KERNEL.launches}, {time.perf_counter() - t0:.1f} s wall; autotune "
+         f"plan nodes {[(np_.algorithm, np_.tiles) for np_ in plan.nodes]}; card {smi}")
+    if not all(tile_rows.values()) or not {"fused", "matrix_free"} <= set(algs):
+        raise SystemExit(f"[21] tune at rank {rank} timed no kernel")
+    del cache, entry
+
+    # one sharded matrix_free run at rank 80 in an NCCL world of one
+    rank = HIGH_RANK_SHARDED
+    store = tempfile.mkdtemp(prefix="chip_smoke_high_rank_")
+    try:
+        tdist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                                 world_size=1)
+        mesh = make_host_mesh(1, 1, device="cuda")
+        plan = plan_sweep(Problem.from_tensor(x4, rank, DIST_AXES, mesh), "matrix_free",
+                          executor="sharded")
+        torch.cuda.synchronize()
+        mf.KERNEL.launches = GATHERS.calls = 0
+        fits = []
+        st = cp_als(x4, plan, executor=make_executor("sharded", mesh, DIST_AXES),
+                    n_iters=HIGH_RANK_SWEEPS, tol=0.0, init_factors=sharded_init,
+                    callback=lambda it, f, dt: fits.append(f))
+        torch.cuda.synchronize()
+        same = _bitwise(st, fits, local[(rank, "matrix_free")])
+        _log(f"[21] sharded matrix_free rank {rank} {DIST_AXES} (NCCL world of 1): launches "
+             f"{mf.KERNEL.launches} (want {4 * HIGH_RANK_SWEEPS}), collectives {GATHERS.calls}; "
+             f"bitwise equal to the local run: {'ok' if same else 'FAIL'}")
+        if not same or mf.KERNEL.launches != 4 * HIGH_RANK_SWEEPS or GATHERS.calls == 0:
+            raise SystemExit("[21] the sharded run at rank 80 differs from the local one")
+    finally:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    del xb, local, sharded_init
+    torch.cuda.empty_cache()
+    _log(f"[21] high-rank phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
+def _only_high_rank(torch, args, dev, smi) -> None:
+    """``--only high_rank``: build every kernel source, make the fMRI tensor
+    and its fleet, then phase 21."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+
+    _build.build_all([fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
+                      mt.BATCHED_KERNEL, kk.KERNEL])
+    for k in (fm.KERNEL, mf.KERNEL):
+        for line in k.ptxas_log.splitlines():
+            if "entry function" in line or "Used" in line or "spill" in line:
+                _log(f"[1] {k.source.name}: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x4 = synth_fmri(torch, gen, args.rank, dev)
+    subjects = [x4[:, s].contiguous() for s in range(FMRI[1])]
+    _high_rank_phase(torch, args, dev, smi, x4, subjects)
 
 
 # ---- phase 14: the LM serving path
@@ -4953,7 +5317,7 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=["19a", "19b"], help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
                                        "dist", "lm", "lm_families", "train", "sharded_lm",
-                                       "sharded_families", "dryrun", "examples"],
+                                       "sharded_families", "dryrun", "examples", "high_rank"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -4963,8 +5327,9 @@ def main(argv=None) -> int:
                          "(the MoE, SSM, hybrid and enc-dec families), phase 16 (the LM "
                          "training path), phase 17 (the sharded LM in an NCCL world of one), "
                          "phase 18 (the other families on the mesh there), phase 19 (FSDP on "
-                         "the card and the dry-run against it) or phase 20 (the examples and "
-                         "the executable docs); prints no result line")
+                         "the card and the dry-run against it), phase 20 (the examples and "
+                         "the executable docs) or phase 21 (the MTTKRP kernels above rank 64); "
+                         "prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -5002,7 +5367,7 @@ def main(argv=None) -> int:
                 "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
                 "train": _train_phase, "sharded_lm": _sharded_lm_phase,
                 "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase,
-                "examples": _examples_phase}[args.only]
+                "examples": _examples_phase, "high_rank": _only_high_rank}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -5229,7 +5594,10 @@ def main(argv=None) -> int:
     _dist_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
                 subjects, serve_inits, serve_fits, pp_ref)
 
-    # ---- phase 14: the LM serving path (the tensors of phases 2-13 released first)
+    # ---- phase 21: the MTTKRP kernels above rank 64, while the fMRI tensor is here
+    _high_rank_phase(torch, args, dev, smi, x4, subjects)
+
+    # ---- phase 14: the LM serving path (the tensors of phases 2-13 and 21 released first)
     del x4, init, f4, subjects, xb, fb, states, pp_ref
     torch.cuda.empty_cache()
     _lm_phase(torch, args, dev, smi)

@@ -19,15 +19,18 @@ Tensor = torch.Tensor
 
 # The MTTKRP kernels' split knob: the most CTAs an SM is counted to hold
 # when their launch geometry (matrix_free.py) splits a reduction.  The
-# default is above the kernels' residency (2 at rank <= 32, 1 above), so it
-# changes nothing; smaller values count fewer slots a wave.
+# default is above the kernels' residency (2 at a column block of <= 32
+# columns, 1 above), so it changes nothing; smaller values count fewer
+# slots a wave.
 BLOCKS_PER_SM = 4
-# Target-mode rows per thread block of both CUDA kernels (BI in
-# csrc/mttkrp_common.cuh) and the rank paddings they are compiled for
-# (padded_rank there); a larger rank is refused.
+# Target-mode rows per thread block of the MTTKRP kernels (BI in
+# csrc/mttkrp_common.cuh) and the column-block widths they are compiled for
+# (padded_rank there).  A rank above the widest, BLOCK_RANK, is cut into
+# column blocks of at most BLOCK_RANK columns (matrix_free.column_blocks),
+# so the kernels take any rank.
 BLOCK_ROWS = 32
 PADDED_RANKS = (4, 8, 12, 16, 24, 32, 48, 64)
-MAX_RANK = PADDED_RANKS[-1]
+BLOCK_RANK = PADDED_RANKS[-1]
 # Slabs of a batched launch: one per block along the grid's z axis.
 MAX_SLABS = 65535
 
@@ -56,21 +59,19 @@ def use_kernel(*tensors: Tensor) -> bool:
 def kernels_take(device, dtype: torch.dtype, rank: int) -> bool:
     """Whether the MTTKRP kernel paths take a problem of ``dtype`` at
     ``rank`` on ``device``.  On the CPU the plain versions take any rank and
-    dtype; on the card the CUDA kernels take float32 at rank 1..64 only
-    (their rank is a compile-time register tile).  The tuner asks this
+    dtype; on the card the CUDA kernels take float32 at any rank >= 1 (a
+    rank above ``BLOCK_RANK`` in column blocks).  The tuner asks this
     before it times a kernel; a forced kernel strategy raises instead."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return True
-    return dev.type == "cuda" and dtype == torch.float32 and 1 <= rank <= MAX_RANK
+    return dev.type == "cuda" and dtype == torch.float32 and rank >= 1
 
 
 def check_rank(rank: int) -> None:
-    """Raise unless the CUDA kernels are compiled for ``rank``."""
-    if not 1 <= rank <= MAX_RANK:
-        raise ValueError(
-            f"the CUDA kernels take float32 at rank 1..{MAX_RANK}, got rank {rank}"
-        )
+    """Raise unless ``rank`` is one the CUDA kernels take: any rank >= 1."""
+    if rank < 1:
+        raise ValueError(f"the CUDA kernels take float32 at rank >= 1, got rank {rank}")
 
 
 def check_kernel_operand(name: str, t: Tensor) -> None:
@@ -78,10 +79,8 @@ def check_kernel_operand(name: str, t: Tensor) -> None:
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on the card, got {t.device}")
     if t.dtype != torch.float32:
-        raise TypeError(
-            f"{name} must be float32 (the CUDA kernels take float32 at rank "
-            f"1..{MAX_RANK}), got {t.dtype}"
-        )
+        raise TypeError(f"{name} must be float32 (the CUDA kernels take float32 only), "
+                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 

@@ -55,8 +55,9 @@ static bool bilinear_fold(int pos, const float* a, const float* b, int64_t d0, i
 
 }  // namespace mttkrp
 
-// t: contiguous (d0, d1, d2) view; a: (da, c); b: (db, c); out: (I, c).
-// The grid is (ceil(I / 32), groups * splits) in clusters of (1, splits, 1)
+// t: contiguous (d0, d1, d2) view; a: (da, c); b: (db, c); out: (I, c);
+// any rank c >= 1.  The grid is (ceil(I / 32) x col_blocks(c), groups *
+// splits) in clusters of (1, splits, 1)
 // (matrix_free.py: unbatched_launch_shape of the view at mode pos): splits
 // in {1, 2, 4, 8}, groups * splits at most the steps of a row block
 // (chunks of b x rows of A) and 65535.  With groups > 1 the clusters write
@@ -82,8 +83,9 @@ extern "C" int fused_mttkrp_bilinear_f32(const float* t, const float* a, const f
 
 // The same for `slabs` stacked problems, in one launch: t: contiguous
 // (slabs, d0, d1, d2); a: (slabs, da, c); b: (slabs, db, c); out: (slabs,
-// I, c).  The grid is (ceil(I / 32), splits, slabs) in clusters of (1,
-// splits, 1) (matrix_free.py: launch_shape of the view at mode pos);
+// I, c).  The grid is (ceil(I / 32) x col_blocks(c), splits, slabs) in
+// clusters of (1, splits, 1) (matrix_free.py: launch_shape of the view at
+// mode pos);
 // q_chunk and vec as above.
 extern "C" int fused_mttkrp_bilinear_batched_f32(const float* t, const float* a,
                                                  const float* b, float* out, int pos, int slabs,

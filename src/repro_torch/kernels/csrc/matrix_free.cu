@@ -26,8 +26,10 @@
 // against 25 us of FLOPs.  Both entries launch one kernel body,
 // matrix_free_cluster_kernel (mttkrp_cluster.cuh, shared with the two fused
 // bilinear entries of fused_mttkrp.cu), which streams x once at full width:
-//   * Grid (row blocks, groups x splits, S), cluster (1, splits, 1).  A CTA
-//     owns BI rows of the target mode of one slab and one of groups x splits
+//   * Grid (row blocks x column blocks, groups x splits, S), cluster (1,
+//     splits, 1); one column block up to rank 64, ceil(C / 64) above it
+//     (mttkrp_cluster.cuh).  A CTA owns BI rows of the target mode and the
+//     columns of its block, of one slab, and one of groups x splits
 //     balanced parts of the nq x O steps (q chunk outer, outer index inner),
 //     part p = blockIdx.y covering steps [S p / P, S (p + 1) / P); with one
 //     chunk (nq = 1) that is [O p / P, O (p + 1) / P) of the outer range.
@@ -75,8 +77,9 @@
 #include "mttkrp_cluster.cuh"
 
 // x: contiguous, shape[0..order); factors: host array of `order` device
-// pointers to the (shape[k], c) factors (entry n unused); out: (I, c).  The
-// grid is (ceil(I / 32), groups * splits) in clusters of (1, splits, 1):
+// pointers to the (shape[k], c) factors (entry n unused); out: (I, c); any
+// rank c >= 1.  The grid is (ceil(I / 32) x col_blocks(c), groups * splits)
+// in clusters of (1, splits, 1):
 // splits in {1, 2, 4, 8}, groups * splits at most the steps of a row block
 // (chunks of q x outer indices) and 65535.  With groups > 1 the clusters
 // write (groups, I, c) partials to ws and a second kernel sums them in
@@ -94,11 +97,11 @@ extern "C" int matrix_free_mttkrp_f32(const float* x, const void* const* factors
 // The same for `slabs` stacked problems, in one launch: x: contiguous
 // (slabs, shape[0..order)); factors: device pointers to the (slabs,
 // shape[k], c) factors; out: (slabs, I, c).  `shape` is one slab's.  The
-// grid is (ceil(I / 32), splits, slabs) in clusters of (1, splits, 1),
-// splits in {1, 2, 4, 8} and at most the steps of a row block; a stage
-// holds q_chunk (a multiple of 4) indices of the contracted mode; vec != 0
-// copies 16 bytes (the last mode's extent a multiple of 4 and x 16-byte
-// aligned).  A geometry it cannot run returns cudaErrorInvalidValue.
+// grid is (ceil(I / 32) x col_blocks(c), splits, slabs) in clusters of (1,
+// splits, 1), splits in {1, 2, 4, 8} and at most the steps of a row block;
+// a stage holds q_chunk (a multiple of 4) indices of the contracted mode;
+// vec != 0 copies 16 bytes (the last mode's extent a multiple of 4 and x
+// 16-byte aligned).  A geometry it cannot run returns cudaErrorInvalidValue.
 extern "C" int matrix_free_mttkrp_batched_f32(const float* x, const void* const* factors,
                                               const int64_t* shape, int order, int n, int c,
                                               int slabs, int splits, int64_t q_chunk, int vec,
@@ -107,15 +110,17 @@ extern "C" int matrix_free_mttkrp_batched_f32(const float* x, const void* const*
                              static_cast<cudaStream_t>(stream));
 }
 
-// The kernel's occupancy at rank c, target mode last or not, a stage of
-// q_chunk indices and clusters of `splits`: CTAs an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and clusters the card
-// holds (cudaOccupancyMaxActiveClusters).  Launches nothing.
+// The kernel's occupancy at rank c (the padded width of its column blocks),
+// target mode last or not, a stage of q_chunk indices and clusters of
+// `splits`: CTAs an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+// and clusters the card holds (cudaOccupancyMaxActiveClusters).  Launches
+// nothing.
 extern "C" int matrix_free_occupancy_f32(int c, int i_contig, int64_t q_chunk, int splits,
                                          int* blocks_per_sm, int* clusters) {
   using namespace mttkrp;
-  const int cp = padded_rank(c);
-  if (cp == 0 || c < 1 || !mfc_split_ok(splits) || q_chunk < 4 || q_chunk % 4 != 0) {
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int cp = padded_rank(block_cols(c));
+  if (cp == 0 || !mfc_split_ok(splits) || q_chunk < 4 || q_chunk % 4 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t smem = mfc_smem_bytes(q_chunk, cp, i_contig != 0);

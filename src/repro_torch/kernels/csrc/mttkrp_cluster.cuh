@@ -18,6 +18,17 @@
 // cut of the outer range, and where it does not a part walks only the 2-3
 // chunks its steps touch, loading U_q's chunk at its first step and at each
 // chunk start, instead of every chunk for a slice of the outer range.
+//
+// Column blocks: a CTA keeps a (1, CP) accumulator row a thread, CP <= 64,
+// so a rank C above 64 is cut into nb = ceil(C / 64) blocks of cw =
+// ceil(C / nb) columns (the last may be narrower), each padded to one CP
+// (col_blocks, block_cols in mttkrp_common.cuh).  The block is the inner
+// part of grid x (x = row block * nb + column block), so the CTAs that read
+// one tensor tile are launched side by side and a second read can hit L2.
+// The factors and the output keep their row stride C; a CTA reads and
+// writes its columns [c0, c0 + ncols) only.  A column's sum runs in the
+// same order whatever block holds it.  With C <= 64 there is one block
+// and the launch is the one it was without blocks.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -42,7 +53,9 @@ struct MFArgs {
   int order, n, q;
   int n_outer;
   int outer[MAX_ORDER];  // outer modes, ascending (row-major decode order)
-  int C;
+  int C;   // the rank: the row stride of every factor and of the output
+  int nb;  // column blocks (grid x = row block * nb + column block)
+  int cw;  // columns a block: block b holds [b cw, min(C, (b + 1) cw))
 };
 
 // Outer multi-index o (the outer modes enumerated row-major) and its offset
@@ -88,6 +101,8 @@ static inline void fill_modes(MFArgs& p, const float* x, const void* const* fact
   p.order = order;
   p.n = n;
   p.C = c;
+  p.nb = col_blocks(c);
+  p.cw = block_cols(c);
   int64_t stride = 1;
   for (int k = order - 1; k >= 0; --k) {
     p.ext[k] = shape[k];
@@ -164,18 +179,20 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
   const int64_t si = p.stride[p.n];
   const int64_t sq = p.stride[p.q];
   const int64_t eq = p.ext[p.q];
-  const int C = p.C;
+  const int C = p.C;  // row stride of the factors and the output
+  const int c0 = static_cast<int>(blockIdx.x % p.nb) * p.cw;  // columns [c0, c0 + ncols)
+  const int ncols = static_cast<int>(imin(p.cw, C - c0));
   const int qc = a.qc;
   const int nquad = qc / 4;
   const int64_t z = blockIdx.z;
   const float* __restrict__ xs = p.x + z * p.stride[0] * p.ext[0];  // this slab
-  const float* __restrict__ uq = p.u[p.q] + z * eq * C;
+  const float* __restrict__ uq = p.u[p.q] + z * eq * C + c0;
   const int stage_floats = I_CONTIG ? qc * BI : BI * a.qs;
   float* ring = smem;                                   // [STAGES][tile]
   float* wring = ring + MFC_STAGES * stage_floats;      // [STAGES][MAX_OUTER][CP]
   float* us = wring + MFC_STAGES * MAX_OUTER * CP;      // [qc][CP]
 
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x / p.nb) * BI;
   const int ni = static_cast<int>(imin(BI, rows - i0));
   // Part blockIdx.y = group * splits + rank of the groups x splits parts:
   // the flat steps [S p / P, S (p + 1) / P) of the S = nq x o_total there
@@ -223,8 +240,8 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
     if (static_cast<int>(threadIdx.x) < p.n_outer * CP) {  // the step's outer factor rows
       const int k = threadIdx.x / CP, c = threadIdx.x % CP;
       const int m = p.outer[k];
-      const bool valid = c < C;
-      const float* src = p.u[m] + (z * p.ext[m] + io.idx[k]) * C + c;
+      const bool valid = c < ncols;
+      const float* src = p.u[m] + (z * p.ext[m] + io.idx[k]) * C + c0 + c;
       cp_async_f32(wring + (stage * MAX_OUTER + k) * CP + c, valid ? src : p.u[m], valid);
     }
     io.step(p);  // after the last outer index it wraps to 0: the next chunk's first
@@ -264,7 +281,7 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
       for (int e = threadIdx.x; e < qc * CP; e += THREADS) {
         const int c = e % CP;
         const int64_t j = jc0 + e / CP;
-        us[e] = (c < C && j < eq) ? __ldg(uq + j * C + c) : 0.0f;
+        us[e] = (c < ncols && j < eq) ? __ldg(uq + j * C + c) : 0.0f;
       }
       __syncthreads();
     }
@@ -324,23 +341,29 @@ __global__ void __launch_bounds__(THREADS, CP <= 32 ? 2 : 1)
     red[e] = v;  // only this thread reads or writes index e of warp 0's slot
   }
   // The ranks' sums, in rank order, by cluster rank 0, into this (slab,
-  // group)'s rows i, columns c < C.
+  // group)'s rows i, columns [c0, c0 + ncols): element e of the block is
+  // row e / ncols, column e % ncols (with one block, e is the output's own
+  // offset).
   const int64_t groups = parts / splits, group = part / splits;
-  float* __restrict__ out = a.out + ((z * groups + group) * rows + i0) * C;
+  float* __restrict__ out = a.out + ((z * groups + group) * rows + i0) * C + c0;
   if (splits > 1) {
     cluster.sync();
     if (rank == 0) {
-      for (int e = threadIdx.x; e < ni * C; e += THREADS) {
-        const int off = (e % C) * BI + e / C;
+      for (int e = threadIdx.x; e < ni * ncols; e += THREADS) {
+        const int row = e / ncols, col = e - row * ncols;
+        const int off = col * BI + row;
         float v = red[off];
         for (int r = 1; r < splits; ++r) v += *cluster.map_shared_rank(red + off, r);
-        out[e] = v;
+        out[static_cast<int64_t>(row) * C + col] = v;
       }
     }
     cluster.sync();  // no rank exits (freeing its shared memory) while rank 0 reads it
   } else {
     __syncthreads();
-    for (int e = threadIdx.x; e < ni * C; e += THREADS) out[e] = red[(e % C) * BI + e / C];
+    for (int e = threadIdx.x; e < ni * ncols; e += THREADS) {
+      const int row = e / ncols, col = e - row * ncols;
+      out[static_cast<int64_t>(row) * C + col] = red[col * BI + row];
+    }
   }
 }
 
@@ -382,11 +405,11 @@ static inline MFCInstance mfc_instance(int cp, bool i_contig) {
   return MFCInstance{nullptr, cudaErrorInvalidValue};
 }
 
-static inline cudaLaunchConfig_t mfc_config(unsigned row_blocks, int64_t parts, int splits,
+static inline cudaLaunchConfig_t mfc_config(unsigned grid_x, int64_t parts, int splits,
                                              int slabs, int64_t smem, cudaStream_t s,
                                              cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(row_blocks, static_cast<unsigned>(parts), static_cast<unsigned>(slabs));
+  cfg.gridDim = dim3(grid_x, static_cast<unsigned>(parts), static_cast<unsigned>(slabs));
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = s;
@@ -404,12 +427,14 @@ static inline bool mfc_split_ok(int splits) {
 }
 
 // One launch of the kernel; out is (slabs, groups, I, c).  groups x splits
-// parts may not outnumber the steps of a row block.
+// parts may not outnumber the steps of a row block.  Any rank c >= 1: grid
+// x holds the row blocks times the column blocks of c.
 static inline int run_cluster(const float* x, const void* const* factors, const int64_t* shape,
                               int order, int n, int c, int slabs, int groups, int splits,
                               int64_t qc, int vec, float* out, cudaStream_t s) {
-  const int cp = padded_rank(c);
-  if (cp == 0 || c < 1 || order < 3 || order > MAX_ORDER || n < 0 || n >= order ||
+  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int cp = padded_rank(block_cols(c));
+  if (cp == 0 || order < 3 || order > MAX_ORDER || n < 0 || n >= order ||
       slabs < 1 || slabs > 65535 || groups < 1 || !mfc_split_ok(splits) || qc < 4 ||
       qc % 4 != 0 || out == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -427,10 +452,10 @@ static inline int run_cluster(const float* x, const void* const* factors, const 
   for (int k = 0; k < a.p.n_outer; ++k) a.o_total *= a.p.ext[a.p.outer[k]];
   const int64_t parts = static_cast<int64_t>(groups) * splits;
   const int64_t smem = mfc_smem_bytes(qc, cp, i_contig);
-  const int64_t row_blocks = (rows + BI - 1) / BI;
+  const int64_t grid_x = (rows + BI - 1) / BI * a.p.nb;  // row blocks x column blocks
   a.nq = (eq + qc - 1) / qc;
   if (parts > a.nq * a.o_total || parts > MAX_GRID_Y || qc > 4 * ((eq + 3) / 4) ||
-      smem > MFC_BLOCK_SMEM || row_blocks > 0x7fffffff ||
+      smem > MFC_BLOCK_SMEM || grid_x > 0x7fffffff ||
       (vec && (contig % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -442,7 +467,7 @@ static inline int run_cluster(const float* x, const void* const* factors, const 
   if (k.err != cudaSuccess) return static_cast<int>(k.err);
   cudaLaunchAttribute attr[1];
   cudaLaunchConfig_t cfg =
-      mfc_config(static_cast<unsigned>(row_blocks), parts, splits, slabs, smem, s, attr);
+      mfc_config(static_cast<unsigned>(grid_x), parts, splits, slabs, smem, s, attr);
   cfg.numAttrs = splits > 1 ? 1 : 0;  // a launch without the attribute is a cluster of one
   const cudaError_t err = cudaLaunchKernelEx(&cfg, k.kernel, a);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -8,10 +8,12 @@
 // summed at the end in a fixed order (warp 0 + 1 + ... + 7), so a result
 // never depends on scheduling and no atomics are needed.
 //
-// CP is the rank padded to one of 4, 8, 12, 16, 24, 32, 48, 64 (a template
-// parameter: the accumulator lives in registers, so it must be a
-// compile-time size; a multiple of 4 for the float4 reads).  Padded rank
-// columns hold zeros in shared memory and are never stored.
+// CP is a column block's width padded to one of 4, 8, 12, 16, 24, 32, 48,
+// 64 (a template parameter: the accumulator lives in registers, so it must
+// be a compile-time size; a multiple of 4 for the float4 reads).  A rank
+// above 64 is cut into column blocks of at most 64 (col_blocks,
+// block_cols).  Padded columns hold zeros in shared memory and are never
+// stored.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,7 +63,22 @@ inline void launch_sum_splits(const float* ws, float* out, int64_t n, int splits
                                                                            total);
 }
 
-// Rank padded to what the register accumulator needs; 0 when unsupported.
+// The widest column block: the largest padded rank.
+constexpr int MAX_BLOCK_COLS = 64;
+
+// Column blocks of rank c: ceil(c / 64) near-equal blocks (one for c <= 64).
+inline int col_blocks(int c) {
+  return static_cast<int>((static_cast<int64_t>(c) + MAX_BLOCK_COLS - 1) / MAX_BLOCK_COLS);
+}
+
+// Columns of each block of rank c but the last, which holds the rest (at
+// least one: cw <= 64 and c > 64 (nb - 1)).
+inline int block_cols(int c) {
+  const int64_t nb = col_blocks(c);
+  return static_cast<int>((static_cast<int64_t>(c) + nb - 1) / nb);
+}
+
+// A block's width padded to what the register accumulator needs; 0 above 64.
 inline int padded_rank(int c) {
   static const int kPadded[] = {4, 8, 12, 16, 24, 32, 48, 64};
   for (int cp : kPadded) {

@@ -180,7 +180,7 @@ int run(const float* t, const float* w, float* out, bool batched, int slabs, int
   const int64_t tiles = tile_rows < 1 ? 0 : (I + tile_rows - 1) / tile_rows;
   const bool aligned = (reinterpret_cast<uintptr_t>(t) % 16 == 0) &&
                        (reinterpret_cast<uintptr_t>(out) % 16 == 0);
-  if (C < 1 || C > 64 || L < 1 || I < 1 || slabs < 1 || slabs > 65535 ||
+  if (C < 1 || L < 1 || I < 1 || slabs < 1 || slabs > 65535 ||
       (!batched && slabs != 1) || tile_rows < 1 || tile_rows > I || tiles > 0x7fffffff ||
       tile_rows * C > (1 << 30) ||
       TX < 32 || TX % 32 != 0 || G < 1 || TX * G > TTV_MAX_THREADS ||

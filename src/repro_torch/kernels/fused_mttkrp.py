@@ -156,8 +156,9 @@ def fused_mttkrp_bilinear(
 ) -> Tensor:
     """``M[i,c] = sum_{a,b} T * A[a,c] * B[b,c]`` with T's i-axis at ``pos``.
 
-    CUDA tensors launch the kernel (contiguous float32 operands, rank up to
-    64, else it raises): one launch of the fold's body, plus a pass that
+    CUDA tensors launch the kernel (contiguous float32 operands at any rank
+    >= 1, a rank above 64 in column blocks of the one launch; else it
+    raises): one launch of the fold's body, plus a pass that
     adds the groups' partials in a fixed order where the launch has more
     than one group.  CPU tensors take the plain version.  Any extent is
     accepted: the kernel masks ragged tiles, so nothing is padded.
@@ -194,8 +195,8 @@ def fused_mttkrp_bilinear_batched(
     ``t`` is ``(S, *3-D view)`` with the i-axis of each slab's view at
     ``pos``; ``a``/``b`` are the per-slab partial KRPs ``(S, dim, C)``.
     CUDA tensors make one launch of the kernel, one slab per grid z
-    (contiguous float32 operands, rank up to 64, 1..65535 slabs, else it
-    raises): no workspace, the split summed on chip.  CPU tensors take the
+    (contiguous float32 operands at any rank >= 1, 1..65535 slabs, else
+    it raises): no workspace, the split summed on chip.  CPU tensors take the
     plain version.  Nothing is padded: not the slabs, not any extent.
     ``blocks_per_sm``, ``block_i``, ``block_b`` and ``interpret`` as in
     :func:`fused_mttkrp_bilinear`; ``block_batch``, the reference's slab

@@ -17,9 +17,11 @@ each -- are split over thread-block clusters and summed on chip, with the
 geometry from the shape alone: :func:`launch_shape` for a stack (one
 launch), :func:`unbatched_launch_shape` for one tensor (one launch, plus a
 pass that adds the clusters' partials in a fixed order where a row block
-has more than one cluster).
+has more than one cluster).  A rank above 64 is cut into column blocks of
+the same launch (:func:`column_blocks`).
 
-Supported: every mode of order-3..6 tensors, plus a leading batch axis.
+Supported: every mode of order-3..6 tensors, plus a leading batch axis, at
+any rank.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch
 
 from ._build import CudaKernel
 from ._tiling import (
+    BLOCK_RANK,
     BLOCK_ROWS,
     BLOCKS_PER_SM,
     PADDED_RANKS,
@@ -78,12 +81,29 @@ CLUSTER_SLOTS = {
 
 
 def residency(padded_rank: int) -> int:
-    """CTAs of the kernel resident on one SM at ``padded_rank``: its launch
-    bounds hold it to 128 registers a thread at rank <= 32 (two CTAs of 256
-    threads fill the 65,536 registers), and the geometry sizes its shared
-    memory to let two in; above rank 32 one CTA an SM.  A card test checks
-    this against ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    """CTAs of the kernel resident on one SM at ``padded_rank``, a column
+    block's padded width (:func:`column_blocks`): its launch bounds hold it
+    to 128 registers a thread at a width <= 32 (two CTAs of 256 threads fill
+    the 65,536 registers), and the geometry sizes its shared memory to let
+    two in; above 32 one CTA an SM.  A card test checks this against
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     return 2 if padded_rank <= 32 else 1
+
+
+def column_blocks(rank: int) -> tuple[int, int, int]:
+    """The kernel's column blocks at ``rank`` (``col_blocks``,
+    ``block_cols`` and ``padded_rank`` in csrc/mttkrp_common.cuh):
+    ``(blocks, width, padded)``.  A CTA keeps one accumulator row of at most
+    ``BLOCK_RANK`` columns in registers, so a larger rank is cut into
+    ``ceil(rank / BLOCK_RANK)`` blocks of ``width = ceil(rank / blocks)``
+    columns, block ``b`` holding ``[b * width, min(rank, (b + 1) * width))``
+    (the last may be narrower, never empty), each padded to ``padded`` in
+    ``PADDED_RANKS``.  Up to rank 64: one block of the whole rank."""
+    if rank < 1:
+        raise ValueError(f"rank must be >= 1, got {rank}")
+    blocks = -(-rank // BLOCK_RANK)
+    width = -(-rank // blocks)
+    return blocks, width, next(p for p in PADDED_RANKS if width <= p)
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 _FACTORS, _SHAPE = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
@@ -197,9 +217,11 @@ def _check_operands(mode_shape: Sequence[int], us: Sequence[Tensor], n: int, lea
 
 
 class ClusterLaunch(NamedTuple):
-    """One launch of the kernel: a grid of ``(row_blocks, groups * splits,
-    slabs)`` CTAs of 256 threads in clusters of ``(1, splits, 1)``.  A
-    (slab, row block) folds :attr:`steps` steps, one (chunk of ``q_chunk``
+    """One launch of the kernel: a grid of ``(row_blocks * col_blocks,
+    groups * splits, slabs)`` CTAs of 256 threads in clusters of ``(1,
+    splits, 1)``, grid x = row block * ``col_blocks`` + column block (one
+    column block up to rank 64: :func:`column_blocks`).  A (slab, row
+    block, column block) folds :attr:`steps` steps, one (chunk of ``q_chunk``
     indices of the contracted mode ``q``, outer index) pair each, chunk
     outer; part ``p`` of the ``P = groups * splits`` takes the flat steps
     ``[steps * p // P, steps * (p + 1) // P)`` (:func:`part_steps`).  A
@@ -217,11 +239,19 @@ class ClusterLaunch(NamedTuple):
     vec: bool  # 16-byte copies: the contiguous axis' extent is a multiple of 4
     smem: int  # dynamic shared memory, bytes
     residency: int  # CTAs an SM holds
+    col_blocks: int  # column blocks of the rank, the inner part of grid x
+    block_width: int  # columns of each block but the last, which holds the rest
+    padded_rank: int  # the blocks' width padded (the kernel's register tile)
 
     @property
     def steps(self) -> int:
         """Steps of a (slab, row block): chunks x outer indices."""
         return self.chunks * self.outer
+
+    @property
+    def grid_x(self) -> int:
+        """Grid x: the row blocks times the column blocks."""
+        return self.row_blocks * self.col_blocks
 
 
 def part_steps(steps: int, part: int, parts: int) -> tuple[int, int]:
@@ -251,19 +281,23 @@ def cluster_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
 def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int,
                     split: Callable[[int, int, int], tuple[int, int, int]]) -> ClusterLaunch:
     """A launch at mode ``n`` and ``rank`` whose grid comes from
-    ``split(row_blocks, steps, CTAs an SM counted) -> (groups, splits,
-    slabs)``, the steps being a row block's (chunks x outer indices) and
-    the CTAs an SM counted ``min(blocks_per_sm, residency)``.  A stage
-    holds the whole extent of the contracted mode ``q`` where it fits in
-    the shared memory that lets ``residency`` CTAs share an SM, else the
-    largest equal chunk of it that fits (a multiple of 4).  16-byte copies where the contiguous axis' extent is a multiple
-    of 4 (the wrapper also checks ``x``'s alignment)."""
+    ``split(grid x, steps, CTAs an SM counted) -> (groups, splits,
+    slabs)``, grid x being the row blocks times the column blocks of
+    ``rank`` (:func:`column_blocks`: the waves count them all), the steps a
+    row block's (chunks x outer indices) and the CTAs an SM counted
+    ``min(blocks_per_sm, residency)``, the residency and the stages sized by
+    a column block's padded width.  A stage holds the whole extent of the
+    contracted mode ``q`` where it fits in the shared memory that lets
+    ``residency`` CTAs share an SM, else the largest equal chunk of it that
+    fits (a multiple of 4).  16-byte copies where the contiguous axis'
+    extent is a multiple of 4 (the wrapper also checks ``x``'s
+    alignment)."""
     if blocks_per_sm < 1:
         raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
     order = len(shape)
     q = contracted_mode(order, n)
     i_contig = n == order - 1
-    cp = next(p for p in PADDED_RANKS if rank <= p)
+    col_blocks, width, cp = column_blocks(rank)
     res = residency(cp)
     budget = min(SMEM_BYTES, SM_SMEM_BYTES // res - BLOCK_RESERVED_SMEM)
     eq = shape[q]
@@ -277,10 +311,11 @@ def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: in
     chunks = -(-eq // q_chunk)
     outer = math.prod(shape[k] for k in range(order) if k not in (n, q))
     row_blocks = -(-shape[n] // BLOCK_ROWS)
-    groups, splits, slabs = split(row_blocks, chunks * outer, min(blocks_per_sm, res))
+    groups, splits, slabs = split(row_blocks * col_blocks, chunks * outer,
+                                  min(blocks_per_sm, res))
     return ClusterLaunch(
         row_blocks, groups, splits, slabs, outer, q_chunk, chunks, i_contig,
-        shape[-1] % 4 == 0, cluster_smem(q_chunk, cp, i_contig), res,
+        shape[-1] % 4 == 0, cluster_smem(q_chunk, cp, i_contig), res, col_blocks, width, cp,
     )
 
 
@@ -296,15 +331,15 @@ def launch_shape(
     8} CTAs (never more than there are steps).  Wave slots are counted by
     cluster, as in :func:`unbatched_launch_shape`: a wave holds
     ``CLUSTER_SLOTS[min(blocks_per_sm, residency)][splits]`` of the
-    ``row_blocks * slabs`` clusters.  The launch takes the fewest waves and,
-    within them, the most CTAs (the larger split).  So ``blocks_per_sm``
-    caps the CTAs an SM is counted to hold; at and above the residency it
-    changes nothing.
+    ``row_blocks * col_blocks * slabs`` clusters.  The launch takes the
+    fewest waves and, within them, the most CTAs (the larger split).  So
+    ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at and above
+    the residency it changes nothing.
     """
 
-    def split(row_blocks, steps, per_sm):
+    def split(grid_x, steps, per_sm):
         slots = CLUSTER_SLOTS[per_sm]
-        clusters = row_blocks * slabs
+        clusters = grid_x * slabs
         waves = {s: -(-clusters // slots[s]) for s in SPLITS if s <= steps}
         fewest = min(waves.values())
         return 1, max(s for s, w in waves.items() if w == fewest), slabs
@@ -325,23 +360,25 @@ def unbatched_launch_shape(
     ``splits`` in {1, 2, 4, 8} CTAs.  Wave slots are counted by
     cluster, ``CLUSTER_SLOTS`` at ``min(blocks_per_sm, residency)`` CTAs an
     SM (the card holds fewer clusters of 4 and 8 than its CTA slots
-    suggest).  The launch takes the fewest waves its row blocks need (one,
-    unless they outnumber the clusters of one a wave holds) and, within
-    them, the most CTAs; on a tie the larger split (fewer groups for the
-    second pass to add).  Every part holds at least one step (chunk of
-    ``q``, outer index), and groups x splits stays within the grid's y
-    limit.  So ``blocks_per_sm`` caps the CTAs an SM is counted to hold; at
-    and above the residency it changes nothing.
+    suggest).  Above rank 64 each column block of a row block is a block
+    of grid x of its own, and the waves count them all.  The launch takes
+    the fewest waves its grid x needs (one, unless it outnumbers the
+    clusters of one a wave holds) and, within them, the most CTAs; on a
+    tie the larger split (fewer groups for the second pass to add).  Every
+    part holds at least one step (chunk of ``q``, outer index), and groups
+    x splits stays within the grid's y limit.  So ``blocks_per_sm`` caps
+    the CTAs an SM is counted to hold; at and above the residency it
+    changes nothing.
     """
 
-    def split(row_blocks, steps, per_sm):
+    def split(grid_x, steps, per_sm):
         slots = CLUSTER_SLOTS[per_sm]
-        waves = -(-row_blocks // slots[1])  # clusters of one: the most a wave holds
+        waves = -(-grid_x // slots[1])  # clusters of one: the most a wave holds
         best = (0, 0, 0)  # (CTAs, splits, groups)
         for s in SPLITS:
-            groups = min(waves * slots[s] // row_blocks, steps // s, MAX_GRID_Y // s)
+            groups = min(waves * slots[s] // grid_x, steps // s, MAX_GRID_Y // s)
             if groups >= 1:
-                best = max(best, (row_blocks * groups * s, s, groups))
+                best = max(best, (grid_x * groups * s, s, groups))
         return best[2], best[1], 1
 
     return _cluster_launch(shape, n, rank, blocks_per_sm, split)
@@ -349,13 +386,15 @@ def unbatched_launch_shape(
 
 def workspace_shape(g: ClusterLaunch, rows: int, rank: int) -> tuple[int, int, int] | None:
     """The unbatched launch's workspace: the groups' ``(groups, rows, rank)``
-    partials, or None with one group (its clusters write the output)."""
+    partials (every column block writes its columns of each), or None with
+    one group (its clusters write the output)."""
     return (g.groups, rows, rank) if g.groups > 1 else None
 
 
 def occupancy(g: ClusterLaunch, rank: int) -> tuple[int, int]:
     """``(CTAs an SM holds, clusters the card holds)`` of the kernel at
-    launch ``g``, from the CUDA occupancy queries (on the card only)."""
+    launch ``g`` and ``rank`` (the instance of its column blocks' padded
+    width), from the CUDA occupancy queries (on the card only)."""
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     OCCUPANCY.query(
         rank, int(g.i_contig), g.q_chunk, g.splits, ctypes.byref(per_sm), ctypes.byref(clusters)
@@ -452,8 +491,9 @@ def matrix_free_kernel(
 
     ``x`` is the natural N-D tensor (order 3..6) and ``us`` the non-target
     factors ``(I_k, C)`` in ascending mode order.  CUDA tensors launch the
-    kernel (contiguous float32 operands, rank up to 64, else it raises); CPU
-    tensors take the plain version.  Any extent is accepted: the kernel
+    kernel (contiguous float32 operands at any rank >= 1, a rank above 64
+    in column blocks of one launch; else it raises); CPU tensors take the
+    plain version.  Any extent is accepted: the kernel
     masks ragged tiles, so nothing is padded.  The launch comes
     from :func:`unbatched_launch_shape`, whose split of the outer reduction
     counts at most ``blocks_per_sm`` CTAs an SM (at or above the kernel's
@@ -485,8 +525,8 @@ def matrix_free_batched_kernel(
     per-slab non-target factors ``(S, I_k, C)``; returns ``(S, I_n, C)``.
 
     CUDA tensors make one launch of the batched kernel, one slab per grid
-    z (contiguous float32 operands, rank up to 64, 1..65535 slabs, else it
-    raises): no workspace, the outer reduction split over a thread-block
+    z (contiguous float32 operands at any rank >= 1, 1..65535 slabs, else
+    it raises): no workspace, the outer reduction split over a thread-block
     cluster and summed on chip, the geometry from :func:`launch_shape`.
     CPU tensors take the plain version.  Nothing is padded: not the slabs,
     not any extent.  ``blocks_per_sm`` caps the CTAs an SM is counted to

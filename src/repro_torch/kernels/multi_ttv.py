@@ -201,7 +201,7 @@ def multi_ttv(
     ``t`` is ``(L, I, C)`` and ``w`` ``(L, C)``.  CUDA tensors make one
     launch of the kernel with about ``block_i`` output rows a CTA (any
     ``block_i >= 1``, mapped to a legal tile by :func:`tile_rows`;
-    contiguous float32 operands, rank up to 64, else it raises); CPU
+    contiguous float32 operands at any rank >= 1, else it raises); CPU
     tensors take the plain version.  Nothing is padded.  ``interpret`` is
     the reference's keyword; it never decides the device.  Returns
     ``t.dtype``.

@@ -707,7 +707,7 @@ def tune(
     layout is the reference's (``backend``, ``n_devices``, ``budget_ms``,
     ``reps``, ``elapsed_ms``, ``tiles``, ``nodes``, ``serial_fractions``,
     ``pp``).  Where the CUDA kernels do not take the problem (a CUDA tensor
-    not in float32, or a rank above 64:
+    not in float32; they take any rank:
     :func:`~repro_torch.kernels._tiling.kernels_take`), no kernel is timed:
     each tile table keeps its default knob and no rows, and no ``fused`` or
     ``matrix_free`` leaf is measured, so the plan falls back to the GEMM

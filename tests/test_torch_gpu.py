@@ -84,9 +84,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fm.fused_mttkrp_bilinear(t, a.cpu(), b, pos=pos)
     with pytest.raises(ValueError):
         mf.matrix_free_kernel(x.transpose(0, 1), [fs[0], fs[2]], 1)  # shape mismatch
+    # rank 65 is taken (two column blocks): one launch, the plain version's sums
     big = [torch.randn(d, 65, device=cuda) for d in x.shape]
-    with pytest.raises(ValueError):
-        mf.matrix_free_kernel(x, [big[0], big[1]], 2)
+    before = mf.KERNEL.launches
+    out = mf.matrix_free_kernel(x, [big[0], big[1]], 2)
+    assert mf.KERNEL.launches == before + 1
+    assert _rel(out, mf.matrix_free_kernel_plain(x, [big[0], big[1]], 2)) < REL
 
 
 @pytest.mark.parametrize("strategy", ["fused", "matrix_free"])
@@ -348,8 +351,10 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         mt.multi_ttv(t, w.cpu())
     with pytest.raises(ValueError):
         mt.multi_ttv(t.transpose(0, 1).contiguous().transpose(0, 1), w)  # not contiguous
-    with pytest.raises(ValueError):
-        mt.multi_ttv(torch.randn(4, 5, 65, device=cuda), torch.randn(4, 65, device=cuda))
+    t65, w65 = torch.randn(4, 5, 65, device=cuda), torch.randn(4, 65, device=cuda)
+    before = mt.KERNEL.launches  # rank 65 is taken: one launch
+    assert _rel(mt.multi_ttv(t65, w65), mt.multi_ttv_plain(t65, w65)) < REL
+    assert mt.KERNEL.launches == before + 1
     t64, w64 = torch.randn(4, 1100, 64, device=cuda), torch.randn(4, 64, device=cuda)
     # rank 64 at 1024 rows a CTA: one launch that matches the plain version
     before = mt.KERNEL.launches
@@ -595,14 +600,36 @@ def test_matrix_free_unbatched_residency_and_cluster_slots_match_the_occupancy_q
 
 @pytest.mark.parametrize("rank,dtype", [(80, torch.float32), (10, torch.float64)])
 def test_tune_on_the_card_falls_back_to_the_gemms_where_the_kernels_do_not_go(cuda, rank, dtype):
-    """At rank 80 or in float64 the CUDA kernels do not take the problem:
-    tune() times no kernel, the plan has no kernel leaf, cp_als under it
-    runs, and a forced kernel strategy raises naming the limit."""
+    """In float64 the CUDA kernels do not take the problem: tune() times no
+    kernel, the plan has no kernel leaf, cp_als under it runs, and a forced
+    kernel strategy raises naming the limit.  At rank 80 in float32 they do
+    (two column blocks): tune() times the kernels, and forced ``fused`` and
+    ``matrix_free`` runs match the GEMMs' fits within 1e-3."""
     g = torch.Generator(device=cuda).manual_seed(4)
     x = torch.randn((20, 17, 12, 9), generator=g, device=cuda, dtype=dtype)
     cache = TuningCache()
     launches = [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)]
     entry = tune(x, rank, cache=cache, budget_ms=None, reps=1)
+    if dtype == torch.float32:
+        assert all(now > was for now, was in zip(
+            [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)], launches))
+        assert all(summary["rows"] for summary in entry["tiles"].values())
+        assert {"fused", "matrix_free"} <= {r["algorithm"] for r in entry["nodes"]}
+        problem = Problem.from_tensor(x, rank)
+        init = [torch.randn((d, rank), generator=g, device=cuda) for d in x.shape]
+        fits = {}
+        for strategy, kernel in (("auto", None), ("fused", fm.KERNEL),
+                                 ("matrix_free", mf.KERNEL)):
+            before = kernel.launches if kernel else 0
+            got = []
+            cp_als(x, plan_sweep(problem, strategy), n_iters=3, tol=0.0, init_factors=init,
+                   callback=lambda it, f, dt: got.append(f))
+            fits[strategy] = got
+            if kernel:
+                assert kernel.launches - before == 3 * x.ndim
+        for strategy in ("fused", "matrix_free"):
+            assert max(abs(a - b) for a, b in zip(fits[strategy], fits["auto"])) < 1e-3
+        return
     assert [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)] == launches
     assert all(summary["rows"] == [] for summary in entry["tiles"].values())
     problem = Problem.from_tensor(x, rank)
@@ -611,7 +638,7 @@ def test_tune_on_the_card_falls_back_to_the_gemms_where_the_kernels_do_not_go(cu
     st = cp_als(x, plan, n_iters=2, tol=0.0)
     assert all(bool(torch.isfinite(u).all()) and u.dtype == dtype for u in st.factors)
     for strategy in ("fused", "matrix_free"):
-        with pytest.raises((ValueError, TypeError), match="float32 at rank 1..64"):
+        with pytest.raises(TypeError, match="float32"):
             cp_als(x, plan_sweep(problem, strategy), n_iters=1, tol=0.0)
 
 
@@ -1456,3 +1483,218 @@ def test_kernel_entries_launch_on_a_strided_tensor(cuda):
             out = fn(x, fs, n)
             assert mod.KERNEL.launches == before + 1
             assert _rel(out, mttkrp_einsum(x, fs, n)) < REL
+
+
+# ---- the MTTKRP kernels at any rank: a rank above 64 in column blocks of one launch
+
+HIGH_RANKS = [65, 80, 128, 130]
+HIGH_RANK_SHAPES = [(5, 6, 7), (33, 70, 129), (37, 23, 41, 30), (3, 4, 2, 3, 2), (2, 3, 2, 3, 2, 3)]
+
+
+@pytest.mark.parametrize("rank", HIGH_RANKS)
+@pytest.mark.parametrize("shape", HIGH_RANK_SHAPES)
+def test_high_rank_mttkrp_kernels_match_plain(cuda, shape, rank):
+    """Rows 1-4 above rank 64, every mode of ragged shapes of orders 3-6:
+    one counted launch a call, within 1e-4 of the plain version, bitwise
+    repeatable."""
+    x, fs = _unbatched_inputs(cuda, shape, rank, seed=rank)
+    xb, fb = _batched_inputs(cuda, 3, shape, rank, seed=rank + 1)
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        usb = [fb[k] for k in range(len(shape)) if k != n]
+        t, a, b, pos = ops.bilinear_operands(x, fs, n)
+        tb, ab, bb, _ = ops.bilinear_operands_batched(xb, fb, n)
+        entries = [
+            (mf.KERNEL, lambda: mf.matrix_free_kernel(x, us, n),
+             mf.matrix_free_kernel_plain(x, us, n)),
+            (mf.BATCHED_KERNEL, lambda: mf.matrix_free_batched_kernel(xb, usb, n),
+             mf.matrix_free_batched_kernel_plain(xb, usb, n)),
+            (fm.KERNEL, lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+             fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos)),
+            (fm.BATCHED_KERNEL, lambda: fm.fused_mttkrp_bilinear_batched(tb, ab, bb, pos=pos),
+             fm.fused_mttkrp_bilinear_batched_plain(tb, ab, bb, pos=pos)),
+        ]
+        for kernel, run, plain in entries:
+            before = kernel.launches
+            out = run()
+            assert kernel.launches == before + 1
+            assert out.shape == plain.shape and out.shape[-1] == rank
+            assert _rel(out, plain) < REL
+            assert torch.equal(out, run())
+
+
+@pytest.mark.parametrize("rank", HIGH_RANKS)
+@pytest.mark.parametrize("big_l,dim_i", [(3, 59), (225, 59), (40, 1100), (7, 33)])
+def test_high_rank_multi_ttv_kernels_match_plain(cuda, big_l, dim_i, rank):
+    """Rows 5-6 above rank 64: a tile of block_i x C outputs still launches
+    (one launch a call), within 1e-4 of the plain version, bitwise."""
+    g = torch.Generator(device=cuda).manual_seed(rank + big_l)
+    t = torch.randn((3, big_l, dim_i, rank), generator=g, device=cuda)
+    w = torch.randn((3, big_l, rank), generator=g, device=cuda)
+    for block_i in (256, 1024):
+        for kernel, run, plain in (
+            (mt.KERNEL, lambda: mt.multi_ttv(t[0], w[0], block_i=block_i),
+             mt.multi_ttv_plain(t[0], w[0])),
+            (mt.BATCHED_KERNEL, lambda: mt.multi_ttv_batched(t, w, block_i=block_i),
+             mt.multi_ttv_batched_plain(t, w)),
+        ):
+            before = kernel.launches
+            out = run()
+            assert kernel.launches == before + 1
+            assert _rel(out, plain) < REL
+            assert torch.equal(out, run())
+
+
+def _launch_unbatched_at(x, us, n, c, g, stream):
+    """The unbatched matrix-free C entry at rank ``c`` with the groups,
+    splits and stage of launch ``g`` (taken from another rank's geometry)."""
+    shape = tuple(x.shape)
+    others = [k for k in range(x.ndim) if k != n]
+    out = x.new_empty((shape[n], c))
+    ws = x.new_empty((g.groups, shape[n], c)) if g.groups > 1 else None
+    mf.KERNEL.launch(x.data_ptr(), mf._factor_pointers(us, others, x.ndim),
+                     (ctypes.c_int64 * x.ndim)(*shape), x.ndim, n, c, g.groups, g.splits,
+                     g.q_chunk, int(g.vec), None if ws is None else ws.data_ptr(),
+                     out.data_ptr(), stream)
+    return out
+
+
+def _launch_batched_at(x, us, n, c, g, stream):
+    shape = tuple(x.shape[1:])
+    others = [k for k in range(len(shape)) if k != n]
+    out = x.new_empty((x.shape[0], shape[n], c))
+    mf.BATCHED_KERNEL.launch(x.data_ptr(), mf._factor_pointers(us, others, len(shape)),
+                             (ctypes.c_int64 * len(shape))(*shape), len(shape), n, c,
+                             x.shape[0], g.splits, g.q_chunk, int(g.vec), out.data_ptr(), stream)
+    return out
+
+
+@pytest.mark.parametrize("rank", [65, 80, 128, 130])
+@pytest.mark.parametrize("shape", [(37, 23, 41, 30), (33, 70, 129), (225, 8, 20, 200)])
+def test_a_column_block_is_bitwise_a_call_on_its_columns_alone(cuda, shape, rank):
+    """A column's sum runs in the same order whatever block holds it: a
+    rank-C call's block of columns [lo, hi) is bitwise the C entry called
+    on those factor columns alone at the same groups, splits and stage.  A
+    wrapper call at rank hi - lo may take another split (its waves count
+    one column block, the rank-C call's all of them), and is bitwise the
+    block exactly where its geometry is the same."""
+    stream = torch.cuda.current_stream().cuda_stream
+    x, fs = _unbatched_inputs(cuda, shape, rank, seed=rank + 3)
+    xb, fb = _batched_inputs(cuda, 3, shape, rank, seed=rank + 4)
+    nb, w, _ = mf.column_blocks(rank)
+    spans = [(b * w, min(rank, (b + 1) * w)) for b in range(nb)]
+    for n in range(len(shape)):
+        us = [fs[k] for k in range(len(shape)) if k != n]
+        usb = [fb[k] for k in range(len(shape)) if k != n]
+        g = mf.unbatched_launch_shape(shape, n, rank)
+        gb = mf.launch_shape(shape, n, rank, 3)
+        out = mf.matrix_free_kernel(x, us, n)
+        outb = mf.matrix_free_batched_kernel(xb, usb, n)
+        for lo, hi in spans:
+            cols = [u[..., lo:hi].contiguous() for u in us]
+            colsb = [u[..., lo:hi].contiguous() for u in usb]
+            assert torch.equal(out[:, lo:hi], _launch_unbatched_at(x, cols, n, hi - lo, g, stream))
+            assert torch.equal(outb[..., lo:hi],
+                               _launch_batched_at(xb, colsb, n, hi - lo, gb, stream))
+            alone = mf.unbatched_launch_shape(shape, n, hi - lo)
+            if (alone.groups, alone.splits, alone.q_chunk) == (g.groups, g.splits, g.q_chunk):
+                assert torch.equal(out[:, lo:hi], mf.matrix_free_kernel(x, cols, n))
+
+
+def test_high_rank_kernels_launch_one_cuda_kernel_a_call(cuda):
+    """Above rank 64 a call still launches what its design states: the
+    batched entries one kernel, the unbatched ones one with one group and
+    two with more, multi-TTV one.  Counted in a CUDA graph of one call."""
+    for rank in (80, 128):
+        shape = (37, 23, 41, 30)
+        x, fs = _unbatched_inputs(cuda, shape, rank, seed=rank)
+        xb, fb = _batched_inputs(cuda, 3, shape, rank, seed=rank)
+        for n in range(4):
+            us = [fs[k] for k in range(4) if k != n]
+            usb = [fb[k] for k in range(4) if k != n]
+            g = mf.unbatched_launch_shape(shape, n, rank)
+            names = sorted(_graph_kernel_names(lambda: mf.matrix_free_kernel(x, us, n)),
+                           key=lambda name: "sum_splits_kernel" in name)
+            assert len(names) == (1 if g.groups == 1 else 2)
+            assert "matrix_free_cluster_kernel" in names[0]
+            names = _graph_kernel_names(lambda: mf.matrix_free_batched_kernel(xb, usb, n))
+            assert len(names) == 1 and "matrix_free_cluster_kernel" in names[0]
+            tb, ab, bb, pos = ops.bilinear_operands_batched(xb, fb, n)
+            names = _graph_kernel_names(lambda: fm.fused_mttkrp_bilinear_batched(tb, ab, bb,
+                                                                                 pos=pos))
+            assert len(names) == 1 and "matrix_free_cluster_kernel" in names[0]
+        t = torch.randn((40, 59, rank), device=cuda)
+        w = torch.randn((40, rank), device=cuda)
+        names = _graph_kernel_names(lambda: mt.multi_ttv(t, w))
+        assert len(names) == 1 and "multi_ttv_kernel" in names[0]
+
+
+@pytest.mark.parametrize("rank", [65, 80, 128, 200])
+@pytest.mark.parametrize("shape", [(225, 59, 200, 200), (37, 23, 41, 30), (5, 6, 7)])
+def test_high_rank_residency_and_cluster_slots_match_the_occupancy_query(cuda, shape, rank):
+    """The residency and clusters a wave the geometry counts at a column
+    block's padded width are what the CUDA occupancy queries give."""
+    for n in range(len(shape)):
+        for g in (mf.unbatched_launch_shape(shape, n, rank), mf.launch_shape(shape, n, rank, 8)):
+            per_sm, clusters = mf.occupancy(g, rank)
+            assert per_sm == g.residency
+            assert clusters == mf.CLUSTER_SLOTS[g.residency][g.splits]
+
+
+@pytest.mark.parametrize("rank", [10, 80])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64])
+def test_other_dtypes_still_raise_at_every_rank(cuda, dtype, rank):
+    """A 16-bit or float64 operand raises TypeError at every kernel entry,
+    with no launch and no quiet conversion or fallback."""
+    x, fs = _unbatched_inputs(cuda, (6, 5, 7, 4), rank, seed=1)
+    xb, fb = _batched_inputs(cuda, 2, (6, 5, 7, 4), rank, seed=2)
+    x, fs, xb, fb = x.to(dtype), [u.to(dtype) for u in fs], xb.to(dtype), [u.to(dtype) for u in fb]
+    t, a, b, pos = ops.bilinear_operands(x, fs, 1)
+    tb, ab, bb, _ = ops.bilinear_operands_batched(xb, fb, 1)
+    tw, ww = torch.randn((4, 5, rank), device=cuda).to(dtype), torch.randn((4, rank), device=cuda)
+    kernels = (fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL)
+    before = [k.launches for k in kernels]
+    for run in (lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+                lambda: fm.fused_mttkrp_bilinear_batched(tb, ab, bb, pos=pos),
+                lambda: mf.matrix_free_kernel(x, [fs[0], fs[2], fs[3]], 1),
+                lambda: mf.matrix_free_batched_kernel(xb, [fb[0], fb[2], fb[3]], 1),
+                lambda: ops.fused_mttkrp(x, fs, 2),
+                lambda: mt.multi_ttv(tw, ww.to(dtype))):
+        with pytest.raises(TypeError, match="float32"):
+            run()
+    assert [k.launches for k in kernels] == before
+
+
+def test_sharded_matrix_free_at_rank_80_in_an_nccl_world_of_one_is_the_local_engine(
+        cuda, tmp_path):
+    """The sharded executor's kernel leaves at rank 80 (two column blocks):
+    an NCCL world of one on a (1, 1) mesh, bitwise the local engine."""
+    import torch.distributed as tdist
+
+    from repro_torch.dist import GATHERS
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.plan import make_executor
+
+    tdist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                             world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1)
+        g = torch.Generator(device=cuda).manual_seed(8)
+        x = torch.randn((20, 17, 12, 9), generator=g, device=cuda)
+        init = [torch.randn((d, 80), generator=g, device=cuda) for d in x.shape]
+        axes = {0: "data", 2: "model"}
+        for m, kernel in (("matrix_free", mf.KERNEL), ("fused", fm.KERNEL)):
+            lfits, fits = [], []
+            lst = cp_als(x, plan_sweep(Problem.from_tensor(x, 80), m), n_iters=3, tol=0.0,
+                         init_factors=init, callback=lambda it, f, dt: lfits.append(f))
+            GATHERS.calls = 0
+            before = kernel.launches
+            st = cp_als(x, plan_sweep(Problem.from_tensor(x, 80, axes, mesh), m,
+                                      executor="sharded"),
+                        executor=make_executor("sharded", mesh, mode_axes=axes), n_iters=3,
+                        tol=0.0, init_factors=init, callback=lambda it, f, dt: fits.append(f))
+            assert GATHERS.calls > 0 and kernel.launches - before == 12
+            assert fits == lfits and st.weights.equal(lst.weights)
+            assert all(u.equal(v) for u, v in zip(st.factors, lst.factors))
+    finally:
+        tdist.destroy_process_group()
