@@ -31,7 +31,8 @@ hybrid and enc-dec models served and trained on the mesh, against their
 local runs).  Holds all seven
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
 and batched, and the KRP pair) against their plain PyTorch versions, at the
-main path's rank and at ranks 80 and 128 (column blocks); the LM
+main path's rank and at ranks 80 and 128 (column blocks), and in bf16,
+fp16 and float64 as well as float32; the LM
 path reaches none of them (the reference computes its attention, FFN and
 logits with plain products, no Pallas kernel).
 
@@ -49,6 +50,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only dryrun               # phases 0 and 19 only
     python3 chip_smoke.py --only examples             # phases 0 and 20 only
     python3 chip_smoke.py --only high_rank            # phases 0, 1 and 21 only
+    python3 chip_smoke.py --only dtypes               # phases 0, 1 and 22 only
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -401,6 +403,25 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    ``tune(x4, 128)`` (gate: kernel tile rows and kernel node rows;
    printed: the autotune plan); and one sharded ``matrix_free`` run at
    rank 80 in an NCCL world of one (gate: bitwise the local run).
+22. every kernel in bf16, fp16 and float64, run right after phase 21 with
+   the other float32 tensors released, the fMRI tensor cast to one dtype
+   at a time.  Rows 1-2 on every mode of the fMRI tensor and rows 3-4 on
+   every mode of the 8-subject batch at ranks 10 and 80 (two column
+   blocks); rows 5-7 at rank 10 (row 5 at the 2-step path's second steps,
+   row 6 at the batch's mode-1 second step, through the kernel-level
+   entries, and row 7 at the KRP's last fold).  Gates: each within
+   ``REL_ERR_BOUND`` of its plain version relative to the plain version's
+   largest magnitude (row 7 bitwise), float32 out (row 7 the dtype), run
+   twice bitwise, one counted launch a call and the CUDA kernels a call
+   of float32 (a CUDA graph of one call).  Printed at rank 10: kernel ms
+   (CUDA events) beside the bound (each operand read once at its width,
+   the float32 output written once; 2 C fp32 operations an element), the
+   plain version and one ``torch.einsum`` on the operands in their dtype.
+   Then ``cp_als`` in float64 under auto, fused and matrix_free for
+   ``DTYPE_SWEEPS`` sweeps from one init (gates: launch counts, float64
+   factors, fits within ``FIT_AGREE``), and ``tune()`` of the float64 and
+   the bf16 tensor at rank 10 (gate: kernel tile rows, kernel node rows
+   and launches).
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -3246,6 +3267,282 @@ def _only_high_rank(torch, args, dev, smi) -> None:
     _high_rank_phase(torch, args, dev, smi, x4, subjects)
 
 
+# ---- phase 22: bf16, fp16 and float64 operands on every kernel
+DTYPE_RANKS = (10, 80)  # rank 80: two column blocks of rows 1-4
+DTYPE_SWEEPS = 3
+
+
+def _log_ptxas(kernels) -> None:
+    """Each source's ``-Xptxas -v`` report of its instances: registers,
+    shared memory and spills."""
+    from repro_torch.kernels import _build
+
+    for src in dict.fromkeys(s for k in kernels for s in k.sources):
+        for line in _build.ptxas_log(src).splitlines():
+            if "entry function" in line or "Used" in line or "spill" in line:
+                _log(f"[1] {src.name}: {line.strip()}")
+
+
+def _dtype_geometry(g) -> str:
+    return (f" [grid ({_grid_x(g)}, {g.groups} x {g.splits}, {g.slabs}), q chunk "
+            f"{g.q_chunk} x {g.chunks}, {'16' if g.vec else 'element'}-byte copies, "
+            f"{g.smem} B shared]")
+
+
+def _dtype_rows(torch, x4, xb, fs, fb, rank, smi, err, timed):
+    """Rows 1-7 in the dtype of ``x4`` (the fMRI tensor: rows 1, 2, 5, 7;
+    the fleet batch ``xb``: rows 3, 4, 6; rows 1-4 only unless ``timed``):
+    every call within ``REL_ERR_BOUND`` of its plain version relative to the
+    plain version's largest magnitude (row 7 bitwise), bitwise repeatable,
+    one counted launch a call and the CUDA kernels a call its design states
+    (a CUDA graph of one call: those of float32).  With ``timed``, its
+    CUDA-event time beside the bound (each operand read once at its width,
+    the float32 output written once; 2 C fp32 operations an element), the
+    plain version and one ``torch.einsum`` on the operands in their own
+    dtype.  Returns each row's sums over its calls."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+    from repro_torch.kernels import ops
+
+    dtype = x4.dtype
+    isz = x4.element_size()
+    tag = str(dtype).removeprefix("torch.")
+
+    def row(key, label, kernel, run, plain, library, byts, flops, want_kernels, reps):
+        out = run()
+        before = kernel.launches
+        again = run()
+        launched = kernel.launches - before
+        want = plain()
+        mabs = float((out.double() - want.double()).abs().max())
+        rel = mabs / max(float(want.double().abs().max()), 1e-300)
+        bitwise = kernel is kk.KERNEL
+        err[key] = max(err.get(key, 0.0), mabs)
+        ops_, kern = _graph_ops(torch, run)
+        same = torch.equal(out, again)
+        ok = (torch.equal(out, want) if bitwise else math.isfinite(rel) and rel <= REL_ERR_BOUND)
+        ok = (ok and same and launched == 1 and ops_ == kern == want_kernels
+              and out.dtype == (dtype if bitwise else torch.float32))
+        r = {}
+        if timed:
+            r = {"ms": _time_ms(torch, run, reps), "plain_ms": _time_ms(torch, plain, 2),
+                 "library_ms": _time_ms(torch, library, 2), "bytes_ms": byts / HBM_BW * 1e3,
+                 "flops_ms": flops / PEAK_FLOPS * 1e3}
+        del want, out, again
+        times = ""
+        if timed:
+            bound = max(r["bytes_ms"], r["flops_ms"])
+            times = (f"; kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, einsum "
+                     f"{r['library_ms']:.4f} ms, bound {bound:.4f} ms ("
+                     f"{'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'})")
+        _log(f"[22] {tag} {label} rank {rank}: max abs err {mabs:.3e}, relative to the plain "
+             f"version's largest {rel:.3e} (bound {'bitwise' if bitwise else REL_ERR_BOUND}), "
+             f"run twice bitwise {same}, launches "
+             f"{launched} a call, {kern} CUDA kernels a call (want {want_kernels}){times}; "
+             f"card {smi} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"[22] {tag} {label} rank {rank}: wrong, not repeatable or wrong "
+                             "launches")
+        return r
+
+    rows = {}
+    for n in range(4):
+        t, a, b, pos = ops.bilinear_operands(x4, fs, n)
+        g = fm.launch_geometry(tuple(t.shape), pos, rank, itemsize=isz)
+        rows.setdefault("fused", []).append(row(
+            "fused", f"fused_mttkrp_bilinear mode {n} pos {pos}{_dtype_geometry(g)}", fm.KERNEL,
+            lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+            lambda: fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos),
+            lambda: torch.einsum(_BILINEAR[pos], t, a, b),
+            isz * (t.numel() + a.numel() + b.numel()) + 4 * t.shape[pos] * rank,
+            2 * t.numel() * rank, 1 if g.groups == 1 else 2, 5))
+        del t, a, b
+        us = [fs[k] for k in range(4) if k != n]
+        g = mf.unbatched_launch_shape(FMRI, n, rank, itemsize=isz)
+        rows.setdefault("mf", []).append(row(
+            "mf", f"matrix_free_kernel mode {n}{_dtype_geometry(g)}", mf.KERNEL,
+            lambda: mf.matrix_free_kernel(x4, us, n),
+            lambda: mf.matrix_free_kernel_plain(x4, us, n),
+            lambda: torch.einsum(_einsum_spec(4, n), x4, *us),
+            isz * (x4.numel() + sum(u.numel() for u in us)) + 4 * FMRI[n] * rank,
+            2 * x4.numel() * rank, 1 if g.groups == 1 else 2, 5))
+        torch.cuda.empty_cache()
+    for n in range(3):
+        t, a, b, pos = ops.bilinear_operands_batched(xb, fb, n)
+        rows.setdefault("fused_b", []).append(row(
+            "fused_b", f"fused_mttkrp_bilinear_batched S={len(xb)} mode {n} pos {pos}",
+            fm.BATCHED_KERNEL, lambda: fm.fused_mttkrp_bilinear_batched(t, a, b, pos=pos),
+            lambda: fm.fused_mttkrp_bilinear_batched_plain(t, a, b, pos=pos),
+            lambda: torch.einsum(_slab_spec(_BILINEAR[pos]), t, a, b),
+            isz * (t.numel() + a.numel() + b.numel()) + 4 * len(xb) * t.shape[1 + pos] * rank,
+            2 * t.numel() * rank, 1, 10))
+        us = [fb[k] for k in range(3) if k != n]
+        spec = _slab_spec(_einsum_spec(3, n))
+        rows.setdefault("mf_b", []).append(row(
+            "mf_b", f"matrix_free_batched_kernel S={len(xb)} mode {n}", mf.BATCHED_KERNEL,
+            lambda: mf.matrix_free_batched_kernel(xb, us, n),
+            lambda: mf.matrix_free_batched_kernel_plain(xb, us, n),
+            lambda: torch.einsum(spec, xb, *us),
+            isz * (xb.numel() + sum(u.numel() for u in us)) + 4 * len(xb) * xb.shape[1 + n] * rank,
+            2 * xb.numel() * rank, 1, 10))
+    if not timed:
+        return rows
+    # rows 5-6 through the kernel-level entries (float32 out, one kernel a
+    # call), a tile of the rows there are (block_i must divide them)
+    for n in (1, 2):
+        t, w = ops.multi_ttv_operands(x4, fs, n)
+        bi = t.shape[1]
+        rows.setdefault("mt", []).append(row(
+            "mt", f"multi_ttv_kernel mode {n} T{tuple(t.shape)} block_i {bi}", mt.KERNEL,
+            lambda: mt.multi_ttv_kernel(t, w, block_i=bi), lambda: mt.multi_ttv_plain(t, w),
+            lambda: torch.einsum("lic,lc->ic", t, w),
+            isz * (t.numel() + w.numel()) + 4 * t.shape[1] * rank, 2 * t.numel(), 1, 50))
+    pairs = [ops.multi_ttv_operands(xb[s], [f[s] for f in fb], 1) for s in range(len(xb))]
+    tb, wb = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    del pairs
+    bi = tb.shape[2]
+    rows["mt_b"] = [row(
+        "mt_b", f"multi_ttv_batched_kernel T{tuple(tb.shape)} block_i {bi}", mt.BATCHED_KERNEL,
+        lambda: mt.multi_ttv_batched_kernel(tb, wb, block_i=bi, block_batch=1),
+        lambda: mt.multi_ttv_batched_plain(tb, wb),
+        lambda: torch.einsum("slic,slc->sic", tb, wb),
+        isz * (tb.numel() + wb.numel()) + 4 * len(tb) * tb.shape[2] * rank, 2 * tb.numel(), 1,
+        50)]
+    del tb, wb
+    k12 = kk.krp_pair(fs[1], fs[2], block_b=512)
+    n_out = k12.shape[0] * FMRI[3] * rank
+    rows["krp"] = [row(
+        "krp", f"krp_pair {tuple(k12.shape)} (.) {tuple(fs[3].shape)}", kk.KERNEL,
+        lambda: kk.krp_pair(k12, fs[3], block_b=512), lambda: kk.krp_pair_plain(k12, fs[3]),
+        lambda: torch.einsum("ac,bc->abc", k12, fs[3]),
+        isz * (k12.numel() + fs[3].numel() + n_out), n_out, 1, 10)]
+    del k12
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _dtypes_phase(torch, args, dev, smi, x4) -> None:
+    """Phase 22 (see the module docstring): rows 1-7 in bf16, fp16 and
+    float64 on the fMRI tensor (``x4``, float32, cast one dtype at a time)
+    and the fleet batch; ``cp_als`` in float64 under auto, fused and
+    matrix_free; ``tune()`` in float64 and bf16."""
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+    from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep, tune
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 22)
+    f32 = {rank: [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+           for rank in DTYPE_RANKS}
+    fb32 = {rank: [torch.randn((SERVE_BATCH, d, rank), generator=gen, device=dev)
+                   for d in (FMRI[0],) + FMRI[2:]] for rank in DTYPE_RANKS}
+    summaries = {}
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        tag = str(dtype).removeprefix("torch.")
+        t0 = time.perf_counter()
+        xd = x4.to(dtype)
+        xb = x4[:, :SERVE_BATCH].transpose(0, 1).to(  # subjects 0-7, the fleet batch
+            dtype, memory_format=torch.contiguous_format)
+        for rank in DTYPE_RANKS:
+            err = {}
+            fs = [u.to(dtype) for u in f32[rank]]
+            fb = [u.to(dtype) for u in fb32[rank]]
+            rows = _dtype_rows(torch, xd, xb, fs, fb, rank, smi, err, rank == DTYPE_RANKS[0])
+            if rank == DTYPE_RANKS[0]:
+                summaries[tag] = summary = {}
+                for key, rs in rows.items():
+                    b_bytes = sum(r["bytes_ms"] for r in rs)
+                    b_ops = sum(r["flops_ms"] for r in rs)
+                    summary[key] = {
+                        "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                        "library_ms": sum(r["library_ms"] for r in rs),
+                        "bound_ms": max(b_bytes, b_ops),
+                        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                        "calls": len(rs), "max_abs_err": err[key]}
+                _log(f"[22] {tag} rows at rank {rank} (sums over each row's calls: 4 modes of "
+                     f"rows 1-2, 3 of rows 3-4, modes 1-2 of row 5; card {smi}): "
+                     f"{json.dumps(summary)}")
+            del fs, fb
+        if dtype == torch.float64:  # the front door in float64
+            init = [u.double() for u in f32[DTYPE_RANKS[0]]]
+            fits = {}
+            rank = DTYPE_RANKS[0]
+            for strategy in ("auto", "fused", "matrix_free"):
+                plan = plan_sweep(Problem.from_tensor(xd, rank), strategy)
+                torch.cuda.synchronize()
+                fm.KERNEL.launches = mf.KERNEL.launches = 0
+                got, secs = [], []
+                st = cp_als(xd, plan, n_iters=DTYPE_SWEEPS, tol=0.0, init_factors=init,
+                            callback=lambda it, f, dt: (got.append(f), secs.append(dt)))
+                torch.cuda.synchronize()
+                launches = (fm.KERNEL.launches, mf.KERNEL.launches)
+                want = {"auto": (0, 0), "fused": (4 * DTYPE_SWEEPS, 0),
+                        "matrix_free": (0, 4 * DTYPE_SWEEPS)}[strategy]
+                fits[strategy] = got
+                finite = all(math.isfinite(f) for f in got) and all(
+                    u.dtype == torch.float64 and bool(torch.isfinite(u).all()) for u in st.factors)
+                _log(f"[22] cp_als float64 rank {rank} {strategy}: nodes "
+                     f"{[np_.algorithm for np_ in plan.nodes]}; fits {got}; ms a sweep "
+                     f"{[round(1e3 * s_, 3) for s_ in secs]} (host clock, one sync a sweep); "
+                     f"launches fused {launches[0]} matrix_free {launches[1]} (want {want}); "
+                     f"card {smi}")
+                if launches != want or not finite:
+                    raise SystemExit(f"[22] cp_als float64 {strategy}: launches or fits wrong")
+                del st
+            gap = max(abs(a - b) for s_ in ("fused", "matrix_free")
+                      for a, b in zip(fits[s_], fits["auto"]))
+            _log(f"[22] cp_als float64: fits across strategies max |diff| {gap:.3e} (bound "
+                 f"{FIT_AGREE:g})")
+            if gap > FIT_AGREE:
+                raise SystemExit("[22] cp_als float64: the strategies disagree on the fits")
+        if dtype in (torch.float64, torch.bfloat16):  # tune() times the kernels
+            for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL):
+                k.launches = 0
+            cache = TuningCache(None)
+            t1 = time.perf_counter()
+            entry = tune(xd, DTYPE_RANKS[0], cache=cache, budget_ms=None, reps=1)
+            torch.cuda.synchronize()
+            tile_rows = {name_: len(summ["rows"]) for name_, summ in entry["tiles"].items()}
+            algs = sorted({r["algorithm"] for r in entry["nodes"] if "algorithm" in r})
+            _log(f"[22] tune({tag} x4, {DTYPE_RANKS[0]}): tile rows {tile_rows}, "
+                 f"{len(entry['nodes'])} node rows ({algs}), launches fused "
+                 f"{fm.KERNEL.launches} matrix_free {mf.KERNEL.launches} multi_ttv "
+                 f"{mt.KERNEL.launches}, {time.perf_counter() - t1:.1f} s wall; card {smi}")
+            if not all(tile_rows.values()) or not {"fused", "matrix_free"} <= set(algs) or not (
+                    fm.KERNEL.launches and mf.KERNEL.launches and mt.KERNEL.launches):
+                raise SystemExit(f"[22] tune in {tag} timed no kernel")
+            del cache, entry
+        del xd, xb
+        torch.cuda.empty_cache()
+        _log(f"[22] {tag}: {time.perf_counter() - t0:.1f} s")
+    _log(f"[22] dtype rows at rank {DTYPE_RANKS[0]} (card {smi}): {json.dumps(summaries)}")
+    _log(f"[22] dtype phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
+def _only_dtypes(torch, args, dev, smi) -> None:
+    """``--only dtypes``: build every kernel source (every element type),
+    make the fMRI tensor, then phase 22."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import matrix_free as mf
+    from repro_torch.kernels import multi_ttv as mt
+
+    kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
+               mt.BATCHED_KERNEL, kk.KERNEL]
+    t0 = time.perf_counter()
+    _build.build_all(kernels)
+    _log(f"[1] built {len({s for k in kernels for s in k.sources})} sources in "
+         f"{time.perf_counter() - t0:.1f} s")
+    _log_ptxas(kernels)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    x4 = synth_fmri(torch, gen, args.rank, dev)
+    _dtypes_phase(torch, args, dev, smi, x4)
+
+
 # ---- phase 14: the LM serving path
 # olmo-1b's parameter count: the reference's repro.analysis.flops.param_count
 # of its config, and the port's count on the meta device
@@ -5317,7 +5614,8 @@ def main(argv=None) -> int:
     ap.add_argument("--part", choices=["19a", "19b"], help=argparse.SUPPRESS)
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
                                        "dist", "lm", "lm_families", "train", "sharded_lm",
-                                       "sharded_families", "dryrun", "examples", "high_rank"],
+                                       "sharded_families", "dryrun", "examples", "high_rank",
+                                       "dtypes"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -5328,8 +5626,9 @@ def main(argv=None) -> int:
                          "training path), phase 17 (the sharded LM in an NCCL world of one), "
                          "phase 18 (the other families on the mesh there), phase 19 (FSDP on "
                          "the card and the dry-run against it), phase 20 (the examples and "
-                         "the executable docs) or phase 21 (the MTTKRP kernels above rank 64); "
-                         "prints no result line")
+                         "the executable docs), phase 21 (the MTTKRP kernels above rank 64) or "
+                         "phase 22 (every kernel in bf16, fp16 and float64); prints no result "
+                         "line")
     args = ap.parse_args(argv)
 
     import torch
@@ -5367,7 +5666,8 @@ def main(argv=None) -> int:
                 "dist": _only_dist, "lm": _lm_phase, "lm_families": _lm_families_phase,
                 "train": _train_phase, "sharded_lm": _sharded_lm_phase,
                 "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase,
-                "examples": _examples_phase, "high_rank": _only_high_rank}[args.only]
+                "examples": _examples_phase, "high_rank": _only_high_rank,
+                "dtypes": _only_dtypes}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -5378,11 +5678,9 @@ def main(argv=None) -> int:
     kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
                mt.BATCHED_KERNEL, kk.KERNEL]
     _build.build_all(kernels)
-    _log(f"[1] built {', '.join(k.symbol for k in kernels)} in {time.perf_counter() - t0:.1f} s")
-    for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL, kk.KERNEL):
-        for line in k.ptxas_log.splitlines():
-            if "entry function" in line or "Used" in line or "spill" in line:
-                _log(f"[1] {k.source.name}: {line.strip()}")
+    _log(f"[1] built {', '.join(k.symbol for k in kernels)}, each in "
+         f"{', '.join(kk.KERNEL.entries)}, in {time.perf_counter() - t0:.1f} s")
+    _log_ptxas(kernels)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     rank = args.rank
@@ -5597,8 +5895,14 @@ def main(argv=None) -> int:
     # ---- phase 21: the MTTKRP kernels above rank 64, while the fMRI tensor is here
     _high_rank_phase(torch, args, dev, smi, x4, subjects)
 
-    # ---- phase 14: the LM serving path (the tensors of phases 2-13 and 21 released first)
-    del x4, init, f4, subjects, xb, fb, states, pp_ref
+    # ---- phase 22: every kernel in bf16, fp16 and float64 (the float32 tensors of
+    # phases 2-13 and 21 released first, but the fMRI tensor, cast one dtype at a time)
+    del init, f4, subjects, xb, fb, states, pp_ref
+    torch.cuda.empty_cache()
+    _dtypes_phase(torch, args, dev, smi, x4)
+
+    # ---- phase 14: the LM serving path (the tensors of phases 2-13, 21 and 22 released first)
+    del x4
     torch.cuda.empty_cache()
     _lm_phase(torch, args, dev, smi)
 

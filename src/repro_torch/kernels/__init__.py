@@ -13,7 +13,9 @@ against.  The multi-TTV wrappers are reached as ``ops.multi_ttv`` /
 ``ops.multi_ttv_batched`` (a package-level ``multi_ttv`` would hide the
 module of that name); the package exports the low-level entries
 ``multi_ttv_kernel`` / ``multi_ttv_batched_kernel``, as the reference does.  A CUDA tensor launches a kernel, a CPU tensor takes
-its plain version.
+its plain version.  Every kernel takes float32, bfloat16, float16 and
+float64 operands of one dtype (``_tiling.KERNEL_DTYPES``), read at their own
+width; the MTTKRP and multi-TTV kernels sum in fp32 and return float32.
 """
 
 from . import ops, ref

@@ -33,6 +33,17 @@ PADDED_RANKS = (4, 8, 12, 16, 24, 32, 48, 64)
 BLOCK_RANK = PADDED_RANKS[-1]
 # Slabs of a batched launch: one per block along the grid's z axis.
 MAX_SLABS = 65535
+# The element types the CUDA kernels take, the reference's kernels' dtypes:
+# each one's C entry suffix (``matrix_free_mttkrp_bf16``, ...) and its bytes.
+# Every operand of a call has one of them, the same one; the MTTKRP and
+# multi-TTV kernels sum in fp32 and write float32, the KRP pair writes the
+# operands' dtype.
+KERNEL_DTYPES = {
+    torch.float32: ("f32", 4),
+    torch.bfloat16: ("bf16", 2),
+    torch.float16: ("f16", 2),
+    torch.float64: ("f64", 8),
+}
 
 
 def use_kernel(*tensors: Tensor) -> bool:
@@ -59,30 +70,47 @@ def use_kernel(*tensors: Tensor) -> bool:
 def kernels_take(device, dtype: torch.dtype, rank: int) -> bool:
     """Whether the MTTKRP kernel paths take a problem of ``dtype`` at
     ``rank`` on ``device``.  On the CPU the plain versions take any rank and
-    dtype; on the card the CUDA kernels take float32 at any rank >= 1 (a
-    rank above ``BLOCK_RANK`` in column blocks).  The tuner asks this
-    before it times a kernel; a forced kernel strategy raises instead."""
+    dtype; on the card the CUDA kernels take the dtypes of
+    ``KERNEL_DTYPES`` at any rank >= 1 (a rank above ``BLOCK_RANK`` in
+    column blocks).  The tuner asks this before it times a kernel; a forced
+    kernel strategy raises instead."""
     dev = torch.device(device)
     if dev.type == "cpu":
         return True
-    return dev.type == "cuda" and dtype == torch.float32 and rank >= 1
+    return dev.type == "cuda" and dtype in KERNEL_DTYPES and rank >= 1
 
 
 def check_rank(rank: int) -> None:
     """Raise unless ``rank`` is one the CUDA kernels take: any rank >= 1."""
     if rank < 1:
-        raise ValueError(f"the CUDA kernels take float32 at rank >= 1, got rank {rank}")
+        raise ValueError(f"the CUDA kernels take rank >= 1, got rank {rank}")
 
 
 def check_kernel_operand(name: str, t: Tensor) -> None:
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor."""
+    """Raise unless ``t`` is a contiguous CUDA tensor of a dtype in
+    ``KERNEL_DTYPES`` (the dtype is checked first)."""
+    if t.dtype not in KERNEL_DTYPES:
+        names = ", ".join(str(d).removeprefix("torch.") for d in KERNEL_DTYPES)
+        raise TypeError(f"{name} is {t.dtype}: the CUDA kernels take {names}")
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on the card, got {t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32 (the CUDA kernels take float32 only), "
-                        f"got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def kernel_suffix(*operands: tuple[str, Tensor]) -> str:
+    """Check that the ``(name, tensor)`` operands have one dtype (a mix
+    raises ``TypeError`` naming two of them: nothing is converted), then
+    each one (:func:`check_kernel_operand`); return the dtype's C entry
+    suffix."""
+    name0, t0 = operands[0]
+    for name, t in operands:
+        if t.dtype != t0.dtype:
+            raise TypeError(f"{name} is {t.dtype} and {name0} {t0.dtype}: the CUDA kernels "
+                            "take operands of one dtype")
+    for name, t in operands:
+        check_kernel_operand(name, t)
+    return KERNEL_DTYPES[t0.dtype][0]
 
 
 def check_slabs(slabs: int) -> None:

@@ -1,4 +1,5 @@
-// Fused bilinear MTTKRP for Hopper (sm_90a), fp32:
+// Fused bilinear MTTKRP for Hopper (sm_90a), fp32 (the entries of the other
+// element types, on the same body, are in mttkrp_entries.cuh):
 //
 //     M[i, c] = sum_{a, b} T[...] * A[a, c] * B[b, c]
 //
@@ -34,26 +35,9 @@
 // T's b axis against B, then scales by A[a, :] once a step.  At the fleet's
 // views the launches are those of the batched matrix-free entry on the same
 // 3-way stack, bit for bit; at the fMRI tensor's modes 0 and 2 they are the
-// unbatched matrix-free entry's.
+// unbatched matrix-free entry's.  The view's operands of the fold are
+// bilinear_fold (mttkrp_cluster.cuh).
 #include "mttkrp_cluster.cuh"
-
-namespace mttkrp {
-
-// The fold's operands of view (d0, d1, d2) at pos: its shape and the factor
-// of each mode (pos unused; A outer, B contracted).  False for a bad pos.
-static bool bilinear_fold(int pos, const float* a, const float* b, int64_t d0, int64_t d1,
-                          int64_t d2, int64_t* shape, const void** factors) {
-  if (pos < 0 || pos > 2) return false;
-  shape[0] = d0;
-  shape[1] = d1;
-  shape[2] = d2;
-  factors[pos] = nullptr;
-  factors[pos == 0 ? 1 : 0] = a;
-  factors[pos == 2 ? 1 : 2] = b;
-  return true;
-}
-
-}  // namespace mttkrp
 
 // t: contiguous (d0, d1, d2) view; a: (da, c); b: (db, c); out: (I, c);
 // any rank c >= 1.  The grid is (ceil(I / 32) x col_blocks(c), groups *

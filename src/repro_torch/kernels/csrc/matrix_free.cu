@@ -1,5 +1,6 @@
 // Matrix-free MTTKRP for Hopper (sm_90a), fp32, any mode of an order-3..6
-// tensor in its natural row-major layout:
+// tensor in its natural row-major layout (the entries of the other element
+// types, on the same body, are in mttkrp_entries.cuh):
 //
 //     M[i, c] = sum over every non-target index of x[...] * prod_k U_k[i_k, c]
 //
@@ -117,21 +118,5 @@ extern "C" int matrix_free_mttkrp_batched_f32(const float* x, const void* const*
 // nothing.
 extern "C" int matrix_free_occupancy_f32(int c, int i_contig, int64_t q_chunk, int splits,
                                          int* blocks_per_sm, int* clusters) {
-  using namespace mttkrp;
-  if (c < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int cp = padded_rank(block_cols(c));
-  if (cp == 0 || !mfc_split_ok(splits) || q_chunk < 4 || q_chunk % 4 != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t smem = mfc_smem_bytes(q_chunk, cp, i_contig != 0);
-  if (smem > MFC_BLOCK_SMEM) return static_cast<int>(cudaErrorInvalidValue);
-  const MFCInstance k = mfc_instance(cp, i_contig != 0);
-  if (k.err != cudaSuccess) return static_cast<int>(k.err);
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, k.kernel, THREADS, static_cast<size_t>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr[1];  // the query needs the cluster size even for one
-  const cudaLaunchConfig_t cfg = mfc_config(1, splits, splits, 1, smem, nullptr, attr);
-  err = cudaOccupancyMaxActiveClusters(clusters, k.kernel, &cfg);
-  return static_cast<int>(err);
+  return mttkrp::occupancy<float>(c, i_contig, q_chunk, splits, blocks_per_sm, clusters);
 }

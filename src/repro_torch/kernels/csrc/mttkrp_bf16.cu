@@ -1,0 +1,5 @@
+// The MTTKRP entries of rows 1-4 in bf16 (mttkrp_entries.cuh): the shared
+// body (mttkrp_cluster.cuh) reading bf16 and summing in fp32, float output.
+#include "mttkrp_entries.cuh"
+
+MTTKRP_ENTRIES(__nv_bfloat16, bf16)

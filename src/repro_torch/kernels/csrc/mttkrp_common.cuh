@@ -1,6 +1,7 @@
 // What the port's CUDA sources share: the MTTKRP body's block shape
-// (mttkrp_cluster.cuh), the cp.async helpers, the rank padding, the pass
-// that adds split partials in a fixed order, and the error strings.
+// (mttkrp_cluster.cuh), the element types, the cp.async helpers, the rank
+// padding, the pass that adds split partials in a fixed order, and the
+// error strings.
 //
 // Layout of an MTTKRP block: BI lanes x WARPS warps.  Lane = target row i of
 // the tile, warp = a slice of the step's contracted indices.  Every lane
@@ -16,6 +17,8 @@
 // stored.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,12 +30,99 @@ constexpr int THREADS = BI * WARPS;  // 256
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) { return a < b ? a : b; }
 
+// The element types the kernels read: float, bf16, fp16 and double, each
+// read from HBM at its own width.  Every sum is taken in fp32 (the
+// reference's kernels accumulate into a float32 output whatever they read),
+// so a double is rounded to float where it is used; bf16 and fp16 convert
+// to float exactly.  Per type: the elements in a 16-byte unit, the
+// conversion to float (of a value, and of the bits of a 16-bit one), the
+// type a product of two elements is taken in (`Wide`: float, exact for two
+// 16-bit values; double for doubles) and that product rounded as the
+// reference rounds `a * b` in T (`round`: to T, then widened to `Wide`
+// again; to float for doubles, where the reference casts the product to
+// its float32 sum), and the product stored as T (`store`).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<float> {
+  static constexpr int kUnit = 4;
+  using Wide = float;
+  __device__ static __forceinline__ float to_float(float v) { return v; }
+  __device__ static __forceinline__ float round(float p) { return p; }
+  __device__ static __forceinline__ float store(float p) { return p; }
+};
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int kUnit = 8;
+  using Wide = float;
+  __device__ static __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __forceinline__ float bits_to_float(unsigned b) {
+    return __uint_as_float(b << 16);
+  }
+  __device__ static __forceinline__ float round(float p) {
+    return __bfloat162float(__float2bfloat16_rn(p));
+  }
+  __device__ static __forceinline__ __nv_bfloat16 store(float p) { return __float2bfloat16_rn(p); }
+};
+
+template <>
+struct Elem<__half> {
+  static constexpr int kUnit = 8;
+  using Wide = float;
+  __device__ static __forceinline__ float to_float(__half v) { return __half2float(v); }
+  __device__ static __forceinline__ float bits_to_float(unsigned b) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(b)));
+  }
+  __device__ static __forceinline__ float round(float p) {
+    return __half2float(__float2half_rn(p));
+  }
+  __device__ static __forceinline__ __half store(float p) { return __float2half_rn(p); }
+};
+
+template <>
+struct Elem<double> {
+  static constexpr int kUnit = 2;
+  using Wide = double;
+  __device__ static __forceinline__ float to_float(double v) { return __double2float_rn(v); }
+  __device__ static __forceinline__ float round(double p) { return __double2float_rn(p); }
+  __device__ static __forceinline__ double store(double p) { return p; }
+};
+
+template <typename T>
+__device__ __forceinline__ float to_float(T v) {
+  return Elem<T>::to_float(v);
+}
+
+// An element as the type its products are taken in (exact).
+template <typename T>
+__device__ __forceinline__ typename Elem<T>::Wide widen(T v) {
+  if constexpr (sizeof(T) == 8) {
+    return v;
+  } else {
+    return Elem<T>::to_float(v);
+  }
+}
+
 // Asynchronous 4-byte global -> shared copy (zero-fill when !valid; src must
 // still be a mapped address), grouped with commit / wait_group.
 __device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 4 : 0));
+}
+// The same for 8 bytes (a double).
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0));
+}
+// And 16 bytes (a unit), bypassing L1.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>

@@ -1,5 +1,6 @@
-// Multi-TTV for Hopper (sm_90a), fp32 -- the second step of the 2-step
-// MTTKRP (paper Alg. 4):
+// Multi-TTV for Hopper (sm_90a) -- the second step of the 2-step MTTKRP
+// (paper Alg. 4), on float, bf16, fp16 or double operands, summed in fp32
+// into a float output:
 //
 //     M[i, c] = sum_l T[l, i, c] * W[l, c]            (unbatched)
 //     M[s, i, c] = sum_l T[s, l, i, c] * W[s, l, c]   (batched, slab s)
@@ -42,16 +43,28 @@
 //   * Batched, the slab is blockIdx.z; a slab reads only its own T and W and
 //     writes only its own output, so slab 0's bits do not depend on the
 //     others.
+//   * Element types.  T is read at its own width (a VEC quad is 16 bytes of
+//     float, 8 of a 16-bit type, 32 of double).  In float a step is an fp32
+//     FMA; in the other types it is the reference's algebra, which forms
+//     t * w in T and adds it to a float32 output: the product of two 16-bit
+//     values is exact in fp32 and is rounded once to T, a product of
+//     doubles is taken in fp64 and rounded to float, and then it is added in
+//     fp32, with no FMA (Elem::round in mttkrp_common.cuh).  A double step
+//     holds twice the registers, so it issues 2 l steps together, not 4
+//     (the same sums in the same order).
 // Launch geometry (tile, TX, G, cl) comes from the shape alone, in the
 // wrapper (multi_ttv.py: launch_shape), so no device query is made a call.
-// Bound: HBM bytes.  T is read once (4 |T| bytes) for 2 |T| FLOPs, 0.5 FLOP
-// a byte, far below the card's 20 FLOP/byte fp32 ridge.  At the shapes the
+// Bound: HBM bytes.  T is read once (4 |T| bytes in float, 2 |T| in 16 bits,
+// 8 |T| in double) for 2 |T| FLOPs, at most 1 FLOP a byte, far below the
+// card's 20 FLOP/byte fp32 ridge.  At the shapes the
 // fMRI tensor gives (T up to 200 x 200 x 10, 1.6 MB) a call moves about
 // 0.5 us of HBM traffic; its time on the card is launch latency, a few DRAM
 // round trips of the 8 SMs of one cluster (one tile at the default
 // block_i) and the two cluster barriers.  Between back-to-back calls the
 // wrapper's host path, longer than all of that, sets the pace (PERF.md).
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "mttkrp_common.cuh"
 
@@ -60,40 +73,77 @@ namespace mttkrp {
 namespace cg = cooperative_groups;
 
 constexpr int TTV_MAX_THREADS = 1024;
-constexpr int TTV_UNROLL = 4;  // l steps whose loads are issued together
 
-__device__ __forceinline__ float4 fma4(float4 t, float4 w, float4 acc) {
-  return make_float4(fmaf(t.x, w.x, acc.x), fmaf(t.y, w.y, acc.y), fmaf(t.z, w.z, acc.z),
-                     fmaf(t.w, w.w, acc.w));
-}
+// l steps whose loads are issued together.
+template <typename T>
+constexpr int kTtvUnroll = sizeof(T) == 8 ? 2 : 4;
+
+// Four elements of T for the 4 outputs of a thread, in the type a product
+// is taken in (float, exact for the 16-bit types; double for double).
+template <typename T>
+struct Four {
+  typename Elem<T>::Wide x, y, z, w;
+};
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
+// acc += t * w, output by output: an fp32 FMA in float, else the product
+// rounded as the reference rounds it (Elem::round), then added in fp32.
+template <typename T>
+__device__ __forceinline__ float4 mac4(const Four<T>& t, const Four<T>& w, float4 acc) {
+  if constexpr (std::is_same<T, float>::value) {
+    return make_float4(fmaf(t.x, w.x, acc.x), fmaf(t.y, w.y, acc.y), fmaf(t.z, w.z, acc.z),
+                       fmaf(t.w, w.w, acc.w));
+  } else {
+    return make_float4(acc.x + Elem<T>::round(t.x * w.x), acc.y + Elem<T>::round(t.y * w.y),
+                       acc.z + Elem<T>::round(t.z * w.z), acc.w + Elem<T>::round(t.w * w.w));
+  }
+}
+
+// Four consecutive elements at p (16-byte aligned for float and double,
+// 8-byte for the 16-bit types) in one or two vector loads.
+template <typename T>
+__device__ __forceinline__ Four<T> ldg_quad(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+    return {v.x, v.y, v.z, v.w};
+  } else if constexpr (sizeof(T) == 2) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    return {Elem<T>::bits_to_float(v.x & 0xffffu), Elem<T>::bits_to_float(v.x >> 16),
+            Elem<T>::bits_to_float(v.y & 0xffffu), Elem<T>::bits_to_float(v.y >> 16)};
+  } else {
+    const double2 lo = __ldg(reinterpret_cast<const double2*>(p));
+    const double2 hi = __ldg(reinterpret_cast<const double2*>(p) + 1);
+    return {lo.x, lo.y, hi.x, hi.y};
+  }
+}
+
 // T[l, o] for the 4 outputs o of a thread (masked ones read as 0; in VEC a
 // quad is all in or all out).
-template <bool VEC>
-__device__ __forceinline__ float4 load_t(const float* __restrict__ tl, const int (&o)[4],
-                                         const bool (&ok)[4]) {
+template <typename T, bool VEC>
+__device__ __forceinline__ Four<T> load_t(const T* __restrict__ tl, const int (&o)[4],
+                                          const bool (&ok)[4]) {
   if (VEC) {
-    return ok[0] ? __ldg(reinterpret_cast<const float4*>(tl + o[0]))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    return ok[0] ? ldg_quad(tl + o[0]) : Four<T>{0, 0, 0, 0};
   }
-  return make_float4(ok[0] ? __ldg(tl + o[0]) : 0.f, ok[1] ? __ldg(tl + o[1]) : 0.f,
-                     ok[2] ? __ldg(tl + o[2]) : 0.f, ok[3] ? __ldg(tl + o[3]) : 0.f);
+  return {ok[0] ? widen(__ldg(tl + o[0])) : 0, ok[1] ? widen(__ldg(tl + o[1])) : 0,
+          ok[2] ? widen(__ldg(tl + o[2])) : 0, ok[3] ? widen(__ldg(tl + o[3])) : 0};
 }
 
-__device__ __forceinline__ float4 load_w(const float* __restrict__ wl, const int (&col)[4]) {
-  return make_float4(__ldg(wl + col[0]), __ldg(wl + col[1]), __ldg(wl + col[2]),
-                     __ldg(wl + col[3]));
+template <typename T>
+__device__ __forceinline__ Four<T> load_w(const T* __restrict__ wl, const int (&col)[4]) {
+  return {widen(__ldg(wl + col[0])), widen(__ldg(wl + col[1])), widen(__ldg(wl + col[2])),
+          widen(__ldg(wl + col[3]))};
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(TTV_MAX_THREADS)
-    multi_ttv_kernel(const float* __restrict__ t, const float* __restrict__ w,
+    multi_ttv_kernel(const T* __restrict__ t, const T* __restrict__ w,
                      float* __restrict__ out, int64_t L, int64_t N, int C, int tile, int TX,
                      int G) {
+  constexpr int TTV_UNROLL = kTtvUnroll<T>;
   __shared__ float4 red[TTV_MAX_THREADS];
   cg::cluster_group cluster = cg::this_cluster();
   const int cl = static_cast<int>(cluster.num_blocks());
@@ -124,20 +174,20 @@ __global__ void __launch_bounds__(TTV_MAX_THREADS)
       col[k] = o[k] % C;
     }
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* __restrict__ tl = t + l0 * N;
-    const float* __restrict__ wl = w + l0 * C;
+    const T* __restrict__ tl = t + l0 * N;
+    const T* __restrict__ wl = w + l0 * C;
     int64_t n = l1 - l0;
     for (; n >= TTV_UNROLL; n -= TTV_UNROLL, tl += TTV_UNROLL * N, wl += TTV_UNROLL * C) {
-      float4 tv[TTV_UNROLL], wv[TTV_UNROLL];
+      Four<T> tv[TTV_UNROLL], wv[TTV_UNROLL];
 #pragma unroll
       for (int u = 0; u < TTV_UNROLL; ++u) {
-        tv[u] = load_t<VEC>(tl + u * N, o, ok);
+        tv[u] = load_t<T, VEC>(tl + u * N, o, ok);
         wv[u] = load_w(wl + u * C, col);
       }
 #pragma unroll
-      for (int u = 0; u < TTV_UNROLL; ++u) acc = fma4(tv[u], wv[u], acc);
+      for (int u = 0; u < TTV_UNROLL; ++u) acc = mac4(tv[u], wv[u], acc);
     }
-    for (; n > 0; --n, tl += N, wl += C) acc = fma4(load_t<VEC>(tl, o, ok), load_w(wl, col), acc);
+    for (; n > 0; --n, tl += N, wl += C) acc = mac4(load_t<T, VEC>(tl, o, ok), load_w(wl, col), acc);
 
     // Groups 1.. -> group 0, in group order.
     if (G > 1) {
@@ -174,7 +224,8 @@ __global__ void __launch_bounds__(TTV_MAX_THREADS)
   }
 }
 
-int run(const float* t, const float* w, float* out, bool batched, int slabs, int64_t L,
+template <typename T>
+int run(const T* t, const T* w, float* out, bool batched, int slabs, int64_t L,
         int64_t I, int C, int64_t tile_rows, int TX, int G, int cl, int vec, cudaStream_t s) {
   const int64_t N = I * C;
   const int64_t tiles = tile_rows < 1 ? 0 : (I + tile_rows - 1) / tile_rows;
@@ -203,8 +254,9 @@ int run(const float* t, const float* w, float* out, bool batched, int slabs, int
   cfg.numAttrs = cl > 1 ? 1 : 0;  // a launch without the attribute is a cluster of one
   const int tile = static_cast<int>(tile_rows * C);
   const cudaError_t err =
-      vec ? cudaLaunchKernelEx(&cfg, multi_ttv_kernel<true>, t, w, out, L, N, C, tile, TX, G)
-          : cudaLaunchKernelEx(&cfg, multi_ttv_kernel<false>, t, w, out, L, N, C, tile, TX, G);
+      vec ? cudaLaunchKernelEx(&cfg, multi_ttv_kernel<T, true>, t, w, out, L, N, C, tile, TX, G)
+          : cudaLaunchKernelEx(&cfg, multi_ttv_kernel<T, false>, t, w, out, L, N, C, tile, TX,
+                               G);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -231,3 +283,23 @@ extern "C" int multi_ttv_batched_f32(const float* t, const float* w, float* out,
   return mttkrp::run(t, w, out, true, slabs, L, I, c, tile_rows, threads_x, groups, cl, vec,
                      static_cast<cudaStream_t>(stream));
 }
+
+// The same entries for T = bf16, fp16 and double: t and w of T, out float.
+#define MULTI_TTV_ENTRIES(T, SUFFIX)                                                          \
+  extern "C" int multi_ttv_##SUFFIX(const T* t, const T* w, float* out, int64_t L, int64_t I, \
+                                    int c, int64_t tile_rows, int threads_x, int groups,      \
+                                    int cl, int vec, void* stream) {                          \
+    return mttkrp::run(t, w, out, false, 1, L, I, c, tile_rows, threads_x, groups, cl, vec,   \
+                       static_cast<cudaStream_t>(stream));                                    \
+  }                                                                                           \
+  extern "C" int multi_ttv_batched_##SUFFIX(const T* t, const T* w, float* out, int slabs,    \
+                                            int64_t L, int64_t I, int c, int64_t tile_rows,   \
+                                            int threads_x, int groups, int cl, int vec,       \
+                                            void* stream) {                                   \
+    return mttkrp::run(t, w, out, true, slabs, L, I, c, tile_rows, threads_x, groups, cl,     \
+                       vec, static_cast<cudaStream_t>(stream));                               \
+  }
+
+MULTI_TTV_ENTRIES(__nv_bfloat16, bf16)
+MULTI_TTV_ENTRIES(__half, f16)
+MULTI_TTV_ENTRIES(double, f64)

@@ -20,7 +20,7 @@ import math
 import torch
 
 from ._build import CudaKernel
-from ._tiling import check_kernel_operand, use_kernel
+from ._tiling import kernel_suffix, use_kernel
 
 Tensor = torch.Tensor
 
@@ -29,12 +29,14 @@ MAX_TILES = 65535
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
-    "krp_pair.cu", "krp_pair_f32", [_ptr, _ptr, _ptr, _c64, _c64, _int, _int, _ptr]
+    "krp_pair.cu", "krp_pair_f32", [_ptr, _ptr, _ptr, _c64, _c64, _int, _int, _ptr],
+    {"bf16": "krp_pair.cu", "f16": "krp_pair.cu", "f64": "krp_pair.cu"},
 )
 
 
 def krp_pair_plain(a: Tensor, b: Tensor) -> Tensor:
-    """The plain PyTorch version: the row-wise broadcast product."""
+    """The plain PyTorch version: the row-wise broadcast product, in the
+    operands' dtype (each product rounded once to it)."""
     return (a[:, None, :] * b[None, :, :]).reshape(a.shape[0] * b.shape[0], a.shape[1])
 
 
@@ -43,9 +45,10 @@ def krp_pair(a: Tensor, b: Tensor, *, block_b: int, interpret: bool = False) -> 
 
     ``a`` is ``(J_A, C)`` and ``b`` ``(J_B, C)``.  CUDA tensors launch the
     kernel with ``block_b`` output rows per thread block (contiguous
-    float32 operands, at most 65535 tiles of ``b``, else it raises); the
-    last tile is masked, so nothing is padded.  CPU tensors take the plain
-    version.  ``interpret`` is the reference's keyword; it never decides
+    operands of one dtype of ``KERNEL_DTYPES``, at most 65535 tiles of
+    ``b``, else it raises); the last tile is masked, so nothing is padded.
+    CPU tensors take the plain version.  Either returns the operands'
+    dtype, each product rounded once to it, as the reference's kernel.  ``interpret`` is the reference's keyword; it never decides
     the device (a CUDA tensor launches the kernel even with
     ``interpret=True``).
     """
@@ -57,14 +60,13 @@ def krp_pair(a: Tensor, b: Tensor, *, block_b: int, interpret: bool = False) -> 
         raise ValueError(f"block_b must be >= 1, got {block_b}")
     if not use_kernel(a, b):
         return krp_pair_plain(a, b)
-    check_kernel_operand("a", a)
-    check_kernel_operand("b", b)
+    suffix = kernel_suffix(("a", a), ("b", b))
     ja, jb, c = int(a.shape[0]), int(b.shape[0]), int(a.shape[1])
     if math.ceil(jb / block_b) > MAX_TILES:
         raise ValueError(f"{jb} rows of b in tiles of {block_b} exceed {MAX_TILES} tiles")
-    out = torch.empty((ja * jb, c), dtype=torch.float32, device=a.device)
+    out = a.new_empty((ja * jb, c))
     KERNEL.launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), ja, jb, c, block_b,
-        torch.cuda.current_stream(a.device).cuda_stream,
+        torch.cuda.current_stream(a.device).cuda_stream, suffix=suffix,
     )
     return out

@@ -21,7 +21,12 @@ has more than one cluster).  A rank above 64 is cut into column blocks of
 the same launch (:func:`column_blocks`).
 
 Supported: every mode of order-3..6 tensors, plus a leading batch axis, at
-any rank.
+any rank, in float32, bfloat16, float16 and float64.  As the reference's
+kernels (which cast each tile and factor tile to float32 and declare a
+float32 output), the kernel-level entries and their plain versions sum in
+fp32 and return float32 whatever the operands' dtype; the
+``matrix_free_mttkrp*`` wrappers return ``x.dtype``.  The CUDA kernel reads
+each operand at its own width (``csrc/mttkrp_cluster.cuh``).
 """
 
 from __future__ import annotations
@@ -36,13 +41,14 @@ import torch
 from ._build import CudaKernel
 from ._tiling import (
     BLOCK_RANK,
+    KERNEL_DTYPES,
     BLOCK_ROWS,
     BLOCKS_PER_SM,
     PADDED_RANKS,
     block,
-    check_kernel_operand,
     check_rank,
     check_slabs,
+    kernel_suffix,
     reference_tiles,
     use_kernel,
 )
@@ -107,21 +113,28 @@ def column_blocks(rank: int) -> tuple[int, int, int]:
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 _FACTORS, _SHAPE = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
+# The sources of rows 1-4's entries in the element types other than float32
+# (one a type, csrc/mttkrp_entries.cuh; the float32 entries are in
+# matrix_free.cu and fused_mttkrp.cu).
+TYPED_SOURCES = {"bf16": "mttkrp_bf16.cu", "f16": "mttkrp_f16.cu", "f64": "mttkrp_f64.cu"}
 KERNEL = CudaKernel(
     "matrix_free.cu",
     "matrix_free_mttkrp_f32",
     [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _int, _c64, _int, _ptr, _ptr, _ptr],
+    TYPED_SOURCES,
 )
 BATCHED_KERNEL = CudaKernel(
     "matrix_free.cu",
     "matrix_free_mttkrp_batched_f32",
     [_ptr, _FACTORS, _SHAPE, _int, _int, _int, _int, _int, _c64, _int, _ptr, _ptr],
+    TYPED_SOURCES,
 )
 # The kernel's occupancy at one launch geometry (a query: no launch).
 OCCUPANCY = CudaKernel(
     "matrix_free.cu",
     "matrix_free_occupancy_f32",
     [_int, _int, _c64, _int, ctypes.POINTER(_int), ctypes.POINTER(_int)],
+    TYPED_SOURCES,
 )
 
 
@@ -133,13 +146,17 @@ def _fold_tile(t: Tensor, us_by_mode: dict[int, Tensor], n: int, batched: bool =
     trailing rank axis (batched: one batched GEMM over that mode); every
     remaining non-target mode is then a broadcast-multiply-reduce, in
     descending mode order (removing an axis only shifts larger ids, which
-    are already gone).
+    are already gone).  Every operand is cast to float32 first, as the
+    reference's kernel and ``_fold_tile`` cast theirs, so the fold runs and
+    returns float32 whatever their dtype (no copy for a float32 operand).
     """
+    f32 = torch.float32
+    t = t.to(f32)
     off = 1 if batched else 0
     live = list(range(t.ndim - off))
     desc = sorted((k for k in live if k != n), reverse=True)
     first = desc[0]
-    u = us_by_mode[first]
+    u = us_by_mode[first].to(f32)
     pos = live.index(first) + off
     if batched:
         tm = t.movedim(pos, -1)
@@ -149,7 +166,7 @@ def _fold_tile(t: Tensor, us_by_mode: dict[int, Tensor], n: int, batched: bool =
         t = torch.tensordot(t, u, dims=([pos], [0]))
     live.remove(first)
     for a in desc[1:]:
-        u = us_by_mode[a]
+        u = us_by_mode[a].to(f32)
         pos = live.index(a) + off
         shape = [1] * t.ndim
         if batched:
@@ -266,20 +283,41 @@ def contracted_mode(order: int, n: int) -> int:
     return order - 2 if n == order - 1 else order - 1
 
 
-def cluster_smem(q_chunk: int, padded_rank: int, i_contig: bool) -> int:
+def row_stride(q_chunk: int, itemsize: int) -> int:
+    """Elements between the rows of a tile whose rows run along the
+    contracted mode (the target mode not last), as ``mfc_row_stride`` in
+    csrc/mttkrp_cluster.cuh: at least ``q_chunk`` and 16 mod 128 bytes (4
+    mod 32 floats, 8 mod 64 16-bit elements, 2 mod 16 doubles), so every
+    row starts on a 16-byte line and the lanes' 16-byte reads of their own
+    rows miss each other's banks."""
+    line, lead = 128 // itemsize, 16 // itemsize
+    return q_chunk + (line + lead - q_chunk % line) % line
+
+
+def q_multiple(i_contig: bool, itemsize: int) -> int:
+    """What a stage's ``q_chunk`` must be a multiple of (``mfc_q_multiple``):
+    4, the fold's quads, and 8 for a 16-bit tile whose rows run along the
+    contracted mode, which the kernel copies and reads 16 bytes (8
+    elements) at a time."""
+    return 8 if itemsize == 2 and not i_contig else 4
+
+
+def cluster_smem(q_chunk: int, padded_rank: int, i_contig: bool, itemsize: int = 4) -> int:
     """Dynamic shared memory of one CTA of the kernel, in bytes (as
-    ``mfc_smem_bytes`` in csrc/matrix_free.cu): a ring of ``STAGES`` tensor
-    tiles of ``BLOCK_ROWS`` x ``q_chunk`` (rows padded to 4 mod 32 floats
-    unless ``i_contig``, so each lane's float4 reads miss each other's
-    banks), each stage's outer factor rows, and ``U_q``'s chunk; the
-    cross-warp sum reuses it and needs ``WARPS`` x rank x ``BLOCK_ROWS``."""
-    qs = q_chunk if i_contig else q_chunk + (36 - q_chunk % 32) % 32
-    main = STAGES * BLOCK_ROWS * qs + STAGES * MAX_OUTER * padded_rank + q_chunk * padded_rank
-    return 4 * max(main, WARPS * padded_rank * BLOCK_ROWS)
+    ``mfc_smem_bytes`` in csrc/mttkrp_cluster.cuh): a ring of ``STAGES``
+    tensor tiles of ``BLOCK_ROWS`` x ``q_chunk`` elements of ``itemsize``
+    bytes (rows :func:`row_stride` apart unless ``i_contig``), each stage's
+    outer factor rows and ``U_q``'s chunk in float32; the cross-warp sum
+    reuses it and needs ``WARPS`` x rank x ``BLOCK_ROWS`` floats."""
+    qs = q_chunk if i_contig else row_stride(q_chunk, itemsize)
+    main = (STAGES * BLOCK_ROWS * qs * itemsize
+            + 4 * (STAGES * MAX_OUTER * padded_rank + q_chunk * padded_rank))
+    return max(main, 4 * WARPS * padded_rank * BLOCK_ROWS)
 
 
 def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int,
-                    split: Callable[[int, int, int], tuple[int, int, int]]) -> ClusterLaunch:
+                    split: Callable[[int, int, int], tuple[int, int, int]],
+                    itemsize: int) -> ClusterLaunch:
     """A launch at mode ``n`` and ``rank`` whose grid comes from
     ``split(grid x, steps, CTAs an SM counted) -> (groups, splits,
     slabs)``, grid x being the row blocks times the column blocks of
@@ -289,9 +327,9 @@ def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: in
     a column block's padded width.  A stage holds the whole extent of the
     contracted mode ``q`` where it fits in the shared memory that lets
     ``residency`` CTAs share an SM, else the largest equal chunk of it that
-    fits (a multiple of 4).  16-byte copies where the contiguous axis'
-    extent is a multiple of 4 (the wrapper also checks ``x``'s
-    alignment)."""
+    fits (a multiple of :func:`q_multiple`), for elements of ``itemsize``
+    bytes.  16-byte copies where the contiguous axis' bytes are a multiple
+    of 16 (the wrapper also checks ``x``'s alignment)."""
     if blocks_per_sm < 1:
         raise ValueError(f"blocks_per_sm must be >= 1, got {blocks_per_sm}")
     order = len(shape)
@@ -301,11 +339,12 @@ def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: in
     res = residency(cp)
     budget = min(SMEM_BYTES, SM_SMEM_BYTES // res - BLOCK_RESERVED_SMEM)
     eq = shape[q]
+    mult = q_multiple(i_contig, itemsize)
     chunks = 1
     while True:  # the fewest equal chunks of q whose stages fit
         per_chunk = -(-eq // chunks)
-        q_chunk = 4 * -(-per_chunk // 4)  # up to a multiple of 4
-        if cluster_smem(q_chunk, cp, i_contig) <= budget:
+        q_chunk = mult * -(-per_chunk // mult)  # up to a multiple of mult
+        if cluster_smem(q_chunk, cp, i_contig, itemsize) <= budget:
             break
         chunks += 1
     chunks = -(-eq // q_chunk)
@@ -315,17 +354,20 @@ def _cluster_launch(shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: in
                                   min(blocks_per_sm, res))
     return ClusterLaunch(
         row_blocks, groups, splits, slabs, outer, q_chunk, chunks, i_contig,
-        shape[-1] % 4 == 0, cluster_smem(q_chunk, cp, i_contig), res, col_blocks, width, cp,
+        shape[-1] * itemsize % 16 == 0, cluster_smem(q_chunk, cp, i_contig, itemsize), res,
+        col_blocks, width, cp,
     )
 
 
 @functools.lru_cache(maxsize=256)
 def launch_shape(
-    shape: tuple[int, ...], n: int, rank: int, slabs: int, blocks_per_sm: int = BLOCKS_PER_SM
+    shape: tuple[int, ...], n: int, rank: int, slabs: int, blocks_per_sm: int = BLOCKS_PER_SM,
+    itemsize: int = 4,
 ) -> ClusterLaunch:
     """The batched kernel's launch for ``slabs`` stacked tensors of
-    ``shape`` at mode ``n`` and ``rank``, from the shape alone (the stage
-    as :func:`_cluster_launch` sizes it; one group).
+    ``shape`` at mode ``n`` and ``rank``, from the shape alone and the
+    operands' ``itemsize`` (the stage as :func:`_cluster_launch` sizes it;
+    one group).
 
     A row block's steps are split over a cluster of ``splits`` in {1, 2, 4,
     8} CTAs (never more than there are steps).  Wave slots are counted by
@@ -344,16 +386,17 @@ def launch_shape(
         fewest = min(waves.values())
         return 1, max(s for s, w in waves.items() if w == fewest), slabs
 
-    return _cluster_launch(shape, n, rank, blocks_per_sm, split)
+    return _cluster_launch(shape, n, rank, blocks_per_sm, split, itemsize)
 
 
 @functools.lru_cache(maxsize=256)
 def unbatched_launch_shape(
-    shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int = BLOCKS_PER_SM
+    shape: tuple[int, ...], n: int, rank: int, blocks_per_sm: int = BLOCKS_PER_SM,
+    itemsize: int = 4,
 ) -> ClusterLaunch:
     """The unbatched kernel's launch for one tensor of ``shape`` at mode
-    ``n`` and ``rank``, from the shape alone (the stage as
-    :func:`_cluster_launch` sizes it; one slab).
+    ``n`` and ``rank``, from the shape alone and the operands' ``itemsize``
+    (the stage as :func:`_cluster_launch` sizes it; one slab).
 
     One tensor's row blocks (2-8 at the fMRI modes) fill few of the card's
     CTA slots, so each row block's steps are cut into ``groups`` clusters of
@@ -381,7 +424,7 @@ def unbatched_launch_shape(
                 best = max(best, (grid_x * groups * s, s, groups))
         return best[2], best[1], 1
 
-    return _cluster_launch(shape, n, rank, blocks_per_sm, split)
+    return _cluster_launch(shape, n, rank, blocks_per_sm, split, itemsize)
 
 
 def workspace_shape(g: ClusterLaunch, rows: int, rank: int) -> tuple[int, int, int] | None:
@@ -391,13 +434,15 @@ def workspace_shape(g: ClusterLaunch, rows: int, rank: int) -> tuple[int, int, i
     return (g.groups, rows, rank) if g.groups > 1 else None
 
 
-def occupancy(g: ClusterLaunch, rank: int) -> tuple[int, int]:
+def occupancy(g: ClusterLaunch, rank: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """``(CTAs an SM holds, clusters the card holds)`` of the kernel at
     launch ``g`` and ``rank`` (the instance of its column blocks' padded
-    width), from the CUDA occupancy queries (on the card only)."""
+    width) for operands of ``dtype``, from the CUDA occupancy queries (on
+    the card only)."""
     per_sm, clusters = ctypes.c_int(0), ctypes.c_int(0)
     OCCUPANCY.query(
-        rank, int(g.i_contig), g.q_chunk, g.splits, ctypes.byref(per_sm), ctypes.byref(clusters)
+        rank, int(g.i_contig), g.q_chunk, g.splits, ctypes.byref(per_sm), ctypes.byref(clusters),
+        suffix=KERNEL_DTYPES[dtype][0],
     )
     return per_sm.value, clusters.value
 
@@ -409,28 +454,29 @@ def _factor_pointers(us: Sequence[Tensor], others: list[int], big_n: int):
     return (ctypes.c_void_p * big_n)(*ptrs)
 
 
-def _check_kernel_operands(x: Tensor, us: Sequence[Tensor], others: list[int]) -> int:
-    """Raise unless the CUDA kernels take ``x`` and ``us``; return the rank."""
-    check_kernel_operand("x", x)
-    for k, u in zip(others, us):
-        check_kernel_operand(f"factor {k}", u)
+def _check_kernel_operands(x: Tensor, us: Sequence[Tensor],
+                           others: list[int]) -> tuple[int, str]:
+    """Raise unless the CUDA kernels take ``x`` and ``us``; return the rank
+    and the C entries' suffix of their dtype."""
+    suffix = kernel_suffix(("x", x), *((f"factor {k}", u) for k, u in zip(others, us)))
     c = us[0].shape[-1]
     check_rank(c)
-    return c
+    return c, suffix
 
 
 def _launch_unbatched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
                       blocks_per_sm: int) -> Tensor:
     """Check the operands and launch the unbatched kernel (and, with more
-    than one group, its pass over the workspace).  Returns ``(I_n, C)``."""
+    than one group, its pass over the workspace).  Returns a float32
+    ``(I_n, C)``."""
     mode_shape = tuple(int(d) for d in x.shape)
     big_n = len(mode_shape)
-    c = _check_kernel_operands(x, us, others)
-    g = unbatched_launch_shape(mode_shape, n, c, blocks_per_sm)
+    c, suffix = _check_kernel_operands(x, us, others)
+    g = unbatched_launch_shape(mode_shape, n, c, blocks_per_sm, x.element_size())
     rows = mode_shape[n]
-    out = x.new_empty((rows, c))
+    out = x.new_empty((rows, c), dtype=torch.float32)
     ws_shape = workspace_shape(g, rows, c)
-    ws = None if ws_shape is None else x.new_empty(ws_shape)
+    ws = None if ws_shape is None else x.new_empty(ws_shape, dtype=torch.float32)
     x_ptr = x.data_ptr()
     KERNEL.launch(
         x_ptr,
@@ -440,6 +486,7 @@ def _launch_unbatched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int]
         int(g.vec and x_ptr % 16 == 0),  # a contiguous view may start off a 16-byte line
         None if ws is None else ws.data_ptr(), out.data_ptr(),
         torch._C._cuda_getCurrentRawStream(x.device.index),
+        suffix=suffix,
     )
     return out
 
@@ -447,15 +494,15 @@ def _launch_unbatched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int]
 def _launch_batched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
                     blocks_per_sm: int) -> Tensor:
     """Check the operands and make the batched kernel's one launch: one
-    allocation (the output, no workspace) and one ctypes call.  Returns
-    ``(S, I_n, C)``."""
+    allocation (the output, no workspace) and one ctypes call.  Returns a
+    float32 ``(S, I_n, C)``."""
     slabs = int(x.shape[0])
     mode_shape = tuple(int(d) for d in x.shape[1:])
     big_n = len(mode_shape)
-    c = _check_kernel_operands(x, us, others)
+    c, suffix = _check_kernel_operands(x, us, others)
     check_slabs(slabs)
-    g = launch_shape(mode_shape, n, c, slabs, blocks_per_sm)
-    out = x.new_empty((slabs, mode_shape[n], c))
+    g = launch_shape(mode_shape, n, c, slabs, blocks_per_sm, x.element_size())
+    out = x.new_empty((slabs, mode_shape[n], c), dtype=torch.float32)
     x_ptr = x.data_ptr()
     BATCHED_KERNEL.launch(
         x_ptr,
@@ -465,6 +512,7 @@ def _launch_batched(x: Tensor, us: Sequence[Tensor], n: int, others: list[int],
         int(g.vec and x_ptr % 16 == 0),  # a contiguous view may start off a 16-byte line
         out.data_ptr(),
         torch._C._cuda_getCurrentRawStream(x.device.index),
+        suffix=suffix,
     )
     return out
 
@@ -491,9 +539,11 @@ def matrix_free_kernel(
 
     ``x`` is the natural N-D tensor (order 3..6) and ``us`` the non-target
     factors ``(I_k, C)`` in ascending mode order.  CUDA tensors launch the
-    kernel (contiguous float32 operands at any rank >= 1, a rank above 64
-    in column blocks of one launch; else it raises); CPU tensors take the
-    plain version.  Any extent is accepted: the kernel
+    kernel (contiguous operands of one dtype of ``KERNEL_DTYPES`` at any
+    rank >= 1, a rank above 64 in column blocks of one launch; else it
+    raises); CPU tensors take the plain version.  Either sums in fp32 and
+    returns float32, as the reference's kernel does.  Any extent is
+    accepted: the kernel
     masks ragged tiles, so nothing is padded.  The launch comes
     from :func:`unbatched_launch_shape`, whose split of the outer reduction
     counts at most ``blocks_per_sm`` CTAs an SM (at or above the kernel's
@@ -525,8 +575,8 @@ def matrix_free_batched_kernel(
     per-slab non-target factors ``(S, I_k, C)``; returns ``(S, I_n, C)``.
 
     CUDA tensors make one launch of the batched kernel, one slab per grid
-    z (contiguous float32 operands at any rank >= 1, 1..65535 slabs, else
-    it raises): no workspace, the outer reduction split over a thread-block
+    z (contiguous operands of one dtype of ``KERNEL_DTYPES`` at any rank >=
+    1, 1..65535 slabs, else it raises; float32 out): no workspace, the outer reduction split over a thread-block
     cluster and summed on chip, the geometry from :func:`launch_shape`.
     CPU tensors take the plain version.  Nothing is padded: not the slabs,
     not any extent.  ``blocks_per_sm`` caps the CTAs an SM is counted to

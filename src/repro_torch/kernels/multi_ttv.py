@@ -15,6 +15,12 @@ CTA, and the ``L`` reduction split over the warp groups of a CTA and the
 CTAs of a thread-block cluster, summed on chip in a fixed order; the design
 notes are in that file, the geometry comes from :func:`launch_shape`.  On
 the CPU they take the ``*_plain`` versions.
+
+Operands are float32, bfloat16, float16 or float64, both of one dtype.  As
+the reference's kernel forms ``t * w`` in that dtype and adds it to a
+float32 output, the kernel and the plain versions round each product to
+the operands' dtype (a product of doubles to float32) and sum in fp32; the
+kernel-level entries return float32, the wrappers ``t.dtype``.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ._build import CudaKernel
-from ._tiling import check_kernel_operand, check_rank, check_slabs, use_kernel
+from ._tiling import check_rank, check_slabs, kernel_suffix, use_kernel
 
 Tensor = torch.Tensor
 
@@ -44,27 +50,38 @@ L_PER_THREAD = 8
 
 _c64, _ptr, _int = ctypes.c_int64, ctypes.c_void_p, ctypes.c_int
 _GEOMETRY = [_c64, _int, _int, _int, _int]  # tile_rows, threads_x, groups, cluster, vec
+_TYPED = {"bf16": "multi_ttv.cu", "f16": "multi_ttv.cu", "f64": "multi_ttv.cu"}
 KERNEL = CudaKernel(
     "multi_ttv.cu",
     "multi_ttv_f32",
     [_ptr, _ptr, _ptr, _c64, _c64, _int, *_GEOMETRY, _ptr],
+    _TYPED,
 )
 BATCHED_KERNEL = CudaKernel(
     "multi_ttv.cu",
     "multi_ttv_batched_f32",
     [_ptr, _ptr, _ptr, _int, _c64, _c64, _int, *_GEOMETRY, _ptr],
+    _TYPED,
 )
 
 
 def multi_ttv_plain(t: Tensor, w: Tensor) -> Tensor:
-    """The plain PyTorch version: ``einsum("lic,lc->ic")``."""
-    return torch.einsum("lic,lc->ic", t, w)
+    """The plain PyTorch version, float32 out: ``einsum("lic,lc->ic")`` in
+    float32, else the reference's algebra, ``t * w`` in the operands' dtype
+    cast to float32 and summed over ``l`` (in float32 the two differ only
+    in the order of the sum)."""
+    if t.dtype == torch.float32:
+        return torch.einsum("lic,lc->ic", t, w)
+    return (t * w[..., None, :]).to(torch.float32).sum(-3)
 
 
 def multi_ttv_batched_plain(t: Tensor, w: Tensor) -> Tensor:
-    """The plain PyTorch version of the batched kernel:
-    ``einsum("slic,slc->sic")``."""
-    return torch.einsum("slic,slc->sic", t, w)
+    """The plain PyTorch version of the batched kernel, as
+    :func:`multi_ttv_plain` with a leading slab axis (``einsum("slic,slc->sic")``
+    in float32)."""
+    if t.dtype == torch.float32:
+        return torch.einsum("slic,slc->sic", t, w)
+    return (t * w[..., None, :]).to(torch.float32).sum(-3)
 
 
 class Launch(NamedTuple):
@@ -129,15 +146,14 @@ def _launch(kernel: CudaKernel, t: Tensor, w: Tensor, block_i: int, slabs: int |
     time, not its device time, sets how fast calls follow each other.
     ``slabs`` is ``None`` for the unbatched entry point.  Returns a float32
     ``(I, C)`` or ``(S, I, C)``."""
-    check_kernel_operand("t", t)
-    check_kernel_operand("w", w)
+    suffix = kernel_suffix(("t", t), ("w", w))
     big_l, dim_i, c = t.shape[-3:]
     check_rank(c)
     lead = () if slabs is None else (slabs,)
     if slabs is not None:
         check_slabs(slabs)
     g = launch_shape(dim_i, big_l, c, block_i, slabs or 1)
-    out = t.new_empty(t.shape[:-3] + (dim_i, c))
+    out = t.new_empty(t.shape[:-3] + (dim_i, c), dtype=torch.float32)
     t_ptr = t.data_ptr()
     kernel.launch(
         t_ptr, w.data_ptr(), out.data_ptr(), *lead, big_l, dim_i, c,
@@ -146,6 +162,7 @@ def _launch(kernel: CudaKernel, t: Tensor, w: Tensor, block_i: int, slabs: int |
         # the raw handle of the current stream, without building a Stream
         # object (which costs more than the launch itself)
         torch._C._cuda_getCurrentRawStream(t.device.index),
+        suffix=suffix,
     )
     return out
 
@@ -165,7 +182,7 @@ def multi_ttv_kernel(
     if dim_i % block_i:
         raise ValueError("I must be padded to the block size")
     if not use_kernel(t, w):
-        return multi_ttv_plain(t, w).to(torch.float32)
+        return multi_ttv_plain(t, w)
     return _launch(KERNEL, t, w, block_i, None)
 
 
@@ -189,7 +206,7 @@ def multi_ttv_batched_kernel(
     if dim_i % block_i or n_batch % block_batch:
         raise ValueError("S and I must be padded to the block sizes")
     if not use_kernel(t, w):
-        return multi_ttv_batched_plain(t, w).to(torch.float32)
+        return multi_ttv_batched_plain(t, w)
     return _launch(BATCHED_KERNEL, t, w, block_i, n_batch)
 
 
@@ -201,16 +218,17 @@ def multi_ttv(
     ``t`` is ``(L, I, C)`` and ``w`` ``(L, C)``.  CUDA tensors make one
     launch of the kernel with about ``block_i`` output rows a CTA (any
     ``block_i >= 1``, mapped to a legal tile by :func:`tile_rows`;
-    contiguous float32 operands at any rank >= 1, else it raises); CPU
-    tensors take the plain version.  Nothing is padded.  ``interpret`` is
-    the reference's keyword; it never decides the device.  Returns
-    ``t.dtype``.
+    contiguous operands of one dtype of ``KERNEL_DTYPES`` at any rank >= 1,
+    else it raises); CPU tensors take the plain version.  Nothing is
+    padded.  ``interpret`` is the reference's keyword; it never decides the
+    device.  Returns ``t.dtype``, as the reference does: the float32 sum
+    cast once (no cast in float32).
     """
     _dims(t, w, 0)
     tile_rows(int(t.shape[1]), block_i)
     if not use_kernel(t, w):
         return multi_ttv_plain(t, w).to(t.dtype)
-    return _launch(KERNEL, t, w, block_i, None)  # float32, as t must be
+    return _launch(KERNEL, t, w, block_i, None).to(t.dtype)
 
 
 def multi_ttv_batched(
@@ -237,4 +255,4 @@ def multi_ttv_batched(
     tile_rows(int(t.shape[2]), block_i)
     if not use_kernel(t, w):
         return multi_ttv_batched_plain(t, w).to(t.dtype)
-    return _launch(BATCHED_KERNEL, t, w, block_i, t.shape[0])  # float32, as t must be
+    return _launch(BATCHED_KERNEL, t, w, block_i, t.shape[0]).to(t.dtype)

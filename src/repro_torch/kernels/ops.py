@@ -9,7 +9,10 @@ the aliases ``matrix_free_mttkrp``/``matrix_free_mttkrp_batched`` and
 multiple and the rank to the TPU's 128 lanes; the CUDA kernels mask ragged
 tiles and pad the rank only in their own registers, so nothing here pads
 or copies the tensor (the left-first 2-step partial is the one copy; see
-:func:`multi_ttv_operands`).
+:func:`multi_ttv_operands`).  As the reference's, every wrapper builds its
+partial KRPs in ``x.dtype`` and returns ``x.dtype`` (float32, bfloat16,
+float16 or float64); the kernels underneath sum in fp32, so a float64
+MTTKRP is accurate to fp32, as the reference's kernels are under x64.
 """
 
 from __future__ import annotations
@@ -194,8 +197,9 @@ def multi_ttv_operands(
     ``L <= R`` is right-first: ``T = (x.view(L*I_n, R) @ K_R).view(L, I_n,
     C)`` and ``W = K_L``.  Otherwise left-first: ``K_L^T @ x.view(L,
     I_n*R)`` is ``(C, I_n, R)`` and is copied to the contiguous ``(R, I_n,
-    C)`` the kernel reads (``R * I_n * C`` floats, 1.6 MB at the fMRI
-    tensor's mode 2), with ``W = K_R``.  The GEMM is a plain ``torch.matmul``.
+    C)`` the kernel reads (``R * I_n * C`` elements, 1.6 MB at the fMRI
+    tensor's mode 2 in float32), with ``W = K_R``.  The GEMM is a plain
+    ``torch.matmul`` in ``x.dtype``, as the reference's ``@``.
     """
     factors = list(factors)
     c = factors[0].shape[1]

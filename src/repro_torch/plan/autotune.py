@@ -707,7 +707,8 @@ def tune(
     layout is the reference's (``backend``, ``n_devices``, ``budget_ms``,
     ``reps``, ``elapsed_ms``, ``tiles``, ``nodes``, ``serial_fractions``,
     ``pp``).  Where the CUDA kernels do not take the problem (a CUDA tensor
-    not in float32; they take any rank:
+    of a dtype they are not built for; they take float32, bfloat16, float16
+    and float64 at any rank:
     :func:`~repro_torch.kernels._tiling.kernels_take`), no kernel is timed:
     each tile table keeps its default knob and no rows, and no ``fused`` or
     ``matrix_free`` leaf is measured, so the plan falls back to the GEMM

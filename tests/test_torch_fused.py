@@ -97,11 +97,15 @@ def test_the_fleet_views_are_the_batched_3_way_stack(n):
 @pytest.mark.parametrize("pos", [0, 1, 2])
 @pytest.mark.parametrize("dims", [(6, 5, 7), (3, 9, 4), (33, 4, 130)])
 def test_the_fold_is_the_bilinear_form(dims, pos):
+    """Both plain versions sum in float32 whatever their operands' dtype
+    (as the reference's kernels do), so the identity is checked exactly on
+    small integers, whose products and sums float32 holds without
+    rounding."""
     rng = np.random.default_rng(sum(dims) + pos)
-    t = torch.from_numpy(rng.standard_normal(dims))
+    t = torch.from_numpy(rng.integers(-3, 4, dims).astype(np.float64))
     ab = [d for k, d in enumerate(dims) if k != pos]
-    a = torch.from_numpy(rng.standard_normal((ab[0], 3)))
-    b = torch.from_numpy(rng.standard_normal((ab[1], 3)))
+    a = torch.from_numpy(rng.integers(-3, 4, (ab[0], 3)).astype(np.float64))
+    b = torch.from_numpy(rng.integers(-3, 4, (ab[1], 3)).astype(np.float64))
     want = tfm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos)
     np.testing.assert_allclose(_fold(t, a, b, pos).numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
     tb, ab_, bb = (torch.stack([v, 2 * v]) for v in (t, a, b))

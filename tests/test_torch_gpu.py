@@ -78,8 +78,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.randn(4, 5, 6, device=cuda)
     fs = [torch.randn(d, 3, device=cuda) for d in x.shape]
     t, a, b, pos = ops.bilinear_operands(x, fs, 1)
-    with pytest.raises(TypeError):
-        fm.fused_mttkrp_bilinear(t.double(), a.double(), b.double(), pos=pos)
+    with pytest.raises(TypeError):  # a mix of dtypes
+        fm.fused_mttkrp_bilinear(t.double(), a, b, pos=pos)
     with pytest.raises(ValueError):
         fm.fused_mttkrp_bilinear(t, a.cpu(), b, pos=pos)
     with pytest.raises(ValueError):
@@ -171,8 +171,8 @@ def test_batched_kernels_refuse_what_they_do_not_take(cuda):
         fm.fused_mttkrp_bilinear_batched(t, a[:1], b, pos=pos)  # slab mismatch
     with pytest.raises(ValueError):
         fm.fused_mttkrp_bilinear_batched(t, a.cpu(), b, pos=pos)
-    with pytest.raises(TypeError):
-        mf.matrix_free_batched_kernel(x.double(), [f.double() for f in fs[1:]], 0)
+    with pytest.raises(TypeError):  # a mix of dtypes
+        mf.matrix_free_batched_kernel(x.double(), [f.half() for f in fs[1:]], 0)
     with pytest.raises(ValueError):
         mf.matrix_free_batched_kernel(x, [fs[1], fs[2][:1]], 0)
 
@@ -345,8 +345,8 @@ def test_krp_materialize_and_2step_kernel_on_the_card(cuda):
 
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
     t, w = torch.randn(4, 5, 3, device=cuda), torch.randn(4, 3, device=cuda)
-    with pytest.raises(TypeError):
-        mt.multi_ttv(t.double(), w.double())
+    with pytest.raises(TypeError):  # a mix of dtypes
+        mt.multi_ttv(t.double(), w)
     with pytest.raises(ValueError):
         mt.multi_ttv(t, w.cpu())
     with pytest.raises(ValueError):
@@ -363,7 +363,7 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         kk.krp_pair(w, torch.randn(70000, 3, device=cuda), block_b=1)  # > 65535 tiles
     with pytest.raises(TypeError):
-        kk.krp_pair(w.double(), w.double(), block_b=4)
+        kk.krp_pair(w.int(), w.int(), block_b=4)
 
 
 # ---- tune() on the card
@@ -598,48 +598,43 @@ def test_matrix_free_unbatched_residency_and_cluster_slots_match_the_occupancy_q
         assert g.row_blocks * g.groups <= clusters or g.groups == 1  # one wave, or groups of 1
 
 
-@pytest.mark.parametrize("rank,dtype", [(80, torch.float32), (10, torch.float64)])
+@pytest.mark.parametrize("rank,dtype", [(80, torch.float32), (10, torch.float64),
+                                        (10, torch.bfloat16)])
 def test_tune_on_the_card_falls_back_to_the_gemms_where_the_kernels_do_not_go(cuda, rank, dtype):
-    """In float64 the CUDA kernels do not take the problem: tune() times no
-    kernel, the plan has no kernel leaf, cp_als under it runs, and a forced
-    kernel strategy raises naming the limit.  At rank 80 in float32 they do
-    (two column blocks): tune() times the kernels, and forced ``fused`` and
-    ``matrix_free`` runs match the GEMMs' fits within 1e-3."""
+    """The kernels take float32 at rank 80 (two column blocks) and float64
+    and bf16 at rank 10 (the name is the one this test had when float64
+    fell back to the GEMMs): tune() times the kernels (every tile table has
+    rows, both kernel leaves are measured), and forced ``fused`` and
+    ``matrix_free`` runs match ``auto``'s fits within 1e-3, each launching
+    its kernel once a mode a sweep.  ``cp_als`` does not run in bf16 (its
+    pseudo-inverse refuses bf16, as the reference's does), so there only
+    tune() is checked."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    x = torch.randn((20, 17, 12, 9), generator=g, device=cuda, dtype=dtype)
+    x = torch.randn((20, 17, 12, 9), generator=g, device=cuda).to(dtype)
     cache = TuningCache()
     launches = [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)]
     entry = tune(x, rank, cache=cache, budget_ms=None, reps=1)
-    if dtype == torch.float32:
-        assert all(now > was for now, was in zip(
-            [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)], launches))
-        assert all(summary["rows"] for summary in entry["tiles"].values())
-        assert {"fused", "matrix_free"} <= {r["algorithm"] for r in entry["nodes"]}
-        problem = Problem.from_tensor(x, rank)
-        init = [torch.randn((d, rank), generator=g, device=cuda) for d in x.shape]
-        fits = {}
-        for strategy, kernel in (("auto", None), ("fused", fm.KERNEL),
-                                 ("matrix_free", mf.KERNEL)):
-            before = kernel.launches if kernel else 0
-            got = []
-            cp_als(x, plan_sweep(problem, strategy), n_iters=3, tol=0.0, init_factors=init,
-                   callback=lambda it, f, dt: got.append(f))
-            fits[strategy] = got
-            if kernel:
-                assert kernel.launches - before == 3 * x.ndim
-        for strategy in ("fused", "matrix_free"):
-            assert max(abs(a - b) for a, b in zip(fits[strategy], fits["auto"])) < 1e-3
+    assert all(now > was for now, was in zip(
+        [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)], launches))
+    assert all(summary["rows"] for summary in entry["tiles"].values())
+    assert {"fused", "matrix_free"} <= {r["algorithm"] for r in entry["nodes"]}
+    if dtype == torch.bfloat16:
         return
-    assert [k.launches for k in (fm.KERNEL, mf.KERNEL, mt.KERNEL)] == launches
-    assert all(summary["rows"] == [] for summary in entry["tiles"].values())
     problem = Problem.from_tensor(x, rank)
-    plan = plan_sweep(problem, "autotune", tuning_cache=cache)
-    assert not {np_.algorithm for np_ in plan.nodes} & {"fused", "matrix_free"}
-    st = cp_als(x, plan, n_iters=2, tol=0.0)
-    assert all(bool(torch.isfinite(u).all()) and u.dtype == dtype for u in st.factors)
+    init = [torch.randn((d, rank), generator=g, device=cuda).to(dtype) for d in x.shape]
+    fits = {}
+    for strategy, kernel in (("auto", None), ("fused", fm.KERNEL),
+                             ("matrix_free", mf.KERNEL)):
+        before = kernel.launches if kernel else 0
+        got = []
+        st = cp_als(x, plan_sweep(problem, strategy), n_iters=3, tol=0.0, init_factors=init,
+                    callback=lambda it, f, dt: got.append(f))
+        assert all(u.dtype == dtype and bool(torch.isfinite(u).all()) for u in st.factors)
+        fits[strategy] = got
+        if kernel:
+            assert kernel.launches - before == 3 * x.ndim
     for strategy in ("fused", "matrix_free"):
-        with pytest.raises(TypeError, match="float32"):
-            cp_als(x, plan_sweep(problem, strategy), n_iters=1, tol=0.0)
+        assert max(abs(a - b) for a, b in zip(fits[strategy], fits["auto"])) < 1e-3
 
 
 # ---- the fused bilinear kernels on the cluster body: the order-3 fold of the view
@@ -1641,26 +1636,124 @@ def test_high_rank_residency_and_cluster_slots_match_the_occupancy_query(cuda, s
             assert clusters == mf.CLUSTER_SLOTS[g.residency][g.splits]
 
 
+# ---- every entry in bf16, fp16 and float64: element-typed staging, fp32 sums
+
+DTYPE_SHAPES = [(37, 23, 41, 30), (33, 70, 128), (5, 6, 7)]
+
+
+def _misaligned(x):
+    """A contiguous view of ``x``'s values that starts one element past an
+    allocation's start: off a 16-byte line in every dtype."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _check_entry(kernel, run, plain, kernels_a_call):
+    """One counted launch a call, float32 out (or the plain version's
+    dtype), within REL of the plain version (bitwise for the KRP pair, whose
+    plain version rounds each product once too), bitwise repeatable, and
+    the CUDA kernels a call its design states (a CUDA graph of one call)."""
+    before = kernel.launches
+    out = run()
+    assert kernel.launches == before + 1
+    want = plain()
+    assert out.dtype == want.dtype and out.shape == want.shape
+    if kernel is kk.KERNEL:
+        assert torch.equal(out, want)
+    else:
+        assert out.dtype == torch.float32 and _rel(out, want) < REL
+    assert torch.equal(out, run())
+    assert len(_graph_kernel_names(run)) == kernels_a_call
+
+
 @pytest.mark.parametrize("rank", [10, 80])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float64])
+def test_every_entry_runs_in_each_dtype_at_every_rank(cuda, dtype, rank):
+    """Rows 1-7 in bf16, fp16 and float64: each entry launches the kernel of
+    its own dtype (no converted copy: the CUDA kernels a call are those of
+    float32, 1 batched, 1 or 2 unbatched by the launch's groups), sums in
+    fp32 and returns float32 (the KRP pair the operands' dtype), within
+    1e-4 of its plain version.  The shapes take both copy paths: a
+    contiguous extent of 30 is not 16 bytes in a 16-bit type (the scalar
+    staging path), 128 is; and a view off a 16-byte line takes the scalar
+    path in every dtype."""
+    isz = torch.empty((), dtype=dtype).element_size()
+    for shape in DTYPE_SHAPES:
+        x, fs = _unbatched_inputs(cuda, shape, rank, seed=rank + len(shape))
+        xb, fb = _batched_inputs(cuda, 3, shape, rank, seed=rank + 1)
+        x, xb = x.to(dtype), xb.to(dtype)
+        fs, fb = [u.to(dtype) for u in fs], [u.to(dtype) for u in fb]
+        for xu in (x, _misaligned(x)) if shape == DTYPE_SHAPES[0] else (x,):
+            for n in range(len(shape)):
+                us = [fs[k] for k in range(len(shape)) if k != n]
+                usb = [fb[k] for k in range(len(shape)) if k != n]
+                g = mf.unbatched_launch_shape(shape, n, rank, itemsize=isz)
+                _check_entry(mf.KERNEL, lambda: mf.matrix_free_kernel(xu, us, n),
+                             lambda: mf.matrix_free_kernel_plain(xu, us, n),
+                             1 if g.groups == 1 else 2)
+                _check_entry(mf.BATCHED_KERNEL, lambda: mf.matrix_free_batched_kernel(xb, usb, n),
+                             lambda: mf.matrix_free_batched_kernel_plain(xb, usb, n), 1)
+                t, a, b, pos = ops.bilinear_operands(xu, fs, n)
+                gv = fm.launch_geometry(tuple(t.shape), pos, rank, itemsize=isz)
+                _check_entry(fm.KERNEL, lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
+                             lambda: fm.fused_mttkrp_bilinear_plain(t, a, b, pos=pos),
+                             1 if gv.groups == 1 else 2)
+                tb, ab, bb, pos = ops.bilinear_operands_batched(xb, fb, n)
+                _check_entry(fm.BATCHED_KERNEL,
+                             lambda: fm.fused_mttkrp_bilinear_batched(tb, ab, bb, pos=pos),
+                             lambda: fm.fused_mttkrp_bilinear_batched_plain(tb, ab, bb, pos=pos),
+                             1)
+                out = ops.fused_mttkrp(xu, fs, n)  # the wrapper casts back to x.dtype
+                assert out.dtype == dtype
+    g = torch.Generator(device=cuda).manual_seed(rank)
+    for big_l, dim_i in ((225, 59), (40, 1100), (3, 59), (7, 33)):
+        t = torch.randn((3, big_l, dim_i, rank), generator=g, device=cuda).to(dtype)
+        w = torch.randn((3, big_l, rank), generator=g, device=cuda).to(dtype)
+        for tt in (t[0], _misaligned(t[0])):
+            _check_entry(mt.KERNEL, lambda: mt.multi_ttv_kernel(tt, w[0], block_i=dim_i),
+                         lambda: mt.multi_ttv_plain(tt, w[0]), 1)
+        _check_entry(mt.BATCHED_KERNEL,
+                     lambda: mt.multi_ttv_batched_kernel(t, w, block_i=dim_i, block_batch=1),
+                     lambda: mt.multi_ttv_batched_plain(t, w), 1)
+        assert mt.multi_ttv(t[0], w[0]).dtype == dtype
+    a = torch.randn((59, rank), generator=g, device=cuda).to(dtype)
+    for b in (torch.randn((201, rank), generator=g, device=cuda).to(dtype),
+              _misaligned(torch.randn((7, rank), generator=g, device=cuda).to(dtype))):
+        for block_b in (1, 64):
+            _check_entry(kk.KERNEL, lambda: kk.krp_pair(a, b, block_b=block_b),
+                         lambda: kk.krp_pair_plain(a, b), 1)
+
+
+@pytest.mark.parametrize("rank", [10, 80])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.complex64, "mix"])
 def test_other_dtypes_still_raise_at_every_rank(cuda, dtype, rank):
-    """A 16-bit or float64 operand raises TypeError at every kernel entry,
-    with no launch and no quiet conversion or fallback."""
+    """An int32 or complex64 operand, or a mix of dtypes (bf16 and float32),
+    raises TypeError at every kernel entry, with no launch and no quiet
+    conversion or fallback."""
     x, fs = _unbatched_inputs(cuda, (6, 5, 7, 4), rank, seed=1)
     xb, fb = _batched_inputs(cuda, 2, (6, 5, 7, 4), rank, seed=2)
-    x, fs, xb, fb = x.to(dtype), [u.to(dtype) for u in fs], xb.to(dtype), [u.to(dtype) for u in fb]
+    tw, ww = torch.randn((4, 5, rank), device=cuda), torch.randn((4, rank), device=cuda)
+    if dtype == "mix":
+        x, xb, tw = x.bfloat16(), xb.bfloat16(), tw.bfloat16()
+    else:
+        x, fs, xb, fb = x.to(dtype), [u.to(dtype) for u in fs], xb.to(dtype), [u.to(dtype) for u in fb]
+        tw, ww = tw.to(dtype), ww.to(dtype)
     t, a, b, pos = ops.bilinear_operands(x, fs, 1)
     tb, ab, bb, _ = ops.bilinear_operands_batched(xb, fb, 1)
-    tw, ww = torch.randn((4, 5, rank), device=cuda).to(dtype), torch.randn((4, rank), device=cuda)
-    kernels = (fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL)
+    kernels = (fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
+               mt.BATCHED_KERNEL, kk.KERNEL)
     before = [k.launches for k in kernels]
     for run in (lambda: fm.fused_mttkrp_bilinear(t, a, b, pos=pos),
                 lambda: fm.fused_mttkrp_bilinear_batched(tb, ab, bb, pos=pos),
                 lambda: mf.matrix_free_kernel(x, [fs[0], fs[2], fs[3]], 1),
                 lambda: mf.matrix_free_batched_kernel(xb, [fb[0], fb[2], fb[3]], 1),
-                lambda: ops.fused_mttkrp(x, fs, 2),
-                lambda: mt.multi_ttv(tw, ww.to(dtype))):
-        with pytest.raises(TypeError, match="float32"):
+                lambda: ops.matrix_free_mttkrp(x, fs, 2),
+                lambda: mt.multi_ttv(tw, ww),
+                lambda: mt.multi_ttv_batched(tw[None], ww[None]),
+                lambda: kk.krp_pair(tw[0], ww, block_b=4)):
+        with pytest.raises(TypeError, match="bfloat16" if dtype != "mix" else "one dtype"):
             run()
     assert [k.launches for k in kernels] == before
 

@@ -190,9 +190,10 @@ def test_multi_ttv_block_i_maps_to_the_nearest_legal_tile():
 
 
 def test_kernels_take_float32_at_rank_1_to_64_on_the_card():
-    """On the card the kernels take float32 at any rank >= 1 (ranks 1..64
-    in one column block, above that in several; the name is the one this
-    test had when 64 was the limit)."""
+    """On the card the kernels take float32, bfloat16, float16 and float64
+    at any rank >= 1 (ranks 1..64 in one column block, above that in
+    several; the name is the one this test had when float32 at rank 1..64
+    was the limit), and no other dtype."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert ttiling.kernels_take(cuda, torch.float32, 10)
     assert ttiling.kernels_take(cuda, torch.float32, 1) and ttiling.kernels_take(cuda, torch.float32, 64)
@@ -200,6 +201,9 @@ def test_kernels_take_float32_at_rank_1_to_64_on_the_card():
         assert ttiling.kernels_take(cuda, torch.float32, rank)
     assert not ttiling.kernels_take(cuda, torch.float32, 0)
     for dtype in (torch.float64, torch.bfloat16, torch.float16):
+        assert ttiling.kernels_take(cuda, dtype, 10) and ttiling.kernels_take(cuda, dtype, 80)
+        assert not ttiling.kernels_take(cuda, dtype, 0)
+    for dtype in (torch.int32, torch.complex64, torch.float8_e4m3fn):
         assert not ttiling.kernels_take(cuda, dtype, 10)
     # the plain versions take any rank and dtype
     for dtype, rank in ((torch.float32, 80), (torch.float64, 10), (torch.float64, 200)):
@@ -239,8 +243,9 @@ def test_tune_at_rank_80_on_the_cpu_keeps_the_reference_layout():
 
 
 def test_tune_leaves_out_the_kernels_they_do_not_take(monkeypatch):
-    """What tune() does on the card in float64 (or any dtype but float32),
-    shown here by the predicate's answer: no kernel timed, the default knobs kept in the
+    """What tune() does where the kernels do not take a problem (on the
+    card, a dtype outside ``KERNEL_DTYPES``), shown here by the predicate's
+    answer: no kernel timed, the default knobs kept in the
     reference's layout, no kernel leaf measured, so the tuned plan runs the
     GEMM algorithms, and cp_als under it matches the untuned plan."""
     monkeypatch.setattr(tautotune, "kernels_take", lambda device, dtype, rank: False)
