@@ -51,6 +51,7 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only examples             # phases 0 and 20 only
     python3 chip_smoke.py --only high_rank            # phases 0, 1 and 21 only
     python3 chip_smoke.py --only dtypes               # phases 0, 1 and 22 only
+    python3 chip_smoke.py --only krp                  # phase 0 and row 7 of 1, 8, 11, 21, 22
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
@@ -112,8 +113,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    unchanged by the other slabs; both on a ragged shape (T 3 x 59 x 7:
    I * C % 4 != 0, L shorter than a cluster); each at every ``block_i``
    candidate and 32 and 1024, with its launch geometry; the KRP pair and
-   ``krp_materialize`` on
-   the factors of modes 1-3 (2.36 M rows, 94 MB) and of modes 0-1; the
+   ``krp_materialize`` on the factors of modes 1-3 (2.36 M rows, 94 MB)
+   and of modes 0-1, bitwise their plain versions, and the KRP pair's
+   edge cases (a row span off the 16-byte unit, B or A off a 16-byte
+   line, 70000 rows of B at ``block_b=1``), each bitwise with one launch
+   on the path (16-byte or one-element) it should take; the
    fused and matrix-free kernels on every mode at each ``blocks_per_sm``
    candidate (the default bitwise equal to a call without the knob); every
    new kernel bitwise repeatable.
@@ -131,7 +135,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    warm-plan hit, fits within ``FIT_AGREE`` of phase 6's, launches read off
    the plan).
 11. timing, as in phase 4, of multi-TTV (both shapes), batched multi-TTV and
-   the KRP pair (the 94 MB KRP's last fold), each beside its plain version,
+   the KRP pair (the 94 MB KRP's last fold, with its TB/s and path; gate:
+   the 16-byte path), each beside its plain version,
    one PyTorch call and the bound; for the multi-TTV rows also the host
    time a call (host clock over 200 calls, no sync inside) and the device
    time a call (``torch.profiler``, every CUDA kernel a call launches),
@@ -391,7 +396,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    CUDA kernels a call its design states (a CUDA graph of one call);
    printed: kernel ms (CUDA events) beside the bound ``max(bytes /
    3.35e12, flops / 67e12)`` (the tensor counted once, whatever the design
-   reads), the plain version and one ``torch.einsum``; rows 1-2 also at
+   reads), the plain version and one ``torch.einsum``, row 7 also its TB/s
+   and path (gate: 16-byte); rows 1-2 also at
    rank 64, one column block, timed beside them.  Then ``cp_als`` under
    auto, fused and matrix_free for ``HIGH_RANK_SWEEPS`` sweeps from one
    init (gates: launch counts, fits within ``FIT_AGREE``; printed: ms a
@@ -416,8 +422,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    of float32 (a CUDA graph of one call).  Printed at rank 10: kernel ms
    (CUDA events) beside the bound (each operand read once at its width,
    the float32 output written once; 2 C fp32 operations an element), the
-   plain version and one ``torch.einsum`` on the operands in their dtype.
-   Then ``cp_als`` in float64 under auto, fused and matrix_free for
+   plain version and one ``torch.einsum`` on the operands in their dtype;
+   row 7 also its TB/s and path (gate: 16-byte) and phase 8's KRP edge
+   cases in the dtype.  Then ``cp_als`` in float64 under auto, fused and matrix_free for
    ``DTYPE_SWEEPS`` sweeps from one init (gates: launch counts, float64
    factors, fits within ``FIT_AGREE``), and ``tune()`` of the float64 and
    the bf16 tensor at rank 10 (gate: kernel tile rows, kernel node rows
@@ -1522,6 +1529,194 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
     return served_launches, sweep_s, inits, fits["autotune"][: len(subjects)]
 
 
+# ---- row 7, the KRP pair: what phases 8, 11, 21 and 22 check of it (and --only krp)
+def _krp_case(torch, label, a, b, want_vec, phase, block_b=512) -> None:
+    """One ``krp_pair`` call held bitwise to its plain version, with one
+    launch on the path ``want_vec`` says (16-byte or one-element, read off
+    ``KERNEL.vector_launches``)."""
+    from repro_torch.kernels import krp_kernel as kk
+
+    before = (kk.KERNEL.launches, kk.KERNEL.vector_launches)
+    out = kk.krp_pair(a, b, block_b=block_b)
+    torch.cuda.synchronize()
+    launched, vector = kk.KERNEL.launches - before[0], kk.KERNEL.vector_launches - before[1]
+    same = torch.equal(out, kk.krp_pair_plain(a, b))
+    ok = same and launched == 1 and vector == int(want_vec)
+    path = {1: "16-byte", 0: "one-element"}
+    _log(f"[{phase}] krp_pair {label}: {tuple(a.shape)} (.) {tuple(b.shape)} "
+         f"{str(a.dtype).removeprefix('torch.')} block_b {block_b}: bitwise the plain version "
+         f"{same}, launches {launched}, {path.get(vector, vector)} path (want "
+         f"{path[int(want_vec)]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"[{phase}] krp_pair {label}: wrong, not one launch or the wrong path")
+
+
+def _krp_edge_cases(torch, dev, dtype, phase) -> None:
+    """Row 7 beside the fMRI folds, in ``dtype``: a row span that is no
+    whole number of 16-byte units (7 x 13 at rank 3), B and then A as the
+    second row block of a contiguous (2, 13, 3) stack (off a 16-byte line:
+    B's alignment decides the path, A's does not), B one element past a
+    line with a span of whole units, and 70000 rows of B at ``block_b=1``
+    (70000 tiles, which the first version refused past 65535)."""
+    gen = torch.Generator(device=dev).manual_seed(34)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    stack, flat = rnd(2, 13, 3), rnd(1 + 200 * 10)
+    if stack[1].data_ptr() % 16 == 0 or flat[1:].data_ptr() % 16 == 0:
+        raise SystemExit(f"[{phase}] krp_pair edge cases: a misaligned operand is aligned")
+    for label, a, b, want_vec, block_b in (
+        ("row span off the 16-byte unit", rnd(7, 3), rnd(13, 3), False, 512),
+        ("B the second block of a (2, 13, 3) stack", rnd(5, 3), stack[1], False, 512),
+        ("A the second block of a (2, 13, 3) stack", stack[1], rnd(200, 3), True, 512),
+        ("B one element past a 16-byte line", rnd(3, 10), flat[1:].view(200, 10), False, 512),
+        ("70000 rows of B, one a tile", rnd(4, 3), rnd(70000, 3), True, 1),
+    ):
+        _krp_case(torch, label, a, b, want_vec, phase, block_b)
+
+
+def _krp_rate(torch, k12, u3, ms, byts, bound_ms, smi, phase) -> None:
+    """Row 7's achieved TB/s at the fMRI KRP's last fold and the path it
+    took, with its launch geometry and a call's host and device time
+    (``_host_device_us``: back-to-back calls run at the slower of the two);
+    raise unless the 16-byte path."""
+    from repro_torch.kernels import krp_kernel as kk
+
+    before = kk.KERNEL.vector_launches
+    kk.krp_pair(k12, u3, block_b=512)
+    vector = kk.KERNEL.vector_launches - before
+    g = kk.launch_shape(k12.shape[0], u3.shape[0], u3.shape[1], k12.element_size(), True)
+    host, dev, _, _ = _host_device_us(torch, lambda: kk.krp_pair(k12, u3, block_b=512), 50)
+    _log(f"[{phase}] krp_pair {str(k12.dtype).removeprefix('torch.')} {tuple(k12.shape)} (.) "
+         f"{tuple(u3.shape)}: {byts / ms / 1e9:.3f} TB/s ({byts / 1e6:.1f} MB in {ms:.4f} ms), "
+         f"{bound_ms / ms:.2f} of the bound, {'16-byte' if vector else 'one-element'} path "
+         f"(grid {g.blocks} x {kk.THREADS}: {g.tiles} tiles of {g.tile} positions, "
+         f"{g.rows_per_step} rows a step, {g.per_thread} vectors of {g.vec} a thread); a call "
+         f"host {host:.2f} us (host clock, 50 calls, no sync), device {dev:.2f} us "
+         f"(torch.profiler, {byts / dev / 1e6:.3f} TB/s); card {smi}")
+    if not vector:
+        raise SystemExit(f"[{phase}] krp_pair at the fMRI fold did not take the 16-byte path")
+
+
+def _krp_checks8(torch, check, init):
+    """Phase 8's row-7 checks: ``krp_materialize`` of the factors of modes
+    1-3 and 0-1 against the oracle, the last fold and ``U0 (.) U1`` bitwise
+    their plain versions and repeatable, then :func:`_krp_edge_cases` in
+    float32.  Returns the last fold's left factor ``U1 (.) U2``."""
+    from repro_torch.kernels import krp_kernel as kk
+    from repro_torch.kernels import ops, ref
+
+    u0, u1, u2, u3 = init
+
+    def bitwise(label, run, plain):
+        a, b = run(), run()
+        ok = torch.equal(a, b) and torch.equal(a, plain)
+        _log(f"[8] {label} run twice bitwise equal, and bitwise its plain version: "
+             f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{label}: not bitwise repeatable or not its plain version")
+        return a
+
+    k_full = bitwise("krp_materialize [U1, U2, U3]", lambda: ops.krp_materialize([u1, u2, u3]),
+                     ref.krp_ref([u1, u2, u3]))
+    check(f"krp_materialize [U1, U2, U3] {tuple(k_full.shape)} ({k_full.numel() * 4 / 1e6:.0f} MB)",
+          "krp", k_full, ref.krp_ref([u1, u2, u3]), 8)
+    del k_full
+    k12 = kk.krp_pair(u1, u2, block_b=512)
+    last = bitwise("krp_pair (U1 (.) U2) (.) U3, the last fold",
+                   lambda: kk.krp_pair(k12, u3, block_b=512), kk.krp_pair_plain(k12, u3))
+    check("krp_pair (U1 (.) U2) (.) U3, the last fold", "krp", last, kk.krp_pair_plain(k12, u3), 8)
+    del last
+    bitwise("krp_pair U0 (.) U1", lambda: kk.krp_pair(u0, u1, block_b=512),
+            kk.krp_pair_plain(u0, u1))
+    check("krp_materialize [U0, U1]", "krp", ops.krp_materialize([u0, u1]), ref.krp_ref([u0, u1]), 8)
+    _krp_edge_cases(torch, u0.device, torch.float32, 8)
+    return k12
+
+
+def _krp_time11(torch, k12, u3, smi):
+    """Phase 11's row 7: the last fold's kernel, plain and one-einsum ms
+    (CUDA events, 50 launches) beside its bound, then :func:`_krp_rate`."""
+    from repro_torch.kernels import krp_kernel as kk
+
+    n_out = k12.shape[0] * u3.shape[0] * u3.shape[1]
+    byts = 4 * (k12.numel() + u3.numel() + n_out)
+    r = {"ms": _time_ms(torch, lambda: kk.krp_pair(k12, u3, block_b=512), 50),
+         "plain_ms": _time_ms(torch, lambda: kk.krp_pair_plain(k12, u3), 50),
+         "library_ms": _time_ms(torch, lambda: torch.einsum("ac,bc->abc", k12, u3), 50),
+         "bytes_ms": byts / HBM_BW * 1e3, "flops_ms": n_out / PEAK_FLOPS * 1e3}
+    bound = max(r["bytes_ms"], r["flops_ms"])
+    _log(f"[11] krp_pair {tuple(k12.shape)} (.) {tuple(u3.shape)} -> ({n_out // u3.shape[1]}, "
+         f"{u3.shape[1]}): kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+         f"{r['library_ms']:.4f} ms, bound {bound:.4f} ms "
+         f"({'bytes' if r['bytes_ms'] >= r['flops_ms'] else 'operations'}); card {smi}")
+    _krp_rate(torch, k12, u3, r["ms"], byts, bound, smi, 11)
+    return r
+
+
+def _krp_row(torch, row, fs, smi, phase, reps):
+    """Row 7 of phases 21 and 22 at the KRP's last fold of ``fs`` (in their
+    dtype) through the phase's ``row`` (gates and times), then
+    :func:`_krp_rate`."""
+    from repro_torch.kernels import krp_kernel as kk
+
+    k12, u3 = kk.krp_pair(fs[1], fs[2], block_b=512), fs[3]
+    isz = k12.element_size()
+    n_out = k12.shape[0] * u3.shape[0] * u3.shape[1]
+    byts = isz * (k12.numel() + u3.numel() + n_out)
+    r = row("krp", f"krp_pair {tuple(k12.shape)} (.) {tuple(u3.shape)} (the KRP's last fold, "
+            f"{isz * n_out / 1e9:.2f} GB)", kk.KERNEL, lambda: kk.krp_pair(k12, u3, block_b=512),
+            lambda: kk.krp_pair_plain(k12, u3), lambda: torch.einsum("ac,bc->abc", k12, u3),
+            byts, n_out, 1, reps)
+    _krp_rate(torch, k12, u3, r["ms"], byts, max(r["bytes_ms"], r["flops_ms"]), smi, phase)
+    del k12
+    torch.cuda.empty_cache()
+    return r
+
+
+def _row_sums(rows, err) -> dict:
+    """Each row's sums over its calls (phases 21 and 22)."""
+    summary = {}
+    for key, rs in rows.items():
+        b_bytes, b_ops = sum(r["bytes_ms"] for r in rs), sum(r["flops_ms"] for r in rs)
+        summary[key] = {"ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+                        "library_ms": sum(r["library_ms"] for r in rs),
+                        "bound_ms": max(b_bytes, b_ops),
+                        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
+                        "calls": len(rs), "max_abs_err": err[key]}
+    return summary
+
+
+def _only_krp(torch, args, dev, smi) -> None:
+    """``--only krp``: build ``krp_pair.cu``, then row 7 alone: phase 8's
+    checks on the fMRI factors at ``--rank`` (random, from ``--seed``),
+    phase 11's timing, phase 21's row at ranks 80 and 128 and phase 22's
+    in bf16, fp16 and float64 at rank 10, with their edge cases."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import krp_kernel as kk
+
+    t0 = time.perf_counter()
+    _build.build_all([kk.KERNEL])
+    _log(f"[1] built {kk.KERNEL.source.name} in {time.perf_counter() - t0:.1f} s")
+    _log_ptxas([kk.KERNEL])
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    init = [torch.randn((d, args.rank), generator=gen, device=dev) for d in FMRI]
+    err = {"krp": 0.0}
+    k12 = _krp_checks8(torch, _checker(torch, err), init)
+    _krp_time11(torch, k12, init[3], smi)
+    del k12
+    for rank in HIGH_RANKS:
+        fs = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
+        summary = _high_rank_rows(torch, None, fs, None, None, smi, rank, err, krp_only=True)
+        _log(f"[21] row 7 at rank {rank}: {json.dumps(summary)}")
+    for dtype in (torch.bfloat16, torch.float16, torch.float64):
+        fs = [u.to(dtype) for u in init]
+        rows = _dtype_rows(torch, None, None, fs, None, args.rank, smi, err, True, krp_only=True)
+        _log(f"[22] {str(dtype).removeprefix('torch.')} row 7 at rank {args.rank}: "
+             f"{json.dumps(_row_sums(rows, err))}")
+
+
 def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, check, rows,
                         auto_fits, auto_secs, serve_inits, serve_fits):
     """Phases 8-11 (see the module docstring).  ``check`` and ``rows`` are
@@ -1610,17 +1805,8 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
         raise SystemExit("multi_ttv_batched: slab 0 depends on the other slabs")
     del other, ub, vb
 
-    u0, u1, u2, u3 = init
-    k_full = same_twice("krp_materialize [U1, U2, U3]", lambda: ops.krp_materialize([u1, u2, u3]))
-    check(f"krp_materialize [U1, U2, U3] {tuple(k_full.shape)} ({k_full.numel() * 4 / 1e6:.0f} MB)",
-          "krp", k_full, ref.krp_ref([u1, u2, u3]), 8)
-    del k_full
-    k12 = kk.krp_pair(u1, u2, block_b=512)
-    check("krp_pair (U1 (.) U2) (.) U3, the last fold", "krp", kk.krp_pair(k12, u3, block_b=512),
-          kk.krp_pair_plain(k12, u3), 8)
-    same_twice("krp_pair last fold", lambda: kk.krp_pair(k12, u3, block_b=512))
-    check("krp_pair U0 (.) U1", "krp", kk.krp_pair(u0, u1, block_b=512), kk.krp_pair_plain(u0, u1), 8)
-    check("krp_materialize [U0, U1]", "krp", ops.krp_materialize([u0, u1]), ref.krp_ref([u0, u1]), 8)
+    u1, u2, u3 = init[1:]
+    k12 = _krp_checks8(torch, check, init)
 
     default_bps = _tiling.BLOCKS_PER_SM
     for n in range(4):
@@ -1816,13 +2002,7 @@ def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, 
     for n, (t, w) in ttv_ops.items():
         device_by_block(f"multi_ttv mode {n}", mt.multi_ttv, t, w)
     device_by_block("multi_ttv_batched", mt.multi_ttv_batched, tb, wb)
-    n_out = k12.shape[0] * u3.shape[0] * rank
-    r = {"ms": _time_ms(torch, lambda: kk.krp_pair(k12, u3, block_b=512), 50),
-         "plain_ms": _time_ms(torch, lambda: kk.krp_pair_plain(k12, u3), 50),
-         "library_ms": _time_ms(torch, lambda: torch.einsum("ac,bc->abc", k12, u3), 50),
-         **bound(4 * (k12.numel() + u3.numel() + n_out), n_out)}
-    rows["krp"] = [r]
-    log_row(f"krp_pair {tuple(k12.shape)} (.) {tuple(u3.shape)} -> ({n_out // rank}, {rank})", r)
+    rows["krp"] = [_krp_time11(torch, k12, u3, smi)]
 
     tuner_ms = {}
     for name_, summ in cache.get(cache.keys()[0])["tiles"].items():
@@ -2951,15 +3131,15 @@ def _slab_spec(spec: str) -> str:
     return "s" + spec.replace(",", ",s").replace("->", "->s")
 
 
-def _high_rank_rows(torch, x4, fs, xb, fb, smi, rank, err):
+def _high_rank_rows(torch, x4, fs, xb, fb, smi, rank, err, krp_only=False):
     """Rows 1-7 at ``rank`` on the fMRI tensor (rows 1, 2, 5, 7) and the
     fleet batch (rows 3, 4, 6): every call within ``REL_ERR_BOUND`` of its
     plain version and bitwise repeatable, one counted launch a call, the
     CUDA kernels a call its design states (a CUDA graph of one call), and
     its CUDA-event time beside the bound, the plain version and one
-    ``torch.einsum``.  Returns each row's sums over its calls."""
+    ``torch.einsum``.  Row 7 first, and alone with ``krp_only`` (``x4``,
+    ``xb`` and ``fb`` unused).  Returns each row's sums over its calls."""
     from repro_torch.kernels import fused_mttkrp as fm
-    from repro_torch.kernels import krp_kernel as kk
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.kernels import multi_ttv as mt
     from repro_torch.kernels import ops
@@ -2989,7 +3169,9 @@ def _high_rank_rows(torch, x4, fs, xb, fb, smi, rank, err):
             raise SystemExit(f"[21] {label} rank {rank}: wrong, not repeatable or wrong launches")
         return r
 
-    rows = {}
+    rows = {"krp": [_krp_row(torch, row, fs, smi, 21, 50)]}
+    if krp_only:
+        return _row_sums(rows, err)
     for n in range(4):
         t, a, b, pos = ops.bilinear_operands(x4, fs, n)
         g = fm.launch_geometry(tuple(t.shape), pos, rank)
@@ -3044,24 +3226,8 @@ def _high_rank_rows(torch, x4, fs, xb, fb, smi, rank, err):
         lambda: torch.einsum("slic,slc->sic", tb, wb),
         4 * (tb.numel() + wb.numel() + len(tb) * tb.shape[2] * rank), 2 * tb.numel(), 1, 50)]
     del tb, wb
-    k12 = kk.krp_pair(fs[1], fs[2], block_b=512)
-    n_out = k12.shape[0] * FMRI[3] * rank
-    rows["krp"] = [row(
-        "krp", f"krp_pair {tuple(k12.shape)} (.) {tuple(fs[3].shape)} (the KRP's last fold, "
-        f"{4 * n_out / 1e9:.2f} GB)", kk.KERNEL, lambda: kk.krp_pair(k12, fs[3], block_b=512),
-        lambda: kk.krp_pair_plain(k12, fs[3]), lambda: torch.einsum("ac,bc->abc", k12, fs[3]),
-        4 * (k12.numel() + fs[3].numel() + n_out), n_out, 1, 10)]
-    del k12
     torch.cuda.empty_cache()
-    summary = {}
-    for key, rs in rows.items():
-        b_bytes, b_ops = sum(r["bytes_ms"] for r in rs), sum(r["flops_ms"] for r in rs)
-        summary[key] = {"ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
-                        "library_ms": sum(r["library_ms"] for r in rs),
-                        "bound_ms": max(b_bytes, b_ops),
-                        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                        "calls": len(rs), "max_abs_err": err[key]}
-    return summary
+    return _row_sums(rows, err)
 
 
 def _high_rank_phase(torch, args, dev, smi, x4, subjects) -> None:
@@ -3289,9 +3455,11 @@ def _dtype_geometry(g) -> str:
             f"{g.smem} B shared]")
 
 
-def _dtype_rows(torch, x4, xb, fs, fb, rank, smi, err, timed):
-    """Rows 1-7 in the dtype of ``x4`` (the fMRI tensor: rows 1, 2, 5, 7;
-    the fleet batch ``xb``: rows 3, 4, 6; rows 1-4 only unless ``timed``):
+def _dtype_rows(torch, x4, xb, fs, fb, rank, smi, err, timed, krp_only=False):
+    """Rows 1-7 in the dtype of ``fs`` (the fMRI tensor ``x4``: rows 1, 2,
+    5, 7; the fleet batch ``xb``: rows 3, 4, 6; rows 1-4 only unless
+    ``timed``; row 7 first, with :func:`_krp_edge_cases`, and alone with
+    ``krp_only``, where ``x4``, ``xb`` and ``fb`` are unused):
     every call within ``REL_ERR_BOUND`` of its plain version relative to the
     plain version's largest magnitude (row 7 bitwise), bitwise repeatable,
     one counted launch a call and the CUDA kernels a call its design states
@@ -3306,8 +3474,8 @@ def _dtype_rows(torch, x4, xb, fs, fb, rank, smi, err, timed):
     from repro_torch.kernels import multi_ttv as mt
     from repro_torch.kernels import ops
 
-    dtype = x4.dtype
-    isz = x4.element_size()
+    dtype = fs[0].dtype
+    isz = fs[0].element_size()
     tag = str(dtype).removeprefix("torch.")
 
     def row(key, label, kernel, run, plain, library, byts, flops, want_kernels, reps):
@@ -3348,6 +3516,11 @@ def _dtype_rows(torch, x4, xb, fs, fb, rank, smi, err, timed):
         return r
 
     rows = {}
+    if timed:
+        rows["krp"] = [_krp_row(torch, row, fs, smi, 22, 50)]
+        _krp_edge_cases(torch, fs[0].device, dtype, 22)
+    if krp_only:
+        return rows
     for n in range(4):
         t, a, b, pos = ops.bilinear_operands(x4, fs, n)
         g = fm.launch_geometry(tuple(t.shape), pos, rank, itemsize=isz)
@@ -3411,14 +3584,6 @@ def _dtype_rows(torch, x4, xb, fs, fb, rank, smi, err, timed):
         isz * (tb.numel() + wb.numel()) + 4 * len(tb) * tb.shape[2] * rank, 2 * tb.numel(), 1,
         50)]
     del tb, wb
-    k12 = kk.krp_pair(fs[1], fs[2], block_b=512)
-    n_out = k12.shape[0] * FMRI[3] * rank
-    rows["krp"] = [row(
-        "krp", f"krp_pair {tuple(k12.shape)} (.) {tuple(fs[3].shape)}", kk.KERNEL,
-        lambda: kk.krp_pair(k12, fs[3], block_b=512), lambda: kk.krp_pair_plain(k12, fs[3]),
-        lambda: torch.einsum("ac,bc->abc", k12, fs[3]),
-        isz * (k12.numel() + fs[3].numel() + n_out), n_out, 1, 10)]
-    del k12
     torch.cuda.empty_cache()
     return rows
 
@@ -3452,16 +3617,7 @@ def _dtypes_phase(torch, args, dev, smi, x4) -> None:
             fb = [u.to(dtype) for u in fb32[rank]]
             rows = _dtype_rows(torch, xd, xb, fs, fb, rank, smi, err, rank == DTYPE_RANKS[0])
             if rank == DTYPE_RANKS[0]:
-                summaries[tag] = summary = {}
-                for key, rs in rows.items():
-                    b_bytes = sum(r["bytes_ms"] for r in rs)
-                    b_ops = sum(r["flops_ms"] for r in rs)
-                    summary[key] = {
-                        "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
-                        "library_ms": sum(r["library_ms"] for r in rs),
-                        "bound_ms": max(b_bytes, b_ops),
-                        "bound_by": "bytes" if b_bytes >= b_ops else "operations",
-                        "calls": len(rs), "max_abs_err": err[key]}
+                summaries[tag] = summary = _row_sums(rows, err)
                 _log(f"[22] {tag} rows at rank {rank} (sums over each row's calls: 4 modes of "
                      f"rows 1-2, 3 of rows 3-4, modes 1-2 of row 5; card {smi}): "
                      f"{json.dumps(summary)}")
@@ -5615,7 +5771,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
                                        "dist", "lm", "lm_families", "train", "sharded_lm",
                                        "sharded_families", "dryrun", "examples", "high_rank",
-                                       "dtypes"],
+                                       "dtypes", "krp"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -5626,9 +5782,9 @@ def main(argv=None) -> int:
                          "training path), phase 17 (the sharded LM in an NCCL world of one), "
                          "phase 18 (the other families on the mesh there), phase 19 (FSDP on "
                          "the card and the dry-run against it), phase 20 (the examples and "
-                         "the executable docs), phase 21 (the MTTKRP kernels above rank 64) or "
-                         "phase 22 (every kernel in bf16, fp16 and float64); prints no result "
-                         "line")
+                         "the executable docs), phase 21 (the MTTKRP kernels above rank 64), "
+                         "phase 22 (every kernel in bf16, fp16 and float64) or the KRP pair's "
+                         "checks and timings of phases 8, 11, 21 and 22; prints no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -5667,7 +5823,7 @@ def main(argv=None) -> int:
                 "train": _train_phase, "sharded_lm": _sharded_lm_phase,
                 "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase,
                 "examples": _examples_phase, "high_rank": _only_high_rank,
-                "dtypes": _only_dtypes}[args.only]
+                "dtypes": _only_dtypes, "krp": _only_krp}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")

@@ -133,7 +133,9 @@ class CudaKernel:
         """Call the entry of element type ``suffix`` without counting a
         launch (an entry that launches nothing, such as an occupancy query);
         raise on a non-zero CUDA error code."""
-        fn, err = self._entry(suffix)
+        # (a built entry is looked up inline: a launch's host time sets how
+        # fast back-to-back calls can follow each other)
+        fn, err = self._fns.get(suffix) or self._entry(suffix)
         code = fn(*args)
         if code != 0:
             msg = err(code).decode()

@@ -316,17 +316,49 @@ def test_multi_ttv_batched_slab_is_bitwise_independent_of_other_slabs(cuda):
     assert torch.equal(mt.multi_ttv_batched(t, w)[0], mt.multi_ttv_batched(u, v)[0])
 
 
-@pytest.mark.parametrize("block_b", [1, 7, 64, 512])
-@pytest.mark.parametrize("dims,rank", [((3, 5), 1), ((59, 200), 10), ((130, 17), 16), ((4, 1000), 64)])
-def test_krp_pair_kernel_matches_plain(cuda, dims, rank, block_b):
-    g = torch.Generator(device=cuda).manual_seed(rank + block_b)
-    a = torch.randn((dims[0], rank), generator=g, device=cuda)
-    b = torch.randn((dims[1], rank), generator=g, device=cuda)
-    before = kk.KERNEL.launches
+KRP_DTYPES = [torch.float32, torch.bfloat16, torch.float16, torch.float64]
+
+
+def _krp_launch_once(a, b, block_b, vector):
+    """One ``krp_pair`` call: one launch, on the 16-byte path iff ``vector``,
+    bitwise the plain version (one multiply an entry, rounded once to the
+    dtype) and bitwise repeatable."""
+    before = (kk.KERNEL.launches, kk.KERNEL.vector_launches)
     out = kk.krp_pair(a, b, block_b=block_b)
-    assert kk.KERNEL.launches == before + 1
-    assert torch.equal(out, kk.krp_pair_plain(a, b))  # one fp32 multiply per entry: exact
+    assert (kk.KERNEL.launches, kk.KERNEL.vector_launches) == (before[0] + 1,
+                                                              before[1] + int(vector))
+    assert out.dtype == a.dtype
+    assert torch.equal(out, kk.krp_pair_plain(a, b))
     assert torch.equal(out, kk.krp_pair(a, b, block_b=block_b))
+
+
+@pytest.mark.parametrize("dtype", KRP_DTYPES)
+@pytest.mark.parametrize("block_b", [1, 7, 64, 512])
+@pytest.mark.parametrize("dims,rank", [((3, 5), 1), ((59, 200), 10), ((130, 17), 16), ((4, 1000), 64),
+                                       ((7, 13), 3), ((59, 200), 128)])
+def test_krp_pair_kernel_matches_plain(cuda, dims, rank, block_b, dtype):
+    g = torch.Generator(device=cuda).manual_seed(rank + block_b)
+    a = torch.randn((dims[0], rank), generator=g, device=cuda, dtype=dtype)
+    b = torch.randn((dims[1], rank), generator=g, device=cuda, dtype=dtype)
+    whole = dims[1] * rank * a.element_size() % 16 == 0  # (fresh allocations: aligned)
+    _krp_launch_once(a, b, block_b, vector=whole)
+
+
+@pytest.mark.parametrize("dtype", KRP_DTYPES)
+def test_krp_pair_kernel_on_row_blocks_of_a_stack(cuda, dtype):
+    """A factor that is the second row block of a contiguous (2, 13, 3)
+    stack starts off a 16-byte line: as B it takes the one-element path,
+    as A (read an element at a time on either path) it does not."""
+    g = torch.Generator(device=cuda).manual_seed(34)
+    stack = torch.randn((2, 13, 3), generator=g, device=cuda, dtype=dtype)
+    assert stack[1].data_ptr() % 16 != 0
+    _krp_launch_once(torch.randn((5, 3), generator=g, device=cuda, dtype=dtype), stack[1], 512,
+                     vector=False)
+    _krp_launch_once(stack[1], torch.randn((200, 3), generator=g, device=cuda, dtype=dtype), 512,
+                     vector=True)
+    flat = torch.randn(1 + 200 * 10, generator=g, device=cuda, dtype=dtype)
+    _krp_launch_once(torch.randn((3, 10), generator=g, device=cuda, dtype=dtype),
+                     flat[1:].view(200, 10), 512, vector=False)  # whole units, off a line
 
 
 def test_krp_materialize_and_2step_kernel_on_the_card(cuda):
@@ -360,8 +392,8 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     before = mt.KERNEL.launches
     assert _rel(mt.multi_ttv(t64, w64, block_i=1024), mt.multi_ttv_plain(t64, w64)) < REL
     assert mt.KERNEL.launches == before + 1
-    with pytest.raises(ValueError):
-        kk.krp_pair(w, torch.randn(70000, 3, device=cuda), block_b=1)  # > 65535 tiles
+    # 70000 rows of b at block_b=1: one launch (the grid has no 65535-tile limit)
+    _krp_launch_once(w, torch.randn(70000, 3, device=cuda), 1, vector=True)
     with pytest.raises(TypeError):
         kk.krp_pair(w.int(), w.int(), block_b=4)
 
