@@ -28,9 +28,9 @@ sharded LM in an NCCL world of one (the compressed data-parallel step and
 ``launch.train``/``launch.serve`` on a mesh, bitwise their local runs), and
 the other families' tensor and expert parallelism there (the MoE, SSM,
 hybrid and enc-dec models served and trained on the mesh, against their
-local runs).  Holds all seven
+local runs).  Holds all eight
 CUDA kernel entries (fused and matrix-free MTTKRP and multi-TTV, unbatched
-and batched, and the KRP pair) against their plain PyTorch versions, at the
+and batched, the KRP pair and the update's solve) against their plain PyTorch versions, at the
 main path's rank and at ranks 80 and 128 (column blocks), and in bf16,
 fp16 and float64 as well as float32; the LM
 path reaches none of them (the reference computes its attention, FFN and
@@ -52,11 +52,12 @@ logits with plain products, no Pallas kernel).
     python3 chip_smoke.py --only high_rank            # phases 0, 1 and 21 only
     python3 chip_smoke.py --only dtypes               # phases 0, 1 and 22 only
     python3 chip_smoke.py --only krp                  # phase 0 and row 7 of 1, 8, 11, 21, 22
+    python3 chip_smoke.py --only gram_pinv            # phase 0, row 8 of 1, and 23
 
 Phases (any failure ends the run with a non-zero exit and no result line):
 
 0. device: name, count, power limit; TF32 switched off for matmuls and cuDNN.
-1. build: all seven kernel entries from ``src/repro_torch/kernels/csrc`` (one
+1. build: all eight kernel entries from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, in parallel); registers, shared memory and spills.
 2. kernels vs plain versions on the card: the fused kernel on every mode of
    the 4-way tensor (pos 0, 1 and 2); the matrix-free kernel on every mode
@@ -66,8 +67,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    and on a misaligned view of 8 subjects bitwise equal to the aligned call.
    Norm-wise relative error ``|K-P|/|P|`` must stay under ``REL_ERR_BOUND``.
 3. main path: ``cp_als`` for strategies auto, fused and matrix_free from one
-   seeded init; kernel launch counts, per-sweep fits (finite, agreeing within
-   ``FIT_AGREE``), per-sweep time and peak memory; a ``torch.profiler``
+   seeded init; kernel launch counts, row 8 (``gram_pinv``) 4 x sweeps
+   under every strategy with no library solve, per-sweep fits (finite,
+   agreeing within ``FIT_AGREE``), per-sweep time and peak memory; a ``torch.profiler``
    trace of the ``matrix_free`` sweeps (device operations a sweep, busy
    share, idle gaps, the ten longest operations); plus a small tensor whose
    card run must agree with the port's CPU run.
@@ -93,7 +95,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    by every strategy.  Checks the serving counters (67 completed, 2
    signatures, 2 compiles, 9 batches, 5 padded slots), the batched launch
    counts read off each plan (3 modes x sweeps x 9 batches under the kernel
-   strategies, no unbatched launch), finite results, fits agreeing across
+   strategies, no unbatched launch), row 8 3 x sweeps x 9 under every
+   strategy (and 3 x sweeps a request at ``batch_size=1``), finite results, fits agreeing across
    strategies within ``FIT_AGREE`` and subject 0 against the unbatched
    ``cp_als`` on that subject alone; then ``batch_size=1`` under fused and
    matrix_free on the 8 rank-16 requests (only the unbatched kernel, 8 x
@@ -429,6 +432,20 @@ Phases (any failure ends the run with a non-zero exit and no result line):
    factors, fits within ``FIT_AGREE``), and ``tune()`` of the float64 and
    the bf16 tensor at rank 10 (gate: kernel tile rows, kernel node rows
    and launches).
+
+23. row 8, the factor update's solve (``gram_pinv``), run right after
+   phase 13: at the fMRI update (C = 10, one matrix, 4 Grams of the
+   fMRI extents, every mode), the fleet's (a batch of 32, 3 Grams) and C
+   = 64, in float32 and float64, each
+   against ``torch.linalg.pinv`` in float64 of the same H at the same
+   cutoff (gates: no worse than 4x the library's own error in the dtype
+   plus C eps cond(H); the Penrose residuals within 2 C eps (10 + cond(H))),
+   one launch a call, bitwise repeat, P symmetric;
+   timed (kernel ms by CUDA events, host and device µs a call) beside the
+   plain version (``hadamard_except`` then ``torch.linalg.pinv``, a host
+   read each) and ``torch.linalg.pinv`` alone; then the same at C from 32
+   up to the largest a block holds, 128 among them (``C_MAX`` lifted for
+   the run), which sets ``C_MAX``.
 
 NCCL beyond a world of one is not exercised here: the card is one H100.
 
@@ -1399,6 +1416,7 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
     the per-request inits and the served fits of the rank-``--rank``
     requests under ``autotune`` (subject order)."""
     from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import gram_pinv as gp
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.plan import Problem, TuningCache, cp_als, plan_sweep
     from repro_torch.serve import CPService
@@ -1424,11 +1442,12 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
                         tuning_cache=TuningCache(), device=dev)
         futs = submit_all(svc, requests)
         torch.cuda.synchronize()
-        for k in counters:
+        for k in counters + (gp.KERNEL,):
             k.launches = 0
         svc.flush()
         torch.cuda.synchronize()
         got = tuple(k.launches for k in counters)
+        solves = gp.KERNEL.launches
         plans = {r: plan_sweep(Problem(shape, r, batch=SERVE_BATCH), strategy,
                                tuning_cache=TuningCache()) for r in n_batches}
         want = [0, 0, 0, 0]
@@ -1447,6 +1466,10 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
             raise SystemExit(f"{strategy}: launch counts {got} != {want}")
         if strategy != "autotune" and max(got) != 3 * sweeps * want_stats["batches"]:
             raise SystemExit(f"{strategy}: not every mode of every batch sweep ran the kernel")
+        _log(f"[6] {strategy}: gram_pinv {solves} (want {3 * sweeps * want_stats['batches']}: "
+             f"one a mode of every batch sweep)")
+        if solves != 3 * sweeps * want_stats["batches"]:
+            raise SystemExit(f"{strategy}: not every update of every batch sweep ran gram_pinv")
         served_launches[strategy] = max(got)
         res = [f.result() for f in futs]
         if not all(math.isfinite(r.fit) and r.sweeps == sweeps for r in res) or not all(
@@ -1489,14 +1512,14 @@ def _serve_phase(torch, args, dev, smi, subjects, gen):
         svc = CPService(batch_size=1, n_iters=sweeps, tol=0.0, strategy=strategy,
                         tuning_cache=TuningCache(), device=dev)
         futs = submit_all(svc, second)
-        for k in counters:
+        for k in counters + (gp.KERNEL,):
             k.launches = 0
         svc.flush()
         torch.cuda.synchronize()
-        got = [k.launches for k in counters]
-        want = [0, 0, 0, 0]
+        got = [k.launches for k in counters + (gp.KERNEL,)]
+        want = [0, 0, 0, 0, len(second) * sweeps * 3]
         want[own] = len(second) * sweeps * 3
-        _log(f"[6] {strategy} batch_size=1: launches {got} (want {want})")
+        _log(f"[6] {strategy} batch_size=1: launches {got} (want {want}; the last gram_pinv)")
         if got != want:
             raise SystemExit(f"{strategy} batch_size=1: launch counts {got} != {want}")
         res = [f.result() for f in futs]
@@ -1715,6 +1738,167 @@ def _only_krp(torch, args, dev, smi) -> None:
         rows = _dtype_rows(torch, None, None, fs, None, args.rank, smi, err, True, krp_only=True)
         _log(f"[22] {str(dtype).removeprefix('torch.')} row 7 at rank {args.rank}: "
              f"{json.dumps(_row_sums(rows, err))}")
+
+
+# ---- row 8, the factor update's solve: phase 23 (and --only gram_pinv)
+GRAM_PINV_SOURCE = "src/repro_torch/kernels/csrc/gram_pinv.cu"
+GRAM_PINV_REPLACES = "none (the reference's update calls jnp.linalg.pinv)"
+# (C, B) checked and timed: the fMRI update (one matrix, 4 Grams of the
+# fMRI extents), the fleet's (a batch of 32, 3 Grams of a subject's) and
+# the MTTKRP body's column block
+GRAM_PINV_SHAPES = ((10, None), (10, 32), (64, None))
+# C at which the kernel is checked and timed against torch.linalg.pinv, up
+# to the largest a block holds (C_MAX is the largest no slower a call)
+GRAM_PINV_SWEEP = {"float32": (64, 80, 96, 128, 161), "float64": (32, 48, 64, 80, 96, 114)}
+GRAM_PINV_REPS = 200
+
+
+def _gram_pinv_grams(torch, gen, dev, c, batch, dtype):
+    """Grams of random factors at rank ``c``: the fMRI tensor's 4 extents,
+    or with ``batch`` a stack of a subject's 3."""
+    lead = () if batch is None else (batch,)
+    dims = FMRI if batch is None else (FMRI[0],) + FMRI[2:]
+    fs = [torch.randn(lead + (d, c), generator=gen, device=dev, dtype=dtype) for d in dims]
+    return [f.transpose(-1, -2) @ f for f in fs]
+
+
+def _gram_pinv_check(torch, gs, n, label, phase) -> tuple[float, float]:
+    """Row 8 against ``torch.linalg.pinv`` in float64 of the same H at the
+    same cutoff (gates, as ``tests/test_torch_gram_pinv.py``: no worse than
+    4x the library's own error in the dtype plus C eps cond(H); the Penrose
+    residuals ``||HPH - H|| / ||H||`` and ``||PHP - P|| / ||P||`` within
+    2 C eps (10 + cond(H))), one launch a call, bitwise repeat, symmetric.
+    Returns the norm-wise relative and the largest absolute error."""
+    from repro_torch.core.cpals import hadamard_except
+    from repro_torch.kernels import gram_pinv as gp
+
+    before = gp.KERNEL.launches
+    p = gp.gram_pinv(gs, n)
+    again = gp.gram_pinv(gs, n)
+    if gp.KERNEL.launches != before + 2 or not torch.equal(p, again):
+        raise SystemExit(f"{label}: not one launch a call, or a repeat differs")
+    if not torch.equal(p, p.transpose(-1, -2)):
+        raise SystemExit(f"{label}: P is not symmetric")
+    h = hadamard_except(gs, n)
+    sym = torch.triu(h) + torch.triu(h, 1).transpose(-1, -2)
+    c, dtype = h.shape[-1], h.dtype
+    rtol = gp.pinv_rtol(c, dtype)
+    want = torch.linalg.pinv(sym.double(), rtol=rtol)
+    lib = torch.linalg.pinv(sym, rtol=rtol)
+    eig = torch.linalg.eigvalsh(sym.double()).abs()
+    top = eig.max(-1).values
+    cond = float((top / torch.where(eig > rtol * top[..., None], eig, torch.inf).min(-1).values)
+                 .max())
+    (e_k, abs_k), e_l = _rel(torch, p, want), _rel(torch, lib, want)[0]
+    eps = torch.finfo(dtype).eps
+    limit = 4 * e_l + c * eps * cond
+    hd, pd = sym.double(), p.double()
+    resid = max(float((hd @ pd @ hd - hd).norm() / hd.norm()),
+                float((pd @ hd @ pd - pd).norm() / pd.norm().clamp_min(1e-300)))
+    resid_limit = 2 * c * eps * (10 + cond)
+    ok = e_k <= limit and resid <= resid_limit
+    _log(f"[{phase}] {label}: rel err {e_k:.3e} against float64 (torch.linalg.pinv in the dtype "
+         f"{e_l:.3e}; cond {cond:.3e}; limit {limit:.3e}); Penrose residual {resid:.3e} (limit "
+         f"{resid_limit:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: gram_pinv disagrees with the float64 pseudo-inverse")
+    return e_k, abs_k
+
+
+def _gram_pinv_bytes(gs) -> int:
+    """Bytes a solve moves: the upper triangles of the Grams but one, and P."""
+    c, g = gs[0].shape[-1], gs[0]
+    return g.element_size() * (g.numel() // (c * c)) * ((len(gs) - 1) * c * (c + 1) // 2 + c * c)
+
+
+def _gram_pinv_flops(gs) -> int:
+    """Operations a solve does at least (see :func:`_gram_pinv_times`)."""
+    c, g = gs[0].shape[-1], gs[0]
+    per = (len(gs) - 2) * c * (c + 1) // 2 + c * (c - 1) // 2 * 18 * c + c * (c + 1) * c
+    return (g.numel() // (c * c)) * per
+
+
+def _gram_pinv_times(torch, gs, n, label, smi, phase) -> dict:
+    """Row 8 timed: the kernel (CUDA events over back-to-back calls; host
+    and device µs a call), the plain version (``hadamard_except`` then
+    ``torch.linalg.pinv``, a host read each) and ``torch.linalg.pinv``
+    alone, each ms a call.  The bound: the bytes the kernel moves (the upper
+    triangles of the Grams but the n-th, read once, and P written), and
+    the operations of H's products, one Jacobi sweep (C (C - 1) / 2
+    rotations, 3 operations on each element of the 2 rows and 2 columns of
+    H and the 2 columns of V that one touches) and P's upper triangle, all
+    that a solve must do at least."""
+    from repro_torch.core.cpals import hadamard_except
+    from repro_torch.kernels import gram_pinv as gp
+
+    h = hadamard_except(gs, n)
+    rtol = gp.pinv_rtol(h.shape[-1], h.dtype)
+    r = {
+        "ms": _time_ms(torch, lambda: gp.gram_pinv(gs, n), GRAM_PINV_REPS),
+        "plain_ms": _time_ms(torch, lambda: gp.gram_pinv_plain(gs, n), GRAM_PINV_REPS),
+        "library_ms": _time_ms(torch, lambda: torch.linalg.pinv(h, rtol=rtol), GRAM_PINV_REPS),
+        "bytes_ms": _gram_pinv_bytes(gs) / HBM_BW * 1e3,
+        "flops_ms": _gram_pinv_flops(gs) / PEAK_FLOPS * 1e3,
+    }
+    host, device, kernels, _ = _host_device_us(torch, lambda: gp.gram_pinv(gs, n), GRAM_PINV_REPS)
+    _, lib_device, lib_kernels, _ = _host_device_us(
+        torch, lambda: torch.linalg.pinv(h, rtol=rtol), GRAM_PINV_REPS)
+    _log(f"[{phase}] {label}: kernel {r['ms']:.4f} ms a call (device {device:.2f} us, host "
+         f"{host:.2f} us, {kernels} kernel), plain {r['plain_ms']:.4f} ms, torch.linalg.pinv "
+         f"{r['library_ms']:.4f} ms (device {lib_device:.2f} us, {lib_kernels} kernels), "
+         f"bound {r['bytes_ms'] * 1e3:.4f} us of bytes, {r['flops_ms'] * 1e3:.4f} us of "
+         f"operations (the solve is latency-bound); card {smi}")
+    return r
+
+
+def _gram_pinv_phase(torch, args, dev, smi, rows=None, err=None) -> None:
+    """Phase 23: row 8 at ``GRAM_PINV_SHAPES`` in float32 and float64,
+    checked and timed, then timed against ``torch.linalg.pinv`` at
+    ``GRAM_PINV_SWEEP`` (C_MAX lifted for the run).  The fMRI update's row
+    (C = 10, one matrix, every mode) goes to ``rows["gram_pinv"]``."""
+    from repro_torch.kernels import gram_pinv as gp
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 23)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).removeprefix("torch.")
+        for c, batch in GRAM_PINV_SHAPES:
+            gs = _gram_pinv_grams(torch, gen, dev, c, batch, dtype)
+            # the fMRI update at every mode; one mode elsewhere
+            modes = range(len(gs)) if (c, batch, dtype) == (10, None, torch.float32) else range(1)
+            for n in modes:
+                label = f"gram_pinv {name} C={c} B={batch or 1} mode {n}"
+                e = _gram_pinv_check(torch, gs, n, label, 23)
+                r = _gram_pinv_times(torch, gs, n, label, smi, 23)
+                if rows is not None and len(modes) > 1:
+                    rows.setdefault("gram_pinv", []).append(r)
+                    err["gram_pinv"] = max(err.get("gram_pinv", 0.0), e[1])
+                    err["gram_pinv_rel"] = max(err.get("gram_pinv_rel", 0.0), e[0])
+    saved = gp.C_MAX
+    try:
+        for dtype in (torch.float32, torch.float64):
+            name = str(dtype).removeprefix("torch.")
+            for c in GRAM_PINV_SWEEP[name]:
+                gp.C_MAX = c
+                gs = _gram_pinv_grams(torch, gen, dev, c, None, dtype)
+                label = f"gram_pinv {name} C={c} (C_MAX {saved}) sweep"
+                _gram_pinv_check(torch, gs, 0, label, 23)
+                _gram_pinv_times(torch, gs, 0, label, smi, 23)
+    finally:
+        gp.C_MAX = saved
+    _log(f"[23] row 8 phase {time.perf_counter() - t_phase:.1f} s; card {smi}")
+
+
+def _only_gram_pinv(torch, args, dev, smi) -> None:
+    """``--only gram_pinv``: build ``gram_pinv.cu``, then phase 23."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import gram_pinv as gp
+
+    t0 = time.perf_counter()
+    _build.build_all([gp.KERNEL])
+    _log(f"[1] built {gp.KERNEL.source.name} in {time.perf_counter() - t0:.1f} s")
+    _log_ptxas([gp.KERNEL])
+    _gram_pinv_phase(torch, args, dev, smi)
 
 
 def _new_kernels_phases(torch, args, dev, smi, x4, init, f4, subjects, fb, gen, check, rows,
@@ -3417,12 +3601,13 @@ def _only_high_rank(torch, args, dev, smi) -> None:
     and its fleet, then phase 21."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import gram_pinv as gp
     from repro_torch.kernels import krp_kernel as kk
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.kernels import multi_ttv as mt
 
     _build.build_all([fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
-                      mt.BATCHED_KERNEL, kk.KERNEL])
+                      mt.BATCHED_KERNEL, kk.KERNEL, gp.KERNEL])
     for k in (fm.KERNEL, mf.KERNEL):
         for line in k.ptxas_log.splitlines():
             if "entry function" in line or "Used" in line or "spill" in line:
@@ -3683,12 +3868,13 @@ def _only_dtypes(torch, args, dev, smi) -> None:
     make the fMRI tensor, then phase 22."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import gram_pinv as gp
     from repro_torch.kernels import krp_kernel as kk
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.kernels import multi_ttv as mt
 
     kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
-               mt.BATCHED_KERNEL, kk.KERNEL]
+               mt.BATCHED_KERNEL, kk.KERNEL, gp.KERNEL]
     t0 = time.perf_counter()
     _build.build_all(kernels)
     _log(f"[1] built {len({s for k in kernels for s in k.sources})} sources in "
@@ -5718,6 +5904,7 @@ def _examples_phase(torch, args, dev, smi) -> None:
     see the module docstring."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import gram_pinv as gp
     from repro_torch.kernels import krp_kernel as kk
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.kernels import multi_ttv as mt
@@ -5726,7 +5913,7 @@ def _examples_phase(torch, args, dev, smi) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     _build.build_all([fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
-                      mt.BATCHED_KERNEL, kk.KERNEL])  # built once; the parts load them
+                      mt.BATCHED_KERNEL, kk.KERNEL, gp.KERNEL])  # built once; the parts load them
     _fmri_part(args, smi)  # alone on the card: it times
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
     cmds = {
@@ -5771,7 +5958,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=["fused", "matrix_free", "batched_matrix_free", "pp",
                                        "dist", "lm", "lm_families", "train", "sharded_lm",
                                        "sharded_families", "dryrun", "examples", "high_rank",
-                                       "dtypes", "krp"],
+                                       "dtypes", "krp", "gram_pinv"],
                     help="run only both fused kernels' (phases 0-7 for those kernels), the "
                          "unbatched (phases 0-4 for that kernel) or the batched (phases 0, 1, "
                          "5 and 7) matrix-free kernel's checks, timing and trace, phase 12 "
@@ -5795,10 +5982,12 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import fused_mttkrp as fm
+    from repro_torch.kernels import gram_pinv as gp
     from repro_torch.kernels import krp_kernel as kk
     from repro_torch.kernels import matrix_free as mf
     from repro_torch.kernels import multi_ttv as mt
     from repro_torch.plan import Problem, cp_als, plan_sweep
+    from repro_torch.plan import sweep as sweep_mod
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -5823,7 +6012,8 @@ def main(argv=None) -> int:
                 "train": _train_phase, "sharded_lm": _sharded_lm_phase,
                 "sharded_families": _sharded_families_phase, "dryrun": _dryrun_phase,
                 "examples": _examples_phase, "high_rank": _only_high_rank,
-                "dtypes": _only_dtypes, "krp": _only_krp}[args.only]
+                "dtypes": _only_dtypes, "krp": _only_krp,
+                "gram_pinv": _only_gram_pinv}[args.only]
         only(torch, args, dev, smi)
         _log(f"partial run (--only {args.only}) in {time.perf_counter() - t_start:.1f} s: "
              "no result line")
@@ -5832,7 +6022,7 @@ def main(argv=None) -> int:
     # ---- phase 1: build
     t0 = time.perf_counter()
     kernels = [fm.KERNEL, fm.BATCHED_KERNEL, mf.KERNEL, mf.BATCHED_KERNEL, mt.KERNEL,
-               mt.BATCHED_KERNEL, kk.KERNEL]
+               mt.BATCHED_KERNEL, kk.KERNEL, gp.KERNEL]
     _build.build_all(kernels)
     _log(f"[1] built {', '.join(k.symbol for k in kernels)}, each in "
          f"{', '.join(kk.KERNEL.entries)}, in {time.perf_counter() - t0:.1f} s")
@@ -5860,7 +6050,7 @@ def main(argv=None) -> int:
 
     # ---- phase 3: the main path
     init = [torch.randn((d, rank), generator=gen, device=dev) for d in FMRI]
-    fits, launches, sweep_secs, states = {}, {}, {}, {}
+    fits, launches, sweep_secs, states, solves = {}, {}, {}, {}, {}
     for strategy in ("auto", "fused", "matrix_free"):
         problem = Problem.from_tensor(x4, rank)
         plan = plan_sweep(problem, strategy=strategy)
@@ -5869,12 +6059,15 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         fm.KERNEL.launches = 0
         mf.KERNEL.launches = 0
+        gp.KERNEL.launches = 0
+        library_before = sweep_mod.library_solves
         secs = []
         st = cp_als(x4, plan, n_iters=args.sweeps, tol=0.0, init_factors=init,
                     callback=lambda it, f, dt: (fits.setdefault(strategy, []).append(f),
                                                 secs.append(dt)))
         torch.cuda.synchronize()
         launches[strategy] = (fm.KERNEL.launches, mf.KERNEL.launches)
+        solves[strategy] = (gp.KERNEL.launches, sweep_mod.library_solves - library_before)
         sweep_secs[strategy] = secs
         states[strategy] = st
         peak = torch.cuda.max_memory_allocated() / 1e9
@@ -5882,7 +6075,8 @@ def main(argv=None) -> int:
         _log(f"[3] {strategy}: fits {fits[strategy]}")
         _log(f"[3] {strategy}: per-sweep s {secs} (host clock, one device sync per sweep); "
              f"peak memory {peak:.3f} GB; launches fused {launches[strategy][0]} "
-             f"matrix_free {launches[strategy][1]}; card {smi}")
+             f"matrix_free {launches[strategy][1]} gram_pinv {solves[strategy][0]} (library "
+             f"solves {solves[strategy][1]}); card {smi}")
         if st.it != args.sweeps or any(tuple(u.shape) != (d, rank) for u, d in zip(st.factors, FMRI)):
             raise SystemExit(f"{strategy}: wrong sweep count or factor shapes")
         if not all(math.isfinite(f) for f in fits[strategy]) or not all(
@@ -5892,6 +6086,9 @@ def main(argv=None) -> int:
     want = 4 * args.sweeps
     if launches["auto"] != (0, 0) or launches["fused"] != (want, 0) or launches["matrix_free"] != (0, want):
         raise SystemExit(f"launch counts {launches} do not match 4 x sweeps = {want}")
+    if any(v != (want, 0) for v in solves.values()):  # every update's solve is the kernel
+        raise SystemExit(f"gram_pinv launches and library solves {solves} are not "
+                         f"({want}, 0) under every strategy")
     gap = max(abs(a - b) for s in ("fused", "matrix_free") for a, b in zip(fits[s], fits["auto"]))
     _log(f"[3] fit agreement across strategies: max |diff| {gap:.3e} (bound {FIT_AGREE:g})")
     if gap > FIT_AGREE:
@@ -6048,6 +6245,9 @@ def main(argv=None) -> int:
     _dist_phase(torch, args, dev, smi, x4, init, {k: (states[k], fits[k]) for k in states},
                 subjects, serve_inits, serve_fits, pp_ref)
 
+    # ---- phase 23: row 8, the factor update's solve (small operands)
+    _gram_pinv_phase(torch, args, dev, smi, rows, err)
+
     # ---- phase 21: the MTTKRP kernels above rank 64, while the fMRI tensor is here
     _high_rank_phase(torch, args, dev, smi, x4, subjects)
 
@@ -6100,7 +6300,10 @@ def main(argv=None) -> int:
          f"card {smi}")
     _log(f"whole smoke {time.perf_counter() - t_start:.1f} s")
     _log("kernels: fused_mttkrp_bilinear, matrix_free_kernel, fused_mttkrp_bilinear_batched, "
-         "matrix_free_batched_kernel, multi_ttv, multi_ttv_batched, krp_pair")
+         "matrix_free_batched_kernel, multi_ttv, multi_ttv_batched, krp_pair, gram_pinv")
+    _log(f"[23] gram_pinv times per sweep of the fMRI tensor (one call a mode, C=10, 4 modes); "
+         f"launches the main path's (phase 3, matrix_free: one a mode); max_abs_err against "
+         f"float64 pinv, max_rel_err its norm-wise relative error; card {smi}")
     print(json.dumps({"kernels": [
         summary("fused_mttkrp_bilinear", FUSED_SOURCE, FUSED_REPLACES, "fused",
                 launches["fused"][0]),
@@ -6112,6 +6315,8 @@ def main(argv=None) -> int:
         summary("multi_ttv", MT_SOURCE, MT_REPLACES, "mt", new_launches["mt"]),
         summary("multi_ttv_batched", MT_SOURCE, MT_BATCHED_REPLACES, "mt_b", new_launches["mt_b"]),
         summary("krp_pair", KRP_SOURCE, KRP_REPLACES, "krp", new_launches["krp"]),
+        dict(summary("gram_pinv", GRAM_PINV_SOURCE, GRAM_PINV_REPLACES, "gram_pinv",
+                     solves["matrix_free"][0]), max_rel_err=err["gram_pinv_rel"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))
     return 0

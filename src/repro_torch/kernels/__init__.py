@@ -4,6 +4,9 @@
 - matrix_free:  streaming MTTKRP -- no matricization, no KRP at all
 - multi_ttv:    the 2nd step of the 2-step MTTKRP (Alg. 4)
 - krp_kernel:   the explicit KRP of two matrices (Alg. 1), ``krp_pair``
+- gram_pinv:    the factor update's solve, ``pinv`` of the Hadamard of the
+                Grams (replaces no TPU kernel; reached as the module
+                ``gram_pinv``, from ``plan/sweep.py::_pinv``)
 
 The first three have an unbatched and a batched form (a leading slab axis:
 one slab per thread block along the grid's z axis).  ops.py holds the
@@ -13,8 +16,8 @@ against.  The multi-TTV wrappers are reached as ``ops.multi_ttv`` /
 ``ops.multi_ttv_batched`` (a package-level ``multi_ttv`` would hide the
 module of that name); the package exports the low-level entries
 ``multi_ttv_kernel`` / ``multi_ttv_batched_kernel``, as the reference does.  A CUDA tensor launches a kernel, a CPU tensor takes
-its plain version.  Every kernel takes float32, bfloat16, float16 and
-float64 operands of one dtype (``_tiling.KERNEL_DTYPES``), read at their own
+its plain version.  Every kernel but ``gram_pinv`` (float32 and float64)
+takes float32, bfloat16, float16 and float64 operands of one dtype (``_tiling.KERNEL_DTYPES``), read at their own
 width; the MTTKRP and multi-TTV kernels sum in fp32 and return float32.
 """
 

@@ -57,10 +57,10 @@ from repro_torch.core.cpals import (
     CPState,
     fit_from_last_mttkrp,
     grams,
-    hadamard_except,
     normalize_columns,
 )
 from repro_torch.core.tensor_ops import random_factors, tensor_norm
+from repro_torch.kernels import gram_pinv
 from repro_torch.spans import span, spanned
 
 from .executor import Executor, LocalExecutor, ShardedExecutor
@@ -252,12 +252,31 @@ def _fit(gs, weights, m_last, factors, norm_x, allsum) -> Tensor:
     )
 
 
-def _pinv(h: Tensor) -> Tensor:
-    """``pinv`` with the reference's cutoff: ``jnp.linalg.pinv`` drops
-    singular values below ``10 * max(m, n) * eps`` of the largest, where
-    ``torch.linalg.pinv`` defaults to ``max(m, n) * eps``."""
-    rtol = 10.0 * max(h.shape[-2:]) * torch.finfo(h.dtype).eps
-    return torch.linalg.pinv(h, rtol=rtol)
+# CUDA updates whose solve took torch.linalg.pinv (C above gram_pinv.C_MAX,
+# or a dtype or order the kernel does not take): each one a host read.
+library_solves = 0
+
+
+def _pinv(gs: Sequence[Tensor], n: int) -> Tensor:
+    """``pinv`` of the Hadamard of every Gram but the ``n``-th, with the
+    reference's cutoff (``gram_pinv.pinv_rtol``: ``jnp.linalg.pinv`` drops
+    singular values below ``10 * max(m, n) * eps`` of the largest).
+
+    On the card, Grams that ``gram_pinv.takes`` (float32 or float64, ``C
+    <= gram_pinv.C_MAX``) launch the ``gram_pinv`` kernel: no host read,
+    and a non-finite ``H`` gives NaN in the whole of ``P``, which reaches
+    the fit the chunk reads (as ``jnp.linalg.pinv`` returns NaN);
+    ``torch.linalg.pinv`` raised from inside its SVD on such an ``H``.  Any
+    other CUDA ``H`` takes the plain version (``hadamard_except`` then
+    ``torch.linalg.pinv``, which reads cuSOLVER's info back to the host),
+    counted in ``library_solves``.  CPU tensors, the dry-run's fake ones
+    too, take the plain version, bitwise."""
+    global library_solves
+    if gs[0].is_cuda:
+        if gram_pinv.takes(gs):
+            return gram_pinv.gram_pinv(gs, n)
+        library_solves += 1
+    return gram_pinv.gram_pinv_plain(gs, n)
 
 
 @spanned("repro_torch.sweep.update")
@@ -266,13 +285,12 @@ def _update_factor(
     n: int, m_n: Tensor, it: int, allsum=_no_sum,
 ) -> Tensor:
     """THE per-mode factor update: solve ``U H = M`` via pinv on the C x C
-    Gram-Hadamard, optionally column-normalize into the lambdas, and
-    refresh exactly the changed factor's Gram.  The column norms and the
-    Gram sum over the rows of mode ``n`` held by other ranks through
-    ``allsum``.  Mutates ``factors``/``gs`` in place; returns the (possibly
-    updated) weights."""
-    h = hadamard_except(gs, n)
-    u = m_n @ _pinv(h)
+    Gram-Hadamard (:func:`_pinv`), optionally column-normalize into the
+    lambdas, and refresh exactly the changed factor's Gram.  The column
+    norms and the Gram sum over the rows of mode ``n`` held by other ranks
+    through ``allsum``.  Mutates ``factors``/``gs`` in place; returns the
+    (possibly updated) weights."""
+    u = m_n @ _pinv(gs, n)
     if plan.normalize:
         u, weights = normalize_columns(u, it, row_sum=lambda t: allsum(t, (n,)))
     factors[n] = u
@@ -491,7 +509,11 @@ def cp_als(
 
     ``sweeps_per_sync`` sweeps are queued per chunk and the host reads the
     chunk's fits once at its end (one device sync per chunk instead of per
-    sweep); iterates are bitwise identical to ``sweeps_per_sync=1``.
+    sweep); iterates are bitwise identical to ``sweeps_per_sync=1``.  On the
+    card that holds up to rank ``gram_pinv.C_MAX`` (80, in float32 and
+    float64): a higher rank, or another dtype, solves each update with
+    ``torch.linalg.pinv``, which reads back to the host once an update
+    (:func:`_pinv`).
     Convergence is checked against the chunk's per-sweep fits at each sync
     point, so a run may execute up to ``sweeps_per_sync - 1`` sweeps past
     the first converged one; ``callback(it, fit, seconds)`` fires once per
