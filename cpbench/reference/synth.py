@@ -17,23 +17,24 @@ import torch
 
 
 def fmri_tensor(gen: torch.Generator, shape: Sequence[int], rank: int, noise: float,
-                device) -> torch.Tensor:
-    """The ``(T, S, R, R)`` float32 study tensor drawn from ``gen`` (a
+                device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The ``(T, S, R, R)`` study tensor in ``dtype`` drawn from ``gen`` (a
     generator on ``device``)."""
     t, s, r, r2 = (int(d) for d in shape)
     if r != r2:
         raise ValueError(f"the two region modes differ: {tuple(shape)}")
-    tt = torch.linspace(0, 8 * math.pi, t, device=device)[:, None]
-    phases = torch.rand((1, rank), generator=gen, device=device) * 2 * math.pi
+    tt = torch.linspace(0, 8 * math.pi, t, device=device, dtype=dtype)[:, None]
+    phases = torch.rand((1, rank), generator=gen, device=device, dtype=dtype) * 2 * math.pi
     temporal = 1.0 + torch.sin(tt / (1 + torch.arange(rank, device=device)) + phases)
-    subj = torch.nn.functional.softplus(torch.randn((s, rank), generator=gen, device=device))
-    seeds = torch.randn((r, rank), generator=gen, device=device)
+    subj = torch.nn.functional.softplus(
+        torch.randn((s, rank), generator=gen, device=device, dtype=dtype))
+    seeds = torch.randn((r, rank), generator=gen, device=device, dtype=dtype)
     ts = (temporal[:, None, :] * subj[None, :, :]).reshape(t * s, rank)
     nets = (seeds[:, None, :] * seeds[None, :, :]).reshape(r * r, rank)
     x = (ts @ nets.T).view(t, s, r, r)
     x /= x.abs().max()
     for k in range(t):  # noise slab by slab: no second buffer of the tensor's size
-        x[k] += noise * torch.randn((s, r, r), generator=gen, device=device)
+        x[k] += noise * torch.randn((s, r, r), generator=gen, device=device, dtype=dtype)
     return x
 
 

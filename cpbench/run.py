@@ -6,10 +6,10 @@ From the root of a checkout.  The cell's workload file names its
 configuration and traffic driver; ``BENCHMARK.json`` names the metrics it
 reports.  A run:
 
-1. makes the cell's data on the card from ``--seed`` (the synthetic fMRI
-   study of the configuration, or its subject slices) and its initial
-   factors, and warms the program on one unit of the cell's own work;
-   everything up to here is ``setup_s``;
+1. makes the cell's data on the card from ``--seed`` (by the synthesis the
+   configuration names, ``synth/<name>.py``) and its initial factors at
+   the cell's rank (:func:`cpbench.spec.rank`), and warms the program on
+   one unit of the cell's own work; everything up to here is ``setup_s``;
 2. drives the traffic for ``--seconds`` seconds, ending with the unit of
    work that crosses the mark, and reads the end-to-end metrics from the
    host clock over that window;
@@ -52,14 +52,14 @@ def _sync(torch, device) -> None:
 
 
 def make_data(torch, config: dict, seed: int, device):
-    """The configuration's data from ``seed``: the study tensor, or with
-    ``subject_mode`` its subject slices stacked on a leading axis."""
+    """The configuration's data from ``seed``, made in its dtype by the
+    synthesis it names (:func:`cpbench.spec.synth`)."""
+    make = spec.synth(config).make
+    if (config["dtype"], bool(config["tf32"])) not in check.CONTROL:
+        raise ValueError(f"cpbench/configs/{config.get('name')}.json: dtype {config['dtype']!r} "
+                         f"(tf32 {bool(config['tf32'])}) has no control in cpbench.check.CONTROL")
     gen = torch.Generator(device=device).manual_seed(synth.derived_seed(seed, 0))
-    x = synth.fmri_tensor(gen, config["shape"], int(config["planted_rank"]),
-                          float(config["noise"]), device)
-    if "subject_mode" in config:
-        x = synth.subjects(x, int(config["subject_mode"]))
-    return x
+    return make(gen, config, device)
 
 
 def execute(name: str, cell: dict, config: dict, seed: int, seconds: float, trace: bool,
@@ -116,7 +116,7 @@ def execute(name: str, cell: dict, config: dict, seed: int, seconds: float, trac
         item = tuple(ctx.data.shape[1:] if drv.batched else ctx.data.shape)
         run = SimpleNamespace(
             trace=traced, batched=drv.batched, counts=counts, sweeps=counts["sweeps"],
-            least_sweep_s=roofline.least_sweep_s(item, int(config["rank"]), config["dtype"],
+            least_sweep_s=roofline.least_sweep_s(item, spec.rank(cell, config), config["dtype"],
                                                  counts["batch"]),
         )
         for m in spec.metrics_of(bench, name, "per_layer"):

@@ -1,5 +1,6 @@
-"""Finding a cell's pieces by name: configurations, workloads, traffic
-drivers, per-layer metric readers and ``BENCHMARK.json``."""
+"""Finding a cell's pieces by name: configurations, workloads, data
+syntheses, traffic drivers, per-layer metric readers and
+``BENCHMARK.json``."""
 
 from __future__ import annotations
 
@@ -49,6 +50,18 @@ def _module(kind: str, name: str):
         spec.loader.exec_module(mod)
         sys.modules[mod_name] = mod
     return mod
+
+
+def synth(config: dict):
+    """The module ``synth/<name>.py`` that makes ``config``'s data, ``name``
+    its ``synth`` key (``fmri`` where it has none)."""
+    return _module("synth", config.get("synth", "fmri"))
+
+
+def rank(cell: dict, config: dict) -> int:
+    """The CP rank a cell decomposes at: its workload's ``rank``, or else its
+    configuration's."""
+    return int(cell.get("rank", config["rank"]))
 
 
 def driver(name: str):

@@ -33,6 +33,8 @@ def test_no_source_of_the_benchmark_imports_jax_or_repro():
         assert not tops & spec.FORBIDDEN, path
         if path.parent.name == "reference":
             assert tops <= REFERENCE_MAY_IMPORT, (path, tops)
+        if path.parent.name == "synth":  # the data is the yardstick's, not the port's
+            assert tops <= REFERENCE_MAY_IMPORT | {"cpbench"}, (path, tops)
 
 
 def _fresh(code: str) -> dict:

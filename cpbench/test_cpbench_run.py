@@ -21,12 +21,20 @@ BATCHED = [c for c in CELLS if "batch" in spec.workload(c)]
 CPU = torch.device("cpu")
 
 
+TINY_RANK = 3
+
+
 def _tiny(name):
-    """The cell and its configuration at a size the CPU runs in a second:
-    everything else (strategy, sweeps, sample, limits) as committed."""
+    """The cell and its configuration at a size the CPU runs in a second: the
+    shape its synthesis gives for the CPU (the same order), the rank cut to
+    ``TINY_RANK`` and a cell's own rank by the same ratio; everything else
+    (strategy, sweeps, sample, limits) as committed."""
     cell = dict(spec.workload(name))
     config = dict(spec.config(cell["config"]))
-    config.update(shape=[12, 7, 8, 8], planted_rank=3, rank=3)
+    if "rank" in cell:
+        cell["rank"] = max(1, round(int(cell["rank"]) * TINY_RANK / int(config["rank"])))
+    config.update(shape=list(spec.synth(config).TINY_SHAPE), planted_rank=TINY_RANK,
+                  rank=TINY_RANK)
     cell["init_pool"] = 16
     if "batch" in cell:
         cell.update(batch=4, clients=8)
@@ -99,6 +107,45 @@ def test_control_fails_the_limits(name):
         assert any(r["stand_ins"][precision][n] > limits[n] for n in limits), r
 
 
+def test_a_cells_rank_reaches_the_factors_the_problem_and_the_roofline(monkeypatch):
+    """A workload's ``rank`` is the rank of the initial factors, of the
+    port's ``Problem`` and of the least sweep time; without the key, the
+    configuration's holds."""
+    import repro_torch.plan
+
+    from cpbench import roofline
+
+    seen = {"problem": [], "roofline": [], "inits": []}
+    real_plan, real_least = repro_torch.plan.plan_sweep, roofline.least_sweep_s
+    real_driver = spec.driver("decompose")
+
+    def plan_sweep(problem, **kwargs):
+        seen["problem"].append(problem.rank)
+        return real_plan(problem, **kwargs)
+
+    def least_sweep_s(shape, rank, *args):
+        seen["roofline"].append(rank)
+        return real_least(shape, rank, *args)
+
+    class Driver(real_driver):
+        def __init__(self, ctx):
+            super().__init__(ctx)
+            seen["inits"] += [u.shape[-1] for u in self.inits]
+
+    monkeypatch.setattr(repro_torch.plan, "plan_sweep", plan_sweep)
+    monkeypatch.setattr(roofline, "least_sweep_s", least_sweep_s)
+    monkeypatch.setattr(spec, "driver", lambda name: Driver)
+    cell, config = _tiny("fmri4d.matrix_free")
+    for own, want in ((None, TINY_RANK), (5, 5)):
+        if own is not None:
+            cell["rank"] = own
+        for key in seen:
+            seen[key].clear()
+        r = run.execute("fmri4d.matrix_free", cell, config, 3, 0.05, True, CPU, BENCH)
+        assert r["correct"], r["checks"]
+        assert set(seen["problem"]) == set(seen["roofline"]) == set(seen["inits"]) == {want}
+
+
 class _StubService:
     """Resolves each dispatch at once: a request's answer is its own initial
     factors, its fit the item's index, and each dispatch adds 1 s of
@@ -109,7 +156,7 @@ class _StubService:
         self.seen = []
 
     def submit(self, tensor, rank, *, init_factors):
-        fut = SimpleNamespace(rid=self.next_rid, tensor=tensor, init=init_factors)
+        fut = SimpleNamespace(rid=self.next_rid, tensor=tensor, init=init_factors, rank=rank)
         self.next_rid += 1
         self.queue.append(fut)
         self.seen.append(fut)
@@ -133,7 +180,7 @@ class _StubService:
         return {"execute_s": self.execute_s}
 
 
-def test_closed_loop_keeps_every_client_outstanding(monkeypatch):
+def _closed_loop(monkeypatch, **cell):
     import repro_torch.serve
 
     monkeypatch.setattr(repro_torch.serve, "CPService", _StubService)
@@ -143,8 +190,22 @@ def test_closed_loop_keeps_every_client_outstanding(monkeypatch):
                           config={"rank": 2}, data=pool.contiguous(),
                           init_gen=torch.Generator().manual_seed(0),
                           cell={"sweeps": 20, "batch": 4, "clients": 8, "init_pool": 3,
-                                "strategy": "matrix_free"})
-    drv = spec.driver("serve_closed")(ctx)
+                                "strategy": "matrix_free", **cell})
+    return spec.driver("serve_closed")(ctx)
+
+
+@pytest.mark.parametrize("own,want", [(None, 2), (5, 5)])
+def test_the_services_requests_take_the_cells_rank(monkeypatch, own, want):
+    drv = _closed_loop(monkeypatch, **({} if own is None else {"rank": own}))
+    drv.warm()
+    drv.start()
+    drv.unit()
+    assert {f.rank for f in drv.service.seen} == {want}
+    assert all(u.shape[-1] == want for u in drv.inits)
+
+
+def test_closed_loop_keeps_every_client_outstanding(monkeypatch):
+    drv = _closed_loop(monkeypatch)
     drv.warm()
     assert drv.attempted == 0 and not drv.results
     drv.start()

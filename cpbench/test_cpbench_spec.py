@@ -75,7 +75,7 @@ def test_workload_file_agrees_with_benchmark_json(cell):
     assert spec.driver(w["driver"]).__name__ == "Driver"
     config = spec.config(w["config"])
     assert {"shape", "dtype", "tf32", "rank", "source", "reduced", "assumed"} <= set(config)
-    assert check.control_precision(config) == "tf32"
+    assert (config["dtype"], bool(config["tf32"])) in check.CONTROL  # a control exists for it
     pairs = [(x["config"], x["traffic"]) for x in BENCH["workloads"]]
     assert pairs.count((entry["config"], entry["traffic"])) == 1
 
@@ -97,8 +97,16 @@ def test_names_outside_the_pattern_are_refused(bad):
         spec.workload(bad)
 
 
+def test_a_cells_own_rank_comes_before_its_configurations():
+    config = spec.config("fmri4d")
+    assert spec.rank(spec.workload("fmri4d.matrix_free"), config) == config["rank"] == 10
+    assert spec.rank(dict(spec.workload("fmri4d.matrix_free"), rank=128), config) == 128
+
+
 def test_unknown_names_are_not_found():
     with pytest.raises(FileNotFoundError):
         spec.config("no_such_config")
     with pytest.raises(FileNotFoundError):
         spec.metric("no_such.metric")
+    with pytest.raises(FileNotFoundError):
+        spec.synth({"synth": "no_such_synthesis"})

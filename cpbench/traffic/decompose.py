@@ -3,19 +3,22 @@
 Each unit of work is one call of the port's front door, as a user makes it:
 ``Problem.from_tensor`` -> ``plan_sweep(strategy=...)`` -> ``cp_als(x,
 plan, n_iters=sweeps, tol=0.0, init_factors=..., callback=...)``, from
-its own initial factors, keeping the fit the program reports after each
-sweep, and ends when the last fit is on the host.  ``tol=0.0`` runs every
-sweep, so each decomposition is the same amount of work.  The initial
-factors are drawn on the device at set-up, a pool of ``init_pool`` sets
-that decomposition ``k`` takes the ``k % init_pool``-th of.
+its own initial factors at the cell's rank, keeping the fit the program
+reports after each sweep, and ends when the last fit is on the host.
+``tol=0.0`` runs every sweep, so each decomposition is the same amount of
+work.  The initial factors are drawn on the device at set-up, a pool of
+``init_pool`` sets that decomposition ``k`` takes the ``k % init_pool``-th
+of.
 
-Workload keys: ``strategy``, ``sweeps``, ``init_pool``.
+Workload keys: ``strategy``, ``sweeps``, ``init_pool`` and, optionally,
+``rank``.
 """
 
 from __future__ import annotations
 
 import math
 
+from cpbench import spec
 from cpbench.check import Answer
 
 
@@ -28,7 +31,7 @@ class Driver:
         torch = ctx.torch
         self.ctx = ctx
         self.x = ctx.data
-        self.rank = int(ctx.config["rank"])
+        self.rank = spec.rank(ctx.cell, ctx.config)
         self.sweeps = int(ctx.cell["sweeps"])
         self.strategy = ctx.cell["strategy"]
         pool = int(ctx.cell["init_pool"])

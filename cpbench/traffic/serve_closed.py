@@ -11,7 +11,7 @@ dispatch.  A request's latency is the host clock from its ``submit`` to
 the end of the ``step`` that returned its result.
 
 Workload keys: ``strategy``, ``sweeps``, ``batch``, ``clients``,
-``init_pool``.
+``init_pool`` and, optionally, ``rank``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from __future__ import annotations
 import math
 import statistics
 
+from cpbench import spec
 from cpbench.check import Answer
 
 
@@ -33,7 +34,7 @@ class Driver:
         torch = ctx.torch
         self.ctx = ctx
         self.pool = ctx.data
-        self.rank = int(ctx.config["rank"])
+        self.rank = spec.rank(ctx.cell, ctx.config)
         self.sweeps = int(ctx.cell["sweeps"])
         self.batch = int(ctx.cell["batch"])
         self.clients = int(ctx.cell["clients"])
